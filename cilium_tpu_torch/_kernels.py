@@ -1,0 +1,201 @@
+"""Build, load and launch the port's hand-written CUDA kernels.
+
+The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a``
+(Hopper) into one shared library with a plain C interface, on first
+use and never at import: the CPU tests import every module on a
+machine with no CUDA toolkit. The library lands in
+``build/cilium_tpu_torch/<hash of the sources>/`` at the repository
+root, so an edited source builds anew and an unchanged one is reused.
+One ``nvcc`` call compiles and links every source.
+
+Each kernel is reached through a :class:`Kernel`, which checks the
+launch's return code (``cudaGetLastError()`` right after the launch)
+and counts its launches, so a run can show which kernels a path went
+through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Optional, Sequence
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "cilium_tpu_torch"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-Xcompiler", "-fPIC",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+
+_lock = threading.Lock()
+_lib: Optional[ctypes.CDLL] = None
+build_seconds: Optional[float] = None
+
+
+def resolve_device(device) -> torch.device:
+    """``None`` means the card. Only an explicit CPU device runs the
+    plain PyTorch versions; asking for CUDA without it raises."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "cilium_tpu_torch runs on a CUDA device and none is available;"
+            " pass device='cpu' to run the plain PyTorch versions"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _sources() -> Sequence[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for p in sorted(CSRC.glob("*.cu*")):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    return path
+
+
+def build() -> Path:
+    """Compile every ``csrc/*.cu`` into ``libcilium_kernels.so`` with one
+    ``nvcc`` call unless the library for these exact sources exists;
+    returns its path."""
+    global build_seconds
+    out_dir = BUILD_ROOT / _source_hash()
+    lib_path = out_dir / "libcilium_kernels.so"
+    if lib_path.exists():
+        return lib_path
+    t0 = time.perf_counter()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        tmp_lib = Path(tmp) / lib_path.name
+        proc = subprocess.run(
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-shared",
+             *map(str, _sources()), "-o", str(tmp_lib)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + proc.stdout)
+        # atomic publish: a concurrent builder sees the old state or the
+        # whole library, never a half-written file
+        os.replace(tmp_lib, lib_path)
+    build_seconds = time.perf_counter() - t0
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for k in KERNELS.values():
+                fn = getattr(lib, k.symbol)
+                fn.argtypes = [*k.argtypes, _I, _P]  # + device, stream
+                fn.restype = _I
+            lib.cilium_error_string.argtypes = [_I]
+            lib.cilium_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+class Kernel:
+    """One C entry point of the library plus its launch count."""
+
+    def __init__(self, name: str, symbol: str, argtypes: Sequence) -> None:
+        self.name = name
+        self.symbol = symbol
+        self.argtypes = tuple(argtypes)
+        self.launches = 0
+
+    def launch(self, device: torch.device, *args) -> None:
+        lib = library()
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        stream = torch.cuda.current_stream(index).cuda_stream
+        err = getattr(lib, self.symbol)(*args, index, stream)
+        if err != 0:
+            msg = lib.cilium_error_string(err).decode()
+            raise RuntimeError(f"CUDA kernel {self.name} failed to launch: {msg} ({err})")
+        self.launches += 1
+
+
+KERNELS: Dict[str, Kernel] = {
+    k.name: k
+    for k in (
+        # id_bits, conj_req, conj_forbid, conj_valid, req_count, out, n, w, s, cps
+        Kernel("selector_match", "cilium_selector_match",
+               [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I]),
+        # x, w, out, b, a, c, complement_x
+        Kernel("bool_mm", "cilium_bool_mm", [_P, _P, _P, _I, _I, _I, _I]),
+        # root_info, root_child, sub_child, sub_info, m, flat, addr, out, b
+        Kernel("lpm_wide", "cilium_lpm_wide",
+               [_P, _P, _P, _P, _I, _I, _P, _P, _L]),
+        # id_bits, n, words, col_ep, col_port, col_proto, col_is_l3, c,
+        # src_rows, ep_idx, dport, proto, denied_pf, verdict, redirect,
+        # counters, ep_count, b
+        Kernel("policymap_verdict", "cilium_policymap_verdict",
+               [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                _P, _I, _L]),
+    )
+}
+
+
+def reset_launches() -> None:
+    for k in KERNELS.values():
+        k.launches = 0
+
+
+def launches() -> Dict[str, int]:
+    return {name: k.launches for name, k in KERNELS.items()}
+
+
+def ptr(t: Optional[torch.Tensor]):
+    """Device pointer of a contiguous tensor (None → null)."""
+    return None if t is None else t.data_ptr()
+
+
+def check_cuda(name: str, device: torch.device, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is contiguous and on ``device``."""
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"{name}: tensor on {t.device}, expected {device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensor is not contiguous")
+
+
+def dispatch_device(*tensors: torch.Tensor) -> torch.device:
+    """The device every tensor lies on; a wrapper runs its plain
+    version only when this is the CPU."""
+    dev = tensors[0].device
+    for t in tensors[1:]:
+        if t.device != dev:
+            raise ValueError(f"tensors on {dev} and {t.device}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev

@@ -1,0 +1,840 @@
+"""Lower the policy repository into order-independent matmul operands.
+
+The reference evaluates verdicts by walking rules in order
+(pkg/policy/repository.go:80-105); the walk is order-independent in
+outcome (a DENIED from any selected rule dominates; otherwise any
+ALLOWED wins; else UNDECIDED). That lets the whole rule set compile to
+relations over the *selector axis* S (distinct selectors dedupe
+heavily), evaluated as int8 matmuls on the MXU — per-element gathers
+are pathologically slow on TPU, so nothing downstream of the one
+packed row-gather per flow is data-dependent. Per direction:
+
+- ``deny_mat [S,S]``: deny_mat[s1,s2]=1 iff some rule has subject
+  selector s1 and FromRequires selector s2 (rule.go:323-345). Flow is
+  L3-DENIED iff subj∧s1 and ¬(peer∧s2) for some set pair:
+  ``deny = any(subj & ((1-peer) @ deny_matᵀ > 0))``. The negation of
+  deny is ``req_ok``, the "all collected requirements hold" term that
+  repository.go:249-261 folds into explicit L4 peer selectors.
+- ``allow_mat [S,S]``: pure-L3 allows (directional rules without
+  ToPorts), including entity- and CIDR-derived selectors
+  (ingress.go GetSourceEndpointSelectors):
+  ``l3_allow = any(subj & (peer @ allow_matᵀ > 0))``.
+- **port vocab** ``ports/protos [P4]``: distinct (port, proto) keys
+  appearing in any ToPorts (L4PolicyMap's literal "port/proto" keying;
+  a ToPorts port 0 only covers a port-0 query). A flow one-hot-encodes
+  its (dport, proto) against the vocab; a miss means no L4 coverage.
+- **L4 entry relation** over K1 = distinct (subj_sel, port_id) combos:
+  ``s1_mat [S,K1]`` and ``p1_mat [P4,K1]`` activate a combo when the
+  subject matches and the port matches; ``en_mat/ee_mat [K1,S]`` hold
+  the peer selectors reachable from that combo (en = entity/CIDR/
+  wildcard peers, ee = explicit FromEndpoints peers which additionally
+  require req_ok — the requirements fold of rule.go:198-232). This
+  flattens L4Filter creation + merge (l4.go:148, rule.go:46-122) into
+  an OR over (combo, peer) pairs.
+- **group pre-check** (rule.go:133-138: a directional rule whose peers
+  all fail to match the concrete peer contributes no filters):
+  ``gpn_mat/gpe_mat [S,G]`` per-group peer selectors (non-explicit /
+  explicit) + ``group_no_peers [G]``.
+- **L7 presence** over K7 = distinct (subj_sel, port_id) of L7-bearing
+  port rules: ``s7_mat [S,K7]``, ``p7_mat [P4,K7]``, ``g7_mat [G,K7]``
+  (the combo's pre-check group). A flow's L4 allow is a proxy redirect
+  iff some K7 combo activates with its group pre-check passing — i.e.
+  the merged L4Filter at that port has an l7_parser (l4.go:82 sets
+  parsers only on TCP). This subsumes wildcardL3L4Rules
+  (repository.go:128-168) on the *decision* path: extending an L7
+  filter's endpoint list by a broader allow never changes a decision
+  (the pre-check that admits the filter already implies a matching L4
+  entry); it only wildcards which L7 rules apply, which the proxy
+  layer derives separately.
+
+Raw entry lists are kept alongside for host-side consumers (policymap
+slot discovery, debugging). Protocols are IANA numbers (u8proto.py),
+the policymap nexthdr encoding (bpf/lib/common.h:180).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from ..identity import IdentityRegistry
+from ..labels import LabelVocab
+from ..policy.api import EndpointSelector, Rule
+from ..policy.cidr import cidr_selectors
+from ..policy.repository import (
+    Repository,
+    _egress_peer_selectors,
+    _ingress_peer_selectors,
+)
+from .. import u8proto
+from .selectors import SelectorTable, WILDCARD_SELECTOR_ID
+
+PROTO_TCP_N = u8proto.TCP
+PROTO_UDP_N = u8proto.UDP
+
+_PROTO_NUM = {"TCP": PROTO_TCP_N, "UDP": PROTO_UDP_N}
+
+
+def _expand_protos(proto: str) -> Tuple[int, ...]:
+    if proto == "ANY":
+        return (PROTO_TCP_N, PROTO_UDP_N)
+    return (_PROTO_NUM[proto],)
+
+
+def _bucket(n: int, minimum: int = 8) -> int:
+    """Next power-of-two ≥ max(n, minimum) — shape-bucketed padding so
+    incremental recompiles hit XLA's compile cache."""
+    size = minimum
+    while size < n:
+        size *= 2
+    return size
+
+
+def _bucket_slack(n: int, minimum: int = 8) -> int:
+    """Bucket with ≥25% headroom so incremental rule appends usually fit
+    without a reshape-forced full recompile (only the cheap non-selector
+    axes use this — S² matrices keep exact buckets)."""
+    return _bucket(n + max(4, n // 4), minimum)
+
+
+def _iter_group_sigs(raw: _RawDirection):
+    """Yield (signature, local_group_index) per local group of a raw
+    extraction; signature = (no_peers, frozenset((sid, explicit)))."""
+    peers_of: Dict[int, List[Tuple[int, bool]]] = {}
+    for g, sid, expl in raw.gp:
+        peers_of.setdefault(g, []).append((sid, expl))
+    for i, no_peers in enumerate(raw.group_no_peers):
+        yield (no_peers, frozenset(peers_of.get(i, ()))), i
+
+
+def _remove_occurrences(items: list, removed: list) -> list:
+    """Remove each element of ``removed`` once from ``items``
+    (multiset subtraction, order-preserving)."""
+    if not removed:
+        return items
+    from collections import Counter
+
+    need = Counter(removed)
+    kept = []
+    for x in items:
+        if need.get(x, 0) > 0:
+            need[x] -= 1
+        else:
+            kept.append(x)
+    return kept
+
+
+def _pad_bool(values: Sequence[bool], size: int) -> np.ndarray:
+    out = np.zeros(size, dtype=bool)
+    out[: len(values)] = values
+    return out
+
+
+@dataclasses.dataclass
+class DirectionProgram:
+    """Matmul operands for one traffic direction (all numpy, padded to
+    shape buckets so incremental recompiles hit XLA's compile cache).
+    ``s_pad`` is the padded selector-axis size (multiple of 128, =32 ×
+    the packed sel_match word count)."""
+
+    s_pad: int
+    # L3 relations
+    deny_mat: np.ndarray  # [S, S] int8
+    allow_mat: np.ndarray  # [S, S] int8
+    # port vocabulary
+    ports: np.ndarray  # [P4] int32 (-1 padding)
+    protos: np.ndarray  # [P4] int32
+    # L4 entry relation over K1 combos
+    s1_mat: np.ndarray  # [S, K1] int8
+    p1_mat: np.ndarray  # [P4, K1] int8
+    en_mat: np.ndarray  # [K1, S] int8  entity/CIDR/wildcard peers
+    ee_mat: np.ndarray  # [K1, S] int8  explicit peers (req_ok-gated)
+    # group pre-check
+    gpn_mat: np.ndarray  # [S, G] int8
+    gpe_mat: np.ndarray  # [S, G] int8
+    group_no_peers: np.ndarray  # [G] bool
+    # L7 presence over K7 combos
+    s7_mat: np.ndarray  # [S, K7] int8
+    p7_mat: np.ndarray  # [P4, K7] int8
+    g7_mat: np.ndarray  # [G, K7] int8
+    # raw (unpadded) entry lists for host-side consumers
+    e_subj: np.ndarray
+    e_port: np.ndarray
+    e_proto: np.ndarray
+    l7_subj: np.ndarray
+    l7_port: np.ndarray
+
+
+@dataclasses.dataclass
+class CompiledPolicy:
+    """Host-side compiled policy: identity bitmaps + selector conjuncts
+    + per-direction tables. ``revision``/``identity_version`` record the
+    inputs this was compiled from (the endpoint regeneration protocol's
+    revision gate, pkg/endpoint/policy.go:506)."""
+
+    revision: int
+    identity_version: int
+    vocab_version: int
+    num_words: int
+    num_selectors: int
+    # identities (dense rows)
+    id_bits: np.ndarray  # [N, W] uint32
+    row_ids: np.ndarray  # [N] int32 numeric identity per row
+    row_live: np.ndarray  # [N] bool
+    id_to_row: Dict[int, int]
+    # selector conjuncts
+    conj_req: np.ndarray  # [S, CPS, W] uint32
+    conj_forbid: np.ndarray
+    conj_valid: np.ndarray  # [S, CPS] bool
+    req_count: np.ndarray  # [S, CPS] int32
+    ingress: DirectionProgram = None  # type: ignore[assignment]
+    egress: DirectionProgram = None  # type: ignore[assignment]
+
+    def rows_for(self, identity_ids: Sequence[int]) -> np.ndarray:
+        return np.array([self.id_to_row[i] for i in identity_ids], dtype=np.int32)
+
+
+@dataclasses.dataclass
+class _RawDirection:
+    """Intermediate pair/entry lists before matrix packing."""
+
+    deny: List[Tuple[int, int]]
+    allow: List[Tuple[int, int]]
+    entries: List[Tuple[int, int, int, int, bool, int]]
+    group_no_peers: List[bool]
+    gp: List[Tuple[int, int, bool]]
+    l7_ports: List[Tuple[int, int, int]]
+
+
+def _extract_direction(
+    rules: Sequence[Rule], table: SelectorTable, ingress: bool
+) -> _RawDirection:
+    deny: List[Tuple[int, int]] = []
+    allow: List[Tuple[int, int]] = []
+    entries: List[Tuple[int, int, int, int, bool, int]] = []
+    group_no_peers: List[bool] = []
+    gp: List[Tuple[int, int, bool]] = []
+    # L7-bearing (subj_sel, port, group) — parser presence (always TCP)
+    l7_ports: List[Tuple[int, int, int]] = []
+
+    for r in rules:
+        subj = table.intern(r.endpoint_selector)
+        directional = r.ingress if ingress else r.egress
+        for dr in directional:
+            requires = dr.from_requires if ingress else dr.to_requires
+            for q in requires:
+                deny.append((subj, table.intern(q)))
+            peer_sels = (
+                _ingress_peer_selectors(dr) if ingress else _egress_peer_selectors(dr)
+            )
+            if not dr.to_ports:
+                for s in peer_sels:
+                    allow.append((subj, table.intern(s)))
+                continue
+
+            # Directional rule with ToPorts → one pre-check group.
+            explicit_raw = dr.from_endpoints if ingress else dr.to_endpoints
+            entity_sels = dr.peer_selectors()[len(explicit_raw):]
+            c_sels = (
+                cidr_selectors(dr.from_cidr, dr.from_cidr_set)
+                if ingress
+                else cidr_selectors(dr.to_cidr, dr.to_cidr_set)
+            )
+            peers: List[Tuple[int, bool]] = (
+                [(table.intern(s), True) for s in explicit_raw]
+                + [(table.intern(s), False) for s in entity_sels]
+                + [(table.intern(s), False) for s in c_sels]
+            )
+            group = len(group_no_peers)
+            group_no_peers.append(not peers)
+            for sid, expl in peers:
+                gp.append((group, sid, expl))
+
+            for pr in dr.to_ports:
+                has_l7 = bool(pr.rules)
+                for pp in pr.ports:
+                    for proto in _expand_protos(pp.proto):
+                        if has_l7 and proto == PROTO_TCP_N:
+                            l7_ports.append((subj, pp.port, group))
+                        if not peers:
+                            entries.append(
+                                (subj, WILDCARD_SELECTOR_ID, pp.port, proto, False, group)
+                            )
+                        else:
+                            for sid, expl in peers:
+                                entries.append((subj, sid, pp.port, proto, expl, group))
+
+    return _RawDirection(deny, allow, entries, group_no_peers, gp, l7_ports)
+
+
+class DirectionPacker:
+    """Stateful matrix packer for one direction: builds the
+    DirectionProgram from raw lists and supports **in-place appends**
+    of later rule batches, provided every axis stays inside its padded
+    bucket. This is the incremental half of the regeneration protocol
+    (pkg/endpoint/policy.go:506-552): a single rule import mutates a
+    few matrix cells instead of recompiling the world.
+
+    Cells are **reference-counted per contributing rule** so rule
+    deletion is also incremental (repository.go DeleteByLabels:286
+    deletes in place): ``remove_rule`` decrements each cell the rule
+    contributed and clears cells reaching zero, logging value-0 writes
+    the engine scatters to the device — no recompile, no reshape.
+    Orphaned selector columns / port-vocab ids / combo slots stay
+    allocated (they can never activate with their cells cleared) and
+    are reclaimed by the next natural full rebuild."""
+
+    def __init__(self, raw: _RawDirection, s_pad: int) -> None:
+        self.s_pad = s_pad
+        self.n_groups = len(raw.group_no_peers)
+        self.entries: List[Tuple[int, int, int, int, bool, int]] = []
+        self.l7_list: List[Tuple[int, int, int]] = []
+        # cell → number of rule contributions still referencing it
+        self.cell_refs: Dict[Tuple[str, int, int], int] = {}
+        # per-rule attribution (key = id(rule)): cells (with
+        # multiplicity), owned group ids, entry/l7 tuples
+        self.rule_cells: Dict[int, List[Tuple[str, int, int]]] = {}
+        self.rule_groups: Dict[int, List[int]] = {}
+        self.rule_entries: Dict[int, List[tuple]] = {}
+        self.rule_l7: Dict[int, List[tuple]] = {}
+        self._attr_key: Optional[int] = None
+
+        # Port vocabulary over entries ∪ L7 ports (L7 is always TCP).
+        self.port_id: Dict[Tuple[int, int], int] = {}
+        for e in raw.entries:
+            self.port_id.setdefault((e[2], e[3]), len(self.port_id))
+        for l in raw.l7_ports:
+            self.port_id.setdefault((l[1], PROTO_TCP_N), len(self.port_id))
+        p4 = _bucket_slack(len(self.port_id))
+        ports = np.full(p4, -1, np.int32)
+        protos = np.full(p4, -1, np.int32)
+        for (port, proto), i in self.port_id.items():
+            ports[i], protos[i] = port, proto
+
+        # K1 combos: (subj_sel, port_id) with explicit/other peer sets.
+        self.combo_id: Dict[Tuple[int, int], int] = {}
+        for subj, _sid, port, proto, _expl, _group in raw.entries:
+            self.combo_id.setdefault((subj, self.port_id[(port, proto)]), len(self.combo_id))
+        k1 = _bucket_slack(len(self.combo_id))
+
+        # Pre-check groups are INTERNED by signature (no_peers flag +
+        # peer (sid, explicit) set): two directional rules with the
+        # same peer sets share one group column. At rule counts where
+        # many rules repeat selector shapes this collapses the G axis
+        # by 5-10×, and the [B,S]@[S,G] group matmuls dominate the
+        # materialization sweep's FLOPs. Refcounted for deletion.
+        self.group_sig: Dict[tuple, int] = {}
+        self.group_refs: Dict[int, int] = {}
+        sigs = {s for s, _ in _iter_group_sigs(raw)}
+        g = _bucket_slack(max(1, len(sigs)))
+
+        # K7 combos: (subj_sel, port_id, group) for L7 presence —
+        # sized via the same deterministic intern order _write uses.
+        order: Dict[tuple, int] = {}
+        local_gid: Dict[int, int] = {}
+        for sig, local in _iter_group_sigs(raw):
+            local_gid[local] = order.setdefault(sig, len(order))
+        k7_keys = {
+            (subj, self.port_id[(port, PROTO_TCP_N)], local_gid[grp])
+            for subj, port, grp in raw.l7_ports
+        }
+        self.k7_ids: Dict[Tuple[int, int, int], int] = {}
+        k7 = _bucket_slack(len(k7_keys))
+
+        self.prog = DirectionProgram(
+            s_pad=s_pad,
+            deny_mat=np.zeros((s_pad, s_pad), np.int8),
+            allow_mat=np.zeros((s_pad, s_pad), np.int8),
+            ports=ports,
+            protos=protos,
+            s1_mat=np.zeros((s_pad, k1), np.int8),
+            p1_mat=np.zeros((p4, k1), np.int8),
+            en_mat=np.zeros((k1, s_pad), np.int8),
+            ee_mat=np.zeros((k1, s_pad), np.int8),
+            gpn_mat=np.zeros((s_pad, g), np.int8),
+            gpe_mat=np.zeros((s_pad, g), np.int8),
+            group_no_peers=np.zeros(g, bool),
+            s7_mat=np.zeros((s_pad, k7), np.int8),
+            p7_mat=np.zeros((p4, k7), np.int8),
+            g7_mat=np.zeros((g, k7), np.int8),
+            e_subj=np.zeros(0, np.int32),
+            e_port=np.zeros(0, np.int32),
+            e_proto=np.zeros(0, np.int32),
+            l7_subj=np.zeros(0, np.int32),
+            l7_port=np.zeros(0, np.int32),
+        )
+        self.n_groups = 0
+        # Cell-level write log: (matrix, i, j, value). Appends record
+        # their writes here so the engine can patch device tables with
+        # tiny scatters instead of re-uploading whole matrices.
+        self.writes: List[Tuple[str, int, int, int]] = []
+
+    def take_writes(self) -> List[Tuple[str, int, int, int]]:
+        w, self.writes = self.writes, []
+        return w
+
+    def _mat_by_name(self, name: str) -> np.ndarray:
+        p = self.prog
+        return {
+            "deny": p.deny_mat, "allow": p.allow_mat,
+            "s1": p.s1_mat, "p1": p.p1_mat,
+            "en": p.en_mat, "ee": p.ee_mat,
+            "gpn": p.gpn_mat, "gpe": p.gpe_mat,
+            "s7": p.s7_mat, "p7": p.p7_mat, "g7": p.g7_mat,
+        }[name]
+
+    def write_rule(self, rule_key: int, raw: _RawDirection) -> None:
+        """Write ONE rule's raw extraction, attributing every cell,
+        group ref, and entry to ``rule_key`` for later removal. Callers
+        must call refresh_entry_views() after a batch."""
+        self._attr_key = rule_key
+        self.rule_cells.setdefault(rule_key, [])
+        self.rule_groups.setdefault(rule_key, [])
+        n_ent, n_l7 = len(self.entries), len(self.l7_list)
+        self._write(raw)
+        self.rule_entries.setdefault(rule_key, []).extend(self.entries[n_ent:])
+        self.rule_l7.setdefault(rule_key, []).extend(self.l7_list[n_l7:])
+        self._attr_key = None
+
+    def remove_rule(self, rule_key: int) -> bool:
+        """Retract one rule's contributions in place. False when the
+        rule is unknown to this packer (caller must full-rebuild).
+        Callers must call refresh_entry_views() after a batch."""
+        cells = self.rule_cells.pop(rule_key, None)
+        if cells is None:
+            return False
+        for key in cells:
+            n = self.cell_refs.get(key, 0) - 1
+            if n > 0:
+                self.cell_refs[key] = n
+            else:
+                self.cell_refs.pop(key, None)
+                name, i, j = key
+                self._mat_by_name(name)[i, j] = 0
+                self.writes.append((name, i, j, 0))
+        for g in self.rule_groups.pop(rule_key, []):
+            # interned groups are shared: only the LAST contributor's
+            # removal deactivates the column (its gpn/gpe/g7 cells die
+            # via cell_refs; the id stays interned for reuse)
+            n = self.group_refs.get(g, 0) - 1
+            if n > 0:
+                self.group_refs[g] = n
+            else:
+                self.group_refs.pop(g, None)
+                if self.prog.group_no_peers[g]:
+                    self.prog.group_no_peers[g] = False
+                    self.writes.append(("group_no_peers", g, 0, 0))
+        self.entries = _remove_occurrences(
+            self.entries, self.rule_entries.pop(rule_key, [])
+        )
+        self.l7_list = _remove_occurrences(
+            self.l7_list, self.rule_l7.pop(rule_key, [])
+        )
+        return True
+
+    def refresh_entry_views(self) -> None:
+        """Rebuild the raw entry arrays host-side consumers read
+        (policymap slot discovery) — called once per write/remove
+        batch, not per rule, to stay linear."""
+        p = self.prog
+        p.e_subj = np.asarray([e[0] for e in self.entries], np.int32)
+        p.e_port = np.asarray([e[2] for e in self.entries], np.int32)
+        p.e_proto = np.asarray([e[3] for e in self.entries], np.int32)
+        p.l7_subj = np.asarray([l[0] for l in self.l7_list], np.int32)
+        p.l7_port = np.asarray([l[1] for l in self.l7_list], np.int32)
+
+    # ------------------------------------------------------------------
+    def can_append(self, raw: _RawDirection) -> bool:
+        """True iff ``raw`` fits the existing buckets (no shape change)."""
+        p = self.prog
+        new_ports = set()
+        for e in raw.entries:
+            if (e[2], e[3]) not in self.port_id:
+                new_ports.add((e[2], e[3]))
+        for l in raw.l7_ports:
+            if (l[1], PROTO_TCP_N) not in self.port_id:
+                new_ports.add((l[1], PROTO_TCP_N))
+        if len(self.port_id) + len(new_ports) > p.ports.size:
+            return False
+        # combos/k7 need port ids; count conservatively with new keys
+        pid_probe = dict(self.port_id)
+        for key in new_ports:
+            pid_probe[key] = len(pid_probe)
+        new_combos = {
+            (e[0], pid_probe[(e[2], e[3])])
+            for e in raw.entries
+            if (e[0], pid_probe[(e[2], e[3])]) not in self.combo_id
+        }
+        if len(self.combo_id) + len(new_combos) > p.s1_mat.shape[1]:
+            return False
+        # probe group interning the same way _write will (existing
+        # signatures reuse their column; only genuinely new sigs grow)
+        local_gid: Dict[int, int] = {}
+        next_gid = len(self.group_sig)
+        probe_new: Dict[tuple, int] = {}
+        for sig, local in _iter_group_sigs(raw):
+            gid = self.group_sig.get(sig)
+            if gid is None:
+                gid = probe_new.get(sig)
+                if gid is None:
+                    gid = next_gid
+                    probe_new[sig] = gid
+                    next_gid += 1
+            local_gid[local] = gid
+        if next_gid > p.gpn_mat.shape[1]:
+            return False
+        new_k7 = {
+            key
+            for l in raw.l7_ports
+            if (key := (l[0], pid_probe[(l[1], PROTO_TCP_N)], local_gid[l[2]]))
+            not in self.k7_ids
+        }
+        if len(self.k7_ids) + len(new_k7) > p.s7_mat.shape[1]:
+            return False
+        max_sel = -1
+        for s1, s2 in raw.deny + raw.allow:
+            max_sel = max(max_sel, s1, s2)
+        for e in raw.entries:
+            max_sel = max(max_sel, e[0], e[1])
+        for _g, sid, _x in raw.gp:
+            max_sel = max(max_sel, sid)
+        return max_sel < self.s_pad
+
+    # ------------------------------------------------------------------
+    def _port(self, port: int, proto: int) -> int:
+        key = (port, proto)
+        pid = self.port_id.get(key)
+        if pid is None:
+            pid = len(self.port_id)
+            self.port_id[key] = pid
+            self.prog.ports[pid] = port
+            self.prog.protos[pid] = proto
+            self.writes.append(("port_vocab", pid, port, proto))
+        return pid
+
+    def _set(self, name: str, mat: np.ndarray, i: int, j: int) -> None:
+        key = (name, i, j)
+        n = self.cell_refs.get(key, 0)
+        self.cell_refs[key] = n + 1
+        if self._attr_key is not None:
+            self.rule_cells[self._attr_key].append(key)
+        if n == 0:
+            mat[i, j] = 1
+            self.writes.append((name, i, j, 1))
+
+    def _write(self, raw: _RawDirection) -> None:
+        p = self.prog
+        for s1, s2 in raw.deny:
+            self._set("deny", p.deny_mat, s1, s2)
+        for s1, s2 in raw.allow:
+            self._set("allow", p.allow_mat, s1, s2)
+
+        # intern this raw's local groups by signature → global ids
+        gmap: Dict[int, int] = {}
+        for sig, local in _iter_group_sigs(raw):
+            gid = self.group_sig.get(sig)
+            if gid is None:
+                gid = len(self.group_sig)
+                self.group_sig[sig] = gid
+            gmap[local] = gid
+            self.group_refs[gid] = self.group_refs.get(gid, 0) + 1
+            if self._attr_key is not None:
+                self.rule_groups[self._attr_key].append(gid)
+            no_peers = raw.group_no_peers[local]
+            if no_peers and not p.group_no_peers[gid]:
+                p.group_no_peers[gid] = True
+                self.writes.append(("group_no_peers", gid, 0, 1))
+        self.n_groups = len(self.group_sig)
+
+        for subj, sid, port, proto, expl, group in raw.entries:
+            pid = self._port(port, proto)
+            key = (subj, pid)
+            k = self.combo_id.setdefault(key, len(self.combo_id))
+            self._set("s1", p.s1_mat, subj, k)
+            self._set("p1", p.p1_mat, pid, k)
+            if expl:
+                self._set("ee", p.ee_mat, k, sid)
+            else:
+                self._set("en", p.en_mat, k, sid)
+            self.entries.append((subj, sid, port, proto, expl, gmap[group]))
+
+        for group, sid, expl in raw.gp:
+            name, mat = ("gpe", p.gpe_mat) if expl else ("gpn", p.gpn_mat)
+            self._set(name, mat, sid, gmap[group])
+
+        for subj, port, group in raw.l7_ports:
+            pid = self._port(port, PROTO_TCP_N)
+            gid = gmap[group]
+            k = self.k7_ids.setdefault((subj, pid, gid), len(self.k7_ids))
+            self._set("s7", p.s7_mat, subj, k)
+            self._set("p7", p.p7_mat, pid, k)
+            self._set("g7", p.g7_mat, gid, k)
+            self.l7_list.append((subj, port, gid))
+
+
+# Sentinel for "no rule contributes here" in rule-origin arrays
+# (min-reduction identity; mirrored by ops.verdict.NO_RULE — program.py
+# cannot import ops.verdict, the dependency points the other way).
+NO_RULE = 2**31 - 1
+
+
+def rule_origin_arrays(
+    packer: DirectionPacker, rule_keys: Sequence[int]
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Term→first-rule origin arrays for verdict attribution
+    (policyd-flows): for each deny subject-selector row, pure-L3-allow
+    subject-selector row, and K1 combo column, the LOWEST repository
+    rule index whose packed cells reference it (``rule_keys`` is
+    ``[id(r) for r in rules]`` in repository order — the same keys
+    ``write_rule`` attributed cells under). First-contributing-rule-wins
+    matches the reference's in-order rule walk; granularity is the
+    packed term (selector row / combo column), the same resolution the
+    kernel's reductions preserve. Entries no surviving rule references
+    hold ``NO_RULE``."""
+    p = packer.prog
+    deny_rule = np.full(packer.s_pad, NO_RULE, np.int32)
+    allow_rule = np.full(packer.s_pad, NO_RULE, np.int32)
+    combo_rule = np.full(p.s1_mat.shape[1], NO_RULE, np.int32)
+    for ri, key in enumerate(rule_keys):
+        for name, i, j in packer.rule_cells.get(key, ()):
+            if name == "deny":
+                if ri < deny_rule[i]:
+                    deny_rule[i] = ri
+            elif name == "allow":
+                if ri < allow_rule[i]:
+                    allow_rule[i] = ri
+            elif name == "s1":
+                if ri < combo_rule[j]:
+                    combo_rule[j] = ri
+    return deny_rule, allow_rule, combo_rule
+
+
+def subject_sids(rules: Sequence[Rule], table: SelectorTable) -> Tuple[int, ...]:
+    """Sorted, deduplicated subject-selector ids for a rule batch —
+    the delta-log payload bound (policyd-delta): every verdict term a
+    compile emits is gated on its rule's subject selector
+    (_extract_direction interns ``r.endpoint_selector`` as the ``subj``
+    of every deny/allow/entry cell), so these ids bound the policymap
+    COLUMNS an incremental append/delete can change, and
+    patch_endpoints_state only re-sweeps endpoints whose label sets
+    match one of them. Interning here is idempotent for already-compiled
+    rules: appends intern the same selector the compile is about to,
+    deletes hit selectors the original compile interned."""
+    return tuple(sorted({table.intern(r.endpoint_selector) for r in rules}))
+
+
+def _merge_raws(raws: Sequence[_RawDirection]) -> _RawDirection:
+    """Concatenate per-rule raws into one batch raw, renumbering group
+    ids globally (the shape the packer sizes its buckets from)."""
+    deny: List[Tuple[int, int]] = []
+    allow: List[Tuple[int, int]] = []
+    entries: List[Tuple[int, int, int, int, bool, int]] = []
+    gnp: List[bool] = []
+    gp: List[Tuple[int, int, bool]] = []
+    l7: List[Tuple[int, int, int]] = []
+    off = 0
+    for raw in raws:
+        deny.extend(raw.deny)
+        allow.extend(raw.allow)
+        entries.extend(
+            (s, sid, p, pr, e, g + off) for (s, sid, p, pr, e, g) in raw.entries
+        )
+        gp.extend((g + off, sid, e) for (g, sid, e) in raw.gp)
+        l7.extend((s, p, g + off) for (s, p, g) in raw.l7_ports)
+        gnp.extend(raw.group_no_peers)
+        off += len(raw.group_no_peers)
+    return _RawDirection(deny, allow, entries, gnp, gp, l7)
+
+
+@dataclasses.dataclass
+class CompileState:
+    """Persistent compiler state for incremental appends: the selector
+    interner, per-direction packers, and how many selectors have been
+    lowered into the conjunct arrays so far."""
+
+    table: SelectorTable
+    ingress: DirectionPacker
+    egress: DirectionPacker
+    lowered_selectors: int
+
+
+def compile_policy_state(
+    repo: Repository, registry: IdentityRegistry
+) -> Tuple[CompiledPolicy, CompileState]:
+    """Lower repository + identities to dense tables.
+
+    Order matters: selectors intern their vocab bits first, then the
+    identity dense view interns identity bits (growing the vocab), and
+    only then are conjuncts packed against the final word count — so
+    identity bitmaps and selector masks share one bit space.
+    """
+    table = SelectorTable()
+    with repo._lock:
+        rules = list(repo.rules)
+        revision = repo.revision
+    # Per-rule raws (same intern/group order as one batch extraction)
+    # so every matrix cell is attributed to its contributing rule —
+    # the basis for incremental deletion.
+    raws_ingress = [_extract_direction([r], table, ingress=True) for r in rules]
+    raws_egress = [_extract_direction([r], table, ingress=False) for r in rules]
+    raw_ingress = _merge_raws(raws_ingress)
+    raw_egress = _merge_raws(raws_egress)
+
+    # Selector axis padded to a multiple of 128 (MXU tile) — the padded
+    # tail never matches (no conjuncts) and relation matrices are zero
+    # there.
+    s_pad = max(128, ((len(table) + 127) // 128) * 128)
+    ing_packer = DirectionPacker(raw_ingress, s_pad)
+    eg_packer = DirectionPacker(raw_egress, s_pad)
+    for r, raw_i, raw_e in zip(rules, raws_ingress, raws_egress):
+        ing_packer.write_rule(id(r), raw_i)
+        eg_packer.write_rule(id(r), raw_e)
+    ing_packer.refresh_entry_views()
+    eg_packer.refresh_entry_views()
+    ing_packer.writes.clear()  # initial build uploads wholesale
+    eg_packer.writes.clear()
+
+    vocab = registry.vocab
+    lowered = table.lower_bits(vocab)
+    lowered += [[] for _ in range(s_pad - len(lowered))]
+    id_bits, row_ids, row_live = registry.dense_view()
+    num_words = id_bits.shape[1]
+    conj_req, conj_forbid, conj_valid, req_count = table.pack(lowered, vocab, num_words)
+
+    id_to_row = {int(i): r for r, i in enumerate(row_ids) if row_live[r]}
+    compiled = CompiledPolicy(
+        revision=revision,
+        identity_version=registry.version,
+        vocab_version=vocab.version,
+        num_words=num_words,
+        num_selectors=len(table),
+        id_bits=id_bits,
+        row_ids=row_ids,
+        row_live=row_live,
+        id_to_row=id_to_row,
+        conj_req=conj_req,
+        conj_forbid=conj_forbid,
+        conj_valid=conj_valid,
+        req_count=req_count,
+        ingress=ing_packer.prog,
+        egress=eg_packer.prog,
+    )
+    return compiled, CompileState(
+        table=table,
+        ingress=ing_packer,
+        egress=eg_packer,
+        lowered_selectors=len(table),
+    )
+
+
+def compile_policy(repo: Repository, registry: IdentityRegistry) -> CompiledPolicy:
+    return compile_policy_state(repo, registry)[0]
+
+
+def try_append_rules(
+    compiled: CompiledPolicy,
+    state: CompileState,
+    registry: IdentityRegistry,
+    rules: Sequence[Rule],
+    new_revision: int,
+) -> Optional[Tuple[int, int]]:
+    """Append ``rules`` into the compiled tables **in place**.
+
+    Returns the (old, new) selector count on success, or None when a
+    full rebuild is required (selector/port/combo/group bucket overflow,
+    vocab word growth, or conjunct-slot growth). On None the caller
+    must recompile from scratch; the partially-grown interner state is
+    discarded there, so bailing is always safe.
+    """
+    table = state.table
+    old_len = len(table)
+    raws_in = [_extract_direction([r], table, ingress=True) for r in rules]
+    raws_eg = [_extract_direction([r], table, ingress=False) for r in rules]
+    raw_in = _merge_raws(raws_in)
+    raw_eg = _merge_raws(raws_eg)
+    if len(table) > compiled.ingress.s_pad:
+        return None
+    vocab = registry.vocab
+    new_lowered = [
+        table.selector(sid).conjuncts(vocab) for sid in range(old_len, len(table))
+    ]
+    if vocab.num_words > compiled.num_words:
+        return None
+    cps = compiled.conj_req.shape[1]
+    if any(len(c) > cps for c in new_lowered):
+        return None
+    if not (state.ingress.can_append(raw_in) and state.egress.can_append(raw_eg)):
+        return None
+
+    for r, ri, re in zip(rules, raws_in, raws_eg):
+        state.ingress.write_rule(id(r), ri)
+        state.egress.write_rule(id(r), re)
+    state.ingress.refresh_entry_views()
+    state.egress.refresh_entry_views()
+    for i, conjs in enumerate(new_lowered):
+        sid = old_len + i
+        for j, (require, forbid) in enumerate(conjs):
+            compiled.conj_req[sid, j] = vocab.pack(require, compiled.num_words)
+            compiled.conj_forbid[sid, j] = vocab.pack(forbid, compiled.num_words)
+            compiled.conj_valid[sid, j] = True
+            compiled.req_count[sid, j] = len(set(require))
+    compiled.num_selectors = len(table)
+    compiled.vocab_version = vocab.version
+    state.lowered_selectors = len(table)
+    compiled.revision = new_revision
+    return old_len, len(table)
+
+
+def unpack_conjuncts(
+    conj_req: np.ndarray, conj_forbid: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Pre-unpack conjunct word masks to transposed bit matrices for
+    host_selector_matches (cacheable across incremental updates)."""
+    s, cps, w = conj_req.shape
+    # float32 operands straight from the bit unpack: numpy int32
+    # matmul has no BLAS path and is ~50× slower; bit-count sums stay
+    # far below f32's exact-integer range (2^24), so float
+    # accumulation is exact here
+    req = np.unpackbits(
+        conj_req.reshape(s * cps, w).view(np.uint8).reshape(s * cps, w * 4),
+        axis=1,
+        bitorder="little",
+    ).astype(np.float32)
+    forbid = np.unpackbits(
+        conj_forbid.reshape(s * cps, w).view(np.uint8).reshape(s * cps, w * 4),
+        axis=1,
+        bitorder="little",
+    ).astype(np.float32)
+    return np.ascontiguousarray(req.T), np.ascontiguousarray(forbid.T)
+
+
+def host_selector_matches(
+    id_bits: np.ndarray,
+    conj_req: np.ndarray,
+    conj_forbid: np.ndarray,
+    conj_valid: np.ndarray,
+    req_count: np.ndarray,
+    unpacked: Optional[Tuple[np.ndarray, np.ndarray]] = None,
+) -> np.ndarray:
+    """Numpy mirror of ops.bitmap.compute_selector_matches for small
+    selector slices (incremental appends): → [N, S_slice] bool."""
+    n, w = id_bits.shape
+    s, cps, _ = conj_req.shape
+    if s == 0:
+        return np.zeros((n, 0), bool)
+    bits = np.unpackbits(
+        id_bits.view(np.uint8).reshape(n, w * 4), axis=1, bitorder="little"
+    ).astype(np.float32)
+    req_t, forbid_t = unpacked if unpacked is not None else unpack_conjuncts(
+        conj_req, conj_forbid
+    )
+    hit_req = bits @ req_t
+    hit_forbid = bits @ forbid_t
+    ok = (
+        (hit_req == req_count.reshape(1, s * cps).astype(np.float32))
+        & (hit_forbid == 0)
+        & conj_valid.reshape(1, s * cps)
+    )
+    return ok.reshape(n, s, cps).any(axis=2)

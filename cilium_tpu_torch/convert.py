@@ -1,0 +1,102 @@
+"""Carry compiled state from numpy arrays into the port's tensors.
+
+The compiler, the trie builders and the JAX package's device tables
+all end in numpy arrays (``np.asarray`` of a JAX array is one). These
+functions turn them into the port's dataclasses of tensors on one
+device. Packed uint32 words travel as int32 bit views
+(``arr.view(np.int32)``): PyTorch on the CPU has no right shift and no
+``index_put_`` for uint32.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .ops.bitmap import compute_selector_matches
+from .ops.lookup import PolicymapTables
+from .ops.verdict import DevicePolicy, DeviceTables
+
+
+def words_i32(arr, device) -> torch.Tensor:
+    """uint32 (or int32) words → int32 bit-view tensor on ``device``."""
+    a = np.ascontiguousarray(np.asarray(arr))
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    elif a.dtype != np.int32:
+        raise TypeError(f"packed words must be uint32 or int32, got {a.dtype}")
+    return _tensor(a, device)
+
+
+def _tensor(a: np.ndarray, device) -> torch.Tensor:
+    """numpy → tensor on ``device``; a read-only array (a view of a
+    JAX buffer) is copied so the tensor never aliases it."""
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
+
+
+def device_policy_from_numpy(
+    compiled, *, device, sel_match: Optional[np.ndarray] = None
+) -> DevicePolicy:
+    """A ``CompiledPolicy`` (of either package) → ``DevicePolicy``.
+    Without ``sel_match`` the selector match is computed on ``device``
+    by :func:`compute_selector_matches`."""
+    id_bits = words_i32(compiled.id_bits, device)
+    if sel_match is None:
+        sel = compute_selector_matches(
+            id_bits,
+            words_i32(compiled.conj_req, device),
+            words_i32(compiled.conj_forbid, device),
+            _tensor(np.asarray(compiled.conj_valid, bool), device),
+            _tensor(np.asarray(compiled.req_count, np.int32), device),
+        )
+    else:
+        sel = words_i32(sel_match, device)
+    return DevicePolicy(
+        id_bits=id_bits,
+        sel_match=sel,
+        ingress=DeviceTables.from_host(compiled.ingress, device),
+        egress=DeviceTables.from_host(compiled.egress, device),
+    )
+
+
+def policymap_from_numpy(
+    col_ep, col_port, col_proto, col_is_l3, id_bits, *, device
+) -> PolicymapTables:
+    """Policymap column metadata + packed [N, 2W] words → tables."""
+
+    def i32(a):
+        return _tensor(np.asarray(a, np.int32), device)
+
+    return PolicymapTables(
+        col_ep=i32(col_ep),
+        col_port=i32(col_port),
+        col_proto=i32(col_proto),
+        col_is_l3=_tensor(np.asarray(col_is_l3, bool), device),
+        id_bits=words_i32(id_bits, device),
+    )
+
+
+def wide_tables_from_numpy(
+    tries: Sequence[np.ndarray], world_row: int, policymap: PolicymapTables, *, device
+):
+    """The twelve v4 wide-trie arrays (deny, identity, merged; each
+    root_info, root_child, sub_child, sub_info) + the world row + a
+    policymap → ``WideDatapathTables``."""
+    from .datapath.pipeline import WideDatapathTables
+
+    if len(tries) != 12:
+        raise ValueError(f"expected 12 trie arrays, got {len(tries)}")
+    t = [_tensor(np.asarray(a, np.int32), device) for a in tries]
+    return WideDatapathTables(
+        pf_root_info=t[0], pf_root_child=t[1], pf_sub_child=t[2], pf_sub_info=t[3],
+        ip_root_info=t[4], ip_root_child=t[5], ip_sub_child=t[6], ip_sub_info=t[7],
+        merged_root_info=t[8], merged_root_child=t[9], merged_sub_child=t[10],
+        merged_sub_info=t[11],
+        world_row=int(world_row),
+        policymap=policymap,
+    )

@@ -1,0 +1,192 @@
+"""PolicyEngine: the device-backed policy resolver.
+
+The counterpart of the reference's per-endpoint regeneration entry
+points (pkg/endpoint/policy.go regeneratePolicy →
+repository.AllowsIngress*): owns a Repository + IdentityRegistry,
+compiles them into device tensors, refreshes when revisions move, and
+answers batched verdict queries.
+
+This port refreshes by full recompile whenever the repository revision
+or the identity version moved (the revision gate of
+pkg/endpoint/policy.go:506). Incremental row/rule updates, snapshots
+and verdict attribution are not ported yet.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import _kernels
+from . import u8proto
+from .compiler import CompiledPolicy, compile_policy_state
+from .convert import device_policy_from_numpy
+from .identity import IdentityRegistry
+from .identity.model import MAX_USER_IDENTITY
+from .ops.verdict import DevicePolicy, Verdict, verdict_batch
+from .policy.repository import Repository
+
+PROTO_TCP = u8proto.TCP
+PROTO_UDP = u8proto.UDP
+
+
+class PolicyEngine:
+    def __init__(
+        self, repo: Repository, registry: IdentityRegistry, device=None
+    ) -> None:
+        self.device = _kernels.resolve_device(device)
+        self.repo = repo
+        self.registry = registry
+        self._lock = threading.Lock()
+        self._compiled: Optional[CompiledPolicy] = None
+        self._device: Optional[DevicePolicy] = None
+        # Dense row table for the compact ranges (reserved + user,
+        # < 65536) and a dict for sparse local/CIDR identities.
+        self._low_rows: Optional[np.ndarray] = None
+        self._high_rows: dict = {}
+        self.install_gen = 0  # bumps on every full refresh
+
+    def _stale(self) -> bool:
+        c = self._compiled
+        return (
+            c is None
+            or c.revision != self.repo.revision
+            or c.identity_version != self.registry.version
+        )
+
+    def refresh(self, force: bool = False) -> CompiledPolicy:
+        """Recompile if repository or identity state moved."""
+        with self._lock:
+            if force or self._stale():
+                compiled, device = self._compute_full(self.repo, self.registry, self.device)
+                self._install(compiled, device)
+            return self._compiled  # type: ignore[return-value]
+
+    @staticmethod
+    def _compute_full(repo, registry, device) -> Tuple[CompiledPolicy, DevicePolicy]:
+        """Host compile, upload, and the selector match on the device."""
+        compiled, _state = compile_policy_state(repo, registry)
+        return compiled, device_policy_from_numpy(compiled, device=device)
+
+    def _install(self, compiled: CompiledPolicy, device: DevicePolicy) -> None:
+        low = np.full(MAX_USER_IDENTITY + 1, -1, np.int32)
+        high: dict = {}
+        for ident, row in compiled.id_to_row.items():
+            if ident < low.size:
+                low[ident] = row
+            else:
+                high[ident] = row
+        self._low_rows = low
+        self._high_rows = high
+        self._device = device
+        self._compiled = compiled
+        self.install_gen += 1
+
+    @property
+    def device_policy(self) -> DevicePolicy:
+        self.refresh()
+        assert self._device is not None
+        return self._device
+
+    def snapshot(self) -> Tuple[CompiledPolicy, DevicePolicy]:
+        """A consistent (compiled, device) pair from one refresh."""
+        self.refresh()
+        with self._lock:
+            assert self._compiled is not None and self._device is not None
+            return self._compiled, self._device
+
+    @staticmethod
+    def _rows_snapshot(low: np.ndarray, high: dict, identity_ids: Sequence[int]) -> np.ndarray:
+        ids = np.asarray(identity_ids, dtype=np.int64)
+        rows = np.empty(ids.shape, np.int32)
+        in_low = ids < low.size
+        if (ids < 0).any():
+            raise KeyError("negative identity in batch")
+        rows[in_low] = low[ids[in_low]]
+        for i in np.nonzero(~in_low)[0]:
+            rows[i] = high.get(int(ids[i]), -1)
+        if (rows < 0).any():
+            raise KeyError("unknown identity in batch")
+        return rows
+
+    def rows(self, identity_ids: Sequence[int]) -> np.ndarray:
+        self.refresh()
+        assert self._low_rows is not None
+        return self._rows_snapshot(self._low_rows, self._high_rows, identity_ids)
+
+    def rows_or_negative(self, identity_ids: np.ndarray) -> np.ndarray:
+        """[B] device rows with -1 for unknown/invalid identities."""
+        self.refresh()
+        with self._lock:
+            low = self._low_rows
+            high = dict(self._high_rows)
+        assert low is not None
+        ids = np.asarray(identity_ids, np.int64)
+        rows = np.full(ids.shape, -1, np.int32)
+        ok = (ids > 0) & (ids < low.size)
+        rows[ok] = low[ids[ok]]
+        hi = ids >= low.size
+        if hi.any():
+            uniq, inv = np.unique(ids[hi], return_inverse=True)
+            vals = np.fromiter((high.get(int(u), -1) for u in uniq), np.int32, len(uniq))
+            rows[hi] = vals[inv]
+        return rows
+
+    def verdicts(
+        self,
+        subj_ids: Sequence[int],
+        peer_ids: Sequence[int],
+        dports: Sequence[int],
+        protos: Sequence[int],
+        *,
+        ingress: bool = True,
+        has_l4: Optional[Sequence[bool]] = None,
+        attrib: bool = False,
+    ) -> Verdict:
+        """Batched verdicts by identity number. ``subj`` is the endpoint
+        whose policy applies (dst for ingress, src for egress)."""
+        if attrib:
+            raise NotImplementedError("verdict attribution is not in the torch port yet")
+        # device + row tables from one lock acquisition, so row indices
+        # of a newer compile never meet older device tables
+        self.refresh()
+        with self._lock:
+            device = self._device
+            low = self._low_rows.copy() if self._low_rows is not None else None
+            high = dict(self._high_rows)
+        assert device is not None and low is not None
+        n = len(subj_ids)
+        hl4 = np.ones(n, dtype=bool) if has_l4 is None else np.asarray(has_l4, bool)
+
+        def up(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        return verdict_batch(
+            device,
+            up(self._rows_snapshot(low, high, subj_ids)),
+            up(self._rows_snapshot(low, high, peer_ids)),
+            up(np.asarray(dports, np.int32)),
+            up(np.asarray(protos, np.int32)),
+            up(hl4),
+            ingress=ingress,
+        )
+
+    def verdict_one(
+        self,
+        subj_id: int,
+        peer_id: int,
+        dport: int = 0,
+        proto: int = PROTO_TCP,
+        *,
+        ingress: bool = True,
+        l4: bool = True,
+    ) -> Tuple[int, int]:
+        """Single query → (decision, l3_decision); the `cilium policy
+        trace` fast path."""
+        v = self.verdicts(
+            [subj_id], [peer_id], [dport], [proto], ingress=ingress, has_l4=[l4]
+        )
+        return int(v.decision[0]), int(v.l3[0])

@@ -1,0 +1,66 @@
+"""Identity model and reserved identities.
+
+Reference: pkg/identity/identity.go (Identity struct),
+pkg/identity/numericidentity.go (reserved numeric identities and the
+``reserved:`` labels they carry).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+from ..labels import Label, LabelArray
+
+ID_INVALID = 0
+ID_HOST = 1
+ID_WORLD = 2
+ID_CLUSTER = 3
+ID_HEALTH = 4
+ID_INIT = 5
+
+MIN_USER_IDENTITY = 256
+MAX_USER_IDENTITY = 65535
+
+# Node-local identities (CIDR-derived). The reference scopes these
+# locally too; we place them above the global space so the two can never
+# collide (pkg/identity/cidr/ semantics, new numbering).
+LOCAL_IDENTITY_BASE = 1 << 24
+
+RESERVED_IDENTITIES: Dict[int, str] = {
+    ID_HOST: "host",
+    ID_WORLD: "world",
+    ID_CLUSTER: "cluster",
+    ID_HEALTH: "health",
+    ID_INIT: "init",
+}
+
+_RESERVED_BY_NAME = {name: num for num, name in RESERVED_IDENTITIES.items()}
+
+
+def reserved_identity_labels(num: int) -> LabelArray:
+    name = RESERVED_IDENTITIES[num]
+    return LabelArray([Label(source="reserved", key=name)])
+
+
+def lookup_reserved(name: str) -> Optional[int]:
+    return _RESERVED_BY_NAME.get(name)
+
+
+@dataclasses.dataclass(frozen=True)
+class Identity:
+    """A numeric security identity bound to its canonical labels."""
+
+    id: int
+    labels: LabelArray
+
+    @property
+    def is_reserved(self) -> bool:
+        return self.id in RESERVED_IDENTITIES
+
+    @property
+    def is_local(self) -> bool:
+        return self.id >= LOCAL_IDENTITY_BASE
+
+    def __str__(self) -> str:
+        return f"Identity<{self.id}: {self.labels.sorted_key()}>"

@@ -1,0 +1,205 @@
+"""Identity registry: allocation + dense device-row management.
+
+Host-side authority for identity↔labels (reference:
+pkg/identity/allocator.go local cache + kvstore allocation; here the
+kvstore-backed global allocator plugs in via
+cilium_tpu.kvstore.allocator, and this registry is the local cache).
+
+TPU-first: identities are sparse integers but device tensors are dense,
+so the registry assigns every identity a stable *row* and bumps a
+``version`` on any change so compiled policy tensors know to refresh.
+``dense_view()`` repacks the full [rows, words] bitmap matrix on each
+call (O(identities × labels) host work) — callers gate it behind the
+version check, and incremental row updates are a planned optimization.
+Rows are padded to ``row_bucket`` so recompiles hit shape-bucketed XLA
+caches instead of a fresh trace per identity.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Callable, Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+
+from ..labels import LabelArray, LabelVocab
+from .model import (
+    Identity,
+    LOCAL_IDENTITY_BASE,
+    MAX_USER_IDENTITY,
+    MIN_USER_IDENTITY,
+    RESERVED_IDENTITIES,
+    reserved_identity_labels,
+)
+
+
+class IdentityRegistry:
+    def __init__(self, vocab: Optional[LabelVocab] = None, row_bucket: int = 256):
+        self.vocab = vocab or LabelVocab()
+        self.row_bucket = row_bucket
+        self._lock = threading.RLock()
+        self._by_id: Dict[int, Identity] = {}
+        self._by_labels: Dict[LabelArray, Identity] = {}
+        self._refcount: Dict[int, int] = {}
+        self._row_of: Dict[int, int] = {}
+        self._id_of_row: List[int] = []
+        self._next_user = MIN_USER_IDENTITY
+        self._next_local = LOCAL_IDENTITY_BASE
+        self.version = 0
+        self._observers: List[Callable[[Identity, bool], None]] = []
+        for num in RESERVED_IDENTITIES:
+            self._insert(Identity(num, reserved_identity_labels(num)))
+
+    # ------------------------------------------------------------------
+    def _insert(self, ident: Identity) -> None:
+        self._by_id[ident.id] = ident
+        self._by_labels[ident.labels] = ident
+        self._refcount[ident.id] = self._refcount.get(ident.id, 0) + 1
+        if ident.id not in self._row_of:
+            self._row_of[ident.id] = len(self._id_of_row)
+            self._id_of_row.append(ident.id)
+        self.version += 1
+        # ordering invariant: observers must see add/remove events in
+        # `version` order — delivered outside the lock, a racing
+        # allocate/release pair could invert add-then-remove for the
+        # same identity and corrupt row-mapping consumers. Observers
+        # are contractually non-blocking and lock-free (engine appends
+        # to a pending list; prefixmap diffs two sets).
+        for obs in self._observers:
+            obs(ident, True)  # policyd-lint: disable=LOCK003
+
+    def observe(self, fn: Callable[[Identity, bool], None]) -> None:
+        """Register a change observer fn(identity, added)."""
+        self._observers.append(fn)
+
+    def allocate(self, labels: LabelArray, *, local: bool = False) -> Identity:
+        """Allocate (or ref) the identity for a canonical label set.
+
+        Reference: AllocateIdentity (pkg/identity/allocator.go:122) —
+        same labels always yield the same identity. ``local=True`` draws
+        from the node-local range (CIDR identities).
+        """
+        with self._lock:
+            existing = self._by_labels.get(labels)
+            if existing is not None:
+                self._refcount[existing.id] += 1
+                return existing
+            if local:
+                num = self._next_local
+                self._next_local += 1
+            else:
+                num = self._next_user
+                if num > MAX_USER_IDENTITY:
+                    raise RuntimeError("user identity space exhausted")
+                self._next_user += 1
+            ident = Identity(num, labels)
+            self._insert(ident)
+            return ident
+
+    def insert_global(self, num: int, labels: LabelArray) -> Identity:
+        """Insert (or ref) an identity under a *pre-assigned* global
+        number — the path taken when the kvstore allocator (local CAS
+        win or a remote node's allocation seen via watch) decides the
+        number instead of this registry. Keeps the local user-range
+        cursor ahead of every global number so a later local
+        ``allocate`` can never collide."""
+        with self._lock:
+            existing = self._by_id.get(num)
+            if existing is not None:
+                if existing.labels != labels:
+                    raise ValueError(
+                        f"identity {num} already bound to different labels"
+                    )
+                self._refcount[num] += 1
+                return existing
+            # Same labels under a different number is a split-brain
+            # signal; surface it to the caller, who decides (the watch
+            # pumps skip the event, keeping the existing binding).
+            stale = self._by_labels.get(labels)
+            if stale is not None and stale.id != num:
+                raise ValueError(
+                    f"labels already bound to identity {stale.id}, got {num}"
+                )
+            ident = Identity(num, labels)
+            if MIN_USER_IDENTITY <= num <= MAX_USER_IDENTITY:
+                self._next_user = max(self._next_user, num + 1)
+            self._insert(ident)
+            return ident
+
+    def release_by_id(self, num: int) -> bool:
+        """Release one reference of identity ``num`` (remote-deletion
+        path of the kvstore watch). True when freed."""
+        with self._lock:
+            ident = self._by_id.get(num)
+            if ident is None:
+                return False
+            return self.release(ident)
+
+    def release(self, ident: Identity) -> bool:
+        """Unref; True when the identity was freed. Freed identities keep
+        their row (tombstoned) so device tensors never reshuffle rows."""
+        with self._lock:
+            rc = self._refcount.get(ident.id, 0)
+            if rc <= 0:
+                return False
+            rc -= 1
+            self._refcount[ident.id] = rc
+            if rc == 0 and ident.id not in RESERVED_IDENTITIES:
+                self._by_id.pop(ident.id, None)
+                self._by_labels.pop(ident.labels, None)
+                self.version += 1
+                # same ordering invariant as _insert: in-order,
+                # non-blocking observer delivery under the lock
+                for obs in self._observers:
+                    obs(ident, False)  # policyd-lint: disable=LOCK003
+                return True
+            return False
+
+    # -- lookups -------------------------------------------------------
+    def get(self, num: int) -> Optional[Identity]:
+        return self._by_id.get(num)
+
+    def lookup_by_labels(self, labels: LabelArray) -> Optional[Identity]:
+        return self._by_labels.get(labels)
+
+    def __iter__(self) -> Iterator[Identity]:
+        return iter(list(self._by_id.values()))
+
+    def __len__(self) -> int:
+        return len(self._by_id)
+
+    # -- dense device view ---------------------------------------------
+    def row(self, num: int) -> Optional[int]:
+        return self._row_of.get(num)
+
+    @property
+    def num_rows(self) -> int:
+        return len(self._id_of_row)
+
+    def padded_rows(self) -> int:
+        b = self.row_bucket
+        return max(b, ((self.num_rows + b - 1) // b) * b)
+
+    def dense_view(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(bitmaps [R, W] uint32, ids [R] int32, live [R] bool) padded to
+        the row bucket. Dead/tombstoned rows have zero bitmaps and
+        live=False so device kernels naturally never match them."""
+        with self._lock:
+            rows = self.padded_rows()
+            # Intern every identity's bits BEFORE sizing the word array —
+            # interning grows the vocab.
+            row_bits = {}
+            for r, num in enumerate(self._id_of_row):
+                ident = self._by_id.get(num)
+                if ident is not None:
+                    row_bits[r] = self.vocab.identity_bits(ident.labels)
+            words = self.vocab.num_words
+            bitmaps = np.zeros((rows, words), dtype=np.uint32)
+            ids = np.zeros(rows, dtype=np.int32)
+            live = np.zeros(rows, dtype=bool)
+            for r, num in enumerate(self._id_of_row):
+                ids[r] = num
+                if r in row_bits:
+                    bitmaps[r] = self.vocab.pack(row_bits[r], words)
+                    live[r] = True
+            return bitmaps, ids, live

@@ -1,0 +1,177 @@
+"""Authoritative userspace IP/CIDR → identity map.
+
+Reference: pkg/ipcache/ipcache.go — `Upsert` with source-priority
+overwrite rules (:183,217), `Delete` (:429), lookups by prefix and by
+identity (:438-493), and listener fan-out (`IPIdentityMappingListener`,
+listener.go) that keeps derived state (the datapath LPM tensors here;
+the BPF ipcache map + Envoy NPHDS in the reference) in sync.
+
+The device view: the datapath pipeline rebuilds its LPM tries
+(ops/lpm.py — wide 16-bit-stride for IPv4, shared-prefix-elided
+stride-8 for IPv6) from ``items()`` whenever ``version`` moves,
+mapping prefixes to identity *rows*.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import ipaddress
+import threading
+from typing import Callable, Dict, List, Optional, Tuple
+
+
+# Source priorities (ipcache.go allowOverwrite: agent-local knowledge
+# beats the kvstore, which beats k8s-derived, which beats generated).
+SOURCE_AGENT = "agent"
+SOURCE_KVSTORE = "kvstore"
+SOURCE_K8S = "k8s"
+SOURCE_GENERATED = "generated"
+_PRIORITY = {SOURCE_AGENT: 3, SOURCE_KVSTORE: 2, SOURCE_K8S: 1, SOURCE_GENERATED: 0}
+
+
+@dataclasses.dataclass(frozen=True)
+class Entry:
+    identity: int
+    source: str
+    host_ip: Optional[str] = None  # tunnel endpoint for remote entries
+
+
+# fn(cidr, old_entry_or_None, new_entry_or_None)
+Listener = Callable[[str, Optional[Entry], Optional[Entry]], None]
+
+
+class IPCache:
+    # Bounded outward delta ring (the engine DELTA_LOG_CAP pattern):
+    # consumed by the datapath pipeline's O(delta) trie patching.
+    DELTA_LOG_CAP = 512
+
+    def __init__(self) -> None:
+        self._lock = threading.RLock()
+        self._by_prefix: Dict[str, Entry] = {}
+        self._by_identity: Dict[int, set] = {}
+        self._listeners: List[Listener] = []
+        self.version = 0
+        # (version, cidr, old_identity|None, new_identity|None) —
+        # appended under the lock by upsert/delete, oldest dropped past
+        # the cap
+        self._delta_log: List[Tuple[int, str, Optional[int], Optional[int]]] = []
+
+    def _log_delta(
+        self, key: str, old: Optional[int], new: Optional[int]
+    ) -> None:
+        self._delta_log.append((self.version, key, old, new))
+        if len(self._delta_log) > self.DELTA_LOG_CAP:
+            del self._delta_log[: len(self._delta_log) - self.DELTA_LOG_CAP]
+
+    def deltas_since(self, version: int):
+        """Map updates with version > ``version`` (oldest first), or
+        None when the ring has been truncated past that point — the
+        consumer must rebuild its derived state from ``items()``
+        (engine.deltas_since semantics)."""
+        with self._lock:
+            if version >= self.version:
+                return []
+            if self._delta_log and self._delta_log[0][0] > version + 1:
+                return None
+            if not self._delta_log and self.version > version:
+                return None
+            return [e for e in self._delta_log if e[0] > version]
+
+    # ------------------------------------------------------------------
+    def _norm(self, cidr: str) -> str:
+        if "/" not in cidr:
+            ip = ipaddress.ip_address(cidr)
+            cidr = f"{ip}/{32 if ip.version == 4 else 128}"
+        return str(ipaddress.ip_network(cidr, strict=False))
+
+    def add_listener(self, fn: Listener, replay: bool = True) -> None:
+        """SetListeners (listener fan-out); replay synthesizes the
+        current state like the reference's initial dump."""
+        with self._lock:
+            self._listeners.append(fn)
+            if replay:
+                for cidr, e in self._by_prefix.items():
+                    fn(cidr, None, e)
+
+    def remove_listener(self, fn: Listener) -> bool:
+        """Detach a listener (cluster leave must stop announcements)."""
+        with self._lock:
+            try:
+                self._listeners.remove(fn)
+                return True
+            except ValueError:
+                return False
+
+    def upsert(
+        self,
+        cidr: str,
+        identity: int,
+        source: str,
+        host_ip: Optional[str] = None,
+    ) -> bool:
+        """Returns False when a higher-priority source owns the entry
+        (ipcache.go:183 allowOverwrite)."""
+        key = self._norm(cidr)
+        new = Entry(identity, source, host_ip)
+        # Listener fan-out happens under the lock so derived state sees
+        # events in map-update order (the reference holds the ipcache
+        # mutex across IPIdentityMappingListener callbacks).
+        with self._lock:
+            old = self._by_prefix.get(key)
+            if old is not None and _PRIORITY[old.source] > _PRIORITY[source]:
+                return False
+            self._by_prefix[key] = new
+            if old is not None:
+                s = self._by_identity.get(old.identity)
+                if s:
+                    s.discard(key)
+            self._by_identity.setdefault(identity, set()).add(key)
+            self.version += 1
+            self._log_delta(key, old.identity if old else None, identity)
+            for fn in self._listeners:
+                fn(key, old, new)
+        return True
+
+    def delete(self, cidr: str, source: str) -> bool:
+        key = self._norm(cidr)
+        with self._lock:
+            old = self._by_prefix.get(key)
+            if old is None or _PRIORITY[old.source] > _PRIORITY[source]:
+                return False
+            del self._by_prefix[key]
+            s = self._by_identity.get(old.identity)
+            if s:
+                s.discard(key)
+            self.version += 1
+            self._log_delta(key, old.identity, None)
+            for fn in self._listeners:
+                fn(key, old, None)
+        return True
+
+    # -- lookups --------------------------------------------------------
+    def lookup_exact(self, cidr: str) -> Optional[Entry]:
+        return self._by_prefix.get(self._norm(cidr))
+
+    def lookup_by_ip(self, ip: str) -> Optional[Entry]:
+        """Host-side LPM walk (the datapath does this on device)."""
+        addr = ipaddress.ip_address(ip)
+        max_len = 32 if addr.version == 4 else 128
+        with self._lock:
+            for plen in range(max_len, -1, -1):
+                net = ipaddress.ip_network(f"{ip}/{plen}", strict=False)
+                e = self._by_prefix.get(str(net))
+                if e is not None:
+                    return e
+        return None
+
+    def prefixes_for_identity(self, identity: int) -> List[str]:
+        with self._lock:
+            return sorted(self._by_identity.get(identity, ()))
+
+    def __len__(self) -> int:
+        return len(self._by_prefix)
+
+    def items(self) -> List[Tuple[str, Entry]]:
+        with self._lock:
+            return list(self._by_prefix.items())
+

@@ -1,0 +1,100 @@
+"""Label vocabulary: label ↔ bit position interning.
+
+This is new TPU-first design (no reference equivalent): to evaluate
+selector↔identity matches as bitwise AND/subset tests on device, every
+distinct label observed in identities or selectors is interned to a bit
+position. An identity's labels become a packed uint32 bitmap; a selector
+becomes (require_bits, forbid_bits) so that
+
+    matches(id) == (id_bits & require == require) and (id_bits & forbid == 0)
+
+covers matchLabels, Exists, NotIn and DoesNotExist (k8s LabelSelector
+semantics wrapped by the reference's pkg/policy/api/selector.go).
+
+Bit layout per identity label (source, key, value):
+  - kv bit for (source, key, value)
+  - kv bit for (any, key, value)       — wildcard-source selectors
+  - exists bit for (source, key)
+  - exists bit for (any, key)          — Exists / DoesNotExist selectors
+
+Selector labels consume exactly one bit each (their own kv or exists
+bit), so subset-testing is exact.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, Iterable, List, Tuple
+
+import numpy as np
+
+from .label import Label, LabelArray
+
+_ANY = "any"
+
+# (kind, source, key, value); kind ∈ {"kv", "exists"}
+_BitKey = Tuple[str, str, str, str]
+
+
+class LabelVocab:
+    """Grow-only label→bit interner.
+
+    ``version`` increments whenever a new bit is allocated; consumers
+    (the policy compiler) use it to know when identity bitmaps must be
+    re-packed. Thread-safe: the daemon's watchers intern concurrently.
+    """
+
+    def __init__(self) -> None:
+        self._bits: Dict[_BitKey, int] = {}
+        self._lock = threading.Lock()
+        self.version = 0
+
+    def __len__(self) -> int:
+        return len(self._bits)
+
+    @property
+    def num_words(self) -> int:
+        """uint32 words needed for a full bitmap (≥1, padded)."""
+        return max(1, (len(self._bits) + 31) // 32)
+
+    def _intern(self, key: _BitKey) -> int:
+        bit = self._bits.get(key)
+        if bit is None:
+            with self._lock:
+                bit = self._bits.get(key)
+                if bit is None:
+                    bit = len(self._bits)
+                    self._bits[key] = bit
+                    self.version += 1
+        return bit
+
+    # -- selector side ----------------------------------------------------
+    def kv_bit(self, label: Label) -> int:
+        return self._intern(("kv", label.source, label.key, label.value))
+
+    def exists_bit(self, source: str, key: str) -> int:
+        return self._intern(("exists", source, key, ""))
+
+    # -- identity side ----------------------------------------------------
+    def identity_bits(self, labels: LabelArray) -> List[int]:
+        """All bits set for an identity carrying ``labels``."""
+        bits = []
+        for l in labels:
+            bits.append(self._intern(("kv", l.source, l.key, l.value)))
+            bits.append(self._intern(("exists", l.source, l.key, "")))
+            if l.source != _ANY:
+                bits.append(self._intern(("kv", _ANY, l.key, l.value)))
+                bits.append(self._intern(("exists", _ANY, l.key, "")))
+        return bits
+
+    # -- packing ----------------------------------------------------------
+    def pack(self, bits: Iterable[int], num_words: int | None = None) -> np.ndarray:
+        """Pack bit positions into a uint32 word vector."""
+        nw = num_words if num_words is not None else self.num_words
+        out = np.zeros(nw, dtype=np.uint32)
+        for b in bits:
+            out[b // 32] |= np.uint32(1) << np.uint32(b % 32)
+        return out
+
+    def pack_identity(self, labels: LabelArray, num_words: int | None = None) -> np.ndarray:
+        return self.pack(self.identity_bits(labels), num_words)

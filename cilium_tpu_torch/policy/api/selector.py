@@ -1,0 +1,187 @@
+"""Endpoint selectors.
+
+Reference: pkg/policy/api/selector.go — EndpointSelector wraps a k8s
+LabelSelector (matchLabels + matchExpressions with In/NotIn/Exists/
+DoesNotExist), with label keys optionally carrying a ``source:`` prefix
+(default wildcard source ``any``).
+
+TPU-first compilation contract: a selector lowers to a small list of
+*conjuncts* ``(require_bits, forbid_bits)`` over the LabelVocab such that
+
+    sel.matches(id) == any(id ⊇ require and id ∩ forbid = ∅ for conjunct)
+
+- matchLabels / In(v)    → require kv-bit(s); multi-value In expands the
+                           conjunct list (cross product, OR-of-ANDs)
+- Exists                 → require exists-bit
+- NotIn(vs)              → forbid kv-bit per value (k8s semantics: match
+                           when key absent or value not listed)
+- DoesNotExist           → forbid exists-bit
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
+
+from ...labels import Label, LabelArray, LabelVocab, parse_label
+
+_DEFAULT_SELECTOR_SOURCE = "any"
+
+IN = "In"
+NOT_IN = "NotIn"
+EXISTS = "Exists"
+DOES_NOT_EXIST = "DoesNotExist"
+_OPERATORS = (IN, NOT_IN, EXISTS, DOES_NOT_EXIST)
+
+
+def _parse_selector_label(text: str, value: str = "") -> Label:
+    lbl = parse_label(text if not value else f"{text}={value}")
+    if lbl.source == "unspec":
+        lbl = Label(source=_DEFAULT_SELECTOR_SOURCE, key=lbl.key, value=lbl.value)
+    return lbl
+
+
+@dataclasses.dataclass(frozen=True)
+class MatchExpression:
+    key: str
+    operator: str
+    values: Tuple[str, ...] = ()
+
+    def __post_init__(self):
+        if self.operator not in _OPERATORS:
+            raise ValueError(f"invalid selector operator {self.operator!r}")
+        if self.operator in (EXISTS, DOES_NOT_EXIST) and self.values:
+            raise ValueError(f"{self.operator} takes no values")
+        if self.operator in (IN, NOT_IN) and not self.values:
+            raise ValueError(f"{self.operator} requires values")
+
+
+@dataclasses.dataclass(frozen=True)
+class EndpointSelector:
+    """Immutable selector. ``match_labels`` maps (possibly source-
+    prefixed) keys to values; empty selector selects everything
+    (wildcard, like the reference's NewWildcardEndpointSelector)."""
+
+    match_labels: Tuple[Tuple[str, str], ...] = ()
+    match_expressions: Tuple[MatchExpression, ...] = ()
+
+    @classmethod
+    def make(
+        cls,
+        match_labels: Union[Dict[str, str], Sequence[str], None] = None,
+        match_expressions: Iterable[MatchExpression] = (),
+    ) -> "EndpointSelector":
+        if match_labels is None:
+            pairs: Tuple[Tuple[str, str], ...] = ()
+        elif isinstance(match_labels, dict):
+            pairs = tuple(sorted(match_labels.items()))
+        else:  # sequence of "key=value" strings
+            parsed = [parse_label(s) for s in match_labels]
+            pairs = tuple(sorted((f"{l.source}:{l.key}" if l.source != "unspec" else l.key, l.value) for l in parsed))
+        return cls(pairs, tuple(match_expressions))
+
+    @classmethod
+    def wildcard(cls) -> "EndpointSelector":
+        return cls()
+
+    @property
+    def is_wildcard(self) -> bool:
+        return not self.match_labels and not self.match_expressions
+
+    def has_key(self, key: str) -> bool:
+        """True if the selector matches on ``key`` (selector.go HasKey):
+        either a matchLabels entry or any matchExpression keyed on it."""
+        return any(k == key for k, _ in self.match_labels) or any(
+            e.key == key for e in self.match_expressions
+        )
+
+    def has_key_prefix(self, prefix: str) -> bool:
+        """True if any match key starts with ``prefix`` (HasKeyPrefix)."""
+        return any(k.startswith(prefix) for k, _ in self.match_labels) or any(
+            e.key.startswith(prefix) for e in self.match_expressions
+        )
+
+    def get_match(self, key: str) -> Optional[str]:
+        """Value matched for ``key`` in matchLabels, else None (GetMatch)."""
+        for k, v in self.match_labels:
+            if k == key:
+                return v
+        return None
+
+    def with_match(self, key: str, value: str) -> "EndpointSelector":
+        """New selector with ``key=value`` added to matchLabels
+        (selector.go AddMatch; immutable here)."""
+        if self.get_match(key) == value:
+            return self
+        pairs = tuple(sorted(dict(self.match_labels, **{key: value}).items()))
+        return EndpointSelector(pairs, self.match_expressions)
+
+    def with_expression(self, expr: MatchExpression) -> "EndpointSelector":
+        if expr in self.match_expressions:
+            return self
+        return EndpointSelector(self.match_labels, self.match_expressions + (expr,))
+
+    # -- host-side evaluation (the oracle path) -------------------------
+    def matches(self, labels: LabelArray) -> bool:
+        for key, value in self.match_labels:
+            if not labels.has(_parse_selector_label(key, value)):
+                return False
+        for expr in self.match_expressions:
+            probe = _parse_selector_label(expr.key)
+            has_key = any(
+                l.key == probe.key and (probe.source == "any" or probe.source == l.source)
+                for l in labels
+            )
+            if expr.operator == EXISTS:
+                if not has_key:
+                    return False
+            elif expr.operator == DOES_NOT_EXIST:
+                if has_key:
+                    return False
+            elif expr.operator == IN:
+                if not any(labels.has(_parse_selector_label(expr.key, v)) for v in expr.values):
+                    return False
+            elif expr.operator == NOT_IN:
+                if any(labels.has(_parse_selector_label(expr.key, v)) for v in expr.values):
+                    return False
+        return True
+
+    # -- device-side lowering -------------------------------------------
+    def conjuncts(self, vocab: LabelVocab) -> List[Tuple[List[int], List[int]]]:
+        """Lower to [(require_bits, forbid_bits), ...] (OR over entries)."""
+        require: List[int] = []
+        forbid: List[int] = []
+        or_groups: List[List[int]] = []
+        for key, value in self.match_labels:
+            require.append(vocab.kv_bit(_parse_selector_label(key, value)))
+        for expr in self.match_expressions:
+            probe = _parse_selector_label(expr.key)
+            if expr.operator == EXISTS:
+                require.append(vocab.exists_bit(probe.source, probe.key))
+            elif expr.operator == DOES_NOT_EXIST:
+                forbid.append(vocab.exists_bit(probe.source, probe.key))
+            elif expr.operator == IN:
+                or_groups.append(
+                    [vocab.kv_bit(_parse_selector_label(expr.key, v)) for v in expr.values]
+                )
+            elif expr.operator == NOT_IN:
+                forbid.extend(
+                    vocab.kv_bit(_parse_selector_label(expr.key, v)) for v in expr.values
+                )
+        if not or_groups:
+            return [(require, forbid)]
+        out = []
+        for combo in itertools.product(*or_groups):
+            out.append((require + list(combo), list(forbid)))
+        return out
+
+    def __str__(self) -> str:
+        parts = [f"{k}={v}" if v else k for k, v in self.match_labels]
+        parts += [f"{e.key} {e.operator} {list(e.values)}" for e in self.match_expressions]
+        return "Selector(" + ", ".join(parts) + ")" if parts else "Selector(*)"
+
+
+def selector_from_labels(*label_strings: str) -> EndpointSelector:
+    """Convenience: selector requiring every given ``source:key=value``."""
+    return EndpointSelector.make(list(label_strings))

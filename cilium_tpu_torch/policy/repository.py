@@ -1,0 +1,467 @@
+"""The policy repository: ordered rules + revision + verdict evaluation.
+
+Reference: pkg/policy/repository.go and pkg/policy/rule.go. This module
+is the *host-side oracle*: the scalar, trace-producing evaluator whose
+semantics the TPU compiler (cilium_tpu_torch.compiler) must reproduce
+bit-for-bit. Differential tests assert oracle == device engine.
+
+Verdict semantics preserved (v1.2 is allow-only):
+
+- ``can_reach_ingress`` (repository.go:80, rule.go:323): walk rules in
+  order; a rule whose selector matches dst with an unsatisfied
+  FromRequires → DENIED (stop); a matching FromEndpoints/entity/CIDR
+  selector with no ToPorts → ALLOWED; with ToPorts → stay UNDECIDED
+  (defer to L4).
+- ``allows_ingress`` (repository.go:392): L3 ALLOWED short-circuits;
+  otherwise, when dports are given, resolve the L4 policy (with
+  FromRequires folded into every FromEndpoints selector,
+  repository.go:249-261) and require it to cover the context; anything
+  not ALLOWED becomes DENIED.
+- L4 resolution merges PortRules per "port/proto" with wildcarding of
+  L7 rules by broader L3/L4-only allows (repository.go wildcardL3L4Rules).
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Iterable, List, Optional, Sequence, Tuple
+
+from ..labels import LabelArray
+from .api import (
+    EgressRule,
+    EndpointSelector,
+    IngressRule,
+    MatchExpression,
+    PortProtocol,
+    Rule,
+    IN,
+)
+from .cidr import CIDRPolicy, cidr_selectors, compute_resultant_cidr_set
+from .l4 import L4Policy, L4PolicyMap, create_l4_filter
+from .search import Decision, SearchContext
+
+
+def _with_requirements(
+    sel: EndpointSelector, requirements: Tuple[MatchExpression, ...]
+) -> EndpointSelector:
+    if not requirements:
+        return sel
+    return EndpointSelector(
+        match_labels=sel.match_labels,
+        match_expressions=sel.match_expressions + requirements,
+    )
+
+
+def _requirement_expressions(selectors: Iterable[EndpointSelector]) -> Tuple[MatchExpression, ...]:
+    """Flatten FromRequires selectors into matchExpressions that can be
+    ANDed onto peer selectors (repository.go:249-261 converts each
+    requirement via ConvertToLabelSelectorRequirementSlice)."""
+    exprs: List[MatchExpression] = []
+    for sel in selectors:
+        for key, value in sel.match_labels:
+            exprs.append(MatchExpression(key=key, operator=IN, values=(value,)))
+        exprs.extend(sel.match_expressions)
+    return tuple(exprs)
+
+
+def _ingress_peer_selectors(r: IngressRule) -> List[EndpointSelector]:
+    """GetSourceEndpointSelectors (api/ingress.go:111): endpoints +
+    entities + CIDR-derived label selectors."""
+    sels = list(r.peer_selectors())
+    sels.extend(cidr_selectors(r.from_cidr, r.from_cidr_set))
+    return sels
+
+
+def _egress_peer_selectors(r: EgressRule) -> List[EndpointSelector]:
+    sels = list(r.peer_selectors())
+    sels.extend(cidr_selectors(r.to_cidr, r.to_cidr_set))
+    return sels
+
+
+def _is_label_based_ingress(r: IngressRule) -> bool:
+    return not (r.from_cidr or r.from_cidr_set)
+
+
+def _is_label_based_egress(r: EgressRule) -> bool:
+    return not (r.to_cidr or r.to_cidr_set or r.to_services or r.to_fqdns)
+
+
+class Repository:
+    """Ordered rule list with a monotonic revision counter."""
+
+    # Change-log ring: compilers consult changes_since(rev) to apply a
+    # pure-append delta instead of a full recompile (the incremental
+    # half of the reference's per-revision regeneration protocol,
+    # pkg/endpoint/policy.go:506-552).
+    LOG_CAP = 256
+
+    def __init__(self) -> None:
+        self._lock = threading.RLock()
+        self.rules: List[Rule] = []
+        self._revision = 1
+        self._log: List[Tuple[int, str, tuple]] = []
+
+    # ------------------------------------------------------------------
+    @property
+    def revision(self) -> int:
+        return self._revision
+
+    def _bump(self) -> int:
+        self._revision += 1
+        return self._revision
+
+    def _log_op(self, op: str, payload: tuple) -> None:
+        self._log.append((self._revision, op, payload))
+        if len(self._log) > self.LOG_CAP:
+            del self._log[: len(self._log) - self.LOG_CAP]
+
+    def changes_since(self, revision: int):
+        """Ops with revision > ``revision``, oldest first — or None when
+        the log no longer reaches back that far (caller must do a full
+        rebuild)."""
+        with self._lock:
+            if revision >= self._revision:
+                return []
+            # Every revision in the gap must be accounted for by a log
+            # entry — out-of-band bumps or a truncated ring mean the
+            # caller can't know what changed.
+            covered = {rev for rev, _, _ in self._log}
+            if not all(r in covered for r in range(revision + 1, self._revision + 1)):
+                return None
+            return [e for e in self._log if e[0] > revision]
+
+    def add_list(self, rules: Sequence[Rule]) -> int:
+        """Sanitize + append (repository.go AddListLocked:521)."""
+        for r in rules:
+            r.sanitize()
+        with self._lock:
+            self.rules.extend(rules)
+            rev = self._bump()
+            self._log_op("add", tuple(rules))
+            return rev
+
+    def delete_by_labels(self, labels: LabelArray) -> Tuple[int, int]:
+        """Remove rules carrying every given label; returns (revision,
+        n_deleted) (repository.go DeleteByLabels:286)."""
+        rev, deleted = self.take_by_labels(labels)
+        return rev, len(deleted)
+
+    def _take_locked(self, labels: LabelArray) -> List[Rule]:
+        """Remove + return every rule carrying all ``labels`` (caller
+        holds the lock). Logs the delete op with the removed Rule
+        objects themselves: incremental compilers retract exactly
+        these (their cell attribution is keyed by object identity)."""
+        kept: List[Rule] = []
+        deleted: List[Rule] = []
+        for r in self.rules:
+            if len(labels) and all(r.labels.has(l) for l in labels):
+                deleted.append(r)
+            else:
+                kept.append(r)
+        self.rules = kept
+        if deleted:
+            self._bump()
+            self._log_op("delete", (labels, tuple(deleted)))
+        return deleted
+
+    def take_by_labels(self, labels: LabelArray) -> Tuple[int, List[Rule]]:
+        """delete_by_labels returning the removed rules themselves —
+        callers tracking derived state (prefix-length counter) need
+        the exact rule set removed under THIS lock hold, not a
+        separately computed snapshot that can race a concurrent add."""
+        with self._lock:
+            deleted = self._take_locked(labels)
+            return self._revision, deleted
+
+    def replace_by_labels(
+        self, labels: LabelArray, rules: Sequence[Rule]
+    ) -> Tuple[int, int]:
+        """Atomically swap every rule carrying ``labels`` for
+        ``rules`` under ONE lock hold — no window where the object has
+        no rules (the upsert the k8s watcher needs for MODIFIED
+        events; reference: repository replace-by-labels on re-import).
+        Returns (revision, n_deleted). Logged as a delete op + an add
+        op at consecutive revisions so incremental compilers retract
+        then append without a full rebuild."""
+        for r in rules:
+            r.sanitize()
+        with self._lock:
+            deleted = self._take_locked(labels)
+            self.rules = self.rules + list(rules)
+            if rules:
+                self._bump()
+                self._log_op("add", tuple(rules))
+            return self._revision, len(deleted)
+
+    def translate_rules(self, translator) -> Tuple[int, int]:
+        """Run a rule translator (e.g. k8s ToServices→ToCIDR,
+        pkg/policy.Translator / repository.go TranslateRules) over every
+        rule. The translator's ``translate(rule) -> Rule`` must be pure;
+        changed rules are swapped in place. Returns (revision,
+        n_changed). Logged as a non-append op so incremental compilers
+        fall back to a full rebuild."""
+        with self._lock:
+            changed = 0
+            for i, r in enumerate(self.rules):
+                nr = translator.translate(r)
+                if nr is not r and nr != r:
+                    nr.sanitize()
+                    self.rules[i] = nr
+                    changed += 1
+            if changed:
+                self._bump()
+                self._log_op("translate", (changed,))
+            return self._revision, changed
+
+    def get_rules_matching(self, labels: LabelArray) -> Tuple[List[Rule], bool]:
+        """(rules selecting `labels`, any-match) — used for the
+        enforcement pre-check (daemon/policy.go:85-93)."""
+        with self._lock:
+            matched = [r for r in self.rules if r.endpoint_selector.matches(labels)]
+        return matched, bool(matched)
+
+    def rule_origins(self) -> List[dict]:
+        """Stable rule-origin table for verdict attribution
+        (policyd-flows): one entry per rule IN REPOSITORY ORDER, so a
+        matched-rule index from the device kernel maps back to the rule
+        a human can recognize. The index is only stable for a fixed
+        (revision) — consumers pair it with ``revision`` and re-fetch
+        when the repository moves."""
+        with self._lock:
+            return [
+                {
+                    "index": i,
+                    "labels": list(r.labels.to_strings()),
+                    "description": getattr(r, "description", "") or "",
+                }
+                for i, r in enumerate(self.rules)
+            ]
+
+    def origin_names(self) -> List[str]:
+        """Compact per-rule origin strings (metrics label values for
+        ``rule_hits_total{origin=...}``): the rule's first label, else
+        its description, else ``rule-<index>``."""
+        with self._lock:
+            out = []
+            for i, r in enumerate(self.rules):
+                labels = list(r.labels.to_strings())
+                desc = getattr(r, "description", "") or ""
+                out.append(labels[0] if labels else (desc or f"rule-{i}"))
+            return out
+
+    def __len__(self) -> int:
+        return len(self.rules)
+
+    # -- L3 label verdicts ---------------------------------------------
+    def _rule_can_reach(self, r: Rule, ctx: SearchContext, ingress: bool) -> Decision:
+        """Per-rule L3 decision (rule.go canReachIngress:323 /
+        canReachEgress:370). Caller has already checked the rule selects
+        the subject. FromRequires failure takes precedence over allows."""
+        peer = ctx.src if ingress else ctx.dst
+        directional = r.ingress if ingress else r.egress
+        for dr in directional:
+            for sel in dr.from_requires if ingress else dr.to_requires:
+                ctx.policy_trace("    Requires %s labels %s", "from" if ingress else "to", sel)
+                if not sel.matches(peer):
+                    ctx.policy_trace("-     Labels %s not found\n", peer)
+                    return Decision.DENIED
+                ctx.policy_trace("+     Found all required labels\n")
+        for dr in directional:
+            sels = _ingress_peer_selectors(dr) if ingress else _egress_peer_selectors(dr)
+            for sel in sels:
+                ctx.policy_trace("    Allows %s labels %s", "from" if ingress else "to", sel)
+                if sel.matches(peer):
+                    ctx.policy_trace("      Found all required labels")
+                    if not dr.to_ports:
+                        ctx.policy_trace("+       No L4 restrictions\n")
+                        return Decision.ALLOWED
+                    ctx.policy_trace(
+                        "        Rule restricts traffic to specific L4 destinations; "
+                        "deferring policy decision to L4 policy stage\n"
+                    )
+                else:
+                    ctx.policy_trace("      Labels %s not found\n", peer)
+        return Decision.UNDECIDED
+
+    def _can_reach(self, ctx: SearchContext, ingress: bool) -> Decision:
+        """Walk rules in order: DENIED stops the walk; ALLOWED is
+        remembered but later rules may still deny (repository.go:84-103)."""
+        decision = Decision.UNDECIDED
+        subject = ctx.dst if ingress else ctx.src
+        selected = 0
+        for r in self.rules:
+            if not r.endpoint_selector.matches(subject):
+                ctx.policy_trace_verbose("  Rule %s: did not select %s\n", r.description or "", subject)
+                continue
+            selected += 1
+            ctx.policy_trace("* Rule %s: selected\n", r.description or str(r.endpoint_selector))
+            verdict = self._rule_can_reach(r, ctx, ingress)
+            if verdict == Decision.DENIED:
+                decision = Decision.DENIED
+                break
+            if verdict == Decision.ALLOWED:
+                decision = Decision.ALLOWED
+        ctx.policy_trace("%d/%d rules selected\n", selected, len(self.rules))
+        if decision == Decision.DENIED:
+            ctx.policy_trace("Found unsatisfied FromRequires constraint\n")
+        elif decision == Decision.ALLOWED:
+            ctx.policy_trace("Found allow rule\n")
+        else:
+            ctx.policy_trace("Found no allow rule\n")
+        return decision
+
+    def can_reach_ingress(self, ctx: SearchContext) -> Decision:
+        with self._lock:
+            return self._can_reach(ctx, ingress=True)
+
+    def can_reach_egress(self, ctx: SearchContext) -> Decision:
+        with self._lock:
+            return self._can_reach(ctx, ingress=False)
+
+    # -- L4 resolution --------------------------------------------------
+    def _collect_requirements(self, subject: LabelArray, ingress: bool) -> Tuple[MatchExpression, ...]:
+        reqs: List[EndpointSelector] = []
+        for r in self.rules:
+            if not r.endpoint_selector.matches(subject):
+                continue
+            for dr in r.ingress if ingress else r.egress:
+                reqs.extend(dr.from_requires if ingress else dr.to_requires)
+        return _requirement_expressions(reqs)
+
+    def _resolve_l4(self, ctx: SearchContext, ingress: bool) -> L4PolicyMap:
+        subject = ctx.dst if ingress else ctx.src
+        peer = ctx.src if ingress else ctx.dst
+        requirements = self._collect_requirements(subject, ingress)
+        result = L4PolicyMap()
+        for r in self.rules:
+            if not r.endpoint_selector.matches(subject):
+                continue
+            for dr in r.ingress if ingress else r.egress:
+                if not dr.to_ports:
+                    continue
+                # Requirements fold into the explicit peer selectors only
+                # (rule.go:198-232 modifies FromEndpoints, not entities/CIDRs).
+                explicit_raw = dr.from_endpoints if ingress else dr.to_endpoints
+                explicit = tuple(_with_requirements(s, requirements) for s in explicit_raw)
+                entity_sels = dr.peer_selectors()[len(explicit_raw):]
+                cidr_sels = (
+                    cidr_selectors(dr.from_cidr, dr.from_cidr_set)
+                    if ingress
+                    else cidr_selectors(dr.to_cidr, dr.to_cidr_set)
+                )
+                peer_sels = list(explicit) + list(entity_sels) + list(cidr_sels)
+                # mergeL4Ingress pre-check (rule.go:133-138): when the
+                # context names a concrete peer, skip rules whose peers
+                # can't match it.
+                if len(peer) and peer_sels and not any(s.matches(peer) for s in peer_sels):
+                    continue
+                for pr in dr.to_ports:
+                    for pp in pr.ports:
+                        protos = ("TCP", "UDP") if pp.proto == "ANY" else (pp.proto,)
+                        for proto in protos:
+                            result.merge(
+                                create_l4_filter(
+                                    peer_sels, pr.rules, pp.port, proto, r.labels, ingress
+                                )
+                            )
+        self._wildcard_l3l4(subject, ingress, result)
+        return result
+
+    def _wildcard_l3l4(self, subject: LabelArray, ingress: bool, l4map: L4PolicyMap) -> None:
+        """wildcardL3L4Rules (repository.go:168): label-based L3-only and
+        L3/L4-only allows wildcard L7 restrictions on matching ports."""
+        for r in self.rules:
+            if not r.endpoint_selector.matches(subject):
+                continue
+            for dr in r.ingress if ingress else r.egress:
+                if not (_is_label_based_ingress(dr) if ingress else _is_label_based_egress(dr)):
+                    continue
+                peer_sels = list(dr.peer_selectors())
+                if not dr.to_ports:
+                    l4map.wildcard_l3l4("TCP", 0, peer_sels, r.labels)
+                    l4map.wildcard_l3l4("UDP", 0, peer_sels, r.labels)
+                else:
+                    for pr in dr.to_ports:
+                        if pr.rules:
+                            continue
+                        for pp in pr.ports:
+                            protos = ("TCP", "UDP") if pp.proto == "ANY" else (pp.proto,)
+                            for proto in protos:
+                                l4map.wildcard_l3l4(proto, pp.port, peer_sels, r.labels)
+
+    def resolve_l4_ingress_policy(self, ctx: SearchContext) -> L4PolicyMap:
+        ctx.policy_trace("\nResolving ingress port policy for %s\n", ctx.dst)
+        with self._lock:
+            return self._resolve_l4(ctx, ingress=True)
+
+    def resolve_l4_egress_policy(self, ctx: SearchContext) -> L4PolicyMap:
+        ctx.policy_trace("\nResolving egress port policy for %s\n", ctx.src)
+        with self._lock:
+            return self._resolve_l4(ctx, ingress=False)
+
+    def resolve_l4_policy(self, ep_labels: LabelArray) -> L4Policy:
+        """Full L4 policy for an endpoint (both directions, no peer
+        filter) — the DesiredL4Policy input to endpoint regeneration."""
+        with self._lock:
+            pol = L4Policy(revision=self._revision)
+            pol.ingress = self._resolve_l4(SearchContext(dst=ep_labels), ingress=True)
+            pol.egress = self._resolve_l4(SearchContext(src=ep_labels), ingress=False)
+            return pol
+
+    # -- CIDR resolution ------------------------------------------------
+    def resolve_cidr_policy(self, ep_labels: LabelArray) -> CIDRPolicy:
+        """ResolveCIDRPolicy (repository.go:335, rule.go:267). Ingress
+        counts only L3 CIDR rules; egress counts CIDR+L4 too (for
+        ipcache prefix-length bookkeeping, rule.go:295-309)."""
+        result = CIDRPolicy()
+        with self._lock:
+            rules = list(self.rules)
+        for r in rules:
+            if not r.endpoint_selector.matches(ep_labels):
+                continue
+            for ing in r.ingress:
+                if ing.to_ports:
+                    continue  # ingress counts only L3-only CIDR rules
+                for c in list(ing.from_cidr) + compute_resultant_cidr_set(ing.from_cidr_set):
+                    result.ingress.insert(c, r.labels)
+            for eg in r.egress:
+                for c in list(eg.to_cidr) + compute_resultant_cidr_set(eg.to_cidr_set):
+                    result.egress.insert(c, r.labels)
+        return result
+
+    # -- full verdicts (the `policy trace` semantics) -------------------
+    def _allows(self, ctx: SearchContext, ingress: bool) -> Decision:
+        # One lock span for the whole verdict: L3 + L4 must see a single
+        # rule-list snapshot (reference holds Repository.Mutex across
+        # AllowsIngressRLocked).
+        self._lock.acquire()
+        try:
+            return self._allows_locked(ctx, ingress)
+        finally:
+            self._lock.release()
+
+    def _allows_locked(self, ctx: SearchContext, ingress: bool) -> Decision:
+        ctx.policy_trace("Tracing %s\n", ctx)
+        decision = self._can_reach(ctx, ingress)
+        ctx.policy_trace("%s verdict: %s", "Label" if ingress else "Egress label", decision)
+        if decision == Decision.ALLOWED:
+            ctx.policy_trace("L4 %s policies skipped", "ingress" if ingress else "egress")
+            return decision
+        if ctx.dports:
+            l4map = (
+                self.resolve_l4_ingress_policy(ctx) if ingress else self.resolve_l4_egress_policy(ctx)
+            )
+            peer = ctx.src if ingress else ctx.dst
+            decision = Decision.UNDECIDED
+            if len(l4map) > 0:
+                decision = l4map.covers_context(peer, ctx.dports)
+            ctx.policy_trace("L4 %s verdict: %s", "ingress" if ingress else "egress", decision)
+        if decision != Decision.ALLOWED:
+            decision = Decision.DENIED
+        return decision
+
+    def allows_ingress(self, ctx: SearchContext) -> Decision:
+        return self._allows(ctx, ingress=True)
+
+    def allows_egress(self, ctx: SearchContext) -> Decision:
+        return self._allows(ctx, ingress=False)
