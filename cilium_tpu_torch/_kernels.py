@@ -162,6 +162,17 @@ KERNELS: Dict[str, Kernel] = {
         Kernel("policymap_verdict", "cilium_policymap_verdict",
                [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                 _P, _I, _L]),
+        # child, info, m, common, k, addr, stride, levels, out, b
+        Kernel("lpm_stride8", "cilium_lpm_stride8",
+               [_P, _P, _I, _P, _I, _P, _I, _I, _P, _L]),
+        # mask, rule_of, s, b, out
+        Kernel("first_rule", "cilium_first_rule", [_P, _P, _I, _L, _P]),
+        # id_bits, n, words, col_ep, col_port, col_proto, col_is_l3, c,
+        # rule_tab, src_rows, ep_idx, dport, proto, denied_pf, verdict,
+        # redirect, rule, l4_covered, counters, ep_count, hits, n_hits, b
+        Kernel("policymap_verdict_attrib", "cilium_policymap_verdict_attrib",
+               [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                _P, _P, _P, _P, _I, _P, _I, _L]),
     )
 }
 

@@ -100,3 +100,23 @@ def wide_tables_from_numpy(
         world_row=int(world_row),
         policymap=policymap,
     )
+
+
+def v6_tables_from_numpy(
+    tries: Sequence[np.ndarray], world_row: int, policymap: PolicymapTables, *, device
+):
+    """The nine v6 elided-trie arrays (deny, identity, merged; each
+    child, info, common) + the world row + a policymap →
+    ``DatapathTables``."""
+    from .datapath.pipeline import DatapathTables
+
+    if len(tries) != 9:
+        raise ValueError(f"expected 9 trie arrays, got {len(tries)}")
+    t = [_tensor(np.asarray(a, np.int32), device) for a in tries]
+    return DatapathTables(
+        pf_child=t[0], pf_info=t[1], pf_common=t[2],
+        ip_child=t[3], ip_info=t[4], ip_common=t[5],
+        merged_child=t[6], merged_info=t[7], merged_common=t[8],
+        world_row=int(world_row),
+        policymap=policymap,
+    )

@@ -1,4 +1,4 @@
-"""Batched IPv4 flow pipeline: prefilter → identity → policymap verdict.
+"""Batched flow pipeline: prefilter → identity → policymap verdict.
 
 Mirrors the per-packet path of the reference, hoisted to batches:
 
@@ -6,19 +6,25 @@ Mirrors the per-packet path of the reference, hoisted to batches:
     bpf_netdev.c secctx from ipcache  → identity-trie LPM (world if miss)
     bpf_lxc.c tail_ipv4_policy (:931) → ingress policymap lookup
     bpf_lxc.c policy_can_egress4(:505)→ egress policymap lookup
+    bpf_lxc.c tail_ipv6_* (:848)      → the same over IPv6
 
 plus per-endpoint forwarded/dropped counters (the metricsmap role,
 pkg/maps/metricsmap). Both traffic directions are materialized.
 
-One batch runs :func:`process_flows_wide`: one or two ``lpm_wide``
+An IPv4 batch runs :func:`process_flows_wide`: one or two ``lpm_wide``
 kernel launches (the fused deny+identity walk, or the identity walk
 plus the deny walk when the prefilter is live and the tries cannot
 merge) and one ``policymap_verdict`` launch that also applies the
-prefilter override and accumulates the counters.
+prefilter override and accumulates the counters. An IPv6 batch runs
+:func:`process_flows`: the same over the elided stride-8 tries, one or
+two ``lpm_stride8`` launches. With verdict attribution on
+(:meth:`DatapathPipeline.set_attribution`) the policymap launch is the
+kernel's attribution entry, which also returns each flow's deciding
+rule, its L4 coverage and the rule-hit counts.
 
-This port covers the synchronous IPv4 path only; conntrack, load
-balancing, IPv6, overlay identities, async submission, shedding,
-failsafe, tracing and multi-device placement are not ported yet.
+This port covers the synchronous path only; conntrack, load
+balancing, overlay identities, async submission, shedding, failsafe,
+tracing, the flow ring and multi-device placement are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,18 +37,48 @@ import numpy as np
 import torch
 
 from .. import _kernels
-from ..convert import wide_tables_from_numpy
+from .. import metrics as _metrics
+from ..convert import v6_tables_from_numpy, wide_tables_from_numpy
 from ..engine import PolicyEngine
 from ..identity.model import ID_WORLD
 from ..ipcache.ipcache import IPCache
 from ..ipcache.prefilter import PreFilter
 from ..ops.lookup import PolicymapTables, policymap_verdict
-from ..ops.lpm import DENY_BIT, MERGED_VALUE_MASK, build_wide_trie, lpm_lookup_wide, merge_flat_tries
+from ..ops.lpm import (
+    DENY_BIT, MERGED_VALUE_MASK, build_trie_elided, build_wide_trie, elided_lookup,
+    lpm_lookup_wide, merge_flat_tries, merge_trie_entries,
+)
 from ..ops.materialize import TRAFFIC_EGRESS, TRAFFIC_INGRESS, materialize_endpoints_state
 
 FORWARD = 1
 DROP_POLICY = 2
 DROP_PREFILTER = 3
+DROP_NO_SERVICE = 4
+DROP_DEGRADED = 5
+
+
+@dataclasses.dataclass(frozen=True)
+class DatapathTables:
+    """IPv6 device state for one traffic direction over the elided
+    stride-8 tries (ops/lpm.py build_trie_elided). Trie tensors are
+    shared between the two directions' instances. ``*_common`` carry
+    each trie's elided shared prefix bytes ([K] int32, [0] = no
+    elision). ``merged_*`` carry the fused deny+identity trie (one
+    walk, both answers — ops/lpm.py merge_trie_entries); its presence
+    is the pipeline's ``fused`` flag, a [1, 256] placeholder
+    otherwise."""
+
+    pf_child: torch.Tensor  # [M, 256] int32
+    pf_info: torch.Tensor
+    pf_common: torch.Tensor  # [K] int32
+    ip_child: torch.Tensor
+    ip_info: torch.Tensor
+    ip_common: torch.Tensor
+    merged_child: torch.Tensor
+    merged_info: torch.Tensor
+    merged_common: torch.Tensor
+    world_row: int
+    policymap: PolicymapTables
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +103,33 @@ class WideDatapathTables:
     merged_sub_info: torch.Tensor  # [M, 65536] or [1, 1]
     world_row: int
     policymap: PolicymapTables
+
+
+# the reference's _elided_lpm (datapath/pipeline.py:171): the K-byte
+# compare and the walk of the remaining levels are one lpm_stride8 launch
+_elided_lpm = elided_lookup
+
+
+def _v6_lpm_stage(
+    t: DatapathTables, peer_bytes: torch.Tensor, levels: int, prefilter: bool, fused: bool
+) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """→ (denied_pf [B] bool or None when the deny stage is off,
+    identity hit [B] int32 value+1) — the v6 twin of _v4_lpm_stage:
+    with the fused trie present and the deny stage active, ONE elided
+    stride-8 walk answers both questions; ``fused`` is a flag because
+    the stride-8 shapes cannot tell presence the way the flat layout's
+    65536 width can."""
+    if prefilter and fused:
+        raw = _elided_lpm(t.merged_child, t.merged_info, t.merged_common, peer_bytes, levels)
+        # the fused trie stores packed+1: unpack with the -1 first
+        # (v4's flat merge stores the packed value as is)
+        packed = torch.where(raw > 0, raw - 1, 0)
+        return (packed & int(DENY_BIT)) != 0, packed & int(MERGED_VALUE_MASK)
+    denied_pf = None
+    if prefilter:
+        denied_pf = _elided_lpm(t.pf_child, t.pf_info, t.pf_common, peer_bytes, levels) > 0
+    hit = _elided_lpm(t.ip_child, t.ip_info, t.ip_common, peer_bytes, levels)
+    return denied_pf, hit
 
 
 def _v4_lpm_stage(
@@ -107,13 +170,39 @@ def _verdict_tail(
     proto: torch.Tensor,
     ep_count: int,
     block: int,
+    attrib: bool = False,
+    rule_tab: Optional[torch.Tensor] = None,
+    n_rules: int = 0,
 ):
-    """Post-LPM tail: policymap lookup, prefilter override, counters
-    [EP, 3] = (forwarded, dropped_policy, dropped_prefilter)."""
+    """Post-LPM tail shared by both families: policymap lookup,
+    prefilter override, counters [EP, 3] = (forwarded, dropped_policy,
+    dropped_prefilter). ``attrib=True`` appends the attribution: the
+    deciding rule gathered from ``rule_tab`` (-1 = none, and -1 for a
+    prefilter drop, which never reached the policymap), whether an L4
+    column covered the flow, and the [max(n_rules, 1)] rule-hit
+    counts."""
+    if attrib and rule_tab is None:
+        raise ValueError("attribution needs the materializer's rule table")
     return policymap_verdict(
         policymap, peer_row, ep_idx, dport, proto, denied_pf=denied_pf,
-        ep_count=ep_count, block=block,
+        ep_count=ep_count, block=block, rule_tab=rule_tab if attrib else None,
+        n_rules=n_rules,
     )
+
+
+def _peer_rows(
+    denied_pf: Optional[torch.Tensor], hit: torch.Tensor, world_row: int,
+    row_override: Optional[torch.Tensor],
+) -> Tuple[Optional[torch.Tensor], torch.Tensor]:
+    """Identity hit → peer row (world on a miss); ``row_override``
+    rows (>= 0) are trusted over the walk and skip the prefilter."""
+    peer_row = torch.where(hit > 0, hit - 1, world_row).to(torch.int32)
+    if row_override is not None:
+        trusted = row_override >= 0
+        peer_row = torch.where(trusted, row_override, peer_row).to(torch.int32)
+        if denied_pf is not None:
+            denied_pf = denied_pf & ~trusted
+    return denied_pf, peer_row
 
 
 def process_flows_wide(
@@ -126,8 +215,13 @@ def process_flows_wide(
     block: int = 16384,
     prefilter: bool = True,
     row_override: Optional[torch.Tensor] = None,  # [B] int32, -1 = LPM
+    attrib: bool = False,
+    rule_tab: Optional[torch.Tensor] = None,  # [N, C_pad] int32
+    n_rules: int = 0,
 ):
-    """→ (verdict [B] int8, redirect [B] bool, counters [EP, 3] int32).
+    """→ (verdict [B] int8, redirect [B] bool, counters [EP, 3] int32);
+    with ``attrib=True`` also (rule [B] int32, l4_covered [B] bool,
+    hits [max(n_rules, 1)] int32) — see _verdict_tail.
 
     ``peer_u32`` is the remote address of each flow: the source for
     ingress, the destination for egress. ``prefilter`` guards the XDP
@@ -135,14 +229,38 @@ def process_flows_wide(
     over the ipcache walk (the overlay path): flows with a non-negative
     row skip both the identity LPM and the prefilter."""
     denied_pf, hit = _v4_lpm_stage(t, peer_u32, prefilter)
-    peer_row = torch.where(hit > 0, hit - 1, t.world_row).to(torch.int32)
-    if row_override is not None:
-        trusted = row_override >= 0
-        peer_row = torch.where(trusted, row_override, peer_row).to(torch.int32)
-        if denied_pf is not None:
-            denied_pf = denied_pf & ~trusted
+    denied_pf, peer_row = _peer_rows(denied_pf, hit, t.world_row, row_override)
     return _verdict_tail(
-        t.policymap, denied_pf, peer_row, ep_idx, dport, proto, ep_count, block
+        t.policymap, denied_pf, peer_row, ep_idx, dport, proto, ep_count, block,
+        attrib=attrib, rule_tab=rule_tab, n_rules=n_rules,
+    )
+
+
+def process_flows(
+    t: DatapathTables,
+    peer_bytes: torch.Tensor,  # [B, levels] int32 address bytes
+    ep_idx: torch.Tensor,  # [B] int32
+    dport: torch.Tensor,  # [B] int32
+    proto: torch.Tensor,  # [B] int32
+    ep_count: int = 1,
+    block: int = 16384,
+    levels: int = 4,
+    prefilter: bool = True,
+    fused: bool = False,
+    row_override: Optional[torch.Tensor] = None,  # [B] int32, -1 = LPM
+    attrib: bool = False,
+    rule_tab: Optional[torch.Tensor] = None,  # [N, C_pad] int32
+    n_rules: int = 0,
+):
+    """The stride-8 twin of :func:`process_flows_wide` (IPv6 with
+    ``levels=16``): same outputs, same ``prefilter``, ``row_override``
+    and attribution semantics; ``fused`` says the fused deny+identity
+    trie is present."""
+    denied_pf, hit = _v6_lpm_stage(t, peer_bytes, levels, prefilter, fused)
+    denied_pf, peer_row = _peer_rows(denied_pf, hit, t.world_row, row_override)
+    return _verdict_tail(
+        t.policymap, denied_pf, peer_row, ep_idx, dport, proto, ep_count, block,
+        attrib=attrib, rule_tab=rule_tab, n_rules=n_rules,
     )
 
 
@@ -151,6 +269,12 @@ _NO_TRIE = (
     np.zeros(1, np.int32),
     np.zeros((1, 1), np.int32),
     np.zeros((1, 1), np.int32),
+)
+
+_NO_TRIE6 = (
+    np.zeros((1, 256), np.int32),
+    np.zeros((1, 256), np.int32),
+    np.zeros(0, np.int32),
 )
 
 
@@ -175,8 +299,17 @@ class DatapathPipeline:
         self._lock = threading.Lock()
         self._endpoints: list = []  # identity id per endpoint index
         self._basis = None
-        self._tables: Dict[int, WideDatapathTables] = {}
-        self._pf_empty = True
+        # {(direction, family): WideDatapathTables (4) | DatapathTables (6)}
+        self._tables: Dict[Tuple[int, int], object] = {}
+        self._pf_empty = (True, True)  # (v4, v6) deny sets empty
+        self._v6_fused = False
+        # verdict attribution (FlowAttribution): requested flag, the
+        # per-direction rule tables of the last sweep (None = plain
+        # path), the rule count and the metric origin names
+        self._attrib_requested = False
+        self._rule_tabs: Optional[Dict[int, torch.Tensor]] = None
+        self._attrib_n_rules = 0
+        self._attrib_names: list = []
         self.counters = np.zeros((0, 3), np.int64)
 
     def set_endpoints(self, endpoints: Sequence) -> None:
@@ -186,11 +319,54 @@ class DatapathPipeline:
         with self._lock:
             self._endpoints = [int(e[1]) if isinstance(e, tuple) else int(e) for e in endpoints]
 
-    def rebuild(self, force: bool = False) -> Dict[int, WideDatapathTables]:
+    def set_attribution(self, on: bool) -> None:
+        """Toggle per-flow verdict attribution (the FlowAttribution
+        runtime option). Takes effect on the next rebuild, which it
+        forces: the materializer sweep re-runs with the attribution
+        variant to populate the per-(identity row, column) deciding-rule
+        table, and batches switch to the policymap kernel's attribution
+        entry, accounting ``rule_hits_total`` / ``drop_reasons_total``.
+        Off drops the rule table and runs the plain path."""
+        with self._lock:
+            if bool(on) == self._attrib_requested:
+                return
+            self._attrib_requested = bool(on)
+            self._basis = None  # the rule table exists only after a sweep
+
+    def _attrib_origins(self, compiled):
+        """({ingress_bool: AttribTables | None}, n_rules) for this
+        rebuild — all None when attribution is off or a rule mutation
+        raced the (compiled, device) snapshot (the next rebuild heals)."""
+        off = {True: None, False: None}
+        if not self._attrib_requested:
+            return off, 0
+        ai = self.engine.attribution(True, expect_revision=compiled.revision)
+        ae = self.engine.attribution(False, expect_revision=compiled.revision)
+        if ai is None or ae is None:
+            return off, 0
+        return {True: ai[0], False: ae[0]}, ai[1]
+
+    @staticmethod
+    def _build_mats(compiled, device, endpoints, ao, nr):
+        """Both directions' full sweeps from one (compiled, device)
+        snapshot; with origins, the attribution sweeps."""
+        return {
+            TRAFFIC_INGRESS: materialize_endpoints_state(
+                compiled, device, endpoints, ingress=True,
+                attrib_origin=ao[True], n_rules=nr,
+            ),
+            TRAFFIC_EGRESS: materialize_endpoints_state(
+                compiled, device, endpoints, ingress=False,
+                attrib_origin=ao[False], n_rules=nr,
+            ),
+        }
+
+    def rebuild(self, force: bool = False) -> Dict[Tuple[int, int], object]:
         """Bring the device state up to date: both directions' policymap
-        sweeps and the v4 tries, rebuilt in full when the policy, the
-        identities, the ipcache, the prefilter or the endpoint set moved.
-        Returns {direction: WideDatapathTables}."""
+        sweeps and both families' tries, rebuilt in full when the
+        policy, the identities, the ipcache, the prefilter, the endpoint
+        set or the attribution switch moved. Returns
+        {(direction, family): tables}."""
         with self._lock:
             # versions captured before the sources are read: a mutation
             # landing mid-build triggers one more rebuild
@@ -199,29 +375,45 @@ class DatapathPipeline:
             basis = (self.engine.install_gen, trie_versions, tuple(self._endpoints))
             if not force and basis == self._basis:
                 return self._tables
-            mat = {
-                TRAFFIC_INGRESS: materialize_endpoints_state(
-                    compiled, device, self._endpoints, ingress=True
-                ),
-                TRAFFIC_EGRESS: materialize_endpoints_state(
-                    compiled, device, self._endpoints, ingress=False
-                ),
-            }
+            ao, nr = self._attrib_origins(compiled)
+            mat = self._build_mats(compiled, device, self._endpoints, ao, nr)
             _, pf_cidrs = self.prefilter.dump()
-            pf4 = [c for c in pf_cidrs if ":" not in c]
-            pf_empty = not pf4
-            pf_wide = build_wide_trie((c, 0) for c in pf4)
-            ip4_list = [
-                (cidr, row)
-                for cidr, e in self.ipcache.items()
-                if ":" not in cidr
-                and (row := compiled.id_to_row.get(e.identity)) is not None
-            ]
-            ip_wide = build_wide_trie(ip4_list)
+            # empty-set flags first: both families' fusion gates read
+            # them (an empty deny set skips the walk entirely)
+            pf_empty = (
+                not any(":" not in c for c in pf_cidrs),
+                not any(":" in c for c in pf_cidrs),
+            )
+            ip_lists = {4: [], 6: []}
+            for cidr, e in self.ipcache.items():
+                row = compiled.id_to_row.get(e.identity)
+                if row is not None:
+                    ip_lists[6 if ":" in cidr else 4].append((cidr, row))
+
+            # IPv6: stride-8 tries with the shared prefix elided; the
+            # fused deny+identity walk while a v6 deny set is live (it
+            # then covers the deny stage, so no standalone deny trie)
+            pf6_list = [(c, 0) for c in pf_cidrs if ":" in c]
+            ip6 = build_trie_elided(ip_lists[6], ipv6=True)
+            merged6_list = (
+                merge_trie_entries(ip_lists[6], pf6_list, ipv6=True)
+                if not pf_empty[1] else None
+            )
+            if merged6_list is not None:
+                merged6 = build_trie_elided(merged6_list, ipv6=True)
+                pf6 = _NO_TRIE6
+            else:
+                pf6 = build_trie_elided(pf6_list, ipv6=True)
+                merged6 = _NO_TRIE6
+            v6_fused = merged6_list is not None
+
+            # IPv4 rides the wide (dense-16-bit-first) tries
+            pf_wide = build_wide_trie((c, 0) for c in pf_cidrs if ":" not in c)
+            ip_wide = build_wide_trie(ip_lists[4])
             # fused deny+identity walk: built only while the deny stage
             # is live and both layouts are flat; it then covers the deny
             # stage, so the standalone deny trie is not uploaded
-            merged = merge_flat_tries(ip_wide, pf_wide) if not pf_empty else None
+            merged = merge_flat_tries(ip_wide, pf_wide) if not pf_empty[0] else None
             if merged is None:
                 merged = _NO_TRIE
             else:
@@ -229,22 +421,114 @@ class DatapathPipeline:
             world_row = compiled.id_to_row.get(ID_WORLD)
             if world_row is None:
                 raise RuntimeError("reserved:world identity has no device row")
-            # one upload of the tries, shared by both directions
-            ingress_t = wide_tables_from_numpy(
+            # one upload of each family's tries, shared by both directions
+            v4 = wide_tables_from_numpy(
                 (*pf_wide, *ip_wide, *merged), world_row,
                 mat[TRAFFIC_INGRESS].tables, device=self.device,
             )
-            self._tables = {
-                TRAFFIC_INGRESS: ingress_t,
-                TRAFFIC_EGRESS: dataclasses.replace(
-                    ingress_t, policymap=mat[TRAFFIC_EGRESS].tables
-                ),
-            }
+            v6 = v6_tables_from_numpy(
+                (*pf6, *ip6, *merged6), world_row, mat[TRAFFIC_INGRESS].tables,
+                device=self.device,
+            )
+            tables: Dict[Tuple[int, int], object] = {}
+            for direction, m in mat.items():
+                tables[(direction, 4)] = dataclasses.replace(v4, policymap=m.tables)
+                tables[(direction, 6)] = dataclasses.replace(v6, policymap=m.tables)
+            rule_tabs = {d: m.rule_tab for d, m in mat.items()}
+            self._rule_tabs = None if any(r is None for r in rule_tabs.values()) else rule_tabs
+            self._attrib_n_rules = nr if self._rule_tabs is not None else 0
+            self._attrib_names = self.engine.repo.origin_names() if self._rule_tabs else []
+            self._tables = tables
             self._pf_empty = pf_empty
+            self._v6_fused = v6_fused
             self._basis = basis
             if self.counters.shape[0] != len(self._endpoints):
                 self.counters = np.zeros((len(self._endpoints), 3), np.int64)
             return self._tables
+
+    def _account_attribution(
+        self,
+        verdict: np.ndarray,
+        rule: np.ndarray,
+        l4x: np.ndarray,
+        hits: Optional[np.ndarray],
+        *,
+        ingress: bool,
+    ) -> None:
+        """rule_hits_total / drop_reasons_total accounting for one
+        attributed batch, from pulled host arrays. ``hits=None`` means
+        no exact device segment-sum is at hand — fall back to a host
+        bincount over the rule array."""
+        names = self._attrib_names
+        if hits is None:
+            matched = rule[rule >= 0]
+            hits = np.bincount(matched, minlength=len(names))
+        direction = "ingress" if ingress else "egress"
+        for r in np.nonzero(hits)[0]:
+            origin = names[r] if r < len(names) else f"rule-{r}"
+            _metrics.rule_hits_total.inc(
+                {"origin": origin, "direction": direction}, float(hits[r])
+            )
+        pol = verdict == DROP_POLICY
+        deny = pol & (rule >= 0)
+        for reason, mask in (
+            ("deny-rule", deny),
+            ("no-l4-match", pol & ~deny & l4x),
+            ("no-l3-match", pol & ~deny & ~l4x),
+            ("prefilter", verdict == DROP_PREFILTER),
+            ("no-service", verdict == DROP_NO_SERVICE),
+            ("pipeline-degraded", verdict == DROP_DEGRADED),
+        ):
+            n = int(np.count_nonzero(mask))
+            if n:
+                labels = {"reason": reason}
+                if reason == "prefilter":
+                    # reason 144's device-kernel producer
+                    labels["producer"] = "prefilter"
+                _metrics.drop_reasons_total.inc(labels, float(n))
+
+    def _up(self, a, dtype) -> torch.Tensor:
+        return torch.from_numpy(
+            np.ascontiguousarray(np.asarray(a).astype(dtype, copy=False))
+        ).to(self.device)
+
+    def _run(self, peer: torch.Tensor, ep_idx, dports, protos, *, ingress: bool, family: int):
+        """One synchronous batch of either family: step function, pull,
+        counters and, with attribution on, the attribution metrics."""
+        self.rebuild()
+        direction = TRAFFIC_INGRESS if ingress else TRAFFIC_EGRESS
+        with self._lock:
+            t = self._tables[(direction, family)]
+            pf_empty = self._pf_empty[0 if family == 4 else 1]
+            v6_fused = self._v6_fused
+            rule_tab = self._rule_tabs[direction] if self._rule_tabs is not None else None
+            n_rules = self._attrib_n_rules
+            ep_count = max(1, len(self._endpoints))
+        flows = (self._up(ep_idx, np.int32), self._up(dports, np.int32), self._up(protos, np.int32))
+        attrib = rule_tab is not None
+        # the XDP prefilter guards traffic entering the node only, and
+        # an empty deny set skips the walk
+        kw = dict(ep_count=ep_count, prefilter=ingress and not pf_empty,
+                  attrib=attrib, rule_tab=rule_tab, n_rules=n_rules)
+        if family == 4:
+            out = process_flows_wide(t, peer, *flows, **kw)
+        else:
+            out = process_flows(t, peer, *flows, levels=16, fused=v6_fused, **kw)
+        verdict, redirect, counters = (x.cpu().numpy() for x in out[:3])
+        with self._lock:
+            if self.counters.shape == counters.shape:
+                self.counters += counters
+        if attrib:
+            rule, l4x, hits = (x.cpu().numpy() for x in out[3:])
+            self._account_attribution(verdict, rule, l4x, hits, ingress=ingress)
+        return verdict, redirect
+
+    @staticmethod
+    def _refuse_unported(sports, return_rev_nat, tunnel_identities) -> None:
+        if sports is not None or return_rev_nat:
+            raise NotImplementedError("conntrack and revNAT are not in the torch port yet")
+        if tunnel_identities is not None:
+            raise NotImplementedError("overlay tunnel identities are not in the torch port yet")
 
     def process(
         self,
@@ -261,26 +545,27 @@ class DatapathPipeline:
         """IPv4 batch → (verdicts [B] int8, redirect [B] bool);
         accumulates the per-endpoint counters. ``src_ips`` is the peer
         address (source for ingress, destination for egress)."""
-        if sports is not None or return_rev_nat:
-            raise NotImplementedError("conntrack and revNAT are not in the torch port yet")
-        if tunnel_identities is not None:
-            raise NotImplementedError("overlay tunnel identities are not in the torch port yet")
-        tables = self.rebuild()
-        t = tables[TRAFFIC_INGRESS if ingress else TRAFFIC_EGRESS]
+        self._refuse_unported(sports, return_rev_nat, tunnel_identities)
+        peer = self._up(np.asarray(src_ips).astype(np.uint32).view(np.int32), np.int32)
+        return self._run(peer, ep_idx, dports, protos, ingress=ingress, family=4)
 
-        def up(a, dtype) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(np.asarray(a).astype(dtype, copy=False))).to(self.device)
-
-        peer = up(np.asarray(src_ips).astype(np.uint32).view(np.int32), np.int32)
-        # the XDP prefilter guards traffic entering the node only, and
-        # an empty deny set skips the walk
-        verdict, redirect, counters = process_flows_wide(
-            t, peer, up(ep_idx, np.int32), up(dports, np.int32), up(protos, np.int32),
-            ep_count=max(1, len(self._endpoints)),
-            prefilter=ingress and not self._pf_empty,
-        )
-        counters = counters.cpu().numpy()
-        with self._lock:
-            if self.counters.shape == counters.shape:
-                self.counters += counters
-        return verdict.cpu().numpy(), redirect.cpu().numpy()
+    def process_v6(
+        self,
+        peer_bytes: np.ndarray,  # [B, 16] int32 address bytes
+        ep_idx: np.ndarray,
+        dports: np.ndarray,
+        protos: np.ndarray,
+        *,
+        ingress: bool = True,
+        sports: Optional[np.ndarray] = None,
+        return_rev_nat: bool = False,
+        tunnel_identities: Optional[np.ndarray] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """IPv6 batch (16-level elided stride-8 walk, bpf_lxc.c:848
+        tail_ipv6_*) → (verdicts [B] int8, redirect [B] bool); the
+        counters are shared with the IPv4 path."""
+        self._refuse_unported(sports, return_rev_nat, tunnel_identities)
+        peer = self._up(peer_bytes, np.int32)
+        if peer.dim() != 2 or peer.shape[1] != 16:
+            raise ValueError(f"process_v6: peer_bytes must be [B, 16], got {tuple(peer.shape)}")
+        return self._run(peer, ep_idx, dports, protos, ingress=ingress, family=6)

@@ -8,8 +8,10 @@ answers batched verdict queries.
 
 This port refreshes by full recompile whenever the repository revision
 or the identity version moved (the revision gate of
-pkg/endpoint/policy.go:506). Incremental row/rule updates, snapshots
-and verdict attribution are not ported yet.
+pkg/endpoint/policy.go:506). Verdict attribution (``attribution``,
+``verdicts(attrib=True)``, ``explain_one``) reads the rule-origin
+tables of the kept compile state. Incremental row/rule updates and
+snapshots are not ported yet.
 """
 
 from __future__ import annotations
@@ -21,12 +23,14 @@ import numpy as np
 import torch
 
 from . import _kernels
+from . import metrics as _metrics
 from . import u8proto
 from .compiler import CompiledPolicy, compile_policy_state
+from .compiler.program import CompileState, rule_origin_arrays
 from .convert import device_policy_from_numpy
 from .identity import IdentityRegistry
 from .identity.model import MAX_USER_IDENTITY
-from .ops.verdict import DevicePolicy, Verdict, verdict_batch
+from .ops.verdict import ALLOW, ATTR_NAMES, AttribTables, DevicePolicy, Verdict, verdict_batch
 from .policy.repository import Repository
 
 PROTO_TCP = u8proto.TCP
@@ -42,7 +46,9 @@ class PolicyEngine:
         self.registry = registry
         self._lock = threading.Lock()
         self._compiled: Optional[CompiledPolicy] = None
+        self._state: Optional[CompileState] = None
         self._device: Optional[DevicePolicy] = None
+        self._attrib_cache: Optional[tuple] = None
         # Dense row table for the compact ranges (reserved + user,
         # < 65536) and a dict for sparse local/CIDR identities.
         self._low_rows: Optional[np.ndarray] = None
@@ -61,17 +67,23 @@ class PolicyEngine:
         """Recompile if repository or identity state moved."""
         with self._lock:
             if force or self._stale():
-                compiled, device = self._compute_full(self.repo, self.registry, self.device)
-                self._install(compiled, device)
+                compiled, state, device = self._compute_full(
+                    self.repo, self.registry, self.device
+                )
+                self._install(compiled, state, device)
             return self._compiled  # type: ignore[return-value]
 
     @staticmethod
-    def _compute_full(repo, registry, device) -> Tuple[CompiledPolicy, DevicePolicy]:
+    def _compute_full(
+        repo, registry, device
+    ) -> Tuple[CompiledPolicy, CompileState, DevicePolicy]:
         """Host compile, upload, and the selector match on the device."""
-        compiled, _state = compile_policy_state(repo, registry)
-        return compiled, device_policy_from_numpy(compiled, device=device)
+        compiled, state = compile_policy_state(repo, registry)
+        return compiled, state, device_policy_from_numpy(compiled, device=device)
 
-    def _install(self, compiled: CompiledPolicy, device: DevicePolicy) -> None:
+    def _install(
+        self, compiled: CompiledPolicy, state: CompileState, device: DevicePolicy
+    ) -> None:
         low = np.full(MAX_USER_IDENTITY + 1, -1, np.int32)
         high: dict = {}
         for ident, row in compiled.id_to_row.items():
@@ -83,6 +95,7 @@ class PolicyEngine:
         self._high_rows = high
         self._device = device
         self._compiled = compiled
+        self._state = state
         self.install_gen += 1
 
     @property
@@ -135,6 +148,47 @@ class PolicyEngine:
             rows[hi] = vals[inv]
         return rows
 
+    # -- verdict attribution (policyd-flows) ---------------------------
+    def attribution(
+        self, ingress: bool = True, expect_revision: Optional[int] = None
+    ):
+        """(AttribTables, n_rules) for the attribution kernel variant,
+        or None when the engine carries no compile state. Cached per
+        (install_gen, revision): any recompile rebuilds it from the
+        packers' rule_cells refcounts.
+
+        ``expect_revision`` lets a caller that already holds a
+        (compiled, device) snapshot demand tables consistent with it: a
+        rule mutation racing the two reads returns None (the caller's
+        next rebuild re-materializes with matching tables) instead of
+        shape-mismatched origin arrays."""
+        self.refresh()
+        with self._lock:
+            state, c = self._state, self._compiled
+            if state is None or c is None:
+                return None
+            if expect_revision is not None and c.revision != expect_revision:
+                return None
+            key = (self.install_gen, c.revision)
+            cache = self._attrib_cache
+            if cache is None or cache[0] != key:
+                with self.repo._lock:
+                    rules = list(self.repo.rules)
+                keys = [id(r) for r in rules]
+                tabs = {}
+                for ing, packer in ((True, state.ingress), (False, state.egress)):
+                    d, a, k = rule_origin_arrays(packer, keys)
+                    tabs[ing] = AttribTables(
+                        deny_rule=self._up(d),
+                        allow_rule=self._up(a),
+                        combo_rule=self._up(k),
+                    )
+                cache = self._attrib_cache = (key, tabs, len(rules))
+            return cache[1][ingress], cache[2]
+
+    def _up(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
     def verdicts(
         self,
         subj_ids: Sequence[int],
@@ -145,11 +199,19 @@ class PolicyEngine:
         ingress: bool = True,
         has_l4: Optional[Sequence[bool]] = None,
         attrib: bool = False,
-    ) -> Verdict:
+    ):
         """Batched verdicts by identity number. ``subj`` is the endpoint
-        whose policy applies (dst for ingress, src for egress)."""
+        whose policy applies (dst for ingress, src for egress). With
+        ``attrib=True`` → (Verdict, Attribution, hits[R]); raises
+        RuntimeError when rule-origin tables are unavailable."""
+        origin = n_rules = None
         if attrib:
-            raise NotImplementedError("verdict attribution is not in the torch port yet")
+            at = self.attribution(ingress)
+            if at is None:
+                raise RuntimeError(
+                    "verdict attribution unavailable: engine has no compile state"
+                )
+            origin, n_rules = at
         # device + row tables from one lock acquisition, so row indices
         # of a newer compile never meet older device tables
         self.refresh()
@@ -158,21 +220,53 @@ class PolicyEngine:
             low = self._low_rows.copy() if self._low_rows is not None else None
             high = dict(self._high_rows)
         assert device is not None and low is not None
+        _metrics.verdict_batches.inc({"path": "engine"})
         n = len(subj_ids)
         hl4 = np.ones(n, dtype=bool) if has_l4 is None else np.asarray(has_l4, bool)
-
-        def up(a: np.ndarray) -> torch.Tensor:
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-
-        return verdict_batch(
+        args = (
             device,
-            up(self._rows_snapshot(low, high, subj_ids)),
-            up(self._rows_snapshot(low, high, peer_ids)),
-            up(np.asarray(dports, np.int32)),
-            up(np.asarray(protos, np.int32)),
-            up(hl4),
-            ingress=ingress,
+            self._up(self._rows_snapshot(low, high, subj_ids)),
+            self._up(self._rows_snapshot(low, high, peer_ids)),
+            self._up(np.asarray(dports, np.int32)),
+            self._up(np.asarray(protos, np.int32)),
+            self._up(hl4),
         )
+        if not attrib:
+            return verdict_batch(*args, ingress=ingress)
+        return verdict_batch(
+            *args, ingress=ingress, attrib=True, origin=origin, n_rules=n_rules
+        )
+
+    def explain_one(
+        self,
+        subj_id: int,
+        peer_id: int,
+        dport: int = 0,
+        proto: int = PROTO_TCP,
+        *,
+        ingress: bool = True,
+        l4: bool = True,
+    ) -> dict:
+        """Replay ONE flow through the verdict kernel with attribution
+        on and name the deciding rule — the `cilium policy trace`-style
+        explain backend."""
+        verdict, at, _hits = self.verdicts(
+            [subj_id], [peer_id], [dport], [proto],
+            ingress=ingress, has_l4=[l4], attrib=True,
+        )
+        rule_idx = int(at.rule[0])
+        reason = int(at.reason[0])
+        origins = self.repo.rule_origins()
+        return {
+            "decision": int(verdict.decision[0]),
+            "allowed": int(verdict.decision[0]) == ALLOW,
+            "l3": int(verdict.l3[0]),
+            "l7_redirect": bool(verdict.l7_redirect[0]),
+            "reason_code": reason,
+            "reason": ATTR_NAMES.get(reason, str(reason)),
+            "rule_index": rule_idx,
+            "rule": origins[rule_idx] if 0 <= rule_idx < len(origins) else None,
+        }
 
     def verdict_one(
         self,

@@ -1,16 +1,23 @@
-"""IPv4 longest-prefix match over the wide (dense 16-bit root) tries.
+"""Longest-prefix match: the stride-8 tries (IPv6, and IPv4 in the
+JAX package's classic layout) and the IPv4 wide tries.
 
 Replaces the kernel LPM trie maps (bpf/lib/maps.h cilium_ipcache LPM,
 bpf/bpf_xdp.c:54-86 CIDR deny tries) with device-resident tables
 walked by chained gathers. The numpy builders below are copies of the
-JAX package's (``WideTrieBuilder``, ``FlatTrieBuilder``,
-``build_wide_trie``, ``merge_flat_tries``); the walk itself,
-:func:`lpm_lookup_wide`, launches the ``lpm_wide`` kernel
-(csrc/lpm_wide.cu) on a CUDA tensor and runs :func:`lpm_wide_plain`
-on a CPU tensor.
+JAX package's (``TrieBuilder``, ``build_trie``, ``build_trie_elided``,
+``merge_trie_entries``, ``WideTrieBuilder``, ``FlatTrieBuilder``,
+``build_wide_trie``, ``merge_flat_tries``). The walks launch a kernel
+on a CUDA tensor and run its plain version on a CPU tensor:
+:func:`lpm_lookup` / :func:`elided_lookup` the ``lpm_stride8`` kernel
+(csrc/lpm_stride8.cu, plain :func:`lpm_stride8_plain`), and
+:func:`lpm_lookup_wide` the ``lpm_wide`` kernel (csrc/lpm_wide.cu,
+plain :func:`lpm_wide_plain`).
 
-Layouts (both return value+1, 0 = no match, longest match wins):
+Layouts (all return value+1, 0 = no match, longest match wins):
 
+    stride-8:    child/info [M, 256] (node 0 is the root), one level
+                 per address byte, the trie's elided shared prefix
+                 bytes ``common`` [K] compared instead of walked
     flat 16+16:  root_info/root_child [65536], sub_info [M, 65536]
                  (sub_child [1, 65536] marks the layout) — 2 gathers
     16-8-8:      root_info/root_child [65536], sub_child/sub_info
@@ -26,6 +33,193 @@ import numpy as np
 import torch
 
 from .. import _kernels
+
+
+class TrieBuilder:
+    """Host-side incremental stride-8 trie. Rebuild-on-change is cheap
+    (ms for 100k prefixes); the device arrays are immutable snapshots."""
+
+    def __init__(self, levels: int) -> None:
+        self.levels = levels
+        # node storage: list of dicts byte→child_id / (value+1, plen)
+        self._children: List[Dict[int, int]] = [{}]
+        self._info: List[Dict[int, Tuple[int, int]]] = [{}]
+
+    def _new_node(self) -> int:
+        self._children.append({})
+        self._info.append({})
+        return len(self._children) - 1
+
+    def _write(self, node: int, slot: int, value: int, plen: int) -> None:
+        # Within one level, slots covered by several prefixes keep the
+        # longest writer (a /0 expansion must not clobber a /8 entry) —
+        # insert-order independence like the kernel LPM trie.
+        old = self._info[node].get(slot)
+        if old is None or plen >= old[1]:
+            self._info[node][slot] = (value + 1, plen)
+
+    def insert(self, prefix_bytes: bytes, prefix_len: int, value: int) -> None:
+        """value ≥ 0; stored as value+1 internally."""
+        node = 0
+        full, rem = divmod(prefix_len, 8)
+        for i in range(full):
+            b = prefix_bytes[i]
+            if rem == 0 and i == full - 1:
+                self._write(node, b, value, prefix_len)
+                return
+            nxt = self._children[node].get(b)
+            if nxt is None:
+                nxt = self._new_node()
+                self._children[node][b] = nxt
+            node = nxt
+        # partial byte: populate all covered slots at this level
+        b = prefix_bytes[full] if full < len(prefix_bytes) else 0
+        lo = b & (0xFF << (8 - rem)) & 0xFF
+        for slot in range(lo, lo + (1 << (8 - rem))):
+            self._write(node, slot, value, prefix_len)
+
+    def arrays(self) -> Tuple[np.ndarray, np.ndarray]:
+        m = len(self._children)
+        child = np.zeros((m, 256), np.int32)
+        info = np.zeros((m, 256), np.int32)
+        for n in range(m):
+            for b, c in self._children[n].items():
+                child[n, b] = c
+            for b, (v, _plen) in self._info[n].items():
+                info[n, b] = v
+        return child, info
+
+
+def build_trie(
+    prefixes: Iterable[Tuple[str, int]], *, ipv6: bool = False
+) -> Tuple[np.ndarray, np.ndarray]:
+    """[(cidr_string, value)] → (child, info) arrays for one family."""
+    levels = 16 if ipv6 else 4
+    t = TrieBuilder(levels)
+    for cidr, value in prefixes:
+        net = ipaddress.ip_network(cidr, strict=False)
+        if (net.version == 6) != ipv6:
+            continue
+        t.insert(net.network_address.packed, net.prefixlen, value)
+    return t.arrays()
+
+
+def build_trie_elided(
+    prefixes: Iterable[Tuple[str, int]], *, ipv6: bool = True
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """[(cidr_string, value)] → (child, info, common_bytes) with the
+    longest shared whole-byte prefix ELIDED from the trie.
+
+    IPv6 pod allocations share a long prefix (everything under one
+    /48-/64), so a full 16-level byte walk wastes most of its chained
+    gathers traversing single-child nodes. The shared K bytes come
+    back as ``common_bytes`` ([K] int32): the lookup compares them
+    against the batch instead of walking them and walks only the
+    remaining 16-K levels. Elision applies only while EVERY prefix is
+    at least K whole bytes long (a shorter deny CIDR disables it), and
+    K is capped one byte short so at least one walk level remains."""
+    size = 16 if ipv6 else 4
+    entries = []
+    for cidr, value in prefixes:
+        net = ipaddress.ip_network(cidr, strict=False)
+        if (net.version == 6) != ipv6:
+            continue
+        entries.append((net.network_address.packed, net.prefixlen, value))
+    k = 0
+    if entries:
+        first = entries[0][0]
+        k = min(min(p for _, p, _ in entries) // 8, size - 1)
+        for packed, _p, _v in entries:
+            while k and packed[:k] != first[:k]:
+                k -= 1
+    t = TrieBuilder(size - k)
+    for packed, plen, value in entries:
+        t.insert(packed[k:], plen - 8 * k, value)
+    child, info = t.arrays()
+    common = (
+        np.frombuffer(entries[0][0][:k], np.uint8).astype(np.int32)
+        if k
+        else np.zeros(0, np.int32)
+    )
+    return child, info, common
+
+
+def lpm_stride8_plain(
+    child: torch.Tensor,  # [M, 256] int32
+    info: torch.Tensor,  # [M, 256] int32
+    common: torch.Tensor,  # [K] int32 elided shared prefix bytes
+    addr_bytes: torch.Tensor,  # [B, >= levels] int32, one byte per level
+    levels: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of the ``lpm_stride8`` kernel → [B] int32
+    value+1 (0 = no match). An address whose first K bytes differ from
+    ``common`` matches nothing; the rest walks ``levels - K`` stride-8
+    levels from node 0, the deepest ``info > 0`` winning, and stops at
+    a child id outside [1, M). A byte outside [0, 255] reads nothing
+    and ends the walk, like the fill of an out-of-range ``jnp.take``."""
+    b = addr_bytes.shape[0]
+    k = common.shape[0]
+    m = info.shape[0]
+    flat_i = info.reshape(-1)
+    flat_c = child.reshape(-1)
+    best = torch.zeros(b, dtype=torch.int32, device=addr_bytes.device)
+    alive = torch.ones(b, dtype=torch.bool, device=addr_bytes.device)
+    if k:
+        alive = (addr_bytes[:, :k] == common[None, :]).all(dim=1)
+    node = torch.zeros(b, dtype=torch.int64, device=addr_bytes.device)
+    for lvl in range(k, levels):
+        byte = addr_bytes[:, lvl].long()
+        alive = alive & (byte >= 0) & (byte < 256)
+        flat = torch.where(alive, node * 256 + byte, 0)
+        hit = flat_i[flat]
+        best = torch.where(alive & (hit > 0), hit, best)
+        nxt = flat_c[flat].long()
+        alive = alive & (nxt > 0) & (nxt < m)
+        node = torch.where(alive, nxt, node)
+    return best
+
+
+def elided_lookup(
+    child: torch.Tensor,  # [M, 256] int32
+    info: torch.Tensor,  # [M, 256] int32
+    common: torch.Tensor,  # [K] int32
+    addr_bytes: torch.Tensor,  # [B, >= levels] int32
+    levels: int,
+) -> torch.Tensor:
+    """→ [B] int32: matched value+1, 0 = no match (longest wins), over
+    an elided trie (:func:`build_trie_elided`): the K shared prefix
+    bytes are compared inside the same kernel launch and only
+    ``levels - K`` levels are walked; an address that differs in them
+    matches nothing."""
+    dev = _kernels.dispatch_device(child, info, common, addr_bytes)
+    k = common.shape[0]
+    if (
+        child.dim() != 2 or child.shape[-1] != 256 or child.shape != info.shape
+        or addr_bytes.dim() != 2 or not 0 <= k <= levels <= addr_bytes.shape[1]
+    ):
+        raise ValueError("lpm_stride8: not a stride-8 trie and address batch")
+    if dev.type == "cpu":
+        return lpm_stride8_plain(child, info, common, addr_bytes, levels)
+    args = [x.to(torch.int32).contiguous() for x in (child, info, common, addr_bytes)]
+    out = torch.empty(addr_bytes.shape[0], dtype=torch.int32, device=dev)
+    _kernels.check_cuda("lpm_stride8", dev, *args, out)
+    ch, inf, com, addr = args
+    _kernels.KERNELS["lpm_stride8"].launch(
+        dev, ch.data_ptr(), inf.data_ptr(), ch.shape[0], com.data_ptr(), k,
+        addr.data_ptr(), addr.shape[1], levels, out.data_ptr(), addr.shape[0],
+    )
+    return out
+
+
+def lpm_lookup(
+    child: torch.Tensor,  # [M, 256] int32
+    info: torch.Tensor,  # [M, 256] int32
+    addr_bytes: torch.Tensor,  # [B, levels] int32 (byte per level)
+    levels: int = 4,
+) -> torch.Tensor:
+    """→ [B] int32: matched value+1, 0 = no match (longest wins)."""
+    no_common = torch.zeros(0, dtype=torch.int32, device=addr_bytes.device)
+    return elided_lookup(child, info, no_common, addr_bytes, levels)
 
 
 class _DenseRoot:
@@ -204,6 +398,84 @@ def build_wide_trie(
     return t.arrays()
 
 
+# -- fused deny+identity walk (v6 stride-8 elided tries) --------------------
+
+
+class _HostLPM:
+    """Host-side LPM oracle over one prefix set: per-plen exact-match
+    dicts, queried longest-first. O(#distinct plens) per query — the
+    merge below asks it once per union prefix."""
+
+    def __init__(self, entries) -> None:  # [(packed_bytes, plen, value)]
+        self._by_plen: Dict[int, Dict[bytes, int]] = {}
+        for packed, plen, value in entries:
+            masked = _mask_bytes(packed, plen)
+            self._by_plen.setdefault(plen, {})[masked] = value
+        self._plens = sorted(self._by_plen, reverse=True)
+
+    def lookup(self, packed: bytes, plen: int) -> int:
+        """Longest match covering prefix (packed/plen) → value+1, 0 =
+        none. Only prefixes of length ≤ plen can cover it."""
+        for p in self._plens:
+            if p > plen:
+                continue
+            hit = self._by_plen[p].get(_mask_bytes(packed, p))
+            if hit is not None:
+                return hit + 1
+        return 0
+
+
+def _mask_bytes(packed: bytes, plen: int) -> bytes:
+    full, rem = divmod(plen, 8)
+    out = bytearray(len(packed))
+    out[:full] = packed[:full]
+    if rem and full < len(packed):
+        out[full] = packed[full] & (0xFF << (8 - rem)) & 0xFF
+    return bytes(out)
+
+
+def merge_trie_entries(ip_prefixes, deny_prefixes, *, ipv6=True):
+    """[(cidr, value)] identity + [(cidr, _)] deny → ONE packed prefix
+    list [(cidr, packed_value)] whose LPM equals BOTH sides' LPMs at
+    every address: packed = (identity value+1) | DENY_BIT·denied.
+
+    Every union prefix carries the OTHER side's LPM answer at that
+    point, so a longer prefix from one side cannot shadow the other
+    side's match (the correctness trap of a naive set union). Feed the
+    result to build_trie_elided for the fused stride-8 walk."""
+    def parse(prefixes):
+        out = []
+        for cidr, value in prefixes:
+            net = ipaddress.ip_network(cidr, strict=False)
+            if (net.version == 6) != ipv6:
+                continue
+            out.append((net.network_address.packed, net.prefixlen, value))
+        return out
+
+    ip_entries = parse(ip_prefixes)
+    deny_entries = parse(deny_prefixes)
+    ip_lpm = _HostLPM(ip_entries)
+    deny_lpm = _HostLPM(deny_entries)
+    union: Dict[Tuple[bytes, int], int] = {}
+    for packed, plen, _v in ip_entries + deny_entries:
+        key = (_mask_bytes(packed, plen), plen)
+        if key in union:
+            continue
+        ip_v = ip_lpm.lookup(packed, plen)  # value+1, 0 = none
+        if ip_v >= int(DENY_BIT) - 1:
+            # packing range: the trie stores (ip_v | DENY_BIT) + 1,
+            # which must stay inside int32 — the -1 keeps the denied
+            # boundary case from overflowing
+            return None
+        denied = deny_lpm.lookup(packed, plen) > 0
+        union[key] = ip_v | (int(DENY_BIT) if denied else 0)
+    out = []
+    for (packed, plen), pv in union.items():
+        addr = ipaddress.ip_address(packed)
+        out.append((f"{addr}/{plen}", pv))
+    return out
+
+
 # -- fused deny+identity walk (flat 16+16 layouts only) ---------------------
 #
 # The datapath's two v4 LPM walks — XDP deny trie and ipcache identity
@@ -336,3 +608,16 @@ def lpm_lookup_wide(
     )
     return out
 
+
+def ipv4_to_bytes(addrs: np.ndarray) -> np.ndarray:
+    """[B] uint32 host-order IPv4 → [B, 4] int32 big-endian bytes."""
+    a = addrs.astype(np.uint32)
+    return np.stack(
+        [(a >> 24) & 0xFF, (a >> 16) & 0xFF, (a >> 8) & 0xFF, a & 0xFF], axis=1
+    ).astype(np.int32)
+
+
+def ipv6_to_bytes(ips: Iterable[str]) -> np.ndarray:
+    return np.array(
+        [list(ipaddress.IPv6Address(ip).packed) for ip in ips], np.int32
+    )

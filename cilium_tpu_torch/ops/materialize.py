@@ -11,13 +11,16 @@ Two sweeps compute the same packed words: "auto", the identity-major
 matrix sweep (:func:`_sweep_device_matrix`, every product on the
 ``bool_mm`` kernel), and "flow", one :func:`verdict_batch` flow per
 (segment, identity) pair (:func:`_sweep_device`). The tests diff them
-bit for bit.
+bit for bit. With rule-origin tables (verdict attribution) the sweep
+always takes the flow route, :func:`_sweep_device_attrib`, whose
+per-flow term vectors give each (identity row, column) its deciding
+rule (``rule_nc`` / ``rule_tab``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,7 +28,7 @@ import torch
 from ..compiler.program import CompiledPolicy, PROTO_TCP_N
 from .bitmap import pack_bool_bits, unpack_bits_u32
 from .lookup import PolicymapTables
-from .verdict import ALLOW, DevicePolicy, bool_mm, verdict_batch
+from .verdict import ALLOW, AttribTables, DevicePolicy, bool_mm, verdict_batch
 
 TRAFFIC_INGRESS = 0
 TRAFFIC_EGRESS = 1
@@ -86,6 +89,12 @@ class MaterializedState:
     allow_nc: np.ndarray  # [N, C_pad] bool
     red_nc: np.ndarray  # [N, C_pad] bool
     n_cols: int
+    # Verdict attribution: per-(identity row, column) deciding-rule
+    # index from an attribution sweep (-1 = no rule; padded columns -1;
+    # deny drops carry the deny rule even though their allow bit is 0).
+    # None when the sweep ran without attribution.
+    rule_nc: Optional[np.ndarray] = None  # [N, C_pad] int32 (host)
+    rule_tab: Optional[torch.Tensor] = None  # [N, C_pad] int32 (device)
 
 
 def _sweep_device(
@@ -117,6 +126,42 @@ def _sweep_device(
     l3a = pack_bool_bits((v.l3 == 1).reshape(n_seg, n))
     red = pack_bool_bits(v.l7_redirect.reshape(n_seg, n))
     return allow, l3a, red
+
+
+def _sweep_device_attrib(
+    policy: DevicePolicy,
+    seg_row: torch.Tensor,
+    seg_port: torch.Tensor,
+    seg_proto: torch.Tensor,
+    seg_l4: torch.Tensor,
+    origin: AttribTables,
+    n: int,
+    ingress: bool,
+    block: int,
+    n_rules: int,
+):
+    """:func:`_sweep_device` plus the attribution tail: also returns the
+    [n_seg, n] int32 deciding-rule index per (segment, identity row) —
+    the source of MaterializedState.rule_tab."""
+    n_seg = seg_row.shape[0]
+    dev = seg_row.device
+    v, at, _hits = verdict_batch(
+        policy,
+        seg_row.repeat_interleave(n),
+        torch.arange(n, dtype=torch.int32, device=dev).repeat(n_seg),
+        seg_port.repeat_interleave(n),
+        seg_proto.repeat_interleave(n),
+        seg_l4.repeat_interleave(n),
+        ingress=ingress,
+        block=block,
+        attrib=True,
+        origin=origin,
+        n_rules=n_rules,
+    )
+    allow = pack_bool_bits((v.decision == ALLOW).reshape(n_seg, n))
+    l3a = pack_bool_bits((v.l3 == 1).reshape(n_seg, n))
+    red = pack_bool_bits(v.l7_redirect.reshape(n_seg, n))
+    return allow, l3a, red, at.rule.reshape(n_seg, n)
 
 
 def _sweep_device_matrix(
@@ -197,6 +242,10 @@ def _unpack_rows(words: torch.Tensor, n: int) -> np.ndarray:
 # peer-term intermediates.
 _MATRIX_NBLOCK = 1024
 
+# Sweep calls per route ("matrix", "flow", "flow_attrib"), one per
+# segment chunk: shows which sweep a rebuild ran.
+SWEEPS: Dict[str, int] = {}
+
 
 def _sweep_segments(
     device: DevicePolicy,
@@ -208,23 +257,29 @@ def _sweep_segments(
     *,
     ingress: bool,
     block: int,
+    attrib_origin: Optional[AttribTables] = None,
+    n_rules: int = 0,
     sweep: str = "auto",
-) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Chunked segments × all-identities sweep → unpacked (allow_sn,
-    l3_sn, red_sn) [n_seg, n] bool. ``sweep`` picks the kernel: "auto"
-    the identity-major matrix sweep, "flow" the per-flow sweep."""
+    l3_sn, red_sn) [n_seg, n] bool + rule_sn [n_seg, n] int32 (-1 when
+    no attribution ran). ``sweep`` picks the kernel: "auto" the
+    identity-major matrix sweep, "flow" the per-flow sweep. Attribution
+    sweeps always take the flow route: the first-match rule tail needs
+    the per-flow term vectors the matrix form contracts away."""
     if sweep not in ("auto", "flow"):
         raise ValueError(f"unknown sweep {sweep!r}")
     n_seg = len(sr)
     if n_seg == 0:  # zero endpoints: nothing to sweep
         empty = np.zeros((0, n), bool)
-        return empty, empty, empty
+        return empty, empty, empty, np.zeros((0, n), np.int32)
     dev = device.sel_match.device
     # chunk the segment axis so one call covers at most ~2**23
     # (segment, identity) pairs whatever the endpoint count
     budget = max(8, (1 << 23) // max(1, n))
     seg_chunk = 1 << (budget.bit_length() - 1)
     outs: List[List[np.ndarray]] = [[], [], []]
+    rule_parts: List[np.ndarray] = []
     for lo in range(0, n_seg, seg_chunk):
         hi = min(lo + seg_chunk, n_seg)
         chunk = (
@@ -233,14 +288,25 @@ def _sweep_segments(
             torch.from_numpy(np.ascontiguousarray(spr[lo:hi], np.int32)).to(dev),
             torch.from_numpy(np.ascontiguousarray(sl[lo:hi], bool)).to(dev),
         )
-        if sweep == "auto":
+        route = "flow_attrib" if attrib_origin is not None else (
+            "matrix" if sweep == "auto" else "flow")
+        SWEEPS[route] = SWEEPS.get(route, 0) + 1
+        if attrib_origin is not None:
+            *words, rule = _sweep_device_attrib(
+                device, *chunk, attrib_origin, n, ingress, block, n_rules
+            )
+            rule_parts.append(rule.cpu().numpy())
+        elif sweep == "auto":
             words = _sweep_device_matrix(device, *chunk, n, ingress, _MATRIX_NBLOCK)
         else:
             words = _sweep_device(device, *chunk, n, ingress, block)
         for acc, w in zip(outs, words):
             acc.append(_unpack_rows(w, n))
     allow_sn, l3_sn, red_sn = (np.concatenate(acc) for acc in outs)
-    return allow_sn, l3_sn, red_sn
+    rule_sn = (
+        np.concatenate(rule_parts) if rule_parts else np.full((n_seg, n), -1, np.int32)
+    )
+    return allow_sn, l3_sn, red_sn, rule_sn
 
 
 def _pack_rows_np(m: np.ndarray) -> np.ndarray:
@@ -257,10 +323,15 @@ def materialize_endpoints_state(
     *,
     ingress: bool = True,
     block: int = 8192,
+    attrib_origin: Optional[AttribTables] = None,
+    n_rules: int = 0,
     sweep: str = "auto",
 ) -> MaterializedState:
     """Sweep every endpoint × identity × (L3 + each L4 slot) and lay
-    the results out as policymap columns."""
+    the results out as policymap columns. ``attrib_origin`` (with
+    ``n_rules``) switches the sweep to the attribution variant: the
+    result also carries rule_nc/rule_tab, the deciding-rule index per
+    (identity row, column) the pipeline's lookup gathers from."""
     n = compiled.id_bits.shape[0]
     ep_rows = compiled.rows_for(endpoint_identity_ids)
     # bounded [E, S/32] pull of just the endpoint subject rows
@@ -290,7 +361,7 @@ def materialize_endpoints_state(
             seg_proto.append(proto)
             seg_l4.append(True)
 
-    allow_sn, l3_sn, red_sn = _sweep_segments(
+    allow_sn, l3_sn, red_sn, rule_sn = _sweep_segments(
         device,
         np.asarray(seg_row, np.int32),
         np.asarray(seg_port, np.int32),
@@ -299,6 +370,8 @@ def materialize_endpoints_state(
         n,
         ingress=ingress,
         block=block,
+        attrib_origin=attrib_origin,
+        n_rules=n_rules,
         sweep=sweep,
     )
 
@@ -309,11 +382,13 @@ def materialize_endpoints_state(
     col_is_l3: List[bool] = []
     col_allow: List[np.ndarray] = []
     col_red: List[np.ndarray] = []
+    col_rule: List[np.ndarray] = []
     snapshots: List[EndpointPolicySnapshot] = []
 
     seg = 0
     for e, row in enumerate(ep_rows):
         l3_allow = l3_sn[seg] & live
+        col_rule.append(rule_sn[seg])
         seg += 1
         col_ep.append(e)
         col_port.append(0)
@@ -327,6 +402,7 @@ def materialize_endpoints_state(
         for port, proto_n in ep_slots[e]:
             allow = allow_sn[seg] & live
             redirect = red_sn[seg] & live
+            col_rule.append(rule_sn[seg])
             seg += 1
             col_ep.append(e)
             col_port.append(port)
@@ -347,9 +423,14 @@ def materialize_endpoints_state(
     pad = c_pad - c
     allow_nc = np.zeros((n, c_pad), bool)
     red_nc = np.zeros((n, c_pad), bool)
+    rule_nc = None
+    if attrib_origin is not None:
+        rule_nc = np.full((n, c_pad), -1, np.int32)
     if c:
         allow_nc[:, :c] = np.stack(col_allow, axis=1)
         red_nc[:, :c] = np.stack(col_red, axis=1)
+        if rule_nc is not None:
+            rule_nc[:, :c] = np.stack(col_rule, axis=1)
 
     dev = device.sel_match.device
 
@@ -378,5 +459,7 @@ def materialize_endpoints_state(
         allow_nc=allow_nc,
         red_nc=red_nc,
         n_cols=c,
+        rule_nc=rule_nc,
+        rule_tab=torch.from_numpy(rule_nc).to(dev) if rule_nc is not None else None,
     )
 

@@ -19,13 +19,18 @@ Per flow the only data-dependent access is one packed row gather from
 CUDA tensor launches the ``bool_mm`` kernel (csrc/bool_mm.cu) and on a
 CPU tensor runs :func:`bool_mm_plain`.
 
-Verdict attribution (the first-match rule and reason codes) is not in
-this port yet: ``attrib=True`` raises NotImplementedError.
+With ``attrib=True`` the block also returns the attribution: the
+first-match rule of each deciding term (three row reductions on the
+``first_rule`` kernel, csrc/first_rule.cu; plain version
+:func:`first_rule_plain`), the decider select and the ATTR_* reason
+codes, and :func:`verdict_batch` adds the [n_rules] rule-hit counts.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
 import numpy as np
 import torch
 
@@ -36,6 +41,53 @@ from .bitmap import unpack_bits_u32
 
 ALLOW = int(Decision.ALLOWED)
 DENY = int(Decision.DENIED)
+
+# -- verdict attribution (policyd-flows) ---------------------------------
+# Per-flow attribution reason codes emitted by the attrib=True kernel
+# variant. These classify WHICH term decided the flow; the pipeline maps
+# them onto the monitor's DropNotify reason taxonomy
+# (monitor/events.py REASON_POLICY_*).
+ATTR_ALLOW = 0  # allowed (rule = the first-match allowing rule)
+ATTR_DENY_RULE = 1  # an explicit deny (FromRequires) rule matched
+ATTR_NO_L3 = 2  # dropped: no L3 allow covered the peer
+ATTR_NO_L4 = 3  # dropped: L4 coverage existed, peer not allowed
+ATTR_L7 = 4  # allowed via a parser-bearing filter (proxy redirect)
+
+ATTR_NAMES = {
+    ATTR_ALLOW: "allowed",
+    ATTR_DENY_RULE: "deny-rule",
+    ATTR_NO_L3: "no-l3-match",
+    ATTR_NO_L4: "no-l4-match",
+    ATTR_L7: "l7-redirect",
+}
+
+# Sentinel for "no rule contributes to this term" in the origin arrays
+# (min-reduction identity; converted to -1 in the per-flow output).
+NO_RULE = 2**31 - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class AttribTables:
+    """Term→rule origin arrays for the attribution kernel variant:
+    the FIRST (lowest-index) repository rule contributing each deny
+    subject-selector, pure-L3-allow subject-selector, and L4 combo —
+    first-contributing-rule-wins mirrors the reference's in-order rule
+    walk. Entries with no contributing rule hold ``NO_RULE``. Built by
+    ``compiler.program.rule_origin_arrays``."""
+
+    deny_rule: torch.Tensor  # [S] int32
+    allow_rule: torch.Tensor  # [S] int32
+    combo_rule: torch.Tensor  # [K1] int32
+
+
+@dataclasses.dataclass(frozen=True)
+class Attribution:
+    """Per-flow attribution (attrib=True only). ``rule``: repository
+    rule index that decided the flow (-1 = no rule — a no-match drop).
+    ``reason``: ATTR_* code."""
+
+    rule: torch.Tensor  # [B] int32
+    reason: torch.Tensor  # [B] int8
 
 
 @dataclasses.dataclass(frozen=True)
@@ -142,6 +194,33 @@ def bool_mm(
     return out
 
 
+def first_rule_plain(mask: torch.Tensor, rule_of: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the ``first_rule`` kernel: bool [B, S],
+    int32 [S] → [B] int32 min of ``rule_of`` where ``mask`` holds,
+    NO_RULE for a row with no set cell."""
+    if mask.shape[1] == 0:
+        return torch.full((mask.shape[0],), NO_RULE, dtype=torch.int32, device=mask.device)
+    cand = torch.where(mask, rule_of.to(torch.int32)[None, :], NO_RULE)
+    return cand.min(dim=1).values.to(torch.int32)
+
+
+def first_rule(mask: torch.Tensor, rule_of: torch.Tensor) -> torch.Tensor:
+    """First-match rule of a term: per row the lowest ``rule_of[s]``
+    over the set cells of ``mask`` (NO_RULE when none is set)."""
+    dev = _kernels.dispatch_device(mask, rule_of)
+    if dev.type == "cpu":
+        return first_rule_plain(mask, rule_of)
+    b, s = mask.shape
+    if mask.dtype != torch.bool or rule_of.shape != (s,):
+        raise ValueError(f"first_rule: bad operands {tuple(mask.shape)} {mask.dtype}, {tuple(rule_of.shape)}")
+    m = mask.contiguous()
+    r = rule_of.to(torch.int32).contiguous()
+    out = torch.empty(b, dtype=torch.int32, device=dev)
+    _kernels.check_cuda("first_rule", dev, m, r, out)
+    _kernels.KERNELS["first_rule"].launch(dev, m.data_ptr(), r.data_ptr(), s, b, out.data_ptr())
+    return out
+
+
 def _verdict_block(
     sel_match: torch.Tensor,
     t: DeviceTables,
@@ -150,7 +229,8 @@ def _verdict_block(
     dport: torch.Tensor,
     proto: torch.Tensor,
     has_l4: torch.Tensor,
-) -> Verdict:
+    origin: Optional[AttribTables] = None,
+):
     subj8 = unpack_bits_u32(sel_match[subj_rows.long()])  # [b, S]
     peer8 = unpack_bits_u32(sel_match[peer_rows.long()])
     subj_b = subj8.to(torch.bool)
@@ -192,7 +272,51 @@ def _verdict_block(
     # allowed at L4 through a parser-bearing filter redirects even when
     # L3 also allows it.
     l7_redirect = has_l4 & l4_allow & l7_present
-    return Verdict(decision=decision, l3=l3, l7_redirect=l7_redirect)
+    verdict = Verdict(decision=decision, l3=l3, l7_redirect=l7_redirect)
+    if origin is None:
+        return verdict
+
+    # -- attribution (policyd-flows): first-match rule + reason ----------
+    # Masked min over the pre-reduction term vectors picks the LOWEST
+    # repository rule index whose cell fired — the reference's in-order
+    # rule walk stops at the first decider.
+    deny_rule = first_rule(deny_vec, origin.deny_rule)
+    allow_rule = first_rule(allow_vec, origin.allow_rule)
+    combo_fired = en_hit | (req_ok[:, None] & ee_hit)  # [b, K1]
+    l4_rule = first_rule(combo_fired, origin.combo_rule)
+
+    # Attribute by what actually DECIDED: pure-L3 allow wins over the
+    # L4 path (repository walk order); a deny only decides when the
+    # flow really dropped (an en-side L4 entry can allow past a deny).
+    allowed = decision == ALLOW
+    l3_decides = l3_allow & ~deny
+    rule = torch.where(
+        allowed,
+        torch.where(l3_decides, allow_rule, l4_rule),
+        torch.where(deny, deny_rule, NO_RULE),
+    )
+    rule = torch.where(rule == NO_RULE, -1, rule).to(torch.int32)
+
+    # Drop refinement: with L4 context and any combo covering the
+    # subject at this port, the peer was the missing half (no-L4);
+    # otherwise nothing covered the flow at all (no-L3).
+    l4_covered = has_l4 & combo.any(dim=1)
+    dropped = decision == DENY
+    reason = torch.where(
+        dropped,
+        torch.where(deny, ATTR_DENY_RULE, torch.where(l4_covered, ATTR_NO_L4, ATTR_NO_L3)),
+        torch.where(l7_redirect, ATTR_L7, ATTR_ALLOW),
+    ).to(torch.int8)
+    return verdict, Attribution(rule=rule, reason=reason)
+
+
+def rule_hits(rule: torch.Tensor, n_rules: int) -> torch.Tensor:
+    """[max(n_rules, 1)] int32 count of flows per attributed rule; a
+    rule index past the last lands in the last cell, -1 counts nowhere
+    (the clipped segment-sum of the reference)."""
+    valid = rule >= 0
+    idx = rule.long().clamp(0, max(n_rules - 1, 0))
+    return torch.bincount(idx[valid], minlength=max(n_rules, 1)).to(torch.int32)
 
 
 def verdict_batch(
@@ -205,29 +329,40 @@ def verdict_batch(
     ingress: bool = True,
     block: int = 8192,
     attrib: bool = False,
-) -> Verdict:
+    origin: Optional[AttribTables] = None,
+    n_rules: int = 0,
+):
     """Batch verdicts, ``block`` flows at a time to bound the
-    [block, S] intermediates."""
-    if attrib:
-        raise NotImplementedError("verdict attribution is not in the torch port yet")
+    [block, S] intermediates. With ``attrib=True`` (and the rule
+    ``origin`` tables) → ``(Verdict, Attribution, hits)``, ``hits`` the
+    [n_rules] int32 per-rule hit counts."""
+    if attrib and origin is None:
+        raise ValueError("verdict_batch(attrib=True) needs the rule origin tables")
     t = policy.ingress if ingress else policy.egress
     b = subj_rows.shape[0]
     parts = [
         _verdict_block(
             policy.sel_match, t, subj_rows[lo:lo + block], peer_rows[lo:lo + block],
             dport[lo:lo + block], proto[lo:lo + block], has_l4[lo:lo + block],
+            origin=origin if attrib else None,
         )
         for lo in range(0, b, block)
     ]
-    if not parts:
-        dev = subj_rows.device
-        return Verdict(
-            decision=torch.zeros(0, dtype=torch.int8, device=dev),
-            l3=torch.zeros(0, dtype=torch.int8, device=dev),
-            l7_redirect=torch.zeros(0, dtype=torch.bool, device=dev),
-        )
-    return Verdict(
-        decision=torch.cat([p.decision for p in parts]),
-        l3=torch.cat([p.l3 for p in parts]),
-        l7_redirect=torch.cat([p.l7_redirect for p in parts]),
+    dev = subj_rows.device
+
+    def cat(xs, dtype):
+        return torch.cat(xs) if xs else torch.zeros(0, dtype=dtype, device=dev)
+
+    verdicts = [p[0] for p in parts] if attrib else parts
+    verdict = Verdict(
+        decision=cat([v.decision for v in verdicts], torch.int8),
+        l3=cat([v.l3 for v in verdicts], torch.int8),
+        l7_redirect=cat([v.l7_redirect for v in verdicts], torch.bool),
     )
+    if not attrib:
+        return verdict
+    attribution = Attribution(
+        rule=cat([p[1].rule for p in parts], torch.int32),
+        reason=cat([p[1].reason for p in parts], torch.int8),
+    )
+    return verdict, attribution, rule_hits(attribution.rule, n_rules)[:n_rules]

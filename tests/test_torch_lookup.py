@@ -95,6 +95,4 @@ def test_lookup_refuses_unported_options(policymaps):
     _jt, tt = maps[True]
     z = torch.zeros(1, dtype=torch.int32)
     with pytest.raises(NotImplementedError):
-        tlookup.lookup_batch(tt, z, z, z, z, attrib=True)
-    with pytest.raises(NotImplementedError):
         tlookup.lookup_batch(tt, z, z, z, z, ident_gather=True)

@@ -57,7 +57,7 @@ def test_process_matches_jax(seed, prefilter):
         assert set(np.unique(vt)) == expect
     np.testing.assert_array_equal(pt.counters, pj.counters)
     assert pt.counters.sum() == 9000
-    fused = pt._tables[tpipe.TRAFFIC_INGRESS].merged_sub_info.shape[-1] == 65536
+    fused = pt._tables[(tpipe.TRAFFIC_INGRESS, 4)].merged_sub_info.shape[-1] == 65536
     assert fused == prefilter
 
 
@@ -123,9 +123,11 @@ def test_process_flows_wide_row_override_matches_jax(prefilter):
 def test_process_refuses_unported_arguments():
     wj, _pj, pt = _pipelines(0, False)
     flows = random_flows(wj, 4, N_EPS, 1)
-    with pytest.raises(NotImplementedError):
-        pt.process(*flows, sports=np.zeros(4, np.int32))
-    with pytest.raises(NotImplementedError):
-        pt.process(*flows, tunnel_identities=np.zeros(4, np.int64))
-    with pytest.raises(NotImplementedError):
-        pt.process(*flows, return_rev_nat=True)
+    flows6 = (np.zeros((4, 16), np.int32), *flows[1:])
+    for call, args in ((pt.process, flows), (pt.process_v6, flows6)):
+        with pytest.raises(NotImplementedError):
+            call(*args, sports=np.zeros(4, np.int32))
+        with pytest.raises(NotImplementedError):
+            call(*args, tunnel_identities=np.zeros(4, np.int64))
+        with pytest.raises(NotImplementedError):
+            call(*args, return_rev_nat=True)

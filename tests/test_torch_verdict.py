@@ -104,12 +104,3 @@ def test_engine_refreshes_when_identities_or_rules_move():
     w.reg.allocate(parse_label_array(["k8s:app=a1", "k8s:uid=new"]))
     assert te.refresh() is not first
 
-
-def test_attribution_is_not_ported():
-    w = build_world("cilium_tpu_torch", 0)
-    te = TorchEngine(w.repo, w.reg, device="cpu")
-    with pytest.raises(NotImplementedError):
-        te.verdicts([w.idents[0].id], [w.idents[1].id], [80], [6], attrib=True)
-    z = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        tverdict.verdict_batch(te.device_policy, z, z, z, z, z.bool(), attrib=True)
