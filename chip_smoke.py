@@ -30,6 +30,24 @@
    family against a CPU pipeline over the first four endpoints, and
    explain_one against the CPU engine; then a small world with deny and
    L7 rules, where every attribution reason code must occur on the card.
+4d. The L7 main path, launch counts from zero (L7DeviceBatch off, then
+   on; the off half must launch no fused or pair walk):
+   - a 3-field HTTP policy at the pattern cap (7 methods, 64 path
+     patterns, one of them demoted to host re, 3 hosts; fused Q 735, K7
+     only): HTTPPolicy.check_batch of 131 072 requests, paths longer
+     than 128 and 256 among them;
+   - Kafka (bench.py:290-308): 32 produce rules, 100 000 requests
+     through Proxy.check_kafka (the literal walk on K8 at rung 3), and
+     handle_kafka_bytes on produce frames with allowed and rejected
+     topics;
+   - the redirect path: the bench world again with every port-80 rule
+     carrying HTTP rules of the bench's L7 corpus, refreshed and rebuilt;
+     process() of the v4 batch, redirects built from resolve_l4_policy
+     for every endpoint, and one HTTP request per redirected flow of an
+     HTTP batch (131 072 port-80 flows to the redirecting peers) through
+     Proxy.check_http.
+   Each is held against the port's CPU path (a slice) and re.fullmatch
+   of the rules (400 requests), on and off.
 5. Holds every kernel against its plain version on the card, at the
    main paths' shapes, with exact equality (all outputs are integers),
    and times kernel, plain version and, where one exists, a library
@@ -37,7 +55,11 @@
    runs' per-launch means, after 50 ms of warm-up launches), printing
    the SM clock (nvidia-smi clocks.sm) right after each timed series.
    The attribution flow-route sweep (_sweep_device_attrib, on K2 + K6)
-   is timed the same way, its plain version with the plain K2 / K6.
+   is timed the same way, its plain version with the plain K2 / K6, and
+   so is the plain flow-route sweep (_sweep_device, off the main paths).
+   K7 (both entries) and K8 are timed on the bench's L7 corpus
+   (bench.py:266-430: 16 path patterns, 131 072 requests) at every
+   length rung, and K7 on the pattern-cap policy's fused table.
 
 Prints the card's name and power limit, one JSON line with every
 kernel's numbers and, last, the result line
@@ -66,6 +88,13 @@ PREFILTER_CIDRS = ["192.0.2.0/24", "198.51.100.0/24", "10.3.0.0/16", "10.250.7.0
 V6_DENY = ["fd00::3:0/120", "fd00::5:10/124"]
 N_ATTR_EPS = 4  # endpoints of the CPU pipeline the attribution slice is held against
 ATTR_SLICE = 1 << 14
+# L7 (bench.py:266-430 and :290-308): the 16-pattern path corpus, its
+# 131 072-request batch, the 32-topic Kafka ACL and its 100 000 requests
+L7_PATHS = [f"/api/v{i}/[a-z0-9]*" for i in range(8)] + [f"/svc{i}/.*" for i in range(8)]
+L7_BATCH = 1 << 17
+KAFKA_REQS = 100_000
+L7_SLICE = 1 << 13  # requests of the pattern-cap policy held against the CPU path
+N_L7_CPU_EPS = 4  # endpoints whose redirects are held against the CPU path
 
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and
 # int8 tensor-core operations/s
@@ -78,18 +107,31 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def build_world(seed: int):
+def build_world(seed: int, l7: bool = False):
     """bench.py build_world (10k rules / 2 048 identities) with the
-    port's modules; rule and identity draws from ``random.Random(seed)``."""
+    port's modules; rule and identity draws from ``random.Random(seed)``.
+    With ``l7`` every port-80 rule also carries one to three HTTP rules
+    over the bench's L7 corpus (bench.py:2416-2422: the eight
+    /api/v{i}/[a-z0-9]* and eight /svc{i}/.* paths), half of them with
+    a method (GET or POST), drawn from a second generator so that the
+    rules, identities and endpoints are the same as without it."""
     from cilium_tpu_torch.identity import IdentityRegistry
     from cilium_tpu_torch.ipcache.ipcache import IPCache
     from cilium_tpu_torch.labels import parse_label_array
     from cilium_tpu_torch.policy.api import (
-        EndpointSelector, IngressRule, PortProtocol, PortRule, rule,
+        EndpointSelector, HTTPRule, IngressRule, L7Rules, PortProtocol, PortRule, rule,
     )
     from cilium_tpu_torch.policy.repository import Repository
 
     rng = random.Random(seed)
+    hrng = random.Random(seed + 80)
+
+    def l7_rules(port):
+        if not l7 or port != 80:
+            return L7Rules()
+        return L7Rules(http=tuple(
+            HTTPRule(method=hrng.choice(["GET", "POST"]) if hrng.random() < 0.5 else "", path=p)
+            for p in hrng.sample(L7_PATHS, hrng.randint(1, 3))))
     repo = Repository()
     rules = []
     for _ in range(N_RULES):
@@ -100,7 +142,7 @@ def build_world(seed: int):
             proto = "UDP" if port == 53 else "TCP"
             ing = IngressRule(
                 from_endpoints=(peer,),
-                to_ports=(PortRule(ports=(PortProtocol(port, proto),)),),
+                to_ports=(PortRule(ports=(PortProtocol(port, proto),), rules=l7_rules(port)),),
             )
         else:
             ing = IngressRule(from_endpoints=(peer,))
@@ -196,6 +238,22 @@ def cuda_ms(fn, iters: int = 20, reps: int = 5, warm_s: float = 0.05):
         torch.cuda.synchronize()
         out.append(start.elapsed_time(end) / iters)
     return sorted(out)
+
+
+def graph_ms(fn, launches: int = 20, reps: int = 5):
+    """Per-launch device time (ms) of ``fn`` without the wrapper's host
+    work: ``launches`` calls captured in one CUDA graph, whose replays
+    are timed as ``cuda_ms`` times calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            fn()
+    torch.cuda.synchronize()
+    return [ms / launches for ms in cuda_ms(g.replay, iters=5, reps=reps)]
 
 
 def median(xs):
@@ -540,6 +598,448 @@ def build_small_world(seed: int):
     return repo, reg, cache, idents
 
 
+def build_redirects(repo, reg, proxy, ep_id: int, ep_labels, device) -> None:
+    """One redirect per redirecting L4 filter of the endpoint, each with
+    an HTTPPolicy / KafkaACL on ``device`` whose rules are scoped to the
+    identities its peer selector matches: the logic of the JAX
+    package's endpoint/endpoint.py:199-247 ``_update_redirects``, whose
+    endpoint module the port does not have yet."""
+    from cilium_tpu_torch.l7 import HTTPPolicy, KafkaACL
+    from cilium_tpu_torch.policy.api import HTTPRule, KafkaRule
+
+    l4 = repo.resolve_l4_policy(ep_labels)
+    identities = list(reg)
+    for direction_map, ingress in ((l4.ingress, True), (l4.egress, False)):
+        for f in direction_map:
+            if not f.is_redirect:
+                continue
+            http_rules, kafka_rules = [], []
+            for sel, rules in f.l7_rules_per_ep.items():
+                idents = None if sel.is_wildcard else {
+                    i.id for i in identities if sel.matches(i.labels)}
+                http_rules += [(hr, idents) for hr in rules.http]
+                kafka_rules += [(kr, idents) for kr in rules.kafka]
+                if not rules.http and not rules.kafka:
+                    # wildcarded L7: this peer passes the proxy unrestricted
+                    if f.l7_parser == "http":
+                        http_rules.append((HTTPRule(), idents))
+                    elif f.l7_parser == "kafka":
+                        kafka_rules.append((KafkaRule(), idents))
+            proxy.create_or_update_redirect(
+                ep_id, f.port, f.l7_parser, ingress=ingress,
+                http_policy=HTTPPolicy(http_rules, device=device) if f.l7_parser == "http" else None,
+                kafka_acl=KafkaACL(kafka_rules, device=device) if f.l7_parser == "kafka" else None,
+            )
+
+
+def cap_policy_rules():
+    """A 3-field HTTP policy at the pattern cap: 7 methods, 64 path
+    patterns (the last one in syntax the DFA compiler refuses, so it is
+    demoted to host re) and 3 host patterns, one rule per path."""
+    from cilium_tpu_torch.policy.api import HTTPRule
+
+    methods = ["GET", "POST", "PUT", "DELETE", "PATCH", "HEAD", "OPTIONS"]
+    hosts = ["api[.]example[.]com", "[a-z]+[.]internal", "svc[0-9]+[.]local"]
+    paths = ([f"/api/v{i % 8}/r{i}/[a-z0-9]*" for i in range(40)]
+             + [f"/svc{i}/.*" for i in range(23)] + ["/legacy/(?:v1|v2)/.*"])
+    return [(HTTPRule(method=methods[i % 7], path=p, host=hosts[i % 3] if i % 2 else ""), None)
+            for i, p in enumerate(paths)]
+
+
+def cap_requests(seed: int, n: int):
+    """Requests for the pattern-cap policy: most aim at one rule's path
+    with that rule's method and host three times in four; 1/16 of the
+    paths are longer than 128 bytes and 1/32 longer than 256 (the host
+    walk)."""
+    import numpy as np
+
+    from cilium_tpu_torch.l7 import HTTPRequest
+
+    rs = np.random.default_rng(seed + 70)
+    methods = ["GET", "POST", "PUT", "DELETE", "PATCH", "HEAD", "OPTIONS", "TRACE"]
+    hosts = ["api.example.com", "db.internal", "svc12.local", "", "evil.com"]
+    out = []
+    for j, k, a, b, s_ in zip(rs.integers(0, 64, n).tolist(), rs.integers(0, 32, n).tolist(),
+                              rs.integers(0, 32, n).tolist(), rs.integers(0, 32, n).tolist(),
+                              rs.integers(256, 4096, n).tolist()):
+        if k == 0:
+            path = f"/svc{j % 23}/" + "b" * 300
+        elif k < 3:
+            path = f"/svc{j % 30}/" + "a" * 150
+        elif k < 5:
+            path = f"/legacy/v{j % 4}/x"
+        elif k < 26:
+            path = f"/api/v{j % 8}/r{j}/obj{k}" if j < 40 else f"/svc{j - 40}/up/{k}"
+        elif k < 30:
+            path = f"/api/v{(j + 1) % 8}/r{j}/x"
+        else:
+            path = "/nope"
+        method = methods[j % 7] if a < 24 else methods[a % 8]
+        host = hosts[j % 3] if b < 24 else hosts[b % 5]
+        out.append(HTTPRequest(method=method, path=path, host=host, src_identity=s_))
+    return out
+
+
+def kafka_bench():
+    """bench.py:290-308: 32 produce rules over topics t0..t31 and
+    100 000 requests over t0..t47."""
+    from cilium_tpu_torch.l7 import KafkaRequest
+    from cilium_tpu_torch.policy.api import KafkaRule
+
+    rules = [(KafkaRule(role="produce", topic=f"t{i}"), None) for i in range(32)]
+    reqs = [KafkaRequest(api_key=0, api_version=2, client_id="c", topic=f"t{i % 48}")
+            for i in range(KAFKA_REQS)]
+    return rules, reqs
+
+
+def produce_frame(client: str, topics, cid: int = 7) -> bytes:
+    """A Kafka produce request frame (v0), built with the port's wire
+    module's constants and string encoder."""
+    import struct
+
+    from cilium_tpu_torch.l7 import kafka_wire
+
+    body = struct.pack(">hhi", kafka_wire.API_PRODUCE, 0, cid) + kafka_wire._w_str(client)
+    body += struct.pack(">hi", 1, 30000) + struct.pack(">i", len(topics))
+    for t in topics:
+        body += kafka_wire._w_str(t) + struct.pack(">i", 1) + struct.pack(">ii", 0, 10) + b"\x00" * 10
+    return struct.pack(">i", len(body)) + body
+
+
+def http_oracle(pol, reqs):
+    """re.fullmatch of a policy's rules (HTTPRule.matches) with their
+    identity scopes, request by request."""
+    import numpy as np
+
+    return np.array([any(cr.rule.matches(q.method, q.path, q.host)
+                         and (cr.allowed_identities is None
+                              or q.src_identity in cr.allowed_identities)
+                         for cr in pol._rules) for q in reqs], bool)
+
+
+def dfa_touched_bytes(table, starts, sb, lens, max_len: int, pair: bool) -> int:
+    """Bytes a DFA walk must move for these rows: the string bytes it
+    walks (min(length, max_len) per row, at the batch's element size),
+    each row's length and start (one start when ``starts`` holds one)
+    and its two mask words, plus the distinct table entries the walks
+    reach and the accept words of the distinct final states."""
+    import torch
+
+    b = sb.shape[0]
+    state = starts.long().expand(b) if starts.numel() == 1 else starts.long()
+    end = lens.long().clamp(max=max_len)
+    alive = lens >= 0
+    flat = table.reshape(-1)
+    cells = []
+    for lvl in range(0, max_len, 2 if pair else 1):
+        step = alive & (lvl < end)
+        if pair:
+            b1 = sb[:, lvl + 1].long() if lvl + 1 < max_len else torch.zeros_like(state)
+            b1 = torch.where(lvl + 1 < end, b1, 256)
+            idx = (state * 257 + sb[:, lvl].long()) * 257 + b1
+        else:
+            idx = state * 256 + sb[:, lvl].long()
+        idx = torch.where(step, idx, 0)
+        cells.append(idx[step])
+        state = torch.where(step, flat[idx].long(), state)
+    n_cells = torch.unique(torch.cat(cells)).numel() if cells else 0
+    n_final = torch.unique(state[alive]).numel()
+    walked = int(end.clamp(min=0).sum())
+    return (walked * sb.element_size() + b * (4 + 8) + 4 * starts.numel()
+            + 4 * n_cells + 8 * n_final)
+
+
+def edge_checks3(dev) -> None:
+    """K7 (both entries) and K8 against their plain versions, exact, on
+    shapes the main paths do not reach: random automata at every rung
+    and at odd caps (3, 5, 17), uint8 and int32 bytes, batch widths
+    wider than max_len, lengths -1 and past max_len (the pair walk
+    reads no byte at or past max_len), starts outside [0, Q), int32
+    bytes outside [0, 255], max_len 0, and an empty batch (no launch)."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch import _kernels
+    from cilium_tpu_torch.l7.regex_compile import compile_patterns
+    from cilium_tpu_torch.ops.dfa import (
+        accept_words, dfa_match_batch, dfa_match_batch_fused, dfa_match_batch_pair,
+        dfa_pair_walk_plain, dfa_walk_plain, fuse_dfas,
+    )
+
+    rs = np.random.default_rng(777)
+    rng = random.Random(777)
+    atoms = ["a", "b", "/", "[a-z]", "[0-9]", ".", "x+", "b*", "(ab|ba)", "c?", "[^a]"]
+
+    def pats(n):
+        return ["".join(rng.choice(atoms) for _ in range(rng.randrange(1, 6))) for _ in range(n)]
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    fused = fuse_dfas([compile_patterns(pats(rng.randrange(2, 8))) for _ in range(3)])
+    if fused.pair is None:
+        fail("the edge automata are too large for a pair table")
+    lo, hi = (t(w) for w in accept_words(fused.accept))
+    q = fused.n_states
+    for max_len in (0, 3, 5, 16, 17, 32, 64, 128, 256):
+        b = 20_000
+        width = max_len + int(rs.integers(0, 5))
+        for dtype in (np.uint8, np.int32):
+            sb = rs.choice(np.frombuffer(b"ab/xyz019c\x00", np.uint8), (b, width)).astype(dtype)
+            lens = rs.integers(-1, max_len + 6, b).astype(np.int32)
+            starts = rs.choice(fused.starts, b).astype(np.int32)
+            starts[rs.random(b) < 0.01] = q + 3
+            starts[rs.random(b) < 0.01] = -2
+            if dtype == np.int32:
+                sb[rs.random(sb.shape) < 0.002] = rs.choice(np.array([-1, 256, 1 << 20], np.int32))
+            args = (lo, hi, t(starts), t(sb), t(lens), max_len)
+            for fn, plain, tab in ((dfa_match_batch_fused, dfa_walk_plain, fused.trans),
+                                   (dfa_match_batch_pair, dfa_pair_walk_plain, fused.pair)):
+                got, want = fn(t(tab), *args), plain(t(tab), *args)
+                if any(max_abs_err(g, w) for g, w in zip(got, want)):
+                    fail(f"{fn.__name__} disagrees at max_len {max_len}, {np.dtype(dtype).name} bytes")
+            if max_abs_err(dfa_match_batch_pair(t(fused.pair), *args)[0],
+                           dfa_match_batch_fused(t(fused.trans), *args)[0]):
+                fail(f"the pair walk and the single-byte walk differ at max_len {max_len}")
+            start = torch.tensor(int(fused.starts[1]), dtype=torch.int32, device=dev)
+            got = dfa_match_batch(t(fused.trans), lo, hi, start, *args[3:])
+            want = dfa_walk_plain(t(fused.trans), lo, hi, start.expand(b), *args[3:])
+            if any(max_abs_err(g, w) for g, w in zip(got, want)):
+                fail(f"dfa_match_batch disagrees at max_len {max_len}")
+    before = _kernels.launches()
+    empty = (lo, hi, t(np.zeros(0, np.int32)), t(np.zeros((0, 16), np.uint8)),
+             t(np.zeros(0, np.int32)), 16)
+    for fn, tab in ((dfa_match_batch_fused, fused.trans), (dfa_match_batch_pair, fused.pair)):
+        if fn(t(tab), *empty)[0].shape != (0,):
+            fail("an empty DFA batch returned rows")
+    if _kernels.launches() != before:
+        fail("an empty DFA batch launched a kernel")
+    torch.cuda.synchronize()
+
+
+def l7_main_path(seed: int, card: str, v4_flows, endpoints):
+    """The L7 main path on the card (see 4d in the module docstring),
+    L7DeviceBatch off and then on; returns what the CPU checks and the
+    kernel rows need, and the launch counts of the off half."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch import _kernels
+    from cilium_tpu_torch.datapath import l7_pipeline as l7rt
+    from cilium_tpu_torch.datapath.pipeline import DatapathPipeline
+    from cilium_tpu_torch.engine import PolicyEngine
+    from cilium_tpu_torch.l7 import HTTPPolicy, HTTPRequest, KafkaACL
+    from cilium_tpu_torch.labels import parse_label_array
+    from cilium_tpu_torch.proxy import Proxy
+
+    r = {}
+    t0 = time.perf_counter()
+    repo, reg, cache, idents, labels_of = build_world(seed, l7=True)
+    engine = PolicyEngine(repo, reg)
+    engine.refresh()
+    pipe = DatapathPipeline(engine, cache)
+    pipe.set_endpoints(endpoints)
+    pipe.rebuild()
+    torch.cuda.synchronize()
+    _, red = pipe.process(*v4_flows)
+    n_bench = int(red.sum())
+    proxy = Proxy()
+    for ep in endpoints:
+        build_redirects(repo, reg, proxy, ep, parse_label_array(labels_of[ep]), None)
+    n_redirects = len(proxy.redirects())
+    # the HTTP batch: port-80 flows to endpoints with a port-80 redirect,
+    # 7/8 of them from the peers its HTTP rules name (a peer that an
+    # L3-only rule also allows is not redirected), 1/8 from any identity
+    index_of = {ident.id: j for j, ident in enumerate(idents)}
+    peers_of = {}
+    for e, ep in enumerate(endpoints):
+        rd = proxy.lookup(ep, 80, ingress=True)
+        if rd is not None:
+            ids = set().union(*(cr.allowed_identities or set() for cr in rd.http_policy._rules
+                                if cr.rule.path or cr.rule.method))
+            peers_of[e] = np.array(sorted(index_of[i] for i in ids if i in index_of))
+    rs = np.random.default_rng(seed + 81)
+    n_h = 2 * L7_BATCH
+    ep_h = rs.choice(np.array(sorted(k for k, v in peers_of.items() if v.size)), n_h)
+    pick = rs.integers(0, 1 << 30, n_h)
+    j = np.array([peers_of[e][k % peers_of[e].size] for e, k in zip(ep_h.tolist(), pick.tolist())])
+    j = np.where(rs.random(n_h) < 1 / 8, rs.integers(0, len(idents), n_h), j)
+    ips_h = ((10 << 24) | ((j >> 8) & 255) << 16 | (j & 255) << 8 | 1).astype(np.uint32)
+    http_flows = (ips_h, ep_h.astype(np.int32), np.full(n_h, 80, np.int32),
+                  np.full(n_h, 6, np.int32))
+    _, red_h = pipe.process(*http_flows)
+    # one request per redirected flow: the bench batch's, then the HTTP batch's
+    bench_idx = np.nonzero(red)[0]
+    ep_r = np.concatenate([v4_flows[1][bench_idx], ep_h[red_h]])[:L7_BATCH]
+    port_r = np.concatenate([v4_flows[2][bench_idx], np.full(int(red_h.sum()), 80)])[:L7_BATCH]
+    ip_r = np.concatenate([v4_flows[0][bench_idx], ips_h[red_h]])[:L7_BATCH]
+    j_r = ((ip_r.astype(np.int64) >> 16) & 255) << 8 | ((ip_r.astype(np.int64) >> 8) & 255)
+    src_r = np.array([ident.id for ident in idents])[j_r]
+    groups = {}
+    for i, (e, port) in enumerate(zip(ep_r.tolist(), port_r.tolist())):
+        groups.setdefault((endpoints[e], port), []).append(i)
+    # half the requests take a path and method of one of the redirect's
+    # rules, the rest any corpus path (and some past the 256-byte cap)
+    methods, paths = [""] * ep_r.size, [""] * ep_r.size
+    corpus = [f"/api/v{a}/obj{a}" for a in range(10)] + [f"/svc{a}/x/y" for a in range(10)]
+    for (ep, port), sel in groups.items():
+        rd = proxy.lookup(ep, port, ingress=True)
+        own = [cr.rule for cr in rd.http_policy._rules] if rd is not None else []
+        for i, a, b in zip(sel, rs.integers(0, 64, len(sel)).tolist(),
+                           rs.integers(0, 1 << 30, len(sel)).tolist()):
+            if own and a < 32:
+                rule = own[b % len(own)]
+                paths[i] = rule.path.replace("[a-z0-9]*", f"obj{a}").replace(".*", "x/y")
+                methods[i] = rule.method or ["GET", "POST", "PUT"][a % 3]
+            else:
+                paths[i] = corpus[b % 20] if a < 60 else "/api/v1/" + "a" * 300
+                methods[i] = ["GET", "POST", "PUT", "DELETE"][a % 4]
+    reqs_d = [HTTPRequest(method=m, path=p_, src_identity=int(s_))
+              for m, p_, s_ in zip(methods, paths, src_r)]
+    t_setup = time.perf_counter() - t0
+    print(f"main path l7 [redirect world]: {n_bench} of {BATCH} bench flows redirect "
+          f"({int(red_h.sum())} of the {n_h}-flow HTTP batch), {n_redirects} redirects over "
+          f"{len(endpoints)} endpoints, {len(groups)} (endpoint, port) groups of requests, "
+          f"{ep_r.size} requests; world, refresh, rebuild, process and redirects "
+          f"{t_setup!r}s [{card}]", flush=True)
+    if n_bench <= 0 or ep_r.size < L7_BATCH // 4:
+        fail("the redirect world sends too few flows through the proxy")
+
+    pol_b = HTTPPolicy(cap_policy_rules())
+    if not pol_b._paths.host_pids:
+        fail("the pattern-cap policy demoted no pattern")
+    reqs_b = cap_requests(seed, L7_BATCH)
+    k_rules, k_reqs = kafka_bench()
+    acl = KafkaACL(k_rules)
+    rk = proxy.create_or_update_redirect(1 << 20, 9092, "kafka", kafka_acl=acl)
+    frames = [produce_frame("c", ["t3"]), produce_frame("c", ["t40"]),
+              produce_frame("c", ["t1", "t2"]), produce_frame("c", ["t5", "t33"]), b"\x00\x00"]
+    # each state runs twice: the first pass of the on state builds and
+    # uploads the fused (and pair) tables, the second is the steady state
+    for on in (False, True):
+        tag = "on" if on else "off"
+        l7rt.set_device_batch(on)
+        for rep in ("first", "second"):
+            t0 = time.perf_counter()
+            out_b = pol_b.check_batch(reqs_b)
+            t_b = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out_c = np.asarray(proxy.check_kafka(rk, k_reqs))
+            t_c = time.perf_counter() - t0
+            out_f = [proxy.handle_kafka_bytes(rk, f, src_identity=5) for f in frames]
+            allow = np.zeros(ep_r.size, bool)
+            t0 = time.perf_counter()
+            for (ep, port), sel in groups.items():
+                rd = proxy.lookup(ep, port, ingress=True)
+                if rd is None or rd.parser != "http":
+                    fail(f"a redirected flow to ({ep}, {port}) has no HTTP redirect")
+                allow[sel] = proxy.check_http(rd, [reqs_d[i] for i in sel])
+            t_d = time.perf_counter() - t0
+            if rep == "second" and not (np.array_equal(out_b, r[("b", tag)])
+                                        and np.array_equal(out_c, r[("c", tag)])
+                                        and out_f == r[("frames", tag)]
+                                        and np.array_equal(allow, r[("d", tag)])):
+                fail(f"L7: two passes with L7DeviceBatch {tag} disagree")
+            r[("b", tag)], r[("c", tag)], r[("frames", tag)], r[("d", tag)] = (
+                out_b, out_c, out_f, allow)
+            print(f"main path l7 [L7DeviceBatch {tag}, {rep} pass]: pattern-cap check_batch "
+                  f"{L7_BATCH} requests {t_b!r}s = {L7_BATCH / t_b!r} req/s "
+                  f"({int(out_b.sum())} allowed); kafka check_kafka {KAFKA_REQS} requests "
+                  f"{t_c!r}s = {KAFKA_REQS / t_c!r} req/s ({int(out_c.sum())} allowed); redirect "
+                  f"check_http {ep_r.size} requests {t_d!r}s = {ep_r.size / t_d!r} req/s "
+                  f"({int(allow.sum())} allowed); handle_kafka_bytes forward "
+                  f"{[f for f, _ in out_f]} [{card}]", flush=True)
+        if not on:
+            r["off_launches"] = _kernels.launches()
+    l7rt.set_device_batch(False)
+    for part in ("b", "c", "d"):
+        if not np.array_equal(r[(part, "on")], r[(part, "off")]):
+            fail(f"L7 {part}: L7DeviceBatch on and off disagree on the card")
+    if r[("frames", "on")] != r[("frames", "off")]:
+        fail("handle_kafka_bytes: L7DeviceBatch on and off disagree on the card")
+    if [f for f, _ in r[("frames", "on")]] != [True, False, True, False, False]:
+        fail(f"handle_kafka_bytes forwarded {[f for f, _ in r[('frames', 'on')]]}")
+    for part in ("b", "c", "d"):
+        if not (r[(part, "on")].any() and not r[(part, "on")].all()):
+            fail(f"L7 {part}: the requests are all allowed or all denied")
+    r.update(pol_b=pol_b, reqs_b=reqs_b, k_rules=k_rules, k_reqs=k_reqs, frames=frames,
+             proxy=proxy, groups=groups, reqs_d=reqs_d, repo=repo, reg=reg, labels_of=labels_of)
+    return r
+
+
+def l7_cpu_checks(r) -> None:
+    """Hold the card's L7 results against the port's CPU path (the
+    pattern-cap policy on its first L7_SLICE requests, the Kafka ACL on
+    every request and frame, the redirects of the first N_L7_CPU_EPS
+    endpoints that receive requests) and against re.fullmatch of the rules (400 requests of
+    each HTTP policy), for L7DeviceBatch off and on."""
+    import numpy as np
+
+    from cilium_tpu_torch.datapath import l7_pipeline as l7rt
+    from cilium_tpu_torch.l7 import HTTPPolicy, KafkaACL
+    from cilium_tpu_torch.labels import parse_label_array
+    from cilium_tpu_torch.proxy import Proxy
+
+    cpu_eps = []
+    for ep, _port in r["groups"]:
+        if ep not in cpu_eps and len(cpu_eps) < N_L7_CPU_EPS:
+            cpu_eps.append(ep)
+    cpu_pol = HTTPPolicy(cap_policy_rules(), device="cpu")
+    cpu_acl = KafkaACL(r["k_rules"], device="cpu")
+    cpu_proxy = Proxy()
+    rk = cpu_proxy.create_or_update_redirect(1 << 20, 9092, "kafka", kafka_acl=cpu_acl)
+    for ep in cpu_eps:
+        build_redirects(r["repo"], r["reg"], cpu_proxy, ep,
+                        parse_label_array(r["labels_of"][ep]), "cpu")
+    n_d = 0
+    try:
+        for on in (False, True):
+            tag = "on" if on else "off"
+            l7rt.set_device_batch(on, device="cpu")
+            got = cpu_pol.check_batch(r["reqs_b"][:L7_SLICE])
+            if not np.array_equal(got, r[("b", tag)][:L7_SLICE]):
+                fail(f"pattern-cap policy: card and CPU disagree (L7DeviceBatch {tag})")
+            if not np.array_equal(np.asarray(cpu_proxy.check_kafka(rk, r["k_reqs"])), r[("c", tag)]):
+                fail(f"kafka: card and CPU disagree (L7DeviceBatch {tag})")
+            if [cpu_proxy.handle_kafka_bytes(rk, f, src_identity=5) for f in r["frames"]] != r[
+                    ("frames", tag)]:
+                fail(f"handle_kafka_bytes: card and CPU disagree (L7DeviceBatch {tag})")
+            n_d = 0
+            for (ep, port), sel in r["groups"].items():
+                if ep not in cpu_eps:
+                    continue
+                rd = cpu_proxy.lookup(ep, port, ingress=True)
+                got = cpu_proxy.check_http(rd, [r["reqs_d"][i] for i in sel])
+                if not np.array_equal(got, r[("d", tag)][sel]):
+                    fail(f"redirect ({ep}, {port}): card and CPU disagree (L7DeviceBatch {tag})")
+                n_d += len(sel)
+    finally:
+        l7rt.set_device_batch(False)
+    if n_d < 32:
+        fail("the CPU slice of the redirect path holds too few requests")
+    if not np.array_equal(http_oracle(r["pol_b"], r["reqs_b"][:N_ORACLE]),
+                          r[("b", "on")][:N_ORACLE]):
+        fail("pattern-cap policy: the card disagrees with re.fullmatch")
+    checked = 0
+    for (ep, port), sel in r["groups"].items():
+        rd = r["proxy"].lookup(ep, port, ingress=True)
+        sel = sel[:N_ORACLE - checked]
+        if not np.array_equal(http_oracle(rd.http_policy, [r["reqs_d"][i] for i in sel]),
+                              r[("d", "on")][sel]):
+            fail(f"redirect ({ep}, {port}): the card disagrees with re.fullmatch")
+        checked += len(sel)
+        if checked >= N_ORACLE:
+            break
+    want = np.array([any(rule.matches(q.api_key, q.api_version, q.client_id, q.topic)
+                         for rule, _ in r["k_rules"]) for q in r["k_reqs"][:N_ORACLE]])
+    if not np.array_equal(want, r[("c", "on")][:N_ORACLE]):
+        fail("kafka: the card disagrees with KafkaRule.matches")
+    print(f"L7: card == CPU path (pattern-cap policy on {L7_SLICE} requests, kafka on "
+          f"{KAFKA_REQS} and on the frames, the redirects of {N_L7_CPU_EPS} endpoints on {n_d} "
+          f"requests) and == re.fullmatch / KafkaRule.matches on {N_ORACLE} requests each, "
+          f"L7DeviceBatch off and on", flush=True)
+
+
 def metric_series():
     """Snapshot of the attribution metrics (rule_hits_total and
     drop_reasons_total), keyed by (metric, labels)."""
@@ -578,6 +1078,12 @@ def main() -> None:
     )
     from cilium_tpu_torch.ops.verdict import ATTR_NAMES, bool_mm, bool_mm_plain, first_rule, first_rule_plain
     from cilium_tpu_torch.convert import words_i32
+    from cilium_tpu_torch.l7.regex_compile import compile_patterns
+    from cilium_tpu_torch.ops.dfa import (
+        L7_LEN_LADDER, DeviceDFATable, device_dfa, dfa_match_batch, dfa_match_batch_fused,
+        dfa_match_batch_pair, dfa_pair_walk_plain, dfa_walk_plain, fuse_dfas, len_rung,
+        strings_to_batch, strings_to_batch_u8,
+    )
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -599,10 +1105,13 @@ def main() -> None:
 
     edge_checks(dev)
     edge_checks2(dev)
+    edge_checks3(dev)
     print("edge shapes: every kernel equals its plain version (ragged K1/K2, "
           "16-8-8 K3, 1 280-column / 2 100-endpoint K4; 4- and 16-level K5 with "
           "out-of-range bytes and child ids; ragged K6; K4 attribution with shared and "
-          "global histograms)", flush=True)
+          "global histograms; K7 both entries and K8 at every rung and odd caps, uint8 and "
+          "int32 bytes, out-of-range starts and bytes, lengths past max_len, empty batches)",
+          flush=True)
 
     # -- 2. world --------------------------------------------------------
     t0 = time.perf_counter()
@@ -870,12 +1379,25 @@ def main() -> None:
           f"{sorted(ATTR_NAMES.values())} on the card, engine attribution, explain_one and "
           f"pipeline metric deltas == CPU, in {time.perf_counter() - t0:.2f}s", flush=True)
 
+    # -- 3d. L7 main path, launch counts from zero -----------------------
+    _kernels.reset_launches()
+    l7res = l7_main_path(args.seed, card, (ips, eps, dports, protos), endpoints)
+    off = l7res["off_launches"]
+    if off["dfa_walk_fused"] or off["dfa_pair_walk"] or not off["dfa_walk"]:
+        fail(f"the L7DeviceBatch-off path launched {off}")
+    check_path("l7", ["dfa_walk", "dfa_walk_fused", "dfa_pair_walk"])
+
+    # -- 4d. L7 against the CPU path and the rules' oracle -----------------
+    t0 = time.perf_counter()
+    l7_cpu_checks(l7res)
+    print(f"L7 CPU and oracle checks in {time.perf_counter() - t0:.2f}s", flush=True)
+
     # -- 5. each kernel against its plain version on the card ------------
     compiled, device = engine.snapshot()
     rows = []
 
     def row(name, source, replaces, err, fn, plain_fn, b_ms, b_by, shape, lib_fn=None,
-            iters=20, plain_iters=5, reps=5):
+            iters=20, plain_iters=5, reps=5, graph=False):
         ms, clk = timed(fn, iters=iters, reps=reps)
         plain_ms, pclk = timed(plain_fn, iters=plain_iters, reps=reps)
         lib = None
@@ -883,7 +1405,8 @@ def main() -> None:
             lib, _ = timed(lib_fn, iters=iters, reps=reps)
         rows.append(dict(name=name, source=source, replaces=replaces, err=err, ms=ms,
                          plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                         shape=shape, clock=clk, plain_clock=pclk))
+                         shape=shape, clock=clk, plain_clock=pclk,
+                         graph_ms=graph_ms(fn) if graph else None))
 
     # K1 selector_match at the engine's shapes
     k1_in = (
@@ -1051,6 +1574,93 @@ def main() -> None:
         f"{seg[0].shape[0]} segments x {nrow} identity rows = {n_flows} flows, K2 + K6",
         iters=1, plain_iters=1, reps=3)
 
+    # the plain flow-route sweep (_sweep_device, no attribution) at the
+    # same segments: off the main paths, timed once for its row
+    def sweep_flow():
+        return matmod._sweep_device(device, *seg, nrow, True, 8192)
+
+    def sweep_flow_plain():
+        real = verdictmod.bool_mm
+        verdictmod.bool_mm = bool_mm_plain
+        try:
+            return sweep_flow()
+        finally:
+            verdictmod.bool_mm = real
+
+    err = max(max_abs_err(a, b) for a, b in zip(sweep_flow(), sweep_flow_plain()))
+    if err:
+        fail("sweep_device disagrees with its plain version")
+    ms, clk = timed(sweep_flow, iters=1, reps=3)
+    plain_ms, _ = timed(sweep_flow_plain, iters=1, reps=3)
+    b_ms, b_by = bound(nbytes(device.sel_match, *sweep_flow()), sweep_ops(t_in, n_flows))
+    print(f"sweep_device (no attribution, off the main paths) {seg[0].shape[0]} segments x {nrow} "
+          f"identity rows = {n_flows} flows, K2: max_abs_err {err}, ms {median(ms)!r} {ms} (SM "
+          f"clock after: {clk}), plain_ms {median(plain_ms)!r} {plain_ms}, bound_ms {b_ms!r} "
+          f"({b_by}) [{card}]", flush=True)
+
+    # K7 / K8 on the bench's L7 corpus (bench.py:266-430): the unfused
+    # walk at max_len 64 over int32 bytes (the l7_dfa_rps definition),
+    # then the fused entry and the pair walk at every length rung over the
+    # same corpus padded to the rung
+    mdfa = compile_patterns(L7_PATHS)
+    l7_paths = [f"/api/v{i % 8}/obj{i % 97}".encode() for i in range(L7_BATCH)]
+    sb, lens = strings_to_batch(l7_paths, 64)
+    trans, alo, ahi, start = device_dfa(mdfa)
+    sb_t, lens_t = torch.from_numpy(sb).to(dev), torch.from_numpy(lens).to(dev)
+    args7 = (trans, alo, ahi, start, sb_t, lens_t, 64)
+    plain7 = (trans, alo, ahi, start.expand(L7_BATCH), sb_t, lens_t, 64)
+    k_out = dfa_match_batch(*args7)
+    if not bool((k_out[0] != 0).all()):
+        fail("a bench corpus path matched no pattern")
+    b_ms, b_by = bound(dfa_touched_bytes(trans, start.reshape(1), sb_t, lens_t, 64, False), 0)
+    row("dfa_walk", "cilium_tpu_torch/csrc/dfa_walk.cu", "cilium_tpu/ops/dfa.py:104",
+        max(max_abs_err(a, b) for a, b in zip(k_out, dfa_walk_plain(*plain7))),
+        lambda: dfa_match_batch(*args7), lambda: dfa_walk_plain(*plain7), b_ms, b_by,
+        f"{L7_BATCH} paths, int32 bytes, max_len 64, Q {trans.shape[0]}", graph=True)
+    table = DeviceDFATable(("bench-l7",), fuse_dfas([mdfa]))
+    if not table.has_pair:
+        fail("the bench corpus's fused table has no pair table")
+    st = torch.from_numpy(np.repeat(table.starts_host, L7_BATCH)).to(dev)
+    for rung in L7_LEN_LADDER:
+        rp = l7_paths if rung == L7_LEN_LADDER[0] else [(x + b"x" * rung)[:rung] for x in l7_paths]
+        usb, ul = (torch.from_numpy(a).to(dev) for a in strings_to_batch_u8(rp, rung))
+        a8 = (table.accept_lo, table.accept_hi, st, usb, ul, rung)
+        for name, rep, fn, plain, tab, pair in (
+            ("dfa_walk_fused", ":236", dfa_match_batch_fused, dfa_walk_plain, table.trans, False),
+            ("dfa_pair_walk", ":264", dfa_match_batch_pair, dfa_pair_walk_plain, table.pair, True),
+        ):
+            k_out = fn(tab, *a8)
+            if not bool((k_out[0] != 0).all()):
+                fail(f"{name}: a padded corpus path matched no pattern at rung {rung}")
+            b_ms, b_by = bound(dfa_touched_bytes(tab, st, usb, ul, rung, pair), 0)
+            row(name, f"cilium_tpu_torch/csrc/{'dfa_pair_walk' if pair else 'dfa_walk'}.cu",
+                f"cilium_tpu/ops/dfa.py{rep}",
+                max(max_abs_err(x, y) for x, y in zip(k_out, plain(tab, *a8))),
+                lambda fn=fn, tab=tab, a8=a8: fn(tab, *a8),
+                lambda plain=plain, tab=tab, a8=a8: plain(tab, *a8), b_ms, b_by,
+                f"{L7_BATCH} paths, uint8 bytes, rung {rung}, Q {table.n_states}", graph=True)
+    # K7's fused entry on the pattern-cap policy's table (Q 735, no pair
+    # table) over its main-path batch packed as submit() packs it, in
+    # one launch (the pipeline launches it in 16 384-row chunks)
+    ptab = l7res["pol_b"]._fused_table
+    reqs_b = l7res["reqs_b"]
+    cols = [[q.method.encode() for q in reqs_b], [q.path.encode() for q in reqs_b],
+            [q.host.encode() for q in reqs_b]]
+    flat = cols[0] + cols[1] + cols[2]
+    rung = len_rung(min(max(map(len, flat)), 256), 256)
+    usb, ul = strings_to_batch_u8(flat, rung)
+    ul[:L7_BATCH][ul[:L7_BATCH] > 16] = -1
+    usb, ul = torch.from_numpy(usb).to(dev), torch.from_numpy(ul).to(dev)
+    st = torch.from_numpy(np.repeat(ptab.starts_host, L7_BATCH)).to(dev)
+    a8 = (ptab.accept_lo, ptab.accept_hi, st, usb, ul, rung)
+    k_out = dfa_match_batch_fused(ptab.trans, *a8)
+    b_ms, b_by = bound(dfa_touched_bytes(ptab.trans, st, usb, ul, rung, False), 0)
+    row("dfa_walk_fused", "cilium_tpu_torch/csrc/dfa_walk.cu", "cilium_tpu/ops/dfa.py:236",
+        max(max_abs_err(x, y) for x, y in zip(k_out, dfa_walk_plain(ptab.trans, *a8))),
+        lambda: dfa_match_batch_fused(ptab.trans, *a8), lambda: dfa_walk_plain(ptab.trans, *a8),
+        b_ms, b_by, f"pattern-cap policy: {len(flat)} rows (3 fields), rung {rung}, "
+        f"Q {ptab.n_states}", plain_iters=2, reps=3, graph=True)
+
     # one JSON entry per kernel: a kernel timed on several inputs keeps
     # its first input's numbers and the largest error of all its checks
     total = {k: sum(p.get(k, 0) for p in launches.values()) for k in _kernels.launches()}
@@ -1063,10 +1673,12 @@ def main() -> None:
             by_name[r["name"]] = dict(r)
     for r in rows:
         lib = "null" if r["library_ms"] is None else f"{median(r['library_ms'])!r} {r['library_ms']}"
+        graph = "" if r["graph_ms"] is None else (
+            f", in a CUDA graph (no wrapper host work) {median(r['graph_ms'])!r} {r['graph_ms']}")
         print(f"kernel {r['name']:<24} {r['shape']}: launches {total[r['name']]}, "
               f"max_abs_err {r['err']}, ms {median(r['ms'])!r} {r['ms']} (SM clock after: "
-              f"{r['clock']}), plain_ms {median(r['plain_ms'])!r} {r['plain_ms']} (SM clock "
-              f"after: {r['plain_clock']}), library_ms {lib}, bound_ms {r['bound_ms']!r} "
+              f"{r['clock']}){graph}, plain_ms {median(r['plain_ms'])!r} {r['plain_ms']} (SM "
+              f"clock after: {r['plain_clock']}), library_ms {lib}, bound_ms {r['bound_ms']!r} "
               f"({r['bound_by']}) [{card}]", flush=True)
         if r["err"] != 0:
             fail(f"kernel {r['name']} disagrees with its plain version")

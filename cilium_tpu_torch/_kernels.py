@@ -173,6 +173,18 @@ KERNELS: Dict[str, Kernel] = {
         Kernel("policymap_verdict_attrib", "cilium_policymap_verdict_attrib",
                [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                 _P, _P, _P, _P, _I, _P, _I, _L]),
+        # trans, q, accept_lo, accept_hi, starts, start_stride, bytes,
+        # byte_size, row_stride, max_len, lengths, out_lo, out_hi, b; one
+        # C entry, counted apart for the scalar start (stride 0) and the
+        # per-row starts of a fused table (stride 1)
+        Kernel("dfa_walk", "cilium_dfa_walk",
+               [_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _L]),
+        Kernel("dfa_walk_fused", "cilium_dfa_walk",
+               [_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _L]),
+        # pair, q, accept_lo, accept_hi, starts, bytes, byte_size,
+        # row_stride, max_len, lengths, out_lo, out_hi, b
+        Kernel("dfa_pair_walk", "cilium_dfa_pair_walk",
+               [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _L]),
     )
 }
 

@@ -120,3 +120,27 @@ def v6_tables_from_numpy(
         world_row=int(world_row),
         policymap=policymap,
     )
+
+
+def dfa_table_from_numpy(trans, accept, starts, pair, device, key=("numpy",)):
+    """A ``FusedDFA``'s (or a ``MultiDFA``'s) numpy arrays, from either
+    package → the port's ``DeviceDFATable`` on ``device``: ``trans``
+    [Q, 256] int32, ``accept`` [Q] uint64 (split into two int32 bit
+    views of its uint32 halves, as :func:`words_i32` carries words),
+    ``starts`` [F] int32 field starts (a ``MultiDFA``'s scalar start is
+    one field of Q states) and ``pair`` [Q, 257²] int32 or None."""
+    from .ops.dfa import DeviceDFATable, FusedDFA
+
+    trans = np.asarray(trans, np.int32)
+    starts = np.atleast_1d(np.asarray(starts, np.int32))
+    if trans.ndim != 2 or not starts.size or trans.shape[0] % starts.size:
+        raise ValueError("trans must be [F * q_pad, 256] for F field starts")
+    fused = FusedDFA(
+        trans=trans,
+        accept=np.asarray(accept, np.uint64),
+        starts=starts,
+        q_pad=trans.shape[0] // starts.size,
+        n_fields=int(starts.size),
+        pair=None if pair is None else np.asarray(pair, np.int32),
+    )
+    return DeviceDFATable(key, fused, device)

@@ -1,0 +1,439 @@
+"""Per-endpoint-port HTTP policy: compiled DFA enforcement.
+
+Reference: the NPDS policy Envoy enforces per request
+(envoy/cilium_network_policy.h:68-202 PortNetworkPolicy.Matches chain —
+remote identity must match an allowed selector AND some HTTP rule's
+method/path/host/header matchers must all pass; deny → 403).
+
+Compilation: distinct non-empty method/path/host regexes across the
+rules become three multi-pattern DFAs; a rule matches when its bits are
+set (or the field is a wildcard) in every field's accept mask. Header
+checks are exact matches evaluated host-side (rare in practice).
+Patterns that exceed the DFA state cap fall back to host `re` matching
+— fail-safe, never fail-open.
+
+With the ``L7DeviceBatch`` runtime option on, the three per-field
+walks fuse into ONE device walk over an interned stacked table
+(ops.dfa.FusedDFA via datapath.l7_pipeline) — same masks, bit for bit;
+with it off, this module runs the exact pre-option path below.
+
+Every policy lives on one device (``device=None`` is the card; pass
+``device="cpu"`` for the plain PyTorch walks): its per-field walks,
+its interned fused table and the shared pipeline it submits to.
+"""
+# policyd: hot
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+import numpy as np
+
+from .. import _kernels, metrics
+from ..datapath import l7_pipeline as l7rt
+from ..ops.dfa import fuse_dfas, intern_fused_table, match_patterns
+from ..policy.api import HTTPRule
+from .regex_compile import (
+    MultiDFA,
+    RegexError,
+    compile_patterns,
+    compile_patterns_cached,
+)
+
+
+# below this many strings a device DFA walk costs more than a host
+# table walk (prewarm at compile() time loads the kernels, so past
+# this floor no request waits for them)
+_DEVICE_BATCH_MIN = 32
+
+
+class NativeL7Unsupported(ValueError):
+    """This policy needs host-side evaluation (demoted regex / header
+    matchers) and must not be offloaded to the native enforcer."""
+
+
+@dataclasses.dataclass(frozen=True)
+class HTTPRequest:
+    method: str
+    path: str
+    host: str = ""
+    headers: Tuple[Tuple[str, str], ...] = ()
+    src_identity: int = 0
+
+    def header_dict(self) -> Dict[str, str]:
+        return {k.lower(): v for k, v in self.headers}
+
+
+class _PatternSet:
+    """Interned patterns for one field + its compiled DFA.
+
+    Compile failure is isolated PER PATTERN: a single pathological
+    regex (state-cap overflow or unsupported syntax) is demoted to
+    host `re` on its own; every other pattern stays on the device DFA.
+    ``dfa_pids[i]`` maps DFA accept-bit i back to the pattern id it
+    represents; ``host_pids`` are the demoted patterns."""
+
+    def __init__(self, device=None) -> None:
+        self.device = device
+        self.patterns: List[str] = []
+        self._ids: Dict[str, int] = {}
+        self.dfa: Optional[MultiDFA] = None
+        self.dfa_pids: List[int] = []
+        self.host_pids: List[int] = []
+        self._host_res: Dict[int, "re.Pattern"] = {}
+
+    def intern(self, pattern: str) -> int:
+        pid = self._ids.get(pattern)
+        if pid is None:
+            pid = len(self.patterns)
+            self._ids[pattern] = pid
+            self.patterns.append(pattern)
+        return pid
+
+    def compile(self) -> None:
+        if not self.patterns:
+            return
+        # the accept mask is one uint64 bit per pattern: more than 64
+        # distinct patterns on one port must fail LOUDLY at import
+        # (surfaced by endpoint regeneration), never silently shift a
+        # rule's bit out of the mask
+        if len(self.patterns) > 64:
+            raise ValueError(
+                f"more than 64 distinct L7 patterns on one port "
+                f"({len(self.patterns)})"
+            )
+        try:
+            # interned: N endpoints compiling the same pattern set
+            # share one host MultiDFA (and downstream, one device table)
+            self.dfa = compile_patterns_cached(self.patterns)
+            self.dfa_pids = list(range(len(self.patterns)))
+            return
+        except RegexError:
+            pass
+        # isolate offenders: survivors are added greedily so a pattern
+        # is demoted only if the COMBINED automaton can't afford it;
+        # the last successful build IS the final DFA (no recompile)
+        good: List[int] = []
+        dfa: Optional[MultiDFA] = None
+        self.host_pids = []
+        for pid in range(len(self.patterns)):
+            try:
+                cand = compile_patterns(
+                    [self.patterns[i] for i in good] + [self.patterns[pid]]
+                )
+            except RegexError:
+                self.host_pids.append(pid)
+                continue
+            good.append(pid)
+            dfa = cand
+        self.dfa_pids = good
+        self.dfa = dfa
+        # precompile host regexes NOW: a pattern our parser accepts
+        # but stdlib `re` rejects must fail once at import, not per
+        # request batch on the datapath
+        for pid in self.host_pids:
+            self._host_res[pid] = re.compile(self.patterns[pid])
+        if self.host_pids:
+            metrics.l7_fallback_patterns.inc(value=len(self.host_pids))
+
+    def masks(self, values: Sequence[str], max_len: int) -> np.ndarray:
+        """[B] uint64 accept masks (bit = pattern id) for a batch of
+        field values.
+
+        Values longer than ``max_len`` can't ride the fixed-width DFA
+        batch, so they walk the same DFA host-side (linear time — no
+        backtracking a long attacker-controlled string could exploit)
+        instead of silently never matching (long request paths are
+        common enough that fail-closed here would diverge from the
+        reference)."""
+        n = len(values)
+        if not self.patterns:
+            return np.zeros(n, np.uint64)
+        raw: Optional[np.ndarray] = None
+        if self.dfa is not None:
+            encs = [v.encode() for v in values]
+            if n < _DEVICE_BATCH_MIN:
+                # per-request proxy checks are latency-bound: a device
+                # launch for a handful of strings loses to a linear host
+                # table walk
+                raw = np.fromiter(
+                    (self.dfa.match_str(e) for e in encs), np.uint64, n
+                )
+            else:
+                raw = match_patterns(self.dfa, encs, max_len, device=self.device)
+                self.correct_overlong(raw, encs, max_len)
+        return self.finish_masks(raw, values, n)
+
+    def correct_overlong(self, raw: np.ndarray, encs: Sequence[bytes],
+                         max_len: int) -> None:
+        """Rows too long for the fixed-width device walk re-run on the
+        host DFA (linear time, no backtracking) in place of the
+        fail-closed 0 the kernel produced."""
+        for i, enc in enumerate(encs):
+            if len(enc) > max_len:
+                raw[i] = np.uint64(self.dfa.match_str(enc))
+
+    def finish_masks(self, raw: Optional[np.ndarray],
+                     values: Sequence[str], n: int) -> np.ndarray:
+        """DFA accept-bit masks (``raw``, slot-indexed; None = no
+        device DFA) → pattern-id masks, plus the demoted-pattern host
+        `re` overlay. Shared tail of the split and fused paths — the
+        ON/OFF parity tests pin that both produce identical bits."""
+        out = np.zeros(n, np.uint64)
+        if raw is not None:
+            if len(self.dfa_pids) == len(self.patterns):
+                out = raw  # identity mapping (no demotions)
+            else:
+                for slot, pid in enumerate(self.dfa_pids):
+                    out |= ((raw >> np.uint64(slot)) & np.uint64(1)) << np.uint64(pid)
+        # demoted patterns: host `re` (precompiled at import), counted
+        # so a production rule set silently running on Python is
+        # visible in /metrics
+        for pid in self.host_pids:
+            cre = self._host_res[pid]
+            hits = np.fromiter(
+                (cre.fullmatch(v) is not None for v in values), bool, n
+            )
+            out |= hits.astype(np.uint64) << np.uint64(pid)
+        if self.host_pids:
+            metrics.l7_host_fallback_evaluations.inc(
+                value=n * len(self.host_pids)
+            )
+        return out
+
+
+@dataclasses.dataclass
+class _CompiledRule:
+    rule: HTTPRule
+    method_pid: int  # -1 = wildcard
+    path_pid: int
+    host_pid: int
+    allowed_identities: Optional[Set[int]]  # None = any peer
+
+
+class HTTPPolicy:
+    """All HTTP rules for one (endpoint, port): the NPDS
+    PortNetworkPolicy equivalent. ``rules`` pairs each HTTPRule with the
+    identity set it applies to (None = wildcard peer — e.g. after
+    wildcardL3L4Rules widened it). ``device`` (None = the card) is
+    where its DFA walks run."""
+
+    def __init__(
+        self,
+        rules: Sequence[Tuple[HTTPRule, Optional[Set[int]]]],
+        max_len: int = 256,
+        device=None,
+    ) -> None:
+        self.max_len = max_len
+        self.device = _kernels.resolve_device(device)
+        self._methods = _PatternSet(self.device)
+        self._paths = _PatternSet(self.device)
+        self._hosts = _PatternSet(self.device)
+        self._rules: List[_CompiledRule] = []
+        for rule, idents in rules:
+            self._rules.append(
+                _CompiledRule(
+                    rule=rule,
+                    method_pid=self._methods.intern(rule.method) if rule.method else -1,
+                    path_pid=self._paths.intern(rule.path) if rule.path else -1,
+                    host_pid=self._hosts.intern(rule.host) if rule.host else -1,
+                    allowed_identities=set(idents) if idents is not None else None,
+                )
+            )
+        for ps in (self._methods, self._paths, self._hosts):
+            ps.compile()
+        # L7DeviceBatch: fields with a device DFA fuse into one
+        # interned stacked table (built lazily if the option flips on
+        # after construction; prewarmed here when it's already on)
+        self._fused_fields: List[Tuple[_PatternSet, int]] = []
+        self._fused_table = None
+        if l7rt.device_batch_enabled():
+            self._ensure_fused()
+
+    def _ensure_fused(self) -> None:
+        fields = [
+            (ps, cap)
+            for ps, cap in (
+                (self._methods, 16),
+                (self._paths, self.max_len),
+                (self._hosts, self.max_len),
+            )
+            if ps.dfa is not None
+        ]
+        if not fields:
+            return
+        key = (
+            "http",
+            tuple(
+                tuple(ps.patterns[i] for i in ps.dfa_pids) for ps, _ in fields
+            ),
+        )
+        self._fused_table = intern_fused_table(
+            key, lambda: fuse_dfas([ps.dfa for ps, _ in fields]),
+            device=self.device,
+        )
+        self._fused_fields = fields
+        pipe = l7rt.shared_pipeline()
+        if pipe is not None:
+            pipe.prewarm(self._fused_table, [cap for _, cap in fields])
+
+    def _fused_masks(self, requests: Sequence[HTTPRequest]):
+        """One device walk for every fused field of the batch →
+        (m_mask, p_mask, h_mask), or None when the option raced off.
+        Bit-identical to the split path: same per-field overlong host
+        corrections, demotion remap and host `re` overlay."""
+        pipe = l7rt.shared_pipeline()
+        if pipe is None:
+            return None
+        if self._fused_table is None:
+            self._ensure_fused()
+            if self._fused_table is None:
+                return None
+        n = len(requests)
+        by_field = {
+            id(self._methods): [r.method for r in requests],
+            id(self._paths): [r.path for r in requests],
+            id(self._hosts): [r.host for r in requests],
+        }
+        encs = [
+            [v.encode() for v in by_field[id(ps)]]
+            for ps, _ in self._fused_fields
+        ]
+        pending = pipe.submit(
+            self._fused_table,
+            [(e, cap) for e, (_, cap) in zip(encs, self._fused_fields)],
+            parser="http",
+        )
+        raws = pending.result()
+        out = {}
+        for raw, enc, (ps, cap) in zip(raws, encs, self._fused_fields):
+            ps.correct_overlong(raw, enc, cap)
+            out[id(ps)] = ps.finish_masks(raw, by_field[id(ps)], n)
+        # fields without a device DFA (empty, or fully demoted) keep
+        # their host-only evaluation
+        masks = []
+        for ps, cap in (
+            (self._methods, 16),
+            (self._paths, self.max_len),
+            (self._hosts, self.max_len),
+        ):
+            got = out.get(id(ps))
+            masks.append(got if got is not None else ps.masks(by_field[id(ps)], cap))
+        return tuple(masks)
+
+    def __len__(self) -> int:
+        return len(self._rules)
+
+    def check_batch(self, requests: Sequence[HTTPRequest]) -> np.ndarray:
+        """→ [B] bool allow. Empty rule list allows everything (a filter
+        with no L7 rules is a pure L4 redirect)."""
+        n = len(requests)
+        if not self._rules:
+            return np.ones(n, bool)
+        fused = None
+        if l7rt.device_batch_enabled() and n >= _DEVICE_BATCH_MIN:
+            fused = self._fused_masks(requests)
+        if fused is not None:
+            m_mask, p_mask, h_mask = fused
+        else:
+            m_mask = self._methods.masks([r.method for r in requests], 16)
+            p_mask = self._paths.masks([r.path for r in requests], self.max_len)
+            h_mask = self._hosts.masks([r.host for r in requests], self.max_len)
+        out = np.zeros(n, bool)
+        for i, req in enumerate(requests):
+            for cr in self._rules:
+                if cr.allowed_identities is not None and req.src_identity not in cr.allowed_identities:
+                    continue
+                if cr.method_pid >= 0 and not (int(m_mask[i]) >> cr.method_pid) & 1:
+                    continue
+                if cr.path_pid >= 0 and not (int(p_mask[i]) >> cr.path_pid) & 1:
+                    continue
+                if cr.host_pid >= 0 and not (int(h_mask[i]) >> cr.host_pid) & 1:
+                    continue
+                if cr.rule.headers:
+                    hd = req.header_dict()
+                    if not all(
+                        (lambda name, want: (got := hd.get(name.strip().lower())) is not None
+                         and (not want or got.strip() == want.strip()))(*h.partition(":")[::2])
+                        for h in cr.rule.headers
+                    ):
+                        continue
+                out[i] = True
+                break
+        return out
+
+    def check(self, request: HTTPRequest) -> bool:
+        return bool(self.check_batch([request])[0])
+
+    def native_tables(self):
+        """Export the compiled state for the native (C++) enforcer:
+        → (method_dfa, path_dfa, host_dfa, rules) where each dfa is a
+        MultiDFA or None and rules are (m_bit, p_bit, h_bit, idents)
+        tuples — bit = the pattern's accept-bit slot in that field's
+        DFA, -1 = wildcard. Raises NativeL7Unsupported when any rule
+        depends on host-only evaluation (a pattern demoted from the
+        DFA, or header matchers) — those policies must stay on the
+        Python path, loudly."""
+        def bit_of(ps: _PatternSet, pid: int) -> int:
+            if pid < 0:
+                return -1
+            if pid in ps.host_pids:
+                raise NativeL7Unsupported(
+                    f"pattern {ps.patterns[pid]!r} is host-demoted"
+                )
+            return ps.dfa_pids.index(pid)
+
+        rules = []
+        for cr in self._rules:
+            if cr.rule.headers:
+                raise NativeL7Unsupported("header matchers are host-only")
+            rules.append((
+                bit_of(self._methods, cr.method_pid),
+                bit_of(self._paths, cr.path_pid),
+                bit_of(self._hosts, cr.host_pid),
+                cr.allowed_identities,
+            ))
+        return (
+            self._methods.dfa, self._paths.dfa, self._hosts.dfa, rules
+        )
+
+    @classmethod
+    def from_model(cls, rules: List[Dict], device=None) -> "HTTPPolicy":
+        """Rebuild a policy from the rules_model() JSON an NPDS
+        subscriber received — the external proxy's deserialization
+        side (the C++ filter parses the NetworkPolicy proto the same
+        way, envoy/cilium_network_policy.cc)."""
+        pairs = []
+        for d in rules:
+            pairs.append((
+                HTTPRule(
+                    method=d.get("method", ""),
+                    path=d.get("path", ""),
+                    host=d.get("host", ""),
+                    headers=tuple(d.get("headers", ())),
+                ),
+                set(d["remote_policies"]) if "remote_policies" in d else None,
+            ))
+        return cls(pairs, device=device)
+
+    def rules_model(self) -> List[Dict]:
+        """JSON-able view of the compiled rules — the NPDS
+        PortNetworkPolicyRule shape (http_rules + remote_policies,
+        envoy/cilium_network_policy.h) the xDS layer distributes."""
+        out: List[Dict] = []
+        for cr in self._rules:
+            d: Dict = {}
+            if cr.rule.method:
+                d["method"] = cr.rule.method
+            if cr.rule.path:
+                d["path"] = cr.rule.path
+            if cr.rule.host:
+                d["host"] = cr.rule.host
+            if cr.rule.headers:
+                d["headers"] = list(cr.rule.headers)
+            if cr.allowed_identities is not None:
+                d["remote_policies"] = sorted(cr.allowed_identities)
+            out.append(d)
+        return out

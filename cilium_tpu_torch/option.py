@@ -1,0 +1,421 @@
+"""Daemon configuration + mutable runtime options.
+
+Reference: pkg/option — a frozen daemon `Config` (config.go:142,
+populated from flags/env/file at boot, `Validate` :297) plus a
+*mutable* option map (option.go) patchable at runtime via
+`PATCH /config` and per-endpoint (`cilium endpoint config`), each
+option with parse/verify hooks; endpoints inherit daemon options
+(pkg/endpoint applyOptsLocked).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Callable, Dict, Optional
+
+
+@dataclasses.dataclass
+class DaemonConfig:
+    """Boot-frozen configuration (option.Config equivalent)."""
+
+    cluster_name: str = "default"
+    cluster_id: int = 0
+    enable_ipv4: bool = True
+    enable_ipv6: bool = False
+    enforcement_mode: str = "default"  # default | always | never
+    identity_row_bucket: int = 256
+    verdict_block: int = 8192
+    lookup_block: int = 65536
+    kvstore: str = ""  # "" = disabled, "memory" for tests
+    monitor_queue_size: int = 4096
+    proxy_port_min: int = 10000
+    proxy_port_max: int = 20000
+    # Max verdict batches in flight on device before the pipeline
+    # blocks pulling the oldest: depth 1 = fully synchronous, depth 2
+    # overlaps host prep of batch N+1 with device execution of batch N.
+    verdict_pipeline_depth: int = 2
+    # Ceiling for the DispatchAutoTune depth controller (policyd-
+    # autotune): while the runtime option is on, the effective depth
+    # moves in [1, verdict_pipeline_max_depth]; off keeps the static
+    # verdict_pipeline_depth. Part of the stable tuner contract
+    # (ROADMAP).
+    verdict_pipeline_max_depth: int = 4
+    # Boot-time value of the VerdictSharding runtime option (flow
+    # batches split across jax.devices(), tables replicated). Only
+    # takes effect with >1 visible device.
+    verdict_sharding: bool = False
+    # Boot-time value of the MeshSharding2D runtime option (policyd-
+    # mesh): the verdict mesh splits into explicit flows×ident axes
+    # and the identity dimension of the policymaps / rule tables /
+    # sel_match bitmaps shards over "ident". Requires VerdictSharding
+    # and ≥2 eligible devices with an even factor.
+    mesh_sharding_2d: bool = False
+    # Requested ident-axis extent for the 2D mesh; the placement plan
+    # shrinks it to the largest factor of the eligible device count.
+    mesh_ident_axis: int = 2
+    # Explicit device subset for the placement plan: comma-separated
+    # device ids ("" = all visible devices).
+    mesh_devices: str = ""
+    # On multi-host platforms, restrict the plan to devices owned by
+    # this process index (single-host: 0 matches everything).
+    mesh_process_index: int = 0
+    # Capacity of the sampled flow-log ring (observe/flows.py) serving
+    # GET /flows while FlowAttribution is on.
+    flow_ring_capacity: int = 1024
+    # Boot-time value of the EpochSwap runtime option (policyd-delta):
+    # full re-materializations build on a shadow thread and swap in at
+    # a batch boundary instead of stopping the verdict world.
+    policy_epoch_swap: bool = False
+    # Boot-time value of the L7DeviceBatch runtime option (policyd-
+    # l7batch): batched L7 classification runs fused (one dispatch for
+    # every request field) through the overlapped submit() pipeline.
+    l7_device_batch: bool = False
+    # In-flight bound for that L7 pipeline (same semantics as
+    # verdict_pipeline_depth: 2 overlaps host packing with the device
+    # walk).
+    l7_pipeline_depth: int = 2
+    # Per-batch verdict deadline in milliseconds (policyd-overload).
+    # 0 disables deadlines: the admission controller still bounds the
+    # queue by its AIMD limit but never sheds on latency budget. With a
+    # deadline set, batches the controller cannot place within budget
+    # route through the prefilter shed stage instead of queueing.
+    verdict_deadline_ms: float = 0.0
+    # Stuck-dispatch threshold in milliseconds (policyd-overload). 0
+    # disables the watchdog thread; >0 starts a monitor that treats any
+    # in-flight batch (or registered attach/compile wait) older than
+    # this as stalled, classifies it via faults.classify(), and drives
+    # the failsafe quarantine + degradation ladder instead of hanging.
+    dispatch_stall_ms: float = 0.0
+    # Sampling period of the DeviceProfiling runtime option (policyd-
+    # prof): every Nth completed batch pays the block_until_ready
+    # sandwiches that decompose dispatch RTT into h2d / device_compute
+    # / d2h. 1 = profile every batch (bench --prof); 64 keeps sampled
+    # overhead under the <2% budget on pipeline_e2e_vps.
+    profile_sample_every: int = 64
+    # Boot-time values of the remaining datapath-gated runtime options.
+    # Every OPTION_SPECS entry maps to exactly one of these fields (or
+    # an annotated None) in contracts.OPTION_BOOT_FIELDS, and rule
+    # OPT001 machine-checks the pairing — a new option without a boot
+    # field (or a field the daemon never seeds from) fails the lint
+    # gate, which is how the L7DeviceBatch dead-toggle bug class dies.
+    policy_verdict_notification: bool = False
+    phase_tracing: bool = False
+    flow_attribution: bool = False
+    dispatch_autotune: bool = False
+    fail_open: bool = False
+    admission_control: bool = False
+    prefilter_shed: bool = False
+    sparse_deltas: bool = False
+    device_profiling: bool = False
+    fault_injection: bool = False
+    # Boot-time value of the FleetTelemetry runtime option (policyd-
+    # fleetobs): the cadence sampler snapshots metric families into
+    # the fleet time-series ring, evaluates SLO burn rates, and (with
+    # a federation membership attached) publishes telemetry frames.
+    fleet_telemetry: bool = False
+    # FleetTelemetry sampler cadence in seconds and ring capacity in
+    # rows; together they bound the observable history window
+    # (capacity × sample_s seconds).
+    telemetry_sample_s: float = 1.0
+    telemetry_ring_rows: int = 600
+    # Boot-time value of the LifecycleJournal runtime option (policyd-
+    # journal): a bounded ring of structured lifecycle events (boot /
+    # restore / epoch swap / ladder / drain / ...) with hybrid-logical-
+    # clock stamps, published as journal-tail frames when a federation
+    # membership is attached.
+    lifecycle_journal: bool = False
+    # Journal ring capacity in events and publisher cadence / frame
+    # tail length; capacity bounds GET /events history, tail_n bounds
+    # the per-node contribution to the merged fleet timeline.
+    journal_ring_capacity: int = 512
+    journal_publish_s: float = 1.0
+    journal_tail_n: int = 64
+
+    def validate(self) -> None:
+        if self.enforcement_mode not in ("default", "always", "never"):
+            raise ValueError(f"invalid enforcement mode {self.enforcement_mode!r}")
+        if self.cluster_id < 0 or self.cluster_id > 255:
+            raise ValueError("cluster-id must be 0-255")
+        if self.proxy_port_min >= self.proxy_port_max:
+            raise ValueError("invalid proxy port range")
+        if not 1 <= self.verdict_pipeline_depth <= 64:
+            raise ValueError("verdict-pipeline-depth must be 1-64")
+        if not self.verdict_pipeline_depth <= self.verdict_pipeline_max_depth <= 64:
+            raise ValueError(
+                "verdict-pipeline-max-depth must be in "
+                "[verdict-pipeline-depth, 64]"
+            )
+        if self.flow_ring_capacity < 1:
+            raise ValueError("flow-ring-capacity must be >= 1")
+        if not 1 <= self.l7_pipeline_depth <= 64:
+            raise ValueError("l7-pipeline-depth must be 1-64")
+        if self.verdict_deadline_ms < 0:
+            raise ValueError("verdict-deadline-ms must be >= 0")
+        if self.dispatch_stall_ms < 0:
+            raise ValueError("dispatch-stall-ms must be >= 0")
+        if self.profile_sample_every < 1:
+            raise ValueError("profile-sample-every must be >= 1")
+        if self.telemetry_sample_s <= 0:
+            raise ValueError("telemetry-sample-s must be > 0")
+        if self.telemetry_ring_rows < 2:
+            raise ValueError("telemetry-ring-rows must be >= 2")
+        if self.journal_ring_capacity < 1:
+            raise ValueError("journal-ring-capacity must be >= 1")
+        if self.journal_publish_s <= 0:
+            raise ValueError("journal-publish-s must be > 0")
+        if self.journal_tail_n < 1:
+            raise ValueError("journal-tail-n must be >= 1")
+        if not 2 <= self.mesh_ident_axis <= 64:
+            raise ValueError("mesh-ident-axis must be 2-64")
+        if self.mesh_process_index < 0:
+            raise ValueError("mesh-process-index must be >= 0")
+        if self.mesh_devices:
+            try:
+                ids = [int(x) for x in self.mesh_devices.split(",")]
+            except ValueError:
+                raise ValueError(
+                    "mesh-devices must be comma-separated device ids"
+                )
+            if len(ids) != len(set(ids)) or any(i < 0 for i in ids):
+                raise ValueError(
+                    "mesh-devices must be distinct non-negative ids"
+                )
+
+
+_config = DaemonConfig()
+
+
+def get_config() -> DaemonConfig:
+    return _config
+
+
+def set_config(cfg: DaemonConfig) -> None:
+    cfg.validate()
+    global _config
+    _config = cfg
+
+
+# -- mutable runtime options (pkg/option/option.go) -----------------------
+
+BoolParser = Callable[[str], bool]
+
+
+def _parse_bool(v: str) -> bool:
+    lv = str(v).lower()
+    if lv in ("true", "enabled", "1", "on"):
+        return True
+    if lv in ("false", "disabled", "0", "off"):
+        return False
+    raise ValueError(f"invalid option value {v!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class OptionSpec:
+    name: str
+    description: str = ""
+    requires: tuple = ()  # options force-enabled alongside this one
+
+
+# The runtime-mutable option set (defaults mirror the reference's
+# endpoint options: Conntrack, Policy, Debug, DropNotify, TraceNotify).
+OPTION_SPECS: Dict[str, OptionSpec] = {
+    o.name: o
+    for o in (
+        OptionSpec("Conntrack", "Connection tracking"),
+        OptionSpec("Debug", "Debug event emission"),
+        OptionSpec("DropNotification", "Drop notification events"),
+        OptionSpec("TraceNotification", "Trace notification events"),
+        OptionSpec("Policy", "Policy enforcement"),
+        OptionSpec("PolicyVerdictNotification", "Per-verdict events"),
+        OptionSpec("PhaseTracing", "Verdict-path phase tracing (observe/)"),
+        OptionSpec(
+            "VerdictSharding",
+            "Flow-sharded verdict dispatch across jax.devices() "
+            "(tables replicated, batches split; needs >1 device)",
+        ),
+        OptionSpec(
+            "MeshSharding2D",
+            "2D flows×ident verdict mesh (policyd-mesh): the placement "
+            "plan splits the device grid into explicit flows and ident "
+            "axes and shards the identity dimension of the policymap / "
+            "rule-table / sel_match device tables over ident (per-device "
+            "table bytes divide by the ident factor); off keeps the "
+            "exact 1D/replicated pre-option programs",
+            requires=("VerdictSharding",),
+        ),
+        OptionSpec(
+            "FlowAttribution",
+            "On-device verdict attribution (policyd-flows): matched-rule "
+            "index, drop-reason codes, per-rule hit counters, and the "
+            "sampled flow-log ring",
+        ),
+        OptionSpec(
+            "DispatchAutoTune",
+            "Adaptive verdict pipeline depth (policyd-autotune): an EWMA "
+            "controller steps the in-flight bound between 1 and "
+            "verdict-pipeline-max-depth from per-batch enqueue/complete "
+            "timings; off keeps the static configured depth",
+        ),
+        OptionSpec(
+            "FailOpen",
+            "Degraded-mode verdict policy (policyd-failsafe): when the "
+            "pipeline cannot resolve a batch (quarantine, ladder "
+            "exhaustion), forward instead of the default fail-closed "
+            "deny with drop reason pipeline-degraded (155)",
+        ),
+        OptionSpec(
+            "EpochSwap",
+            "Epoch-swapped device tables (policyd-delta): full policy "
+            "re-materializations build into a shadow generation on a "
+            "background thread while batches keep serving the current "
+            "one, then swap atomically at a batch boundary; off runs "
+            "full rebuilds synchronously inside rebuild()",
+        ),
+        OptionSpec(
+            "L7DeviceBatch",
+            "Fused batched L7 classification (policyd-l7batch): "
+            "method/path/host (and kafka topic/client-id) walk one "
+            "stacked, interned DFA table in a single length-bucketed "
+            "dispatch through an overlapped submit() pipeline; off "
+            "keeps the per-field pre-option programs",
+        ),
+        OptionSpec(
+            "FaultInjection",
+            "Enable the cilium_tpu/faults.py hub: deterministic, seeded "
+            "fault injection at the named verdict-path sites (h2d, "
+            "dispatch, complete, ct_epoch, kvstore, attach, queue_full, "
+            "stall); off keeps the hot path at one attribute read per "
+            "site",
+        ),
+        OptionSpec(
+            "AdmissionControl",
+            "Deadline-aware admission control (policyd-overload): an "
+            "AIMD controller keyed on queue wait + EWMA completion "
+            "latency bounds the submit queue; over budget, flows route "
+            "through the prefilter shed stage (if Prefilter is on) or "
+            "defer within the verdict-deadline-ms budget, resolving "
+            "via the fail-closed 155 / FailOpen semantics — never "
+            "silently dropped. Off keeps the exact pre-option submit "
+            "path",
+        ),
+        OptionSpec(
+            "DeviceProfiling",
+            "Device-time sampling profiler (policyd-prof): every "
+            "profile-sample-every-th batch is timed with "
+            "block_until_ready sandwiches at the enqueue/ready edges, "
+            "splitting dispatch RTT into h2d / device_compute / d2h "
+            "alongside rung occupancy, plus a per-jit-site "
+            "cost_analysis ledger keyed on the stable ladder shapes; "
+            "off keeps the exact pre-option programs and the hot path "
+            "at one attribute read per batch",
+        ),
+        OptionSpec(
+            "ClusterFederation",
+            "Federated identity plane (policyd-fed): identity "
+            "allocation routes through the attached federation "
+            "membership's kvstore reserve/confirm CAS allocator so N "
+            "daemon nodes converge on one identity numbering and "
+            "exchange policy epochs; off restores the local registry "
+            "allocator — numbering is the only difference, compiled "
+            "device programs are bit-identical either way",
+        ),
+        OptionSpec(
+            "FleetTelemetry",
+            "Fleet telemetry plane (policyd-fleetobs): a cadence "
+            "sampler thread snapshots verdict/drop/shed rates, phase "
+            "quantiles, pipeline mode and epoch lag into a bounded "
+            "time-series ring, evaluates multi-window SLO burn rates "
+            "(slo_burn_ratio gauges, /status summary), and — when a "
+            "federation membership is attached — publishes versioned "
+            "telemetry frames for the fleet scoreboard (GET /fleet); "
+            "off starts no thread and never imports the frame codec — "
+            "the verdict path is bit-identical",
+        ),
+        OptionSpec(
+            "LifecycleJournal",
+            "Lifecycle event journal (policyd-journal): a bounded, "
+            "schema-versioned ring of structured lifecycle events "
+            "(boot, CT restore verdict, rebuild/epoch swap, ladder "
+            "moves, quarantine incl. CT rescue, shed episodes, drain "
+            "brackets, watchdog stalls, federation lease/reap, "
+            "snapshot saves) stamped with a hybrid logical clock; "
+            "with a federation membership attached a cadence thread "
+            "publishes the journal tail so fleet timeline merges "
+            "per-node journals into one HLC-total-ordered view; off "
+            "starts no thread and never imports the journal module — "
+            "hot paths stay at one attribute read and the verdict "
+            "path is bit-identical",
+        ),
+        OptionSpec(
+            "SparseDeltas",
+            "O(k) sparse device deltas (policyd-sparse): selector "
+            "column patches from the engine delta log scatter into the "
+            "ident-placed sel_match copies (placement preserved, jit "
+            "caches survive) instead of re-placing the full [N, S/32] "
+            "matrix, and ipcache churn patches individual prefixes "
+            "into the placed LPM trie tensors through pow2-headroom "
+            "host mirrors instead of rebuilding + re-uploading whole "
+            "tries; any non-patchable gap (log truncation, pool "
+            "exhaustion, live deny trie, layout/elision violation) "
+            "falls back to the classic full rebuild. Off compiles the "
+            "exact pre-option programs — dense re-placement, classic "
+            "unpadded trie builds",
+        ),
+        OptionSpec(
+            "Prefilter",
+            "Device prefilter shed stage (policyd-overload): a coarse "
+            "[identity, proto/port-class] drop table compiled from "
+            "deny-heavy policy, walked as one cheap gather AHEAD of "
+            "the full verdict path so DoS-heavy mixes shed at a "
+            "multiple of full-pipeline rate with drop reason 144; off "
+            "compiles no shed table and the full path is bit-identical "
+            "to pre-option programs",
+        ),
+    )
+}
+
+
+class OptionMap:
+    """Mutable option set with change callbacks + inheritance."""
+
+    def __init__(self, parent: Optional["OptionMap"] = None) -> None:
+        self._lock = threading.Lock()
+        self._values: Dict[str, bool] = {}
+        self._parent = parent
+        self._on_change: Optional[Callable[[str, bool], None]] = None
+
+    def on_change(self, fn: Callable[[str, bool], None]) -> None:
+        self._on_change = fn
+
+    def get(self, name: str) -> bool:
+        with self._lock:
+            if name in self._values:
+                return self._values[name]
+        if self._parent is not None:
+            return self._parent.get(name)
+        return False
+
+    def set(self, name: str, value) -> bool:
+        """Returns True when the value changed; raises on unknown option
+        (option.go Validate)."""
+        spec = OPTION_SPECS.get(name)
+        if spec is None:
+            raise KeyError(f"unknown option {name!r}")
+        b = value if isinstance(value, bool) else _parse_bool(value)
+        with self._lock:
+            old = self._values.get(name)
+            self._values[name] = b
+        changed = old != b
+        if changed and self._on_change:
+            self._on_change(name, b)
+        if b:
+            for req in spec.requires:
+                self.set(req, True)
+        return changed
+
+    def snapshot(self) -> Dict[str, bool]:
+        out = dict(self._parent.snapshot()) if self._parent else {}
+        with self._lock:
+            out.update(self._values)
+        return out

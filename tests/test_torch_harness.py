@@ -200,3 +200,26 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         DatapathPipeline(eng, IPCache())
     assert DatapathPipeline(eng, IPCache(), device="cpu").device.type == "cpu"
+
+    from cilium_tpu_torch.datapath import l7_pipeline
+    from cilium_tpu_torch.l7 import HTTPPolicy, KafkaACL
+    from cilium_tpu_torch.l7.regex_compile import compile_patterns
+    from cilium_tpu_torch.ops.dfa import match_patterns
+    from cilium_tpu_torch.policy.api import HTTPRule, KafkaRule
+
+    http = [(HTTPRule(method="GET"), None)]
+    kafka = [(KafkaRule(topic="t"), None)]
+    for make in (lambda **kw: HTTPPolicy(http, **kw), lambda **kw: KafkaACL(kafka, **kw),
+                 lambda **kw: l7_pipeline.L7Pipeline(**kw),
+                 lambda **kw: match_patterns(compile_patterns(["a"]), [b"a"], **kw)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+        make(device="cpu")
+    try:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            l7_pipeline.set_device_batch(True)
+        assert not l7_pipeline.device_batch_enabled()
+        l7_pipeline.set_device_batch(True, device="cpu")
+        assert l7_pipeline.shared_pipeline().device.type == "cpu"
+    finally:
+        l7_pipeline._reset_for_tests()
