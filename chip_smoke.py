@@ -48,6 +48,28 @@
      Proxy.check_http.
    Each is held against the port's CPU path (a slice) and re.fullmatch
    of the rules (400 requests), on and off.
+4e. The services+CT main path, launch counts from zero: the bench world
+   plus one egress rule per endpoint app (pods of zones z0-z3 on the
+   service ports; the bench world alone has no egress rule, so every
+   egress flow would drop), a ServiceManager with 1 024 v4 ClusterIP
+   frontends in 10.96.0.0/16 and 256 v6 ones in fd00:96::/112 (1-8
+   backends at bench identity addresses, weights on a quarter, 16 v4
+   and 4 v6 with no backend, ANY frontends on a specific one's VIP and
+   port) and a FlowConntrack of 2^22 slots. Each family runs four
+   1 048 576-flow batches through process() / process_v6() with sports:
+   egress pass 1 (1/4 to the frontends; LB stage on K9, miss tail, CT
+   creation), pass 2 (the same batch: admitted flows bypass, only the
+   rest reach K4), the replies from each flow's backend with the ports
+   flipped and return_rev_nat=True, and an overlay batch (1/8 of the
+   lanes carry tunnel identities, half unknown). Host-clock times of
+   each pass and its stages (LB stage, CT lookup, miss tail, CT create).
+   Checks: K9 launches once per egress batch, pass 2 dispatches exactly
+   the flows pass 1 did not admit, replies of admitted flows forward
+   with their services' revNAT ids, and 400 translated flows of each
+   family against Repository.allows_egress for the backend's identity
+   and port; then the first 65 536 flows of each sequence on a CPU
+   pipeline (its own conntrack) and on the card: outputs, counters and
+   live CT keys after every pass.
 5. Holds every kernel against its plain version on the card, at the
    main paths' shapes, with exact equality (all outputs are integers),
    and times kernel, plain version and, where one exists, a library
@@ -59,7 +81,10 @@
    so is the plain flow-route sweep (_sweep_device, off the main paths).
    K7 (both entries) and K8 are timed on the bench's L7 corpus
    (bench.py:266-430: 16 path patterns, 131 072 requests) at every
-   length rung, and K7 on the pattern-cap policy's fused table.
+   length rung, and K7 on the pattern-cap policy's fused table. K9 is
+   timed on each family's pass-1 batch (1 048 576 flows x 1 024 / 256
+   frontends), its bound the int32 compares of a first-match scan on
+   the CUDA cores.
 
 Prints the card's name and power limit, one JSON line with every
 kernel's numbers and, last, the result line
@@ -70,6 +95,7 @@ line. Without CUDA it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import ipaddress
 import json
 import random
@@ -96,10 +122,18 @@ KAFKA_REQS = 100_000
 L7_SLICE = 1 << 13  # requests of the pattern-cap policy held against the CPU path
 N_L7_CPU_EPS = 4  # endpoints whose redirects are held against the CPU path
 
+# services+CT (the LB stage's K9 and the host conntrack): frontends per
+# family, the ports they take, conntrack slots (a load of 0.25 at 1M flows)
+N_FE4, N_FE6 = 1024, 256
+SVC_PORTS = [(80, "TCP"), (443, "TCP"), (8080, "TCP"), (5432, "TCP"), (53, "UDP")]
+CT_BITS = 22
+
 # published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and
-# int8 tensor-core operations/s
+# int8 tensor-core operations/s; int32 operations/s on the CUDA cores
+# (the Hopper white paper's 64 INT32 lanes per SM x 132 SMs x 1.98 GHz)
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
 
 
 def fail(msg: str) -> None:
@@ -264,9 +298,9 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def bound(bytes_moved: int, ops: int):
+def bound(bytes_moved: int, ops: int, ops_per_s: float = INT8_OPS_PER_S):
     b_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    o_ms = ops / INT8_OPS_PER_S * 1e3
+    o_ms = ops / ops_per_s * 1e3
     return (b_ms, "bytes") if b_ms >= o_ms else (o_ms, "operations")
 
 
@@ -1040,6 +1074,483 @@ def l7_cpu_checks(r) -> None:
           f"L7DeviceBatch off and on", flush=True)
 
 
+def random_lb_case(rs, f: int, length: int, nb: int, b: int):
+    """Random K9 inputs: frontends over a small pool of addresses and
+    ports (ANY frontends beside specific ones), 1/8 with no backend,
+    sequence lengths past the sequence width, sequence rows past the
+    backend table and negative ones, half the flows aimed at a
+    frontend, flow hashes of either sign."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.convert import lb_tables_from_numpy
+    from cilium_tpu_torch.lb.device import MAX_SEQ
+
+    pool = rs.integers(0, 256, (max(2, f // 3), length))
+    fe_bytes = pool[rs.integers(0, pool.shape[0], f)]
+    fe_port = rs.choice(np.array([53, 80, 443, 8080]), f)
+    fe_proto = rs.choice(np.array([0, 6, 17]), f)
+    fe_seq_len = rs.integers(1, MAX_SEQ + 1, f)
+    fe_seq_len[rs.random(f) < 0.125] = 0
+    fe_seq_len[rs.random(f) < 0.05] = MAX_SEQ + 7
+    fe_seq = rs.integers(0, nb, (f, MAX_SEQ))
+    wild = rs.random((f, MAX_SEQ)) < 0.1
+    fe_seq[wild] = rs.integers(-2 * nb - 3, 2 * nb + 3, int(wild.sum()))
+    tables = lb_tables_from_numpy(
+        fe_bytes, fe_port, fe_proto, fe_seq, fe_seq_len, rs.integers(1, 65536, f),
+        rs.integers(0, 256, (nb, length)), rs.integers(1, 65536, nb), device="cpu")
+    pick = rs.integers(0, f, b)
+    aim = rs.random(b) < 0.5
+    peer = np.where(aim[:, None], fe_bytes[pick], rs.integers(0, 256, (b, length)))
+    dport = np.where(aim, fe_port[pick], rs.choice(np.array([53, 80, 443, 22]), b))
+    proto = np.where(rs.random(b) < 0.7, fe_proto[pick], rs.choice(np.array([6, 17]), b))
+    proto = np.where(proto == 0, 6, proto)
+    flows = [torch.from_numpy(np.ascontiguousarray(a, np.int32)) for a in (
+        peer, dport, proto, rs.integers(-(2 ** 31), 2 ** 31, b))]
+    return tables, flows
+
+
+def edge_checks4(dev) -> None:
+    """K9 lb_translate against its plain version, exact, on shapes the
+    main path does not reach: F = 1, F = 1025 (past four 256-frontend
+    tiles), B = 1 and ragged B, both address widths, ANY frontends
+    shadowing specific ones, no-backend frontends, sequence rows past
+    the backend table and negative, sequence lengths past the width,
+    negative flow hashes, and an empty batch."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.lb.device import lb_translate, lb_translate_plain
+
+    rs = np.random.default_rng(909)
+    for length in (4, 16):
+        for f, nb, b in ((1, 1, 1), (1, 3, 777), (2, 5, 1), (300, 40, 4099), (1025, 513, 1),
+                         (1025, 513, 70_001), (5, 2, 0)):
+            tables, flows = random_lb_case(rs, f, length, nb, b)
+            got = lb_translate(dataclasses.replace(tables, **{
+                fl.name: getattr(tables, fl.name).to(dev) for fl in dataclasses.fields(tables)}),
+                *(x.to(dev) for x in flows))
+            want = lb_translate_plain(tables, *flows)
+            torch.cuda.synchronize()
+            for name, g, w in zip(("new_bytes", "new_port", "revnat", "ok", "no_backend"),
+                                  got, want):
+                if max_abs_err(g.cpu(), w):
+                    fail(f"K9 lb_translate edge F={f} NB={nb} B={b} L={length}: {name} differs")
+
+
+def build_services_world(seed: int):
+    """The bench world with egress rules, and its services.
+
+    The bench world has ingress rules only, so under default deny every
+    egress flow would drop and no connection would ever be tracked.
+    One egress rule per distinct endpoint app lets the endpoints reach
+    pods of zones z0-z3 (half the identities) on the service ports
+    {80, 443, 8080, 5432}/TCP and 53/UDP.
+
+    Services (a ServiceManager): N_FE4 IPv4 ClusterIP frontends in
+    10.96.0.0/16 and N_FE6 IPv6 ones in fd00:96::/112, each on a port of
+    {80, 443, 8080, 5432}/TCP or 53/UDP; 1-8 backends each at bench
+    identity addresses (10.x.y.1 / fd00::{hi}:{lo}) on a port the rules
+    name, weights 1-4 on a quarter of the frontends; 16 v4 and 4 v6
+    frontends with no backend; 8 v4 and 2 v6 proto-ANY frontends on the
+    VIP and port of a specific one (half of them added before it, so
+    they come first in the table)."""
+    from cilium_tpu_torch.lb import Backend, L3n4Addr, ServiceManager
+    from cilium_tpu_torch.policy.api import EgressRule, EndpointSelector, PortProtocol, PortRule, rule
+
+    repo, reg, cache, idents, labels_of = build_world(seed)
+    apps = sorted({labels_of[idents[j].id][0] for j in range(N_ENDPOINTS)})
+    to = tuple(EndpointSelector.make([f"k8s:zone=z{z}"]) for z in range(4))
+    ports = (PortRule(ports=tuple(PortProtocol(p, pr) for p, pr in SVC_PORTS)),)
+    repo.add_list([rule([a], egress=[EgressRule(to_endpoints=to, to_ports=ports)]) for a in apps])
+
+    rng = random.Random(seed + 96)
+    m = ServiceManager()
+    for fam, n_fe, n_empty, n_any in ((4, N_FE4, 16, 8), (6, N_FE6, 4, 2)):
+        n_spec = n_fe - n_any
+        empty = set(rng.sample(range(n_spec), n_empty))
+        shadow = rng.sample(range(n_spec), n_any)
+        for i in range(n_spec):
+            vip = (f"10.96.{(i + 1) >> 8}.{(i + 1) & 255}" if fam == 4
+                   else f"fd00:96::{i + 1:x}")
+            port, proto = rng.choice(SVC_PORTS)
+            weighted = rng.random() < 0.25
+            backs = []
+            for _ in range(0 if i in empty else rng.randint(1, 8)):
+                j = rng.randrange(len(idents))
+                ip = (f"10.{(j >> 8) & 255}.{j & 255}.1" if fam == 4
+                      else f"fd00::{(j >> 8) & 255:x}:{j & 255:x}")
+                bport = 53 if proto == "UDP" else rng.choice([80, 443, 8080, 5432])
+                backs.append(Backend(ip, bport, rng.randint(1, 4) if weighted else 1))
+            any_fe = L3n4Addr(vip, port, "ANY")
+            if i in shadow[: n_any // 2]:
+                m.upsert(any_fe, backs[:1])
+            m.upsert(L3n4Addr(vip, port, proto), backs)
+            if i in shadow[n_any // 2:]:
+                m.upsert(any_fe, backs[:1])
+    return repo, reg, cache, idents, labels_of, m
+
+
+def make_svc_flows(seed: int, fam: int, n_idents: int, manager):
+    """A 1 048 576-flow egress batch: 3/4 the bench's flows, 1/4 to the
+    family's frontends (an ANY frontend's flows TCP or UDP), sports
+    uniform in 1024-60000. → (peer, ep, dport, proto, sport, peer bytes);
+    ``peer`` is uint32 for v4 and the [B, 16] bytes for v6."""
+    import numpy as np
+
+    from cilium_tpu_torch.ops.lpm import ipv4_to_bytes, ipv6_to_bytes
+
+    if fam == 4:
+        ips, eps, dports, protos, _ = make_flows(seed + 40, n_idents)
+        pb = ipv4_to_bytes(ips)
+    else:
+        pb, eps, dports, protos, _ = make_flows6(seed + 40, n_idents)
+    nrng = np.random.default_rng(seed + 41 + fam)
+    fes = [s.frontend for s in manager.list() if s.frontend.family == fam]
+    fe_bytes = (ipv4_to_bytes(np.array([int(ipaddress.IPv4Address(f.ip)) for f in fes], np.uint32))
+                if fam == 4 else ipv6_to_bytes([f.ip for f in fes]))
+    vip = nrng.random(BATCH) < 0.25
+    pick = nrng.integers(0, len(fes), BATCH)
+    any_proto = nrng.choice(np.array([6, 17], np.int32), BATCH)
+    fe_port = np.array([f.port for f in fes], np.int32)[pick]
+    fe_proto = np.array([f.proto_num for f in fes], np.int32)[pick]
+    pb = np.where(vip[:, None], fe_bytes[pick], pb).astype(np.int32)
+    dports = np.where(vip, fe_port, dports).astype(np.int32)
+    protos = np.where(vip, np.where(fe_proto == 0, any_proto, fe_proto), protos).astype(np.int32)
+    sports = nrng.integers(1024, 60001, BATCH)
+    peer = pack_u32(pb) if fam == 4 else pb
+    return peer, eps, dports, protos, sports, pb
+
+
+def pack_u32(pb):
+    import numpy as np
+
+    b = pb.astype(np.uint32)
+    return (b[:, 0] << 24) | (b[:, 1] << 16) | (b[:, 2] << 8) | b[:, 3]
+
+
+def lb_inputs(pipe, fam: int, pb, eps, dports, protos, sports):
+    """The pipeline's LB stage inputs as tensors on its device: its
+    tables and (peer bytes, dport, proto, flow hash over the stable
+    endpoint ids)."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.lb.device import flow_hash32
+
+    ep_ids = np.asarray(pipe._endpoint_ids, np.int64)[eps]
+    fh = flow_hash32(pb, sports, dports, protos, ep_ids)
+    return pipe._lb_tables[fam], [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(pipe.device)
+                                  for a in (pb, dports, protos, fh)]
+
+
+def lb_scan_ops(t, peer, dport, proto) -> int:
+    """int32 compares a first-match frontend scan cannot skip on these
+    flows: one for each frontend it passes over, L + 2 (address bytes,
+    port, protocol) for the one it stops at; all F for a flow that
+    matches none."""
+    import torch
+
+    f, length = t.fe_bytes.shape
+    total = 0
+    for lo in range(0, peer.shape[0], 1 << 17):
+        p, d, r = peer[lo:lo + (1 << 17)], dport[lo:lo + (1 << 17)], proto[lo:lo + (1 << 17)]
+        m = (t.fe_bytes[None] == p[:, None]).all(-1) & (d[:, None] == t.fe_port[None])
+        m &= (t.fe_proto[None] == 0) | (r[:, None] == t.fe_proto[None])
+        hit = m.any(1)
+        first = m.to(torch.int8).argmax(1)
+        scanned = torch.where(hit, first + 1, f)
+        total += int(scanned.sum()) + int(hit.sum()) * (length + 1)
+    return total
+
+
+def svc_sequence(pipe, fam: int, batch, reply, overlay, probe=None):
+    """The services+CT sequence on one pipeline → [(v, r) pass 1,
+    (v, r) pass 2, (v, r, revnat) replies, (v, r) overlay]. ``probe``
+    is called after each pass with its index."""
+    call = getattr(pipe, "process" if fam == 4 else "process_v6")
+    out = []
+    peer, eps, dports, protos, sports = batch
+    for k in range(2):  # pass 1: all new; pass 2: the same flows again
+        out.append(call(peer, eps, dports, protos, ingress=False, sports=sports))
+        if probe:
+            probe(k)
+    out.append(call(*reply[:4], ingress=True, sports=reply[4], return_rev_nat=True))
+    if probe:
+        probe(2)
+    out.append(call(*overlay[:4], ingress=True, sports=overlay[4], tunnel_identities=overlay[5]))
+    if probe:
+        probe(3)
+    return out
+
+
+class PhaseClock:
+    """Host-clock time of the pipeline's stages, by wrapping the methods
+    that run them: the LB stage, the CT lookup (the pre-pass), the miss
+    tail's device dispatch and the CT creation. Records the size of each
+    dispatch."""
+
+    STAGES = (("lb", "pipe", "_lb_stage"), ("ct_prepass", "ct", "lookup_batch"),
+              ("miss_tail", "pipe", "_dispatch"), ("ct_create", "ct", "create_batch"))
+
+    def __init__(self, pipe):
+        self.objs = {"pipe": pipe, "ct": pipe.conntrack}
+        self.secs = {name: 0.0 for name, _, _ in self.STAGES}
+        self.tails = []
+        for name, owner, attr in self.STAGES:
+            real = getattr(self.objs[owner], attr)
+
+            def timed_call(*a, _real=real, _name=name, **k):
+                if _name == "miss_tail":
+                    self.tails.append(len(a[2]) if a[2] is not None else -1)
+                t0 = time.perf_counter()
+                try:
+                    return _real(*a, **k)
+                finally:
+                    self.secs[_name] += time.perf_counter() - t0
+
+            setattr(self.objs[owner], attr, timed_call)
+
+    def take(self):
+        out = dict(self.secs)
+        for k in self.secs:
+            self.secs[k] = 0.0
+        return out
+
+    def close(self):
+        for _name, owner, attr in self.STAGES:
+            delattr(self.objs[owner], attr)
+
+
+def ct_live_keys(ct):
+    import numpy as np
+
+    s = ct.snapshot_arrays()
+    order = np.lexsort((s["kc"], s["kb"], s["ka"]))
+    return {k: s[k][order] for k in ("ka", "kb", "kc", "revnat", "packets")}
+
+
+def svc_oracle(repo, labels_of, idents, endpoints, fam, pb_new, new_port, eps, protos, ok,
+               verdicts, seed):
+    """Hold N_ORACLE translated flows of pass 1 against
+    Repository.allows_egress for the backend's identity and port."""
+    import numpy as np
+
+    from cilium_tpu_torch.labels import parse_label_array
+    from cilium_tpu_torch.policy.search import Decision, PortContext, SearchContext
+
+    idx = np.nonzero(ok)[0]
+    sample = np.random.default_rng(seed).choice(idx, min(N_ORACLE, idx.size), replace=False)
+    n_allowed = 0
+    for i in sample:
+        hi, lo = (int(pb_new[i, 1]), int(pb_new[i, 2])) if fam == 4 else (int(pb_new[i, 13]),
+                                                                        int(pb_new[i, 15]))
+        peer = parse_label_array(labels_of[idents[hi * 256 + lo].id])
+        subj = parse_label_array(labels_of[endpoints[int(eps[i])]])
+        pc = PortContext(int(new_port[i]), "UDP" if int(protos[i]) == 17 else "TCP")
+        allowed = repo.allows_egress(SearchContext(src=subj, dst=peer, dports=(pc,))) == Decision.ALLOWED
+        n_allowed += allowed
+        if int(verdicts[i]) != (1 if allowed else 2):
+            fail(f"services v{fam}: translated flow {i} verdict {int(verdicts[i])}, oracle "
+                 f"{'allow' if allowed else 'deny'} for backend identity {hi * 256 + lo} port "
+                 f"{int(new_port[i])}")
+    if not 0 < n_allowed < sample.size:
+        fail(f"services v{fam}: the oracle sample is all one verdict ({n_allowed}/{sample.size})")
+    return sample.size
+
+
+def services_main_path(seed: int, card: str):
+    """The services+CT main path on the card, both families; returns
+    what the CPU checks and the K9 rows need."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch import _kernels
+    from cilium_tpu_torch.datapath.conntrack import FlowConntrack
+    from cilium_tpu_torch.datapath.pipeline import DROP_NO_SERVICE, FORWARD, DatapathPipeline
+    from cilium_tpu_torch.engine import PolicyEngine
+    from cilium_tpu_torch.lb.device import lb_translate
+
+    t0 = time.perf_counter()
+    repo, reg, cache, idents, labels_of, manager = build_services_world(seed)
+    endpoints = [idents[j].id for j in range(N_ENDPOINTS)]
+    engine = PolicyEngine(repo, reg)
+    pipe = DatapathPipeline(engine, cache, conntrack=FlowConntrack(capacity_bits=CT_BITS),
+                            lb=manager)
+    # stable endpoint ids (the flow hash's input) apart from identity ids
+    pipe.set_endpoints([(10_000 + j, e) for j, e in enumerate(endpoints)])
+    pipe.rebuild()
+    torch.cuda.synchronize()
+    print(f"services world: {len(repo.rules)} rules ({len(repo.rules) - N_RULES} egress), "
+          f"{manager.version} service upserts, frontends v4 {pipe._lb_tables[4].fe_port.shape[0]} "
+          f"/ v6 {pipe._lb_tables[6].fe_port.shape[0]}, backends v4 "
+          f"{pipe._lb_tables[4].be_port.shape[0]} / v6 {pipe._lb_tables[6].be_port.shape[0]}, "
+          f"CT {pipe.conntrack.capacity} slots, refresh + rebuild in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+
+    # inputs of every batch, made before the launch counts are reset: the
+    # replies need each flow's backend, which K9 computes here
+    seqs = {}
+    nrng = np.random.default_rng(seed + 77)
+    for fam in (4, 6):
+        peer, eps, dports, protos, sports, pb = make_svc_flows(seed, fam, len(idents), manager)
+        tabs, flows = lb_inputs(pipe, fam, pb, eps, dports, protos, sports)
+        nb, npo, rv, ok, nobk = (x.cpu().numpy() for x in lb_translate(tabs, *flows))
+        reply = (pack_u32(nb) if fam == 4 else nb, eps, sports.astype(np.int32), protos,
+                 npo.astype(np.int64))
+        tun = np.zeros(BATCH, np.int64)
+        lanes = nrng.random(BATCH) < 1 / 8
+        known = nrng.random(BATCH) < 0.5
+        ids = np.array(endpoints + [i.id for i in idents], np.int64)
+        tun[lanes & known] = ids[nrng.integers(0, ids.size, int((lanes & known).sum()))]
+        tun[lanes & ~known] = 900_000 + nrng.integers(0, 1000, int((lanes & ~known).sum()))
+        overlay = (peer, eps, dports, protos, nrng.integers(1024, 60001, BATCH), tun)
+        seqs[fam] = dict(batch=(peer, eps, dports, protos, sports), pb=pb, reply=reply,
+                         overlay=overlay, lb=(nb, npo, rv, ok, nobk))
+
+    _kernels.reset_launches()
+    clock = PhaseClock(pipe)
+    res = {}
+    k4 = []
+    for fam in (4, 6):
+        s = seqs[fam]
+        times, stages = [], []
+        t_last = [time.perf_counter()]
+
+        def probe(k):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            times.append(now - t_last[0])
+            stages.append(clock.take())
+            k4.append(_kernels.launches()["policymap_verdict"])
+            t_last[0] = time.perf_counter()
+
+        clock.tails.clear()
+        before = _kernels.launches()["policymap_verdict"]
+        k4.clear()
+        out = svc_sequence(pipe, fam, s["batch"], s["reply"], s["overlay"], probe=probe)
+        res[fam] = out
+        (v1, r1), (v2, _r2), (vr, _rr, rev), (vo, _ro) = out
+        nb, npo, rv, ok, nobk = s["lb"]
+        admitted = (v1 == FORWARD) & ~r1
+        want_tail = int((~admitted).sum())
+        tails = list(clock.tails)
+        print(f"main path services+CT v{fam} [{card}]: {BATCH} flows a pass, host clock "
+              f"(torch.cuda.synchronize after each), n_ct {len(pipe.conntrack)}", flush=True)
+        for name, dt, st in zip(("pass 1 (new)", "pass 2 (established)",
+                                 "replies (revNAT)", "overlay"), times, stages):
+            print(f"  {name}: {dt!r}s = {BATCH / dt!r} flows/s; stages {st}", flush=True)
+        print(f"  verdicts pass 1 {np.bincount(v1, minlength=5)[1:].tolist()} (translated "
+              f"{int(ok.sum())}, no backend {int(nobk.sum())}), pass 2 "
+              f"{np.bincount(v2, minlength=5)[1:].tolist()}, replies "
+              f"{np.bincount(vr, minlength=5)[1:].tolist()} (revNAT ids {int((rev != 0).sum())}),"
+              f" overlay {np.bincount(vo, minlength=5)[1:].tolist()}; miss tails {tails}; "
+              f"policymap_verdict launches after each pass {[x - before for x in k4]}", flush=True)
+        if not (ok.any() and nobk.any() and admitted.any() and (~admitted).any()):
+            fail(f"services v{fam}: pass 1 lacks translated, no-backend, admitted or denied flows")
+        if not (v1[nobk] == DROP_NO_SERVICE).all() or (v1[~nobk] == DROP_NO_SERVICE).any():
+            fail(f"services v{fam}: DROP_NO_SERVICE does not follow the no-backend flows")
+        if tails[:2] != [BATCH, want_tail]:
+            fail(f"services v{fam}: miss tails {tails[:2]}, expected [{BATCH}, {want_tail}]")
+        if [x - before for x in k4[:2]] != [1, 2]:
+            fail(f"services v{fam}: K4 launched {[x - before for x in k4[:2]]} on passes 1-2")
+        if not ((v2 == v1) | admitted).all() or not (v2[admitted] == FORWARD).all():
+            fail(f"services v{fam}: pass 2 differs from pass 1 outside the bypass")
+        if not (vr[admitted] == FORWARD).all():
+            fail(f"services v{fam}: a reply of an admitted flow was not forwarded")
+        # an entry keeps the revNAT id of the first admitted flow with its
+        # key: a direct flow to a backend can share its key with a flow
+        # translated to that backend (same endpoint, sport, port)
+        keys = np.concatenate([nb.astype(np.int64), np.stack(
+            [s["batch"][1], s["batch"][4], npo, s["batch"][3]], 1).astype(np.int64)], 1)[admitted]
+        _u, first, inv = np.unique(keys, axis=0, return_index=True, return_inverse=True)
+        want_rev = np.zeros(BATCH, np.uint16)
+        want_rev[admitted] = rv[admitted][first][inv.reshape(-1)]
+        shared = int((want_rev != np.where(admitted, rv, 0)).sum())
+        if not np.array_equal(rev, want_rev) or not rev.any():
+            fail(f"services v{fam}: reply revNAT ids differ from the services' ids")
+        for i in np.nonzero(rev)[0][:8]:
+            fe = pipe.rev_nat_frontend(int(rev[i]))
+            if fe is None or fe.port != int(s["batch"][2][i]):
+                fail(f"services v{fam}: rev_nat_frontend({int(rev[i])}) = {fe}")
+        tun = s["overlay"][5]
+        if not (vo[(tun > 0) & (tun < 900_000)] == FORWARD).any():
+            fail(f"services v{fam}: no overlay flow with a trusted identity was forwarded")
+        print(f"  replies: {int((rev != 0).sum())} revNAT ids, each its service's; {shared} "
+              "flows share their key with an earlier admitted flow of another revNAT id",
+              flush=True)
+    clock.close()
+    if _kernels.launches()["lb_translate"] != 4:
+        fail(f"K9 launched {_kernels.launches()['lb_translate']} times, expected one per egress "
+             "batch (4)")
+    for fam in (4, 6):
+        nb, npo, rv, ok, nobk = seqs[fam]["lb"]
+        n = svc_oracle(repo, labels_of, idents, endpoints, fam, nb, npo, seqs[fam]["batch"][1],
+                       seqs[fam]["batch"][3], ok, res[fam][0][0], seed + fam)
+    print(f"services: translated flows == host oracle (allows_egress for the backend's identity "
+          f"and port) on {n} flows of each family", flush=True)
+    return dict(repo=repo, reg=reg, cache=cache, manager=manager, pipe=pipe, seqs=seqs,
+                res=res, endpoints=endpoints)
+
+
+def services_cpu_checks(r) -> None:
+    """The first SLICE flows of each batch sequence on a CPU pipeline
+    over the same world (its own conntrack) and on the card pipeline
+    (conntrack flushed, counters zeroed): verdicts, redirects, revNAT
+    ids, counters and live CT keys equal; and the card's full-batch
+    results equal to the CPU's on those flows."""
+    import numpy as np
+
+    from cilium_tpu_torch.datapath.conntrack import FlowConntrack
+    from cilium_tpu_torch.datapath.pipeline import DatapathPipeline
+    from cilium_tpu_torch.engine import PolicyEngine
+
+    t0 = time.perf_counter()
+    gpu = r["pipe"]
+    cpu = DatapathPipeline(PolicyEngine(r["repo"], r["reg"], device="cpu"), r["cache"],
+                           conntrack=FlowConntrack(capacity_bits=18), lb=r["manager"],
+                           device="cpu")
+    cpu.set_endpoints([(10_000 + j, e) for j, e in enumerate(r["endpoints"])])
+    cpu.rebuild()
+    s_ = slice(0, SLICE)
+    for fam in (4, 6):
+        q = r["seqs"][fam]
+        args = [tuple(a[s_] for a in q[k]) for k in ("batch", "reply", "overlay")]
+        gpu.conntrack.flush()
+        gpu.counters[:] = 0
+        runs = []
+        for pipe in (gpu, cpu):
+            state = []
+            out = svc_sequence(pipe, fam, *args, probe=lambda k, pipe=pipe, state=state: state.append(
+                (pipe.counters.copy(), ct_live_keys(pipe.conntrack))))
+            runs.append((out, state))
+        (g_out, g_state), (c_out, c_state) = runs
+        for k in range(4):
+            if not all(np.array_equal(a, b) for a, b in zip(g_out[k], c_out[k])):
+                fail(f"services v{fam}: pass {k} outputs differ between card and CPU")
+            if not np.array_equal(g_state[k][0], c_state[k][0]):
+                fail(f"services v{fam}: counters after pass {k} differ between card and CPU")
+            for key in g_state[k][1]:
+                if not np.array_equal(g_state[k][1][key], c_state[k][1][key]):
+                    fail(f"services v{fam}: live CT {key} after pass {k} differ between card "
+                         "and CPU")
+            # the full card batch, on its first SLICE flows
+            for a, b in zip(r["res"][fam][k], c_out[k]):
+                if not np.array_equal(a[s_], b):
+                    bad = int(np.argmax(a[s_] != b))
+                    fail(f"services v{fam}: pass {k} of the full card batch differs from the "
+                         f"CPU path at flow {bad}")
+        if not len(cpu.conntrack):
+            fail(f"services v{fam}: the CPU slice created no CT entry")
+        cpu.conntrack.flush()
+        cpu.counters[:] = 0
+    print(f"services: card == CPU on the first {SLICE} flows of each batch sequence (verdicts, "
+          f"redirects, revNAT ids, counters and live CT keys after every pass), v4 and v6, in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+
+
 def metric_series():
     """Snapshot of the attribution metrics (rule_hits_total and
     drop_reasons_total), keyed by (metric, labels)."""
@@ -1072,6 +1583,7 @@ def main() -> None:
     from cilium_tpu_torch.ops import materialize as matmod
     from cilium_tpu_torch.ops import verdict as verdictmod
     from cilium_tpu_torch.ops.bitmap import compute_selector_matches, selector_match_plain, unpack_bits_u32
+    from cilium_tpu_torch.lb.device import lb_translate, lb_translate_plain
     from cilium_tpu_torch.ops.lookup import policymap_verdict, policymap_verdict_plain
     from cilium_tpu_torch.ops.lpm import (
         build_trie_elided, elided_lookup, lpm_lookup_wide, lpm_stride8_plain, lpm_wide_plain,
@@ -1106,11 +1618,13 @@ def main() -> None:
     edge_checks(dev)
     edge_checks2(dev)
     edge_checks3(dev)
+    edge_checks4(dev)
     print("edge shapes: every kernel equals its plain version (ragged K1/K2, "
           "16-8-8 K3, 1 280-column / 2 100-endpoint K4; 4- and 16-level K5 with "
           "out-of-range bytes and child ids; ragged K6; K4 attribution with shared and "
           "global histograms; K7 both entries and K8 at every rung and odd caps, uint8 and "
-          "int32 bytes, out-of-range starts and bytes, lengths past max_len, empty batches)",
+          "int32 bytes, out-of-range starts and bytes, lengths past max_len, empty batches; K9 at "
+          "F = 1 and 1025, B = 0, 1 and ragged, both address widths)",
           flush=True)
 
     # -- 2. world --------------------------------------------------------
@@ -1392,6 +1906,13 @@ def main() -> None:
     l7_cpu_checks(l7res)
     print(f"L7 CPU and oracle checks in {time.perf_counter() - t0:.2f}s", flush=True)
 
+    # -- 3e. services+CT main path, launch counts from zero --------------
+    svc = services_main_path(args.seed, card)
+    check_path("services", ["lb_translate", "lpm_wide", "lpm_stride8", "policymap_verdict"])
+
+    # -- 4e. services+CT against the CPU path -----------------------------
+    services_cpu_checks(svc)
+
     # -- 5. each kernel against its plain version on the card ------------
     compiled, device = engine.snapshot()
     rows = []
@@ -1660,6 +2181,27 @@ def main() -> None:
         lambda: dfa_match_batch_fused(ptab.trans, *a8), lambda: dfa_walk_plain(ptab.trans, *a8),
         b_ms, b_by, f"pattern-cap policy: {len(flat)} rows (3 fields), rung {rung}, "
         f"Q {ptab.n_states}", plain_iters=2, reps=3, graph=True)
+
+    # K9 lb_translate over each family's pass-1 batch of the services
+    # phase: v4 1 048 576 flows x 1 024 frontends, v6 x 256. Bound by the
+    # int32 compares of a first-match scan on the CUDA cores, not tensor-core
+    # work (lb_scan_ops), or by the bytes: tables, flows and outputs once
+    for fam in (4, 6):
+        q = svc["seqs"][fam]
+        tabs, flows = lb_inputs(svc["pipe"], fam, q["pb"], *q["batch"][1:])
+        k_out = lb_translate(tabs, *flows)
+        p_out = lb_translate_plain(tabs, *flows)
+        err = max(max_abs_err(a, b) for a, b in zip(k_out, p_out))
+        ops = lb_scan_ops(tabs, *flows[:3])
+        tab_t = [getattr(tabs, f.name) for f in dataclasses.fields(tabs)]
+        b_ms, b_by = bound(nbytes(*tab_t, *flows, *k_out), ops, INT32_OPS_PER_S)
+        f_n, length = tabs.fe_bytes.shape
+        row("lb_translate", "cilium_tpu_torch/csrc/lb_translate.cu", "cilium_tpu/lb/device.py:51",
+            err, lambda tabs=tabs, flows=flows: lb_translate(tabs, *flows),
+            lambda tabs=tabs, flows=flows: lb_translate_plain(tabs, *flows), b_ms, b_by,
+            f"v{fam}: {BATCH} flows x {f_n} frontends (L {length}), {tabs.be_port.shape[0]} "
+            f"backends, {ops} scan compares at {INT32_OPS_PER_S:.4g} int32 op/s",
+            plain_iters=2, reps=5)
 
     # one JSON entry per kernel: a kernel timed on several inputs keeps
     # its first input's numbers and the largest error of all its checks

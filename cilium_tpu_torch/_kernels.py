@@ -6,7 +6,8 @@ use and never at import: the CPU tests import every module on a
 machine with no CUDA toolkit. The library lands in
 ``build/cilium_tpu_torch/<hash of the sources>/`` at the repository
 root, so an edited source builds anew and an unchanged one is reused.
-One ``nvcc`` call compiles and links every source.
+One ``nvcc`` process per source compiles them all at once, and one
+more links the objects.
 
 Each kernel is reached through a :class:`Kernel`, which checks the
 launch's return code (``cudaGetLastError()`` right after the launch)
@@ -84,9 +85,10 @@ def _nvcc() -> str:
 
 
 def build() -> Path:
-    """Compile every ``csrc/*.cu`` into ``libcilium_kernels.so`` with one
-    ``nvcc`` call unless the library for these exact sources exists;
-    returns its path."""
+    """Compile every ``csrc/*.cu`` into ``libcilium_kernels.so`` unless
+    the library for these exact sources exists; returns its path. The
+    sources compile in parallel, one ``nvcc`` process each, then one
+    ``nvcc`` call links them."""
     global build_seconds
     out_dir = BUILD_ROOT / _source_hash()
     lib_path = out_dir / "libcilium_kernels.so"
@@ -94,15 +96,30 @@ def build() -> Path:
         return lib_path
     t0 = time.perf_counter()
     out_dir.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
+        objs = [Path(tmp) / (src.stem + ".o") for src in _sources()]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(_sources(), objs)
+        ]
+        failed = []
+        for src, proc in zip(_sources(), procs):
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{src.name}:\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
         tmp_lib = Path(tmp) / lib_path.name
         proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-shared",
-             *map(str, _sources()), "-o", str(tmp_lib)],
+            [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp_lib)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         if proc.returncode != 0:
-            raise RuntimeError("nvcc failed:\n" + proc.stdout)
+            raise RuntimeError("nvcc link failed:\n" + proc.stdout)
         # atomic publish: a concurrent builder sees the old state or the
         # whole library, never a half-written file
         os.replace(tmp_lib, lib_path)
@@ -185,6 +202,12 @@ KERNELS: Dict[str, Kernel] = {
         # row_stride, max_len, lengths, out_lo, out_hi, b
         Kernel("dfa_pair_walk", "cilium_dfa_pair_walk",
                [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _L]),
+        # fe_bytes, fe_port, fe_proto, fe_seq, s, fe_seq_len, fe_revnat,
+        # f, be_bytes, be_port, nb, l, peer, dport, proto, fhash,
+        # new_bytes, new_port, revnat, ok, no_backend, b
+        Kernel("lb_translate", "cilium_lb_translate",
+               [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P,
+                _P, _P, _P, _P, _P, _L]),
     )
 }
 

@@ -144,3 +144,21 @@ def dfa_table_from_numpy(trans, accept, starts, pair, device, key=("numpy",)):
         pair=None if pair is None else np.asarray(pair, np.int32),
     )
     return DeviceDFATable(key, fused, device)
+
+
+def lb_tables_from_numpy(
+    fe_bytes, fe_port, fe_proto, fe_seq, fe_seq_len, fe_revnat, be_bytes, be_port, *, device
+):
+    """The eight LB arrays of ``ServiceManager.build_device`` (or the
+    fields of the JAX package's ``LBTables``) → the port's ``LBTables``
+    on ``device``, int32 throughout."""
+    from .lb.device import LBTables
+
+    def i32(a):
+        return _tensor(np.asarray(a, np.int32), device)
+
+    return LBTables(
+        fe_bytes=i32(fe_bytes), fe_port=i32(fe_port), fe_proto=i32(fe_proto),
+        fe_seq=i32(fe_seq), fe_seq_len=i32(fe_seq_len), fe_revnat=i32(fe_revnat),
+        be_bytes=i32(be_bytes), be_port=i32(be_port),
+    )

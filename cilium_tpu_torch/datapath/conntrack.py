@@ -1,0 +1,462 @@
+"""Vectorized flow conntrack for the batched datapath.
+
+The reference consults its conntrack tables on every packet before the
+policy stage (bpf/bpf_lxc.c:477 ct_lookup4 / bpf/lib/conntrack.h:103-205):
+an established or reply hit forwards without a policy verdict — that's
+what lets reply traffic flow without explicit rules and keeps the
+per-packet cost at one hash probe.
+
+TPU-first redesign: the table is a numpy open-addressing hash table
+probed with fully vectorized batch lookups, sitting IN FRONT of the
+device dispatch. Established-heavy batches shrink (often to zero) the
+flow set that pays the device round trip — the same economics as the
+kernel's CT fast path, moved to the batch level. Keys are three packed
+uint64 words so IPv4 and IPv6 share one table.
+
+Direction/reply semantics (conntrack.h tuple flip): an entry created
+for (peer, ep, sport, dport, dir) matches
+
+- the exact tuple again              → ESTABLISHED
+- (peer, ep, dport, sport, 1-dir)    → REPLY
+
+mirroring the kernel's forward/reverse tuple pair.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+
+from ..maps.ctmap import DEFAULT_LIFETIME_OTHER, DEFAULT_LIFETIME_TCP
+
+CT_NEW = 0
+CT_ESTABLISHED = 1
+CT_REPLY = 2
+
+_EMPTY = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+
+def _mix64(x: np.ndarray) -> np.ndarray:
+    """splitmix64 finalizer — vectorized uint64 avalanche."""
+    with np.errstate(over="ignore"):
+        x = x.astype(np.uint64, copy=True)
+        x ^= x >> np.uint64(30)
+        x *= np.uint64(0xBF58476D1CE4E5B9)
+        x ^= x >> np.uint64(27)
+        x *= np.uint64(0x94D049BB133111EB)
+        x ^= x >> np.uint64(31)
+    return x
+
+
+def pack_keys(
+    peer_hi: np.ndarray,  # [B] uint64 — high 64 bits of peer IP (0 for v4)
+    peer_lo: np.ndarray,  # [B] uint64 — low 64 bits (v4 address for v4)
+    ep_idx: np.ndarray,
+    sport: np.ndarray,
+    dport: np.ndarray,
+    proto: np.ndarray,
+    direction: np.ndarray,  # [B] 0 ingress / 1 egress
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """→ (ka, kb, kc) uint64 key words for the forward tuple."""
+    # bit layout of kc: ep[41..63] sport[25..40] dport[9..24]
+    # proto[1..8] dir[0]
+    ka = peer_hi.astype(np.uint64)
+    kb = peer_lo.astype(np.uint64)
+    kc = (
+        (ep_idx.astype(np.uint64) << np.uint64(41))
+        | (sport.astype(np.uint64) << np.uint64(25))
+        | (dport.astype(np.uint64) << np.uint64(9))
+        | (proto.astype(np.uint64) << np.uint64(1))
+        | direction.astype(np.uint64)
+    )
+    return ka, kb, kc
+
+
+def unpack_proto(kc: np.ndarray) -> np.ndarray:
+    return (kc >> np.uint64(1)) & np.uint64(0xFF)
+
+
+def flip_kc(kc: np.ndarray) -> np.ndarray:
+    """Reply tuple: swap sport/dport, flip direction, keep ep/proto."""
+    ep = kc >> np.uint64(41)
+    sport = (kc >> np.uint64(25)) & np.uint64(0xFFFF)
+    dport = (kc >> np.uint64(9)) & np.uint64(0xFFFF)
+    proto = unpack_proto(kc)
+    direction = kc & np.uint64(0x1)
+    return (
+        (ep << np.uint64(41))
+        | (dport << np.uint64(25))
+        | (sport << np.uint64(9))
+        | (proto << np.uint64(1))
+        | (np.uint64(1) - direction)
+    )
+
+
+class FlowConntrack:
+    """Open-addressing CT table with vectorized batch ops."""
+
+    def __init__(
+        self,
+        capacity_bits: int = 18,
+        # 16 linear probes: zero insert drops at load ≤0.25 (measured);
+        # drops only degrade to per-batch re-verdicts, but each CT miss
+        # tail costs a device dispatch, so placement robustness pays.
+        probes: int = 16,
+        tcp_lifetime: float = DEFAULT_LIFETIME_TCP,
+        other_lifetime: float = DEFAULT_LIFETIME_OTHER,
+    ) -> None:
+        self.capacity = 1 << capacity_bits
+        self.mask = np.uint64(self.capacity - 1)
+        self.probes = probes
+        self.tcp_lifetime = tcp_lifetime
+        self.other_lifetime = other_lifetime
+        self._lock = threading.Lock()
+        c = self.capacity
+        self.ka = np.full(c, _EMPTY, np.uint64)
+        self.kb = np.zeros(c, np.uint64)
+        self.kc = np.zeros(c, np.uint64)
+        self.valid = np.zeros(c, bool)
+        self.expires = np.zeros(c, np.float64)
+        self.packets = np.zeros(c, np.int64)
+        # revNAT id recorded at creation (ct_entry.rev_nat_index,
+        # bpf/lib/common.h ct_entry) — lets reply traffic restore the
+        # original VIP after backend→client translation.
+        self.revnat = np.zeros(c, np.uint16)
+        self.version = 0
+
+    # ------------------------------------------------------------------
+    def _hash(self, ka, kb, kc) -> np.ndarray:
+        with np.errstate(over="ignore"):
+            h = _mix64(ka ^ _mix64(kb ^ _mix64(kc)))
+        return h
+
+    def _probe_slots(self, ka, kb, kc) -> np.ndarray:
+        """[B, P] candidate slot indices (linear probing)."""
+        h = self._hash(ka, kb, kc)
+        with np.errstate(over="ignore"):
+            return (
+                (h[:, None] + np.arange(self.probes, dtype=np.uint64)[None, :])
+                & self.mask
+            ).astype(np.int64)
+
+    def _find(self, ka, kb, kc, now: float) -> np.ndarray:
+        """[B] slot of a live exact match, or -1.
+
+        Progressive narrowing: probe round p touches only flows still
+        unresolved after round p-1 (an EMPTY slot terminates a probe
+        chain — miss; a key match terminates it — hit). At load ≤0.25
+        almost everything resolves in round 0, so the memory traffic is
+        ~1.1 gathers per flow instead of P=16 — materializing the full
+        [B, P] probe matrix made the CT pre-pass cost more than the
+        device dispatch it was meant to save."""
+        n = len(ka)
+        h = self._hash(ka, kb, kc)
+        out = np.full(n, -1, np.int64)
+        pending = np.arange(n)
+        for p in range(self.probes):
+            with np.errstate(over="ignore"):
+                s = ((h[pending] + np.uint64(p)) & self.mask).astype(np.int64)
+            kas = self.ka[s]
+            key_eq = (
+                (kas == ka[pending])
+                & (self.kb[s] == kb[pending])
+                & (self.kc[s] == kc[pending])
+            )
+            hit = key_eq & self.valid[s] & (self.expires[s] > now)
+            out[pending[hit]] = s[hit]
+            # chain continues only past live non-matching slots; an
+            # EMPTY ka ends it (same termination rule the insert path
+            # guarantees: entries never skip an empty slot)
+            cont = ~hit & (kas != _EMPTY)
+            pending = pending[cont]
+            if pending.size == 0:
+                break
+        return out
+
+    # ------------------------------------------------------------------
+    def lookup_batch(
+        self, ka, kb, kc, *, refresh: bool = True, want_revnat: bool = False
+    ):
+        """→ (state [B] uint8 CT_*, slot [B] int64)[, revnat [B] u16].
+        Established hits optionally refresh lifetimes (the kernel
+        updates ct lifetime on every packet). ``want_revnat`` reads
+        each hit's revNAT id UNDER THE SAME LOCK HOLD as the find — a
+        slot index used after the lock drops can be tombstoned, reused,
+        or moved by a concurrent gc()/compact, so post-hoc revnat reads
+        would return another flow's id."""
+        now = time.monotonic()
+        with self._lock:
+            slot = self._find(ka, kb, kc, now)
+            state = np.where(slot >= 0, CT_ESTABLISHED, CT_NEW).astype(np.uint8)
+            miss = slot < 0
+            if miss.any():
+                rslot = self._find(ka[miss], kb[miss], flip_kc(kc[miss]), now)
+                rhit = rslot >= 0
+                midx = np.nonzero(miss)[0]
+                state[midx[rhit]] = CT_REPLY
+                slot[midx] = np.where(rhit, rslot, -1)
+            live = slot >= 0
+            if refresh and live.any():
+                s = slot[live]
+                proto = unpack_proto(self.kc[s])
+                life = np.where(
+                    proto == 6, self.tcp_lifetime, self.other_lifetime
+                )
+                self.expires[s] = now + life
+                np.add.at(self.packets, s, 1)
+            if want_revnat:
+                rev = np.zeros(slot.shape, np.uint16)
+                rev[live] = self.revnat[slot[live]]
+                return state, slot, rev
+            return state, slot
+
+    def dump(self, limit: int = 4096) -> list:
+        """Readable live entries (cilium bpf ct list). Addresses with a
+        zero high word render as IPv4."""
+        import ipaddress
+
+        now = time.monotonic()
+        out = []
+        with self._lock:
+            live = np.nonzero(self.valid & (self.expires > now))[0][:limit]
+            for s in live:
+                kc = self.kc[s]
+                hi, lo = int(self.ka[s]), int(self.kb[s])
+                if hi == 0 and lo <= 0xFFFFFFFF:
+                    peer = str(ipaddress.ip_address(lo))
+                else:
+                    peer = str(ipaddress.ip_address((hi << 64) | lo))
+                out.append({
+                    "peer": peer,
+                    "endpoint_index": int(kc >> np.uint64(41)),
+                    "sport": int((kc >> np.uint64(25)) & np.uint64(0xFFFF)),
+                    "dport": int((kc >> np.uint64(9)) & np.uint64(0xFFFF)),
+                    "proto": int(unpack_proto(np.uint64(kc))),
+                    "direction": "ingress" if int(kc) & 1 == 0 else "egress",
+                    "packets": int(self.packets[s]),
+                    "revnat": int(self.revnat[s]),
+                    "expires_in_s": round(float(self.expires[s]) - now, 1),
+                })
+        return out
+
+    def create_batch(self, ka, kb, kc, revnat: Optional[np.ndarray] = None) -> int:
+        """Insert forward-tuple entries (vectorized claim, P rounds of
+        first-writer-wins per slot). Duplicate keys in the batch are
+        deduped; full neighborhoods drop the insert (the kernel map
+        fails inserts when full — flow retries next batch). Returns the
+        number inserted."""
+        if len(ka) == 0:
+            return 0
+        now = time.monotonic()
+        if revnat is None:
+            revnat = np.zeros(len(ka), np.uint16)
+        with self._lock:
+            # dedupe within the batch
+            u, uidx = np.unique(
+                np.stack([ka, kb, kc], axis=1), axis=0, return_index=True
+            )
+            ka, kb, kc, revnat = ka[uidx], kb[uidx], kc[uidx], revnat[uidx]
+            # skip keys already present (established)
+            have = self._find(ka, kb, kc, now) >= 0
+            ka, kb, kc, revnat = ka[~have], kb[~have], kc[~have], revnat[~have]
+            if len(ka) == 0:
+                return 0
+            slots = self._probe_slots(ka, kb, kc)  # [B, P]
+            proto = unpack_proto(kc)
+            life = np.where(proto == 6, self.tcp_lifetime, self.other_lifetime)
+            placed = np.zeros(len(ka), bool)
+            inserted = 0
+            for p in range(self.probes):
+                cand = slots[:, p]
+                free = (~self.valid[cand]) | (self.expires[cand] <= now)
+                want = (~placed) & free
+                if not want.any():
+                    continue
+                idx = np.nonzero(want)[0]
+                # first writer wins per slot within this round
+                _, first = np.unique(cand[idx], return_index=True)
+                win = idx[first]
+                s = cand[win]
+                self.ka[s] = ka[win]
+                self.kb[s] = kb[win]
+                self.kc[s] = kc[win]
+                self.valid[s] = True
+                self.expires[s] = now + life[win]
+                self.packets[s] = 1
+                self.revnat[s] = revnat[win].astype(np.uint16)
+                placed[win] = True
+                inserted += len(win)
+                if placed.all():
+                    break
+            self.version += 1
+            return inserted
+
+    # -- snapshot / restore (policyd-survive) --------------------------
+    def snapshot_arrays(self) -> dict:
+        """Packed live entries for the state-dir CT snapshot.
+
+        ``expires`` is monotonic-clock based — meaningless in another
+        process — so the snapshot stores REMAINING lifetime (``ttl``)
+        and restore_arrays() re-bases it onto the restoring process's
+        clock. Arrays are copied under the lock; the caller serializes
+        outside it (the save_snapshot discipline in engine.py)."""
+        now = time.monotonic()
+        with self._lock:
+            live = np.nonzero(self.valid & (self.expires > now))[0]
+            return {
+                "ka": self.ka[live].copy(),
+                "kb": self.kb[live].copy(),
+                "kc": self.kc[live].copy(),
+                "ttl": (self.expires[live] - now).astype(np.float64),
+                "packets": self.packets[live].copy(),
+                "revnat": self.revnat[live].copy(),
+            }
+
+    def restore_arrays(
+        self,
+        ka: np.ndarray,
+        kb: np.ndarray,
+        kc: np.ndarray,
+        ttl: np.ndarray,
+        packets: Optional[np.ndarray] = None,
+        revnat: Optional[np.ndarray] = None,
+    ) -> Tuple[int, int]:
+        """Re-insert snapshotted entries with a TTL-aware expiry sweep.
+
+        → (kept, expired). Entries whose remaining lifetime ran out
+        while the process was down are swept; TTLs are clamped to the
+        configured lifetimes so a corrupt snapshot cannot install
+        immortal entries. Keys already present stay untouched and count
+        as kept (the quarantine rescue path restores into a live
+        table). Entries that lose a full probe neighborhood are counted
+        expired — same drop-not-crash rule as create_batch."""
+        ka = np.asarray(ka, np.uint64)
+        kb = np.asarray(kb, np.uint64)
+        kc = np.asarray(kc, np.uint64)
+        ttl = np.asarray(ttl, np.float64)
+        n_in = len(ka)
+        if packets is None:
+            packets = np.ones(n_in, np.int64)
+        if revnat is None:
+            revnat = np.zeros(n_in, np.uint16)
+        packets = np.asarray(packets, np.int64)
+        revnat = np.asarray(revnat, np.uint16)
+        alive = ttl > 0.0
+        expired = n_in - int(alive.sum())
+        ka, kb, kc, ttl = ka[alive], kb[alive], kc[alive], ttl[alive]
+        packets, revnat = packets[alive], revnat[alive]
+        if len(ka) == 0:
+            return 0, expired
+        now = time.monotonic()
+        ttl = np.minimum(ttl, max(self.tcp_lifetime, self.other_lifetime))
+        kept = 0
+        with self._lock:
+            have = self._find(ka, kb, kc, now) >= 0
+            kept += int(have.sum())
+            ka, kb, kc, ttl = ka[~have], kb[~have], kc[~have], ttl[~have]
+            packets, revnat = packets[~have], revnat[~have]
+            expires = now + ttl
+            slots = self._probe_slots(ka, kb, kc)
+            placed = np.zeros(len(ka), bool)
+            for p in range(self.probes):
+                cand = slots[:, p]
+                free = (~self.valid[cand]) | (self.expires[cand] <= now)
+                want = (~placed) & free
+                if not want.any():
+                    continue
+                idx = np.nonzero(want)[0]
+                _, first = np.unique(cand[idx], return_index=True)
+                win = idx[first]
+                s = cand[win]
+                self.ka[s] = ka[win]
+                self.kb[s] = kb[win]
+                self.kc[s] = kc[win]
+                self.valid[s] = True
+                self.expires[s] = expires[win]
+                self.packets[s] = packets[win]
+                self.revnat[s] = revnat[win]
+                placed[win] = True
+                if placed.all():
+                    break
+            kept += int(placed.sum())
+            expired += int((~placed).sum())
+            self.version += 1
+        return kept, expired
+
+    # -- maintenance ----------------------------------------------------
+    def gc(self) -> int:
+        """Invalidate expired entries (ctmap.go GC:345).
+
+        Tombstones only (valid=False, ka KEPT): _find terminates probe
+        chains at an EMPTY ka, so emptying a reclaimed slot would make
+        live entries later in the same chain unreachable. Tombstoned
+        slots stay reusable — create_batch's free test is
+        ``~valid | expired``, not ``ka == EMPTY``."""
+        now = time.monotonic()
+        with self._lock:
+            stale = self.valid & (self.expires <= now)
+            n = int(stale.sum())
+            if n:
+                self.valid[stale] = False
+                self.version += 1
+            # Tombstones accumulate forever (ka stays) and each one
+            # keeps probe chains alive past it — sustained churn would
+            # erode the early-termination win back to full-width
+            # probing. Past 25% occupancy by tombstones, rehash the
+            # live entries into fresh arrays.
+            tombstones = int(((self.ka != _EMPTY) & ~self.valid).sum())
+            if tombstones > self.capacity // 4:
+                self._compact(now)
+            return n
+
+    def _compact(self, now: float) -> None:
+        """Rebuild the table from its live entries (caller holds the
+        lock): tombstoned slots return to EMPTY, restoring ~1-probe
+        chains."""
+        live = np.nonzero(self.valid & (self.expires > now))[0]
+        ka, kb, kc = self.ka[live], self.kb[live], self.kc[live]
+        expires = self.expires[live]
+        packets = self.packets[live]
+        revnat = self.revnat[live]
+        self.ka[:] = _EMPTY
+        self.valid[:] = False
+        # re-place with the same probe discipline as create_batch
+        slots = self._probe_slots(ka, kb, kc)
+        placed = np.zeros(len(ka), bool)
+        for p in range(self.probes):
+            cand = slots[:, p]
+            want = (~placed) & ~self.valid[cand]
+            if not want.any():
+                continue
+            idx = np.nonzero(want)[0]
+            _, first = np.unique(cand[idx], return_index=True)
+            win = idx[first]
+            s = cand[win]
+            free = ~self.valid[s]
+            win, s = win[free], s[free]
+            self.ka[s] = ka[win]
+            self.kb[s] = kb[win]
+            self.kc[s] = kc[win]
+            self.valid[s] = True
+            self.expires[s] = expires[win]
+            self.packets[s] = packets[win]
+            self.revnat[s] = revnat[win]
+            placed[win] = True
+            if placed.all():
+                break
+        self.version += 1
+
+    def flush(self) -> int:
+        with self._lock:
+            n = int(self.valid.sum())
+            self.valid[:] = False
+            self.ka[:] = _EMPTY
+            self.version += 1
+            return n
+
+    def __len__(self) -> int:
+        now = time.monotonic()
+        return int((self.valid & (self.expires > now)).sum())

@@ -22,9 +22,24 @@ two ``lpm_stride8`` launches. With verdict attribution on
 kernel's attribution entry, which also returns each flow's deciding
 rule, its L4 coverage and the rule-hit counts.
 
-This port covers the synchronous path only; conntrack, load
-balancing, overlay identities, async submission, shedding, failsafe,
-tracing, the flow ring and multi-device placement are not ported yet.
+Ahead of those stages, :meth:`DatapathPipeline.process` /
+``process_v6`` run, as the reference's ``_submit_inner`` does:
+
+- the overlay row override (``tunnel_identities``: a known identity
+  from the tunnel key is trusted over the LPM and skips the prefilter);
+- the LB stage on egress batches of a family with frontends: one
+  ``lb_translate`` launch (lb/device.py) rewrites VIP flows to their
+  backend before CT and policy; a frontend with no backend drops
+  with DROP_NO_SERVICE;
+- with a :class:`FlowConntrack` and ``sports``, the host CT pre-pass:
+  established and reply hits take FORWARD, only the misses go to the
+  kernels (at their exact shape: there is no compile cache to pad
+  for), and allowed non-redirect misses create entries carrying the
+  flow's revNAT id.
+
+This port covers the synchronous path only; device-resident
+conntrack, async submission, shedding, failsafe, tracing, the flow
+ring and multi-device placement are not ported yet.
 """
 
 from __future__ import annotations
@@ -39,14 +54,16 @@ import torch
 from .. import _kernels
 from .. import metrics as _metrics
 from ..convert import v6_tables_from_numpy, wide_tables_from_numpy
+from .conntrack import CT_NEW, CT_REPLY, FlowConntrack, pack_keys
 from ..engine import PolicyEngine
 from ..identity.model import ID_WORLD
 from ..ipcache.ipcache import IPCache
 from ..ipcache.prefilter import PreFilter
+from ..lb.device import flow_hash32, lb_translate
 from ..ops.lookup import PolicymapTables, policymap_verdict
 from ..ops.lpm import (
     DENY_BIT, MERGED_VALUE_MASK, build_trie_elided, build_wide_trie, elided_lookup,
-    lpm_lookup_wide, merge_flat_tries, merge_trie_entries,
+    ipv4_to_bytes, lpm_lookup_wide, merge_flat_tries, merge_trie_entries,
 )
 from ..ops.materialize import TRAFFIC_EGRESS, TRAFFIC_INGRESS, materialize_endpoints_state
 
@@ -278,10 +295,73 @@ _NO_TRIE6 = (
 )
 
 
+def _pack_v4_u32(peer_bytes: np.ndarray) -> np.ndarray:
+    """[B, 4] address bytes → [B] uint32 host-order (the wide-trie
+    query word). One definition for every dispatch path."""
+    b = peer_bytes.astype(np.uint32)
+    return (b[:, 0] << 24) | (b[:, 1] << 16) | (b[:, 2] << 8) | b[:, 3]
+
+
+def _peer_words(peer_bytes: np.ndarray, family: int) -> Tuple[np.ndarray, np.ndarray]:
+    """[B, 4 | 16] address bytes → (hi, lo) uint64 conntrack key words
+    (hi is 0 for IPv4)."""
+    bytes64 = peer_bytes.astype(np.uint64)
+    if family == 4:
+        lo = (
+            (bytes64[:, 0] << 24) | (bytes64[:, 1] << 16)
+            | (bytes64[:, 2] << 8) | bytes64[:, 3]
+        )
+        return np.zeros(peer_bytes.shape[0], np.uint64), lo
+    shift = np.arange(7, -1, -1, dtype=np.uint64) * np.uint64(8)
+    hi = (bytes64[:, :8] << shift).sum(axis=1, dtype=np.uint64)
+    lo = (bytes64[:, 8:] << shift).sum(axis=1, dtype=np.uint64)
+    return hi, lo
+
+
+@dataclasses.dataclass
+class _Batch:
+    """One batch's flows on the host while it moves through the stages.
+    ``peer_bytes`` is [B, 4 | 16] int32; an IPv4 batch also carries its
+    uint32 words (``peer_u32``, the wide-trie query) and builds the
+    bytes only when a stage needs them."""
+
+    family: int
+    ep_idx: np.ndarray
+    dports: np.ndarray
+    protos: np.ndarray
+    peer_bytes: Optional[np.ndarray] = None
+    peer_u32: Optional[np.ndarray] = None
+    # the caller's CT key words, kept until the LB stage rewrites the peer
+    words: Optional[Tuple[np.ndarray, np.ndarray]] = None
+
+    def bytes_(self) -> np.ndarray:
+        if self.peer_bytes is None:
+            self.peer_bytes = ipv4_to_bytes(self.peer_u32)
+        return self.peer_bytes
+
+    def set_peer(self, peer_bytes: np.ndarray) -> None:
+        self.peer_bytes = peer_bytes
+        self.peer_u32 = _pack_v4_u32(peer_bytes) if self.family == 4 else None
+        self.words = None  # address changed — repack for CT
+
+    def ct_words(self) -> Tuple[np.ndarray, np.ndarray]:
+        if self.words is not None:
+            return self.words
+        return _peer_words(self.bytes_(), self.family)
+
+
 class DatapathPipeline:
     """Host orchestrator: owns the device snapshot of prefilter +
     ipcache + materialized policymaps for a set of local endpoints, and
-    re-materializes when any input version moves."""
+    re-materializes when any input version moves.
+
+    With ``conntrack`` (a :class:`FlowConntrack`) a batch that carries
+    ``sports`` runs the host CT pre-pass: established and reply hits
+    take FORWARD without a device dispatch, and only misses reach the
+    kernels. With ``lb`` (a ``ServiceManager``) every egress batch of a
+    family with frontends goes through VIP→backend translation on the
+    ``lb_translate`` kernel first, so CT and policy see the backend.
+    Device-resident conntrack (``device_ct_bits``) is not ported."""
 
     def __init__(
         self,
@@ -289,15 +369,34 @@ class DatapathPipeline:
         ipcache: IPCache,
         prefilter: Optional[PreFilter] = None,
         device=None,
+        *,
+        conntrack: Optional[FlowConntrack] = None,
+        lb=None,  # Optional[lb.service.ServiceManager]
+        device_ct_bits: Optional[int] = None,
     ) -> None:
+        if device_ct_bits is not None:
+            raise NotImplementedError(
+                "device-resident conntrack is not in the torch port yet;"
+                " pass conntrack=FlowConntrack(...) for the host CT"
+            )
         self.device = _kernels.resolve_device(device)
         if self.device != engine.device:
             raise ValueError(f"pipeline on {self.device}, engine on {engine.device}")
         self.engine = engine
         self.ipcache = ipcache
         self.prefilter = prefilter or PreFilter()
+        self.conntrack = conntrack
+        self.lb = lb
+        # called for every redirect verdict with a known 5-tuple:
+        # fn(peer_addr_bytes, ep_idx, sport, dport, proto, ingress,
+        # family) — the cilium_proxy4/6 write hook (bpf_lxc.c inserts
+        # a proxymap entry when the verdict is a proxy port)
+        self.on_redirect = None
+        self._lb_tables: Dict[int, object] = {}
+        self._lb_version = -1
         self._lock = threading.Lock()
         self._endpoints: list = []  # identity id per endpoint index
+        self._endpoint_ids: list = []  # endpoint id per endpoint index
         self._basis = None
         # {(direction, family): WideDatapathTables (4) | DatapathTables (6)}
         self._tables: Dict[Tuple[int, int], object] = {}
@@ -310,6 +409,10 @@ class DatapathPipeline:
         self._rule_tabs: Optional[Dict[int, torch.Tensor]] = None
         self._attrib_n_rules = 0
         self._attrib_names: list = []
+        # conntrack basis epoch: bumped on every CT flush, so a batch
+        # whose basis moved between its pre-pass and its completion
+        # creates no entries verdicted under the old basis
+        self._ct_epoch = 0
         self.counters = np.zeros((0, 3), np.int64)
 
     def set_endpoints(self, endpoints: Sequence) -> None:
@@ -317,7 +420,30 @@ class DatapathPipeline:
         (endpoint_id, identity_id) pairs; order defines the datapath
         endpoint index."""
         with self._lock:
-            self._endpoints = [int(e[1]) if isinstance(e, tuple) else int(e) for e in endpoints]
+            pairs = [e if isinstance(e, tuple) else (int(e), int(e)) for e in endpoints]
+            self._endpoint_ids = [int(p[0]) for p in pairs]
+            self._endpoints = [int(p[1]) for p in pairs]
+            # CT keys embed the endpoint INDEX; a changed endpoint list
+            # would let a new occupant of an index inherit the previous
+            # endpoint's established-flow bypass entries.
+            self._flush_ct_locked()
+
+    def endpoint_index(self, endpoint_id: int) -> Optional[int]:
+        try:
+            return self._endpoint_ids.index(endpoint_id)
+        except ValueError:
+            return None
+
+    def endpoint_id_at(self, idx: int) -> Optional[int]:
+        with self._lock:
+            if 0 <= idx < len(self._endpoint_ids):
+                return self._endpoint_ids[idx]
+        return None
+
+    def _flush_ct_locked(self) -> None:
+        if self.conntrack is not None:
+            self.conntrack.flush()
+        self._ct_epoch += 1
 
     def set_attribution(self, on: bool) -> None:
         """Toggle per-flow verdict attribution (the FlowAttribution
@@ -365,8 +491,9 @@ class DatapathPipeline:
         """Bring the device state up to date: both directions' policymap
         sweeps and both families' tries, rebuilt in full when the
         policy, the identities, the ipcache, the prefilter, the endpoint
-        set or the attribution switch moved. Returns
-        {(direction, family): tables}."""
+        set or the attribution switch moved, and the LB tables when the
+        service table moved. Each of those moves flushes the conntrack.
+        Returns {(direction, family): tables}."""
         with self._lock:
             # versions captured before the sources are read: a mutation
             # landing mid-build triggers one more rebuild
@@ -374,6 +501,7 @@ class DatapathPipeline:
             compiled, device = self.engine.snapshot()
             basis = (self.engine.install_gen, trie_versions, tuple(self._endpoints))
             if not force and basis == self._basis:
+                self._refresh_lb_locked()
                 return self._tables
             ao, nr = self._attrib_origins(compiled)
             mat = self._build_mats(compiled, device, self._endpoints, ao, nr)
@@ -444,7 +572,25 @@ class DatapathPipeline:
             self._basis = basis
             if self.counters.shape[0] != len(self._endpoints):
                 self.counters = np.zeros((len(self._endpoints), 3), np.int64)
+            # Conntrack invalidation: the established-flow bypass is
+            # only sound while the verdict basis that admitted the flow
+            # still holds, so any basis move flushes the table (revoked
+            # rules, remapped peers and new deny prefixes apply to
+            # established flows on their next packet).
+            self._flush_ct_locked()
+            self._refresh_lb_locked()
             return self._tables
+
+    def _refresh_lb_locked(self) -> None:
+        # LB tables: deterministic backend selection means backend
+        # churn changes the translated CT key (a natural miss), but
+        # entries created while a flow was NOT translated would bypass
+        # the new service table — so any LB move flushes too.
+        if self.lb is not None and self.lb.version != self._lb_version:
+            lb_ver = self.lb.version
+            self._lb_tables = self.lb.build_device(device=self.device)
+            self._lb_version = lb_ver
+            self._flush_ct_locked()
 
     def _account_attribution(
         self,
@@ -492,43 +638,208 @@ class DatapathPipeline:
             np.ascontiguousarray(np.asarray(a).astype(dtype, copy=False))
         ).to(self.device)
 
-    def _run(self, peer: torch.Tensor, ep_idx, dports, protos, *, ingress: bool, family: int):
-        """One synchronous batch of either family: step function, pull,
-        counters and, with attribution on, the attribution metrics."""
-        self.rebuild()
-        direction = TRAFFIC_INGRESS if ingress else TRAFFIC_EGRESS
+    def _add_host_counters(self, verdict: np.ndarray, ep_idx: np.ndarray) -> None:
+        """Per-endpoint (forwarded, dropped_policy, dropped_other)
+        counts of a batch whose device counters do not cover it."""
         with self._lock:
-            t = self._tables[(direction, family)]
-            pf_empty = self._pf_empty[0 if family == 4 else 1]
-            v6_fused = self._v6_fused
-            rule_tab = self._rule_tabs[direction] if self._rule_tabs is not None else None
-            n_rules = self._attrib_n_rules
-            ep_count = max(1, len(self._endpoints))
-        flows = (self._up(ep_idx, np.int32), self._up(dports, np.int32), self._up(protos, np.int32))
+            if self.counters.shape[0] == max(1, len(self._endpoints)):
+                cls = np.select([verdict == FORWARD, verdict == DROP_POLICY], [0, 1], default=2)
+                np.add.at(self.counters, (ep_idx, cls), 1)
+
+    def _dispatch(self, st, fl: _Batch, sel, row_override, *, ingress: bool):
+        """The device half for the flows ``sel`` (None = all): LPM
+        walks and policymap verdict at the exact shape, pulled to host
+        → (verdict, redirect, counters, rule, l4_covered, hits); the
+        last three are None without attribution."""
+        t, pf_empty, v6_fused, rule_tab, n_rules, ep_count, _lbt = st
+
+        def part(a):
+            return a if sel is None else a[sel]
+
+        flows = tuple(self._up(part(a), np.int32) for a in (fl.ep_idx, fl.dports, fl.protos))
         attrib = rule_tab is not None
         # the XDP prefilter guards traffic entering the node only, and
         # an empty deny set skips the walk
         kw = dict(ep_count=ep_count, prefilter=ingress and not pf_empty,
-                  attrib=attrib, rule_tab=rule_tab, n_rules=n_rules)
-        if family == 4:
+                  attrib=attrib, rule_tab=rule_tab, n_rules=n_rules,
+                  row_override=None if row_override is None else self._up(part(row_override), np.int32))
+        if fl.family == 4:
+            peer = self._up(part(fl.peer_u32).astype(np.uint32, copy=False).view(np.int32), np.int32)
             out = process_flows_wide(t, peer, *flows, **kw)
         else:
-            out = process_flows(t, peer, *flows, levels=16, fused=v6_fused, **kw)
-        verdict, redirect, counters = (x.cpu().numpy() for x in out[:3])
-        with self._lock:
-            if self.counters.shape == counters.shape:
-                self.counters += counters
-        if attrib:
-            rule, l4x, hits = (x.cpu().numpy() for x in out[3:])
-            self._account_attribution(verdict, rule, l4x, hits, ingress=ingress)
-        return verdict, redirect
+            out = process_flows(t, self._up(part(fl.peer_bytes), np.int32), *flows, levels=16,
+                                fused=v6_fused, **kw)
+        out = [x.cpu().numpy() for x in out]
+        return (*out, None, None, None) if not attrib else tuple(out)
 
-    @staticmethod
-    def _refuse_unported(sports, return_rev_nat, tunnel_identities) -> None:
-        if sports is not None or return_rev_nat:
-            raise NotImplementedError("conntrack and revNAT are not in the torch port yet")
+    def _lb_stage(self, lbt, fl: _Batch, sports):
+        """Egress VIP→backend translation (bpf_lxc.c:444-455: the
+        service lookup precedes conntrack and the policy check, so CT
+        tracks the backend tuple and policy sees the backend's
+        identity) → (svc_drop [B] bool, revnat [B] uint16), both None
+        when no flow hit a frontend; rewrites ``fl`` in place."""
+        # hash over STABLE endpoint ids so unrelated endpoint churn
+        # cannot re-select backends for established flows
+        if self._endpoint_ids:
+            ep_ids = np.asarray(self._endpoint_ids, np.int64)[
+                np.clip(fl.ep_idx, 0, len(self._endpoint_ids) - 1)
+            ]
+        else:
+            ep_ids = fl.ep_idx
+        peer_bytes = fl.bytes_()
+        fh = flow_hash32(peer_bytes, sports, fl.dports, fl.protos, ep_ids)
+        nb, npo, rv, ok, nobk = lb_translate(
+            lbt, self._up(peer_bytes, np.int32), self._up(fl.dports, np.int32),
+            self._up(fl.protos, np.int32), self._up(fh, np.int32),
+        )
+        ok = ok.cpu().numpy()
+        nobk = nobk.cpu().numpy()
+        if not (ok.any() or nobk.any()):
+            return None, None
+        fl.set_peer(nb.cpu().numpy())
+        fl.dports = npo.cpu().numpy()
+        return nobk, rv.cpu().numpy().astype(np.uint16)
+
+    def _run(
+        self,
+        fl: _Batch,
+        sports: Optional[np.ndarray],
+        *,
+        ingress: bool,
+        want_rev_nat: bool = False,
+        tunnel_identities: Optional[np.ndarray] = None,
+    ):
+        """One synchronous batch of either family: overlay rows, the LB
+        stage, then either the whole batch on the device (no CT) or the
+        CT pre-pass with only its misses on the device; counters, CT
+        creation, the redirect hook and, with attribution on, the
+        attribution metrics."""
+        self.rebuild()
+        direction = TRAFFIC_INGRESS if ingress else TRAFFIC_EGRESS
+        family = fl.family
+        with self._lock:
+            st = (
+                self._tables[(direction, family)],
+                self._pf_empty[0 if family == 4 else 1],
+                self._v6_fused,
+                self._rule_tabs[direction] if self._rule_tabs is not None else None,
+                self._attrib_n_rules,
+                max(1, len(self._endpoints)),
+                self._lb_tables.get(family) if self.lb is not None else None,
+            )
+        b = fl.ep_idx.shape[0]
+
+        # Overlay path (bpf_overlay.c): decapped flows carry the peer's
+        # security identity in the tunnel key — trust it over the
+        # ipcache LPM when it resolves to a known device row; unknown
+        # or zero identities fall back to the LPM walk.
+        row_override = None
         if tunnel_identities is not None:
-            raise NotImplementedError("overlay tunnel identities are not in the torch port yet")
+            row_override = self.engine.rows_or_negative(np.asarray(tunnel_identities, np.int64))
+
+        svc_drop = revnat_vals = None
+        lbt = st[6]
+        if not ingress and lbt is not None:
+            svc_drop, revnat_vals = self._lb_stage(lbt, fl, sports)
+
+        ct = self.conntrack
+        if ct is None or sports is None:
+            # no CT: the whole batch takes the device path
+            v, red, counters, rule, l4x, hits = self._dispatch(st, fl, None, row_override,
+                                                               ingress=ingress)
+            if svc_drop is not None and svc_drop.any():
+                v = np.where(svc_drop, np.int8(DROP_NO_SERVICE), v)
+                red = red & ~svc_drop
+                # the device counters classified these flows before the
+                # override: count this batch on the host instead
+                counters = None
+                if rule is not None:
+                    # no-backend flows never reached a rule: drop their
+                    # attribution and re-derive the hit sums on the host
+                    rule = np.where(svc_drop, np.int32(-1), rule)
+                    hits = None
+            if counters is None:
+                self._add_host_counters(v, fl.ep_idx)
+            else:
+                with self._lock:
+                    if self.counters.shape == counters.shape:
+                        self.counters += counters
+            if rule is not None:
+                self._account_attribution(v, rule, l4x, hits, ingress=ingress)
+            if want_rev_nat:
+                # no CT → replies can't be recognized → no restore
+                return v, red, np.zeros(b, np.uint16)
+            return v, red
+
+        # --- conntrack pre-pass (vectorized host) ----------------------
+        sports = np.asarray(sports, np.int64)
+        peer_hi, peer_lo = fl.ct_words()
+        ka, kb, kc = pack_keys(
+            peer_hi, peer_lo, fl.ep_idx.astype(np.uint64), sports,
+            fl.dports.astype(np.uint64), fl.protos.astype(np.uint64),
+            np.full(b, 0 if ingress else 1, np.uint64),
+        )
+        if want_rev_nat:
+            # revNAT ids read under the SAME lock hold as the find
+            state, _slot, ct_rev = ct.lookup_batch(ka, kb, kc, want_revnat=True)
+            ct_rev[state != CT_REPLY] = 0
+        else:
+            state, _slot = ct.lookup_batch(ka, kb, kc)
+        miss = state == CT_NEW
+        # no CT entry is created under a basis that moved after this point
+        ct_epoch = self._ct_epoch
+
+        verdict = np.full(b, FORWARD, np.int8)
+        redirect = np.zeros(b, bool)
+        if miss.any():
+            # the miss tail, at its exact shape
+            midx = np.nonzero(miss)[0]
+            v, red, _counters, at_rule, at_l4x, at_hits = self._dispatch(
+                st, fl, midx, row_override, ingress=ingress)
+            if svc_drop is not None:
+                sd = svc_drop[midx]
+                v = np.where(sd, np.int8(DROP_NO_SERVICE), v)
+                red = red & ~sd
+                if at_rule is not None and sd.any():
+                    # no-backend flows never reached a rule
+                    at_rule = np.where(sd, np.int32(-1), at_rule)
+                    at_hits = None
+            verdict[midx] = v
+            redirect[midx] = red
+            if at_rule is not None:
+                # CT-bypassed flows took no policy decision this batch
+                # (rule -1): only the tail's decisions are accounted
+                self._account_attribution(v, at_rule, at_l4x, at_hits, ingress=ingress)
+            # CT entries for newly allowed flows (ct_create4,
+            # bpf_lxc.c:~560: only successful verdicts create state).
+            # L7-redirect flows are EXCLUDED: a CT bypass would return
+            # redirect=False on later packets and route them around the
+            # proxy — proxied connections stay on the policy path.
+            ok = (v == FORWARD) & ~red
+            if ok.any() and self.conntrack is ct and self._ct_epoch == ct_epoch:
+                oidx = midx[ok]
+                ct.create_batch(
+                    ka[oidx], kb[oidx], kc[oidx],
+                    revnat=None if revnat_vals is None else revnat_vals[oidx],
+                )
+
+        # proxymap handoff: redirected flows carry their full 5-tuple
+        if self.on_redirect is not None and redirect.any():
+            peer_bytes = fl.bytes_()
+            for i in np.nonzero(redirect)[0]:
+                self.on_redirect(
+                    bytes(int(x) & 0xFF for x in peer_bytes[i]),
+                    int(fl.ep_idx[i]), int(sports[i]), int(fl.dports[i]),
+                    int(fl.protos[i]), ingress, family,
+                )
+        # host counter accumulation (CT hits included)
+        self._add_host_counters(verdict, fl.ep_idx)
+        if want_rev_nat:
+            # revNAT restore (bpf/lib/lb.h lb4_rev_nat via the CT
+            # entry's rev_nat_index): REPLY hits carry the id of the
+            # service that translated the original request
+            return verdict, redirect, ct_rev
+        return verdict, redirect
 
     def process(
         self,
@@ -541,13 +852,26 @@ class DatapathPipeline:
         sports: Optional[np.ndarray] = None,
         return_rev_nat: bool = False,
         tunnel_identities: Optional[np.ndarray] = None,
-    ) -> Tuple[np.ndarray, np.ndarray]:
+    ):
         """IPv4 batch → (verdicts [B] int8, redirect [B] bool);
         accumulates the per-endpoint counters. ``src_ips`` is the peer
-        address (source for ingress, destination for egress)."""
-        self._refuse_unported(sports, return_rev_nat, tunnel_identities)
-        peer = self._up(np.asarray(src_ips).astype(np.uint32).view(np.int32), np.int32)
-        return self._run(peer, ep_idx, dports, protos, ingress=ingress, family=4)
+        address (source for ingress, destination for egress). Passing
+        ``sports`` with a conntrack-enabled pipeline activates the CT
+        pre-pass (established/reply bypass + creation on allow).
+        ``return_rev_nat`` appends a [B] uint16 array of revNAT ids for
+        reply-direction CT hits (0 otherwise) — resolve with
+        rev_nat_frontend() to restore the VIP on reply sources.
+        ``tunnel_identities`` ([B] int, 0 = none) marks overlay-decapped
+        flows whose encap key carried the peer identity — trusted over
+        the ipcache LPM when known (bpf_overlay.c)."""
+        src = np.asarray(src_ips)
+        fl = _Batch(
+            4, np.asarray(ep_idx, np.int32), np.asarray(dports, np.int32),
+            np.asarray(protos, np.int32), peer_u32=src.astype(np.uint32),
+            words=(np.zeros(src.shape[0], np.uint64), src.astype(np.uint64)),
+        )
+        return self._run(fl, sports, ingress=ingress, want_rev_nat=return_rev_nat,
+                         tunnel_identities=tunnel_identities)
 
     def process_v6(
         self,
@@ -560,12 +884,22 @@ class DatapathPipeline:
         sports: Optional[np.ndarray] = None,
         return_rev_nat: bool = False,
         tunnel_identities: Optional[np.ndarray] = None,
-    ) -> Tuple[np.ndarray, np.ndarray]:
+    ):
         """IPv6 batch (16-level elided stride-8 walk, bpf_lxc.c:848
-        tail_ipv6_*) → (verdicts [B] int8, redirect [B] bool); the
-        counters are shared with the IPv4 path."""
-        self._refuse_unported(sports, return_rev_nat, tunnel_identities)
-        peer = self._up(peer_bytes, np.int32)
-        if peer.dim() != 2 or peer.shape[1] != 16:
+        tail_ipv6_*) → (verdicts [B] int8, redirect [B] bool), with the
+        same ``sports`` / ``return_rev_nat`` / ``tunnel_identities``
+        as :meth:`process`; the counters are shared with IPv4."""
+        peer = np.asarray(peer_bytes, np.int32)
+        if peer.ndim != 2 or peer.shape[1] != 16:
             raise ValueError(f"process_v6: peer_bytes must be [B, 16], got {tuple(peer.shape)}")
-        return self._run(peer, ep_idx, dports, protos, ingress=ingress, family=6)
+        fl = _Batch(6, np.asarray(ep_idx, np.int32), np.asarray(dports, np.int32),
+                    np.asarray(protos, np.int32), peer_bytes=peer)
+        return self._run(fl, sports, ingress=ingress, want_rev_nat=return_rev_nat,
+                         tunnel_identities=tunnel_identities)
+
+    def rev_nat_frontend(self, revnat_id: int):
+        """revNAT id (from a return_rev_nat=True process call) → the
+        original frontend L3n4Addr, or None."""
+        if self.lb is None or not revnat_id:
+            return None
+        return self.lb.rev_nat(int(revnat_id))

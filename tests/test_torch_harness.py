@@ -201,6 +201,23 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         DatapathPipeline(eng, IPCache())
     assert DatapathPipeline(eng, IPCache(), device="cpu").device.type == "cpu"
 
+    # services: the pipeline, the table upload and the LB-only node all
+    # default to the card and raise without it, never running the plain path
+    from cilium_tpu_torch.datapath.conntrack import FlowConntrack
+    from cilium_tpu_torch.datapath.lb_only import LBOnlyDatapath
+    from cilium_tpu_torch.lb import Backend, L3n4Addr, ServiceManager
+
+    lbm = ServiceManager()
+    lbm.upsert(L3n4Addr("10.96.0.1", 80), [Backend("10.0.0.1", 8080)])
+    for make in (lambda **kw: DatapathPipeline(eng, IPCache(), lb=lbm,
+                                               conntrack=FlowConntrack(10), **kw),
+                 lambda **kw: lbm.build_device(**kw),
+                 lambda **kw: LBOnlyDatapath(lbm, FlowConntrack(10), **kw)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+        make(device="cpu")
+    assert lbm.build_device(device="cpu")[4].fe_port.device.type == "cpu"
+
     from cilium_tpu_torch.datapath import l7_pipeline
     from cilium_tpu_torch.l7 import HTTPPolicy, KafkaACL
     from cilium_tpu_torch.l7.regex_compile import compile_patterns

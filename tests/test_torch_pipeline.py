@@ -121,13 +121,22 @@ def test_process_flows_wide_row_override_matches_jax(prefilter):
 
 
 def test_process_refuses_unported_arguments():
-    wj, _pj, pt = _pipelines(0, False)
+    """Device-resident conntrack is the one pipeline argument the port
+    does not take: it raises rather than being ignored. ``sports``,
+    ``return_rev_nat`` and ``tunnel_identities`` are ported and agree
+    with the JAX package (without a conntrack, replies carry no revNAT
+    id)."""
+    wj, pj, pt = _pipelines(0, False)
+    with pytest.raises(NotImplementedError):
+        tpipe.DatapathPipeline(pt.engine, pt.ipcache, device="cpu", device_ct_bits=10)
     flows = random_flows(wj, 4, N_EPS, 1)
     flows6 = (np.zeros((4, 16), np.int32), *flows[1:])
-    for call, args in ((pt.process, flows), (pt.process_v6, flows6)):
-        with pytest.raises(NotImplementedError):
-            call(*args, sports=np.zeros(4, np.int32))
-        with pytest.raises(NotImplementedError):
-            call(*args, tunnel_identities=np.zeros(4, np.int64))
-        with pytest.raises(NotImplementedError):
-            call(*args, return_rev_nat=True)
+    kw = dict(sports=np.arange(4), return_rev_nat=True,
+              tunnel_identities=np.array([wj.idents[0].id, 0, 999999, 0], np.int64))
+    for name, args in (("process", flows), ("process_v6", flows6)):
+        got = getattr(pt, name)(*args, **kw)
+        want = getattr(pj, name)(*args, **kw)
+        assert len(got) == len(want) == 3
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        assert not got[2].any()
