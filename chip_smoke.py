@@ -70,6 +70,22 @@
    and port; then the first 65 536 flows of each sequence on a CPU
    pipeline (its own conntrack) and on the card: outputs, counters and
    live CT keys after every pass.
+4f. The device-CT main path, launch counts from zero: the services
+   world with no LB (an LB table sends a family to the host CT), as
+   DatapathPipeline(engine, cache, pf, device_ct_bits=22), and per
+   family four 1 048 576-flow passes: egress pass 1 and the same batch
+   again (K3 / K5, K4 without counters, both K10 entries), the replies
+   from each flow's destination (without LB, the peer itself) with the
+   ports swapped, and the overlay batch, which must take the host CT
+   fallback (no K10 launch). Host-clock times beside the host-CT
+   pipeline's passes of 4e; admitted, inserted, lost, established
+   counts. Checks: nothing is established on the fresh table, no flow
+   whose policy verdict is a drop comes back established, pass 2
+   establishes exactly the flows whose keys pass 1 inserted, every
+   reply of an inserted flow forwards; then the first 65 536 flows of
+   each sequence on a CPU pipeline (device="cpu", same device_ct_bits,
+   time.monotonic pinned for both) and on the card: outputs, counters,
+   the device table slot by slot and the host CT keys after every pass.
 5. Holds every kernel against its plain version on the card, at the
    main paths' shapes, with exact equality (all outputs are integers),
    and times kernel, plain version and, where one exists, a library
@@ -84,7 +100,10 @@
    length rung, and K7 on the pattern-cap policy's fused table. K9 is
    timed on each family's pass-1 batch (1 048 576 flows x 1 024 / 256
    frontends), its bound the int32 compares of a first-match scan on
-   the CUDA cores.
+   the CUDA cores. K10 (both entries and the verdict tail) is timed on
+   each family's pass-1 inputs over a fresh table (insert-heavy) and
+   its pass-2 inputs over the table pass 2 saw (hit-heavy), its bound
+   the 32-byte sectors its probe windows touch in the seven arrays.
 
 Prints the card's name and power limit, one JSON line with every
 kernel's numbers and, last, the result line
@@ -1413,6 +1432,7 @@ def services_main_path(seed: int, card: str):
     _kernels.reset_launches()
     clock = PhaseClock(pipe)
     res = {}
+    pass_times = {}
     k4 = []
     for fam in (4, 6):
         s = seqs[fam]
@@ -1432,6 +1452,7 @@ def services_main_path(seed: int, card: str):
         k4.clear()
         out = svc_sequence(pipe, fam, s["batch"], s["reply"], s["overlay"], probe=probe)
         res[fam] = out
+        pass_times[fam] = times
         (v1, r1), (v2, _r2), (vr, _rr, rev), (vo, _ro) = out
         nb, npo, rv, ok, nobk = s["lb"]
         admitted = (v1 == FORWARD) & ~r1
@@ -1492,7 +1513,7 @@ def services_main_path(seed: int, card: str):
     print(f"services: translated flows == host oracle (allows_egress for the backend's identity "
           f"and port) on {n} flows of each family", flush=True)
     return dict(repo=repo, reg=reg, cache=cache, manager=manager, pipe=pipe, seqs=seqs,
-                res=res, endpoints=endpoints)
+                res=res, endpoints=endpoints, pass_times=pass_times)
 
 
 def services_cpu_checks(r) -> None:
@@ -1549,6 +1570,458 @@ def services_cpu_checks(r) -> None:
     print(f"services: card == CPU on the first {SLICE} flows of each batch sequence (verdicts, "
           f"redirects, revNAT ids, counters and live CT keys after every pass), v4 and v6, in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
+
+
+def ct_clone(st, device=None):
+    """A copy of a DeviceCTState (on ``device``, default its own)."""
+    import dataclasses
+
+    return dataclasses.replace(st, **{
+        f.name: getattr(st, f.name).to(device or getattr(st, f.name).device, copy=True)
+        for f in dataclasses.fields(st)})
+
+
+def ct_state_err(a, b) -> int:
+    import dataclasses
+
+    return max(max_abs_err(getattr(a, f.name).cpu(), getattr(b, f.name).cpu())
+               for f in dataclasses.fields(a))
+
+
+def edge_checks5(dev) -> None:
+    """K10 ct_step (both entries) against its plain version, exact, over
+    several steps of one table: 16-, 64- and 1024-slot tables with live,
+    expired (UDP after 60 s) and reply-tuple entries, flows that repeat
+    in a batch (contested slots), probe windows that wrap past C-1, B = 0
+    and B = 1, ct_step alone and with the verdict tail (a shared and a
+    global-atomic counter histogram, invalid lanes); and the wrapper's
+    refusals (C not a power of two, more endpoints than the 23 bits of
+    the kc word hold)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.datapath import device_ct as dct
+
+    rs = np.random.default_rng(4321)
+    for bits, b, n_pool, ep_count in ((4, 64, 24, 3), (4, 1, 4, 1), (4, 0, 4, 1),
+                                      (6, 777, 300, 64), (10, 3000, 1200, 2100)):
+        st = dct.make_state(bits, device="cpu")
+        pool = [rs.integers(-2**31, 2**31, n_pool).astype(np.int32) for _ in range(4)]
+        ep = rs.integers(0, ep_count, n_pool).astype(np.int32)
+        sp = rs.integers(0, 65536, n_pool).astype(np.int32)
+        dp = rs.integers(0, 65536, n_pool).astype(np.int32)
+        pr = rs.choice(np.array([6, 17], np.int32), n_pool)
+        dr = rs.integers(0, 2, n_pool).astype(np.int32)
+        for step in range(5):
+            idx = rs.integers(0, n_pool, b)
+            rep = rs.random(b) < (0.5 if step % 2 else 0.0)  # half the lanes as replies
+            fields = [np.where(rep, dp[idx], sp[idx]), np.where(rep, sp[idx], dp[idx]),
+                      np.where(rep, 1 - dr[idx], dr[idx])]
+            cpu_in = [torch.from_numpy(np.ascontiguousarray(w[idx])) for w in pool]
+            kc = dct.pack_kc_words(torch.from_numpy(ep[idx]), torch.from_numpy(fields[0]),
+                                   torch.from_numpy(fields[1]), torch.from_numpy(pr[idx]),
+                                   torch.from_numpy(fields[2]))
+            cpu_in += [*kc, torch.from_numpy(pr[idx])]
+            now = 1000 + 40 * step
+            gpu, cpu = ct_clone(st, dev), ct_clone(st, "cpu")
+            g_in = [x.to(dev) for x in cpu_in]
+            if step % 2 == 0:
+                allow = torch.from_numpy(rs.random(b) < 0.7)
+                outs = [dct.ct_step(s, (x[0], x[1]), (x[2], x[3]), (x[4], x[5]), x[6], now,
+                                    a) for s, x, a in ((gpu, g_in, allow.to(dev)),
+                                                       (cpu, cpu_in, allow))]
+            else:
+                tail = [torch.from_numpy(rs.choice(np.array([1, 1, 2, 3], np.int8), b)),
+                        torch.from_numpy(rs.random(b) < 0.2), torch.from_numpy(rs.random(b) < 0.9),
+                        torch.from_numpy(ep[idx])]
+                outs = [dct.ct_step_verdict(s, (x[0], x[1]), (x[2], x[3]), (x[4], x[5]), x[6],
+                                            now, *t, ep_count)
+                        for s, x, t in ((gpu, g_in, [y.to(dev) for y in tail]), (cpu, cpu_in, tail))]
+            torch.cuda.synchronize()
+            g_out, c_out = (o if isinstance(o, tuple) else (o,) for o in outs)
+            err = max([max_abs_err(g.cpu(), c) for g, c in zip(g_out, c_out)] + [ct_state_err(gpu, cpu)])
+            if err:
+                fail(f"K10 ct_step edge C={1 << bits} B={b} step {step}: card and plain differ")
+            st = cpu
+        if b > 1 and not int((st.exp > 1000 + 40 * 4).sum()):
+            fail(f"K10 ct_step edge C={1 << bits} B={b}: no live entry after five steps")
+    bad = dct.make_state(4, device=dev)
+    cut = dataclasses.replace(bad, **{f.name: getattr(bad, f.name)[:12].clone()
+                                      for f in dataclasses.fields(bad)})
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    for what, state, ep_count in (("C = 12", cut, 4), ("ep_count 2**23 + 1", bad, (1 << 23) + 1)):
+        try:
+            dct.ct_step_verdict(state, (one, one), (one, one), (one, one), one + 6, 5,
+                                (one + 1).to(torch.int8), one > 0, one == 0, one, ep_count)
+        except ValueError:
+            continue
+        fail(f"K10 ct_step took {what}")
+
+
+class CTRecorder:
+    """Wraps the pipeline module's ct_step_verdict, which process_flows_ct
+    calls, to keep each call's established lanes and arguments."""
+
+    def __init__(self):
+        from cilium_tpu_torch.datapath import pipeline as pmod
+
+        self.mod, self.real = pmod, pmod.ct_step_verdict
+        self.calls = []
+
+        def call(*a, **k):
+            out = self.real(*a, **k)
+            self.calls.append((a, out[3]))
+            return out
+
+        pmod.ct_step_verdict = call
+
+    def close(self):
+        self.mod.ct_step_verdict = self.real
+
+
+def flow_keys(fam: int, pb, eps, sports, dports, protos, ingress: bool):
+    """[B] 24-byte CT keys of the flows (the host CT's pack_keys words),
+    as a numpy void view for set tests."""
+    import numpy as np
+
+    from cilium_tpu_torch.datapath.conntrack import pack_keys
+    from cilium_tpu_torch.datapath.pipeline import _peer_words
+
+    hi, lo = _peer_words(np.asarray(pb), fam)
+    b = hi.shape[0]
+    ka, kb, kc = pack_keys(hi, lo, np.asarray(eps, np.uint64), np.asarray(sports, np.uint64),
+                           np.asarray(dports, np.uint64), np.asarray(protos, np.uint64),
+                           np.full(b, 0 if ingress else 1, np.uint64))
+    return void_keys(ka, kb, kc)
+
+
+def void_keys(ka, kb, kc):
+    import numpy as np
+
+    k = np.ascontiguousarray(np.stack([ka, kb, kc], 1).astype(np.uint64))
+    return k.view(np.dtype((np.void, 24))).ravel()
+
+
+def device_ct_main_path(svc, card: str):
+    """The device-CT main path on the card, both families, on the
+    services world with no LB: DatapathPipeline(engine, cache, pf,
+    device_ct_bits=CT_BITS), launch counts from zero, four 1 048 576-flow
+    passes per family (egress pass 1, the same batch, the replies from
+    each flow's destination with the ports swapped, the overlay batch on
+    the host CT fallback)."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch import _kernels
+    from cilium_tpu_torch.datapath.device_ct import pull_live_entries
+    from cilium_tpu_torch.datapath.pipeline import FORWARD, DatapathPipeline
+    from cilium_tpu_torch.ipcache.prefilter import PreFilter
+
+    t0 = time.perf_counter()
+    pipe = DatapathPipeline(svc["pipe"].engine, svc["cache"], PreFilter(), device_ct_bits=CT_BITS)
+    pipe.set_endpoints([(10_000 + j, e) for j, e in enumerate(svc["endpoints"])])
+    pipe.rebuild()
+    torch.cuda.synchronize()
+    c = 1 << CT_BITS
+    print(f"device CT: pipeline with device_ct_bits={CT_BITS} ({c} slots) and no LB, host CT "
+          f"fallback {pipe.conntrack.capacity} slots, rebuilt in {time.perf_counter() - t0:.2f}s",
+          flush=True)
+    seqs = {}
+    for fam in (4, 6):
+        q = svc["seqs"][fam]
+        peer, eps, dports, protos, sports = q["batch"]
+        seqs[fam] = dict(batch=q["batch"], pb=q["pb"],
+                         reply=(peer, eps, sports.astype(np.int32), protos, dports.astype(np.int64)),
+                         overlay=q["overlay"])
+
+    _kernels.reset_launches()
+    rec = CTRecorder()
+    res, args, hit_state, pass_times = {}, {}, {}, {}
+    for fam in (4, 6):
+        q = seqs[fam]
+        times, k10, live = [], [], []
+        t_last = [time.perf_counter()]
+
+        def probe(k):
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t_last[0])
+            k10.append(_kernels.launches()["ct_probe_claim"])
+            if k == 0:
+                hit_state[fam] = ct_clone(pipe._device_ct)
+            if k < 3:
+                live.append(pull_live_entries(pipe._device_ct, int(time.monotonic()), limit=c))
+            t_last[0] = time.perf_counter()
+
+        n_calls = len(rec.calls)
+        if len(pipe.conntrack):
+            fail("device CT: the host CT fallback holds entries before the overlay pass")
+        k10_0 = _kernels.launches()["ct_probe_claim"]
+        out = svc_sequence(pipe, fam, q["batch"], q["reply"], q["overlay"], probe=probe)
+        res[fam], pass_times[fam] = out, times
+        calls = rec.calls[n_calls:]
+        if len(calls) != 3 or [x - k10_0 for x in k10] != [1, 2, 3, 3]:
+            fail(f"device CT v{fam}: K10 launched {[x - k10_0 for x in k10]} after the passes, "
+                 f"expected [1, 2, 3, 3] (the overlay pass on the host CT)")
+        args[fam] = (calls[0][0], calls[1][0])
+        est1, est2, est_r = (x[1].cpu().numpy() for x in calls)
+        (v1, r1), (v2, r2), (vr, _rr, rev), (vo, _ro) = out
+        peer, eps, dports, protos, sports = q["batch"]
+        keys = flow_keys(fam, q["pb"], eps, sports, dports, protos, False)
+        admitted = (v1 == FORWARD) & ~r1
+        in1 = np.isin(keys, void_keys(live[0]["ka"], live[0]["kb"], live[0]["kc"]))
+        in2 = np.isin(keys, void_keys(live[1]["ka"], live[1]["kb"], live[1]["kc"]))
+        n_keys = np.unique(keys[admitted]).size
+        inserted1, inserted2 = len(live[0]["ka"]), len(live[1]["ka"]) - len(live[0]["ka"])
+        print(f"main path device CT v{fam} [{card}]: {BATCH} flows a pass, host clock "
+              f"(torch.cuda.synchronize after each)", flush=True)
+        for name, dt, ht in zip(("pass 1 (new)", "pass 2 (established)", "replies",
+                                 "overlay (host CT fallback)"), times, svc["pass_times"][fam]):
+            print(f"  {name}: {dt!r}s = {BATCH / dt!r} flows/s (host CT pipeline with LB, same "
+                  f"run: {ht!r}s)", flush=True)
+        print(f"  pass 1: admitted {int(admitted.sum())} ({n_keys} distinct keys), inserted "
+              f"{inserted1}, lost to conflicts or full windows {n_keys - inserted1}; pass 2: "
+              f"established {int(est2.sum())}, inserted {inserted2}; replies: established "
+              f"{int(est_r.sum())}, forwarded {int((vr == FORWARD).sum())}; verdicts pass 1 "
+              f"{np.bincount(v1, minlength=4)[1:].tolist()}, pass 2 "
+              f"{np.bincount(v2, minlength=4)[1:].tolist()}, replies "
+              f"{np.bincount(vr, minlength=4)[1:].tolist()}, overlay "
+              f"{np.bincount(vo, minlength=4)[1:].tolist()} (host CT {len(pipe.conntrack)} "
+              f"entries); K10 launches {k10[-1] - k10_0}", flush=True)
+        if est1.any():
+            fail(f"device CT v{fam}: a flow was established on a fresh table")
+        if not (admitted.any() and (~admitted).any() and inserted1 > 0):
+            fail(f"device CT v{fam}: pass 1 admitted or inserted nothing, or everything")
+        if (est2 & ~admitted).any() or (est_r & ~in2).any():
+            fail(f"device CT v{fam}: a flow whose policy verdict is a drop came back established")
+        if not np.array_equal(est2, in1):
+            fail(f"device CT v{fam}: pass 2 established {int(est2.sum())} flows, pass 1 inserted "
+                 f"the keys of {int(in1.sum())}")
+        if not np.array_equal(est_r, in2) or not (vr[in2] == FORWARD).all():
+            fail(f"device CT v{fam}: a reply of an inserted flow was not forwarded")
+        if not (np.array_equal(v2, np.where(admitted, FORWARD, v1)) and not (r2 & admitted).any()):
+            fail(f"device CT v{fam}: pass 2 differs from pass 1 outside the bypass")
+        if rev.any():
+            fail(f"device CT v{fam}: the device path returned revNAT ids")
+        if not len(pipe.conntrack):
+            fail(f"device CT v{fam}: the overlay pass did not take the host CT")
+        with pipe._lock:
+            pipe._flush_ct_locked()
+    rec.close()
+    print(f"device CT main path and its checks in {time.perf_counter() - t0:.2f}s", flush=True)
+    return dict(pipe=pipe, seqs=seqs, res=res, args=args, hit_state=hit_state,
+                pass_times=pass_times)
+
+
+def host_ct_compare(svc, r, card: str) -> None:
+    """The same four batches of each family through the pipeline that
+    the device CT replaces on this path: host CT, no LB
+    (DatapathPipeline(engine, cache, pf, FlowConntrack(CT_BITS))). Prints
+    each pass's host-clock time beside the device-CT pass's, and holds
+    passes 1-2 equal to the device-CT pipeline's (an admitted flow
+    forwards whether or not it is established) and every reply that the
+    device-CT pipeline forwards forwarded here too."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.datapath.conntrack import FlowConntrack
+    from cilium_tpu_torch.datapath.pipeline import FORWARD, DatapathPipeline
+    from cilium_tpu_torch.ipcache.prefilter import PreFilter
+
+    t0 = time.perf_counter()
+    pipe = DatapathPipeline(svc["pipe"].engine, svc["cache"], PreFilter(),
+                            FlowConntrack(capacity_bits=CT_BITS))
+    pipe.set_endpoints([(10_000 + j, e) for j, e in enumerate(svc["endpoints"])])
+    pipe.rebuild()
+    for fam in (4, 6):
+        q = r["seqs"][fam]
+        times, t_last = [], [time.perf_counter()]
+
+        def probe(_k):
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t_last[0])
+            t_last[0] = time.perf_counter()
+
+        t_last[0] = time.perf_counter()
+        out = svc_sequence(pipe, fam, q["batch"], q["reply"], q["overlay"], probe=probe)
+        dev = r["res"][fam]
+        for k in range(2):
+            if not all(np.array_equal(a, b) for a, b in zip(out[k], dev[k])):
+                fail(f"host CT without LB v{fam}: pass {k + 1} differs from the device-CT pipeline")
+        if ((dev[2][0] == FORWARD) & (out[2][0] != FORWARD)).any():
+            fail(f"host CT without LB v{fam}: a reply the device CT forwards was not forwarded")
+        print(f"host CT without LB v{fam} [{card}]: {len(pipe.conntrack)} entries after the four "
+              f"passes; host clock (torch.cuda.synchronize after each)", flush=True)
+        for name, ht, dt in zip(("pass 1 (new)", "pass 2 (established)", "replies",
+                                 "overlay"), times, r["pass_times"][fam]):
+            print(f"  {name}: {ht!r}s (device CT pipeline, same run: {dt!r}s, ratio "
+                  f"{ht / dt!r})", flush=True)
+        with pipe._lock:
+            pipe._flush_ct_locked()
+    print(f"host CT without LB on the device-CT batches in {time.perf_counter() - t0:.2f}s",
+          flush=True)
+
+
+def device_ct_cpu_checks(svc, r) -> None:
+    """The first SLICE flows of each device-CT sequence on a CPU pipeline
+    (device="cpu", same device_ct_bits) and on the card pipeline (tables
+    flushed, counters zeroed), time.monotonic pinned for both: verdicts,
+    redirects, revNAT ids, counters, the device table slot by slot
+    (pull_live_entries and the live slots) and the host CT's live keys
+    after every pass; and passes 1-2 of the full card batch on those
+    flows."""
+    import numpy as np
+
+    from cilium_tpu_torch.datapath.device_ct import pull_live_entries
+    from cilium_tpu_torch.datapath.pipeline import DatapathPipeline
+    from cilium_tpu_torch.engine import PolicyEngine
+    from cilium_tpu_torch.ipcache.prefilter import PreFilter
+
+    t0 = time.perf_counter()
+    gpu = r["pipe"]
+    cpu = DatapathPipeline(PolicyEngine(svc["repo"], svc["reg"], device="cpu"), svc["cache"],
+                           PreFilter(), device_ct_bits=CT_BITS, device="cpu")
+    cpu.set_endpoints([(10_000 + j, e) for j, e in enumerate(svc["endpoints"])])
+    cpu.rebuild()
+    now_s = int(time.monotonic())
+    real_clock = time.monotonic
+    time.monotonic = lambda: now_s + 0.5
+    try:
+        for fam in (4, 6):
+            q = r["seqs"][fam]
+            args = [tuple(a[:SLICE] for a in q[k]) for k in ("batch", "reply", "overlay")]
+            runs = []
+            for pipe in (gpu, cpu):
+                with pipe._lock:
+                    pipe._flush_ct_locked()
+                pipe.counters[:] = 0
+                state = []
+
+                def probe(k, pipe=pipe, state=state):
+                    dct = pull_live_entries(pipe._device_ct, now_s, limit=1 << CT_BITS)
+                    slots = np.nonzero(pipe._device_ct.exp.cpu().numpy() > now_s)[0]
+                    state.append((pipe.counters.copy(), dct, slots, ct_live_keys(pipe.conntrack)))
+
+                runs.append((svc_sequence(pipe, fam, *args, probe=probe), state))
+            (g_out, g_state), (c_out, c_state) = runs
+            for k in range(4):
+                if not all(np.array_equal(a, b) for a, b in zip(g_out[k], c_out[k])):
+                    fail(f"device CT v{fam}: pass {k} outputs differ between card and CPU")
+                (gc, gd, gs, gh), (cc, cd, cs, ch) = g_state[k], c_state[k]
+                if not np.array_equal(gc, cc):
+                    fail(f"device CT v{fam}: counters after pass {k} differ between card and CPU")
+                if not np.array_equal(gs, cs) or any(not np.array_equal(gd[x], cd[x]) for x in gd):
+                    fail(f"device CT v{fam}: the device table after pass {k} differs between card "
+                         "and CPU")
+                if any(not np.array_equal(gh[x], ch[x]) for x in gh):
+                    fail(f"device CT v{fam}: host CT keys after pass {k} differ between card and "
+                         "CPU")
+            for k in range(2):
+                for a, b in zip(r["res"][fam][k], c_out[k]):
+                    if not np.array_equal(a[:SLICE], b):
+                        fail(f"device CT v{fam}: pass {k} of the full card batch differs from the "
+                             "CPU path")
+            if not len(c_state[0][1]["ka"]) or not len(c_state[3][3]["ka"]):
+                fail(f"device CT v{fam}: the CPU slice filled no device or host CT entry")
+    finally:
+        time.monotonic = real_clock
+    for pipe in (gpu, cpu):
+        with pipe._lock:
+            pipe._flush_ct_locked()
+    print(f"device CT: card == CPU on the first {SLICE} flows of each sequence (verdicts, "
+          f"redirects, revNAT ids, counters, the device table slot by slot and the host CT keys "
+          f"after every pass), v4 and v6, in {time.perf_counter() - t0:.2f}s", flush=True)
+
+
+def ct_step_bytes(before, after, words, now: int, n_lanes: int, ep_count: int):
+    """(bytes K10 must move, bytes if no two windows shared a sector),
+    as this run's data needs them. Of each forward and reply window: exp
+    up to the first live slot holding the key (all 8 slots without one),
+    kc_lo of the live slots among those, and the five other key words of
+    that matching slot, each as the distinct 32-byte sectors it falls
+    in, read once; the sectors whose content the step changed, written
+    once; and the flows in (six words, proto, verdict, redirect, valid,
+    ep_idx) and out (verdict, redirect, established, counters) once."""
+    import dataclasses
+
+    import torch
+
+    from cilium_tpu_torch.datapath.device_ct import CT_PROBES, _flip_kc_words, _hash_u32, _window
+
+    live = before.exp > now
+    pos = torch.arange(CT_PROBES, device=live.device)
+    f_hi, f_lo = _flip_kc_words(words[4], words[5])
+    sectors = {"exp": [], "kc_lo": [], "key": []}
+    per_lane = 0
+    for ws in (words, (*words[:4], f_hi, f_lo)):
+        slots = _window(_hash_u32(*ws), before.capacity)
+        lv = live[slots]
+        match = lv.clone()
+        for table, w in zip(before.keys(), ws):
+            match &= table[slots] == w.to(torch.int32)[:, None]
+        hit = match.any(1)
+        first = match.to(torch.int8).argmax(1)
+        need = pos[None, :] <= torch.where(hit, first, CT_PROBES - 1)[:, None]
+        sec = slots >> 3
+        head = sec[:, :1]  # a window spans its first slot's sector and at most one more
+        for name, m in (("exp", need), ("kc_lo", need & lv)):
+            sectors[name].append(sec[m])
+            per_lane += int((m & (sec == head)).any(1).sum() + (m & (sec != head)).any(1).sum())
+        sectors["key"].append(sec.gather(1, first[:, None])[hit, 0])
+        per_lane += 5 * int(hit.sum())
+    n = {k: torch.unique(torch.cat(v)).numel() for k, v in sectors.items()}
+    read = (n["exp"] + n["kc_lo"] + 5 * n["key"]) * 32
+    written = 0
+    for f in dataclasses.fields(before):
+        if f.name != "owner":
+            moved = torch.nonzero(getattr(before, f.name) != getattr(after, f.name))[:, 0]
+            written += torch.unique(moved >> 3).numel() * 32
+    flows = n_lanes * (6 * 4 + 4 + 1 + 1 + 1 + 4) + n_lanes * 3 + ep_count * 3 * 4
+    return read + written + flows, per_lane * 32 + written + flows
+
+
+def ct_step_rows(dct, dev, row) -> None:
+    """The K10 rows: ``row(...)`` for each family and table fill."""
+    # K10 ct_step, both entries, as process_flows_ct calls them (the
+    # verdict tail included), on each family's pass-1 inputs over a fresh
+    # table (insert-heavy: every call advances the clock past the TCP
+    # lifetime, so each finds every slot expired) and on its pass-2 inputs
+    # over the table pass 2 saw (hit-heavy: after the first call the table
+    # no longer changes). Bound: bytes, from the sectors this run's
+    # windows need (ct_step_bytes)
+    from cilium_tpu_torch.datapath.device_ct import LIFE_TCP_S, ct_step_verdict, ct_step_verdict_plain
+    from cilium_tpu_torch.datapath.device_ct import make_state as ct_make_state
+
+    for fam in (4, 6):
+        a1, a2 = dct["args"][fam]
+        for kind, base, a in (("insert-heavy", None, a1), ("hit-heavy", dct["hit_state"][fam], a2)):
+            _st, ka_w, kb_w, kc_w, proto_t, now0, *tail = a
+            words = (*ka_w, *kb_w, *kc_w)
+            start = ct_make_state(CT_BITS, device=dev) if base is None else base
+            st_k, st_p = ct_clone(start), ct_clone(start)
+            k_out = ct_step_verdict(st_k, ka_w, kb_w, kc_w, proto_t, now0, *tail)
+            p_out = ct_step_verdict_plain(st_p, ka_w, kb_w, kc_w, proto_t, now0, *tail)
+            err = max([max_abs_err(x, y) for x, y in zip(k_out, p_out)] + [ct_state_err(st_k, st_p)])
+            b_bytes, lane_bytes = ct_step_bytes(start, st_k, words, now0, proto_t.shape[0],
+                                                tail[-1])
+            b_ms, b_by = bound(b_bytes, 0)
+            step = [0]
+
+            def now_of():
+                step[0] += 1
+                return now0 + step[0] * (LIFE_TCP_S + 1) if base is None else now0
+
+            row("ct_step", "cilium_tpu_torch/csrc/ct_step.cu",
+                "cilium_tpu/datapath/device_ct.py:166", err,
+                lambda st=st_k, t=tail, nf=now_of: ct_step_verdict(st, ka_w, kb_w, kc_w, proto_t,
+                                                                    nf(), *t),
+                lambda st=st_p, t=tail, nf=now_of: ct_step_verdict_plain(st, ka_w, kb_w, kc_w,
+                                                                         proto_t, nf(), *t),
+                b_ms, b_by, f"v{fam} {kind}: {proto_t.shape[0]} flows, {1 << CT_BITS} slots, "
+                f"{int(k_out[3].sum())} established, both entries + verdict tail; {b_bytes} bytes "
+                f"(distinct sectors needed), {lane_bytes} if no two windows shared a sector "
+                f"({lane_bytes / HBM_BYTES_PER_S * 1e3!r} ms)", plain_iters=2, reps=5)
 
 
 def metric_series():
@@ -1619,12 +2092,14 @@ def main() -> None:
     edge_checks2(dev)
     edge_checks3(dev)
     edge_checks4(dev)
+    edge_checks5(dev)
     print("edge shapes: every kernel equals its plain version (ragged K1/K2, "
           "16-8-8 K3, 1 280-column / 2 100-endpoint K4; 4- and 16-level K5 with "
           "out-of-range bytes and child ids; ragged K6; K4 attribution with shared and "
           "global histograms; K7 both entries and K8 at every rung and odd caps, uint8 and "
           "int32 bytes, out-of-range starts and bytes, lengths past max_len, empty batches; K9 at "
-          "F = 1 and 1025, B = 0, 1 and ragged, both address widths)",
+          "F = 1 and 1025, B = 0, 1 and ragged, both address widths; K10 both entries on 16-, 64- and "
+          "1024-slot tables over five steps, wrapped windows, contested slots, B = 0 and 1)",
           flush=True)
 
     # -- 2. world --------------------------------------------------------
@@ -1912,6 +2387,17 @@ def main() -> None:
 
     # -- 4e. services+CT against the CPU path -----------------------------
     services_cpu_checks(svc)
+
+    # -- 3f. device-CT main path, launch counts from zero ----------------
+    dct = device_ct_main_path(svc, card)
+    check_path("device_ct", ["lpm_wide", "lpm_stride8", "policymap_verdict", "ct_probe_claim",
+                             "ct_commit"])
+    if launches["device_ct"]["lb_translate"]:
+        fail("the device-CT pipeline has no LB, yet K9 launched")
+
+    # -- 4f. device CT against the CPU path and the host CT -------------
+    device_ct_cpu_checks(svc, dct)
+    host_ct_compare(svc, dct, card)
 
     # -- 5. each kernel against its plain version on the card ------------
     compiled, device = engine.snapshot()
@@ -2203,10 +2689,15 @@ def main() -> None:
             f"backends, {ops} scan compares at {INT32_OPS_PER_S:.4g} int32 op/s",
             plain_iters=2, reps=5)
 
+    ct_step_rows(dct, dev, row)
+
     # one JSON entry per kernel: a kernel timed on several inputs keeps
     # its first input's numbers and the largest error of all its checks
     total = {k: sum(p.get(k, 0) for p in launches.values()) for k in _kernels.launches()}
     total["sweep_device_attrib"] = sweeps.get("flow_attrib", 0)
+    if total["ct_probe_claim"] != total["ct_commit"]:
+        fail(f"K10's entries launched {total['ct_probe_claim']} and {total['ct_commit']} times")
+    total["ct_step"] = total["ct_probe_claim"]
     by_name = {}
     for r in rows:
         if r["name"] in by_name:

@@ -208,6 +208,16 @@ KERNELS: Dict[str, Kernel] = {
         Kernel("lb_translate", "cilium_lb_translate",
                [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P,
                 _P, _P, _P, _P, _P, _L]),
+        # the two entries of K10 ct_step. Both take the table (ka_hi,
+        # ka_lo, kb_hi, kb_lo, kc_hi, kc_lo, exp, owner) and the six
+        # query word arrays. probe_claim: table, c, words, proto,
+        # verdict, redirect, valid, now, established, target, b
+        Kernel("ct_probe_claim", "cilium_ct_probe_claim",
+               [*[_P] * 8, _L, *[_P] * 6, _P, _P, _P, _P, _I, _P, _P, _L]),
+        # commit: table, words, proto, now, target, established, verdict,
+        # redirect, ep_idx, valid, counters, ep_count, b
+        Kernel("ct_commit", "cilium_ct_commit",
+               [*[_P] * 8, *[_P] * 6, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _L]),
     )
 }
 

@@ -162,3 +162,23 @@ def lb_tables_from_numpy(
         fe_seq=i32(fe_seq), fe_seq_len=i32(fe_seq_len), fe_revnat=i32(fe_revnat),
         be_bytes=i32(be_bytes), be_port=i32(be_port),
     )
+
+
+def device_ct_state_from_numpy(arrays, device=None):
+    """A JAX ``DeviceCTState``'s seven [C] arrays as numpy (ka_hi,
+    ka_lo, kb_hi, kb_lo, kc_hi, kc_lo uint32; exp int32), in field
+    order → the port's ``DeviceCTState`` on ``device`` (None = the
+    card), key words as int32 bit views and no insert claims."""
+    from ._kernels import resolve_device
+    from .datapath.device_ct import DeviceCTState
+
+    arrays = [np.asarray(a) for a in arrays]
+    c = arrays[-1].shape[0] if arrays else 0
+    if len(arrays) != 7 or c <= 0 or c & (c - 1) or any(a.shape != (c,) for a in arrays):
+        raise ValueError("expected the seven CT arrays, [C] each, C a power of two")
+    dev = resolve_device(device)
+    return DeviceCTState(
+        *(words_i32(a, dev) for a in arrays[:6]),
+        exp=_tensor(arrays[6].astype(np.int32), dev),
+        owner=torch.full((c,), -1, dtype=torch.int32, device=dev),
+    )

@@ -37,15 +37,24 @@ Ahead of those stages, :meth:`DatapathPipeline.process` /
   for), and allowed non-redirect misses create entries carrying the
   flow's revNAT id.
 
-This port covers the synchronous path only; device-resident
-conntrack, async submission, shedding, failsafe, tracing, the flow
-ring and multi-device placement are not ported yet.
+With ``device_ct_bits`` the conntrack table lives on the device
+(datapath/device_ct.py) and a batch with ``sports`` whose family has
+no LB table, and no tunnel identities, runs :func:`process_flows_ct`:
+the LPM walks, ``policymap_verdict`` without counters, then the two
+``ct_step`` kernel entries, which probe, refresh and insert in place,
+override the verdicts of established flows and count. Every other
+batch takes the host CT pre-pass.
+
+This port covers the synchronous path only; async submission,
+shedding, failsafe, tracing, the flow ring and multi-device placement
+are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
+import time
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -55,6 +64,7 @@ from .. import _kernels
 from .. import metrics as _metrics
 from ..convert import v6_tables_from_numpy, wide_tables_from_numpy
 from .conntrack import CT_NEW, CT_REPLY, FlowConntrack, pack_keys
+from .device_ct import DeviceCTState, _i32, _u32, ct_step_verdict, make_state, pack_kc_words
 from ..engine import PolicyEngine
 from ..identity.model import ID_WORLD
 from ..ipcache.ipcache import IPCache
@@ -281,6 +291,60 @@ def process_flows(
     )
 
 
+def process_flows_ct(
+    t,  # WideDatapathTables (family 4) | DatapathTables (family 6)
+    ct: DeviceCTState,  # updated in place
+    peer: torch.Tensor,  # family 4: [B] int32 bit view; family 6: [B, 16] int32
+    ep_idx: torch.Tensor,  # [B] int32
+    dport: torch.Tensor,  # [B] int32
+    proto: torch.Tensor,  # [B] int32
+    sport: torch.Tensor,  # [B] int32
+    direction,  # int or [] tensor: 0 ingress / 1 egress
+    now,  # int seconds (monotonic)
+    valid: torch.Tensor,  # [B] bool — False lanes never insert nor count
+    ep_count: int = 1,
+    block: int = 16384,
+    prefilter: bool = True,
+    levels: int = 4,
+    family: int = 4,
+    fused: bool = False,  # v6 merged-trie presence (v4 routes by shape)
+):
+    """The datapath step with device-resident conntrack: deny and
+    identity LPM (``lpm_wide`` or ``lpm_stride8``), the policymap
+    verdict with the prefilter override (``policymap_verdict``, no
+    counters), then the CT step on the ``ct_step`` kernel: probe (fwd +
+    reply), refresh, insert the policy-allowed non-redirect valid
+    misses; established flows take FORWARD and lose their redirect,
+    the bpf/lib/conntrack.h bypass; the counters count the final
+    verdicts of the valid lanes. The state is updated in place.
+
+    → (verdict [B] int8, redirect [B] bool, counters [EP, 3] int32)."""
+    if family == 4:
+        denied_pf, hit = _v4_lpm_stage(t, peer, prefilter)
+        z = torch.zeros_like(peer, dtype=torch.int32)
+        ka_w, kb_w = (z, z), (z, peer.to(torch.int32))
+    else:
+        denied_pf, hit = _v6_lpm_stage(t, peer, levels, prefilter, fused)
+        # the four big-endian uint32 words of the 16 address bytes
+        b = _u32(peer)
+
+        def word(i):
+            return _i32(((b[:, i] << 24) | (b[:, i + 1] << 16) | (b[:, i + 2] << 8)
+                         | b[:, i + 3]) & 0xFFFFFFFF)
+
+        ka_w, kb_w = (word(0), word(4)), (word(8), word(12))
+    denied_pf, peer_row = _peer_rows(denied_pf, hit, t.world_row, None)
+    dec, red, _ = policymap_verdict(
+        t.policymap, peer_row, ep_idx, dport, proto, denied_pf=denied_pf, block=block
+    )
+    kc_w = pack_kc_words(ep_idx, sport, dport, proto, int(direction))
+    verdict, redirect, counters, _est = ct_step_verdict(
+        ct, ka_w, kb_w, kc_w, proto.to(torch.int32), now, dec, red, valid, ep_idx.to(torch.int32),
+        ep_count,
+    )
+    return verdict, redirect, counters
+
+
 _NO_TRIE = (
     np.zeros(1, np.int32),
     np.zeros(1, np.int32),
@@ -361,24 +425,30 @@ class DatapathPipeline:
     kernels. With ``lb`` (a ``ServiceManager``) every egress batch of a
     family with frontends goes through VIP→backend translation on the
     ``lb_translate`` kernel first, so CT and policy see the backend.
-    Device-resident conntrack (``device_ct_bits``) is not ported."""
+
+    With ``device_ct_bits`` the conntrack table (2**bits slots) lives
+    on the device and is probed and filled inside the verdict step
+    (:func:`process_flows_ct`) for every batch with ``sports`` whose
+    family has no LB table and that carries no tunnel identities; those
+    other batches fall back to a host ``FlowConntrack``, made here when
+    none is given. The positional order is the reference's up to
+    ``device_ct_bits``; ``device`` (None = the card) is keyword-only.
+    ``monitor`` is not ported and must be None."""
 
     def __init__(
         self,
         engine: PolicyEngine,
         ipcache: IPCache,
         prefilter: Optional[PreFilter] = None,
-        device=None,
-        *,
         conntrack: Optional[FlowConntrack] = None,
         lb=None,  # Optional[lb.service.ServiceManager]
+        monitor=None,
         device_ct_bits: Optional[int] = None,
+        *,
+        device=None,
     ) -> None:
-        if device_ct_bits is not None:
-            raise NotImplementedError(
-                "device-resident conntrack is not in the torch port yet;"
-                " pass conntrack=FlowConntrack(...) for the host CT"
-            )
+        if monitor is not None:
+            raise NotImplementedError("the monitor is not in the torch port yet")
         self.device = _kernels.resolve_device(device)
         if self.device != engine.device:
             raise ValueError(f"pipeline on {self.device}, engine on {engine.device}")
@@ -386,6 +456,13 @@ class DatapathPipeline:
         self.ipcache = ipcache
         self.prefilter = prefilter or PreFilter()
         self.conntrack = conntrack
+        # device-resident conntrack: made on first use, dropped on every
+        # CT flush; batches it cannot serve (an LB family, tunnel
+        # identities) need the host CT domain, or they would lose CT
+        self._device_ct_bits = device_ct_bits
+        self._device_ct: Optional[DeviceCTState] = None
+        if device_ct_bits is not None and conntrack is None:
+            self.conntrack = FlowConntrack(capacity_bits=max(10, device_ct_bits))
         self.lb = lb
         # called for every redirect verdict with a known 5-tuple:
         # fn(peer_addr_bytes, ep_idx, sport, dport, proto, ingress,
@@ -444,6 +521,7 @@ class DatapathPipeline:
         if self.conntrack is not None:
             self.conntrack.flush()
         self._ct_epoch += 1
+        self._device_ct = None  # a fresh table on next use
 
     def set_attribution(self, on: bool) -> None:
         """Toggle per-flow verdict attribution (the FlowAttribution
@@ -742,6 +820,18 @@ class DatapathPipeline:
         if not ingress and lbt is not None:
             svc_drop, revnat_vals = self._lb_stage(lbt, fl, sports)
 
+        # device-resident conntrack. An LB family falls back to the host
+        # CT in BOTH directions: the CT is one bidirectional structure,
+        # and an egress VIP flow's entry must be visible to its reply.
+        if (
+            self._device_ct_bits is not None
+            and sports is not None
+            and svc_drop is None
+            and row_override is None
+            and lbt is None
+        ):
+            return self._process_device_ct(fl, sports, ingress=ingress, want_rev_nat=want_rev_nat)
+
         ct = self.conntrack
         if ct is None or sports is None:
             # no CT: the whole batch takes the device path
@@ -839,6 +929,53 @@ class DatapathPipeline:
             # entry's rev_nat_index): REPLY hits carry the id of the
             # service that translated the original request
             return verdict, redirect, ct_rev
+        return verdict, redirect
+
+    def _process_device_ct(self, fl: _Batch, sports, *, ingress: bool, want_rev_nat: bool):
+        """One batch through :func:`process_flows_ct` at its exact shape
+        (there is no compile cache to pad for): the tables and the CT
+        state are read under one lock hold, so a flush between them
+        cannot pair old-basis verdicts with a fresh table. Adds the
+        device counters and calls ``on_redirect``; attributes nothing,
+        and returns zero revNAT ids (no LB table is active here)."""
+        direction = TRAFFIC_INGRESS if ingress else TRAFFIC_EGRESS
+        family = fl.family
+        b = fl.ep_idx.shape[0]
+        if b and not (0 <= fl.ep_idx.min() and fl.ep_idx.max() < 1 << 23):
+            raise ValueError("device CT: ep_idx outside the 23 bits of the kc word")
+        sports = np.asarray(sports, np.int32)
+        if family == 4:
+            peer = self._up(fl.peer_u32.astype(np.uint32, copy=False).view(np.int32), np.int32)
+        else:
+            peer = self._up(fl.peer_bytes, np.int32)
+        flows = [self._up(a, np.int32) for a in (fl.ep_idx, fl.dports, fl.protos, sports)]
+        valid = torch.ones(b, dtype=torch.bool, device=self.device)
+        now = int(time.monotonic())
+        with self._lock:
+            t = self._tables[(direction, family)]
+            if self._device_ct is None:
+                self._device_ct = make_state(self._device_ct_bits, device=self.device)
+            v, red, counters = process_flows_ct(
+                t, self._device_ct, peer, *flows, 0 if ingress else 1, now, valid,
+                ep_count=max(1, len(self._endpoints)),
+                prefilter=ingress and not self._pf_empty[0 if family == 4 else 1],
+                levels=16, family=family, fused=self._v6_fused if family == 6 else False,
+            )
+            counters = counters.cpu().numpy()
+            if self.counters.shape == counters.shape:
+                self.counters += counters
+        verdict = v.cpu().numpy()
+        redirect = red.cpu().numpy()
+        if self.on_redirect is not None and redirect.any():
+            peer_bytes = fl.bytes_()
+            for i in np.nonzero(redirect)[0]:
+                self.on_redirect(
+                    bytes(int(x) & 0xFF for x in peer_bytes[i]),
+                    int(fl.ep_idx[i]), int(sports[i]), int(fl.dports[i]),
+                    int(fl.protos[i]), ingress, family,
+                )
+        if want_rev_nat:
+            return verdict, redirect, np.zeros(b, np.uint16)
         return verdict, redirect
 
     def process(

@@ -128,7 +128,9 @@ class DeviceTables:
     g7_mat: torch.Tensor  # [G, K7] int8
 
     @classmethod
-    def from_host(cls, d: DirectionProgram, device) -> "DeviceTables":
+    def from_host(cls, d: DirectionProgram, device=None) -> "DeviceTables":
+        """``d``'s matrices on ``device`` (None = the card)."""
+        device = _kernels.resolve_device(device)
         return cls(
             deny_t=_t(d.deny_mat.T, device),
             allow_t=_t(d.allow_mat.T, device),

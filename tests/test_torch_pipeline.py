@@ -121,14 +121,20 @@ def test_process_flows_wide_row_override_matches_jax(prefilter):
 
 
 def test_process_refuses_unported_arguments():
-    """Device-resident conntrack is the one pipeline argument the port
-    does not take: it raises rather than being ignored. ``sports``,
-    ``return_rev_nat`` and ``tunnel_identities`` are ported and agree
-    with the JAX package (without a conntrack, replies carry no revNAT
-    id)."""
+    """The monitor is the one argument of the reference's positional
+    order that the port does not take: it raises rather than being
+    ignored. ``device_ct_bits`` is ported and, as in the reference,
+    brings a host conntrack of max(10, bits) slots for the batches the
+    device CT cannot serve. ``sports``, ``return_rev_nat`` and
+    ``tunnel_identities`` are ported and agree with the JAX package
+    (without a conntrack, replies carry no revNAT id)."""
     wj, pj, pt = _pipelines(0, False)
     with pytest.raises(NotImplementedError):
-        tpipe.DatapathPipeline(pt.engine, pt.ipcache, device="cpu", device_ct_bits=10)
+        tpipe.DatapathPipeline(pt.engine, pt.ipcache, monitor=object(), device="cpu")
+    for bits in (4, 12):
+        dct = tpipe.DatapathPipeline(pt.engine, pt.ipcache, device="cpu", device_ct_bits=bits)
+        ref = jpipe.DatapathPipeline(pj.engine, pj.ipcache, device_ct_bits=bits)
+        assert dct.conntrack.capacity == ref.conntrack.capacity == 1 << max(10, bits)
     flows = random_flows(wj, 4, N_EPS, 1)
     flows6 = (np.zeros((4, 16), np.int32), *flows[1:])
     kw = dict(sports=np.arange(4), return_rev_nat=True,

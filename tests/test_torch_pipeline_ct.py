@@ -28,7 +28,7 @@ from cilium_tpu_torch import metrics as tmetrics
 from cilium_tpu_torch.datapath import pipeline as tpipe
 from cilium_tpu_torch.lb.device import flow_hash32, lb_translate
 from cilium_tpu_torch.ops.lpm import ipv4_to_bytes, ipv6_to_bytes
-from test_torch_harness import build_world, random_flows
+from test_torch_harness import PKGS, build_world, random_flows
 from test_torch_pipeline_v6 import add_v6, v6_flows
 
 N_EPS = 6
@@ -383,10 +383,30 @@ def test_attribution_with_ct_matches_jax(fam):
 
 
 def test_device_ct_is_refused():
+    """The port no longer refuses ``device_ct_bits``: beside a given
+    conntrack it keeps that table as the fallback domain, as the
+    reference does, and a batch with sports and no LB table runs on the
+    device CT in both packages (same verdicts, redirects and counters),
+    leaving both host tables empty; the batch again is established."""
     st = Stack(0, with_lb=False)
-    with pytest.raises(NotImplementedError):
-        tpipe.DatapathPipeline(st.t.engine, st.t.ipcache, device="cpu",
-                               conntrack=st.t.conntrack, device_ct_bits=10)
+    pipes = {}
+    for pkg, pipe in st.pipes.items():
+        dev = {} if pkg == "cilium_tpu" else {"device": "cpu"}
+        p = _mod(pkg, "datapath.pipeline").DatapathPipeline(
+            pipe.engine, pipe.ipcache, conntrack=pipe.conntrack, device_ct_bits=10, **dev)
+        assert p.conntrack is pipe.conntrack
+        p.set_endpoints([i.id for i in st.w[pkg].idents[:N_EPS]])
+        pipes[pkg] = p
+    p, ep, dp, pr = random_flows(st.w["cilium_tpu"], 300, N_EPS, 5)
+    sp = np.arange(300) + 3000
+    for _ in range(2):
+        out = [pipes[k].process(p, ep, dp, pr, ingress=True, sports=sp) for k in PKGS]
+        for g, w_ in zip(out[1], out[0]):
+            np.testing.assert_array_equal(g, w_)
+        np.testing.assert_array_equal(pipes[PKGS[1]].counters, pipes[PKGS[0]].counters)
+        for pkg in PKGS:
+            assert len(pipes[pkg].conntrack) == 0
+    assert (out[1][0] == tpipe.FORWARD).any()
 
 
 def test_on_redirect_hook_and_endpoint_ids():
