@@ -104,12 +104,28 @@
    ungated run forwards shed, kept lanes equal, admission_shed_total
    and drop_reasons_total{producer="admission"} moved by the shed
    count; the _shed_walk and process() wall times.
+4h. The incremental-update main path, launch counts from zero, on a
+   bench world of its own (bench.py:2622-2770 without the epoch swap):
+   the full refresh + forced rebuild for comparison; then through
+   PolicyEngine.refresh() → wait_device() → DatapathPipeline.rebuild()
+   on the prefilter pipeline, 20 identity allocations (released between
+   samples) and one burst of 16, 12 appends of an L3 rule from an
+   endpoint's app to a new zone ∧ env selector and 12 deletes of them,
+   and one append with attribution on (K6 on the column patch): p50 /
+   p99 of refresh and of rebuild, patch hits (12 of 12), K2 / K6
+   launches and each scatter helper's calls, card time and bytes per
+   delta. After each kind: the patched pipeline against a forced full
+   rebuild of a fresh engine (policymap words, bitmaps, rule tables,
+   1 048 576-flow v4 and v6 verdicts) and the host oracle on 40 flows.
 5. Holds every kernel against its plain version on the card, at the
    main paths' shapes, with exact equality (all outputs are integers),
    and times kernel, plain version and, where one exists, a library
    call computing the same function (CUDA events: the median of five
    runs' per-launch means, after 50 ms of warm-up launches), printing
    the SM clock (nvidia-smi clocks.sm) right after each timed series.
+   K2 and K6 are also held, call by call, at the shapes one row patch,
+   one column patch and one attributed column patch give them, and the
+   largest of each is timed.
    The attribution flow-route sweep (_sweep_device_attrib, on K2 + K6)
    is timed the same way, its plain version with the plain K2 / K6, and
    so is the plain flow-route sweep (_sweep_device, off the main paths).
@@ -418,13 +434,13 @@ def max_abs_err(a, b) -> int:
 
 
 def oracle_check(repo, labels_of, idents, pipe_name, ips, eps, dports, protos,
-                 i_sel, verdicts, denied_net, endpoints):
-    """Hold N_ORACLE flows against Repository.allows_ingress (and the
-    prefilter membership for the deny stage)."""
+                 i_sel, verdicts, denied_net, endpoints, n: int = N_ORACLE):
+    """Hold the first ``n`` flows against Repository.allows_ingress (and
+    the prefilter membership for the deny stage)."""
     from cilium_tpu_torch.labels import parse_label_array
     from cilium_tpu_torch.policy.search import Decision, PortContext, SearchContext
 
-    for i in range(N_ORACLE):
+    for i in range(n):
         ip = ipaddress.IPv4Address(int(ips[i]))
         if any(ip in net for net in denied_net):
             want = 3
@@ -2578,6 +2594,439 @@ def shed_rows(sub, dev, row) -> None:
               f"counters (host) {ways}s [{sub['card']}]", flush=True)
 
 
+# the delta phase (bench.py:2622-2770 _bench_updates without its
+# epoch-swap leg): samples per kind and the identities of one burst
+DELTA_SAMPLES = 12
+IDENT_SAMPLES = 20
+IDENT_BURST = 16
+DELTA_ORACLE = 40  # flows held against the host oracle after each kind
+
+
+class ScatterClock:
+    """CUDA events around every out-of-place indexing op while entered:
+    the scatter helpers are one op each (``index_put``: the engine's
+    ``_set_rows`` / ``_set_rows_cols`` / ``_patch_tables``;
+    ``index_copy`` on dim 0: ``_patch_bitmap_rows``, on dim 1:
+    ``patch_bitmap_cols``; ``slice_scatter``: ``_set_col_window``). Per
+    helper: calls, card time and the bytes the op must move (the whole
+    input read, the whole output written, indices and values once)."""
+
+    OPS = ("index_put", "index_copy", "slice_scatter")
+
+    def __init__(self):
+        self.by = {}  # helper → [calls, bytes, [(start, end)]]
+
+    @staticmethod
+    def helper(op: str, args) -> str:
+        if op == "index_put":
+            return "engine index_put"
+        if op == "slice_scatter":
+            return "_set_col_window"
+        return "_patch_bitmap_rows" if args[0] == 0 else "patch_bitmap_cols"
+
+    def __enter__(self):
+        import torch
+
+        self.real = {name: getattr(torch.Tensor, name) for name in self.OPS}
+        clock = self
+
+        def wrap(name, real):
+            def op(t, *args, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = real(t, *args, **kw)
+                end.record()
+                flat = [a for x in args for a in (x if isinstance(x, (tuple, list)) else (x,))]
+                e = clock.by.setdefault(clock.helper(name, args), [0, 0, []])
+                e[0] += 1
+                e[1] += 2 * nbytes(t) + nbytes(*(a for a in flat if isinstance(a, torch.Tensor)))
+                e[2].append((start, end))
+                return out
+            return op
+
+        for name, real in self.real.items():
+            setattr(torch.Tensor, name, wrap(name, real))
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        for name, real in self.real.items():
+            setattr(torch.Tensor, name, real)
+
+    def summary(self):
+        """{helper: (calls, card ms, bytes)}."""
+        import torch
+
+        torch.cuda.synchronize()
+        return {h: (c, sum(s.elapsed_time(e) for s, e in ev), b) for h, (c, b, ev) in self.by.items()}
+
+
+class CallRecorder:
+    """Keeps the operands of the first ``keep`` K2 / K6 calls made while
+    entered (``verdict.bool_mm``, ``materialize.bool_mm``,
+    ``verdict.first_rule``), to hold each kernel against its plain
+    version at the shapes a patch gives it (a patch makes fewer than
+    100 of each)."""
+
+    def __init__(self, keep: int = 256):
+        self.keep = keep
+        self.calls = {"bool_mm": [], "first_rule": []}
+
+    def __enter__(self):
+        from cilium_tpu_torch.ops import materialize as matmod
+        from cilium_tpu_torch.ops import verdict as verdictmod
+
+        self.saved = [(verdictmod, "bool_mm"), (matmod, "bool_mm"), (verdictmod, "first_rule")]
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.saved]
+        for mod, name, real in self.saved:
+            def call(*args, real=real, name=name, **kw):
+                if len(self.calls[name]) < self.keep:
+                    self.calls[name].append((args, kw))
+                return real(*args, **kw)
+            setattr(mod, name, call)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self.saved:
+            setattr(mod, name, real)
+
+
+class uncounted:
+    """Launches made while entered are not the counted path's: the
+    launch counts are put back as they were on entry (the comparison
+    runs of the deltas phase: a fresh engine's full refresh, its forced
+    full rebuild and its batches, and the attributed re-sweep that
+    switches the pipeline under test to attribution)."""
+
+    def __enter__(self):
+        from cilium_tpu_torch import _kernels
+
+        self.saved = _kernels.launches()
+        return self
+
+    def __exit__(self, *exc):
+        from cilium_tpu_torch import _kernels
+
+        for name, n in self.saved.items():
+            _kernels.KERNELS[name].launches = n
+
+
+def pcts(samples):
+    """(p50, p99) of host-clock seconds, in ms."""
+    s = sorted(samples)
+    return s[len(s) // 2] * 1e3, s[min(len(s) - 1, int(len(s) * 0.99))] * 1e3
+
+
+def deltas_main_path(seed: int, card: str):
+    """The incremental policy update on the card (bench.py:2622-2770
+    without the epoch swap), on a bench world of its own so that no
+    other phase sees its mutations: PolicyEngine(repo, reg).refresh() →
+    wait_device() → DatapathPipeline(engine, cache, pf).rebuild() with
+    the prefilter CIDRs.
+
+    - The full refresh + forced rebuild of the world, for comparison;
+      then every delta path warmed once.
+    - Identity churn: 20 samples of allocate → refresh → wait_device
+      (the engine's row scatters) and the rebuild (the row patch on K2)
+      timed apart, a release between samples; then one burst of 16
+      identities in one refresh.
+    - 12 rule appends (one L3 rule from an endpoint's app to a new
+      zone ∧ env selector) and 12 deletes of them, engine and rebuild
+      timed apart; the patch hits (rebuilds that kept the materialized
+      states) must be 12 of 12 each.
+    - One append with set_attribution(True): the column re-sweep takes
+      the attribution route (K2 + K6).
+    After each kind the patched pipeline is held against a forced full
+    rebuild of a fresh engine over the same repository and registry:
+    bit-equal policymap words, allow / redirect bitmaps (and rule
+    tables), equal verdicts and redirects of a 1 048 576-flow v4 and v6
+    batch, and the host oracle on a sample. Launches of K2 / K6 and
+    the scatter ops' card time and bytes are read per delta."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch import _kernels, metrics
+    from cilium_tpu_torch.datapath.pipeline import DatapathPipeline
+    from cilium_tpu_torch.engine import PolicyEngine
+    from cilium_tpu_torch.ipcache.prefilter import PreFilter
+    from cilium_tpu_torch.labels import parse_label_array
+    from cilium_tpu_torch.policy.api import EndpointSelector, IngressRule, rule
+
+    t_phase = time.perf_counter()
+    repo, reg, cache, idents, labels_of = build_world(seed)
+    ips, eps, dports, protos, i_sel = make_flows(seed + 300, len(idents))
+    flows6 = make_flows6(seed + 300, len(idents))[:4]
+    endpoints = [idents[j].id for j in range(N_ENDPOINTS)]
+    cidrs = PREFILTER_CIDRS + V6_DENY
+    denied4 = [ipaddress.ip_network(c) for c in PREFILTER_CIDRS]
+
+    def pipeline(engine, attrib=False):
+        pf = PreFilter()
+        pf.insert(pf.revision, cidrs)
+        pipe = DatapathPipeline(engine, cache, pf)
+        pipe.set_endpoints(endpoints)
+        if attrib:
+            pipe.set_attribution(True)
+        return pipe
+
+    engine = PolicyEngine(repo, reg)
+    engine.refresh()
+    pipe = pipeline(engine)
+    pipe.rebuild()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine.refresh(force=True)
+    engine.wait_device()
+    t_full_refresh = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pipe.rebuild(force=True)
+    torch.cuda.synchronize()
+    t_full_rebuild = time.perf_counter() - t0
+    print(f"main path deltas: full refresh {t_full_refresh!r}s + forced rebuild {t_full_rebuild!r}s "
+          f"of the same world (for comparison) [{card}]", flush=True)
+
+    apps = sorted({next(x for x in labels_of[e] if x.startswith("k8s:app=")) for e in endpoints})
+    pairs = [(z, env) for env in ("prod", "dev") for z in range(8)]
+    counts = {"appended": 0}
+
+    def l3_rule(tag: str):
+        """An L3 rule from an endpoint's app to a selector the world
+        never used (one zone ∧ env pair each)."""
+        z, env = pairs[counts["appended"]]
+        counts["appended"] += 1
+        return rule([apps[counts["appended"] % len(apps)]], ingress=[IngressRule(
+            from_endpoints=(EndpointSelector.make([f"k8s:zone=z{z}", f"k8s:env={env}"]),))],
+            labels=[f"k8s:policy={tag}"])
+
+    def kept(base):
+        return all(pipe._mat.get(d) is base[d] for d in base)
+
+    def split(names):
+        """Host-clock seconds spent in the named pipeline methods during
+        one rebuild (instance attributes shadow the methods)."""
+        spent = dict.fromkeys(names, 0.0)
+        for name in names:
+            def f(*a, _real=getattr(pipe, name), _name=name, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _real(*a, **k)
+                finally:
+                    spent[_name] += time.perf_counter() - t0
+            setattr(pipe, name, f)
+        return spent
+
+    def step(mutate):
+        """mutate(); refresh; wait_device; rebuild → (the mutation's s on
+        the registry or repository, refresh + wait_device s, rebuild s
+        and its split: the delta routing (the patches) and the trie
+        build, kept the states, K2 / K6 launches, the scatter helpers'
+        calls / card ms / bytes in the refresh and the rebuild)."""
+        before = _kernels.launches()
+        with ScatterClock() as sc:
+            t0 = time.perf_counter()
+            mutate()
+            t_mut = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            engine.refresh()
+            engine.wait_device()
+            t_eng = time.perf_counter() - t0
+            base = dict(pipe._mat)
+            spent = split(("_route_deltas", "_build_tries_locked"))
+            t0 = time.perf_counter()
+            try:
+                pipe.rebuild()
+                torch.cuda.synchronize()
+            finally:
+                for name in spent:
+                    delattr(pipe, name)
+            t_reb = time.perf_counter() - t0
+        after = _kernels.launches()
+        return dict(mutate=t_mut, engine=t_eng, rebuild=t_reb, kept=kept(base), route=spent["_route_deltas"],
+                    tries=spent["_build_tries_locked"],
+                    k2=after["bool_mm"] - before["bool_mm"],
+                    k6=after["first_rule"] - before["first_rule"], scatters=sc.summary())
+
+    def hold(kind: str, attrib: bool = False):
+        """The patched pipeline against a forced full rebuild of a fresh
+        engine over the same repository and registry. Only the patched
+        pipeline's batches count as the path's launches."""
+        t0 = time.perf_counter()
+        with uncounted():
+            fresh = pipeline(PolicyEngine(repo, reg), attrib)
+            fresh.rebuild(force=True)
+        for d in (0, 1):
+            m, f = pipe._mat[d], fresh._mat[d]
+            if m.ep_slots != f.ep_slots:
+                fail(f"deltas [{kind}]: direction {d} slot layout differs from a full rebuild")
+            if not (np.array_equal(m.allow_nc, f.allow_nc) and np.array_equal(m.red_nc, f.red_nc)):
+                fail(f"deltas [{kind}]: direction {d} allow / redirect bitmaps differ")
+            if max_abs_err(m.tables.id_bits, f.tables.id_bits):
+                fail(f"deltas [{kind}]: direction {d} policymap words differ")
+            if attrib and (m.rule_tab is None or max_abs_err(m.rule_tab, f.rule_tab)):
+                fail(f"deltas [{kind}]: direction {d} rule tables differ")
+        v4 = None
+        for call, flows in (("process", (ips, eps, dports, protos)), ("process_v6", flows6)):
+            got = getattr(pipe, call)(*flows)
+            with uncounted():
+                want = getattr(fresh, call)(*flows)
+            if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+                fail(f"deltas [{kind}]: {call} differs from a full rebuild")
+            v4 = got[0] if v4 is None else v4
+        # the host oracle walks all 10 000 rules per flow (~70 ms each)
+        oracle_check(repo, labels_of, idents, f"deltas [{kind}]", ips, eps, dports, protos, i_sel,
+                     v4, denied4, endpoints, n=DELTA_ORACLE)
+        print(f"main path deltas [{kind}]: == a forced full rebuild of a fresh engine (policymap "
+              f"words, allow / redirect bitmaps{', rule tables' if attrib else ''}; verdicts and "
+              f"redirects of {BATCH} v4 and v6 flows) and the host oracle on {DELTA_ORACLE} flows, "
+              f"in {time.perf_counter() - t0:.2f}s", flush=True)
+
+    # warm every path once (first launches at the patch shapes)
+    warm = reg.allocate(parse_label_array(["k8s:app=a1", "k8s:env=updwarm"]))
+    step(lambda: None)
+    step(lambda: reg.release(warm))
+    step(lambda: repo.add_list([l3_rule("delta-warm")]))
+    step(lambda: repo.delete_by_labels(parse_label_array(["k8s:policy=delta-warm"])))
+
+    inc0 = metrics.engine_refreshes_total.get({"kind": "incremental"})
+    full0 = metrics.engine_refreshes_total.get({"kind": "full"})
+    samples = {}
+    _kernels.reset_launches()
+    ident = []
+    for i in range(IDENT_SAMPLES):
+        new = []
+        ident.append(step(lambda: new.append(
+            reg.allocate(parse_label_array([f"k8s:app=a{i % N_APPS}", "k8s:env=updbench"])))))
+        step(lambda: reg.release(new[0]))
+    samples["identity"] = ident
+    burst = []
+    samples["identity burst"] = [step(lambda: burst.extend(
+        reg.allocate(parse_label_array([f"k8s:app=a{100 + j}", "k8s:env=updburst"]))
+        for j in range(IDENT_BURST)))]
+    hold("identity")
+    appended, deleted = [], []
+    for i in range(DELTA_SAMPLES):
+        appended.append(step(lambda: repo.add_list([l3_rule(f"delta-{i}")])))
+    hold("rule append")
+    for i in range(DELTA_SAMPLES):
+        deleted.append(step(lambda: repo.delete_by_labels(parse_label_array([f"k8s:policy=delta-{i}"]))))
+    hold("rule delete")
+    samples["rule append"], samples["rule delete"] = appended, deleted
+    with uncounted():  # a full attributed sweep, not a delta
+        pipe.set_attribution(True)
+        pipe.rebuild()
+    samples["rule append, attribution"] = [step(lambda: repo.add_list([l3_rule("delta-attrib")]))]
+    hold("rule append, attribution", attrib=True)
+    inc = metrics.engine_refreshes_total.get({"kind": "incremental"}) - inc0
+    full = metrics.engine_refreshes_total.get({"kind": "full"}) - full0
+    # the holds' fresh engines make the full refreshes
+    if full != 4 or inc != 2 * IDENT_SAMPLES + 1 + 2 * DELTA_SAMPLES + 1:
+        fail(f"deltas: {inc} incremental and {full} full refreshes, expected "
+             f"{2 * IDENT_SAMPLES + 2 + 2 * DELTA_SAMPLES} and 4 (the holds')")
+
+    for kind, ss in samples.items():
+        hits = sum(x["kept"] for x in ss)
+        if hits != len(ss):
+            fail(f"deltas [{kind}]: {hits} of {len(ss)} rebuilds patched in place")
+        p50m, p99m = pcts([x["mutate"] for x in ss])
+        p50e, p99e = pcts([x["engine"] for x in ss])
+        p50r, p99r = pcts([x["rebuild"] for x in ss])
+        p50route, p99route = pcts([x["route"] for x in ss])
+        p50t, p99t = pcts([x["tries"] for x in ss])
+        k2 = sorted({x["k2"] for x in ss})
+        k6 = sorted({x["k6"] for x in ss})
+        print(f"main path deltas [{kind}] x{len(ss)}: the mutation (registry allocate / release, "
+              f"repository add_list / delete_by_labels) p50 {p50m!r} ms, p99 {p99m!r} ms; "
+              f"refresh + wait_device p50 {p50e!r} ms, p99 "
+              f"{p99e!r} ms; rebuild p50 {p50r!r} ms, p99 {p99r!r} ms (of it the delta routing p50 "
+              f"{p50route!r} / p99 {p99route!r} ms, the trie build p50 {p50t!r} / p99 {p99t!r} ms); "
+              f"patch hits {hits}/{len(ss)}; "
+              f"K2 launches per delta {k2}, K6 {k6} [{card}]", flush=True)
+        for h in sorted({h for x in ss for h in x["scatters"]}):
+            per = [x["scatters"].get(h, (0, 0.0, 0)) for x in ss]
+            ms = sorted(p[1] for p in per)
+            b = sorted({p[2] for p in per})
+            print(f"main path deltas [{kind}] scatter {h}: calls per delta {sorted({p[0] for p in per})}, "
+                  f"card ms per delta median {median(ms)!r} (min {ms[0]!r}, max {ms[-1]!r}), bytes "
+                  f"{b[0]}-{b[-1]}, bound {b[-1] / HBM_BYTES_PER_S * 1e3!r} ms at the most bytes (bytes / "
+                  f"3.35 TB/s) [{card}]", flush=True)
+    if not any(x["k2"] for k in ("identity", "rule append", "rule delete") for x in samples[k]):
+        fail("deltas: no patch launched K2")
+    if not samples["rule append, attribution"][0]["k6"]:
+        fail("deltas: the attributed column patch launched no K6")
+    print(f"main path deltas: {time.perf_counter() - t_phase:.2f}s for the phase [{card}]", flush=True)
+    return dict(pipe=pipe, repo=repo, reg=reg, l3_rule=l3_rule, step=step)
+
+
+def delta_rows(dl, row) -> None:
+    """K2 and K6 at the shapes the patches give them, against their
+    plain versions: the operands of one untimed identity row patch, one
+    rule column patch and one attributed column patch, recorded as the
+    pipeline calls the kernels; the largest of each kind is timed."""
+    import torch
+
+    from cilium_tpu_torch.labels import parse_label_array
+    from cilium_tpu_torch.ops.verdict import bool_mm, bool_mm_plain, first_rule, first_rule_plain
+
+    step, reg, repo = dl["step"], dl["reg"], dl["repo"]
+    dl["pipe"].set_attribution(False)
+    dl["pipe"].rebuild()
+    recs = {}
+    for kind, mutate, attrib in (
+        ("row patch", lambda: reg.allocate(parse_label_array(["k8s:app=a7", "k8s:env=updrec"])), False),
+        ("column patch", lambda: repo.add_list([dl["l3_rule"]("delta-rec")]), False),
+        ("attributed column patch", lambda: repo.add_list([dl["l3_rule"]("delta-rec-attr")]), True),
+    ):
+        if attrib:
+            dl["pipe"].set_attribution(True)
+            dl["pipe"].rebuild()
+        with CallRecorder() as rec:
+            got = step(mutate)
+            if not got["kept"]:
+                fail(f"deltas: the recorded {kind} did not patch in place")
+        if len(rec.calls["bool_mm"]) != got["k2"] or len(rec.calls["first_rule"]) != got["k6"]:
+            fail(f"deltas: the {kind} recorded {len(rec.calls['bool_mm'])} K2 and "
+                 f"{len(rec.calls['first_rule'])} K6 calls of {got['k2']} and {got['k6']} launches")
+        recs[kind] = rec.calls
+    for kind, calls in recs.items():
+        k2 = calls["bool_mm"]
+        if not k2:
+            fail(f"deltas: the {kind} made no K2 call")
+        err = 0
+        for args, kw in k2:
+            err = max(err, max_abs_err(bool_mm(*args, **kw), bool_mm_plain(*args, **kw)))
+        (x, w, *rest), kw = max(k2, key=lambda c: c[0][0].numel() * c[0][1].shape[1])
+        comp = bool(rest[0]) if rest else bool(kw.get("complement_x", False))
+        out = bool_mm(x, w, comp)
+        b_ms, b_by = bound(nbytes(x, w, out), 2 * x.shape[0] * x.shape[1] * w.shape[1])
+        # yardstick only: torch._int_mm (int8 tensor cores), thresholded,
+        # on the same operands made int8 and contiguous beforehand
+        xl = x.to(torch.int8)
+        xl = (1 - xl if comp else xl).contiguous()
+        wl = w.to(torch.int8).contiguous()
+        lib_fn, lib_note = None, "library none: torch._int_mm needs rows > 16 and k, n multiples of 8"
+        if xl.shape[0] > 16 and xl.shape[1] % 8 == 0 and wl.shape[1] % 8 == 0:
+            if max_abs_err(torch._int_mm(xl, wl) > 0, out):
+                fail(f"deltas: bool_mm at the {kind} shape disagrees with the library product")
+            lib_fn, lib_note = (lambda: torch._int_mm(xl, wl)), "library torch._int_mm"
+        row("bool_mm", "cilium_tpu_torch/csrc/bool_mm.cu", "cilium_tpu/ops/verdict.py:151", err,
+            lambda: bool_mm(x, w, comp), lambda: bool_mm_plain(x, w, comp), b_ms, b_by,
+            f"{kind}: {len(k2)} calls checked, timed [{x.shape[0]},{x.shape[1]}] x "
+            f"[{w.shape[0]},{w.shape[1]}], {lib_note}", lib_fn=lib_fn)
+        k6 = calls["first_rule"]
+        if kind.startswith("attributed"):
+            if not k6:
+                fail("deltas: the attributed column patch made no K6 call")
+            err = max(max_abs_err(first_rule(*a, **k), first_rule_plain(*a, **k)) for a, k in k6)
+            (mask, rule_of), _ = max(k6, key=lambda c: c[0][0].numel())
+            b_ms, b_by = bound(nbytes(mask, rule_of) + 4 * mask.shape[0], 2 * mask.numel())
+            row("first_rule", "cilium_tpu_torch/csrc/first_rule.cu", "cilium_tpu/ops/verdict.py:224",
+                err, lambda: first_rule(mask, rule_of), lambda: first_rule_plain(mask, rule_of),
+                b_ms, b_by, f"{kind}: {len(k6)} calls checked, timed mask [{mask.shape[0]}, "
+                f"{mask.shape[1]}]")
+
+
 def metric_series():
     """Snapshot of the attribution metrics (rule_hits_total and
     drop_reasons_total), keyed by (metric, labels)."""
@@ -2962,6 +3411,12 @@ def main() -> None:
     check_path("submit", ["lpm_wide", "lpm_stride8", "policymap_verdict", "shed_walk_wide",
                           "shed_walk_stride8"])
 
+    # -- 3h. incremental policy updates, launch counts from zero --------
+    dl = deltas_main_path(args.seed, card)
+    check_path("deltas", ["bool_mm", "first_rule", "lpm_wide", "lpm_stride8", "policymap_verdict"])
+    if launches["deltas"]["selector_match"]:
+        fail("a delta launched K1 selector_match: the engine recompiled in full")
+
     # -- 5. each kernel against its plain version on the card ------------
     compiled, device = engine.snapshot()
     rows = []
@@ -3111,6 +3566,9 @@ def main() -> None:
         max_abs_err(first_rule(mask, origin.allow_rule), first_rule_plain(mask, origin.allow_rule)),
         lambda: first_rule(mask, origin.allow_rule), lambda: first_rule_plain(mask, origin.allow_rule),
         b_ms, b_by, f"mask [{sb}, {mask.shape[1]}] ({int(mask.sum())} set), allow term")
+
+    # K2 and K6 at the shapes the row and column patches give them
+    delta_rows(dl, row)
 
     # the attribution flow-route sweep, one direction at full width; its
     # plain version runs the same sweep with the plain K2 and K6

@@ -31,12 +31,13 @@ def words_i32(arr, device) -> torch.Tensor:
 
 
 def _tensor(a: np.ndarray, device) -> torch.Tensor:
-    """numpy → tensor on ``device``; a read-only array (a view of a
-    JAX buffer) is copied so the tensor never aliases it."""
+    """numpy → tensor on ``device``, never aliasing the array: the
+    compiler's host arrays are patched in place by the engine's deltas,
+    while a device tensor a snapshot holds must keep its values."""
     a = np.ascontiguousarray(a)
-    if not a.flags.writeable:
+    if not a.flags.writeable:  # a view of a JAX buffer
         a = a.copy()
-    return torch.from_numpy(a).to(device)
+    return torch.from_numpy(a).to(device, copy=True)
 
 
 def device_policy_from_numpy(

@@ -62,9 +62,19 @@ With ``admission`` the submit path is gated by an AIMD queue limit
 waits for the queue up to ``deadline_ms``, and resolves what is left
 through the fail-open / fail-closed semantics when that runs out.
 
+:meth:`DatapathPipeline.rebuild` follows the engine's delta log
+(``PolicyEngine.deltas_since``): identity churn patches the changed
+identity rows of both directions' policymaps (one verdict re-sweep of
+those rows against every endpoint column, on ``bool_mm``), and a rule
+append or delete re-sweeps only the columns of the endpoints its
+subject selectors match (``ops/materialize.py`` ``patch_identity_rows``
+/ ``patch_endpoints_state``). Every patch replaces the device tensor
+it changes (out of place), so a batch in flight keeps the tables it
+was enqueued with.
+
 Not ported yet: the failsafe ladder (retry, quarantine, host
 fallback), tracing, the watchdog, the profiler and the depth tuner,
-the flow ring and flow events, sparse deltas, epoch swap and
+the flow ring and flow events, sparse (trie) deltas, epoch swap and
 multi-device placement.
 """
 
@@ -74,7 +84,7 @@ import dataclasses
 import threading
 import time
 from collections import deque
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -99,7 +109,10 @@ from ..ops.lpm import (
     DENY_BIT, MERGED_VALUE_MASK, build_trie_elided, build_wide_trie, elided_lookup,
     ipv4_to_bytes, lpm_lookup_wide, merge_flat_tries, merge_trie_entries,
 )
-from ..ops.materialize import TRAFFIC_EGRESS, TRAFFIC_INGRESS, materialize_endpoints_state
+from ..ops.materialize import (
+    TRAFFIC_EGRESS, TRAFFIC_INGRESS, EndpointPolicySnapshot, materialize_endpoints_state,
+    patch_endpoints_state, patch_identity_rows,
+)
 from ..ops.shed import shed_walk_stride8, shed_walk_wide
 
 FORWARD = 1
@@ -721,11 +734,17 @@ class DatapathPipeline:
         self._lock = threading.Lock()
         self._endpoints: list = []  # identity id per endpoint index
         self._endpoint_ids: list = []  # endpoint id per endpoint index
-        self._basis = None
         # {(direction, family): WideDatapathTables (4) | DatapathTables (6)}
         self._tables: Dict[Tuple[int, int], object] = {}
-        # direction → MaterializedState of the last full sweep
+        # direction → MaterializedState: made by a full sweep, then
+        # patched in place by the engine's deltas
         self._mat: Dict[int, object] = {}
+        self._mat_sig: Tuple = ()  # endpoint list the policymap was built for
+        self._last_delta_seq = 0  # engine delta cursor
+        # (v4 tables, v6 tables) of the last trie build, with the
+        # policymap of that rebuild; republished per direction
+        self._tries: Optional[Tuple[object, object]] = None
+        self._trie_versions: Tuple = ()  # (ipcache version, prefilter revision)
         self._pf_empty = (True, True)  # (v4, v6) deny sets empty
         self._v6_fused = False
         # verdict attribution (FlowAttribution): requested flag, the
@@ -819,7 +838,10 @@ class DatapathPipeline:
             if bool(on) == self._attrib_requested:
                 return
             self._attrib_requested = bool(on)
-            self._basis = None  # the rule table exists only after a sweep
+            # force re-materialization: the rule table exists only
+            # after a sweep with attribution (and goes when off)
+            self._mat = {}
+            self._mat_sig = ()
 
     def _attrib_origins(self, compiled):
         """({ingress_bool: AttribTables | None}, n_rules) for this
@@ -833,6 +855,12 @@ class DatapathPipeline:
         if ai is None or ae is None:
             return off, 0
         return {True: ai[0], False: ae[0]}, ai[1]
+
+    def _materialize_both(self, compiled, device) -> None:
+        ao, nr = self._attrib_origins(compiled)
+        self._attrib_n_rules = nr
+        self._attrib_names = self.engine.repo.origin_names() if nr else []
+        self._mat = self._build_mats(compiled, device, self._endpoints, ao, nr)
 
     @staticmethod
     def _build_mats(compiled, device, endpoints, ao, nr):
@@ -850,108 +878,203 @@ class DatapathPipeline:
         }
 
     def rebuild(self, force: bool = False) -> Dict[Tuple[int, int], object]:
-        """Bring the device state up to date: both directions' policymap
-        sweeps and both families' tries, rebuilt in full when the
-        policy, the identities, the ipcache, the prefilter, the endpoint
-        set or the attribution switch moved, and the LB tables when the
-        service table moved. Each of those moves flushes the conntrack.
+        """Bring the device state up to date. The policymaps follow the
+        engine's delta log: identity churn patches rows, rule appends
+        and deletes re-sweep the affected endpoints' columns, and a
+        "full" event, a truncated log, a delta the patches cannot
+        express, a new endpoint set, the attribution switch or ``force``
+        re-materialize both directions. The tries are rebuilt when the
+        ipcache or the prefilter moved, after a fresh materialization or
+        on a row event; the LB tables when the service table moved. Any
+        of those moves, and any rule delta, flushes the conntrack.
         Returns {(direction, family): tables}."""
         with self._lock:
             # versions captured before the sources are read: a mutation
             # landing mid-build triggers one more rebuild
             trie_versions = (self.ipcache.version, self.prefilter.revision)
+            delta_target = self.engine.delta_seq
             compiled, device = self.engine.snapshot()
-            basis = (self.engine.install_gen, trie_versions, tuple(self._endpoints))
-            if not force and basis == self._basis:
-                self._publish_shed_locked()
+            pending = self.engine.deltas_since(self._last_delta_seq)
+            delta_target = max(delta_target, self.engine.delta_seq)
+            ep_sig = tuple(self._endpoints)
+            basis_moved = trie_versions != self._trie_versions
+            if (not force and self._tables and self._mat and self._mat_sig == ep_sig
+                    and pending == [] and not basis_moved):
+                self._publish_shed_locked(False)
                 self._refresh_lb_locked()
                 return self._tables
-            ao, nr = self._attrib_origins(compiled)
-            mat = self._build_mats(compiled, device, self._endpoints, ao, nr)
-            _, pf_cidrs = self.prefilter.dump()
-            # empty-set flags first: both families' fusion gates read
-            # them (an empty deny set skips the walk entirely)
-            pf_empty = (
-                not any(":" not in c for c in pf_cidrs),
-                not any(":" in c for c in pf_cidrs),
-            )
-            ip_lists = {4: [], 6: []}
-            for cidr, e in self.ipcache.items():
-                row = compiled.id_to_row.get(e.identity)
-                if row is not None:
-                    ip_lists[6 if ":" in cidr else 4].append((cidr, row))
 
-            # IPv6: stride-8 tries with the shared prefix elided; the
-            # fused deny+identity walk while a v6 deny set is live (it
-            # then covers the deny stage, so no standalone deny trie)
-            pf6_list = [(c, 0) for c in pf_cidrs if ":" in c]
-            ip6 = build_trie_elided(ip_lists[6], ipv6=True)
-            merged6_list = (
-                merge_trie_entries(ip_lists[6], pf6_list, ipv6=True)
-                if not pf_empty[1] else None
-            )
-            if merged6_list is not None:
-                merged6 = build_trie_elided(merged6_list, ipv6=True)
-                pf6 = _NO_TRIE6
+            mat_fresh = saw_row_event = saw_rule_delta = False
+            routed = None
+            if not force and self._mat and self._mat_sig == ep_sig:
+                routed = self._route_deltas(compiled, device, pending)
+            if routed is None:
+                self._materialize_both(compiled, device)
+                mat_fresh = True
             else:
-                pf6 = build_trie_elided(pf6_list, ipv6=True)
-                merged6 = _NO_TRIE6
-            v6_fused = merged6_list is not None
+                saw_row_event, saw_rule_delta = routed
+            self._mat_sig = ep_sig
+            self._last_delta_seq = delta_target
 
-            # IPv4 rides the wide (dense-16-bit-first) tries
-            pf_wide = build_wide_trie((c, 0) for c in pf_cidrs if ":" not in c)
-            ip_wide = build_wide_trie(ip_lists[4])
-            # fused deny+identity walk: built only while the deny stage
-            # is live and both layouts are flat; it then covers the deny
-            # stage, so the standalone deny trie is not uploaded
-            merged = merge_flat_tries(ip_wide, pf_wide) if not pf_empty[0] else None
-            if merged is None:
-                merged = _NO_TRIE
-            else:
-                pf_wide = _NO_TRIE
-            world_row = compiled.id_to_row.get(ID_WORLD)
-            if world_row is None:
-                raise RuntimeError("reserved:world identity has no device row")
-            # one upload of each family's tries, shared by both directions
-            v4 = wide_tables_from_numpy(
-                (*pf_wide, *ip_wide, *merged), world_row,
-                mat[TRAFFIC_INGRESS].tables, device=self.device,
-            )
-            v6 = v6_tables_from_numpy(
-                (*pf6, *ip6, *merged6), world_row, mat[TRAFFIC_INGRESS].tables,
-                device=self.device,
-            )
+            # any row move can re-point an ipcache entry's trie target
+            if force or self._tries is None or basis_moved or mat_fresh or saw_row_event:
+                self._build_tries_locked(compiled)
+                self._trie_versions = trie_versions
+
+            v4, v6 = self._tries
             tables: Dict[Tuple[int, int], object] = {}
-            for direction, m in mat.items():
+            for direction, m in self._mat.items():
                 tables[(direction, 4)] = dataclasses.replace(v4, policymap=m.tables)
                 tables[(direction, 6)] = dataclasses.replace(v6, policymap=m.tables)
-            rule_tabs = {d: m.rule_tab for d, m in mat.items()}
+            rule_tabs = {d: m.rule_tab for d, m in self._mat.items()}
             self._rule_tabs = None if any(r is None for r in rule_tabs.values()) else rule_tabs
-            self._attrib_n_rules = nr if self._rule_tabs is not None else 0
-            self._attrib_names = self.engine.repo.origin_names() if self._rule_tabs else []
+            if self._rule_tabs is None:
+                self._attrib_n_rules = 0
+                self._attrib_names = []
             self._tables = tables
-            self._mat = mat
-            self._pf_empty = pf_empty
-            self._v6_fused = v6_fused
-            self._basis = basis
             # in the same lock hold as the tries: a shed walk never
             # pairs a new table with old tries or the reverse
-            self._publish_shed_locked()
+            self._publish_shed_locked(mat_fresh or saw_row_event or saw_rule_delta)
             if self.counters.shape[0] != len(self._endpoints):
                 self.counters = np.zeros((len(self._endpoints), 3), np.int64)
             # Conntrack invalidation: the established-flow bypass is
             # only sound while the verdict basis that admitted the flow
             # still holds, so any basis move flushes the table (revoked
             # rules, remapped peers and new deny prefixes apply to
-            # established flows on their next packet).
-            self._flush_ct_locked()
+            # established flows on their next packet). A column patch is
+            # still a rule change.
+            if mat_fresh or saw_row_event or saw_rule_delta or basis_moved:
+                self._flush_ct_locked()
             self._refresh_lb_locked()
             return self._tables
 
-    def _publish_shed_locked(self) -> None:
+    def _build_tries_locked(self, compiled) -> None:
+        """Both families' tries from the ipcache and the prefilter, one
+        upload each, shared by both directions (``self._tries``)."""
+        _, pf_cidrs = self.prefilter.dump()
+        # empty-set flags first: both families' fusion gates read them
+        # (an empty deny set skips the walk entirely)
+        pf_empty = (
+            not any(":" not in c for c in pf_cidrs),
+            not any(":" in c for c in pf_cidrs),
+        )
+        ip_lists = {4: [], 6: []}
+        for cidr, e in self.ipcache.items():
+            row = compiled.id_to_row.get(e.identity)
+            if row is not None:
+                ip_lists[6 if ":" in cidr else 4].append((cidr, row))
+
+        # IPv6: stride-8 tries with the shared prefix elided; the fused
+        # deny+identity walk while a v6 deny set is live (it then covers
+        # the deny stage, so no standalone deny trie)
+        pf6_list = [(c, 0) for c in pf_cidrs if ":" in c]
+        ip6 = build_trie_elided(ip_lists[6], ipv6=True)
+        merged6_list = (
+            merge_trie_entries(ip_lists[6], pf6_list, ipv6=True)
+            if not pf_empty[1] else None
+        )
+        if merged6_list is not None:
+            merged6 = build_trie_elided(merged6_list, ipv6=True)
+            pf6 = _NO_TRIE6
+        else:
+            pf6 = build_trie_elided(pf6_list, ipv6=True)
+            merged6 = _NO_TRIE6
+
+        # IPv4 rides the wide (dense-16-bit-first) tries
+        pf_wide = build_wide_trie((c, 0) for c in pf_cidrs if ":" not in c)
+        ip_wide = build_wide_trie(ip_lists[4])
+        # fused deny+identity walk: built only while the deny stage is
+        # live and both layouts are flat; it then covers the deny stage,
+        # so the standalone deny trie is not uploaded
+        merged = merge_flat_tries(ip_wide, pf_wide) if not pf_empty[0] else None
+        if merged is None:
+            merged = _NO_TRIE
+        else:
+            pf_wide = _NO_TRIE
+        world_row = compiled.id_to_row.get(ID_WORLD)
+        if world_row is None:
+            raise RuntimeError("reserved:world identity has no device row")
+        pm = self._mat[TRAFFIC_INGRESS].tables
+        self._tries = (
+            wide_tables_from_numpy((*pf_wide, *ip_wide, *merged), world_row, pm, device=self.device),
+            v6_tables_from_numpy((*pf6, *ip6, *merged6), world_row, pm, device=self.device),
+        )
+        self._pf_empty = pf_empty
+        self._v6_fused = merged6_list is not None
+
+    def _route_deltas(self, compiled, device, deltas) -> Optional[Tuple[bool, bool]]:
+        """Apply the engine delta log to the materialized states in place
+        (the O(delta) refresh path, lock held) → ``(saw_row_event,
+        saw_rule_delta)``, or None when the log demands a full
+        re-materialization: a truncated ring, a "full" event, or a rule
+        delta the column patch cannot express (slot growth, row-bucket
+        crossing, a delete under attribution — every later rule's index
+        shifts, so the per-cell rule table cannot be patched).
+
+        Row patches rewrite whole identity rows and column patches whole
+        endpoint columns, both against the FINAL (compiled, device)
+        snapshot, so replaying the coalesced rows first and the rule
+        columns second lands every touched cell on its final value
+        however the log interleaved them."""
+        if deltas is None:
+            return None
+        if any(k == "full" for _, k, _ in deltas):
+            return None
+        if self._attrib_requested and any(
+            k == "rules" and p and p[0] == "del" for _, k, p in deltas
+        ):
+            if any(m.rule_nc is not None for m in self._mat.values()):
+                return None
+        t0 = time.perf_counter()
+        ao, nr = self._attrib_origins(compiled)
+        saw_row_event = False
+        touched_sids: set = set()
+        row_events: list = []
+        for _seq, kind, payload in deltas:
+            if kind == "rows":
+                # coalesced: one patch per direction for every row event
+                # since the last rebuild (last event per row wins)
+                row_events.extend(payload)
+                saw_row_event |= bool(payload)
+            elif kind == "rules":  # ("add" | "del", subject sids)
+                touched_sids.update(payload[1])
+            # "cols": the engine already scattered sel_match; the paired
+            # "rules" event's column re-sweep consumes it
+        if row_events:
+            for direction, mat in self._mat.items():
+                patch_identity_rows(
+                    mat, device, row_events,
+                    attrib_origin=ao[direction == TRAFFIC_INGRESS], n_rules=nr,
+                )
+        if touched_sids:
+            for direction, mat in self._mat.items():
+                if not patch_endpoints_state(
+                    mat, compiled, device, sorted(touched_sids),
+                    attrib_origin=ao[direction == TRAFFIC_INGRESS], n_rules=nr,
+                ):
+                    # partial patches are harmless: every cell they wrote
+                    # holds its final value, and the full sweep replaces
+                    # the state wholesale
+                    return None
+            # appends grow the rule set: keep the completion half's
+            # rule-index → origin map in step with the patched tables
+            if nr:
+                self._attrib_n_rules = nr
+                self._attrib_names = self.engine.repo.origin_names()
+        if saw_row_event or touched_sids:
+            _metrics.engine_refresh_seconds.observe(time.perf_counter() - t0, {"kind": "delta"})
+        return saw_row_event, bool(touched_sids)
+
+    def snapshots(self, ingress: bool = True) -> List[EndpointPolicySnapshot]:
+        """The realized policymap of every endpoint (host dicts, patched
+        in place by row deltas) for one direction, after a rebuild."""
+        self.rebuild()
+        return self._mat[TRAFFIC_INGRESS if ingress else TRAFFIC_EGRESS].snapshots
+
+    def _publish_shed_locked(self, policymap_moved: bool) -> None:
         """Publish the prefilter shed table of the current ingress
         policymap mirror (None while the Prefilter option is off),
-        compiled once per materialization."""
+        compiled again whenever the mirror was re-made or patched."""
         if not self._shed_requested:
             self._shed_cache = None
             self._shed_tab = None
@@ -960,7 +1083,7 @@ class DatapathPipeline:
         if mat_in is None:
             self._shed_tab = None
             return
-        if self._shed_cache is None or self._shed_cache[0] is not mat_in:
+        if policymap_moved or self._shed_cache is None or self._shed_cache[0] is not mat_in:
             tab = compile_shed_table(mat_in.allow_nc, mat_in.ep_slots)
             self._shed_cache = (mat_in, shed_table_from_numpy(tab, self.device))
         self._shed_tab = self._shed_cache[1]

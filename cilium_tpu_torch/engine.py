@@ -6,18 +6,28 @@ repository.AllowsIngress*): owns a Repository + IdentityRegistry,
 compiles them into device tensors, refreshes when revisions move, and
 answers batched verdict queries.
 
-This port refreshes by full recompile whenever the repository revision
-or the identity version moved (the revision gate of
-pkg/endpoint/policy.go:506). Verdict attribution (``attribution``,
+Refresh is incremental where the reference's is per-endpoint (the
+revision gate of pkg/endpoint/policy.go:506-552): identity churn
+becomes row updates of ``id_bits`` and ``sel_match``, rule appends that
+fit the existing shape buckets set matrix cells in place
+(compiler.DirectionPacker) with only the new selector columns computed,
+and rule deletes retract refcounted cells. Each update is one torch
+indexing op per tensor, out of place: a (compiled, device) snapshot
+taken before it keeps its values. Full recompiles happen on a row
+bucket crossing, vocab word growth, a rule the packers cannot append
+or never attributed, or a truncated repository log. Every refresh
+logs a delta (``deltas_since``) that the pipeline replays onto its
+materialized policymaps. Verdict attribution (``attribution``,
 ``verdicts(attrib=True)``, ``explain_one``) reads the rule-origin
-tables of the kept compile state. Incremental row/rule updates and
-snapshots are not ported yet.
+tables of the kept compile state. Snapshots are not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
-from typing import Optional, Sequence, Tuple
+import time
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -25,19 +35,64 @@ import torch
 from . import _kernels
 from . import metrics as _metrics
 from . import u8proto
-from .compiler import CompiledPolicy, compile_policy_state
-from .compiler.program import CompileState, rule_origin_arrays
+from .compiler import CompiledPolicy, compile_policy_state, host_selector_matches, try_append_rules
+from .compiler.program import CompileState, rule_origin_arrays, subject_sids, unpack_conjuncts
 from .convert import device_policy_from_numpy
 from .identity import IdentityRegistry
 from .identity.model import MAX_USER_IDENTITY
-from .ops.verdict import ALLOW, ATTR_NAMES, AttribTables, DevicePolicy, Verdict, verdict_batch
+from .ops.verdict import ALLOW, ATTR_NAMES, AttribTables, DevicePolicy, DeviceTables, Verdict, verdict_batch
 from .policy.repository import Repository
 
 PROTO_TCP = u8proto.TCP
 PROTO_UDP = u8proto.UDP
 
 
+# The scatter helpers: one out-of-place torch indexing op each (never
+# index_put_: a published snapshot or an in-flight batch may still hold
+# the old tensor). Indices are exact, never padded, never repeated.
+def _set_rows(buf: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    return buf.index_put((idx,), rows)
+
+
+def _set_rows_cols(
+    buf: torch.Tensor,
+    rows: torch.Tensor,  # [k] int64
+    cols: torch.Tensor,  # [w] int64
+    vals: torch.Tensor,  # [k, w]
+) -> torch.Tensor:
+    """Sparse rows × word-window scatter for sel_match: a new selector
+    matching k identities uploads O(k · window) words, not [N, S/32]."""
+    return buf.index_put((rows[:, None], cols[None, :]), vals)
+
+
+def _set_col_window(buf: torch.Tensor, start_word: int, window: torch.Tensor) -> torch.Tensor:
+    """Dense fallback when most identities match the appended
+    selectors: the whole touched word window [N, w] (still O(N · w),
+    never the full matrix)."""
+    return buf.slice_scatter(window, dim=1, start=start_word, end=start_word + window.shape[1])
+
+
+def _pack_match_words(m: np.ndarray) -> np.ndarray:
+    """[k, S] bool → [k, S/32] uint32 in sel_match bit order (S is a
+    multiple of 128, so the byte view folds cleanly into words)."""
+    packed = np.packbits(m, axis=1, bitorder="little")  # [k, S/8] uint8
+    return packed.view(np.uint32).reshape(m.shape[0], m.shape[1] // 32)
+
+
+# DirectionPacker write names → DeviceTables fields; the transposed
+# fields take (j, i)
+_TRANSPOSED = {"deny": "deny_t", "allow": "allow_t", "en": "en_t", "ee": "ee_t"}
+_DIRECT = {
+    "s1": "s1_mat", "p1": "p1_mat", "gpn": "gpn_mat", "gpe": "gpe_mat",
+    "s7": "s7_mat", "p7": "p7_mat", "g7": "g7_mat",
+}
+
+
 class PolicyEngine:
+    # Delta-log ring consumed by DatapathPipeline for incremental
+    # policymap materialization.
+    DELTA_LOG_CAP = 512
+
     def __init__(
         self, repo: Repository, registry: IdentityRegistry, device=None
     ) -> None:
@@ -48,12 +103,41 @@ class PolicyEngine:
         self._compiled: Optional[CompiledPolicy] = None
         self._state: Optional[CompileState] = None
         self._device: Optional[DevicePolicy] = None
+        # host mirror of sel_match ([N, S/32] uint32), pulled once per
+        # full refresh; the incremental paths update it in place
+        self._sel_match_host: Optional[np.ndarray] = None
         self._attrib_cache: Optional[tuple] = None
         # Dense row table for the compact ranges (reserved + user,
         # < 65536) and a dict for sparse local/CIDR identities.
         self._low_rows: Optional[np.ndarray] = None
         self._high_rows: dict = {}
+        self._conj_unpacked = None  # cached unpack_conjuncts result
+        # Identity change feed (registry observer) + outward delta log.
+        self._pending_idents: List[Tuple[object, bool]] = []
+        registry.observe(lambda ident, added: self._pending_idents.append((ident, added)))
+        self.delta_seq = 0
+        self._delta_log: List[Tuple[int, str, tuple]] = []
         self.install_gen = 0  # bumps on every full refresh
+
+    # ------------------------------------------------------------------
+    def _log_delta(self, kind: str, payload: tuple) -> None:
+        self.delta_seq += 1
+        self._delta_log.append((self.delta_seq, kind, payload))
+        if len(self._delta_log) > self.DELTA_LOG_CAP:
+            del self._delta_log[: len(self._delta_log) - self.DELTA_LOG_CAP]
+
+    def deltas_since(self, seq: int):
+        """Refresh deltas with seq > ``seq`` (oldest first), or None when
+        the log has been truncated past that point (consumer must do a
+        full rebuild)."""
+        with self._lock:
+            if seq >= self.delta_seq:
+                return []
+            if self._delta_log and self._delta_log[0][0] > seq + 1:
+                return None
+            if not self._delta_log and self.delta_seq > seq:
+                return None
+            return [e for e in self._delta_log if e[0] > seq]
 
     def _stale(self) -> bool:
         c = self._compiled
@@ -64,14 +148,38 @@ class PolicyEngine:
         )
 
     def refresh(self, force: bool = False) -> CompiledPolicy:
-        """Recompile if repository or identity state moved."""
+        """Recompile, or patch incrementally, if the repository or the
+        identities moved. The reference package refreshes a
+        snapshot-restored engine (revision < 0) in the background; the
+        port has no snapshot restore, so every refresh is synchronous."""
         with self._lock:
-            if force or self._stale():
-                compiled, state, device = self._compute_full(
-                    self.repo, self.registry, self.device
-                )
-                self._install(compiled, state, device)
-            return self._compiled  # type: ignore[return-value]
+            if not force and not self._stale():
+                return self._compiled  # type: ignore[return-value]
+            if force or self._compiled is None:
+                return self._full_refresh()
+
+            t0 = time.perf_counter()
+            c = self._compiled
+            rule_ops = []
+            if c.revision != self.repo.revision:
+                rule_ops = self.repo.changes_since(c.revision)
+                if rule_ops is None or any(op not in ("add", "delete") for _, op, _ in rule_ops):
+                    return self._full_refresh()
+            if not self._apply_identity_delta():
+                return self._full_refresh()
+            # Each applied op advances c.revision to ITS revision (never a
+            # re-read of repo.revision): a concurrent AddList landing
+            # between changes_since() and here must stay stale so the
+            # next refresh picks it up.
+            for rev, op, payload in rule_ops:
+                if op == "add":  # payload: the rules added at that rev
+                    if not self._apply_rule_append(list(payload), rev):
+                        return self._full_refresh()
+                elif len(payload) < 2 or not self._apply_rule_delete(list(payload[1]), rev):
+                    return self._full_refresh()  # "delete": (labels, deleted rules)
+            _metrics.engine_refresh_seconds.observe(time.perf_counter() - t0, {"kind": "incremental"})
+            _metrics.engine_refreshes_total.inc({"kind": "incremental"})
+            return c
 
     @staticmethod
     def _compute_full(
@@ -81,9 +189,10 @@ class PolicyEngine:
         compiled, state = compile_policy_state(repo, registry)
         return compiled, state, device_policy_from_numpy(compiled, device=device)
 
-    def _install(
+    def _install_compiled(
         self, compiled: CompiledPolicy, state: CompileState, device: DevicePolicy
     ) -> None:
+        """Swap a full-refresh result in (lock held)."""
         low = np.full(MAX_USER_IDENTITY + 1, -1, np.int32)
         high: dict = {}
         for ident, row in compiled.id_to_row.items():
@@ -94,9 +203,284 @@ class PolicyEngine:
         self._low_rows = low
         self._high_rows = high
         self._device = device
+        # the one [N, S/32] pull: the host mirror the deltas patch
+        self._sel_match_host = device.sel_match.cpu().numpy().view(np.uint32).copy()
         self._compiled = compiled
         self._state = state
+        self._conj_unpacked = None
+        self._pending_idents.clear()
         self.install_gen += 1
+        self._log_delta("full", ())
+
+    def _full_refresh(self) -> CompiledPolicy:
+        t0 = time.perf_counter()
+        compiled, state, device = self._compute_full(self.repo, self.registry, self.device)
+        self._install_compiled(compiled, state, device)
+        _metrics.engine_refresh_seconds.observe(time.perf_counter() - t0, {"kind": "full"})
+        _metrics.engine_refreshes_total.inc({"kind": "full"})
+        return compiled
+
+    def _up(self, a) -> torch.Tensor:
+        """numpy → tensor on the engine's device; uint32 words travel as
+        int32 bit views."""
+        a = np.ascontiguousarray(a)
+        if a.dtype == np.uint32:
+            a = a.view(np.int32)
+        return torch.from_numpy(a).to(self.device)
+
+    def _idx(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.asarray(a, np.int64)).to(self.device)
+
+    # -- incremental paths ---------------------------------------------
+    def _apply_identity_delta(self) -> bool:
+        """Apply pending identity adds/releases as device row updates.
+        False → caller must full-rebuild."""
+        c = self._compiled
+        assert c is not None
+        target_version = self.registry.version
+        if c.identity_version == target_version:
+            return True
+        pend = list(self._pending_idents)
+        # The observer feed must cover exactly the version gap; if the
+        # engine attached late or events were lost, rebuild.
+        if len(pend) != target_version - c.identity_version:
+            return False
+        if self.registry.padded_rows() != c.id_bits.shape[0]:
+            # row-capacity bucket crossed → the device tables reshape
+            _metrics.jit_shape_buckets_total.inc({"site": "engine_rows", "result": "miss"})
+            return False
+        _metrics.jit_shape_buckets_total.inc({"site": "engine_rows", "result": "hit"})
+
+        vocab = self.registry.vocab
+        plans: List[Tuple[int, bool, object]] = []
+        for ident, added in pend:
+            row = self.registry.row(ident.id)
+            if row is None:
+                return False
+            if added:
+                bits = vocab.identity_bits(ident.labels)  # may grow vocab
+                plans.append((row, True, (ident, bits)))
+            else:
+                plans.append((row, False, ident))
+        if vocab.num_words > c.num_words:
+            return False  # new label words → conjunct arrays reshape
+
+        events: List[Tuple[int, int, bool]] = []
+        for row, added, info in plans:
+            if added:
+                ident, bits = info
+                c.id_bits[row] = vocab.pack(bits, c.num_words)
+                c.row_ids[row] = ident.id
+                c.row_live[row] = True
+                c.id_to_row[ident.id] = row
+                self._set_row_index(ident.id, row)
+                events.append((row, ident.id, True))
+            else:
+                ident = info
+                c.id_bits[row] = 0
+                c.row_live[row] = False
+                c.id_to_row.pop(ident.id, None)
+                self._set_row_index(ident.id, -1)
+                events.append((row, ident.id, False))
+
+        idx = np.asarray(sorted({row for row, _, _ in events}), np.int64)
+        # sel_match rows recomputed on the host (a small [k, S] match);
+        # the unpacked conjunct operands are cached across churn
+        sub_bits = c.id_bits[idx]
+        if self._conj_unpacked is None:
+            self._conj_unpacked = unpack_conjuncts(c.conj_req, c.conj_forbid)
+        m = host_selector_matches(
+            sub_bits, c.conj_req, c.conj_forbid, c.conj_valid, c.req_count,
+            unpacked=self._conj_unpacked,
+        )  # [k, S]
+        words = _pack_match_words(m)
+        assert self._sel_match_host is not None
+        self._sel_match_host[idx] = words
+
+        device = self._device
+        assert device is not None
+        rows = self._idx(idx)
+        self._device = DevicePolicy(
+            id_bits=_set_rows(device.id_bits, rows, self._up(sub_bits)),
+            sel_match=_set_rows(device.sel_match, rows, self._up(words)),
+            ingress=device.ingress, egress=device.egress,
+        )
+        # Only the processed prefix is consumed — events racing in during
+        # this delta stay queued and are covered by the next refresh.
+        c.identity_version = target_version
+        del self._pending_idents[: len(pend)]
+        _metrics.engine_delta_rows_total.inc(value=len(events))
+        # payload: (row, identity_id, live) events in apply order
+        self._log_delta("rows", tuple(events))
+        return True
+
+    def _patch_tables(self, tables: DeviceTables, writes) -> DeviceTables:
+        """Apply a DirectionPacker write log as one scatter per touched
+        field: only the touched cells travel to the device. Each write
+        carries its value (1 for appends, 0 for delete retractions)."""
+        if not writes:
+            return tables
+        # one write per cell, the last one (a sequential scatter's
+        # result): torch's index_put leaves duplicate indices unordered
+        by_name: dict = {}
+        for name, i, j, v in writes:
+            if name in ("group_no_peers", "port_vocab"):
+                by_name.setdefault(name, {})[i] = (i, j, v)
+            else:
+                by_name.setdefault(name, {})[(i, j)] = (i, j, v)
+        reps: dict = {}
+        for name, cells in by_name.items():
+            items = list(cells.values())
+            ii = self._idx([x[0] for x in items])
+            jj = [x[1] for x in items]
+            vv = [x[2] for x in items]
+            if name in _TRANSPOSED:
+                field = _TRANSPOSED[name]
+                reps[field] = getattr(tables, field).index_put((self._idx(jj), ii), self._up(np.asarray(vv, np.int8)))
+            elif name in _DIRECT:
+                field = _DIRECT[name]
+                reps[field] = getattr(tables, field).index_put((ii, self._idx(jj)), self._up(np.asarray(vv, np.int8)))
+            elif name == "group_no_peers":
+                reps["group_no_peers"] = tables.group_no_peers.index_put((ii,), self._up(np.asarray(vv, bool)))
+            elif name == "port_vocab":  # (pid, port, proto)
+                reps["ports"] = tables.ports.index_put((ii,), self._up(np.asarray(jj, np.int32)))
+                reps["protos"] = tables.protos.index_put((ii,), self._up(np.asarray(vv, np.int32)))
+            else:  # pragma: no cover - unknown write kind
+                raise KeyError(name)
+        return dataclasses.replace(tables, **reps)
+
+    def _apply_rule_append(self, rules, revision: int) -> bool:
+        """Append a rule batch in place, advancing the compiled revision
+        to the op's own revision. False → full rebuild needed."""
+        c = self._compiled
+        assert c is not None and self._state is not None
+        res = try_append_rules(c, self._state, self.registry, rules, revision)
+        if res is None:
+            return False
+        self._conj_unpacked = None  # conjunct rows changed
+        old_s, new_s = res
+        new_match = None
+        if new_s > old_s:
+            # New selector columns: match against ALL identities, then
+            # OR the bits into the packed words (the columns were zero).
+            m = host_selector_matches(
+                c.id_bits, c.conj_req[old_s:new_s], c.conj_forbid[old_s:new_s],
+                c.conj_valid[old_s:new_s], c.req_count[old_s:new_s],
+            )  # [N, k]
+            sm = self._sel_match_host
+            assert sm is not None
+            for j, sid in enumerate(range(old_s, new_s)):
+                col = m[:, j]
+                if col.any():
+                    sm[:, sid >> 5] |= col.astype(np.uint32) << np.uint32(sid & 31)
+            # only the word window the new selector bits land in moves,
+            # and only for the rows that matched
+            cols = np.arange(old_s >> 5, ((new_s - 1) >> 5) + 1, dtype=np.int64)
+            touched = np.nonzero(m.any(axis=1))[0]
+            new_match = self._scatter_sel_window(sm, touched, cols)
+            if touched.size:
+                # payload: (sel_lo, sel_hi, touched identity rows)
+                self._log_delta("cols", (old_s, new_s, tuple(int(r) for r in touched)))
+                _metrics.engine_delta_cols_total.inc(value=int(touched.size))
+        device = self._device
+        assert device is not None
+        self._device = DevicePolicy(
+            id_bits=device.id_bits,
+            sel_match=new_match if new_match is not None else device.sel_match,
+            ingress=self._patch_tables(device.ingress, self._state.ingress.take_writes()),
+            egress=self._patch_tables(device.egress, self._state.egress.take_writes()),
+        )
+        # payload: op + the subject selector ids the batch touches —
+        # every verdict term is subject-gated, so these columns bound
+        # the policymap cells the delta can change
+        self._log_delta("rules", ("add", subject_sids(rules, self._state.table)))
+        return True
+
+    def _scatter_sel_window(self, sm: np.ndarray, touched: np.ndarray, cols: np.ndarray):
+        """Upload the changed sel_match word window: a row-sparse
+        scatter when few identities matched, the dense column window
+        otherwise."""
+        device = self._device
+        assert device is not None
+        if touched.size == 0:
+            # no identity matches the new selectors: their bits stay zero
+            return device.sel_match
+        if touched.size <= max(8, sm.shape[0] // 4):
+            return _set_rows_cols(
+                device.sel_match, self._idx(touched), self._idx(cols), self._up(sm[np.ix_(touched, cols)])
+            )
+        return _set_col_window(device.sel_match, int(cols[0]), self._up(sm[:, cols]))
+
+    def _apply_rule_delete(self, rules, revision: int) -> bool:
+        """Retract a deleted rule batch in place (repository.go
+        DeleteByLabels:286): refcounted matrix cells drop to zero and
+        are scattered as value-0 writes. False → full rebuild needed (a
+        rule this compile never attributed)."""
+        c = self._compiled
+        state = self._state
+        assert c is not None and state is not None
+        ing, eg = state.ingress, state.egress
+        keys = [id(r) for r in rules]
+        # check attribution FIRST: a partial removal (ingress done,
+        # egress unknown) would leave the two directions inconsistent
+        if any(k not in ing.rule_cells or k not in eg.rule_cells for k in keys):
+            return False
+        for k in keys:
+            ing.remove_rule(k)
+            eg.remove_rule(k)
+        ing.refresh_entry_views()
+        eg.refresh_entry_views()
+        device = self._device
+        assert device is not None
+        self._device = DevicePolicy(
+            id_bits=device.id_bits,
+            sel_match=device.sel_match,
+            ingress=self._patch_tables(device.ingress, ing.take_writes()),
+            egress=self._patch_tables(device.egress, eg.take_writes()),
+        )
+        c.revision = revision
+        # deletes only retract cells under the removed rules' subject
+        # selectors; the selectors stay interned
+        self._log_delta("rules", ("del", subject_sids(rules, state.table)))
+        return True
+
+    def wait_device(self) -> None:
+        """Block until every queued device update (row scatters,
+        sel_match windows, table patches) has completed: a synchronize
+        of the engine's device, nothing on the CPU. The refresh path
+        never calls it; benches and tests use it as the completion edge
+        of a delta."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _set_row_index(self, ident_id: int, row: int) -> None:
+        assert self._low_rows is not None
+        if ident_id < self._low_rows.size:
+            self._low_rows[ident_id] = row
+        elif row < 0:
+            self._high_rows.pop(ident_id, None)
+        else:
+            self._high_rows[ident_id] = row
+
+    def sel_match_rows(
+        self, rows: Sequence[int], words: Optional[Sequence[int]] = None
+    ) -> Optional[np.ndarray]:
+        """Final-state copy of the host sel_match mirror: the requested
+        identity rows (× the requested packed words, all when None), or
+        None when nothing is compiled or an index is out of bounds."""
+        ridx = np.asarray(rows, np.int64)
+        widx = None if words is None else np.asarray(words, np.int64)
+        with self._lock:
+            sm = self._sel_match_host
+            if sm is None:
+                return None
+            if ridx.size and (ridx.min() < 0 or ridx.max() >= sm.shape[0]):
+                return None
+            if widx is not None and widx.size and (widx.min() < 0 or widx.max() >= sm.shape[1]):
+                return None
+            if widx is None:
+                return sm[ridx].copy()
+            return sm[np.ix_(ridx, widx)].copy()
 
     @property
     def device_policy(self) -> DevicePolicy:
@@ -154,8 +538,9 @@ class PolicyEngine:
     ):
         """(AttribTables, n_rules) for the attribution kernel variant,
         or None when the engine carries no compile state. Cached per
-        (install_gen, revision): any recompile rebuilds it from the
-        packers' rule_cells refcounts.
+        (install_gen, revision): identity churn keeps the cache, any
+        rule movement (append, delete, full refresh) rebuilds it from
+        the packers' rule_cells refcounts.
 
         ``expect_revision`` lets a caller that already holds a
         (compiled, device) snapshot demand tables consistent with it: a
@@ -185,9 +570,6 @@ class PolicyEngine:
                     )
                 cache = self._attrib_cache = (key, tabs, len(rules))
             return cache[1][ingress], cache[2]
-
-    def _up(self, a) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
     def verdicts(
         self,

@@ -58,6 +58,19 @@ class PolicymapTables:
         return self.id_bits[:, self.id_bits.shape[1] // 2:]
 
 
+def patch_bitmap_cols(
+    tab: torch.Tensor,  # [N, W]
+    col_idx: torch.Tensor,  # [k] int64, no repeats
+    cols: torch.Tensor,  # [N, k], dtype of ``tab``
+) -> torch.Tensor:
+    """Scatter whole columns into a per-identity table, out of place —
+    the column dual of ``materialize._patch_bitmap_rows``. Serves both
+    the packed ``id_bits`` word columns and the int32 ``rule_tab``
+    columns of the rule-patch path: a rule touching k columns uploads
+    [N, k] words, not the table."""
+    return tab.index_copy(1, col_idx, cols)
+
+
 def policymap_verdict_plain(
     t: PolicymapTables,
     src_rows: torch.Tensor,  # [B] int32 identity rows

@@ -15,6 +15,13 @@ bit for bit. With rule-origin tables (verdict attribution) the sweep
 always takes the flow route, :func:`_sweep_device_attrib`, whose
 per-flow term vectors give each (identity row, column) its deciding
 rule (``rule_nc`` / ``rule_tab``).
+
+The engine's deltas patch a materialized state in place of a new
+sweep: :func:`patch_identity_rows` re-sweeps the changed identity rows
+against every column, :func:`patch_endpoints_state` the columns of the
+endpoints a rule delta can touch against every row. Each writes its
+device words with one out-of-place indexing op (:func:`_patch_bitmap_rows`,
+``lookup.patch_bitmap_cols``).
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ import torch
 
 from ..compiler.program import CompiledPolicy, PROTO_TCP_N
 from .bitmap import pack_bool_bits, unpack_bits_u32
-from .lookup import PolicymapTables
+from .lookup import PolicymapTables, patch_bitmap_cols
 from .verdict import ALLOW, AttribTables, DevicePolicy, bool_mm, verdict_batch
 
 TRAFFIC_INGRESS = 0
@@ -309,11 +316,25 @@ def _sweep_segments(
     return allow_sn, l3_sn, red_sn, rule_sn
 
 
-def _pack_rows_np(m: np.ndarray) -> np.ndarray:
-    """[N, K] bool (K a multiple of 32) → [N, K/32] int32 words in
-    pack_bool_bits bit order."""
-    packed = np.packbits(m, axis=1, bitorder="little")
-    return packed.view("<i4").astype(np.int32)
+def _pack_rows(rows_bool: np.ndarray) -> np.ndarray:
+    """[k, C_pad] bool → [k, C_pad/32] uint32 in pack_bool_bits bit
+    order (C_pad is a multiple of 32 by construction)."""
+    packed = np.packbits(rows_bool, axis=1, bitorder="little")
+    return packed.view(np.uint32).reshape(rows_bool.shape[0], rows_bool.shape[1] // 32)
+
+
+def _pack_col_word(cols_bool: np.ndarray) -> np.ndarray:
+    """[N, ≤32] bool column block → [N] uint32 (one packed id_bits
+    word; short tails zero-pad, matching pack_bool_bits)."""
+    n, w = cols_bool.shape
+    if w < 32:
+        cols_bool = np.concatenate([cols_bool, np.zeros((n, 32 - w), bool)], axis=1)
+    return np.packbits(cols_bool, axis=1, bitorder="little").view(np.uint32)[:, 0]
+
+
+def _words(a: np.ndarray, dev) -> torch.Tensor:
+    """uint32 words → int32 bit-view tensor on ``dev``."""
+    return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)
 
 
 def materialize_endpoints_state(
@@ -445,9 +466,7 @@ def materialize_endpoints_state(
         col_proto=col(col_proto, np.int32),
         col_is_l3=col(col_is_l3, bool),
         # allow ‖ redirect in one table: one row read serves both
-        id_bits=torch.from_numpy(
-            _pack_rows_np(np.concatenate([allow_nc, red_nc], axis=1))
-        ).to(dev),
+        id_bits=_words(_pack_rows(np.concatenate([allow_nc, red_nc], axis=1)), dev),
     )
     return MaterializedState(
         tables=tables,
@@ -460,6 +479,309 @@ def materialize_endpoints_state(
         red_nc=red_nc,
         n_cols=c,
         rule_nc=rule_nc,
-        rule_tab=torch.from_numpy(rule_nc).to(dev) if rule_nc is not None else None,
+        # a copy even on the CPU: the patches write rule_nc in place
+        rule_tab=torch.from_numpy(rule_nc).to(dev, copy=True) if rule_nc is not None else None,
     )
 
+
+
+def _seg_bucket(n_seg: int) -> int:
+    b = 8
+    while b < n_seg:
+        b <<= 1
+    return b
+
+
+def _patch_bitmap_rows(tab: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Whole rows into a per-identity table, out of place (a published
+    snapshot or an in-flight batch may hold the old tensor)."""
+    return tab.index_copy(0, idx, rows)
+
+
+# Flows per verdict block of a patch's sweep (a full sweep's default).
+_PATCH_BLOCK = 8192
+
+
+def _refuse_placed(placed) -> None:
+    if placed is not None:
+        raise NotImplementedError("placed tables (multi-device placement) are not in the torch port yet")
+
+
+def patch_identity_rows(
+    state: MaterializedState,
+    device: DevicePolicy,
+    row_events: Sequence[Tuple[int, int, bool]],
+    *,
+    attrib_origin: Optional[AttribTables] = None,
+    n_rules: int = 0,
+    placed=None,
+) -> None:
+    """Apply identity-churn row updates to a materialized policymap.
+
+    ``row_events``: (row, identity_id, live) in order. Dead rows zero
+    out; live rows get a fresh verdict sweep over every column segment
+    of every endpoint — n_seg × k flows instead of the full n_seg × N
+    re-materialization. Snapshots (host policymap dicts) are patched in
+    place. With attribution on the state (rule_nc / rule_tab) and an
+    ``attrib_origin`` the sweep runs the attribution variant too;
+    without an origin the patched rows' rule entries become -1.
+    ``placed`` (multi-device placement) must be None."""
+    _refuse_placed(placed)
+    if not row_events:
+        return
+    direction = TRAFFIC_INGRESS if state.ingress else TRAFFIC_EGRESS
+    # last event per row wins for the verdict sweep; all ids seen on a
+    # row get their stale snapshot entries dropped
+    stale_ids = {int(ident) for _r, ident, _l in row_events}
+    final: Dict[int, Tuple[int, bool]] = {}
+    for row, ident, live in row_events:
+        final[int(row)] = (int(ident), bool(live))
+
+    for snap in state.snapshots:
+        for key in [k for k in snap.entries if k.identity in stale_ids]:
+            del snap.entries[key]
+
+    rows = sorted(final)
+    live_rows = [r for r in rows if final[r][1]]
+    dev = device.sel_match.device
+    if live_rows:
+        seg_subj: List[int] = []
+        seg_port: List[int] = []
+        seg_proto: List[int] = []
+        seg_l4: List[bool] = []
+        seg_col: List[int] = []
+        col = 0
+        for e, ep_row in enumerate(state.ep_rows):
+            seg_subj.append(int(ep_row))
+            seg_port.append(0)
+            seg_proto.append(0)
+            seg_l4.append(False)
+            seg_col.append(col)
+            col += 1
+            for port, proto in state.ep_slots[e]:
+                seg_subj.append(int(ep_row))
+                seg_port.append(port)
+                seg_proto.append(proto)
+                seg_l4.append(True)
+                seg_col.append(col)
+                col += 1
+        n_seg = len(seg_subj)
+        k = len(live_rows)
+        # fit the verdict block to the sweep: a single-identity patch is
+        # n_seg·k ≈ E·(1+slots) flows, far under a full sweep's block
+        block = min(_PATCH_BLOCK, max(64, _seg_bucket(n_seg * k)))
+
+        def lanes(vals, dtype):
+            return torch.from_numpy(np.repeat(np.asarray(vals, dtype), k)).to(dev)
+
+        sweep_args = (
+            device,
+            lanes(seg_subj, np.int32),
+            torch.from_numpy(np.tile(np.asarray(live_rows, np.int32), n_seg)).to(dev),
+            lanes(seg_port, np.int32),
+            lanes(seg_proto, np.int32),
+            lanes(seg_l4, bool),
+        )
+        rl = None
+        if state.rule_nc is not None and attrib_origin is not None:
+            v, at, _hits = verdict_batch(
+                *sweep_args, ingress=state.ingress, block=block, attrib=True,
+                origin=attrib_origin, n_rules=n_rules,
+            )
+            rl = at.rule.cpu().numpy().reshape(n_seg, k)
+        else:
+            v = verdict_batch(*sweep_args, ingress=state.ingress, block=block)
+        dec = v.decision.cpu().numpy().reshape(n_seg, k)
+        l3d = v.l3.cpu().numpy().reshape(n_seg, k)
+        red = v.l7_redirect.cpu().numpy().reshape(n_seg, k)
+
+    for r in rows:
+        state.allow_nc[r] = False
+        state.red_nc[r] = False
+        if state.rule_nc is not None:
+            state.rule_nc[r] = -1
+
+    if live_rows:
+        row_pos = {r: i for i, r in enumerate(live_rows)}
+        seg_i = 0
+        for e in range(len(state.ep_rows)):
+            snap = state.snapshots[e]
+            # the endpoint's L3 allow, for the exact-entry condition
+            l3_allow = l3d[seg_i] == 1
+            ci = seg_col[seg_i]
+            for r in live_rows:
+                i = row_pos[r]
+                allowed = l3_allow[i]
+                state.allow_nc[r, ci] = allowed
+                if rl is not None:
+                    state.rule_nc[r, ci] = rl[seg_i, i]
+                if allowed:
+                    snap.entries[PolicyKey(final[r][0], 0, 0, direction)] = 0
+            seg_i += 1
+            for port, proto in state.ep_slots[e]:
+                ci = seg_col[seg_i]
+                for r in live_rows:
+                    i = row_pos[r]
+                    allowed = dec[seg_i, i] == ALLOW
+                    redir = bool(red[seg_i, i])
+                    state.allow_nc[r, ci] = allowed
+                    state.red_nc[r, ci] = allowed and redir
+                    if rl is not None:
+                        state.rule_nc[r, ci] = rl[seg_i, i]
+                    if allowed and (not l3_allow[i] or redir):
+                        snap.entries[PolicyKey(final[r][0], port, proto, direction)] = int(redir)
+                seg_i += 1
+
+    idx_np = np.asarray(rows, np.int64)
+    idx = torch.from_numpy(idx_np).to(dev)
+    comb_rows = _pack_rows(np.concatenate([state.allow_nc[idx_np], state.red_nc[idx_np]], axis=1))
+    state.tables = dataclasses.replace(
+        state.tables, id_bits=_patch_bitmap_rows(state.tables.id_bits, idx, _words(comb_rows, dev))
+    )
+    if state.rule_nc is not None and state.rule_tab is not None:
+        rvals = torch.from_numpy(np.ascontiguousarray(state.rule_nc[idx_np])).to(dev)
+        state.rule_tab = _patch_bitmap_rows(state.rule_tab, idx, rvals)
+
+
+def patch_endpoints_state(
+    state: MaterializedState,
+    compiled: CompiledPolicy,
+    device: DevicePolicy,
+    touched_sids: Sequence[int],
+    *,
+    attrib_origin: Optional[AttribTables] = None,
+    n_rules: int = 0,
+    placed=None,
+) -> bool:
+    """O(delta) column re-materialization for a rule append/delete.
+
+    Every verdict term is gated on the SUBJECT selector, so a rule delta
+    can only change policymap cells in the columns of endpoints whose
+    identity matches one of the rule's subject selectors
+    (``touched_sids``, from the engine's delta log). Re-sweep exactly
+    those endpoints' column segments against the already-patched device
+    tables and scatter the changed id_bits words / rule_tab columns —
+    O(affected · N) instead of E × N.
+
+    Returns False when the delta is not expressible as a column patch
+    and the caller must call ``materialize_endpoints_state``: the row
+    capacity moved, attribution state mismatched, or an affected
+    endpoint's slot set GREW (new columns). Shrunken slot sets keep
+    their stale columns, which re-sweep to the now-denied values.
+    Snapshots of affected endpoints are rebuilt in place. ``placed``
+    (multi-device placement) must be None."""
+    _refuse_placed(placed)
+    n = compiled.id_bits.shape[0]
+    if state.allow_nc.shape[0] != n:
+        return False  # row-bucket crossing — full rebuild
+    if (state.rule_nc is not None) != (attrib_origin is not None):
+        return False
+    sids = sorted({int(s) for s in touched_sids})
+    n_ep = len(state.ep_rows)
+    if not sids or n_ep == 0:
+        return True
+    if any(s >> 5 >= device.sel_match.shape[1] for s in sids):
+        return False  # selector axis outgrew the device tables
+
+    # Affected endpoints: subject row matches any touched selector. The
+    # bounded [E, S/32] pull of the endpoint rows is the path's only
+    # read of sel_match (never the [N, S/32] matrix).
+    dev = device.sel_match.device
+    ep_sel = (
+        device.sel_match[torch.from_numpy(state.ep_rows.astype(np.int64)).to(dev)]
+        .cpu().numpy().view(np.uint32)
+    )
+    word = np.asarray([s >> 5 for s in sids])
+    bit = np.asarray([s & 31 for s in sids], np.uint32)
+    hit = ((ep_sel[:, word] >> bit[None, :]) & 1).astype(bool).any(axis=1)
+    affected = np.nonzero(hit)[0]
+    if affected.size == 0:
+        return True  # no local endpoint matches the rule's subject
+
+    # canonical column offsets: one L3 column then one per slot,
+    # endpoint-major
+    col_of = np.zeros(n_ep + 1, np.int64)
+    for e in range(n_ep):
+        col_of[e + 1] = col_of[e] + 1 + len(state.ep_slots[e])
+    if int(col_of[n_ep]) != state.n_cols:
+        return False
+
+    # slot-layout guard: the patch reuses the existing columns
+    for e in affected:
+        if not set(_endpoint_slots(compiled, ep_sel[e], state.ingress)) <= set(state.ep_slots[e]):
+            return False
+
+    segs: List[Tuple[int, int, int, bool]] = []
+    for e in affected:
+        row = int(state.ep_rows[e])
+        segs.append((row, 0, 0, False))
+        segs += [(row, port, proto, True) for port, proto in state.ep_slots[e]]
+    allow_sn, l3_sn, red_sn, rule_sn = _sweep_segments(
+        device,
+        np.asarray([x[0] for x in segs], np.int32),
+        np.asarray([x[1] for x in segs], np.int32),
+        np.asarray([x[2] for x in segs], np.int32),
+        np.asarray([x[3] for x in segs], bool),
+        n,
+        ingress=state.ingress,
+        block=_PATCH_BLOCK,
+        attrib_origin=attrib_origin,
+        n_rules=n_rules,
+    )
+
+    live = compiled.row_live
+    direction = TRAFFIC_INGRESS if state.ingress else TRAFFIC_EGRESS
+    touched_cols: List[int] = []
+    seg = 0
+    for e in affected:
+        snap = state.snapshots[e]
+        l3_allow = l3_sn[seg] & live
+        ci = int(col_of[e])
+        state.allow_nc[:, ci] = l3_allow
+        state.red_nc[:, ci] = False
+        if state.rule_nc is not None:
+            state.rule_nc[:, ci] = rule_sn[seg]
+        touched_cols.append(ci)
+        seg += 1
+        entries: Dict[PolicyKey, int] = {}
+        for r_idx in np.nonzero(l3_allow)[0]:
+            entries[PolicyKey(int(compiled.row_ids[r_idx]), 0, 0, direction)] = 0
+        for j, (port, proto_n) in enumerate(state.ep_slots[e]):
+            allow = allow_sn[seg] & live
+            redirect = red_sn[seg] & live
+            cj = ci + 1 + j
+            state.allow_nc[:, cj] = allow
+            state.red_nc[:, cj] = redirect
+            if state.rule_nc is not None:
+                state.rule_nc[:, cj] = rule_sn[seg]
+            touched_cols.append(cj)
+            seg += 1
+            for r_idx in np.nonzero(allow & (~l3_allow | redirect))[0]:
+                entries[PolicyKey(int(compiled.row_ids[r_idx]), port, proto_n, direction)] = int(
+                    redirect[r_idx])
+        # in place: holders of the snapshot dict see the update
+        snap.entries.clear()
+        snap.entries.update(entries)
+
+    # Device scatter of only the packed words the touched columns live
+    # in. Allow word w holds columns 32w..32w+31; the redirect copy of
+    # word w sits c_pad/32 words later (id_bits = allow ‖ redirect).
+    c_pad = state.allow_nc.shape[1]
+    word_idx: List[int] = []
+    word_vals: List[np.ndarray] = []
+    for w in sorted({c >> 5 for c in touched_cols}):
+        cols = slice(w * 32, min((w + 1) * 32, c_pad))
+        word_idx.append(w)
+        word_vals.append(_pack_col_word(state.allow_nc[:, cols]))
+        word_idx.append(c_pad // 32 + w)
+        word_vals.append(_pack_col_word(state.red_nc[:, cols]))
+    state.tables = dataclasses.replace(state.tables, id_bits=patch_bitmap_cols(
+        state.tables.id_bits, torch.from_numpy(np.asarray(word_idx, np.int64)).to(dev),
+        _words(np.stack(word_vals, axis=1), dev),
+    ))
+    if state.rule_nc is not None and state.rule_tab is not None:
+        state.rule_tab = patch_bitmap_cols(
+            state.rule_tab, torch.from_numpy(np.asarray(touched_cols, np.int64)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(state.rule_nc[:, touched_cols])).to(dev),
+        )
+    return True

@@ -103,7 +103,8 @@ class Verdict:
 
 
 def _t(a: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    # a copy even on the CPU: the packers patch their matrices in place
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
 
 
 @dataclasses.dataclass(frozen=True)

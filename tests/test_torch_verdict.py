@@ -100,7 +100,14 @@ def test_engine_refreshes_when_identities_or_rules_move():
     first = te.refresh()
     assert te.refresh() is first  # nothing moved
     from cilium_tpu_torch.labels import parse_label_array
+    from cilium_tpu_torch.policy.api import EndpointSelector, IngressRule, rule
 
-    w.reg.allocate(parse_label_array(["k8s:app=a1", "k8s:uid=new"]))
-    assert te.refresh() is not first
+    dev0 = te.device_policy
+    ident = w.reg.allocate(parse_label_array(["k8s:app=a1", "k8s:uid=new"]))
+    moved = te.refresh()
+    assert moved.identity_version == w.reg.version and ident.id in moved.id_to_row
+    assert te.device_policy is not dev0  # the row update published new tensors
+    w.repo.add_list([rule(["k8s:app=a1"], ingress=[IngressRule(
+        from_endpoints=(EndpointSelector.make(["k8s:app=a2"]),))])])
+    assert te.refresh().revision == w.repo.revision
 
