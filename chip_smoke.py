@@ -117,6 +117,23 @@
    delta. After each kind: the patched pipeline against a forced full
    rebuild of a fresh engine (policymap words, bitmaps, rule tables,
    1 048 576-flow v4 and v6 verdicts) and the host oracle on 40 flows.
+4i. The sparse-delta and epoch-swap main path, launch counts from zero,
+   on a bench world of its own with DatapathPipeline(engine, cache,
+   PreFilter(), sparse_deltas=True) (bench.py:2862-2877, :2742-2753):
+   20 ipcache churn rounds a family (upsert a new address under an
+   existing identity, rebuild, delete, rebuild) with the trie mirrors
+   and with set_sparse_deltas(False): rebuild p50 / p99, patches,
+   mirrors kept, the trie scatter ops' calls, card time and bytes; the
+   fallbacks (a v6 address outside the elided bytes, a spent v4 node
+   pool, a churn on the prefilter pipeline), each a full trie build;
+   after each kind, 1 048 576-flow v4 and v6 batches whose first lanes
+   carry the churned addresses == a fresh sparse-off pipeline, and the
+   host oracle on 20 flows. Then two epoch swaps: a forced refresh
+   (kick-to-publish wall, the publish and its trie build, beside a
+   synchronous full rebuild) and a rule that gives endpoint 0's app
+   port 9443 while 1 048 576-flow batches are served (each before the
+   publish == the pre-append verdicts, after it == a synchronous
+   rebuild); each shadow's state == a synchronous sweep of its snapshot.
 5. Holds every kernel against its plain version on the card, at the
    main paths' shapes, with exact equality (all outputs are integers),
    and times kernel, plain version and, where one exists, a library
@@ -2602,58 +2619,42 @@ IDENT_BURST = 16
 DELTA_ORACLE = 40  # flows held against the host oracle after each kind
 
 
-class ScatterClock:
-    """CUDA events around every out-of-place indexing op while entered:
-    the scatter helpers are one op each (``index_put``: the engine's
-    ``_set_rows`` / ``_set_rows_cols`` / ``_patch_tables``;
-    ``index_copy`` on dim 0: ``_patch_bitmap_rows``, on dim 1:
-    ``patch_bitmap_cols``; ``slice_scatter``: ``_set_col_window``). Per
-    helper: calls, card time and the bytes the op must move (the whole
-    input read, the whole output written, indices and values once)."""
+class OpClock:
+    """CUDA events around every call of the wrapped functions while
+    entered (``targets``: (owner, attribute) pairs, a tensor method or a
+    module function). Per helper (``label(attribute, args)``): calls,
+    card time and the bytes the out-of-place op must move (every tensor
+    argument read once, the outputs written once)."""
 
-    OPS = ("index_put", "index_copy", "slice_scatter")
-
-    def __init__(self):
+    def __init__(self, targets, label):
+        self.targets = targets
+        self.label = label
         self.by = {}  # helper → [calls, bytes, [(start, end)]]
-
-    @staticmethod
-    def helper(op: str, args) -> str:
-        if op == "index_put":
-            return "engine index_put"
-        if op == "slice_scatter":
-            return "_set_col_window"
-        return "_patch_bitmap_rows" if args[0] == 0 else "patch_bitmap_cols"
 
     def __enter__(self):
         import torch
 
-        self.real = {name: getattr(torch.Tensor, name) for name in self.OPS}
-        clock = self
-
-        def wrap(name, real):
-            def op(t, *args, **kw):
+        self.saved = [(owner, name, getattr(owner, name)) for owner, name in self.targets]
+        for owner, name, real in self.saved:
+            def op(*args, _real=real, _name=name, **kw):
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-                out = real(t, *args, **kw)
+                out = _real(*args, **kw)
                 end.record()
                 flat = [a for x in args for a in (x if isinstance(x, (tuple, list)) else (x,))]
-                e = clock.by.setdefault(clock.helper(name, args), [0, 0, []])
+                outs = out if isinstance(out, tuple) else (out,)
+                e = self.by.setdefault(self.label(_name, args), [0, 0, []])
                 e[0] += 1
-                e[1] += 2 * nbytes(t) + nbytes(*(a for a in flat if isinstance(a, torch.Tensor)))
+                e[1] += nbytes(*(a for a in flat if isinstance(a, torch.Tensor)), *outs)
                 e[2].append((start, end))
                 return out
-            return op
-
-        for name, real in self.real.items():
-            setattr(torch.Tensor, name, wrap(name, real))
+            setattr(owner, name, op)
         return self
 
     def __exit__(self, *exc):
-        import torch
-
-        for name, real in self.real.items():
-            setattr(torch.Tensor, name, real)
+        for owner, name, real in self.saved:
+            setattr(owner, name, real)
 
     def summary(self):
         """{helper: (calls, card ms, bytes)}."""
@@ -2661,6 +2662,33 @@ class ScatterClock:
 
         torch.cuda.synchronize()
         return {h: (c, sum(s.elapsed_time(e) for s, e in ev), b) for h, (c, b, ev) in self.by.items()}
+
+
+def scatter_clock() -> OpClock:
+    """The delta scatter helpers, one out-of-place op each: ``index_put``
+    (the engine's ``_set_rows`` / ``_set_rows_cols`` / ``_patch_tables``),
+    ``index_copy`` on dim 0 (``_patch_bitmap_rows``) and on dim 1
+    (``patch_bitmap_cols``), ``slice_scatter`` (``_set_col_window``)."""
+    import torch
+
+    def label(op, args):
+        if op == "index_put":
+            return "engine index_put"
+        if op == "slice_scatter":
+            return "_set_col_window"
+        return "_patch_bitmap_rows" if args[1] == 0 else "patch_bitmap_cols"
+    return OpClock([(torch.Tensor, n) for n in ("index_put", "index_copy", "slice_scatter")], label)
+
+
+def trie_clock(by_shape: bool = False) -> OpClock:
+    """The trie scatter helpers of ops/lpm.py that the mirrors' flushes
+    call, by helper, or by helper and the shape of the tensor it patches."""
+    from cilium_tpu_torch.ops import lpm
+
+    def label(name, args):
+        return f"{name} {list(args[0].shape)}" if by_shape else name
+    return OpClock([(lpm, n) for n in ("_patch_trie_rows", "_patch_span1", "_patch_span_row",
+                                       "_patch_elems")], label)
 
 
 class CallRecorder:
@@ -2824,7 +2852,7 @@ def deltas_main_path(seed: int, card: str):
         build, kept the states, K2 / K6 launches, the scatter helpers'
         calls / card ms / bytes in the refresh and the rebuild)."""
         before = _kernels.launches()
-        with ScatterClock() as sc:
+        with scatter_clock() as sc:
             t0 = time.perf_counter()
             mutate()
             t_mut = time.perf_counter() - t0
@@ -3025,6 +3053,509 @@ def delta_rows(dl, row) -> None:
                 err, lambda: first_rule(mask, rule_of), lambda: first_rule_plain(mask, rule_of),
                 b_ms, b_by, f"{kind}: {len(k6)} calls checked, timed mask [{mask.shape[0]}, "
                 f"{mask.shape[1]}]")
+
+
+# the sparse-delta and epoch-swap phase (bench.py:2862-2877 ipcache churn,
+# :2742-2753 epoch swap): churn samples per family, and flows a parity
+# batch gives each churned address
+SPARSE_SAMPLES = 20
+SPARSE_LANES = 64
+SPARSE_ORACLE = 20  # v4 flows held against the host oracle after each kind
+GROW_PORT = 9443
+
+
+def trie_builds(pipe):
+    """Counts and times ``pipe``'s trie builds from now on: [calls, host
+    seconds] (an instance attribute shadows the method)."""
+    spent = [0, 0.0]
+    inner = pipe._build_tries_locked
+
+    def build(compiled):
+        t0 = time.perf_counter()
+        try:
+            return inner(compiled)
+        finally:
+            spent[0] += 1
+            spent[1] += time.perf_counter() - t0
+    pipe._build_tries_locked = build
+    return spent
+
+
+class MatsRecorder:
+    """Keeps the arguments of every ``_build_mats`` call of one pipeline
+    (the shadow's and the synchronous sweep's) and the K2 launches made
+    while the last call ran."""
+
+    def __init__(self, pipe):
+        self.pipe = pipe
+        self.calls = []
+        self.k2 = []
+
+    def __enter__(self):
+        from cilium_tpu_torch import _kernels
+
+        real = self.real = type(self.pipe)._build_mats
+
+        def call(*args):
+            self.calls.append(args)
+            k0 = _kernels.launches()["bool_mm"]
+            out = real(*args)
+            self.k2.append(_kernels.launches()["bool_mm"] - k0)
+            return out
+        self.pipe._build_mats = call
+        return self
+
+    def __exit__(self, *exc):
+        del self.pipe._build_mats
+
+
+def sparse_main_path(seed: int, card: str):
+    """Sparse trie deltas and the epoch swap on the card (bench.py:2862-2877
+    and :2742-2753), on a bench world of its own: PolicyEngine(repo,
+    reg).refresh() → DatapathPipeline(engine, cache, PreFilter(),
+    sparse_deltas=True).rebuild(), launch counts from zero.
+
+    - ipcache churn, 20 samples a family: cache.upsert of a new address
+      under an existing identity, rebuild(), cache.delete, rebuild() — v4
+      10.{hi}.{lo}.9 inside an existing /16 node (and one 172.16.0.9
+      round, which takes a spare node), v6 fd00::{hi}:1{lo} (byte 14 = 1:
+      new, inside the 13 elided bytes). rebuild() p50 / p99 with the
+      mirrors (each churn a patch, the mirror objects kept, no trie
+      build) and after set_sparse_deltas(False) (the full trie build);
+      the trie scatter ops' calls, card ms and bytes per churn.
+    - Fallbacks, each a full trie build that replaces the mirror: a v6
+      address outside the elided fd00::/104; v4 /32s in new /16s until
+      the 16-row node pool is spent; a churn on a pipeline with the
+      bench prefilter (both deny sets live: nothing patched).
+    - After each kind: process() / process_v6() of 1 048 576 flows whose
+      first lanes carry the churned addresses == a fresh pipeline with
+      sparse deltas off (verdicts and redirects), and the host oracle on
+      20 v4 flows.
+    - Epoch swap, round 1: set_epoch_swap(True), refresh(force=True);
+      the wall from the kicking rebuild() to the publishing one, the
+      publish timed apart (its trie build apart), beside a synchronous
+      full rebuild of the same world.
+    - Round 2: a rule giving endpoint 0's app port 9443/TCP (slot
+      growth: the column patch refuses, the shadow sweeps) while v4
+      1 048 576-flow batches are served until wait_epoch_swap() returns:
+      their count and p50 against unloaded process(), the shadow's K2
+      launches; batches before the publish == the pre-append verdicts,
+      after it == a synchronous rebuild. Each round's shadow-built
+      allow / redirect bitmaps and policymap words == a synchronous
+      _build_mats of the same snapshot on the serving stream."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch import _kernels, metrics
+    from cilium_tpu_torch.datapath.pipeline import DatapathPipeline
+    from cilium_tpu_torch.engine import PolicyEngine
+    from cilium_tpu_torch.ipcache.prefilter import PreFilter
+    from cilium_tpu_torch.policy.api import (
+        EndpointSelector, IngressRule, PortProtocol, PortRule, rule,
+    )
+
+    t_phase = time.perf_counter()
+    repo, reg, cache, idents, labels_of = build_world(seed)
+    ips, eps, dports, protos, i_sel = make_flows(seed + 400, len(idents))
+    addr6, eps6, dports6, protos6, _ = make_flows6(seed + 400, len(idents))
+    endpoints = [idents[j].id for j in range(N_ENDPOINTS)]
+    _kernels.reset_launches()
+
+    def prefilter(cidrs=()):
+        pf = PreFilter()
+        if cidrs:
+            pf.insert(pf.revision, list(cidrs))
+        return pf
+
+    def pipeline(engine, pf, **kw):
+        p = DatapathPipeline(engine, cache, pf, **kw)
+        p.set_endpoints(endpoints)
+        return p
+
+    engine = PolicyEngine(repo, reg)
+    engine.refresh()
+    pipe = pipeline(engine, prefilter(), sparse_deltas=True)
+    pipe.rebuild()
+    torch.cuda.synchronize()
+    p4, p6 = pipe._trie_patch[4], pipe._trie_patch[6]
+    t4, t6 = pipe._tables[(0, 4)], pipe._tables[(0, 6)]
+    if p4 is None or p6 is None:
+        fail("sparse: the empty-prefilter pipeline built no trie mirror")
+    if tuple(t4.ip_sub_info.shape) != (16, 65536) or len(p4._nodes) != 8:
+        fail(f"sparse: v4 trie sub_info {tuple(t4.ip_sub_info.shape)} with {len(p4._nodes)} deep "
+             f"nodes, expected [16, 65536] and 8")
+    if t6.ip_common.shape[0] != 13:
+        fail(f"sparse: the v6 trie elided {t6.ip_common.shape[0]} bytes, not 13")
+    print(f"main path sparse: mirrors built, v4 flat trie sub_info {list(t4.ip_sub_info.shape)} "
+          f"({len(p4._nodes)} deep nodes), v6 elided trie [{t6.ip_child.shape[0]}, 256] K "
+          f"{t6.ip_common.shape[0]} ({len(p6._children)} nodes) [{card}]", flush=True)
+
+    def sample(fam, i):
+        """(address, identity index) of churn sample i."""
+        j = (37 * i + 5) % len(idents)
+        hi, lo = (j >> 8) & 255, j & 255
+        if fam == 4:
+            return ("172.16.0.9" if i == SPARSE_SAMPLES - 1 else f"10.{hi}.{lo}.9"), j
+        return f"fd00::{hi:x}:1{lo:02x}", j
+
+    builds = trie_builds(pipe)
+
+    def patches(fam):
+        return metrics.lpm_trie_patches_total.get({"family": str(fam)})
+
+    def h2d():
+        return metrics.device_transfer_bytes_total.get({"direction": "h2d"})
+
+    def timed_rebuild(p):
+        t0 = time.perf_counter()
+        p.rebuild()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def churn(fam, sparse: bool):
+        """20 upsert / delete rounds → rebuild seconds, mirror kept per
+        round, trie scatter summaries and h2d bytes per churn."""
+        secs, kept, clocks, moved = [], 0, [], []
+        for i in range(SPARSE_SAMPLES):
+            addr, j = sample(fam, i)
+            mirror = pipe._trie_patch[fam] if sparse else None
+            for mutate in (lambda: cache.upsert(addr, idents[j].id, source="k8s"),
+                           lambda: cache.delete(addr, "k8s")):
+                mutate()
+                b0 = h2d()
+                with trie_clock() as tc:
+                    secs.append(timed_rebuild(pipe))
+                clocks.append(tc.summary())
+                moved.append(h2d() - b0)
+            kept += sparse and pipe._trie_patch[fam] is mirror
+        return secs, kept, clocks, moved
+
+    # warm both families' patch paths once
+    for fam in (4, 6):
+        addr, j = f"10.0.0.9" if fam == 4 else "fd00::0:1ff", 0
+        cache.upsert(addr, idents[j].id, source="k8s")
+        pipe.rebuild()
+        cache.delete(addr, "k8s")
+        pipe.rebuild()
+    builds[0] = 0
+    results = {}
+    for fam in (4, 6):
+        n0, b0 = patches(fam), builds[0]
+        secs, kept, clocks, moved = churn(fam, True)
+        n_patch, n_build = patches(fam) - n0, builds[0] - b0
+        if kept != SPARSE_SAMPLES or n_patch != 2 * SPARSE_SAMPLES or n_build:
+            fail(f"sparse v{fam}: mirrors kept {kept}/{SPARSE_SAMPLES}, {n_patch} patches of "
+                 f"{2 * SPARSE_SAMPLES}, {n_build} trie builds")
+        results[fam] = (secs, kept, clocks, moved, n_patch)
+    pipe.set_sparse_deltas(False)
+    pipe.rebuild()
+    dense = {}
+    for fam in (4, 6):
+        b0 = builds[0]
+        dense[fam] = churn(fam, False)[0]
+        if builds[0] - b0 != 2 * SPARSE_SAMPLES:
+            fail(f"sparse off v{fam}: {builds[0] - b0} trie builds, expected {2 * SPARSE_SAMPLES}")
+    pipe.set_sparse_deltas(True)
+    pipe.rebuild()
+    for fam in (4, 6):
+        secs, kept, clocks, moved, n_patch = results[fam]
+        p50, p99 = pcts(secs)
+        d50, d99 = pcts(dense[fam])
+        print(f"main path sparse [v{fam} ipcache churn] x{SPARSE_SAMPLES} upsert + delete: rebuild "
+              f"p50 {p50!r} ms, p99 {p99!r} ms with the mirrors; with set_sparse_deltas(False) (the "
+              f"full trie build) p50 {d50!r} ms, p99 {d99!r} ms; lpm_trie_patches_total"
+              f"{{family=\"{fam}\"}} +{n_patch:g}, mirror objects kept {kept}/{SPARSE_SAMPLES}, trie "
+              f"builds 0; h2d bytes per churn {sorted(set(int(x) for x in moved))} [{card}]", flush=True)
+        for h in sorted({h for c in clocks for h in c}):
+            per = [c.get(h, (0, 0.0, 0)) for c in clocks]
+            ms = sorted(p[1] for p in per)
+            nb = sorted({p[2] for p in per})
+            print(f"main path sparse [v{fam} ipcache churn] scatter {h}: calls per churn "
+                  f"{sorted({p[0] for p in per})}, card ms per churn median {median(ms)!r} (min "
+                  f"{ms[0]!r}, max {ms[-1]!r}), bytes {nb[0]}-{nb[-1]}, bound "
+                  f"{nb[-1] / HBM_BYTES_PER_S * 1e3!r} ms at the most bytes (bytes / 3.35 TB/s) "
+                  f"[{card}]", flush=True)
+
+    def parity(kind, p, live4=(), live6=(), cidrs=()):
+        """p's 1M-flow v4 and v6 batches, the churned addresses in their
+        first lanes, == a fresh pipeline with sparse deltas off; the host
+        oracle on the first v4 flows → the batches' peer arrays."""
+        t0 = time.perf_counter()
+        f4 = [ips.copy(), eps, dports, protos]
+        sel = i_sel.copy()
+        for k, (addr, j) in enumerate(live4):
+            lanes = np.arange(k, len(live4) * SPARSE_LANES, len(live4))
+            f4[0][lanes] = int(ipaddress.IPv4Address(addr))
+            sel[lanes] = j
+        f6 = [addr6.copy(), eps6, dports6, protos6]
+        for k, (addr, _j) in enumerate(live6):
+            f6[0][np.arange(k, len(live6) * SPARSE_LANES, len(live6))] = np.frombuffer(
+                ipaddress.IPv6Address(addr).packed, np.uint8)
+        with uncounted():
+            fresh = pipeline(engine, prefilter(cidrs))
+            fresh.rebuild()
+        v4 = None
+        for call, flows in (("process", f4), ("process_v6", f6)):
+            got = getattr(p, call)(*flows)
+            with uncounted():
+                want = getattr(fresh, call)(*flows)
+            if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+                fail(f"sparse [{kind}]: {call} differs from a fresh dense pipeline")
+            v4 = got[0] if v4 is None else v4
+        denied = [ipaddress.ip_network(c) for c in cidrs if ":" not in c]
+        oracle_check(repo, labels_of, idents, f"sparse [{kind}]", f4[0], eps, dports, protos, sel,
+                     v4, denied, endpoints, n=SPARSE_ORACLE)
+        print(f"main path sparse [{kind}]: process() / process_v6() of {BATCH} flows ({len(live4)} / "
+              f"{len(live6)} churned addresses in {SPARSE_LANES} lanes each) == a fresh sparse-off "
+              f"pipeline, host oracle on {SPARSE_ORACLE} v4 flows, in {time.perf_counter() - t0:.2f}s "
+              f"[{card}]", flush=True)
+        return f4[0], f6[0]
+
+    # parity with every churn address live (one burst of 40, patched)
+    live4 = [sample(4, i) for i in range(SPARSE_SAMPLES)]
+    live6 = [sample(6, i) for i in range(SPARSE_SAMPLES)]
+    n0 = patches(4) + patches(6)
+    for addr, j in live4 + live6:
+        cache.upsert(addr, idents[j].id, source="k8s")
+    with trie_clock(by_shape=True) as tc:
+        t_burst = timed_rebuild(pipe)
+    if patches(4) + patches(6) - n0 != 2 * SPARSE_SAMPLES:
+        fail("sparse: the burst of churned addresses was not patched")
+    ops = tc.summary()
+    print(f"main path sparse [burst of {2 * SPARSE_SAMPLES} upserts, one rebuild]: rebuild "
+          f"{t_burst * 1e3!r} ms; trie scatter ops "
+          f"{ {h: (c, round(ms, 4), b) for h, (c, ms, b) in sorted(ops.items())} } (calls, card ms, "
+          f"bytes) [{card}]", flush=True)
+    if any(c != 1 for c, _ms, _b in ops.values()):
+        fail("sparse: the burst's flush made more than one op a tensor")
+    # the patched tries, for K3 / K5 against their plain versions (a
+    # patch never writes a published tensor, so these stay as they are)
+    burst4, burst6 = pipe._tables[(0, 4)], pipe._tables[(0, 6)]
+    peers4, peers6 = parity("ipcache churn", pipe, live4, live6)
+    patched = [("v4 ipcache churn burst", 4, burst4, peers4),
+               ("v6 ipcache churn burst", 6, burst6, peers6)]
+    for addr, _j in live4 + live6:
+        cache.delete(addr, "k8s")
+    pipe.rebuild()
+
+    def fallback(kind, fam, upserts):
+        """Upserts that the mirror must refuse: a full trie build, a new
+        mirror, no patch."""
+        mirror, b0, n0 = pipe._trie_patch[fam], builds[0], patches(fam)
+        for addr, j in upserts:
+            cache.upsert(addr, idents[j].id, source="k8s")
+        t = timed_rebuild(pipe)
+        if builds[0] - b0 != 1 or pipe._trie_patch[fam] is mirror or patches(fam) != n0:
+            fail(f"sparse [{kind}]: expected one full trie build and a new mirror")
+        print(f"main path sparse [{kind}]: full trie build as expected, rebuild {t * 1e3!r} ms "
+              f"[{card}]", flush=True)
+
+    # a v6 address outside the 13 elided bytes
+    out6 = ("fd00:1::9", 7)
+    fallback("v6 elision violation", 6, [out6])
+    if pipe._tables[(0, 6)].ip_common.shape[0] >= 13:
+        fail("sparse: the elision violation kept 13 elided bytes")
+    parity("v6 elision violation", pipe, live6=[out6])
+    cache.delete(out6[0], "k8s")
+    pipe.rebuild()
+
+    # v4 /32s in new /16s until the 16-row pool is spent (row 0 is "no
+    # node", so it holds 15 deep nodes)
+    p4 = pipe._trie_patch[4]
+    free = p4._cap_rows - 1 - len(p4._nodes)
+    new16 = [(f"10.{200 + k}.0.9", k) for k in range(free + 1)]
+    n0, b0 = patches(4), builds[0]
+    for addr, j in new16[:free]:
+        cache.upsert(addr, idents[j].id, source="k8s")
+        pipe.rebuild()
+    if patches(4) - n0 != free or builds[0] != b0 or pipe._trie_patch[4] is not p4:
+        fail(f"sparse: {free} new /16s did not patch into the pool's spare rows")
+    full4 = pipe._tables[(0, 4)]
+    fallback("v4 node pool exhausted", 4, new16[free:])
+    print(f"main path sparse [v4 node pool exhausted]: {free} new /16 nodes patched into the "
+          f"{p4._cap_rows}-row pool, the next one full-built [{card}]", flush=True)
+    peers4, _ = parity("v4 node pool exhausted", pipe, live4=new16)
+    patched.append((f"v4 pool filled by patches ({len(p4._nodes)} deep nodes)", 4, full4, peers4))
+    for addr, _j in new16:
+        cache.delete(addr, "k8s")
+    pipe.rebuild()
+
+    # the prefilter pipeline: both deny sets live, so both families fuse
+    # their walks and nothing is patched
+    cidrs = PREFILTER_CIDRS + V6_DENY
+    ppipe = pipeline(engine, prefilter(cidrs), sparse_deltas=True)
+    ppipe.rebuild()
+    if ppipe._trie_patch != {4: None, 6: None}:
+        fail("sparse: the prefilter pipeline built a trie mirror")
+    pb = trie_builds(ppipe)
+    n0 = patches(4) + patches(6)
+    churned = [sample(4, 0), sample(6, 0)]
+    for addr, j in churned:
+        cache.upsert(addr, idents[j].id, source="k8s")
+    t = timed_rebuild(ppipe)
+    if pb[0] != 1 or patches(4) + patches(6) != n0:
+        fail("sparse: the prefilter pipeline patched a fused trie")
+    print(f"main path sparse [prefilter pipeline churn]: full trie build, nothing patched, rebuild "
+          f"{t * 1e3!r} ms [{card}]", flush=True)
+    parity("prefilter pipeline churn", ppipe, [churned[0]], [churned[1]], cidrs)
+    for addr, _j in churned:
+        cache.delete(addr, "k8s")
+    pipe.rebuild()
+
+    def hold_shadow(rec, kind):
+        """The installed state == a synchronous sweep of the shadow's
+        snapshot on the serving stream, bit for bit."""
+        with uncounted():
+            sync = rec.real(*rec.calls[-1])
+        for d in (0, 1):
+            m, s = pipe._mat[d], sync[d]
+            if not (np.array_equal(m.allow_nc, s.allow_nc) and np.array_equal(m.red_nc, s.red_nc)):
+                fail(f"epoch swap [{kind}]: direction {d} allow / redirect bitmaps differ from a sync sweep")
+            if max_abs_err(m.tables.id_bits, s.tables.id_bits):
+                fail(f"epoch swap [{kind}]: direction {d} policymap words differ from a sync sweep")
+
+    # -- epoch swap, round 1: a forced refresh ---------------------------
+    swaps0 = metrics.engine_epoch_swaps_total.get()
+    pipe.set_epoch_swap(True)
+    with MatsRecorder(pipe) as rec:
+        t0 = time.perf_counter()
+        engine.refresh(force=True)
+        engine.wait_device()
+        t_refresh = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pipe.rebuild()
+        t_kick = time.perf_counter() - t0
+        if not pipe.wait_epoch_swap(300):
+            fail("epoch swap: the forced refresh's shadow did not finish")
+        t_wait = time.perf_counter() - t0
+        b0 = builds[1]
+        t1 = time.perf_counter()
+        pipe.rebuild()
+        torch.cuda.synchronize()
+        t_pub = time.perf_counter() - t1
+        wall = time.perf_counter() - t0
+        t_pub_tries = builds[1] - b0
+    if pipe.policy_epoch != 1 or metrics.engine_epoch_swaps_total.get() - swaps0 != 1:
+        fail(f"epoch swap: policy_epoch {pipe.policy_epoch} after the forced refresh")
+    if len(rec.calls) != 1 or not rec.k2[0]:
+        fail("epoch swap: the forced refresh's shadow made no sweep on K2")
+    hold_shadow(rec, "forced refresh")
+    with uncounted():
+        pipe.set_epoch_swap(False)
+        engine.refresh(force=True)
+        engine.wait_device()
+        t_sync = timed_rebuild(pipe)
+    print(f"main path epoch swap [forced refresh]: refresh {t_refresh * 1e3!r} ms; kicking rebuild "
+          f"{t_kick * 1e3!r} ms, shadow done {t_wait * 1e3!r} ms after the kick (K2 {rec.k2[0]} "
+          f"launches on its stream), publishing rebuild {t_pub * 1e3!r} ms (of it the trie build "
+          f"{t_pub_tries * 1e3!r} ms); wall kick to publish {wall * 1e3!r} ms; the synchronous full "
+          f"rebuild of the same world {t_sync * 1e3!r} ms; shadow state == a synchronous sweep of its "
+          f"snapshot [{card}]", flush=True)
+
+    # -- round 2: a rule append that grows endpoint 0's slot set ---------
+    grow = (ips, eps, np.where(eps == 0, GROW_PORT, dports).astype(np.int32),
+            np.where(eps == 0, 6, protos).astype(np.int32))
+    pre = pipe.process(*grow)
+    unloaded = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        pipe.process(*grow)
+        unloaded.append(time.perf_counter() - t0)
+    app = next(x for x in labels_of[endpoints[0]] if x.startswith("k8s:app="))
+    repo.add_list([rule([app], ingress=[IngressRule(
+        from_endpoints=tuple(EndpointSelector.make([f"k8s:zone=z{z}"]) for z in range(4)),
+        to_ports=(PortRule(ports=(PortProtocol(GROW_PORT, "TCP"),)),))],
+        labels=["k8s:policy=sparse-grow"])])
+    engine.refresh()
+    engine.wait_device()
+    pipe.set_epoch_swap(True)
+    old_pm = pipe._tables[(0, 4)].policymap
+    served = []
+    with MatsRecorder(pipe) as rec:
+        t0 = time.perf_counter()
+        pipe.rebuild()  # the column patch refuses: the shadow sweeps
+        shadow = pipe._shadow_thread
+        if shadow is None or pipe.policy_epoch != 1:
+            fail("epoch swap: the slot-growth append kicked no shadow")
+        # (batch seconds, published, outputs, its trie-build seconds)
+        def serve():
+            b0 = builds[1]
+            t1 = time.perf_counter()
+            out = pipe.process(*grow)
+            served.append((time.perf_counter() - t1, pipe._tables[(0, 4)].policymap is not old_pm,
+                           out, builds[1] - b0))
+        while shadow.is_alive():
+            serve()
+        if not pipe.wait_epoch_swap(300):
+            fail("epoch swap: the slot-growth shadow did not finish")
+        t_wait = time.perf_counter() - t0
+        serve()  # publishes, unless a batch in the loop already did
+        wall = time.perf_counter() - t0
+    if pipe.policy_epoch != 2 or len(rec.calls) != 1:
+        fail(f"epoch swap: policy_epoch {pipe.policy_epoch} after the slot-growth append")
+    hold_shadow(rec, "slot growth")
+    with uncounted():
+        fresh = pipeline(engine, prefilter())
+        fresh.rebuild()
+        post = fresh.process(*grow)
+    if np.array_equal(pre[0], post[0]):
+        fail("epoch swap: the 9443/TCP append changed no verdict")
+    before = [s for s in served if not s[1]]
+    if not before or not served[-1][1]:
+        fail(f"epoch swap: {len(before)} batches served before the publish, last published {served[-1][1]}")
+    t_pub, _, _, t_pub_tries = served[len(before)]
+    for _dt, published, out, _tries in served:
+        want = post if published else pre
+        if not all(np.array_equal(a, b) for a, b in zip(out, want)):
+            fail(f"epoch swap: a batch served {'after' if published else 'before'} the publish differs "
+                 f"from the {'synchronous rebuild' if published else 'pre-append verdicts'}")
+    during = [s[0] for s in before]
+    u50, _ = pcts(unloaded)
+    s50, s99 = pcts(during)
+    pipe.set_epoch_swap(False)
+    print(f"main path epoch swap [slot growth, {GROW_PORT}/TCP]: {len(during)} v4 {BATCH}-flow "
+          f"batches served during the shadow (p50 {s50!r} ms, p99 {s99!r} ms; unloaded process() p50 "
+          f"{u50!r} ms), all == the pre-append verdicts; the batch after the publish == a synchronous "
+          f"rebuild; shadow K2 launches {rec.k2[0]}; kick to shadow done {t_wait * 1e3!r} ms; the "
+          f"batch that publishes (batch {len(before) + 1} of {len(served)}) {t_pub * 1e3!r} ms (of it "
+          f"the trie build {t_pub_tries * 1e3!r} ms); kick to the last batch {wall * 1e3!r} ms; "
+          f"shadow state == a synchronous sweep of its snapshot [{card}]", flush=True)
+    print(f"main path sparse: {time.perf_counter() - t_phase:.2f}s for the phase [{card}]", flush=True)
+    return dict(pipe=pipe, patched=patched)
+
+
+def sparse_rows(sp, dev, row) -> None:
+    """K3 lpm_wide and K5 lpm_stride8 on the tries the mirrors patched
+    (the v4 pool: sub_info [16, 65536] with spare zero rows, or filled by
+    patches; the v6 elided [cap, 256] pool) over the sparse phase's 1M-flow
+    batches, whose first lanes carry the churned addresses."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.ops.lpm import (
+        elided_lookup, lpm_lookup_wide, lpm_stride8_plain, lpm_wide_plain,
+    )
+
+    for kind, fam, t, peers in sp["patched"]:
+        if fam == 4:
+            peer = torch.from_numpy(peers.view(np.int32)).to(dev)
+            tabs = [getattr(t, f"ip_{f}") for f in ("root_info", "root_child", "sub_child", "sub_info")]
+            b_ms, b_by = bound(lpm_touched_bytes(tabs[0], tabs[1], tabs[3], peer), 0)
+            row("lpm_wide", "cilium_tpu_torch/csrc/lpm_wide.cu", "cilium_tpu/ops/lpm.py:346",
+                max_abs_err(lpm_lookup_wide(*tabs, peer), lpm_wide_plain(*tabs, peer)),
+                lambda tabs=tabs, peer=peer: lpm_lookup_wide(*tabs, peer),
+                lambda tabs=tabs, peer=peer: lpm_wide_plain(*tabs, peer), b_ms, b_by,
+                f"{BATCH} addresses, patched ip trie ({kind}) sub_info {list(tabs[3].shape)}")
+        else:
+            peer = torch.from_numpy(peers).to(dev)
+            tabs = [getattr(t, f"ip_{f}") for f in ("child", "info", "common")]
+            b_ms, b_by = bound(stride8_touched_bytes(*tabs, peer, 16), 0)
+            row("lpm_stride8", "cilium_tpu_torch/csrc/lpm_stride8.cu", "cilium_tpu/ops/lpm.py:144",
+                max_abs_err(elided_lookup(*tabs, peer, 16), lpm_stride8_plain(*tabs, peer, 16)),
+                lambda tabs=tabs, peer=peer: elided_lookup(*tabs, peer, 16),
+                lambda tabs=tabs, peer=peer: lpm_stride8_plain(*tabs, peer, 16), b_ms, b_by,
+                f"{BATCH} addresses, patched ip trie ({kind}) [{tabs[0].shape[0]}, 256], "
+                f"K {tabs[2].shape[0]}")
 
 
 def metric_series():
@@ -3417,6 +3948,10 @@ def main() -> None:
     if launches["deltas"]["selector_match"]:
         fail("a delta launched K1 selector_match: the engine recompiled in full")
 
+    # -- 3i. sparse trie deltas and the epoch swap, launch counts from zero
+    sp = sparse_main_path(args.seed, card)
+    check_path("sparse", ["selector_match", "bool_mm", "lpm_wide", "lpm_stride8", "policymap_verdict"])
+
     # -- 5. each kernel against its plain version on the card ------------
     compiled, device = engine.snapshot()
     rows = []
@@ -3548,6 +4083,9 @@ def main() -> None:
         max_abs_err(elided_lookup(*tabs, peer6, 16), lpm_stride8_plain(*tabs, peer6, 16)),
         lambda: elided_lookup(*tabs, peer6, 16), lambda: lpm_stride8_plain(*tabs, peer6, 16),
         b_ms, b_by, f"{BATCH} addresses, edge trie [{tabs[0].shape[0]}, 256], K 0, 16 levels")
+
+    # K3 / K5 on the tries the sparse phase patched
+    sparse_rows(sp, dev, row)
 
     # K11 shed_walk, both entries, over the gate's deny-heavy batches
     shed_rows(sub, dev, row)

@@ -42,6 +42,9 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 
 _lock = threading.Lock()
+# launch counts: a shadow rebuild launches K2 on its own thread while
+# the serving thread launches K3 / K4, and ``+=`` is not atomic
+_count_lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None
 
@@ -159,7 +162,8 @@ class Kernel:
         if err != 0:
             msg = lib.cilium_error_string(err).decode()
             raise RuntimeError(f"CUDA kernel {self.name} failed to launch: {msg} ({err})")
-        self.launches += 1
+        with _count_lock:
+            self.launches += 1
 
 
 KERNELS: Dict[str, Kernel] = {

@@ -72,10 +72,18 @@ subject selectors match (``ops/materialize.py`` ``patch_identity_rows``
 it changes (out of place), so a batch in flight keeps the tables it
 was enqueued with.
 
+With ``sparse_deltas`` an ipcache move that is the only trie trigger
+patches the identity tries through their host mirrors
+(``ops/lpm.py`` ``PatchableFlatTrie`` / ``PatchableElidedTrie``): only
+the dirty node rows and dense spans are uploaded, again out of place.
+With ``epoch_swap`` a delta the patches cannot express re-materializes
+on a shadow thread (on its own CUDA stream on the card) while batches
+keep the current generation; the next rebuild after the install
+publishes the new one.
+
 Not ported yet: the failsafe ladder (retry, quarantine, host
 fallback), tracing, the watchdog, the profiler and the depth tuner,
-the flow ring and flow events, sparse (trie) deltas, epoch swap and
-multi-device placement.
+the flow ring and flow events and multi-device placement.
 """
 
 from __future__ import annotations
@@ -106,8 +114,9 @@ from ..ipcache.prefilter import PreFilter
 from ..lb.device import flow_hash32, lb_translate
 from ..ops.lookup import PolicymapTables, policymap_verdict
 from ..ops.lpm import (
-    DENY_BIT, MERGED_VALUE_MASK, build_trie_elided, build_wide_trie, elided_lookup,
-    ipv4_to_bytes, lpm_lookup_wide, merge_flat_tries, merge_trie_entries,
+    DENY_BIT, MERGED_VALUE_MASK, PatchableElidedTrie, build_trie_elided, build_wide_trie,
+    elided_lookup, ipv4_to_bytes, lpm_lookup_wide, make_patchable_wide, merge_flat_tries,
+    merge_trie_entries,
 )
 from ..ops.materialize import (
     TRAFFIC_EGRESS, TRAFFIC_INGRESS, EndpointPolicySnapshot, materialize_endpoints_state,
@@ -667,9 +676,8 @@ class DatapathPipeline:
     The positional order is the reference's; ``device`` (None = the
     card) is keyword-only. Arguments whose feature is not ported yet
     (``monitor``, ``tracer``, ``sharding``, ``flow_ring``, ``autotune``,
-    ``epoch_swap``, ``placement``, ``mesh_2d``, ``sparse_deltas``,
-    ``stall_ms`` and ``profiling``) raise NotImplementedError when given
-    anything but their default."""
+    ``placement``, ``mesh_2d``, ``stall_ms`` and ``profiling``) raise
+    NotImplementedError when given anything but their default."""
 
     def __init__(
         self,
@@ -702,10 +710,9 @@ class DatapathPipeline:
         for name, given in (
             ("monitor", monitor is not None), ("tracer", tracer is not None),
             ("sharding", bool(sharding)), ("flow_ring", flow_ring is not None),
-            ("autotune", bool(autotune)), ("epoch_swap", bool(epoch_swap)),
+            ("autotune", bool(autotune)),
             ("placement", placement is not None), ("mesh_2d", bool(mesh_2d)),
-            ("sparse_deltas", bool(sparse_deltas)), ("stall_ms", stall_ms > 0),
-            ("profiling", bool(profiling)),
+            ("stall_ms", stall_ms > 0), ("profiling", bool(profiling)),
         ):
             if given:
                 raise NotImplementedError(f"the pipeline's {name} is not in the torch port yet")
@@ -758,6 +765,27 @@ class DatapathPipeline:
         # whose basis moved between its pre-pass and its completion
         # creates no entries verdicted under the old basis
         self._ct_epoch = 0
+        # set by a basis move or an epoch-swap install; the next rebuild
+        # flushes the CT and clears it
+        self._ct_flush_pending = False
+        # -- epoch-swapped full rebuilds (EpochSwap) --------------------
+        # A full re-materialization the delta log demands builds on a
+        # shadow thread while batches keep the current generation; the
+        # install (under _lock) becomes visible through the next
+        # rebuild's publish. _swap_gen is the abandonment guard: an
+        # endpoint or attribution change, or the swap turned off, bumps
+        # it, and a shadow finishing under another generation is dropped.
+        self._epoch_swap = bool(epoch_swap)
+        self._policy_epoch = 0  # generations swapped in
+        self._swap_gen = 0  # basis generation a shadow binds to
+        self._shadow_thread: Optional[threading.Thread] = None
+        self._shadow_exc: Optional[BaseException] = None
+        # -- sparse trie deltas (SparseDeltas) --------------------------
+        # family → patchable identity-trie mirror (4: PatchableFlatTrie,
+        # 6: PatchableElidedTrie; None for a family with a live deny set
+        # or the 16-8-8 layout), made beside self._tries; None while off
+        self._sparse_deltas = bool(sparse_deltas)
+        self._trie_patch: Optional[Dict[int, object]] = None
         self.counters = np.zeros((0, 3), np.int64)
         # -- bounded in-flight dispatch queue -------------------------
         # submit() enqueues the device work and defers the host pull
@@ -803,10 +831,12 @@ class DatapathPipeline:
             pairs = [e if isinstance(e, tuple) else (int(e), int(e)) for e in endpoints]
             self._endpoint_ids = [int(p[0]) for p in pairs]
             self._endpoints = [int(p[1]) for p in pairs]
+            self._mat = {}  # the column layout changes with the endpoint set
             # CT keys embed the endpoint INDEX; a changed endpoint list
             # would let a new occupant of an index inherit the previous
             # endpoint's established-flow bypass entries.
             self._flush_ct_locked()
+            self._swap_gen += 1  # column layout moved: abandon shadows
 
     def endpoint_index(self, endpoint_id: int) -> Optional[int]:
         try:
@@ -842,6 +872,7 @@ class DatapathPipeline:
             # after a sweep with attribution (and goes when off)
             self._mat = {}
             self._mat_sig = ()
+            self._swap_gen += 1  # sweep variant moved: abandon shadows
 
     def _attrib_origins(self, compiled):
         """({ingress_bool: AttribTables | None}, n_rules) for this
@@ -883,10 +914,15 @@ class DatapathPipeline:
         and deletes re-sweep the affected endpoints' columns, and a
         "full" event, a truncated log, a delta the patches cannot
         express, a new endpoint set, the attribution switch or ``force``
-        re-materialize both directions. The tries are rebuilt when the
-        ipcache or the prefilter moved, after a fresh materialization or
-        on a row event; the LB tables when the service table moved. Any
-        of those moves, and any rule delta, flushes the conntrack.
+        re-materialize both directions. With EpochSwap on, only a delta
+        the patches cannot express re-materializes on a shadow thread
+        instead: this generation keeps serving, and the first rebuild
+        after the install publishes the new one. The tries are rebuilt
+        when the ipcache or the prefilter moved, after a fresh
+        materialization or on a row event; with SparseDeltas on, an
+        ipcache move that is the only trigger patches them in place. The
+        LB tables follow the service table. Any of those moves, any rule
+        delta and a swap install flush the conntrack.
         Returns {(direction, family): tables}."""
         with self._lock:
             # versions captured before the sources are read: a mutation
@@ -898,26 +934,47 @@ class DatapathPipeline:
             delta_target = max(delta_target, self.engine.delta_seq)
             ep_sig = tuple(self._endpoints)
             basis_moved = trie_versions != self._trie_versions
-            if (not force and self._tables and self._mat and self._mat_sig == ep_sig
-                    and pending == [] and not basis_moved):
+            if (not force and self._tables and self._tries is not None and self._mat
+                    and self._mat_sig == ep_sig and pending == [] and not basis_moved
+                    and not self._ct_flush_pending):
                 self._publish_shed_locked(False)
                 self._refresh_lb_locked()
                 return self._tables
 
-            mat_fresh = saw_row_event = saw_rule_delta = False
-            routed = None
-            if not force and self._mat and self._mat_sig == ep_sig:
-                routed = self._route_deltas(compiled, device, pending)
-            if routed is None:
+            mat_fresh = saw_row_event = saw_rule_delta = swap_pending = False
+            if force or not self._mat or self._mat_sig != ep_sig:
                 self._materialize_both(compiled, device)
                 mat_fresh = True
             else:
-                saw_row_event, saw_rule_delta = routed
-            self._mat_sig = ep_sig
-            self._last_delta_seq = delta_target
+                routed = self._route_deltas(compiled, device, pending)
+                if routed is None:
+                    # with EpochSwap the shadow builds it and this
+                    # generation keeps serving; the install advances the
+                    # delta cursor itself, so nothing here commits
+                    if self._epoch_swap and self._kick_shadow_build(
+                            compiled, device, ep_sig, delta_target):
+                        swap_pending = True
+                    else:
+                        self._materialize_both(compiled, device)
+                        mat_fresh = True
+                else:
+                    saw_row_event, saw_rule_delta = routed
+            if not swap_pending:
+                self._mat_sig = ep_sig
+                self._last_delta_seq = delta_target
 
+            # SparseDeltas: when ipcache churn is the only trie trigger,
+            # patch the identity tries from the ipcache delta ring. A
+            # success commits _trie_versions, so the full build below
+            # skips; any failure leaves them stale and the build runs.
+            if (self._sparse_deltas and self._trie_patch is not None and not force
+                    and not mat_fresh and not saw_row_event and self._tries is not None
+                    and self._tables and basis_moved
+                    and trie_versions[1] == self._trie_versions[1]):
+                self._patch_tries_locked(compiled, trie_versions)
             # any row move can re-point an ipcache entry's trie target
-            if force or self._tries is None or basis_moved or mat_fresh or saw_row_event:
+            if (force or self._tries is None or trie_versions != self._trie_versions
+                    or mat_fresh or saw_row_event):
                 self._build_tries_locked(compiled)
                 self._trie_versions = trie_versions
 
@@ -942,15 +999,21 @@ class DatapathPipeline:
             # still holds, so any basis move flushes the table (revoked
             # rules, remapped peers and new deny prefixes apply to
             # established flows on their next packet). A column patch is
-            # still a rule change.
+            # still a rule change; a swap install sets the flag itself.
             if mat_fresh or saw_row_event or saw_rule_delta or basis_moved:
+                self._ct_flush_pending = True
+            if self._ct_flush_pending:
                 self._flush_ct_locked()
+                self._ct_flush_pending = False
             self._refresh_lb_locked()
             return self._tables
 
     def _build_tries_locked(self, compiled) -> None:
         """Both families' tries from the ipcache and the prefilter, one
-        upload each, shared by both directions (``self._tries``)."""
+        upload each, shared by both directions (``self._tries``). With
+        SparseDeltas on, a family with no deny set builds its identity
+        trie through a patchable mirror (kept in ``self._trie_patch``),
+        with power-of-two node-pool headroom."""
         _, pf_cidrs = self.prefilter.dump()
         # empty-set flags first: both families' fusion gates read them
         # (an empty deny set skips the walk entirely)
@@ -968,7 +1031,9 @@ class DatapathPipeline:
         # deny+identity walk while a v6 deny set is live (it then covers
         # the deny stage, so no standalone deny trie)
         pf6_list = [(c, 0) for c in pf_cidrs if ":" in c]
-        ip6 = build_trie_elided(ip_lists[6], ipv6=True)
+        p6 = (PatchableElidedTrie(ip_lists[6], ipv6=True)
+              if self._sparse_deltas and pf_empty[1] else None)
+        ip6 = p6.arrays() if p6 is not None else build_trie_elided(ip_lists[6], ipv6=True)
         merged6_list = (
             merge_trie_entries(ip_lists[6], pf6_list, ipv6=True)
             if not pf_empty[1] else None
@@ -982,7 +1047,10 @@ class DatapathPipeline:
 
         # IPv4 rides the wide (dense-16-bit-first) tries
         pf_wide = build_wide_trie((c, 0) for c in pf_cidrs if ":" not in c)
-        ip_wide = build_wide_trie(ip_lists[4])
+        # a v4 mirror only while the flat 16+16 layout holds (the 16-8-8
+        # layout is never patched: None)
+        p4 = make_patchable_wide(ip_lists[4]) if self._sparse_deltas and pf_empty[0] else None
+        ip_wide = p4.arrays() if p4 is not None else build_wide_trie(ip_lists[4])
         # fused deny+identity walk: built only while the deny stage is
         # live and both layouts are flat; it then covers the deny stage,
         # so the standalone deny trie is not uploaded
@@ -1001,6 +1069,64 @@ class DatapathPipeline:
         )
         self._pf_empty = pf_empty
         self._v6_fused = merged6_list is not None
+        self._trie_patch = {4: p4, 6: p6} if self._sparse_deltas else None
+
+    def _patch_tries_locked(self, compiled, trie_versions) -> bool:
+        """Apply the ipcache delta window to the identity-trie tensors
+        through their mirrors (lock held). On success commits
+        ``_trie_versions`` and returns True; a truncated ring, a live
+        deny set or an unpatched layout for a touched family, pool
+        exhaustion, an elision violation or a shape mismatch return
+        False with the versions stale, and the full build runs (and
+        replaces the mirrors, so a half-applied window never leaks).
+        Every flush is out of place: a batch in flight keeps the tries
+        it was enqueued with."""
+        deltas = self.ipcache.deltas_since(self._trie_versions[0])
+        if not deltas:  # None (truncated) or an unlogged version move
+            return False
+        ops = []  # (family, mirror, cidr, row | None)
+        for _ver, cidr, _old_ident, new_ident in deltas:
+            fam = 6 if ":" in cidr else 4
+            if not self._pf_empty[0 if fam == 4 else 1]:
+                return False  # the fused deny+identity trie is never patched
+            mirror = self._trie_patch.get(fam)
+            if mirror is None:
+                return False  # the 16-8-8 v4 layout
+            # an identity without a device row is absent from the trie
+            row = compiled.id_to_row.get(new_ident) if new_ident is not None else None
+            ops.append((fam, mirror, cidr, row))
+        applied = {4: 0, 6: 0}
+        for fam, mirror, cidr, row in ops:
+            if not (mirror.insert(cidr, row) if row is not None else mirror.delete(cidr)):
+                return False
+            applied[fam] += 1
+        v4, v6 = self._tries
+        nbytes = 0
+        p4, p6 = self._trie_patch[4], self._trie_patch[6]
+        if p4 is not None and p4.dirty:
+            out = p4.flush(v4.ip_root_info, v4.ip_root_child, v4.ip_sub_child, v4.ip_sub_info)
+            if out is None:
+                return False
+            (ri, rc, sc, si), nb = out
+            v4 = dataclasses.replace(v4, ip_root_info=ri, ip_root_child=rc, ip_sub_child=sc,
+                                     ip_sub_info=si)
+            nbytes += nb
+        if p6 is not None and p6.dirty:
+            out = p6.flush(v6.ip_child, v6.ip_info)
+            if out is None:
+                return False
+            (child, info), nb = out
+            v6 = dataclasses.replace(v6, ip_child=child, ip_info=info)
+            nbytes += nb
+        self._tries = (v4, v6)
+        self._trie_versions = trie_versions
+        for fam, n in applied.items():
+            if n:
+                _metrics.lpm_trie_patches_total.inc({"family": str(fam)}, float(n))
+        if nbytes:
+            _metrics.device_transfer_bytes_total.inc({"direction": "h2d"}, float(nbytes))
+            _metrics.device_transfers_total.inc({"direction": "h2d"}, 1.0)
+        return True
 
     def _route_deltas(self, compiled, device, deltas) -> Optional[Tuple[bool, bool]]:
         """Apply the engine delta log to the materialized states in place
@@ -1064,6 +1190,135 @@ class DatapathPipeline:
         if saw_row_event or touched_sids:
             _metrics.engine_refresh_seconds.observe(time.perf_counter() - t0, {"kind": "delta"})
         return saw_row_event, bool(touched_sids)
+
+    # -- runtime switches: sparse trie deltas, epoch swap --------------
+    def set_sparse_deltas(self, on: bool) -> None:
+        """Toggle sparse trie deltas (the SparseDeltas runtime option),
+        from the next rebuild. Both transitions drop the tries and the
+        mirrors: on builds the mirrors beside a fresh full build (they
+        mirror the device tensors row for row), off sheds their node-pool
+        headroom and builds the exact-sized tries again."""
+        with self._lock:
+            on = bool(on)
+            if on == self._sparse_deltas:
+                return
+            self._sparse_deltas = on
+            self._trie_patch = None
+            self._tries = None
+
+    def set_epoch_swap(self, on: bool) -> None:
+        """Toggle epoch-swapped full rebuilds (the EpochSwap runtime
+        option). Off also abandons a shadow build in flight: the next
+        rebuild that needs a full sweep runs it synchronously."""
+        with self._lock:
+            on = bool(on)
+            if on == self._epoch_swap:
+                return
+            self._epoch_swap = on
+            if not on:
+                self._swap_gen += 1
+
+    def wait_epoch_swap(self, timeout: float = 60.0) -> bool:
+        """Block until no shadow build is in flight; False on timeout.
+        The installed generation serves from the NEXT rebuild() on."""
+        t = self._shadow_thread
+        if t is not None and t.is_alive():
+            t.join(timeout)
+            return not t.is_alive()
+        return True
+
+    @property
+    def policy_epoch(self) -> int:
+        """Shadow-built generations swapped in since start."""
+        return self._policy_epoch
+
+    def _kick_shadow_build(self, compiled, device, ep_sig, delta_target) -> bool:
+        """Start (or keep watching) a shadow materialization bound to
+        the current basis generation (lock held). True while a shadow
+        runs — the caller keeps serving this generation — and False when
+        the caller must sweep synchronously: the previous shadow died on
+        a transient or poisoned fault (a programmer error re-raises).
+
+        On the card the shadow sweeps on a side stream that first waits
+        for the serving stream, where the snapshot's last out-of-place
+        updates may still be queued."""
+        exc = self._shadow_exc
+        if exc is not None:
+            self._shadow_exc = None
+            if _faults.classify(exc) == _faults.KIND_ERROR:
+                raise exc
+            return False
+        t = self._shadow_thread
+        if t is not None and t.is_alive():
+            return True  # one shadow at a time; converge via the log
+        ao, nr = self._attrib_origins(compiled)
+        names = self.engine.repo.origin_names() if nr else []
+        streams = None
+        if self.device.type == "cuda":
+            main = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(main)
+            streams = (main, side)
+        t = threading.Thread(
+            target=self._shadow_build,
+            args=(compiled, device, list(self._endpoints), ep_sig, delta_target,
+                  self._swap_gen, ao, nr, names, streams),
+            name="policyd-shadow-mat", daemon=True,
+        )
+        self._shadow_thread = t
+        t.start()
+        return True
+
+    def _shadow_build(self, compiled, device, endpoints, ep_sig, delta_target, gen,
+                      ao, nr, names, streams) -> None:
+        """Shadow-thread body: both directions' sweeps off the pipeline
+        lock (batches and O(delta) rebuilds go on against the old
+        generation), then the install under it. Deltas that landed
+        during the sweep are not lost: the install sets the cursor to
+        the kick-time target, so the next rebuild replays them against
+        the new generation."""
+        try:
+            if streams is None:
+                mats = self._build_mats(compiled, device, endpoints, ao, nr)
+            else:
+                main, side = streams
+                with torch.cuda.stream(side):
+                    mats = self._build_mats(compiled, device, endpoints, ao, nr)
+                side.synchronize()
+                # the tensors were made on the side stream and are read
+                # on the serving stream: the allocator must not hand
+                # their blocks out again before the serving stream's
+                # work on them ends
+                for m in mats.values():
+                    fields = dataclasses.fields(m.tables)
+                    for t in (*(getattr(m.tables, f.name) for f in fields), m.rule_tab):
+                        if t is not None:
+                            t.record_stream(main)
+        # The broad catch is the point: any shadow failure, a
+        # BaseException too, parks in _shadow_exc, so the next kick routes
+        # it through faults.classify (KIND_ERROR re-raises there, the rest
+        # fall back to a synchronous sweep); a raise on this daemon thread
+        # would vanish.
+        except BaseException as e:
+            with self._lock:
+                if self._swap_gen == gen:
+                    self._shadow_exc = e
+            return
+        with self._lock:
+            if self._swap_gen != gen:
+                return  # the basis moved under the shadow: abandon it
+            self._mat = mats
+            self._mat_sig = ep_sig
+            self._last_delta_seq = delta_target
+            self._attrib_n_rules = nr
+            self._attrib_names = names
+            # rows may have moved with the sweep: the tries must follow
+            self._tries = None
+            # dispatch-visible only through the next rebuild's publish,
+            # which also flushes the CT
+            self._ct_flush_pending = True
+            self._policy_epoch += 1
+        _metrics.engine_epoch_swaps_total.inc()
 
     def snapshots(self, ingress: bool = True) -> List[EndpointPolicySnapshot]:
         """The realized policymap of every endpoint (host dicts, patched

@@ -13,6 +13,12 @@ on a CUDA tensor and run its plain version on a CPU tensor:
 :func:`lpm_lookup_wide` the ``lpm_wide`` kernel (csrc/lpm_wide.cu,
 plain :func:`lpm_wide_plain`).
 
+:class:`PatchableElidedTrie` and :class:`PatchableFlatTrie` (copies of
+the JAX package's) keep host mirrors of an identity trie that take
+single-prefix inserts and deletes; their ``flush`` writes only the
+dirty node rows and dense spans into the device tensors, each with one
+out-of-place torch op (``index_copy`` / ``slice_scatter``).
+
 Layouts (all return value+1, 0 = no match, longest match wins):
 
     stride-8:    child/info [M, 256] (node 0 is the root), one level
@@ -27,12 +33,13 @@ Layouts (all return value+1, 0 = no match, longest match wins):
 from __future__ import annotations
 
 import ipaddress
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import _kernels
+from ..convert import _tensor
 
 
 class TrieBuilder:
@@ -547,6 +554,481 @@ def merge_flat_tries(ip_arrays, deny_arrays):
         # resolved grid equals that root fallback by construction.
     sub_child = np.zeros((1, 65536), np.int32)  # flat-layout marker
     return root_info, root_child, sub_child, sub_info
+
+
+# -- O(delta) trie patching -------------------------------------------------
+#
+# ToFQDN-style small-CIDR storms churn the ipcache a few /32s//128s at a
+# time; rebuilding + re-uploading whole tries per change is the
+# reference's per-key LPM map write turned into a table rebuild. These
+# builders keep HOST mirrors of the device trie tensors plus enough
+# writer bookkeeping to insert/delete individual prefixes in place, and
+# flush only the touched node rows / dense spans to the device copies —
+# O(delta) words per churn instead of the whole trie. Node pools carry
+# power-of-two headroom; exhaustion (or a layout/elision violation)
+# returns False and the caller falls back to the classic full rebuild.
+#
+# Correctness bar: for any applied prefix set, the host mirrors are
+# value-identical to what build_wide_trie / build_trie_elided would
+# produce for that set (modulo zero-padded pool rows, which the walks
+# never reach) — (prefix, plen) keys must be unique per trie, which the
+# ipcache guarantees (normalized CIDR keys).
+
+
+# The four scatter programs of the reference, each one out-of-place
+# torch op on the tensors' device. Out of place on purpose: a batch
+# enqueued before a churn may still read the old tensors (the
+# reference's "no donation").
+
+
+def _patch_trie_rows(
+    child: torch.Tensor,  # [M, 256] int32
+    info: torch.Tensor,  # [M, 256] int32
+    idx: torch.Tensor,  # [k] int64 node rows, sorted and unique
+    cvals: torch.Tensor,  # [k, 256]
+    ivals: torch.Tensor,  # [k, 256]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dirty stride-8 node rows into both trie tensors. The rows are
+    the exact dirty set (the reference pads them to a power of two)."""
+    return child.index_copy(0, idx, cvals), info.index_copy(0, idx, ivals)
+
+
+def _patch_span1(a: torch.Tensor, start: int, vals: torch.Tensor) -> torch.Tensor:
+    """Dense-root span update (flat v4 layout): ``vals`` over
+    ``a[start:start + len(vals)]``, which lies inside ``a``."""
+    return a.slice_scatter(vals, 0, start, start + vals.shape[0])
+
+
+def _patch_span_row(a: torch.Tensor, row: int, start: int, vals: torch.Tensor) -> torch.Tensor:
+    """``vals`` over ``a[row, start:start + len(vals)]``: one contiguous
+    span of the flat view."""
+    off = row * a.shape[1] + start
+    return a.reshape(-1).slice_scatter(vals, 0, off, off + vals.shape[0]).view(a.shape)
+
+
+def _patch_elems(a: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
+    """``vals`` at the [k] int64 indices ``idx`` (unique) of ``a``."""
+    return a.index_copy(0, idx, vals)
+
+
+class PatchableElidedTrie:
+    """Patchable host mirror of one build_trie_elided trie (v6 ip
+    tries; also correct for v4 stride-8, unused there). Per-(node,
+    slot) writers keyed by plen make deletes exact: at one slot of the
+    final level, distinct covering prefixes necessarily carry distinct
+    plens (same plen + same covered slot ⇒ same masked prefix ⇒ same
+    ipcache key), so the remaining longest plen is the new winner."""
+
+    def __init__(self, prefixes: Iterable[Tuple[str, int]], *, ipv6: bool = True):
+        size = 16 if ipv6 else 4
+        self._ipv6 = ipv6
+        entries = []
+        for cidr, value in prefixes:
+            net = ipaddress.ip_network(cidr, strict=False)
+            if (net.version == 6) != ipv6:
+                continue
+            entries.append((net.network_address.packed, net.prefixlen, value))
+        k = 0
+        if entries:
+            first = entries[0][0]
+            k = min(min(p for _, p, _ in entries) // 8, size - 1)
+            for packed, _p, _v in entries:
+                while k and packed[:k] != first[:k]:
+                    k -= 1
+        self._k = k
+        self._levels = size - k
+        self._common = entries[0][0][:k] if k else b""
+        # node storage: byte→child dicts + per-slot {plen: value} writers
+        self._children: List[Dict[int, int]] = [{}]
+        self._writers: List[Dict[int, Dict[int, int]]] = [{}]
+        self._live = False  # arrays not materialized yet
+        self.child_h = np.zeros((0, 256), np.int32)
+        self.info_h = np.zeros((0, 256), np.int32)
+        self._dirty: set = set()
+        for packed, plen, value in entries:
+            self._ins(packed[k:], plen - 8 * k, value)
+        m = len(self._children)
+        cap = 8
+        while cap < m + 1:  # ≥1 spare row for live inserts
+            cap <<= 1
+        self.child_h = np.zeros((cap, 256), np.int32)
+        self.info_h = np.zeros((cap, 256), np.int32)
+        for n in range(m):
+            for b, c in self._children[n].items():
+                self.child_h[n, b] = c
+            for slot, w in self._writers[n].items():
+                if w:
+                    self.info_h[n, slot] = w[max(w)] + 1
+        self._live = True
+
+    # -- host structure ------------------------------------------------
+    def _new_node(self) -> Optional[int]:
+        nid = len(self._children)
+        if self._live and nid >= self.child_h.shape[0]:
+            return None  # pool exhausted → caller full-rebuilds
+        self._children.append({})
+        self._writers.append({})
+        return nid
+
+    def _write(self, node: int, slot: int, value: int, plen: int) -> None:
+        w = self._writers[node].setdefault(slot, {})
+        w[plen] = value
+        if self._live:
+            self.info_h[node, slot] = w[max(w)] + 1
+            self._dirty.add(node)
+
+    def _unwrite(self, node: int, slot: int, plen: int) -> None:
+        w = self._writers[node].get(slot)
+        if not w or plen not in w:
+            return
+        del w[plen]
+        self.info_h[node, slot] = (w[max(w)] + 1) if w else 0
+        self._dirty.add(node)
+
+    def _ins(self, pb: bytes, plen: int, value: int) -> bool:
+        node = 0
+        full, rem = divmod(plen, 8)
+        for i in range(full):
+            b = pb[i]
+            if rem == 0 and i == full - 1:
+                self._write(node, b, value, plen)
+                return True
+            nxt = self._children[node].get(b)
+            if nxt is None:
+                nxt = self._new_node()
+                if nxt is None:
+                    return False
+                self._children[node][b] = nxt
+                if self._live:
+                    self.child_h[node, b] = nxt
+                    self._dirty.add(node)
+            node = nxt
+        b = pb[full] if full < len(pb) else 0
+        lo = b & (0xFF << (8 - rem)) & 0xFF
+        for slot in range(lo, lo + (1 << (8 - rem))):
+            self._write(node, slot, value, plen)
+        return True
+
+    # -- public ops ----------------------------------------------------
+    def _parse(self, cidr: str):
+        net = ipaddress.ip_network(cidr, strict=False)
+        if (net.version == 6) != self._ipv6:
+            return None
+        return net.network_address.packed, net.prefixlen
+
+    def insert(self, cidr: str, value: int) -> bool:
+        """Upsert one prefix. False → not expressible in place (family
+        mismatch, elision violation, node-pool exhaustion): rebuild."""
+        p = self._parse(cidr)
+        if p is None:
+            return False
+        packed, plen = p
+        if self._k and (plen < 8 * self._k or packed[: self._k] != self._common):
+            return False  # would break the elided shared prefix
+        return self._ins(packed[self._k:], plen - 8 * self._k, value)
+
+    def delete(self, cidr: str) -> bool:
+        """Remove one prefix (no-op when absent — e.g. its identity
+        never had a device row). Deletes cannot violate elision or grow
+        the pool, so this never demands a rebuild."""
+        p = self._parse(cidr)
+        if p is None:
+            return True
+        packed, plen = p
+        if self._k and (plen < 8 * self._k or packed[: self._k] != self._common):
+            return True  # was never inserted
+        pb = packed[self._k:]
+        plen -= 8 * self._k
+        node = 0
+        full, rem = divmod(plen, 8)
+        for i in range(full):
+            b = pb[i]
+            if rem == 0 and i == full - 1:
+                self._unwrite(node, b, plen)
+                return True
+            nxt = self._children[node].get(b)
+            if nxt is None:
+                return True  # path absent → prefix absent
+            node = nxt
+        b = pb[full] if full < len(pb) else 0
+        lo = b & (0xFF << (8 - rem)) & 0xFF
+        for slot in range(lo, lo + (1 << (8 - rem))):
+            self._unwrite(node, slot, plen)
+        return True
+
+    @property
+    def dirty(self) -> bool:
+        return bool(self._dirty)
+
+    def arrays(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """(child, info, common_bytes) — build_trie_elided layout with
+        the pow2-padded node pool (zero rows the walk never reaches)."""
+        common = (
+            np.frombuffer(self._common, np.uint8).astype(np.int32)
+            if self._k
+            else np.zeros(0, np.int32)
+        )
+        return self.child_h.copy(), self.info_h.copy(), common
+
+    def flush(self, child_dev: torch.Tensor, info_dev: torch.Tensor):
+        """Scatter the dirty node rows into the device copies (out of
+        place) → ((child, info), h2d bytes uploaded), or None when the
+        device shape does not match the mirror (caller rebuilds)."""
+        if not self._dirty:
+            return (child_dev, info_dev), 0
+        if tuple(child_dev.shape) != self.child_h.shape:
+            return None
+        rows = np.asarray(sorted(self._dirty), np.int64)
+        cvals = self.child_h[rows]
+        ivals = self.info_h[rows]
+        dev = child_dev.device
+        child_dev, info_dev = _patch_trie_rows(
+            child_dev, info_dev, _tensor(rows, dev), _tensor(cvals, dev), _tensor(ivals, dev),
+        )
+        self._dirty.clear()
+        nbytes = int(rows.nbytes) + int(cvals.nbytes) + int(ivals.nbytes)
+        return (child_dev, info_dev), nbytes
+
+
+class _FlatNode:
+    """One level-2 dense node of the patchable flat v4 trie: resolved
+    info/plen arrays + the raw entry dict the delete path recomputes
+    spans from."""
+
+    __slots__ = ("info", "plen", "entries")
+
+    def __init__(self) -> None:
+        self.info = np.zeros(65536, np.int32)
+        self.plen = np.full(65536, -1, np.int16)
+        self.entries: Dict[Tuple[int, int], int] = {}
+
+
+class PatchableFlatTrie:
+    """Patchable host mirror of one flat 16+16 v4 trie
+    (FlatTrieBuilder layout). Root precedence keeps a per-plen [17,
+    65536] value table (≤16 plens ⇒ winner recompute is 17 vectorized
+    selects over the touched span); deep nodes recompute deleted spans
+    from their entry dicts. Dirty state flushes as power-of-two dense
+    spans, one out-of-place op a tensor."""
+
+    def __init__(self, prefixes: Iterable[Tuple[int, int, int]]):
+        # prefixes: parsed (addr_u32, plen, value) v4 entries
+        self._root_by_plen = np.zeros((17, 65536), np.int32)  # value+1
+        self.root_info = np.zeros(65536, np.int32)
+        self.root_child = np.zeros(65536, np.int32)
+        self._nodes: List[_FlatNode] = []
+        entries = list(prefixes)
+        n_deep = len({a >> 16 for a, p, _v in entries if p > 16})
+        cap = 4
+        while cap < n_deep + 2:  # ≥1 spare node row (row 0 = none)
+            cap <<= 1
+        self._cap_rows = min(cap, FLAT_TRIE_MAX_NODES * 2)
+        # (start, pow2 width) dense-root spans / node ids / (nid, base,
+        # pow2 width) node spans touched since the last flush
+        self._dirty_root: Dict[Tuple[int, int], None] = {}
+        self._dirty_child: Dict[int, None] = {}
+        self._dirty_sub: Dict[Tuple[int, int, int], None] = {}
+        for addr, plen, value in entries:
+            ok = self._ins(addr, plen, value)
+            assert ok  # cap covers the build set by construction
+        self._clear_dirty()
+
+    def _clear_dirty(self) -> None:
+        self._dirty_root.clear()
+        self._dirty_child.clear()
+        self._dirty_sub.clear()
+
+    @staticmethod
+    def _mask(addr_u32: int, plen: int) -> int:
+        return (
+            addr_u32 & ((0xFFFFFFFF << (32 - plen)) & 0xFFFFFFFF)
+            if plen else 0
+        )
+
+    def _root_recompute(self, sl: slice) -> None:
+        out = np.zeros(sl.stop - sl.start, np.int32)
+        for p in range(17):  # ascending: longer plen overwrites
+            v = self._root_by_plen[p, sl]
+            out = np.where(v > 0, v, out)
+        self.root_info[sl] = out
+
+    def _ins(self, addr: int, plen: int, value: int) -> bool:
+        addr = self._mask(addr, plen)
+        hi = addr >> 16
+        if plen <= 16:
+            span = 1 << (16 - plen)
+            sl = slice(hi, hi + span)
+            self._root_by_plen[plen, sl] = value + 1
+            self._root_recompute(sl)
+            self._dirty_root[(hi, span)] = None
+            return True
+        nid = int(self.root_child[hi])
+        if nid == 0:
+            if (
+                len(self._nodes) + 2 > self._cap_rows
+                or len(self._nodes) >= FLAT_TRIE_MAX_NODES
+            ):
+                return False  # pool exhausted / past the flat budget
+            self._nodes.append(_FlatNode())
+            nid = len(self._nodes)
+            self.root_child[hi] = nid
+            self._dirty_child[hi] = None
+        node = self._nodes[nid - 1]
+        node.entries[(addr, plen)] = value
+        base = addr & 0xFFFF
+        span = 1 << (32 - plen)
+        sl = slice(base, base + span)
+        m = node.plen[sl] <= plen
+        node.info[sl] = np.where(m, value + 1, node.info[sl])
+        node.plen[sl] = np.where(m, np.int16(plen), node.plen[sl])
+        self._dirty_sub[(nid, base, span)] = None
+        return True
+
+    # -- public ops ----------------------------------------------------
+    @staticmethod
+    def _parse(cidr: str):
+        net = ipaddress.ip_network(cidr, strict=False)
+        if net.version != 4:
+            return None
+        return int(net.network_address), net.prefixlen
+
+    def insert(self, cidr: str, value: int) -> bool:
+        p = self._parse(cidr)
+        if p is None:
+            return False
+        return self._ins(p[0], p[1], value)
+
+    def delete(self, cidr: str) -> bool:
+        """Remove one prefix (no-op when absent). Never demands a
+        rebuild: spans recompute from the surviving writers."""
+        p = self._parse(cidr)
+        if p is None:
+            return True
+        addr, plen = self._mask(p[0], p[1]), p[1]
+        hi = addr >> 16
+        if plen <= 16:
+            span = 1 << (16 - plen)
+            sl = slice(hi, hi + span)
+            if not self._root_by_plen[plen, sl].any():
+                return True  # absent
+            self._root_by_plen[plen, sl] = 0
+            self._root_recompute(sl)
+            self._dirty_root[(hi, span)] = None
+            return True
+        nid = int(self.root_child[hi])
+        if nid == 0:
+            return True
+        node = self._nodes[nid - 1]
+        if node.entries.pop((addr, plen), None) is None:
+            return True
+        base = addr & 0xFFFF
+        span = 1 << (32 - plen)
+        sl = slice(base, base + span)
+        node.info[sl] = 0
+        node.plen[sl] = -1
+        for (a2, p2), v2 in node.entries.items():
+            b2 = a2 & 0xFFFF
+            s2 = 1 << (32 - p2)
+            lo, hi2 = max(base, b2), min(base + span, b2 + s2)
+            if lo < hi2:
+                ssl = slice(lo, hi2)
+                m = node.plen[ssl] <= p2
+                node.info[ssl] = np.where(m, v2 + 1, node.info[ssl])
+                node.plen[ssl] = np.where(m, np.int16(p2), node.plen[ssl])
+        self._dirty_sub[(nid, base, span)] = None
+        return True
+
+    @property
+    def dirty(self) -> bool:
+        return bool(self._dirty_root or self._dirty_child or self._dirty_sub)
+
+    def arrays(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """build_wide_trie flat-layout arrays with the pow2-padded node
+        pool (zero rows resolve to the root fallback, exactly like an
+        unallocated node)."""
+        sub_info = np.zeros((self._cap_rows, 65536), np.int32)
+        for i, node in enumerate(self._nodes):
+            sub_info[i + 1] = node.info
+        sub_child = np.zeros((1, 65536), np.int32)  # flat-layout marker
+        return (
+            self.root_info.copy(), self.root_child.copy(), sub_child,
+            sub_info,
+        )
+
+    def flush(self, root_info_dev, root_child_dev, sub_child_dev, sub_info_dev):
+        """Upload the dirty spans (out of place) → ((root_info, root_child,
+        sub_child, sub_info), h2d bytes uploaded), or None on a
+        device/mirror shape mismatch (caller rebuilds). A lone dirty span
+        of a tensor is one span op that uploads its values; several
+        gather into one index op on the flat view, so a burst copies each
+        tensor once and not once a span (the reference dispatches one op
+        a span). The values come from the final mirror, so overlapping
+        spans agree."""
+        if not self.dirty:
+            return (root_info_dev, root_child_dev, sub_child_dev, sub_info_dev), 0
+        if tuple(sub_info_dev.shape) != (self._cap_rows, 65536):
+            return None
+        dev = sub_info_dev.device
+        nbytes = 0
+        if len(self._dirty_root) == 1:
+            (start, span), = self._dirty_root
+            vals = self.root_info[start:start + span]
+            root_info_dev = _patch_span1(root_info_dev, start, _tensor(vals, dev))
+            nbytes += int(vals.nbytes)
+        elif self._dirty_root:
+            idx = _span_indices((s, w) for s, w in self._dirty_root)
+            vals = self.root_info[idx]
+            root_info_dev = _patch_elems(root_info_dev, _tensor(idx, dev), _tensor(vals, dev))
+            nbytes += int(idx.nbytes) + int(vals.nbytes)
+        if self._dirty_child:
+            idx = np.asarray(sorted(self._dirty_child), np.int64)
+            vals = self.root_child[idx]
+            root_child_dev = _patch_elems(root_child_dev, _tensor(idx, dev), _tensor(vals, dev))
+            nbytes += int(idx.nbytes) + int(vals.nbytes)
+        if len(self._dirty_sub) == 1:
+            (nid, base, span), = self._dirty_sub
+            vals = self._nodes[nid - 1].info[base:base + span]
+            sub_info_dev = _patch_span_row(sub_info_dev, nid, base, _tensor(vals, dev))
+            nbytes += int(vals.nbytes)
+        elif self._dirty_sub:
+            idx = _span_indices((nid * 65536 + b, w) for nid, b, w in self._dirty_sub)
+            nid, off = np.divmod(idx, 65536)
+            vals = np.empty(idx.shape[0], np.int32)
+            for n in np.unique(nid):
+                sel = nid == n
+                vals[sel] = self._nodes[n - 1].info[off[sel]]
+            flat = _patch_elems(sub_info_dev.reshape(-1), _tensor(idx, dev), _tensor(vals, dev))
+            sub_info_dev = flat.view(sub_info_dev.shape)
+            nbytes += int(idx.nbytes) + int(vals.nbytes)
+        self._clear_dirty()
+        return (root_info_dev, root_child_dev, sub_child_dev, sub_info_dev), nbytes
+
+
+def _span_indices(spans) -> np.ndarray:
+    """The sorted distinct int64 indices that (start, width) spans cover."""
+    return np.unique(np.concatenate([np.arange(s, s + w, dtype=np.int64) for s, w in spans]))
+
+
+def make_patchable_wide(
+    prefixes: Iterable[Tuple[str, int]]
+) -> Optional[PatchableFlatTrie]:
+    """PatchableFlatTrie over the v4 entries, or None when
+    build_wide_trie would pick the 16-8-8 pointer layout (too many
+    deep /16 buckets) — that layout is not patched; callers fall back
+    to full rebuilds."""
+    parsed = []
+    deep_hi16 = set()
+    for cidr, value in prefixes:
+        net = ipaddress.ip_network(cidr, strict=False)
+        if net.version != 4:
+            continue
+        addr, plen = int(net.network_address), net.prefixlen
+        parsed.append((addr, plen, value))
+        if plen > 16:
+            deep_hi16.add(addr >> 16)
+    if len(deep_hi16) > FLAT_TRIE_MAX_NODES:
+        return None
+    return PatchableFlatTrie(parsed)
 
 
 def lpm_wide_plain(

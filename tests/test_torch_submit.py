@@ -293,8 +293,8 @@ def test_constructor_depth_bounds_and_alias():
         assert pipe.pipeline_max_depth == max(want, 4)
     assert tpipe.process_ipv4 is tpipe.process_flows
     for kw in ({"tracer": object()}, {"sharding": True}, {"flow_ring": object()},
-               {"autotune": True}, {"epoch_swap": True}, {"placement": object()},
-               {"mesh_2d": True}, {"sparse_deltas": True}, {"stall_ms": 5.0},
+               {"autotune": True}, {"placement": object()},
+               {"mesh_2d": True}, {"stall_ms": 5.0},
                {"profiling": True}):
         with pytest.raises(NotImplementedError):
             tpipe.DatapathPipeline(eng, w.ipcache, device="cpu", **kw)
