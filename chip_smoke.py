@@ -134,6 +134,18 @@
    port 9443 while 1 048 576-flow batches are served (each before the
    publish == the pre-append verdicts, after it == a synchronous
    rebuild); each shadow's state == a synchronous sweep of its snapshot.
+4j. The multi-device placement main path, launch counts from zero, on a
+   bench world of its own with DatapathPipeline(engine, cache,
+   PreFilter(), sharding=True, mesh_2d=True): on the real one-card plan
+   no grid forms and process() launches no K12; then the seam
+   placement.visible_devices gives four records on cuda:0 (2 flows x 2
+   ident) and rebuild, v4 and v6 1 048 576-flow process(), a depth-2
+   submit() of three batches, one identity add, one rule append and one
+   attributed batch of each family run on the ident-sharded tables (K12
+   gathers every row, K4 verdicts the gathered rows); each result ==
+   the unplaced card pipeline and, on 16 384 flows, the CPU plain path;
+   K12 launches per batch and the 2D wall beside the unplaced one. Real
+   multi-GPU transfers are not exercised: every record is one card.
 5. Holds every kernel against its plain version on the card, at the
    main paths' shapes, with exact equality (all outputs are integers),
    and times kernel, plain version and, where one exists, a library
@@ -157,7 +169,16 @@
    the 32-byte sectors its probe windows touch in the seven arrays.
    K11 (both entries) is timed on the gate's deny-heavy batches, its
    bound the trie bytes its identity walk touches, 9 bytes a flow and
-   the shed table's sectors.
+   the shed table's sectors. K12 is timed on each ident shard of the
+   mesh phase's ingress id_bits over a 16 384-lane block of peer rows,
+   its bound the block's rows written, the distinct owned rows read and
+   the ids; its library yardstick torch.index_select on the whole
+   table. The mesh phase's other shapes are recorded as its main path
+   calls them and held call by call: K12 on the sweeps' sel_match reads
+   of the first 2D rebuild and on one v4 batch's blocks (the sweeps'
+   largest timed), and K4 (both entries) on the gathered [16 384, 2W]
+   blocks of one v4 batch and one attributed v4 batch (one of each
+   timed).
 
 Prints the card's name and power limit, one JSON line with every
 kernel's numbers and, last, the result line
@@ -2152,6 +2173,41 @@ def edge_checks6(dev) -> None:
     torch.cuda.synchronize()
 
 
+def edge_checks7(dev) -> None:
+    """K12 ident_gather against its plain version on shapes the main path
+    does not give it: ragged lane counts (0, 3, 4 097), one-word and
+    2 500-word rows (more words than a block's cells), shard offsets,
+    an empty shard, ids around and outside the shard; then a whole
+    [96, 24] table row-sharded over a 2 x 2 grid of records on the card
+    through ident_gather_rows == index_select, ids -1 and 96 all zero."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.datapath.placement import DeviceRecord, GridSharding
+    from cilium_tpu_torch.ops.lookup import (
+        ident_gather_rows, ident_gather_rows_plain, ident_gather_shard, shard_rows,
+    )
+
+    rs = np.random.default_rng(12)
+    for rows, w, lo, b in ((96, 24, 0, 41), (48, 24, 48, 4097), (1, 1, 0, 3),
+                           (300, 2500, 100, 77), (64, 7, 5, 0), (0, 5, 0, 9)):
+        tab = torch.from_numpy(rs.integers(-2**31, 2**31 - 1, (rows, w)).astype(np.int32)).to(dev)
+        src = torch.from_numpy(rs.integers(lo - 3, lo + rows + 3, b).astype(np.int32)).to(dev)
+        k_out = ident_gather_shard(tab, src, lo)
+        if k_out.shape != (b, w) or max_abs_err(k_out, ident_gather_rows_plain(tab, src, lo)):
+            fail(f"ident_gather [{rows}, {w}] from row {lo}, {b} lanes: kernel != plain")
+    full = torch.from_numpy(rs.integers(-2**31, 2**31 - 1, (96, 24)).astype(np.int32)).to(dev)
+    grid = tuple(tuple(DeviceRecord(2 * r + k, 0, torch.device(dev)) for k in range(2))
+                 for r in range(2))
+    held = shard_rows(full, GridSharding(grid, ("ident", None)))
+    src = torch.from_numpy(np.concatenate([rs.integers(0, 96, 1000), [-1, 96, 47, 48]])
+                           .astype(np.int32)).to(dev)
+    got = ident_gather_rows(held, src)
+    if max_abs_err(got[:1000], full.index_select(0, src[:1000].long())) or got[1000:1002].any():
+        fail("ident_gather_rows over a 2 x 2 grid differs from index_select")
+    torch.cuda.synchronize()
+
+
 class KernelClock:
     """CUDA events around every launch of the named kernels, by wrapping
     Kernel.launch while it is entered: ``ms()`` is the card's busy time
@@ -2691,23 +2747,34 @@ def trie_clock(by_shape: bool = False) -> OpClock:
                                        "_patch_elems")], label)
 
 
+def sel_clock() -> OpClock:
+    """The placed sel_match's scatter helpers of ops/materialize.py, one
+    out-of-place op a shard that owns a patched row."""
+    from cilium_tpu_torch.ops import materialize as matmod
+
+    return OpClock([(matmod, "_scatter_sel_rows"), (matmod, "_scatter_sel_cols")],
+                   lambda op, args: op)
+
+
 class CallRecorder:
-    """Keeps the operands of the first ``keep`` K2 / K6 calls made while
-    entered (``verdict.bool_mm``, ``materialize.bool_mm``,
-    ``verdict.first_rule``), to hold each kernel against its plain
-    version at the shapes a patch gives it (a patch makes fewer than
-    100 of each)."""
+    """Keeps the operands of the first ``keep`` calls of each wrapped
+    function made while entered, keyed by name, to hold a kernel against
+    its plain version at the shapes a path gives it. ``targets``:
+    (module, function) pairs; by default the K2 / K6 calls of a patch
+    (``verdict.bool_mm``, ``materialize.bool_mm``,
+    ``verdict.first_rule``; a patch makes fewer than 100 of each)."""
 
-    def __init__(self, keep: int = 256):
-        self.keep = keep
-        self.calls = {"bool_mm": [], "first_rule": []}
-
-    def __enter__(self):
+    def __init__(self, targets=None, keep: int = 256):
         from cilium_tpu_torch.ops import materialize as matmod
         from cilium_tpu_torch.ops import verdict as verdictmod
 
-        self.saved = [(verdictmod, "bool_mm"), (matmod, "bool_mm"), (verdictmod, "first_rule")]
-        self.saved = [(m, n, getattr(m, n)) for m, n in self.saved]
+        self.targets = targets or [
+            (verdictmod, "bool_mm"), (matmod, "bool_mm"), (verdictmod, "first_rule")]
+        self.keep = keep
+        self.calls = {name: [] for _, name in self.targets}
+
+    def __enter__(self):
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.targets]
         for mod, name, real in self.saved:
             def call(*args, real=real, name=name, **kw):
                 if len(self.calls[name]) < self.keep:
@@ -3558,6 +3625,350 @@ def sparse_rows(sp, dev, row) -> None:
                 f"K {tabs[2].shape[0]}")
 
 
+MESH_GRID = 4  # virtual device records on one card: 2 flows x 2 ident
+MESH_SLICE = 1 << 14  # flows of each check held against the CPU plain path
+MESH_ORACLE = 20  # v4 flows held against the host oracle after the rule append
+
+
+def mesh_main_path(seed: int, card: str, dev=None):
+    """Multi-device placement on the card, on a bench world of its own:
+    PolicyEngine(repo, reg).refresh() → DatapathPipeline(engine, cache,
+    PreFilter(), sharding=True, mesh_2d=True), launch counts from zero.
+
+    - The real one-card plan: placement.visible_devices() lists one card,
+      so resolve_plan forms no grid (the reference's ``want_mesh =
+      sharding and n > 1``); a 1 048 576-flow process() launches no K12.
+    - The seam placement.visible_devices gives four records on cuda:0: a
+      2 flows x 2 ident grid. rebuild() (the sweeps read the
+      ident-sharded sel_match through K12), v4 and v6 1 048 576-flow
+      process() (each flow shard 524 288 flows, its policymap rows
+      gathered a 16 384-lane block at a time: K12 on each of the two
+      ident shards, the partials added, K4 on the gathered rows), a
+      depth-2 submit() of three v4 batches, one identity add (row patch
+      into the placed copies; with sparse_deltas the ident-sharded
+      sel_match takes _scatter_sel_rows) and one rule append (column
+      patch; _scatter_sel_cols for its new selector), then
+      attribution on (the attributed sweep and the rule rows gathered
+      too) and one attributed batch of each family.
+    - Every result == the unplaced card pipeline over the same engine
+      (its runs uncounted) and, on MESH_SLICE flows, the CPU plain path
+      (device="cpu", unplaced); after the rule append 20 v4 flows ==
+      the host oracle. K12 launches per v4 batch and the wall of the 2D
+      process() beside the unplaced one.
+
+    ``dev`` is the device of the four records (None: cuda:0; a CPU
+    rehearsal passes the CPU)."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch import _kernels
+    from cilium_tpu_torch.datapath import placement
+    from cilium_tpu_torch.datapath.pipeline import TRAFFIC_INGRESS, DatapathPipeline
+    from cilium_tpu_torch.engine import PolicyEngine
+    from cilium_tpu_torch.ipcache.prefilter import PreFilter
+    from cilium_tpu_torch.labels import parse_label_array
+    from cilium_tpu_torch.ops import lookup
+    from cilium_tpu_torch.ops.lpm import lpm_lookup_wide
+    from cilium_tpu_torch.policy.api import EndpointSelector, IngressRule, rule
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0) if dev is None else dev
+    repo, reg, cache, idents, labels_of = build_world(seed)
+    flows4 = make_flows(seed + 500, len(idents))
+    flows6 = make_flows6(seed + 500, len(idents))
+    endpoints = [idents[j].id for j in range(N_ENDPOINTS)]
+    _kernels.reset_launches()
+    engine = PolicyEngine(repo, reg)
+    engine.refresh()
+    cpu_engine = PolicyEngine(repo, reg, device="cpu")
+
+    def pipeline(eng, **kw):
+        p = DatapathPipeline(eng, cache, PreFilter(), **kw)
+        p.set_endpoints(endpoints)
+        return p
+
+    def k12():
+        return _kernels.launches()["ident_gather"]
+
+    def same(tag, got, want, n=None):
+        for g, w in zip(got, want):
+            if not np.array_equal(g, w if n is None else w[:n]):
+                bad = int(np.argmax(g != (w if n is None else w[:n])))
+                fail(f"mesh {tag}: differs at flow {bad}")
+
+    def wall(fn):
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+
+    with uncounted():
+        ref = pipeline(engine)
+        ref.rebuild()
+        want4 = ref.process(*flows4[:4])
+        want6 = ref.process_v6(*flows6[:4])
+        _, t_ref = wall(lambda: ref.process(*flows4[:4]))
+    cpu = pipeline(cpu_engine, device="cpu")
+    s = slice(0, MESH_SLICE)
+
+    # the real seam: one card, so no grid, and no K12
+    one = pipeline(engine, sharding=True, mesh_2d=True)
+    one.rebuild()
+    same("one-card plan v4", one.process(*flows4[:4]), want4)
+    st = one.placement_state()
+    if one._plan.mesh is not None or st["axes"] or one._placed is not None or k12():
+        fail(f"mesh: the one-card plan formed a grid {st} or launched K12 ({k12()})")
+    print(f"main path mesh [one card]: placement {st}; process {BATCH} flows == unplaced, "
+          f"K12 launches 0 [{card}]", flush=True)
+
+    real_seam = placement.visible_devices
+    placement.visible_devices = lambda: [
+        placement.DeviceRecord(i, 0, dev) for i in range(MESH_GRID)]
+    try:
+        pipe = pipeline(engine, sharding=True, mesh_2d=True, pipeline_depth=2,
+                        sparse_deltas=True)
+        # the sweeps' K12 calls (their sel_match reads) recorded for mesh_rows
+        with CallRecorder([(lookup, "ident_gather_shard")], keep=1 << 14) as rec_sweep:
+            (_, t_rebuild) = wall(lambda: (pipe.rebuild(), torch.cuda.synchronize()))
+        st = pipe.placement_state()
+        if st["axes"] != {"flows": 2, "ident": 2} or not pipe._placed.ident2d:
+            fail(f"mesh: the virtual grid resolved to {st}")
+        pm = pipe._placed_pm[TRAFFIC_INGRESS][2]
+        if not isinstance(pm.id_bits, lookup.IdentSharded):
+            fail("mesh: the placed policymap is not ident-sharded")
+        n0 = k12()
+        times, outs = [], []
+        for _ in range(3):
+            out, t = wall(lambda: pipe.process(*flows4[:4]))
+            times.append(t)
+            outs.append(out)
+        per_batch = (k12() - n0) // 3
+        for out in outs:
+            same("v4", out, want4)
+        got6, t6 = wall(lambda: pipe.process_v6(*flows6[:4]))
+        same("v6", got6, want6)
+        for fam, call, flows, got in (("v4", "process", flows4, outs[0]),
+                                      ("v6", "process_v6", flows6, got6)):
+            same(f"{fam} CPU slice", getattr(cpu, call)(*(a[s] for a in flows[:4])), got, MESH_SLICE)
+        n_rows, w = pm.id_bits.shape
+        print(f"main path mesh [2 flows x 2 ident on one card]: placement {st}; rebuild "
+              f"{t_rebuild!r}s; id_bits [{n_rows}, {w}] in shards of {pm.id_bits.shards[0][0].rows} "
+              f"rows; process {BATCH} flows {times}s (unplaced {t_ref!r}s), process_v6 {t6!r}s; "
+              f"K12 launches per v4 batch {per_batch}; == unplaced card pipeline and the CPU "
+              f"path on {MESH_SLICE} flows [{card}]", flush=True)
+
+        # depth-2 submit: three v4 batches in flight
+        batches = [tuple(np.roll(a, 7919 * k) for a in flows4[:4]) for k in range(3)]
+        pend = [pipe.submit(*b) for b in batches]
+        got = [h.result() for h in pend]
+        with uncounted():
+            for b, g in zip(batches, got):
+                same("depth-2 submit", g, ref.process(*b))
+
+        # one identity add: its address on the first lanes of the batch
+        ident = reg.allocate(parse_label_array(["k8s:app=a1", "k8s:zone=z3", "k8s:env=prod"]))
+        labels_of[ident.id] = ["k8s:app=a1", "k8s:zone=z3", "k8s:env=prod"]
+        cache.upsert("10.250.9.1/32", ident.id, source="k8s")
+        engine.refresh()
+        kept = dict(pipe._mat)
+        with sel_clock() as oc:
+            _, t_add = wall(lambda: (pipe.rebuild(), torch.cuda.synchronize()))
+        sel_ops = {"identity add": oc.summary()}
+        if any(pipe._mat[d] is not m for d, m in kept.items()):
+            fail("mesh: the identity add re-materialized instead of patching")
+        b4 = list(a.copy() for a in flows4[:4])
+        b4[0][:8192:2] = int(ipaddress.IPv4Address("10.250.9.1"))
+        # this batch's K4 calls on the gathered blocks and its K12 calls
+        # recorded for mesh_rows
+        with CallRecorder([(lookup, "policymap_verdict"), (lookup, "ident_gather_shard")]) as rec_v4:
+            got = pipe.process(*b4)
+        with uncounted():
+            same("identity add", got, ref.process(*b4))
+        same("identity add CPU slice", cpu.process(*(a[s] for a in b4)), got, MESH_SLICE)
+
+        # one rule append on endpoint 0's app: a column patch
+        app = next(lb for lb in labels_of[endpoints[0]] if lb.startswith("k8s:app="))
+        repo.add_list([rule([app], ingress=[IngressRule(
+            from_endpoints=(EndpointSelector.make(["k8s:zone=z3", "k8s:env=prod"]),))])])
+        engine.refresh()
+        kept = dict(pipe._mat)
+        with sel_clock() as oc:
+            _, t_rule = wall(lambda: (pipe.rebuild(), torch.cuda.synchronize()))
+        sel_ops["rule append"] = oc.summary()
+        if any(pipe._mat[d] is not m for d, m in kept.items()):
+            fail("mesh: the rule append re-materialized instead of patching")
+        # the placed sel_match was patched (rows, then cells), not re-placed
+        _gen, src_sel, placed_sel = pipe._placed_sel
+        if (src_sel is not engine.snapshot()[1].sel_match or not torch.equal(
+                torch.cat([x.tensor for x in placed_sel.shards[0]]), src_sel)):
+            fail("mesh: the ident-sharded sel_match left the engine's")
+        if "_scatter_sel_rows" not in sel_ops["identity add"] or \
+                "_scatter_sel_cols" not in sel_ops["rule append"]:
+            fail(f"mesh: the selector scatters did not run: {sel_ops}")
+        got = pipe.process(*b4)
+        with uncounted():
+            same("rule append", got, ref.process(*b4))
+        same("rule append CPU slice", cpu.process(*(a[s] for a in b4)), got, MESH_SLICE)
+        i_sel = np.where(b4[0] == int(ipaddress.IPv4Address("10.250.9.1")), len(idents), flows4[4])
+        oracle_check(repo, labels_of, idents + [ident], "mesh rule append", b4[0], b4[1], b4[2],
+                     b4[3], i_sel, got[0], [], endpoints, n=MESH_ORACLE)
+        for d, m in pipe._mat.items():
+            held = pipe._placed_pm[d]
+            if held[1] is not m.tables or not torch.equal(
+                    torch.cat([x.tensor for x in held[2].id_bits.shards[0]]), m.tables.id_bits):
+                fail("mesh: the placed id_bits left the patched tables")
+        print(f"main path mesh: identity add rebuild {t_add!r}s, rule append rebuild {t_rule!r}s "
+              f"(patched in place, the placed copies with them); the placed sel_match's "
+              f"scatters (calls, card ms, bytes) {sel_ops}; depth-2 submit of 3 batches, both == "
+              f"unplaced; rule append == host oracle on {MESH_ORACLE} flows [{card}]", flush=True)
+
+        # attribution: the attributed sweep and the rule rows gathered
+        pipe.set_attribution(True)
+        _, t_attr = wall(lambda: (pipe.rebuild(), torch.cuda.synchronize()))
+        with uncounted():
+            ref.set_attribution(True)
+            ref.rebuild()
+        for fam, call, flows in (("v4", "process", b4), ("v6", "process_v6", flows6[:4])):
+            deltas = []
+            outs = []
+            for p_, counted in ((pipe, True), (ref, False)):
+                before = metric_series()
+                if counted:
+                    with CallRecorder([(lookup, "policymap_verdict")]) as rec:
+                        outs.append(getattr(p_, call)(*flows))
+                    if fam == "v4":
+                        rec_attr = rec
+                else:
+                    with uncounted():
+                        outs.append(getattr(p_, call)(*flows))
+                deltas.append(metric_delta(before, metric_series()))
+            same(f"attributed {fam}", *outs)
+            if deltas[0] != deltas[1] or not deltas[0]:
+                fail(f"mesh attributed {fam}: metric deltas differ from the unplaced pipeline")
+        print(f"main path mesh: attributed rebuild {t_attr!r}s; one attributed batch of each "
+              f"family == unplaced (verdicts, redirects, rule-hit and drop-reason deltas) [{card}]",
+              flush=True)
+    finally:
+        placement.visible_devices = real_seam
+
+    if per_batch <= 0:
+        fail("mesh: a 2D process() launched no K12")
+    # K12's inputs for its kernel row: the first 16 384-lane block of the
+    # v4 batch's peer rows (the identity walk on grid row 0's tries)
+    t = pipe._placed.rows[0][1][(TRAFFIC_INGRESS, 4)]
+    peer = torch.from_numpy(b4[0].view(np.int32)).to(dev)
+    with uncounted():
+        hit = lpm_lookup_wide(t.ip_root_info, t.ip_root_child, t.ip_sub_child, t.ip_sub_info, peer)
+    src = torch.where(hit > 0, hit - 1, t.world_row).to(torch.int32)[:16384].contiguous()
+    print(f"mesh phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+    if not rec_sweep.calls["ident_gather_shard"] or not rec_v4.calls["policymap_verdict"] or \
+            not rec_attr.calls["policymap_verdict"]:
+        fail("mesh: a recorded run made no K12 or K4 call")
+    return {"pm": pipe._placed_pm[TRAFFIC_INGRESS][2].id_bits,
+            "full": pipe._mat[TRAFFIC_INGRESS].tables.id_bits, "src": src, "per_batch": per_batch,
+            "sel": engine.snapshot()[1].sel_match,
+            "k12_sweep": rec_sweep.calls["ident_gather_shard"],
+            "k12_batch": rec_v4.calls["ident_gather_shard"],
+            "k4": rec_v4.calls["policymap_verdict"], "k4_attrib": rec_attr.calls["policymap_verdict"]}
+
+
+def mesh_rows(ms, row) -> None:
+    """The mesh phase's kernels at the shapes its main path gave them,
+    against their plain versions, exactly:
+
+    - K12 ident_gather on each ident shard of the placed ingress id_bits
+      ([N/2, 2W]) and a 16 384-lane block of the v4 batch's peer rows;
+      the library yardstick is torch.index_select on the whole table (it
+      reads, not zeros, a row outside the shard);
+    - every recorded K12 call: the sweeps' sel_match reads of the first
+      2D rebuild and one v4 batch's blocks; the sweeps' largest is timed
+      (index_select on the engine's whole sel_match the yardstick);
+    - every recorded K4 call on a gathered [16 384, 2W] block
+      (src = arange(block)): one v4 batch's and one attributed v4
+      batch's; one of each is timed.
+
+    The bound counts each output written once, the ids read once, and
+    the distinct rows the data reaches (a repeated id is one row
+    read)."""
+    import torch
+
+    from cilium_tpu_torch.ops.lookup import (
+        ident_gather_rows_plain, ident_gather_shard, policymap_verdict, policymap_verdict_plain)
+
+    def owned_rows(src, lo, rows):
+        return int(torch.unique(src[(src >= lo) & (src < lo + rows)]).numel())
+
+    def k12_bound(tab, src, lo):
+        b, w = src.shape[0], tab.shape[1]
+        n = owned_rows(src, lo, tab.shape[0])
+        return bound(b * w * 4 + n * w * 4 + b * 4, 0) + (n,)
+
+    src = ms["src"]
+    src64 = src.long()
+    full = ms["full"]
+    for shard in ms["pm"].shards[0]:
+        tab, lo = shard.tensor, shard.row_lo
+        k_out = ident_gather_shard(tab, src, lo)
+        p_out = ident_gather_rows_plain(tab, src, lo)
+        b, w = src.shape[0], tab.shape[1]
+        b_ms, b_by, n = k12_bound(tab, src, lo)
+        row("ident_gather", "cilium_tpu_torch/csrc/ident_gather.cu",
+            "cilium_tpu/ops/lookup.py:115", max_abs_err(k_out, p_out),
+            lambda tab=tab, lo=lo: ident_gather_shard(tab, src, lo),
+            lambda tab=tab, lo=lo: ident_gather_rows_plain(tab, src, lo), b_ms, b_by,
+            f"{b} lanes, shard rows [{lo}, {lo + shard.rows}) of [{full.shape[0]}, {w}], "
+            f"{n} distinct owned rows; {ms['per_batch']} launches per v4 batch",
+            lib_fn=lambda: full.index_select(0, src64))
+
+    err = 0
+    for kind in ("k12_sweep", "k12_batch"):
+        for args, kw in ms[kind]:
+            err = max(err, max_abs_err(ident_gather_shard(*args, **kw),
+                                       ident_gather_rows_plain(*args, **kw)))
+    if err:
+        fail(f"mesh: a recorded ident_gather call differs from its plain version by {err}")
+    (tab, s_src, lo), _ = max(ms["k12_sweep"], key=lambda c: c[0][1].numel())
+    b_ms, b_by, n = k12_bound(tab, s_src, lo)
+    sel, s64 = ms["sel"], s_src.long()
+    row("ident_gather", "cilium_tpu_torch/csrc/ident_gather.cu", "cilium_tpu/ops/lookup.py:115",
+        err, lambda: ident_gather_shard(tab, s_src, lo),
+        lambda: ident_gather_rows_plain(tab, s_src, lo), b_ms, b_by,
+        f"sweep sel_match read: {s_src.shape[0]} ids, shard rows [{lo}, {lo + tab.shape[0]}) of "
+        f"[{sel.shape[0]}, {tab.shape[1]}], {n} distinct owned rows; "
+        f"{len(ms['k12_sweep'])} sweep and {len(ms['k12_batch'])} batch calls checked",
+        lib_fn=lambda: sel.index_select(0, s64))
+
+    for kind, name, replaces in (("k4", "policymap_verdict", "cilium_tpu/ops/lookup.py:146"),
+                                 ("k4_attrib", "policymap_verdict_attrib",
+                                  "cilium_tpu/ops/lookup.py:202")):
+        calls = ms[kind]
+        err = 0
+        for args, kw in calls:
+            got, want = policymap_verdict(*args, **kw), policymap_verdict_plain(*args, **kw)
+            err = max([err] + [max_abs_err(a, b) for a, b in zip(got, want) if a is not None])
+        if err:
+            fail(f"mesh: a recorded gathered-block {name} call differs from its plain version")
+        args, kw = calls[0]
+        out = policymap_verdict(*args, **kw)
+        pm, src_rows, ep = args[0], args[1], args[2]
+        moved = nbytes(pm.id_bits, pm.col_ep, pm.col_port, pm.col_proto, pm.col_is_l3, *args[1:5],
+                       *(x for x in (kw.get("denied_pf"),) + tuple(out) if x is not None))
+        note = ""
+        if kw.get("rule_tab") is not None:
+            # rule_tab cells read: one per distinct (row, endpoint) of the
+            # flows a rule decided
+            decided = out[3] >= 0
+            eps = int(kw.get("ep_count") or N_ENDPOINTS)
+            cells = torch.unique(src_rows.long()[decided] * eps + ep.long()[decided]).numel()
+            moved += 4 * cells
+            note = f", rule rows [{kw['rule_tab'].shape[0]}, {kw['rule_tab'].shape[1]}], {cells} rule cells read"
+        b_ms, b_by = bound(moved, 0)
+        row(name, "cilium_tpu_torch/csrc/policymap_verdict.cu", replaces, err,
+            lambda args=args, kw=kw: policymap_verdict(*args, **kw),
+            lambda args=args, kw=kw: policymap_verdict_plain(*args, **kw), b_ms, b_by,
+            f"a gathered block: {src_rows.shape[0]} flows on id_bits {list(pm.id_bits.shape)}, "
+            f"src = arange{note}; {len(calls)} calls of one 2D v4 batch checked")
+
+
 def metric_series():
     """Snapshot of the attribution metrics (rule_hits_total and
     drop_reasons_total), keyed by (metric, labels)."""
@@ -3628,6 +4039,7 @@ def main() -> None:
     edge_checks4(dev)
     edge_checks5(dev)
     edge_checks6(dev)
+    edge_checks7(dev)
     print("edge shapes: every kernel equals its plain version (ragged K1/K2, "
           "16-8-8 K3, 1 280-column / 2 100-endpoint K4; 4- and 16-level K5 with "
           "out-of-range bytes and child ids; ragged K6; K4 attribution with shared and "
@@ -3636,7 +4048,9 @@ def main() -> None:
           "F = 1 and 1025, B = 0, 1 and ragged, both address widths; K10 both entries on 16-, 64- and "
           "1024-slot tables over five steps, wrapped windows, contested slots, B = 0 and 1; K11 both "
           "entries at B = 0, 1, 31 and 4 097 over every dport bucket edge and proto 0 / 6 / 17 / "
-          "255, both v4 layouts, rows past the table, v6 bytes outside [0, 255])",
+          "255, both v4 layouts, rows past the table, v6 bytes outside [0, 255]; K12 at B = 0, 3, "
+          "41, 77, 4 097, W = 1 to 2 500, shard offsets, an empty shard, ids outside the shard, "
+          "and a 2 x 2 grid's gather == index_select)",
           flush=True)
 
     # -- 2. world --------------------------------------------------------
@@ -3952,6 +4366,11 @@ def main() -> None:
     sp = sparse_main_path(args.seed, card)
     check_path("sparse", ["selector_match", "bool_mm", "lpm_wide", "lpm_stride8", "policymap_verdict"])
 
+    # -- 3j. multi-device placement on a virtual grid, counts from zero --
+    ms = mesh_main_path(args.seed, card)
+    check_path("mesh", ["selector_match", "bool_mm", "first_rule", "ident_gather", "lpm_wide",
+                        "lpm_stride8", "policymap_verdict", "policymap_verdict_attrib"])
+
     # -- 5. each kernel against its plain version on the card ------------
     compiled, device = engine.snapshot()
     rows = []
@@ -4089,6 +4508,9 @@ def main() -> None:
 
     # K11 shed_walk, both entries, over the gate's deny-heavy batches
     shed_rows(sub, dev, row)
+
+    # K12 ident_gather on each ident shard of the mesh phase's policymap
+    mesh_rows(ms, row)
 
     # K6 first_rule at the sweep's block shape: the deny term of the
     # first 8192 sweep flows (endpoint 0's L3 segment x identity rows)

@@ -231,6 +231,8 @@ KERNELS: Dict[str, Kernel] = {
         # addr, stride, levels, dport, proto, out, b
         Kernel("shed_walk_stride8", "cilium_shed_walk_stride8",
                [_P, _P, _I, _P, _I, _P, _L, _I, _P, _I, _I, _P, _P, _P, _L]),
+        # K12 ident_gather: shard, rows, w, row_lo, src, b, out
+        Kernel("ident_gather", "cilium_ident_gather", [_P, _L, _I, _L, _P, _L, _P]),
     )
 }
 

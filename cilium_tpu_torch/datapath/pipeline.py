@@ -81,9 +81,20 @@ on a shadow thread (on its own CUDA stream on the card) while batches
 keep the current generation; the next rebuild after the install
 publishes the new one.
 
+With ``sharding`` (and ``mesh_2d``) the pipeline places its tables on
+the plan ``datapath/placement.py`` resolves over the visible devices: a
+batch splits over the grid's ``flows`` axis, each flow shard runs on
+its grid row's first device against tables replicated there (the tries,
+the shed table, the policymaps and rule tables), and on a 2D plan the
+identity tables row-shard over the ``ident`` axis, so every row fetch —
+the policymap lookup's and the materializer sweeps' ``sel_match`` reads
+— runs the ``ident_gather`` kernel on each shard and adds the partials
+(``ops/lookup.py`` ``ident_gather_rows``). The device-CT path keeps the
+unplaced tables on the pipeline's device.
+
 Not ported yet: the failsafe ladder (retry, quarantine, host
 fallback), tracing, the watchdog, the profiler and the depth tuner,
-the flow ring and flow events and multi-device placement.
+the flow ring and flow events.
 """
 
 from __future__ import annotations
@@ -100,6 +111,7 @@ import torch
 from .. import _kernels
 from .. import faults as _faults
 from .. import metrics as _metrics
+from ..compiler.selectors import selector_word_window
 from ..contracts import PIPELINE_DEPTH_MAX, PIPELINE_DEPTH_MIN
 from ..convert import shed_table_from_numpy, v6_tables_from_numpy, wide_tables_from_numpy
 from .admission import (
@@ -112,17 +124,22 @@ from ..identity.model import ID_WORLD
 from ..ipcache.ipcache import IPCache
 from ..ipcache.prefilter import PreFilter
 from ..lb.device import flow_hash32, lb_translate
-from ..ops.lookup import PolicymapTables, policymap_verdict
+from ..ops.lookup import (
+    PolicymapTables, Replicated, policymap_verdict, policymap_verdict_gathered, replicate,
+    replicate_tables, shard_rows, shard_tables_ident, tables_on,
+)
 from ..ops.lpm import (
     DENY_BIT, MERGED_VALUE_MASK, PatchableElidedTrie, build_trie_elided, build_wide_trie,
     elided_lookup, ipv4_to_bytes, lpm_lookup_wide, make_patchable_wide, merge_flat_tries,
-    merge_trie_entries,
+    merge_trie_entries, place_table,
 )
 from ..ops.materialize import (
-    TRAFFIC_EGRESS, TRAFFIC_INGRESS, EndpointPolicySnapshot, materialize_endpoints_state,
-    patch_endpoints_state, patch_identity_rows,
+    TRAFFIC_EGRESS, TRAFFIC_INGRESS, EndpointPolicySnapshot, PlacedTables,
+    materialize_endpoints_state, patch_endpoints_state, patch_identity_rows, patch_selector_cols,
+    patch_selector_rows,
 )
 from ..ops.shed import shed_walk_stride8, shed_walk_wide
+from .placement import EMPTY_PLAN, MeshPlan, PlacementConfig, resolve_plan
 
 FORWARD = 1
 DROP_POLICY = 2
@@ -256,8 +273,9 @@ def _verdict_tail(
     ep_count: int,
     block: int,
     attrib: bool = False,
-    rule_tab: Optional[torch.Tensor] = None,
+    rule_tab=None,
     n_rules: int = 0,
+    ident_gather: bool = False,
 ):
     """Post-LPM tail shared by both families: policymap lookup,
     prefilter override, counters [EP, 3] = (forwarded, dropped_policy,
@@ -265,10 +283,14 @@ def _verdict_tail(
     deciding rule gathered from ``rule_tab`` (-1 = none, and -1 for a
     prefilter drop, which never reached the policymap), whether an L4
     column covered the flow, and the [max(n_rules, 1)] rule-hit
-    counts."""
+    counts. ``ident_gather=True`` (a 2D plan: ``policymap.id_bits`` and
+    ``rule_tab`` ident-sharded) reads the rows through
+    ``ident_gather_rows``, block by block; False keeps the one
+    policymap launch."""
     if attrib and rule_tab is None:
         raise ValueError("attribution needs the materializer's rule table")
-    return policymap_verdict(
+    verdict = policymap_verdict_gathered if ident_gather else policymap_verdict
+    return verdict(
         policymap, peer_row, ep_idx, dport, proto, denied_pf=denied_pf,
         ep_count=ep_count, block=block, rule_tab=rule_tab if attrib else None,
         n_rules=n_rules,
@@ -301,8 +323,9 @@ def process_flows_wide(
     prefilter: bool = True,
     row_override: Optional[torch.Tensor] = None,  # [B] int32, -1 = LPM
     attrib: bool = False,
-    rule_tab: Optional[torch.Tensor] = None,  # [N, C_pad] int32
+    rule_tab=None,  # [N, C_pad] int32
     n_rules: int = 0,
+    ident_gather: bool = False,
 ):
     """→ (verdict [B] int8, redirect [B] bool, counters [EP, 3] int32);
     with ``attrib=True`` also (rule [B] int32, l4_covered [B] bool,
@@ -312,12 +335,13 @@ def process_flows_wide(
     ingress, the destination for egress. ``prefilter`` guards the XDP
     deny-trie stage. ``row_override`` carries an identity row trusted
     over the ipcache walk (the overlay path): flows with a non-negative
-    row skip both the identity LPM and the prefilter."""
+    row skip both the identity LPM and the prefilter. ``ident_gather``
+    (a 2D plan) reads the policymap rows through ``ident_gather_rows``."""
     denied_pf, hit = _v4_lpm_stage(t, peer_u32, prefilter)
     denied_pf, peer_row = _peer_rows(denied_pf, hit, t.world_row, row_override)
     return _verdict_tail(
         t.policymap, denied_pf, peer_row, ep_idx, dport, proto, ep_count, block,
-        attrib=attrib, rule_tab=rule_tab, n_rules=n_rules,
+        attrib=attrib, rule_tab=rule_tab, n_rules=n_rules, ident_gather=ident_gather,
     )
 
 
@@ -334,18 +358,19 @@ def process_flows(
     fused: bool = False,
     row_override: Optional[torch.Tensor] = None,  # [B] int32, -1 = LPM
     attrib: bool = False,
-    rule_tab: Optional[torch.Tensor] = None,  # [N, C_pad] int32
+    rule_tab=None,  # [N, C_pad] int32
     n_rules: int = 0,
+    ident_gather: bool = False,
 ):
     """The stride-8 twin of :func:`process_flows_wide` (IPv6 with
     ``levels=16``): same outputs, same ``prefilter``, ``row_override``
     and attribution semantics; ``fused`` says the fused deny+identity
-    trie is present."""
+    trie is present, ``ident_gather`` as in process_flows_wide."""
     denied_pf, hit = _v6_lpm_stage(t, peer_bytes, levels, prefilter, fused)
     denied_pf, peer_row = _peer_rows(denied_pf, hit, t.world_row, row_override)
     return _verdict_tail(
         t.policymap, denied_pf, peer_row, ep_idx, dport, proto, ep_count, block,
-        attrib=attrib, rule_tab=rule_tab, n_rules=n_rules,
+        attrib=attrib, rule_tab=rule_tab, n_rules=n_rules, ident_gather=ident_gather,
     )
 
 
@@ -638,20 +663,42 @@ class _GatedPending(PendingBatch):
 class _Enqueued:
     """Un-pulled results of one dispatch: (verdict, redirect, counters)
     — and (rule, l4_covered, hits) with attribution — as device
-    tensors (``outs``), the pinned host views they are being copied
-    into (``host``), the CUDA event recorded after those copies, the
-    pinned staging tuples to release once the event has completed, and
-    the tensors the launches read, kept alive until then. On the CPU
-    the outputs are final at enqueue and ``event`` is None."""
+    tensors (``outs``, one tuple per flow shard), the pinned host views
+    they are being copied into (``host``), the CUDA events recorded
+    after those copies (one per device the dispatch ran on), the pinned
+    staging tuples to release once the events have completed, and the
+    tensors the launches read, kept alive until then. ``ndev`` is the
+    plan's flows-axis size the batch was split over. On the CPU the
+    outputs are final at enqueue and there is no event."""
 
-    __slots__ = ("outs", "host", "event", "staging", "keep")
+    __slots__ = ("outs", "host", "events", "staging", "keep", "ndev")
 
-    def __init__(self, outs, host, event, staging, keep) -> None:
+    def __init__(self, outs, host, events, staging, keep, ndev=1) -> None:
         self.outs = outs
         self.host = host
-        self.event = event
+        self.events = events
         self.staging = staging
         self.keep = keep
+        self.ndev = ndev
+
+    @property
+    def event(self):
+        """The last event recorded (the only one without a plan)."""
+        return self.events[-1] if self.events else None
+
+
+@dataclasses.dataclass(frozen=True)
+class _Placed:
+    """The dispatch view of a plan, published by rebuild under the
+    lock: one entry per grid row (a flow shard) — its first device, its
+    {(direction, family): tables} and its {direction: rule table}
+    (None without attribution) — the shed table on row 0's device, and
+    whether the identity tables are ident-sharded (``ident_gather``)."""
+
+    generation: int
+    ident2d: bool
+    rows: Tuple[Tuple[torch.device, Dict, Optional[Dict]], ...]
+    shed_tab: Optional[torch.Tensor] = None
 
 
 class DatapathPipeline:
@@ -673,11 +720,17 @@ class DatapathPipeline:
     other batches fall back to a host ``FlowConntrack``, made here when
     none is given.
 
+    With ``sharding`` (the VerdictSharding option) batches split over
+    the flows axis of the plan ``placement.resolve_plan`` forms over
+    the visible devices (``placement`` a ``PlacementConfig``); with
+    ``mesh_2d`` (MeshSharding2D) the grid is ``flows × ident`` and the
+    identity tables row-shard over ``ident``.
+
     The positional order is the reference's; ``device`` (None = the
     card) is keyword-only. Arguments whose feature is not ported yet
-    (``monitor``, ``tracer``, ``sharding``, ``flow_ring``, ``autotune``,
-    ``placement``, ``mesh_2d``, ``stall_ms`` and ``profiling``) raise
-    NotImplementedError when given anything but their default."""
+    (``monitor``, ``tracer``, ``flow_ring``, ``autotune``, ``stall_ms``
+    and ``profiling``) raise NotImplementedError when given anything but
+    their default."""
 
     def __init__(
         self,
@@ -709,9 +762,7 @@ class DatapathPipeline:
     ) -> None:
         for name, given in (
             ("monitor", monitor is not None), ("tracer", tracer is not None),
-            ("sharding", bool(sharding)), ("flow_ring", flow_ring is not None),
-            ("autotune", bool(autotune)),
-            ("placement", placement is not None), ("mesh_2d", bool(mesh_2d)),
+            ("flow_ring", flow_ring is not None), ("autotune", bool(autotune)),
             ("stall_ms", stall_ms > 0), ("profiling", bool(profiling)),
         ):
             if given:
@@ -786,6 +837,30 @@ class DatapathPipeline:
         # or the 16-8-8 layout), made beside self._tries; None while off
         self._sparse_deltas = bool(sparse_deltas)
         self._trie_patch: Optional[Dict[int, object]] = None
+        # -- placement (VerdictSharding, MeshSharding2D) ----------------
+        # the resolved MeshPlan owns the grid, the axis shardings and the
+        # generation counter; every placed-table cache below is keyed on
+        # that generation, so a plan move never serves tables placed on
+        # a stale grid. _excluded_devices is the reference's failsafe
+        # exclusion set: only the ladder (not ported) fills it.
+        self._sharding_requested = bool(sharding)
+        self._placement: Optional[PlacementConfig] = placement
+        self._mesh2d_requested = bool(mesh_2d)
+        self._plan: MeshPlan = EMPTY_PLAN
+        self._excluded_devices: set = set()
+        # direction → (plan generation, source, placed copy): the
+        # policymaps, the attribution rule tables
+        self._placed_pm: Dict[int, Tuple[int, object, object]] = {}
+        self._placed_rt: Dict[int, Tuple[int, object, object]] = {}
+        # (plan generation, engine sel_match, ident-sharded copy) under a
+        # 2D plan: the sweeps read through it
+        self._placed_sel: Tuple[int, object, object] = (0, None, None)
+        # (family, field) → (plan generation, source tensor, Replicated):
+        # the tries and the shed table
+        self._placed_tab: Dict[Tuple, Tuple[int, object, object]] = {}
+        # what dispatch reads under a plan (_Placed), published by
+        # rebuild with the tables; None without one
+        self._placed: Optional[_Placed] = None
         self.counters = np.zeros((0, 3), np.int64)
         # -- bounded in-flight dispatch queue -------------------------
         # submit() enqueues the device work and defers the host pull
@@ -925,6 +1000,7 @@ class DatapathPipeline:
         delta and a swap install flush the conntrack.
         Returns {(direction, family): tables}."""
         with self._lock:
+            self._refresh_mesh_locked()
             # versions captured before the sources are read: a mutation
             # landing mid-build triggers one more rebuild
             trie_versions = (self.ipcache.version, self.prefilter.revision)
@@ -934,12 +1010,19 @@ class DatapathPipeline:
             delta_target = max(delta_target, self.engine.delta_seq)
             ep_sig = tuple(self._endpoints)
             basis_moved = trie_versions != self._trie_versions
+            placed_gen = 0 if self._placed is None else self._placed.generation
             if (not force and self._tables and self._tries is not None and self._mat
                     and self._mat_sig == ep_sig and pending == [] and not basis_moved
-                    and not self._ct_flush_pending):
+                    and not self._ct_flush_pending
+                    and placed_gen == (self._plan.generation if self._plan.mesh else 0)):
                 self._publish_shed_locked(False)
+                self._place_shed_locked()
+                self._table_gauges_locked(device)
                 self._refresh_lb_locked()
                 return self._tables
+            # a 2D plan: the sweeps and patches read an ident-sharded
+            # sel_match (generation-cached; the engine's copy untouched)
+            device = self._ident_placed_device(device, pending)
 
             mat_fresh = saw_row_event = saw_rule_delta = swap_pending = False
             if force or not self._mat or self._mat_sig != ep_sig:
@@ -992,6 +1075,8 @@ class DatapathPipeline:
             # in the same lock hold as the tries: a shed walk never
             # pairs a new table with old tries or the reverse
             self._publish_shed_locked(mat_fresh or saw_row_event or saw_rule_delta)
+            self._publish_placed_locked()
+            self._table_gauges_locked(device)
             if self.counters.shape[0] != len(self._endpoints):
                 self.counters = np.zeros((len(self._endpoints), 3), np.int64)
             # Conntrack invalidation: the established-flow bypass is
@@ -1168,20 +1253,26 @@ class DatapathPipeline:
             # "rules" event's column re-sweep consumes it
         if row_events:
             for direction, mat in self._mat.items():
+                # the same scatters patch the placed copies, so the
+                # placement survives the O(delta) path without a re-place
+                placed = self._placed_holder(direction, mat)
                 patch_identity_rows(
                     mat, device, row_events,
-                    attrib_origin=ao[direction == TRAFFIC_INGRESS], n_rules=nr,
+                    attrib_origin=ao[direction == TRAFFIC_INGRESS], n_rules=nr, placed=placed,
                 )
+                self._rekey_placed(direction, mat, placed)
         if touched_sids:
             for direction, mat in self._mat.items():
+                placed = self._placed_holder(direction, mat)
                 if not patch_endpoints_state(
                     mat, compiled, device, sorted(touched_sids),
-                    attrib_origin=ao[direction == TRAFFIC_INGRESS], n_rules=nr,
+                    attrib_origin=ao[direction == TRAFFIC_INGRESS], n_rules=nr, placed=placed,
                 ):
                     # partial patches are harmless: every cell they wrote
                     # holds its final value, and the full sweep replaces
                     # the state wholesale
                     return None
+                self._rekey_placed(direction, mat, placed)
             # appends grow the rule set: keep the completion half's
             # rule-index → origin map in step with the patched tables
             if nr:
@@ -1205,6 +1296,300 @@ class DatapathPipeline:
             self._sparse_deltas = on
             self._trie_patch = None
             self._tries = None
+            self._placed_sel = (0, None, None)
+
+    # -- placement: VerdictSharding, MeshSharding2D --------------------
+    def set_sharding(self, on: bool) -> None:
+        """Toggle flow sharding over the plan's grid (the
+        VerdictSharding runtime option). Takes effect on the next
+        rebuild; a grid only forms with >1 visible device. Clears the
+        tables and the placed copies."""
+        with self._lock:
+            if bool(on) == self._sharding_requested:
+                return
+            self._sharding_requested = bool(on)
+            self._drop_placed_locked()
+
+    def set_mesh_2d(self, on: bool) -> None:
+        """Toggle the 2D flows×ident grid (the MeshSharding2D runtime
+        option). Takes effect on the next rebuild through the plan: the
+        grid splits into flows×ident axes and the identity dimension of
+        the policymaps / rule tables / sel_match shards over ``ident``.
+        Off never reaches ``ident_gather_rows``. Clears the tables and
+        the placed copies, as set_sharding."""
+        with self._lock:
+            if bool(on) == self._mesh2d_requested:
+                return
+            self._mesh2d_requested = bool(on)
+            self._drop_placed_locked()
+
+    def _drop_placed_locked(self) -> None:
+        self._tables = {}
+        self._tries = None
+        self._placed_pm.clear()
+        self._placed_rt.clear()
+        self._placed_sel = (0, None, None)
+        self._placed_tab.clear()
+        self._placed = None
+        self._swap_gen += 1  # placement basis moved: abandon shadows
+
+    def _refresh_mesh_locked(self) -> None:
+        """Resolve the placement plan to match the sharding / 2D
+        requests (lock held). resolve_plan returns the previous plan
+        unchanged when nothing moved, so the placed caches survive; a new
+        plan moves the ``mesh_axis_size`` gauge. A plan whose devices are
+        of another type than the pipeline's raises: a pipeline asked to
+        run on the CPU never places on a card, nor the reverse."""
+        plan = resolve_plan(
+            self._placement,
+            sharding=self._sharding_requested,
+            mesh_2d=self._mesh2d_requested,
+            excluded=frozenset(self._excluded_devices),
+            prev=self._plan,
+        )
+        if plan is not self._plan:
+            for row in plan.mesh or ():
+                for rec in row:
+                    if rec.device.type != self.device.type:
+                        raise ValueError(
+                            f"placement device {rec.device} for a pipeline on {self.device}")
+            self._plan = plan
+            _metrics.mesh_axis_size.set(float(plan.axes.get("flows", 0)), {"axis": "flows"})
+            _metrics.mesh_axis_size.set(float(plan.axes.get("ident", 0)), {"axis": "ident"})
+
+    def placement_state(self) -> Dict:
+        """Placement snapshot (the reference's GET /traces block): the
+        resolved plan's generation, axes and device set plus the
+        operator's requests. Resolves the plan first, so a just-toggled
+        option reports the grid it WILL run on."""
+        with self._lock:
+            self._refresh_mesh_locked()
+        plan = self._plan
+        return {
+            "generation": plan.generation,
+            "axes": dict(plan.axes),
+            "devices": list(plan.device_ids),
+            "flows_size": plan.flows_size,
+            "mesh_2d_requested": self._mesh2d_requested,
+            "sharding_requested": self._sharding_requested,
+            "ident_sharded": plan.is_2d,
+            "excluded_devices": sorted(self._excluded_devices),
+        }
+
+    def _replicated_policymap(self, direction: int, pm: PolicymapTables) -> PolicymapTables:
+        """Grid-placed copy of one direction's policymap, cached on the
+        source object AND the plan generation: patches (which swap the
+        tensors) and plan moves re-place, steady-state rebuilds reuse the
+        copy. Under a 2D plan the identity axis shards
+        (shard_tables_ident); 1D replicates."""
+        plan = self._plan
+        gen, src, placed = self._placed_pm.get(direction, (-1, None, None))
+        if src is pm and gen == plan.generation:
+            return placed
+        if plan.is_2d:
+            placed = shard_tables_ident(pm, plan.ident_sharding, plan.table_sharding)
+        else:
+            placed = replicate_tables(pm, plan.table_sharding)
+        self._placed_pm[direction] = (plan.generation, pm, placed)
+        return placed
+
+    def _replicated_rule_tab(self, direction: int, rt: torch.Tensor):
+        """Grid-placed copy of one direction's attribution rule table —
+        the _replicated_policymap pattern: replicated on a 1D plan,
+        row-sharded like id_bits on a 2D one."""
+        plan = self._plan
+        gen, src, placed = self._placed_rt.get(direction, (-1, None, None))
+        if src is rt and gen == plan.generation:
+            return placed
+        placed = (shard_rows(rt, plan.ident_sharding) if plan.is_2d
+                  else replicate(rt, plan.table_sharding))
+        self._placed_rt[direction] = (plan.generation, rt, placed)
+        return placed
+
+    def _ident_placed_device(self, device, deltas=None):
+        """The engine's DevicePolicy with ``sel_match`` ident-sharded
+        under a 2D plan (generation-cached on the source tensor); any
+        other plan returns it untouched. With SparseDeltas on, a source
+        change the delta log explains patches the cached copy
+        (_patch_placed_sel) instead of re-placing it."""
+        plan = self._plan
+        if not plan.is_2d:
+            return device
+        gen, src, placed = self._placed_sel
+        if src is not device.sel_match or gen != plan.generation:
+            patched = self._patch_placed_sel(device, deltas) if self._sparse_deltas else None
+            placed = (shard_rows(device.sel_match, plan.ident_sharding)
+                      if patched is None else patched)
+            self._placed_sel = (plan.generation, device.sel_match, placed)
+        return dataclasses.replace(device, sel_match=placed)
+
+    def _patch_placed_sel(self, device, deltas):
+        """Replay the delta window onto the cached ident-sharded
+        sel_match → the patched copy, or None when the gap is not
+        patchable (no cached copy, a plan move, a truncated or absent
+        log, a "full" event, a shape move, a mirror miss) and the
+        caller re-places it. The values are final-state reads of the
+        engine's host mirror (sel_match_rows), so a replay is
+        idempotent."""
+        plan = self._plan
+        gen, _src, placed = self._placed_sel
+        if placed is None or gen != plan.generation:
+            return None
+        if not deltas:  # None (truncated) or an unlogged source move
+            return None
+        if tuple(placed.shape) != tuple(device.sel_match.shape):
+            return None
+        row_set: set = set()
+        col_events: list = []
+        for _seq, kind, payload in deltas:
+            if kind == "rows":
+                row_set.update(int(r) for r, _ident, _live in payload)
+            elif kind == "cols":
+                col_events.append(payload)
+            elif kind != "rules":  # "full": re-place
+                return None
+        if not row_set and not col_events:
+            return None  # the source moved with no sel_match event logged
+        nbytes = nscat = 0
+        if row_set:
+            rows = sorted(row_set)
+            vals = self.engine.sel_match_rows(rows)
+            if vals is None or vals.shape[1] != placed.shape[1]:
+                return None
+            placed = patch_selector_rows(placed, rows, vals)
+            nbytes += len(rows) * 4 + int(vals.nbytes)
+            nscat += 1
+        for sel_lo, sel_hi, touched in col_events:
+            # rows the row patch rewrote whole already hold their final bits
+            rows = [int(r) for r in touched if int(r) not in row_set]
+            if not rows:
+                continue
+            words = selector_word_window(int(sel_lo), int(sel_hi))
+            if words.size == 0 or int(words.max()) >= placed.shape[1]:
+                return None
+            vals = self.engine.sel_match_rows(rows, words)
+            if vals is None:
+                return None
+            placed = patch_selector_cols(placed, rows, words, vals)
+            nbytes += len(rows) * 4 + int(vals.nbytes) + int(words.nbytes)
+            nscat += 1
+        if nscat:
+            _metrics.device_transfer_bytes_total.inc({"direction": "h2d"}, float(nbytes))
+            _metrics.device_transfers_total.inc({"direction": "h2d"}, float(nscat))
+        return placed
+
+    def _placed_holder(self, direction: int, mat) -> Optional[PlacedTables]:
+        """PlacedTables view of the direction's current placed copies,
+        for the patch paths to scatter into; None when nothing valid is
+        cached (no plan, a source swap, a plan move) — the next rebuild
+        re-places instead."""
+        plan = self._plan
+        if plan.table_sharding is None:
+            return None
+        gen, src, ppm = self._placed_pm.get(direction, (-1, None, None))
+        if src is not mat.tables or gen != plan.generation:
+            return None
+        holder = PlacedTables(tables=ppm)
+        rgen, rsrc, prt = self._placed_rt.get(direction, (-1, None, None))
+        if mat.rule_tab is not None and rsrc is mat.rule_tab and rgen == plan.generation:
+            holder.rule_tab = prt
+        return holder
+
+    def _rekey_placed(self, direction: int, mat, holder) -> None:
+        """Re-key the placed caches after a patch: it swapped both the
+        materialized tensors and the placed copies, so the entries move
+        to the new source objects without a re-place."""
+        if holder is None:
+            return
+        gen = self._plan.generation
+        self._placed_pm[direction] = (gen, mat.tables, holder.tables)
+        if holder.rule_tab is not None and mat.rule_tab is not None:
+            self._placed_rt[direction] = (gen, mat.rule_tab, holder.rule_tab)
+
+    def _place_locked(self, key, t: torch.Tensor) -> Replicated:
+        """``t`` replicated over the plan's grid through place_table,
+        cached on the source tensor and the plan generation (a trie
+        patch or a new shed table re-places only what it replaced)."""
+        gen = self._plan.generation
+        pgen, src, placed = self._placed_tab.get(key, (-1, None, None))
+        if src is t and pgen == gen:
+            return placed
+        placed = place_table(t, self._plan.table_sharding)
+        self._placed_tab[key] = (gen, t, placed)
+        return placed
+
+    def _place_shed_locked(self) -> None:
+        """Publish the shed table placed on grid row 0's device beside
+        the placed tables (None while Prefilter is off)."""
+        if self._placed is None:
+            return
+        shed = None
+        if self._shed_tab is not None:
+            shed = self._place_locked(("shed",), self._shed_tab).on(self._placed.rows[0][0])
+        if shed is not self._placed.shed_tab:
+            self._placed = dataclasses.replace(self._placed, shed_tab=shed)
+
+    def _publish_placed_locked(self) -> None:
+        """Publish the dispatch view of the plan (``self._placed``):
+        per grid row, the tries placed through place_table and the
+        policymaps and rule tables placed by _replicated_policymap /
+        _replicated_rule_tab, as read from that row's first device.
+        None without a grid."""
+        plan = self._plan
+        if plan.mesh is None:
+            self._placed = None
+            return
+        pms = {d: self._replicated_policymap(d, m.tables) for d, m in self._mat.items()}
+        rts = None
+        if self._rule_tabs is not None:
+            rts = {d: self._replicated_rule_tab(d, rt) for d, rt in self._rule_tabs.items()}
+        v4, v6 = self._tries
+        tries = {}
+        for fam, t in ((4, v4), (6, v6)):
+            tries[fam] = {
+                f.name: self._place_locked((fam, f.name), getattr(t, f.name))
+                for f in dataclasses.fields(t) if f.name not in ("world_row", "policymap")
+            }
+        rows = []
+        for grid_row in plan.mesh:
+            dev = grid_row[0].device
+            tabs = {}
+            for direction, pm in pms.items():
+                pm_d = tables_on(pm, dev)
+                for fam, t in ((4, v4), (6, v6)):
+                    tabs[(direction, fam)] = dataclasses.replace(
+                        t, policymap=pm_d, **{k: r.on(dev) for k, r in tries[fam].items()})
+            rt_d = None if rts is None else {
+                d: r.on(dev) if isinstance(r, Replicated) else r for d, r in rts.items()}
+            rows.append((dev, tabs, rt_d))
+        self._placed = _Placed(plan.generation, plan.is_2d, tuple(rows))
+        self._place_shed_locked()
+
+    def _table_gauges_locked(self, device) -> None:
+        """Per-device table bytes (``sharded_table_bytes``,
+        ``device_table_bytes``): under a 2D plan the identity tables
+        split by the ident factor; replicated / 1D report full bytes;
+        the tries are always replicated."""
+        ident = self._plan.ident_size if self._plan.is_2d else 1
+        pm_bytes = sum(m.tables.id_bits.numel() * 4 for m in self._mat.values())
+        rt_bytes = sum(m.rule_tab.numel() * 4 for m in self._mat.values() if m.rule_tab is not None)
+        _metrics.sharded_table_bytes.set(float(pm_bytes // ident), {"family": "policymap"})
+        _metrics.sharded_table_bytes.set(float(rt_bytes // ident), {"family": "rule_tab"})
+        placement = "ident-sharded" if self._plan.is_2d else "replicated"
+        _metrics.device_table_bytes.set(
+            float(pm_bytes // ident), {"family": "policymap", "placement": placement})
+        _metrics.device_table_bytes.set(
+            float(rt_bytes // ident), {"family": "rule_tab", "placement": placement})
+        sel = device.sel_match
+        _metrics.device_table_bytes.set(
+            float(sel.shape[0] * sel.shape[1] * 4 // ident),
+            {"family": "sel_match", "placement": placement})
+        trie_bytes = sum(
+            getattr(t, f.name).numel() * getattr(t, f.name).element_size()
+            for t in self._tries for f in dataclasses.fields(t)
+            if f.name not in ("world_row", "policymap"))
+        _metrics.device_table_bytes.set(
+            float(trie_bytes), {"family": "lpm_trie", "placement": "replicated"})
 
     def set_epoch_swap(self, on: bool) -> None:
         """Toggle epoch-swapped full rebuilds (the EpochSwap runtime
@@ -1395,17 +1780,22 @@ class DatapathPipeline:
                     labels["producer"] = "prefilter"
                 _metrics.drop_reasons_total.inc(labels, float(n))
 
-    def _account_batch(self, verdict: np.ndarray) -> None:
+    def _account_batch(self, verdict: np.ndarray, shard_of: Optional[np.ndarray] = None) -> None:
         """Registry accounting for one completed batch (the metricsmap →
-        pkg/metrics bridge), from the pulled host verdicts."""
+        pkg/metrics bridge), from the pulled host verdicts. ``shard_of``
+        ([B] flow shard of each flow, sharded dispatches only) switches
+        verdicts_total to per-shard ``device`` series."""
         _metrics.verdict_batches.inc({"path": "pipeline"})
         # one count per outcome over the int8 verdicts: the reference's
         # bincount casts a 1M-flow batch to int64 first, several times
         # the cost
-        for code, outcome in _OUTCOME_NAMES:
-            n = int(np.count_nonzero(verdict == code))
-            if n:
-                _metrics.verdicts_total.inc({"outcome": outcome}, float(n))
+        parts = [({}, verdict)] if shard_of is None else [
+            ({"device": str(int(d))}, verdict[shard_of == d]) for d in np.unique(shard_of)]
+        for labels, v in parts:
+            for code, outcome in _OUTCOME_NAMES:
+                n = int(np.count_nonzero(v == code))
+                if n:
+                    _metrics.verdicts_total.inc({"outcome": outcome, **labels}, float(n))
 
     def _up(self, a, dtype) -> torch.Tensor:
         return torch.from_numpy(
@@ -1450,6 +1840,23 @@ class DatapathPipeline:
         CPU."""
         return torch.empty(shape, dtype=dtype, pin_memory=self.device.type == "cuda")
 
+    @staticmethod
+    def _shard_spans(b: int, ndev: int) -> List[Tuple[int, int]]:
+        """[(lo, hi)] of each flow shard of a b-flow batch: the
+        reference's ``_shard_map`` widths (``ceil(b / ndev)``, as its
+        padded split gives), the last shard shorter, since nothing is
+        padded; one span without a plan."""
+        if ndev <= 1:
+            return [(0, b)]
+        w = max(1, -(-b // ndev))
+        return [(min(k * w, b), b if k == ndev - 1 else min((k + 1) * w, b)) for k in range(ndev)]
+
+    @classmethod
+    def _shard_map(cls, b: int, ndev: int) -> np.ndarray:
+        """[B] flow shard of each flow (the reference's ``_shard_map``)."""
+        widths = [hi - lo for lo, hi in cls._shard_spans(b, ndev)]
+        return np.repeat(np.arange(ndev, dtype=np.int32), widths)
+
     def _dispatch_enqueue(self, st, fl: _Batch, sel, row_override, *, ingress: bool) -> _Enqueued:
         """The enqueue half of the device work for the flows ``sel``
         (None = all), at their exact shape: stage the int32 inputs in a
@@ -1457,8 +1864,16 @@ class DatapathPipeline:
         the policymap verdict, then copy the outputs into pinned buffers
         and record one event after the copies. Nothing here waits for
         the card. On the CPU the same staging runs with plain buffers
-        and the plain versions compute at once (no event)."""
-        t, pf_empty, v6_fused, rule_tab, n_rules, ep_count, _lbt = st
+        and the plain versions compute at once (no event).
+
+        Under a plan (``st``'s placed view) the flows split into the
+        plan's flow shards: each shard's inputs go to its grid row's
+        first device and run against that row's tables (the 2D plan's
+        row reads through ``ident_gather_rows``); the per-flow outputs
+        land in their slices of the pinned buffers, the counters and
+        rule hits are summed on the pipeline's device, and one event is
+        recorded per device."""
+        t, pf_empty, v6_fused, rule_tab, n_rules, ep_count, _lbt, placed = st
 
         def part(a):
             return a if sel is None else a[sel]
@@ -1480,24 +1895,42 @@ class DatapathPipeline:
             self._host_buffer((cap, *width) if i == 0 else (cap,), torch.int32)
             for i in range(len(flows))))
         staging = [(key, bufs)]
-        dev = []
+        views = []
         for buf, a in zip(bufs, flows):
             if a is None:
-                dev.append(None)
+                views.append(None)
                 continue
             view = buf[:b]
             view.numpy()[...] = a
-            dev.append(view.to(self.device, non_blocking=True))
-        peer_t, ep_t, dp_t, pr_t, ro_t = dev
+            views.append(view)
+        if placed is None:
+            shards = [(0, b, self.device, t, rule_tab)]
+            ident2d = False
+        else:
+            ident2d = placed.ident2d
+            shards = []
+            for (lo, hi), (dev, tabs, rts) in zip(
+                    self._shard_spans(b, len(placed.rows)), placed.rows):
+                if hi > lo or not shards:
+                    direction = TRAFFIC_INGRESS if ingress else TRAFFIC_EGRESS
+                    shards.append((lo, hi, dev, tabs[(direction, fl.family)],
+                                   None if rts is None else rts[direction]))
         # the XDP prefilter guards traffic entering the node only, and
         # an empty deny set skips the walk
-        kw = dict(ep_count=ep_count, prefilter=ingress and not pf_empty,
-                  attrib=attrib, rule_tab=rule_tab, n_rules=n_rules, row_override=ro_t)
-        if fl.family == 4:
-            outs = process_flows_wide(t, peer_t, ep_t, dp_t, pr_t, **kw)
-        else:
-            outs = process_flows(t, peer_t, ep_t, dp_t, pr_t, levels=16, fused=v6_fused, **kw)
-        n_hits = outs[5].shape[0] if attrib else 0
+        kw = dict(ep_count=ep_count, prefilter=ingress and not pf_empty, attrib=attrib,
+                  n_rules=n_rules, ident_gather=ident2d)
+        outs, keep = [], [st]
+        for lo, hi, dev, t_s, rt_s in shards:
+            peer_t, ep_t, dp_t, pr_t, ro_t = (
+                None if v is None else v[lo:hi].to(dev, non_blocking=True) for v in views)
+            keep += [peer_t, ep_t, dp_t, pr_t, ro_t]
+            if fl.family == 4:
+                outs.append(process_flows_wide(t_s, peer_t, ep_t, dp_t, pr_t, row_override=ro_t,
+                                               rule_tab=rt_s, **kw))
+            else:
+                outs.append(process_flows(t_s, peer_t, ep_t, dp_t, pr_t, levels=16,
+                                          fused=v6_fused, row_override=ro_t, rule_tab=rt_s, **kw))
+        n_hits = outs[0][5].shape[0] if attrib else 0
         key = ("out", cap, ep_count, n_hits)
 
         def make():
@@ -1509,25 +1942,36 @@ class DatapathPipeline:
         bufs = self._staging_acquire(key, make)
         staging.append((key, bufs))
         host = []
-        for buf, x in zip(bufs, outs):
-            view = buf[:x.numel()].view(x.shape)
-            view.copy_(x, non_blocking=cuda)
+        for i, buf in enumerate(bufs):
+            if i in (2, 5):  # counters, rule hits: one sum per batch
+                parts = [o[i] for o in outs]
+                x = parts[0] if len(parts) == 1 else torch.stack(
+                    [p.to(self.device, non_blocking=True) for p in parts]).sum(dim=0).to(torch.int32)
+                keep.append(x)
+                view = buf[:x.numel()].view(x.shape)
+                view.copy_(x, non_blocking=cuda)
+            else:
+                view = buf[:b]
+                for (lo, hi, *_), o in zip(shards, outs):
+                    view[lo:hi].copy_(o[i], non_blocking=cuda)
             host.append(view)
-        event = None
+        events = []
         if cuda:
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
-        keep = (st, peer_t, ep_t, dp_t, pr_t, ro_t)
-        return _Enqueued(outs, host, event, staging, keep)
+            for dev in dict.fromkeys([self.device, *(sh[2] for sh in shards)]):
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(dev))
+                events.append(event)
+        return _Enqueued(outs, host, events, staging, keep,
+                         ndev=1 if placed is None else len(placed.rows))
 
     def _dispatch_complete(self, enq: _Enqueued):
-        """The completion half: wait on the batch's event, copy the
+        """The completion half: wait on the batch's events, copy the
         outputs out of the staging and release it → (verdict, redirect,
         counters, rule, l4_covered, hits) numpy; the last three are None
         without attribution. Launches no device work, so any thread may
         run it."""
-        if enq.event is not None:
-            enq.event.synchronize()
+        for event in enq.events:
+            event.synchronize()
         out = [np.array(h.numpy()) for h in enq.host]
         self._staging_release(enq.staging)
         enq.host = enq.keep = enq.outs = None
@@ -1601,6 +2045,8 @@ class DatapathPipeline:
                 self._attrib_n_rules,
                 max(1, len(self._endpoints)),
                 self._lb_tables.get(family) if self.lb is not None else None,
+                # the plan's dispatch view, published with the tables
+                self._placed,
             )
         b = fl.ep_idx.shape[0]
 
@@ -1659,7 +2105,9 @@ class DatapathPipeline:
                     with self._lock:
                         if self.counters.shape == counters.shape:
                             self.counters += counters
-                self._account_batch(v)
+                # per flow shard under a plan, so a hot shard shows
+                self._account_batch(
+                    v, shard_of=self._shard_map(b, enq.ndev) if enq.ndev > 1 else None)
                 if rule is not None:
                     self._account_attribution(v, rule, l4x, hits, ingress=ingress)
                 if want_rev_nat:
@@ -1968,16 +2416,26 @@ class DatapathPipeline:
         with self._lock:
             shed_tab = self._shed_tab
             t = self._tables.get((TRAFFIC_INGRESS, family))
+            dev = self.device
+            if self._placed is not None and t is not None:
+                # under a plan: the tables and shed table placed on grid
+                # row 0's first device
+                dev, tabs, _rts = self._placed.rows[0]
+                t, shed_tab = tabs[(TRAFFIC_INGRESS, family)], self._placed.shed_tab
         if shed_tab is None or t is None:
             return None
-        dp = self._up(dports, np.int32)
-        pr = self._up(protos, np.int32)
+
+        def up(a):
+            return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.int32))).to(dev)
+
+        dp = up(dports)
+        pr = up(protos)
         peer = np.asarray(peer)
         if family == 4:
             u32 = peer.astype(np.uint32) if peer.ndim == 1 else _pack_v4_u32(peer)
-            mask = shed_flows_wide(t, shed_tab, self._up(u32.view(np.int32), np.int32), dp, pr)
+            mask = shed_flows_wide(t, shed_tab, up(u32.view(np.int32)), dp, pr)
         else:
-            mask = shed_flows(t, shed_tab, self._up(peer, np.int32), dp, pr, levels=16)
+            mask = shed_flows(t, shed_tab, up(peer), dp, pr, levels=16)
         # the gate partitions the batch on the host: one pull per shed
         # decision
         return mask.cpu().numpy()

@@ -21,12 +21,24 @@ kernel (csrc/policymap_verdict.cu), on a CPU tensor it runs
 attribution) it also returns the deciding rule, the L4 coverage and
 the rule-hit counts of each flow, through the kernel's attribution
 entry (``policymap_verdict_attrib``).
+
+Placement (``datapath/placement.py``): :func:`replicate_tables` puts a
+copy of every table on each device of a plan's grid
+(:class:`Replicated`), :func:`shard_tables_ident` row-shards the
+``[N, *]`` identity tables over the grid's ``ident`` axis
+(:class:`IdentSharded`: the reference's ``P("ident", None)``) and keeps
+the ``[C]`` column metadata replicated. A row fetch from an
+ident-sharded table is :func:`ident_gather_rows`: one ``ident_gather``
+kernel launch per shard (csrc/ident_gather.cu; each shard writes the
+rows it owns and zeros elsewhere) and a sum of the partials on the
+caller's device. ``lookup_batch(ident_gather=True)`` and the
+pipeline's 2D path run the policymap verdict on such gathered rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -69,6 +81,222 @@ def patch_bitmap_cols(
     columns of the rule-patch path: a rule touching k columns uploads
     [N, k] words, not the table."""
     return tab.index_copy(1, col_idx, cols)
+
+
+# -- placement: replicated and ident-sharded tables -----------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Replicated:
+    """One tensor replicated onto every device of a grid (the
+    reference's ``P()``): a copy per distinct torch device."""
+
+    copies: Dict[torch.device, torch.Tensor]
+
+    def on(self, device) -> torch.Tensor:
+        return self.copies[torch.device(device)]
+
+
+def replicate(x: torch.Tensor, sharding) -> Replicated:
+    """``x`` on every device of ``sharding``'s grid (``.to``: no copy
+    where ``x`` already lies)."""
+    return Replicated({d: x.to(d) for d in sharding.devices})
+
+
+@dataclasses.dataclass(frozen=True)
+class RowShard:
+    """Rows ``[row_lo, row_lo + rows)`` of an identity table on one
+    device."""
+
+    row_lo: int
+    rows: int
+    tensor: torch.Tensor  # [rows, W]
+
+
+@dataclasses.dataclass(frozen=True)
+class IdentSharded:
+    """An ``[N, W]`` identity table under the reference's
+    ``P("ident", None)``: its rows split into ``ident`` equal shards,
+    shard k on the devices of grid column k, so each grid row (a flow
+    shard) holds the whole table once. ``shards`` is shaped like the
+    grid, ``[flows][ident]``; grid rows on one torch device share their
+    RowShard objects. ``device`` is the home device a row read lands on
+    when the reader's device is in no grid row (the engine's device for
+    the sweeps). Rows are read with :func:`ident_gather_rows`."""
+
+    shape: Tuple[int, int]
+    device: torch.device
+    shards: Tuple[Tuple[RowShard, ...], ...]
+
+    def row_for(self, device) -> Tuple[RowShard, ...]:
+        """The ident shards of the grid row whose first device is
+        ``device`` (row 0 when none is)."""
+        device = torch.device(device)
+        for row in self.shards:
+            if row[0].tensor.device == device:
+                return row
+        return self.shards[0]
+
+
+def shard_rows(x: torch.Tensor, ident_sharding) -> IdentSharded:
+    """Row-shard ``x`` [N, W] over ``ident_sharding``'s grid columns.
+    ``N`` must be a multiple of the ident size (a ragged N raises
+    ValueError, as the reference's ``device_put`` does)."""
+    grid = ident_sharding.grid
+    ident = len(grid[0])
+    n = x.shape[0]
+    if n % ident:
+        raise ValueError(
+            f"an identity table of {n} rows does not split into {ident} equal shards")
+    rows = n // ident
+    made: Dict[Tuple[torch.device, int], RowShard] = {}
+    shards = []
+    for grid_row in grid:
+        out = []
+        for k, rec in enumerate(grid_row):
+            key = (rec.device, k)
+            if key not in made:
+                made[key] = RowShard(k * rows, rows, x[k * rows:(k + 1) * rows].to(rec.device))
+            out.append(made[key])
+        shards.append(tuple(out))
+    return IdentSharded(tuple(x.shape), x.device, tuple(shards))
+
+
+def map_placed(tab, fn: Callable[[torch.Tensor, int], torch.Tensor]):
+    """Apply ``fn(tensor, row_lo) -> tensor`` to every stored tensor of
+    a table — a tensor (row_lo 0), a :class:`Replicated` (each copy,
+    row_lo 0) or an :class:`IdentSharded` (each shard once, at its
+    row_lo) — and return the table of the same kind. The patch paths
+    scatter into placed copies with it, out of place."""
+    if isinstance(tab, Replicated):
+        return Replicated({d: fn(t, 0) for d, t in tab.copies.items()})
+    if isinstance(tab, IdentSharded):
+        done: Dict[int, RowShard] = {}
+
+        def one(s: RowShard) -> RowShard:
+            if id(s) not in done:
+                t = fn(s.tensor, s.row_lo)
+                done[id(s)] = s if t is s.tensor else RowShard(s.row_lo, s.rows, t)
+            return done[id(s)]
+
+        return dataclasses.replace(
+            tab, shards=tuple(tuple(one(s) for s in row) for row in tab.shards))
+    return fn(tab, 0)
+
+
+def patch_placed_rows(tab, idx: torch.Tensor, rows: torch.Tensor, op=None):
+    """Whole rows ``rows`` [k, W] at identity rows ``idx`` [k] (int64)
+    into a table of any placement, out of place: one ``op(tensor, idx,
+    rows)`` (default ``index_copy`` on dim 0) per stored tensor that
+    owns a patched row, with that tensor's own rows and offsets."""
+
+    def one(t: torch.Tensor, lo: int) -> torch.Tensor:
+        own = (idx >= lo) & (idx < lo + t.shape[0])
+        if not bool(own.any()):
+            return t
+        i, v = (idx[own] - lo).to(t.device), rows[own].to(t.device)
+        return t.index_copy(0, i, v) if op is None else op(t, i, v)
+
+    return map_placed(tab, one)
+
+
+def patch_placed_cols(tab, col_idx: torch.Tensor, cols: torch.Tensor):
+    """:func:`patch_bitmap_cols` for a table of any placement: the
+    columns ``col_idx`` of every row, one ``index_copy`` per stored
+    tensor (each shard takes its own rows of ``cols``)."""
+    return map_placed(tab, lambda t, lo: patch_bitmap_cols(
+        t, col_idx.to(t.device), cols[lo:lo + t.shape[0]].to(t.device)))
+
+
+def replicate_tables(t: PolicymapTables, sharding=None) -> PolicymapTables:
+    """A policymap REPLICATED across a grid: every field a
+    :class:`Replicated`. The row read touches arbitrary identity rows
+    per flow, so the bitmap table must be whole on every device a flow
+    shard lands on. ``sharding=None`` returns the tables untouched."""
+    if sharding is None:
+        return t
+    return PolicymapTables(**{
+        f.name: replicate(getattr(t, f.name), sharding) for f in dataclasses.fields(t)})
+
+
+def shard_tables_ident(t: PolicymapTables, ident_sharding, replicated) -> PolicymapTables:
+    """A policymap with the identity axis SHARDED: the [N, 2W] bitmap
+    rows split over the grid's ``ident`` axis (:class:`IdentSharded`)
+    while the [C] column metadata — tiny, read by every flow — stays
+    replicated. Row reads then run through :func:`ident_gather_rows`."""
+    return PolicymapTables(
+        col_ep=replicate(t.col_ep, replicated),
+        col_port=replicate(t.col_port, replicated),
+        col_proto=replicate(t.col_proto, replicated),
+        col_is_l3=replicate(t.col_is_l3, replicated),
+        id_bits=shard_rows(t.id_bits, ident_sharding),
+    )
+
+
+def tables_on(t: PolicymapTables, device) -> PolicymapTables:
+    """A placed policymap as read from ``device``: each replicated
+    field's copy there; an ident-sharded ``id_bits`` stays the holder."""
+    def on(v):
+        return v.on(device) if isinstance(v, Replicated) else v
+
+    return PolicymapTables(**{f.name: on(getattr(t, f.name)) for f in dataclasses.fields(t)})
+
+
+def ident_gather_rows_plain(tab: torch.Tensor, src: torch.Tensor, row_lo: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of the ``ident_gather`` kernel: the rows
+    ``[row_lo, row_lo + rows)`` of an identity table held as ``tab``
+    [rows, W] int32, [b] int32 ids → [b, W] int32, ``tab[src - row_lo]``
+    where the row is owned and 0 where it is not (a masked
+    ``index_select``)."""
+    r = src.long() - row_lo
+    n = tab.shape[0]
+    own = (r >= 0) & (r < n)
+    if n == 0:
+        return torch.zeros((src.shape[0], tab.shape[1]), dtype=tab.dtype, device=tab.device)
+    rows = tab.index_select(0, r.clamp(0, n - 1))
+    return torch.where(own[:, None], rows, torch.zeros((), dtype=tab.dtype, device=tab.device))
+
+
+def ident_gather_shard(tab: torch.Tensor, src: torch.Tensor, row_lo: int = 0) -> torch.Tensor:
+    """One shard's partial of a row gather: the ``ident_gather`` kernel
+    on a CUDA tensor, :func:`ident_gather_rows_plain` on a CPU one."""
+    dev = _kernels.dispatch_device(tab, src)
+    if dev.type == "cpu":
+        return ident_gather_rows_plain(tab, src, row_lo)
+    if tab.dtype != torch.int32 or tab.dim() != 2:
+        raise ValueError(f"ident_gather: table {tab.dtype} {tuple(tab.shape)}, expected int32 [rows, W]")
+    t = tab.contiguous()
+    s = src.to(torch.int32).contiguous()
+    rows, w = t.shape
+    b = s.shape[0]
+    out = torch.empty((b, w), dtype=torch.int32, device=dev)
+    _kernels.check_cuda("ident_gather", dev, t, s, out)
+    _kernels.KERNELS["ident_gather"].launch(
+        dev, t.data_ptr(), rows, w, row_lo, s.data_ptr(), b, out.data_ptr())
+    return out
+
+
+def ident_gather_rows(tab, src: torch.Tensor) -> torch.Tensor:
+    """Row gather for identity tables of any placement → [b, W] on
+    ``src``'s device; a row outside [0, N) gives an all-zero row (the
+    reference's one-hot contraction, not ``take``'s fill). A tensor or
+    :class:`Replicated` table is one shard; an :class:`IdentSharded`
+    one is gathered shard by shard on the devices of the reader's grid
+    row, each partial holding the rows that shard owns, and the
+    partials are added on ``src``'s device. Exactly one shard owns a
+    row, so the integer sum is the row itself, bit for bit. uint32
+    words travel as int32 bit views."""
+    if isinstance(tab, IdentSharded):
+        out = None
+        for shard in tab.row_for(src.device):
+            part = ident_gather_shard(
+                shard.tensor, src.to(shard.tensor.device, non_blocking=True), shard.row_lo)
+            part = part.to(src.device, non_blocking=True)
+            out = part if out is None else out + part
+        return out
+    if isinstance(tab, Replicated):
+        tab = tab.on(src.device)
+    return ident_gather_shard(tab, src)
 
 
 def policymap_verdict_plain(
@@ -261,6 +489,56 @@ def _launch_attrib(dev, id_bits, cols, rule_tab, flows, pf, verdict, redirect, c
     return verdict, redirect, counters, rule, l4x, hits
 
 
+def policymap_verdict_gathered(
+    t: PolicymapTables,
+    src_rows: torch.Tensor,
+    ep_idx: torch.Tensor,
+    dport: torch.Tensor,
+    proto: torch.Tensor,
+    denied_pf: Optional[torch.Tensor] = None,
+    ep_count: Optional[int] = None,
+    block: int = 16384,
+    rule_tab=None,
+    n_rules: int = 0,
+):
+    """:func:`policymap_verdict` with every row read through
+    :func:`ident_gather_rows` — the reference's ``ident_gather=True``
+    lookup, for a ``t.id_bits`` (and ``rule_tab``) of any placement.
+    One ``block`` of lanes at a time, as the reference's ``lax.map``:
+    its ``[block, 2W]`` rows (and ``[block, C]`` rule rows) are
+    gathered, then the policymap kernel runs on them as a ``block``-row
+    table with ``src = arange(block)``. Same outputs as
+    :func:`policymap_verdict`; counters and rule hits are the sums over
+    the blocks."""
+    b = src_rows.shape[0]
+    dev = src_rows.device
+    outs = []
+    for lo in range(0, max(b, 1), block):
+        hi = min(lo + block, b)
+        src = src_rows[lo:hi]
+        local = torch.arange(hi - lo, dtype=torch.int32, device=dev)
+        rows = dataclasses.replace(t, id_bits=ident_gather_rows(t.id_bits, src))
+        outs.append(policymap_verdict(
+            rows, local, ep_idx[lo:hi], dport[lo:hi], proto[lo:hi],
+            denied_pf=None if denied_pf is None else denied_pf[lo:hi], ep_count=ep_count,
+            block=block, rule_tab=None if rule_tab is None else ident_gather_rows(rule_tab, src),
+            n_rules=n_rules,
+        ))
+    if len(outs) == 1:
+        return outs[0]
+
+    def cat(i):
+        return torch.cat([o[i] for o in outs])
+
+    def total(i):
+        return None if outs[0][i] is None else torch.stack([o[i] for o in outs]).sum(dim=0).to(
+            outs[0][i].dtype)
+
+    if rule_tab is None:
+        return cat(0), cat(1), total(2)
+    return cat(0), cat(1), total(2), cat(3), cat(4), total(5)
+
+
 def lookup_batch(
     t: PolicymapTables,
     ep_idx: torch.Tensor,  # [B] int32 local endpoint index
@@ -269,22 +547,24 @@ def lookup_batch(
     proto: torch.Tensor,  # [B] int32
     block: int = 16384,
     attrib: bool = False,
-    rule_tab: Optional[torch.Tensor] = None,  # [N, C_pad] int32 (attrib only)
+    rule_tab=None,  # [N, C_pad] int32 (attrib only)
     ident_gather: bool = False,
 ):
     """→ (decision[B] int8, redirect[B] bool); with ``attrib=True``
     also (rule[B] int32, l4_exists[B] bool): the deciding-rule index
     gathered from the materializer's per-(row, column) rule table (-1 =
     no rule decided) and whether an L4 column covered the flow's
-    (endpoint, port, proto) at all."""
-    if ident_gather:
-        raise NotImplementedError("ident-sharded row gathers are not in the torch port yet")
+    (endpoint, port, proto) at all. ``ident_gather=True`` reads the
+    rows through :func:`ident_gather_rows` (the 2D plan's row fetch;
+    ``t.id_bits`` and ``rule_tab`` may be ident-sharded); a row outside
+    [0, N) is then all zeros, as in the reference's contraction."""
+    verdict = policymap_verdict_gathered if ident_gather else policymap_verdict
     if not attrib:
-        dec, red, _ = policymap_verdict(t, src_rows, ep_idx, dport, proto, block=block)
+        dec, red, _ = verdict(t, src_rows, ep_idx, dport, proto, block=block)
         return dec, red
     if rule_tab is None:
         raise ValueError("lookup_batch(attrib=True) needs rule_tab")
-    dec, red, _, rule, l4x, _hits = policymap_verdict(
+    dec, red, _, rule, l4x, _hits = verdict(
         t, src_rows, ep_idx, dport, proto, block=block, rule_tab=rule_tab
     )
     return dec, red, rule, l4x

@@ -40,6 +40,7 @@ import torch
 
 from .. import _kernels
 from ..convert import _tensor
+from .lookup import replicate
 
 
 class TrieBuilder:
@@ -1089,6 +1090,16 @@ def lpm_lookup_wide(
         int(flat), addr.data_ptr(), out.data_ptr(), addr.shape[0],
     )
     return out
+
+
+def place_table(t: torch.Tensor, sharding=None):
+    """One trie tensor as the verdict path reads it: with a plan's
+    sharding (``datapath/placement.py``) REPLICATED across the grid — a
+    :class:`~.lookup.Replicated` with a copy on each device, since every
+    LPM walk reads the whole trie whichever flow shard it serves;
+    without one the tensor itself. Centralized here so every trie
+    consumer places tables the same way."""
+    return t if sharding is None else replicate(t, sharding)
 
 
 def ipv4_to_bytes(addrs: np.ndarray) -> np.ndarray:

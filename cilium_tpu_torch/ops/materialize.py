@@ -21,7 +21,16 @@ sweep: :func:`patch_identity_rows` re-sweeps the changed identity rows
 against every column, :func:`patch_endpoints_state` the columns of the
 endpoints a rule delta can touch against every row. Each writes its
 device words with one out-of-place indexing op (:func:`_patch_bitmap_rows`,
-``lookup.patch_bitmap_cols``).
+``lookup.patch_bitmap_cols``). Given a :class:`PlacedTables` (the
+pipeline's copies placed on a plan's grid) each patch scatters the same
+words into the placed copies too, one op per stored tensor that owns a
+patched row. :func:`patch_selector_rows` / :func:`patch_selector_cols`
+replay the engine's selector deltas onto a placed ``sel_match``.
+
+Under a 2D plan the pipeline hands the sweeps a ``DevicePolicy`` whose
+``sel_match`` is ident-sharded (``lookup.IdentSharded``): every row read
+of it is ``verdict.sel_rows``, which then launches the ``ident_gather``
+kernel on each shard (``lookup.ident_gather_rows``).
 """
 
 from __future__ import annotations
@@ -34,8 +43,8 @@ import torch
 
 from ..compiler.program import CompiledPolicy, PROTO_TCP_N
 from .bitmap import pack_bool_bits, unpack_bits_u32
-from .lookup import PolicymapTables, patch_bitmap_cols
-from .verdict import ALLOW, AttribTables, DevicePolicy, bool_mm, verdict_batch
+from .lookup import PolicymapTables, patch_bitmap_cols, patch_placed_cols, patch_placed_rows, map_placed
+from .verdict import ALLOW, AttribTables, DevicePolicy, bool_mm, sel_rows, verdict_batch
 
 TRAFFIC_INGRESS = 0
 TRAFFIC_EGRESS = 1
@@ -194,7 +203,7 @@ def _sweep_device_matrix(
     (allow, l3, redirect) [g, ceil(n/32)] words as :func:`_sweep_device`.
     """
     t = policy.ingress if ingress else policy.egress
-    subj8 = unpack_bits_u32(policy.sel_match[seg_row.long()])  # [g, S]
+    subj8 = unpack_bits_u32(sel_rows(policy.sel_match, seg_row.long()))  # [g, S]
     pp = (
         (seg_port[:, None] == t.ports[None, :])
         & (seg_proto[:, None] == t.protos[None, :])
@@ -207,7 +216,7 @@ def _sweep_device_matrix(
 
     allow_parts, l3_parts, red_parts = [], [], []
     for lo in range(0, n, nblock):
-        peer8 = unpack_bits_u32(policy.sel_match[lo:lo + nblock])  # [nb, S]
+        peer8 = unpack_bits_u32(sel_rows(policy.sel_match, slice(lo, lo + nblock)))  # [nb, S]
         peer_deny = bool_mm(peer8, t.deny_t, complement_x=True)  # [nb, S]
         peer_allow = bool_mm(peer8, t.allow_t)
         peer_en = bool_mm(peer8, t.en_t)  # [nb, K1]
@@ -357,7 +366,7 @@ def materialize_endpoints_state(
     ep_rows = compiled.rows_for(endpoint_identity_ids)
     # bounded [E, S/32] pull of just the endpoint subject rows
     ep_sel = (
-        device.sel_match[torch.from_numpy(ep_rows.astype(np.int64)).to(device.sel_match.device)]
+        sel_rows(device.sel_match, torch.from_numpy(ep_rows.astype(np.int64)).to(device.sel_match.device))
         .cpu().numpy().view(np.uint32)
     )
     live = compiled.row_live
@@ -502,9 +511,19 @@ def _patch_bitmap_rows(tab: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor)
 _PATCH_BLOCK = 8192
 
 
-def _refuse_placed(placed) -> None:
-    if placed is not None:
-        raise NotImplementedError("placed tables (multi-device placement) are not in the torch port yet")
+@dataclasses.dataclass
+class PlacedTables:
+    """Mutable holder for the grid-placed copies of a materialized
+    direction's device tables (the pipeline's per-direction cache): a
+    ``PolicymapTables`` whose fields are ``lookup.Replicated`` or, for
+    ``id_bits`` under a 2D plan, ``lookup.IdentSharded``, and the rule
+    table placed the same way. The patch paths scatter the SAME idx /
+    vals into these copies, one out-of-place op per stored tensor that
+    owns a patched row, so a row patch under the ident sharding touches
+    only the shard that owns the row — no re-place."""
+
+    tables: PolicymapTables
+    rule_tab: Optional[object] = None
 
 
 def patch_identity_rows(
@@ -514,7 +533,7 @@ def patch_identity_rows(
     *,
     attrib_origin: Optional[AttribTables] = None,
     n_rules: int = 0,
-    placed=None,
+    placed: Optional[PlacedTables] = None,
 ) -> None:
     """Apply identity-churn row updates to a materialized policymap.
 
@@ -525,8 +544,7 @@ def patch_identity_rows(
     place. With attribution on the state (rule_nc / rule_tab) and an
     ``attrib_origin`` the sweep runs the attribution variant too;
     without an origin the patched rows' rule entries become -1.
-    ``placed`` (multi-device placement) must be None."""
-    _refuse_placed(placed)
+    ``placed`` gets the same row scatters."""
     if not row_events:
         return
     direction = TRAFFIC_INGRESS if state.ingress else TRAFFIC_EGRESS
@@ -634,13 +652,20 @@ def patch_identity_rows(
 
     idx_np = np.asarray(rows, np.int64)
     idx = torch.from_numpy(idx_np).to(dev)
-    comb_rows = _pack_rows(np.concatenate([state.allow_nc[idx_np], state.red_nc[idx_np]], axis=1))
+    comb_rows = _words(
+        _pack_rows(np.concatenate([state.allow_nc[idx_np], state.red_nc[idx_np]], axis=1)), dev)
     state.tables = dataclasses.replace(
-        state.tables, id_bits=_patch_bitmap_rows(state.tables.id_bits, idx, _words(comb_rows, dev))
+        state.tables, id_bits=_patch_bitmap_rows(state.tables.id_bits, idx, comb_rows)
     )
+    if placed is not None:
+        # the same scatter onto the placed copies: they stay placed
+        placed.tables = dataclasses.replace(
+            placed.tables, id_bits=patch_placed_rows(placed.tables.id_bits, idx, comb_rows))
     if state.rule_nc is not None and state.rule_tab is not None:
         rvals = torch.from_numpy(np.ascontiguousarray(state.rule_nc[idx_np])).to(dev)
         state.rule_tab = _patch_bitmap_rows(state.rule_tab, idx, rvals)
+        if placed is not None and placed.rule_tab is not None:
+            placed.rule_tab = patch_placed_rows(placed.rule_tab, idx, rvals)
 
 
 def patch_endpoints_state(
@@ -651,7 +676,7 @@ def patch_endpoints_state(
     *,
     attrib_origin: Optional[AttribTables] = None,
     n_rules: int = 0,
-    placed=None,
+    placed: Optional[PlacedTables] = None,
 ) -> bool:
     """O(delta) column re-materialization for a rule append/delete.
 
@@ -669,8 +694,7 @@ def patch_endpoints_state(
     endpoint's slot set GREW (new columns). Shrunken slot sets keep
     their stale columns, which re-sweep to the now-denied values.
     Snapshots of affected endpoints are rebuilt in place. ``placed``
-    (multi-device placement) must be None."""
-    _refuse_placed(placed)
+    gets the same column scatters."""
     n = compiled.id_bits.shape[0]
     if state.allow_nc.shape[0] != n:
         return False  # row-bucket crossing — full rebuild
@@ -688,7 +712,7 @@ def patch_endpoints_state(
     # read of sel_match (never the [N, S/32] matrix).
     dev = device.sel_match.device
     ep_sel = (
-        device.sel_match[torch.from_numpy(state.ep_rows.astype(np.int64)).to(dev)]
+        sel_rows(device.sel_match, torch.from_numpy(state.ep_rows.astype(np.int64)).to(dev))
         .cpu().numpy().view(np.uint32)
     )
     word = np.asarray([s >> 5 for s in sids])
@@ -775,13 +799,78 @@ def patch_endpoints_state(
         word_vals.append(_pack_col_word(state.allow_nc[:, cols]))
         word_idx.append(c_pad // 32 + w)
         word_vals.append(_pack_col_word(state.red_nc[:, cols]))
-    state.tables = dataclasses.replace(state.tables, id_bits=patch_bitmap_cols(
-        state.tables.id_bits, torch.from_numpy(np.asarray(word_idx, np.int64)).to(dev),
-        _words(np.stack(word_vals, axis=1), dev),
-    ))
+    widx = torch.from_numpy(np.asarray(word_idx, np.int64)).to(dev)
+    wvals = _words(np.stack(word_vals, axis=1), dev)
+    state.tables = dataclasses.replace(
+        state.tables, id_bits=patch_bitmap_cols(state.tables.id_bits, widx, wvals))
+    if placed is not None:
+        placed.tables = dataclasses.replace(
+            placed.tables, id_bits=patch_placed_cols(placed.tables.id_bits, widx, wvals))
     if state.rule_nc is not None and state.rule_tab is not None:
-        state.rule_tab = patch_bitmap_cols(
-            state.rule_tab, torch.from_numpy(np.asarray(touched_cols, np.int64)).to(dev),
-            torch.from_numpy(np.ascontiguousarray(state.rule_nc[:, touched_cols])).to(dev),
-        )
+        ridx = torch.from_numpy(np.asarray(touched_cols, np.int64)).to(dev)
+        rvals = torch.from_numpy(np.ascontiguousarray(state.rule_nc[:, touched_cols])).to(dev)
+        state.rule_tab = patch_bitmap_cols(state.rule_tab, ridx, rvals)
+        if placed is not None and placed.rule_tab is not None:
+            placed.rule_tab = patch_placed_cols(placed.rule_tab, ridx, rvals)
     return True
+
+
+# -- sparse sel_match patching ----------------------------------------------
+#
+# The engine keeps the authoritative device sel_match; under a 2D plan the
+# pipeline keeps an ident-sharded copy for its sweeps. These replay the
+# engine's delta-log events onto that copy as O(k) scatters instead of
+# re-placing the full [N, S/32] matrix: one out-of-place index op per
+# shard that owns a patched row. The reference pads each scatter to a
+# power of two (_pow2_rows_vals) to bound its jit cache; there is no
+# compile cache here, so the port scatters the exact rows.
+
+
+def _scatter_sel_rows(sel_match: torch.Tensor, idx: torch.Tensor, rows: torch.Tensor) -> torch.Tensor:
+    """Whole rows ``rows`` [k, S/32] at ``idx`` [k], out of place
+    (a batch in flight may hold the old tensor)."""
+    return sel_match.index_copy(0, idx, rows)
+
+
+def _scatter_sel_cols(
+    sel_match: torch.Tensor, rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor
+) -> torch.Tensor:
+    """The cells ``rows`` [k] × ``cols`` [w] ← ``vals`` [k, w], out of
+    place."""
+    return sel_match.index_put((rows[:, None], cols[None, :]), vals)
+
+
+def patch_selector_rows(sel_match, ident_rows: Sequence[int], row_words: np.ndarray):
+    """Scatter whole packed sel_match rows (identity-churn deltas: the
+    engine's ``"rows"`` events) into a device or placed copy → the
+    patched copy, placed as the input was. O(k · S/32) payload."""
+    rows = np.asarray(ident_rows, np.int64)
+    if rows.size == 0:
+        return sel_match
+    vals = np.ascontiguousarray(row_words, dtype=np.uint32).view(np.int32)
+    return patch_placed_rows(sel_match, torch.from_numpy(rows), torch.from_numpy(vals),
+                             op=_scatter_sel_rows)
+
+
+def patch_selector_cols(
+    sel_match, ident_rows: Sequence[int], word_cols: Sequence[int], vals: np.ndarray
+):
+    """Scatter a column delta (selector appends: the engine's ``"cols"``
+    events) into a device or placed sel_match copy: k touched identity
+    rows × the appended selectors' word window. O(k · w) payload."""
+    rows = np.asarray(ident_rows, np.int64)
+    cols = np.asarray(word_cols, np.int64)
+    if rows.size == 0 or cols.size == 0:
+        return sel_match
+    ridx = torch.from_numpy(rows)
+    cidx = torch.from_numpy(cols)
+    v = torch.from_numpy(np.ascontiguousarray(vals, dtype=np.uint32).view(np.int32))
+
+    def one(t: torch.Tensor, lo: int) -> torch.Tensor:
+        own = (ridx >= lo) & (ridx < lo + t.shape[0])
+        if not bool(own.any()):
+            return t
+        return _scatter_sel_cols(
+            t, (ridx[own] - lo).to(t.device), cidx.to(t.device), v[own].to(t.device))
+
+    return map_placed(sel_match, one)

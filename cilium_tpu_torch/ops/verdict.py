@@ -29,7 +29,7 @@ codes, and :func:`verdict_batch` adds the [n_rules] rule-hit counts.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import TYPE_CHECKING, Optional, Union
 
 import numpy as np
 import torch
@@ -38,6 +38,9 @@ from .. import _kernels
 from ..compiler.program import DirectionProgram
 from ..policy.search import Decision
 from .bitmap import unpack_bits_u32
+
+if TYPE_CHECKING:
+    from .lookup import IdentSharded
 
 ALLOW = int(Decision.ALLOWED)
 DENY = int(Decision.DENIED)
@@ -155,9 +158,26 @@ class DevicePolicy:
     """Compiled policy resident on one device."""
 
     id_bits: torch.Tensor  # [N, W] int32 (uint32 bit view)
-    sel_match: torch.Tensor  # [N, S/32] int32 (packed selector matches)
+    # [N, S/32] int32 (packed selector matches); under a 2D plan the
+    # pipeline's sweeps get an ident-sharded copy. Read rows with
+    # sel_rows: on an IdentSharded copy it launches ident_gather.
+    sel_match: Union[torch.Tensor, "IdentSharded"]
     ingress: DeviceTables
     egress: DeviceTables
+
+
+def sel_rows(sel_match, idx) -> torch.Tensor:
+    """The rows ``idx`` (an index tensor or a slice) of a sel_match.
+    A tensor is indexed; an ident-sharded copy (``lookup.IdentSharded``)
+    is read through ``lookup.ident_gather_rows``: one ``ident_gather``
+    kernel launch per shard."""
+    if isinstance(sel_match, torch.Tensor):
+        return sel_match[idx]
+    from .lookup import ident_gather_rows  # lookup imports this module
+
+    if isinstance(idx, slice):
+        idx = torch.arange(*idx.indices(sel_match.shape[0]), device=sel_match.device)
+    return ident_gather_rows(sel_match, idx.to(torch.int32))
 
 
 def _as_int8(x: torch.Tensor) -> torch.Tensor:
@@ -225,7 +245,7 @@ def first_rule(mask: torch.Tensor, rule_of: torch.Tensor) -> torch.Tensor:
 
 
 def _verdict_block(
-    sel_match: torch.Tensor,
+    sel_match,  # [N, S/32] int32, or an ident-sharded copy (see sel_rows)
     t: DeviceTables,
     subj_rows: torch.Tensor,
     peer_rows: torch.Tensor,
@@ -234,8 +254,8 @@ def _verdict_block(
     has_l4: torch.Tensor,
     origin: Optional[AttribTables] = None,
 ):
-    subj8 = unpack_bits_u32(sel_match[subj_rows.long()])  # [b, S]
-    peer8 = unpack_bits_u32(sel_match[peer_rows.long()])
+    subj8 = unpack_bits_u32(sel_rows(sel_match, subj_rows.long()))  # [b, S]
+    peer8 = unpack_bits_u32(sel_rows(sel_match, peer_rows.long()))
     subj_b = subj8.to(torch.bool)
 
     deny_vec = subj_b & bool_mm(peer8, t.deny_t, complement_x=True)  # [b, S]

@@ -91,8 +91,16 @@ def test_verdict_tail_matches_jax(policymaps, ingress, with_prefilter):
 
 
 def test_lookup_refuses_unported_options(policymaps):
-    _compiled, maps = policymaps
-    _jt, tt = maps[True]
-    z = torch.zeros(1, dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
-        tlookup.lookup_batch(tt, z, z, z, z, ident_gather=True)
+    """``ident_gather=True`` is ported (it raised before): the
+    contraction's row fetch == JAX's, rows outside [0, N) included."""
+    compiled, maps = policymaps
+    jt, tt = maps[True]
+    ep, src, dp, pr = _flows(compiled, 3000, 5, ep_hi=N_EPS + 1)
+    src[::97] = -1
+    src[1::97] = compiled.id_bits.shape[0]
+    want = jlookup.lookup_batch(jt, *(jnp.asarray(a) for a in (ep, src, dp, pr)), block=1024,
+                                ident_gather=True)
+    got = tlookup.lookup_batch(tt, *(torch.from_numpy(a) for a in (ep, src, dp, pr)),
+                               block=1024, ident_gather=True)
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_))

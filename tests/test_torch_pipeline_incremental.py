@@ -13,7 +13,7 @@ policymap snapshot, and the verdicts, redirects and counters of
 place on the same steps and re-materialize on the same fallbacks.
 Tolerance 0: every compared value is an integer or a bool. The
 port-only cases hold the CT flush, the shed table, the kept tries, the
-functional updates, an in-flight batch and the ``placed=`` refusal.
+functional updates, an in-flight batch and the ``placed=`` copies.
 """
 
 from __future__ import annotations
@@ -368,14 +368,40 @@ def test_batch_submitted_before_a_delta_keeps_its_verdicts():
 
 
 def test_placed_tables_are_refused():
+    """Placed tables take the same patches (``placed=`` was once
+    refused, hence the name): a row patch and a column patch scatter the
+    same words into the placed copies — ident-sharded ``id_bits`` and
+    rule table, replicated columns on a 2 × 2 grid — which then equal
+    the patched state, shard for shard. The JAX comparison of placed
+    copies is in tests/test_torch_placement.py."""
+    from cilium_tpu_torch.datapath import placement as tplace
+    from cilium_tpu_torch.ops import lookup as tlookup
+
     p = Pipes(0)
+    for pipe in p.pipe.values():
+        pipe.set_attribution(True)
     p.rebuild()
     compiled, dev = p.eng["cilium_tpu_torch"].snapshot()
     m = p.pt._mat[INGRESS]
-    with pytest.raises(NotImplementedError):
-        tmat.patch_identity_rows(m, dev, [(0, 1, True)], placed=object())
-    with pytest.raises(NotImplementedError):
-        tmat.patch_endpoints_state(m, compiled, dev, [0], placed=object())
+    grid = tuple(tuple(tplace.DeviceRecord(2 * r + k, 0, torch.device("cpu")) for k in range(2))
+                 for r in range(2))
+    ident = tplace.GridSharding(grid, ("ident", None))
+    placed = tmat.PlacedTables(
+        tlookup.shard_tables_ident(m.tables, ident, tplace.GridSharding(grid, ())),
+        tlookup.shard_rows(m.rule_tab, ident))
+    ao, nr = p.pt._attrib_origins(compiled)
+    n = compiled.id_bits.shape[0]
+    ident0 = p.w["cilium_tpu_torch"].idents[0].id
+    events = [(compiled.id_to_row[ident0], ident0, True), (n - 1, 0, False)]
+    tmat.patch_identity_rows(m, dev, events, attrib_origin=ao[True], n_rules=nr, placed=placed)
+    sids = list(range(dev.sel_match.shape[1] * 32))
+    assert tmat.patch_endpoints_state(m, compiled, dev, sids, attrib_origin=ao[True],
+                                      n_rules=nr, placed=placed)
+    for got, want in ((placed.tables.id_bits, m.tables.id_bits), (placed.rule_tab, m.rule_tab)):
+        assert isinstance(got, tlookup.IdentSharded)
+        for row in got.shards:
+            assert torch.equal(torch.cat([s.tensor for s in row]), want)
+    assert torch.equal(placed.tables.col_ep.on(torch.device("cpu")), m.tables.col_ep)
 
 
 def test_a_delta_reads_back_only_endpoint_rows(monkeypatch):

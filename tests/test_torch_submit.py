@@ -292,12 +292,15 @@ def test_constructor_depth_bounds_and_alias():
         assert pipe.pipeline_depth == want
         assert pipe.pipeline_max_depth == max(want, 4)
     assert tpipe.process_ipv4 is tpipe.process_flows
-    for kw in ({"tracer": object()}, {"sharding": True}, {"flow_ring": object()},
-               {"autotune": True}, {"placement": object()},
-               {"mesh_2d": True}, {"stall_ms": 5.0},
-               {"profiling": True}):
+    for kw in ({"tracer": object()}, {"flow_ring": object()}, {"autotune": True},
+               {"stall_ms": 5.0}, {"profiling": True}):
         with pytest.raises(NotImplementedError):
             tpipe.DatapathPipeline(eng, w.ipcache, device="cpu", **kw)
+    # placement is ported: the three arguments are taken as given
+    pipe = tpipe.DatapathPipeline(eng, w.ipcache, device="cpu", sharding=True, mesh_2d=True,
+                                  placement=tpipe.PlacementConfig(ident_axis=4))
+    assert (pipe._sharding_requested, pipe._mesh2d_requested) == (True, True)
+    assert pipe._placement == tpipe.PlacementConfig(ident_axis=4)
 
 
 def test_batch_accounting_matches_jax(monkeypatch):
