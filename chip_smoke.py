@@ -2,9 +2,12 @@
 
     python3 chip_smoke.py [--seed N]
 
-1. Builds the port's CUDA kernels (csrc/*.cu → build/cilium_tpu_torch/)
-   and holds every kernel against its plain version on shapes the main
-   paths do not reach (ragged sizes, the 16-8-8 trie, out-of-range trie
+1. Builds the port's CUDA kernels (csrc/*.cu → build/cilium_tpu_torch/),
+   counts the IGMMA (int8 wgmma) instructions cuobjdump -sass finds in
+   the bool_mm kernels (none fails the run), and holds every kernel
+   against its plain version on shapes the main paths do not reach
+   (ragged sizes, K2 at every tile edge of k2_edge_shapes(), K12 over
+   1, 2 and 4 shards of one device, the 16-8-8 trie, out-of-range trie
    bytes and child ids, wide policymaps, global-atomic histograms).
 2. Builds the headline deployment of bench.py with the port's own
    modules: 10 000 rules over 512 apps (30% with an L4 port), 2 048
@@ -154,7 +157,12 @@
    the SM clock (nvidia-smi clocks.sm) right after each timed series.
    K2 and K6 are also held, call by call, at the shapes one row patch,
    one column patch and one attributed column patch give them, and the
-   largest of each is timed.
+   largest of each is timed. K2 (at the sweep's shape and the three
+   patch shapes) and K12 are timed on two clocks, CUDA events around
+   back-to-back wrapper calls and the same calls replayed from a CUDA
+   graph (no wrapper host work), and so are their library yardsticks
+   (torch._int_mm thresholded, the same function; bare torch._int_mm is
+   printed beside it).
    The attribution flow-route sweep (_sweep_device_attrib, on K2 + K6)
    is timed the same way, its plain version with the plain K2 / K6, and
    so is the plain flow-route sweep (_sweep_device, off the main paths).
@@ -169,11 +177,11 @@
    the 32-byte sectors its probe windows touch in the seven arrays.
    K11 (both entries) is timed on the gate's deny-heavy batches, its
    bound the trie bytes its identity walk touches, 9 bytes a flow and
-   the shed table's sectors. K12 is timed on each ident shard of the
-   mesh phase's ingress id_bits over a 16 384-lane block of peer rows,
-   its bound the block's rows written, the distinct owned rows read and
-   the ids; its library yardstick torch.index_select on the whole
-   table. The mesh phase's other shapes are recorded as its main path
+   the shed table's sectors. K12 is timed over both ident shards of the
+   mesh phase's ingress id_bits (one launch, as the main path makes it)
+   on a 16 384-lane block of peer rows, its bound the block's rows
+   written, the distinct owned rows read and the ids; its library
+   yardstick torch.index_select on the whole table. The mesh phase's other shapes are recorded as its main path
    calls them and held call by call: K12 on the sweeps' sel_match reads
    of the first 2D rebuild and on one v4 batch's blocks (the sweeps'
    largest timed), and K4 (both entries) on the gathered [16 384, 2W]
@@ -196,6 +204,7 @@ import random
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 N_RULES = 10_000
 N_IDENTITIES = 2_048
@@ -330,6 +339,52 @@ def make_flows6(seed: int, n_idents: int):
     dports = nrng.choice(np.array([80, 443, 8080, 53, 22], np.int32), BATCH)
     protos = np.where(dports == 53, 17, 6).astype(np.int32)
     return addr, eps, dports.astype(np.int32), protos, i_sel
+
+
+# K2's tile edges (rows around its 64 / 128-row tiles, contracted widths
+# around its 16-byte vectors and 64-byte stages, columns around its
+# 4-byte loads and 128-column tiles); tests/test_torch_verdict.py holds
+# bool_mm_plain against JAX's _mm on the same shapes
+K2_EDGE_B = (1, 63, 64, 65, 129, 8193)
+K2_EDGE_A = (0, 1, 5, 31, 32, 33, 640, 641)
+K2_EDGE_C = (1, 7, 8, 129, 4097)
+
+
+def k2_edge_shapes():
+    """(b, a, c) of K2's edge checks: every b with every a at c = 129,
+    and every other c with every a at b = 65."""
+    return ([(b, a, 129) for b in K2_EDGE_B for a in K2_EDGE_A]
+            + [(65, a, c) for c in K2_EDGE_C if c != 129 for a in K2_EDGE_A])
+
+
+def k2_edge_operands(b: int, a: int, c: int, seed: int):
+    """Seeded numpy operands of one edge shape: x mostly 0 / 1 with a few
+    -1 and 2 (int8 of any sign), w signed in -3..3."""
+    import numpy as np
+
+    rs = np.random.default_rng(seed)
+    x = np.where(rs.random((b, a)) < 0.3, 1, 0) * rs.choice(
+        np.array([1, 1, 1, 1, 1, 1, -1, 2], np.int8), (b, a))
+    return x.astype(np.int8), rs.integers(-3, 4, (a, c)).astype(np.int8)
+
+
+def igmma_count() -> int:
+    """IGMMA (int8 wgmma) instructions in the SASS of the built library's
+    bool_mm kernels (cuobjdump -sass)."""
+    from cilium_tpu_torch import _kernels
+
+    tool = Path(_kernels._nvcc()).with_name("cuobjdump")
+    r = subprocess.run([str(tool), "-sass", str(_kernels.build())],
+                       capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        fail(f"cuobjdump -sass: {r.stderr.strip()[:400]}")
+    count, in_k2 = 0, False
+    for line in r.stdout.splitlines():
+        if "Function :" in line:
+            in_k2 = "bool_mm_kernel" in line
+        elif in_k2 and "IGMMA" in line:
+            count += 1
+    return count
 
 
 def sm_clock() -> str:
@@ -638,6 +693,7 @@ def edge_checks(dev) -> None:
     for comp in (False, True):
         if max_abs_err(bool_mm(x, wm, complement_x=comp), bool_mm_plain(x, wm, complement_x=comp)):
             fail(f"bool_mm disagrees on a ragged product (complement {comp})")
+    k2_edge_checks(dev)
 
     prefixes = [("0.0.0.0/0", 1), ("10.0.0.0/8", 2)]
     for j in range(129):
@@ -672,6 +728,38 @@ def edge_checks(dev) -> None:
         want = policymap_verdict_plain(pm, *flows, denied_pf=denied, ep_count=eps)
         if any(max_abs_err(g, w_) for g, w_ in zip(got, want)):
             fail(f"policymap_verdict disagrees on {c} columns / {eps} endpoints")
+    torch.cuda.synchronize()
+
+
+def k2_edge_checks(dev) -> None:
+    """K2 against bool_mm_plain, exact: every tile-edge shape of
+    k2_edge_shapes() with signed operands, both complement_x values; a
+    non-contiguous slice of each operand; bool operands; contiguous
+    operands whose first byte sits one past a 16-byte boundary (a and c
+    would take the vector loads, the pointers do not allow them)."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.ops.verdict import bool_mm, bool_mm_plain
+
+    def check(x, w, what):
+        for comp in (False, True):
+            got = bool_mm(x, w, complement_x=comp)
+            if got.dtype != torch.bool or max_abs_err(got, bool_mm_plain(x, w, complement_x=comp)):
+                fail(f"bool_mm disagrees on {what} (complement {comp})")
+
+    for i, (b, a, c) in enumerate(k2_edge_shapes()):
+        x, w = (torch.from_numpy(v).to(dev) for v in k2_edge_operands(b, a, c, i))
+        check(x, w, f"[{b},{a}] x [{a},{c}]")
+    rs = np.random.default_rng(77)
+    big_x = torch.from_numpy((rs.random((300, 700)) < 0.4).astype(np.int8)).to(dev)
+    big_w = torch.from_numpy(rs.integers(-3, 4, (700, 900)).astype(np.int8)).to(dev)
+    check(big_x[1::2, 3:643], big_w[3:643, 5:900:2], "non-contiguous slices")
+    check(big_x[:, 1:641], big_w[1:641, :256], "column-offset views")
+    check(big_x.to(torch.bool), big_w > 0, "bool operands")
+    flat_x = torch.from_numpy((rs.random(1 + 200 * 640) < 0.4).astype(np.int8)).to(dev)
+    flat_w = torch.from_numpy(rs.integers(-3, 4, 1 + 640 * 128).astype(np.int8)).to(dev)
+    check(flat_x[1:].view(200, 640), flat_w[1:].view(640, 128), "operands off their alignment")
     torch.cuda.synchronize()
 
 
@@ -2205,7 +2293,45 @@ def edge_checks7(dev) -> None:
     got = ident_gather_rows(held, src)
     if max_abs_err(got[:1000], full.index_select(0, src[:1000].long())) or got[1000:1002].any():
         fail("ident_gather_rows over a 2 x 2 grid differs from index_select")
+    k12_multi_checks(dev)
     torch.cuda.synchronize()
+
+
+K12_EDGE_W = (1, 18, 20, 288, 2500)  # row words: id_bits 18, sel_match 20, rule rows 288
+
+
+def k12_multi_checks(dev) -> None:
+    """K12's one launch over several shards of one device against its
+    plain version and index_select: W in K12_EDGE_W; 1, 2 and 4 equal
+    shards of a [96, W] table and a ragged 2-way split, each also with
+    an empty shard listed; ids around the table, -1 and 96 among them;
+    more shards than the kernel takes raise."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch import _kernels
+    from cilium_tpu_torch.ops.lookup import RowShard, ident_gather_shards, ident_gather_shards_plain
+
+    rs = np.random.default_rng(13)
+    n = 96
+    ids = np.concatenate([rs.integers(-3, n + 3, 5000), [-1, n, 0, n - 1]]).astype(np.int32)
+    src = torch.from_numpy(ids).to(dev)
+    own = torch.from_numpy((ids >= 0) & (ids < n)).to(dev)
+    for w in K12_EDGE_W:
+        full = torch.from_numpy(rs.integers(-2**31, 2**31 - 1, (n, w)).astype(np.int32)).to(dev)
+        ref = torch.where(own[:, None], full.index_select(0, src.long().clamp(0, n - 1)), 0)
+        for cuts in ((0, n), (0, 48, n), (0, 33, n), (0, 24, 48, 72, n)):
+            shards = [RowShard(lo, hi - lo, full[lo:hi]) for lo, hi in zip(cuts[:-1], cuts[1:])]
+            for listed in (shards, shards + [RowShard(n, 0, full[n:])]):
+                got = ident_gather_shards(listed, src)
+                if max_abs_err(got, ident_gather_shards_plain(listed, src)) or max_abs_err(got, ref):
+                    fail(f"ident_gather over {len(listed)} shards {cuts} of [{n}, {w}] != plain")
+    try:
+        ident_gather_shards([RowShard(0, n, full)] * (_kernels.IDENT_MAX_SHARDS + 1), src)
+    except ValueError:
+        pass
+    else:
+        fail("ident_gather took more shards than the kernel holds")
 
 
 class KernelClock:
@@ -3054,6 +3180,34 @@ def deltas_main_path(seed: int, card: str):
     return dict(pipe=pipe, repo=repo, reg=reg, l3_rule=l3_rule, step=step)
 
 
+def k2_row(row, what: str, x, w, comp: bool, err: int) -> None:
+    """K2's kernel line at one shape: the kernel, its plain version and
+    the yardstick torch._int_mm thresholded (> 0, the same function) on
+    the same operands made int8, complemented and contiguous beforehand,
+    kernel and yardstick on both clocks; bare torch._int_mm (the sums
+    alone, unthresholded) is printed beside it."""
+    import torch
+
+    from cilium_tpu_torch.ops.verdict import bool_mm, bool_mm_plain
+
+    out = bool_mm(x, w, comp)
+    b_ms, b_by = bound(nbytes(x, w, out), 2 * x.shape[0] * x.shape[1] * w.shape[1])
+    xl = x.to(torch.int8)
+    xl = (1 - xl if comp else xl).contiguous()
+    wl = w.to(torch.int8).contiguous()
+    lib_fn, note = None, "library none: torch._int_mm needs rows > 16 and k, n multiples of 8"
+    if xl.shape[0] > 16 and xl.shape[1] % 8 == 0 and wl.shape[1] % 8 == 0:
+        if max_abs_err(torch._int_mm(xl, wl) > 0, out):
+            fail(f"bool_mm at {what} disagrees with the library product")
+        bare, _ = timed(lambda: torch._int_mm(xl, wl))
+        lib_fn = lambda: torch._int_mm(xl, wl) > 0  # noqa: E731
+        note = f"library torch._int_mm > 0 (bare torch._int_mm {median(bare)!r} {bare})"
+    row("bool_mm", "cilium_tpu_torch/csrc/bool_mm.cu", "cilium_tpu/ops/verdict.py:151", err,
+        lambda: bool_mm(x, w, comp), lambda: bool_mm_plain(x, w, comp), b_ms, b_by,
+        f"{what} [{x.shape[0]},{x.shape[1]}] x [{w.shape[0]},{w.shape[1]}] (complement {comp}), "
+        f"{note}", lib_fn=lib_fn, graph=True)
+
+
 def delta_rows(dl, row) -> None:
     """K2 and K6 at the shapes the patches give them, against their
     plain versions: the operands of one untimed identity row patch, one
@@ -3093,22 +3247,7 @@ def delta_rows(dl, row) -> None:
             err = max(err, max_abs_err(bool_mm(*args, **kw), bool_mm_plain(*args, **kw)))
         (x, w, *rest), kw = max(k2, key=lambda c: c[0][0].numel() * c[0][1].shape[1])
         comp = bool(rest[0]) if rest else bool(kw.get("complement_x", False))
-        out = bool_mm(x, w, comp)
-        b_ms, b_by = bound(nbytes(x, w, out), 2 * x.shape[0] * x.shape[1] * w.shape[1])
-        # yardstick only: torch._int_mm (int8 tensor cores), thresholded,
-        # on the same operands made int8 and contiguous beforehand
-        xl = x.to(torch.int8)
-        xl = (1 - xl if comp else xl).contiguous()
-        wl = w.to(torch.int8).contiguous()
-        lib_fn, lib_note = None, "library none: torch._int_mm needs rows > 16 and k, n multiples of 8"
-        if xl.shape[0] > 16 and xl.shape[1] % 8 == 0 and wl.shape[1] % 8 == 0:
-            if max_abs_err(torch._int_mm(xl, wl) > 0, out):
-                fail(f"deltas: bool_mm at the {kind} shape disagrees with the library product")
-            lib_fn, lib_note = (lambda: torch._int_mm(xl, wl)), "library torch._int_mm"
-        row("bool_mm", "cilium_tpu_torch/csrc/bool_mm.cu", "cilium_tpu/ops/verdict.py:151", err,
-            lambda: bool_mm(x, w, comp), lambda: bool_mm_plain(x, w, comp), b_ms, b_by,
-            f"{kind}: {len(k2)} calls checked, timed [{x.shape[0]},{x.shape[1]}] x "
-            f"[{w.shape[0]},{w.shape[1]}], {lib_note}", lib_fn=lib_fn)
+        k2_row(row, f"{kind}: {len(k2)} calls checked, timed", x, w, comp, err)
         k6 = calls["first_rule"]
         if kind.startswith("attributed"):
             if not k6:
@@ -3642,8 +3781,9 @@ def mesh_main_path(seed: int, card: str, dev=None):
       2 flows x 2 ident grid. rebuild() (the sweeps read the
       ident-sharded sel_match through K12), v4 and v6 1 048 576-flow
       process() (each flow shard 524 288 flows, its policymap rows
-      gathered a 16 384-lane block at a time: K12 on each of the two
-      ident shards, the partials added, K4 on the gathered rows), a
+      gathered a 16 384-lane block at a time: one K12 launch over both
+      ident shards, both on the card, no partials, K4 on the gathered
+      rows; 64 K12 a batch or the phase fails), a
       depth-2 submit() of three v4 batches, one identity add (row patch
       into the placed copies; with sparse_deltas the ident-sharded
       sel_match takes _scatter_sel_rows) and one rule append (column
@@ -3727,7 +3867,7 @@ def mesh_main_path(seed: int, card: str, dev=None):
         pipe = pipeline(engine, sharding=True, mesh_2d=True, pipeline_depth=2,
                         sparse_deltas=True)
         # the sweeps' K12 calls (their sel_match reads) recorded for mesh_rows
-        with CallRecorder([(lookup, "ident_gather_shard")], keep=1 << 14) as rec_sweep:
+        with CallRecorder([(lookup, "ident_gather_shards")], keep=1 << 14) as rec_sweep:
             (_, t_rebuild) = wall(lambda: (pipe.rebuild(), torch.cuda.synchronize()))
         st = pipe.placement_state()
         if st["axes"] != {"flows": 2, "ident": 2} or not pipe._placed.ident2d:
@@ -3742,6 +3882,13 @@ def mesh_main_path(seed: int, card: str, dev=None):
             times.append(t)
             outs.append(out)
         per_batch = (k12() - n0) // 3
+        # one launch a 16 384-lane block of each flow shard: both ident
+        # shards lie on the one card
+        half = BATCH // 2
+        blocks = -(-half // 16384) + -(-(BATCH - half) // 16384)
+        if (k12() - n0) != 3 * blocks:
+            fail(f"mesh: 3 v4 batches launched {k12() - n0} K12, expected {3 * blocks} "
+                 "(one a 16 384-lane block)")
         for out in outs:
             same("v4", out, want4)
         got6, t6 = wall(lambda: pipe.process_v6(*flows6[:4]))
@@ -3753,7 +3900,8 @@ def mesh_main_path(seed: int, card: str, dev=None):
         print(f"main path mesh [2 flows x 2 ident on one card]: placement {st}; rebuild "
               f"{t_rebuild!r}s; id_bits [{n_rows}, {w}] in shards of {pm.id_bits.shards[0][0].rows} "
               f"rows; process {BATCH} flows {times}s (unplaced {t_ref!r}s), process_v6 {t6!r}s; "
-              f"K12 launches per v4 batch {per_batch}; == unplaced card pipeline and the CPU "
+              f"K12 launches per v4 batch {per_batch} (one a 16 384-lane block over both ident "
+              f"shards); == unplaced card pipeline and the CPU "
               f"path on {MESH_SLICE} flows [{card}]", flush=True)
 
         # depth-2 submit: three v4 batches in flight
@@ -3779,7 +3927,7 @@ def mesh_main_path(seed: int, card: str, dev=None):
         b4[0][:8192:2] = int(ipaddress.IPv4Address("10.250.9.1"))
         # this batch's K4 calls on the gathered blocks and its K12 calls
         # recorded for mesh_rows
-        with CallRecorder([(lookup, "policymap_verdict"), (lookup, "ident_gather_shard")]) as rec_v4:
+        with CallRecorder([(lookup, "policymap_verdict"), (lookup, "ident_gather_shards")]) as rec_v4:
             got = pipe.process(*b4)
         with uncounted():
             same("identity add", got, ref.process(*b4))
@@ -3860,14 +4008,14 @@ def mesh_main_path(seed: int, card: str, dev=None):
         hit = lpm_lookup_wide(t.ip_root_info, t.ip_root_child, t.ip_sub_child, t.ip_sub_info, peer)
     src = torch.where(hit > 0, hit - 1, t.world_row).to(torch.int32)[:16384].contiguous()
     print(f"mesh phase {time.perf_counter() - t_phase:.1f}s", flush=True)
-    if not rec_sweep.calls["ident_gather_shard"] or not rec_v4.calls["policymap_verdict"] or \
+    if not rec_sweep.calls["ident_gather_shards"] or not rec_v4.calls["policymap_verdict"] or \
             not rec_attr.calls["policymap_verdict"]:
         fail("mesh: a recorded run made no K12 or K4 call")
     return {"pm": pipe._placed_pm[TRAFFIC_INGRESS][2].id_bits,
             "full": pipe._mat[TRAFFIC_INGRESS].tables.id_bits, "src": src, "per_batch": per_batch,
             "sel": engine.snapshot()[1].sel_match,
-            "k12_sweep": rec_sweep.calls["ident_gather_shard"],
-            "k12_batch": rec_v4.calls["ident_gather_shard"],
+            "k12_sweep": rec_sweep.calls["ident_gather_shards"],
+            "k12_batch": rec_v4.calls["ident_gather_shards"],
             "k4": rec_v4.calls["policymap_verdict"], "k4_attrib": rec_attr.calls["policymap_verdict"]}
 
 
@@ -3875,10 +4023,10 @@ def mesh_rows(ms, row) -> None:
     """The mesh phase's kernels at the shapes its main path gave them,
     against their plain versions, exactly:
 
-    - K12 ident_gather on each ident shard of the placed ingress id_bits
-      ([N/2, 2W]) and a 16 384-lane block of the v4 batch's peer rows;
-      the library yardstick is torch.index_select on the whole table (it
-      reads, not zeros, a row outside the shard);
+    - K12 ident_gather over both ident shards of grid row 0's placed
+      ingress id_bits ([N/2, 2W] each, one launch, as the main path
+      makes it) and a 16 384-lane block of the v4 batch's peer rows;
+      the library yardstick is torch.index_select on the whole table;
     - every recorded K12 call: the sweeps' sel_match reads of the first
       2D rebuild and one v4 batch's blocks; the sweeps' largest is timed
       (index_select on the engine's whole sel_match the yardstick);
@@ -3886,56 +4034,54 @@ def mesh_rows(ms, row) -> None:
       (src = arange(block)): one v4 batch's and one attributed v4
       batch's; one of each is timed.
 
-    The bound counts each output written once, the ids read once, and
-    the distinct rows the data reaches (a repeated id is one row
-    read)."""
+    K12 and its yardstick are timed on both clocks (CUDA events around
+    back-to-back wrapper calls, and the same calls replayed from a CUDA
+    graph, which leaves out the wrapper's host work). The bound counts
+    each output written once, the ids read once, and the distinct rows
+    the data reaches (a repeated id is one row read)."""
     import torch
 
     from cilium_tpu_torch.ops.lookup import (
-        ident_gather_rows_plain, ident_gather_shard, policymap_verdict, policymap_verdict_plain)
+        ident_gather_shards, ident_gather_shards_plain, policymap_verdict, policymap_verdict_plain)
 
-    def owned_rows(src, lo, rows):
-        return int(torch.unique(src[(src >= lo) & (src < lo + rows)]).numel())
-
-    def k12_bound(tab, src, lo):
-        b, w = src.shape[0], tab.shape[1]
-        n = owned_rows(src, lo, tab.shape[0])
+    def k12_bound(shards, src):
+        b, w = src.shape[0], shards[0].tensor.shape[1]
+        n = sum(int(torch.unique(src[(src >= s.row_lo) & (src < s.row_lo + s.rows)]).numel())
+                for s in shards)
         return bound(b * w * 4 + n * w * 4 + b * 4, 0) + (n,)
 
     src = ms["src"]
     src64 = src.long()
     full = ms["full"]
-    for shard in ms["pm"].shards[0]:
-        tab, lo = shard.tensor, shard.row_lo
-        k_out = ident_gather_shard(tab, src, lo)
-        p_out = ident_gather_rows_plain(tab, src, lo)
-        b, w = src.shape[0], tab.shape[1]
-        b_ms, b_by, n = k12_bound(tab, src, lo)
-        row("ident_gather", "cilium_tpu_torch/csrc/ident_gather.cu",
-            "cilium_tpu/ops/lookup.py:115", max_abs_err(k_out, p_out),
-            lambda tab=tab, lo=lo: ident_gather_shard(tab, src, lo),
-            lambda tab=tab, lo=lo: ident_gather_rows_plain(tab, src, lo), b_ms, b_by,
-            f"{b} lanes, shard rows [{lo}, {lo + shard.rows}) of [{full.shape[0]}, {w}], "
-            f"{n} distinct owned rows; {ms['per_batch']} launches per v4 batch",
-            lib_fn=lambda: full.index_select(0, src64))
+    shards = list(ms["pm"].shards[0])
+    b_ms, b_by, n = k12_bound(shards, src)
+    row("ident_gather", "cilium_tpu_torch/csrc/ident_gather.cu",
+        "cilium_tpu/ops/lookup.py:115",
+        max_abs_err(ident_gather_shards(shards, src), ident_gather_shards_plain(shards, src)),
+        lambda: ident_gather_shards(shards, src), lambda: ident_gather_shards_plain(shards, src),
+        b_ms, b_by,
+        f"{src.shape[0]} lanes over {len(shards)} shards of [{full.shape[0]}, {full.shape[1]}] in "
+        f"one launch, {n} distinct owned rows; {ms['per_batch']} launches per v4 batch",
+        lib_fn=lambda: full.index_select(0, src64), graph=True)
 
     err = 0
     for kind in ("k12_sweep", "k12_batch"):
         for args, kw in ms[kind]:
-            err = max(err, max_abs_err(ident_gather_shard(*args, **kw),
-                                       ident_gather_rows_plain(*args, **kw)))
+            err = max(err, max_abs_err(ident_gather_shards(*args, **kw),
+                                       ident_gather_shards_plain(*args, **kw)))
     if err:
         fail(f"mesh: a recorded ident_gather call differs from its plain version by {err}")
-    (tab, s_src, lo), _ = max(ms["k12_sweep"], key=lambda c: c[0][1].numel())
-    b_ms, b_by, n = k12_bound(tab, s_src, lo)
+    (s_shards, s_src), _ = max(ms["k12_sweep"], key=lambda c: c[0][1].numel())
+    s_shards = list(s_shards)
+    b_ms, b_by, n = k12_bound(s_shards, s_src)
     sel, s64 = ms["sel"], s_src.long()
     row("ident_gather", "cilium_tpu_torch/csrc/ident_gather.cu", "cilium_tpu/ops/lookup.py:115",
-        err, lambda: ident_gather_shard(tab, s_src, lo),
-        lambda: ident_gather_rows_plain(tab, s_src, lo), b_ms, b_by,
-        f"sweep sel_match read: {s_src.shape[0]} ids, shard rows [{lo}, {lo + tab.shape[0]}) of "
-        f"[{sel.shape[0]}, {tab.shape[1]}], {n} distinct owned rows; "
+        err, lambda: ident_gather_shards(s_shards, s_src),
+        lambda: ident_gather_shards_plain(s_shards, s_src), b_ms, b_by,
+        f"sweep sel_match read: {s_src.shape[0]} ids over {len(s_shards)} shards of "
+        f"[{sel.shape[0]}, {sel.shape[1]}] in one launch, {n} distinct owned rows; "
         f"{len(ms['k12_sweep'])} sweep and {len(ms['k12_batch'])} batch calls checked",
-        lib_fn=lambda: sel.index_select(0, s64))
+        lib_fn=lambda: sel.index_select(0, s64), graph=True)
 
     for kind, name, replaces in (("k4", "policymap_verdict", "cilium_tpu/ops/lookup.py:146"),
                                  ("k4_attrib", "policymap_verdict_attrib",
@@ -4033,6 +4179,12 @@ def main() -> None:
           f"(nvcc {_kernels.build_seconds if _kernels.build_seconds is not None else 0.0:.2f}s)",
           flush=True)
 
+    n_igmma = igmma_count()
+    if n_igmma <= 0:
+        fail("the built bool_mm kernels hold no IGMMA (int8 wgmma) instruction")
+    print(f"bool_mm SASS: {n_igmma} IGMMA (int8 tensor-core wgmma) instructions over its "
+          f"kernels (cuobjdump -sass)", flush=True)
+
     edge_checks(dev)
     edge_checks2(dev)
     edge_checks3(dev)
@@ -4041,7 +4193,8 @@ def main() -> None:
     edge_checks6(dev)
     edge_checks7(dev)
     print("edge shapes: every kernel equals its plain version (ragged K1/K2, "
-          "16-8-8 K3, 1 280-column / 2 100-endpoint K4; 4- and 16-level K5 with "
+          "16-8-8 K3, 1 280-column / 2 100-endpoint K4; K2 at every tile edge of "
+          f"{len(k2_edge_shapes())} shapes, non-contiguous, bool and misaligned operands;  4- and 16-level K5 with "
           "out-of-range bytes and child ids; ragged K6; K4 attribution with shared and "
           "global histograms; K7 both entries and K8 at every rung and odd caps, uint8 and "
           "int32 bytes, out-of-range starts and bytes, lengths past max_len, empty batches; K9 at "
@@ -4050,7 +4203,8 @@ def main() -> None:
           "entries at B = 0, 1, 31 and 4 097 over every dport bucket edge and proto 0 / 6 / 17 / "
           "255, both v4 layouts, rows past the table, v6 bytes outside [0, 255]; K12 at B = 0, 3, "
           "41, 77, 4 097, W = 1 to 2 500, shard offsets, an empty shard, ids outside the shard, "
-          "and a 2 x 2 grid's gather == index_select)",
+          "and a 2 x 2 grid's gather == index_select; one launch over 1, 2 and 4 shards, "
+          "ragged and empty ones, W = 1 / 18 / 20 / 288 / 2 500, ids -1 and N)",
           flush=True)
 
     # -- 2. world --------------------------------------------------------
@@ -4379,13 +4533,14 @@ def main() -> None:
             iters=20, plain_iters=5, reps=5, graph=False):
         ms, clk = timed(fn, iters=iters, reps=reps)
         plain_ms, pclk = timed(plain_fn, iters=plain_iters, reps=reps)
-        lib = None
+        lib = lib_graph = None
         if lib_fn is not None:
             lib, _ = timed(lib_fn, iters=iters, reps=reps)
+            lib_graph = graph_ms(lib_fn) if graph else None
         rows.append(dict(name=name, source=source, replaces=replaces, err=err, ms=ms,
                          plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
                          shape=shape, clock=clk, plain_clock=pclk,
-                         graph_ms=graph_ms(fn) if graph else None))
+                         graph_ms=graph_ms(fn) if graph else None, library_graph_ms=lib_graph))
 
     # K1 selector_match at the engine's shapes
     k1_in = (
@@ -4409,20 +4564,8 @@ def main() -> None:
     t_in = device.ingress
     peer8 = unpack_bits_u32(device.sel_match[:1024])
     k_out = bool_mm(peer8, t_in.deny_t, complement_x=True)
-    p_out = bool_mm_plain(peer8, t_in.deny_t, complement_x=True)
-    comp = (1 - peer8).contiguous()
-    bm, ba = comp.shape
-    bc = t_in.deny_t.shape[1]
-    # yardstick only: torch._int_mm (int8 tensor cores), thresholded
-    lib_out = torch._int_mm(comp, t_in.deny_t) > 0
-    if max_abs_err(lib_out, k_out):
-        fail("bool_mm disagrees with the library product")
-    b_ms, b_by = bound(nbytes(peer8, t_in.deny_t, k_out), 2 * bm * ba * bc)
-    row("bool_mm", "cilium_tpu_torch/csrc/bool_mm.cu", "cilium_tpu/ops/verdict.py:151",
-        max_abs_err(k_out, p_out), lambda: bool_mm(peer8, t_in.deny_t, complement_x=True),
-        lambda: bool_mm_plain(peer8, t_in.deny_t, complement_x=True), b_ms, b_by,
-        f"[{bm},{ba}] x [{ba},{bc}], library torch._int_mm",
-        lib_fn=lambda: torch._int_mm(comp, t_in.deny_t))
+    k2_row(row, "sweep", peer8, t_in.deny_t, True,
+           max_abs_err(k_out, bool_mm_plain(peer8, t_in.deny_t, complement_x=True)))
 
     # K3 lpm_wide over the batch: identity trie (flat) and the fused trie
     peer = torch.from_numpy(ips.view(np.int32)).to(dev)
@@ -4509,7 +4652,7 @@ def main() -> None:
     # K11 shed_walk, both entries, over the gate's deny-heavy batches
     shed_rows(sub, dev, row)
 
-    # K12 ident_gather on each ident shard of the mesh phase's policymap
+    # K12 ident_gather over the ident shards of the mesh phase's policymap
     mesh_rows(ms, row)
 
     # K6 first_rule at the sweep's block shape: the deny term of the
@@ -4690,13 +4833,18 @@ def main() -> None:
             by_name[r["name"]] = dict(r)
     for r in rows:
         lib = "null" if r["library_ms"] is None else f"{median(r['library_ms'])!r} {r['library_ms']}"
+        if r["library_graph_ms"] is not None:
+            lib += f" (in a CUDA graph {median(r['library_graph_ms'])!r} {r['library_graph_ms']})"
+        share = f"bound share {r['bound_ms'] / median(r['ms'])!r}"
         graph = "" if r["graph_ms"] is None else (
             f", in a CUDA graph (no wrapper host work) {median(r['graph_ms'])!r} {r['graph_ms']}")
+        if r["graph_ms"] is not None:
+            share += f" ({r['bound_ms'] / median(r['graph_ms'])!r} in the graph)"
         print(f"kernel {r['name']:<24} {r['shape']}: launches {total[r['name']]}, "
               f"max_abs_err {r['err']}, ms {median(r['ms'])!r} {r['ms']} (SM clock after: "
               f"{r['clock']}){graph}, plain_ms {median(r['plain_ms'])!r} {r['plain_ms']} (SM "
               f"clock after: {r['plain_clock']}), library_ms {lib}, bound_ms {r['bound_ms']!r} "
-              f"({r['bound_by']}) [{card}]", flush=True)
+              f"({r['bound_by']}), {share} [{card}]", flush=True)
         if r["err"] != 0:
             fail(f"kernel {r['name']} disagrees with its plain version")
         if total[r["name"]] <= 0:

@@ -41,6 +41,20 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 
+# K12 ident_gather takes its shards as one struct by value
+# (csrc/ident_gather.cu ShardList)
+IDENT_MAX_SHARDS = 16
+
+
+class ShardList(ctypes.Structure):
+    _fields_ = [
+        ("ptr", ctypes.c_void_p * IDENT_MAX_SHARDS),
+        ("row_lo", ctypes.c_int64 * IDENT_MAX_SHARDS),
+        ("rows", ctypes.c_int64 * IDENT_MAX_SHARDS),
+        ("n", ctypes.c_int),
+    ]
+
+
 _lock = threading.Lock()
 # launch counts: a shadow rebuild launches K2 on its own thread while
 # the serving thread launches K3 / K4, and ``+=`` is not atomic
@@ -231,8 +245,9 @@ KERNELS: Dict[str, Kernel] = {
         # addr, stride, levels, dport, proto, out, b
         Kernel("shed_walk_stride8", "cilium_shed_walk_stride8",
                [_P, _P, _I, _P, _I, _P, _L, _I, _P, _I, _I, _P, _P, _P, _L]),
-        # K12 ident_gather: shard, rows, w, row_lo, src, b, out
-        Kernel("ident_gather", "cilium_ident_gather", [_P, _L, _I, _L, _P, _L, _P]),
+        # K12 ident_gather: shards (every shard on one device), w, src,
+        # b, out
+        Kernel("ident_gather", "cilium_ident_gather", [ShardList, _I, _P, _L, _P]),
     )
 }
 

@@ -88,8 +88,9 @@ its grid row's first device against tables replicated there (the tries,
 the shed table, the policymaps and rule tables), and on a 2D plan the
 identity tables row-shard over the ``ident`` axis, so every row fetch —
 the policymap lookup's and the materializer sweeps' ``sel_match`` reads
-— runs the ``ident_gather`` kernel on each shard and adds the partials
-(``ops/lookup.py`` ``ident_gather_rows``). The device-CT path keeps the
+— runs the ``ident_gather`` kernel once per device over the shards
+there, adding partials only across devices (``ops/lookup.py``
+``ident_gather_rows``). The device-CT path keeps the
 unplaced tables on the pipeline's device.
 
 Not ported yet: the failsafe ladder (retry, quarantine, host
@@ -1710,6 +1711,19 @@ class DatapathPipeline:
         in place by row deltas) for one direction, after a rebuild."""
         self.rebuild()
         return self._mat[TRAFFIC_INGRESS if ingress else TRAFFIC_EGRESS].snapshots
+
+    def fastpath(self, ingress: bool = True):
+        """Per-flow verdict cache over the current realized policymaps
+        (datapath/fastpath.py). Row patches from identity churn are
+        visible through the shared snapshot dicts; re-fetch after rule
+        changes (re-materialization swaps the snapshot objects)."""
+        from .fastpath import VerdictFastpath
+
+        self.rebuild()
+        direction = TRAFFIC_INGRESS if ingress else TRAFFIC_EGRESS
+        return VerdictFastpath(
+            self._mat[direction].snapshots, direction=direction
+        )
 
     def _publish_shed_locked(self, policymap_moved: bool) -> None:
         """Publish the prefilter shed table of the current ingress

@@ -29,16 +29,17 @@ copy of every table on each device of a plan's grid
 (:class:`IdentSharded`: the reference's ``P("ident", None)``) and keeps
 the ``[C]`` column metadata replicated. A row fetch from an
 ident-sharded table is :func:`ident_gather_rows`: one ``ident_gather``
-kernel launch per shard (csrc/ident_gather.cu; each shard writes the
-rows it owns and zeros elsewhere) and a sum of the partials on the
-caller's device. ``lookup_batch(ident_gather=True)`` and the
+kernel launch per device over every shard there (csrc/ident_gather.cu;
+each lane's row from the shard that owns it, zeros where none does),
+and a sum of the partials on the caller's device only when the shards
+lie on several devices. ``lookup_batch(ident_gather=True)`` and the
 pipeline's 2D path run the policymap verdict on such gathered rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -257,23 +258,56 @@ def ident_gather_rows_plain(tab: torch.Tensor, src: torch.Tensor, row_lo: int = 
     return torch.where(own[:, None], rows, torch.zeros((), dtype=tab.dtype, device=tab.device))
 
 
-def ident_gather_shard(tab: torch.Tensor, src: torch.Tensor, row_lo: int = 0) -> torch.Tensor:
-    """One shard's partial of a row gather: the ``ident_gather`` kernel
-    on a CUDA tensor, :func:`ident_gather_rows_plain` on a CPU one."""
-    dev = _kernels.dispatch_device(tab, src)
+def ident_gather_shards_plain(shards: Sequence[RowShard], src: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the ``ident_gather`` kernel: [b] int32
+    ids → [b, W], each lane's row from the listed shard whose
+    ``[row_lo, row_lo + rows)`` holds its id, 0 where none does (one
+    masked select a shard)."""
+    s = src.long()
+    first = shards[0].tensor
+    out = torch.zeros((src.shape[0], first.shape[1]), dtype=first.dtype, device=first.device)
+    for sh in shards:
+        n = sh.tensor.shape[0]
+        if n == 0:
+            continue
+        r = s - sh.row_lo
+        own = (r >= 0) & (r < n)
+        out = torch.where(own[:, None], sh.tensor.index_select(0, r.clamp(0, n - 1)), out)
+    return out
+
+
+def ident_gather_shards(shards: Sequence[RowShard], src: torch.Tensor) -> torch.Tensor:
+    """The rows of ``src`` that the listed shards own, zeros elsewhere,
+    in one ``ident_gather`` kernel launch over every shard (all on
+    ``src``'s device) on CUDA tensors, :func:`ident_gather_shards_plain`
+    on CPU ones."""
+    dev = _kernels.dispatch_device(src, *(sh.tensor for sh in shards))
     if dev.type == "cpu":
-        return ident_gather_rows_plain(tab, src, row_lo)
-    if tab.dtype != torch.int32 or tab.dim() != 2:
-        raise ValueError(f"ident_gather: table {tab.dtype} {tuple(tab.shape)}, expected int32 [rows, W]")
-    t = tab.contiguous()
+        return ident_gather_shards_plain(shards, src)
+    if not 1 <= len(shards) <= _kernels.IDENT_MAX_SHARDS:
+        raise ValueError(f"ident_gather: {len(shards)} shards on one device, "
+                         f"the kernel takes 1 to {_kernels.IDENT_MAX_SHARDS}")
+    w = shards[0].tensor.shape[-1]
+    tabs = [sh.tensor.contiguous() for sh in shards]
+    for t in tabs:
+        if t.dtype != torch.int32 or t.dim() != 2 or t.shape[1] != w:
+            raise ValueError(f"ident_gather: shard {t.dtype} {tuple(t.shape)}, expected int32 [rows, {w}]")
     s = src.to(torch.int32).contiguous()
-    rows, w = t.shape
     b = s.shape[0]
     out = torch.empty((b, w), dtype=torch.int32, device=dev)
-    _kernels.check_cuda("ident_gather", dev, t, s, out)
-    _kernels.KERNELS["ident_gather"].launch(
-        dev, t.data_ptr(), rows, w, row_lo, s.data_ptr(), b, out.data_ptr())
+    _kernels.check_cuda("ident_gather", dev, *tabs, s, out)
+    lst = _kernels.ShardList()
+    for k, (sh, t) in enumerate(zip(shards, tabs)):
+        lst.ptr[k], lst.row_lo[k], lst.rows[k] = t.data_ptr(), sh.row_lo, t.shape[0]
+    lst.n = len(tabs)
+    _kernels.KERNELS["ident_gather"].launch(dev, lst, w, s.data_ptr(), b, out.data_ptr())
     return out
+
+
+def ident_gather_shard(tab: torch.Tensor, src: torch.Tensor, row_lo: int = 0) -> torch.Tensor:
+    """One shard's partial of a row gather: :func:`ident_gather_shards`
+    over ``tab`` alone, holding rows ``[row_lo, row_lo + rows)``."""
+    return ident_gather_shards((RowShard(row_lo, tab.shape[0], tab),), src)
 
 
 def ident_gather_rows(tab, src: torch.Tensor) -> torch.Tensor:
@@ -281,16 +315,19 @@ def ident_gather_rows(tab, src: torch.Tensor) -> torch.Tensor:
     ``src``'s device; a row outside [0, N) gives an all-zero row (the
     reference's one-hot contraction, not ``take``'s fill). A tensor or
     :class:`Replicated` table is one shard; an :class:`IdentSharded`
-    one is gathered shard by shard on the devices of the reader's grid
-    row, each partial holding the rows that shard owns, and the
-    partials are added on ``src``'s device. Exactly one shard owns a
-    row, so the integer sum is the row itself, bit for bit. uint32
-    words travel as int32 bit views."""
+    one is gathered over the shards of the reader's grid row with one
+    :func:`ident_gather_shards` call per device they lie on: on one
+    card's grid a single launch and no sum. Shards on other devices
+    give partials holding the rows they own, added on ``src``'s device;
+    exactly one shard owns a row, so the integer sum is the row itself,
+    bit for bit. uint32 words travel as int32 bit views."""
     if isinstance(tab, IdentSharded):
-        out = None
+        by_dev: Dict[torch.device, List[RowShard]] = {}
         for shard in tab.row_for(src.device):
-            part = ident_gather_shard(
-                shard.tensor, src.to(shard.tensor.device, non_blocking=True), shard.row_lo)
+            by_dev.setdefault(shard.tensor.device, []).append(shard)
+        out = None
+        for dev, shards in by_dev.items():
+            part = ident_gather_shards(shards, src.to(dev, non_blocking=True))
             part = part.to(src.device, non_blocking=True)
             out = part if out is None else out + part
         return out

@@ -1110,6 +1110,10 @@ def ipv4_to_bytes(addrs: np.ndarray) -> np.ndarray:
     ).astype(np.int32)
 
 
+def ip_strings_to_u32(ips: Iterable[str]) -> np.ndarray:
+    return np.array([int(ipaddress.IPv4Address(ip)) for ip in ips], np.uint32)
+
+
 def ipv6_to_bytes(ips: Iterable[str]) -> np.ndarray:
     return np.array(
         [list(ipaddress.IPv6Address(ip).packed) for ip in ips], np.int32

@@ -30,7 +30,7 @@ replay the engine's selector deltas onto a placed ``sel_match``.
 Under a 2D plan the pipeline hands the sweeps a ``DevicePolicy`` whose
 ``sel_match`` is ident-sharded (``lookup.IdentSharded``): every row read
 of it is ``verdict.sel_rows``, which then launches the ``ident_gather``
-kernel on each shard (``lookup.ident_gather_rows``).
+kernel once per device over its shards (``lookup.ident_gather_rows``).
 """
 
 from __future__ import annotations
@@ -492,6 +492,21 @@ def materialize_endpoints_state(
         rule_tab=torch.from_numpy(rule_nc).to(dev, copy=True) if rule_nc is not None else None,
     )
 
+
+def materialize_endpoints(
+    compiled: CompiledPolicy,
+    device: DevicePolicy,
+    endpoint_identity_ids: Sequence[int],
+    *,
+    ingress: bool = True,
+    block: int = 8192,
+) -> Tuple[PolicymapTables, List[EndpointPolicySnapshot]]:
+    """The policymap tables and per-endpoint snapshots of
+    :func:`materialize_endpoints_state`."""
+    st = materialize_endpoints_state(
+        compiled, device, endpoint_identity_ids, ingress=ingress, block=block
+    )
+    return st.tables, st.snapshots
 
 
 def _seg_bucket(n_seg: int) -> int:

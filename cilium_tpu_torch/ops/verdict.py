@@ -170,7 +170,7 @@ def sel_rows(sel_match, idx) -> torch.Tensor:
     """The rows ``idx`` (an index tensor or a slice) of a sel_match.
     A tensor is indexed; an ident-sharded copy (``lookup.IdentSharded``)
     is read through ``lookup.ident_gather_rows``: one ``ident_gather``
-    kernel launch per shard."""
+    kernel launch per device its shards lie on."""
     if isinstance(sel_match, torch.Tensor):
         return sel_match[idx]
     from .lookup import ident_gather_rows  # lookup imports this module

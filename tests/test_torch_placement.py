@@ -206,6 +206,65 @@ def test_ident_gather_rows_matches_jax(dtype, placed):
         assert not part.numpy()[~own].any()
 
 
+def _grid_shardings(grid: str):
+    """(JAX sharding or None, the port's ident GridSharding) of a flows x
+    ident grid: 1x1 (one device, an unsharded table), 2x2 (devices 0-3)
+    and 2x4 (devices 0-7)."""
+    if grid == "1x1":
+        return None, tplace.GridSharding(((tplace.DeviceRecord(0, 0, CPU),),), ("ident", None))
+    ids, ident = {"2x2": ((0, 1, 2, 3), 2), "2x4": (tuple(range(8)), 4)}[grid]
+    pj, pt = (m.resolve_plan(m.PlacementConfig(device_ids=ids, ident_axis=ident), sharding=True,
+                             mesh_2d=True) for m in (jplace, tplace))
+    assert pt.axes == {"flows": 2, "ident": ident}
+    return pj.ident_sharding, pt.ident_sharding
+
+
+@pytest.mark.parametrize("w", [18, 20])
+@pytest.mark.parametrize("empty", [False, True])
+@pytest.mark.parametrize("grid", ["1x1", "2x2", "2x4"])
+def test_multi_shard_gather_plain_matches_jax(grid, empty, w):
+    """K12's multi-shard plain version — one call over every shard of a
+    grid row, the CPU path of the one-launch kernel — equals JAX's
+    ident_gather_rows on the same sharded table and the per-shard sum of
+    ident_gather_rows_plain (one launch a shard, partials added), with
+    ids -1 and N and, with ``empty``, an empty shard listed too."""
+    rng = np.random.default_rng(w)
+    n = 96
+    tab = rng.integers(-2**31, 2**31 - 1, size=(n, w)).astype(np.int32)
+    src = np.concatenate([rng.integers(-3, n + 3, 300), [-1, n, 0, n - 1]]).astype(np.int32)
+    js, ts = _grid_shardings(grid)
+    jt = jnp.asarray(tab) if js is None else jax.device_put(jnp.asarray(tab), js)
+    want = np.asarray(jlookup.ident_gather_rows(jt, jnp.asarray(src)))
+    assert not want[-4:-2].any()
+    held = tlookup.shard_rows(torch.from_numpy(tab), ts)
+    src_t = torch.from_numpy(src)
+    for grid_row in held.shards:
+        shards = list(grid_row)
+        if empty:
+            shards.append(tlookup.RowShard(n, 0, torch.from_numpy(tab[n:])))
+        got = tlookup.ident_gather_shards_plain(shards, src_t)
+        per_shard = sum(tlookup.ident_gather_rows_plain(s.tensor, src_t, s.row_lo) for s in shards)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(per_shard.numpy(), want)
+        np.testing.assert_array_equal(tlookup.ident_gather_shards(shards, src_t).numpy(), want)
+    np.testing.assert_array_equal(tlookup.ident_gather_rows(held, src_t).numpy(), want)
+
+
+def test_ident_gather_shards_raises_past_the_kernels_list(monkeypatch):
+    """The kernel takes at most IDENT_MAX_SHARDS shards a launch; the
+    wrapper says so before it reaches the card (the CPU path takes any
+    number)."""
+    tab = torch.arange(12, dtype=torch.int32).reshape(4, 3)
+    many = [tlookup.RowShard(0, 4, tab)] * (tlookup._kernels.IDENT_MAX_SHARDS + 1)
+    src = torch.tensor([0, 3, 4], dtype=torch.int32)
+    np.testing.assert_array_equal(tlookup.ident_gather_shards(many, src).numpy(),
+                                  [[0, 1, 2], [9, 10, 11], [0, 0, 0]])
+    monkeypatch.setattr(tlookup._kernels, "dispatch_device", lambda *t: torch.device("cuda"))
+    with pytest.raises(ValueError, match="shards on one device"):
+        tlookup.ident_gather_shards(many, src)
+
+
 @pytest.fixture(scope="module")
 def attributed_maps():
     """Both directions' JAX materializations with attribution of one

@@ -8,6 +8,9 @@ l3 class and redirect are integers/bools: equality is exact.
 
 from __future__ import annotations
 
+import importlib.util
+import pathlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -62,6 +65,38 @@ def test_bool_mm_plain_matches_jax_mm(complement):
     want = np.asarray(jverdict._mm(xj, jnp.asarray(w)))
     got = tverdict.bool_mm(torch.from_numpy(x), torch.from_numpy(w), complement_x=complement)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _chip_smoke():
+    """chip_smoke.py at the repository root, for K2's edge-shape list."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_SMOKE = _chip_smoke()
+_EDGE_GROUPS = sorted({(b, 129 if c == 129 else 0) for b, _, c in _SMOKE.k2_edge_shapes()})
+
+
+@pytest.mark.parametrize("complement", [False, True])
+@pytest.mark.parametrize("group", _EDGE_GROUPS, ids=lambda g: f"b{g[0]}-{'c129' if g[1] else 'cvar'}")
+def test_bool_mm_plain_matches_jax_mm_at_k2_edges(group, complement):
+    """bool_mm_plain (the plain version chip_smoke holds K2 against on
+    the card) equals JAX's _mm at every tile-edge shape of chip_smoke's
+    K2 edge check, on the same seeded signed operands; one group of
+    shapes a case."""
+    shapes = [(i, (b, a, c)) for i, (b, a, c) in enumerate(_SMOKE.k2_edge_shapes())
+              if (b, 129 if c == 129 else 0) == group]
+    assert shapes
+    for i, (b, a, c) in shapes:
+        x, w = _SMOKE.k2_edge_operands(b, a, c, i)
+        xj = jnp.int8(1) - jnp.asarray(x) if complement else jnp.asarray(x)
+        want = np.asarray(jverdict._mm(xj, jnp.asarray(w)))
+        got = tverdict.bool_mm(torch.from_numpy(x), torch.from_numpy(w), complement_x=complement)
+        assert got.shape == (b, c) and got.dtype == torch.bool
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"[{b},{a}] x [{a},{c}]")
 
 
 @pytest.mark.parametrize("seed", [0, 2])
