@@ -8,7 +8,10 @@
    against its plain version on shapes the main paths do not reach
    (ragged sizes, K2 at every tile edge of k2_edge_shapes(), K12 over
    1, 2 and 4 shards of one device, the 16-8-8 trie, out-of-range trie
-   bytes and child ids, wide policymaps, global-atomic histograms).
+   bytes and child ids, wide policymaps, global-atomic histograms; K4
+   on sorted and shuffled columns around its staging budget and over
+   shard lists in both row modes, K6 with one to three terms:
+   edge_checks8).
 2. Builds the headline deployment of bench.py with the port's own
    modules: 10 000 rules over 512 apps (30% with an L4 port), 2 048
    identities with one /32 and one fd00::{hi}:{lo}/128 ipcache entry
@@ -144,11 +147,13 @@
    placement.visible_devices gives four records on cuda:0 (2 flows x 2
    ident) and rebuild, v4 and v6 1 048 576-flow process(), a depth-2
    submit() of three batches, one identity add, one rule append and one
-   attributed batch of each family run on the ident-sharded tables (K12
-   gathers every row, K4 verdicts the gathered rows); each result ==
-   the unplaced card pipeline and, on 16 384 flows, the CPU plain path;
-   K12 launches per batch and the 2D wall beside the unplaced one. Real
-   multi-GPU transfers are not exercised: every record is one card.
+   attributed batch of each family run on the ident-sharded tables (a
+   batch makes one K4 launch a flow shard that reads each row in place
+   from the ident shard owning it, and no K12; the sweeps read sel_match
+   through K12); each result == the unplaced card pipeline and, on
+   16 384 flows, the CPU plain path; K4 and K12 launches per batch and
+   the 2D wall beside the unplaced one. Real multi-GPU transfers are not
+   exercised: every record is one card.
 5. Holds every kernel against its plain version on the card, at the
    main paths' shapes, with exact equality (all outputs are integers),
    and times kernel, plain version and, where one exists, a library
@@ -158,14 +163,19 @@
    K2 and K6 are also held, call by call, at the shapes one row patch,
    one column patch and one attributed column patch give them, and the
    largest of each is timed. K2 (at the sweep's shape and the three
-   patch shapes) and K12 are timed on two clocks, CUDA events around
-   back-to-back wrapper calls and the same calls replayed from a CUDA
-   graph (no wrapper host work), and so are their library yardsticks
-   (torch._int_mm thresholded, the same function; bare torch._int_mm is
-   printed beside it).
+   patch shapes), K4 (both entries), K6 and K12 are timed on two
+   clocks, CUDA events around back-to-back wrapper calls and the same
+   calls replayed from a CUDA graph (no wrapper host work), and so are
+   K2's and K12's library yardsticks (torch._int_mm thresholded, the
+   same function; bare torch._int_mm is printed beside it). K6 is
+   timed on the sweep block's allow term [8 192, 640], on one
+   three-term launch of the sweep, and on the attributed column
+   patch's widest term [8 192, 4 096] and its three-term launch.
    The attribution flow-route sweep (_sweep_device_attrib, on K2 + K6)
    is timed the same way, its plain version with the plain K2 / K6, and
-   so is the plain flow-route sweep (_sweep_device, off the main paths).
+   so is the plain flow-route sweep (_sweep_device, off the main paths);
+   then three sweeps are split into their K2 and K6 launches (CUDA
+   events around each) and the rest.
    K7 (both entries) and K8 are timed on the bench's L7 corpus
    (bench.py:266-430: 16 path patterns, 131 072 requests) at every
    length rung, and K7 on the pattern-cap policy's fused table. K9 is
@@ -178,15 +188,16 @@
    K11 (both entries) is timed on the gate's deny-heavy batches, its
    bound the trie bytes its identity walk touches, 9 bytes a flow and
    the shed table's sectors. K12 is timed over both ident shards of the
-   mesh phase's ingress id_bits (one launch, as the main path makes it)
+   mesh phase's ingress id_bits (one launch, as the several-device
+   route makes it a block; one card's 2D batch reads in place instead)
    on a 16 384-lane block of peer rows, its bound the block's rows
    written, the distinct owned rows read and the ids; its library
-   yardstick torch.index_select on the whole table. The mesh phase's other shapes are recorded as its main path
-   calls them and held call by call: K12 on the sweeps' sel_match reads
-   of the first 2D rebuild and on one v4 batch's blocks (the sweeps'
-   largest timed), and K4 (both entries) on the gathered [16 384, 2W]
-   blocks of one v4 batch and one attributed v4 batch (one of each
-   timed).
+   yardstick torch.index_select on the whole table. The mesh phase's
+   other shapes are recorded as its main path calls them and held call
+   by call: K12 on the sweeps' sel_match reads of the first 2D rebuild
+   (the largest timed), and K4 (both entries, gathered mode) over the
+   shard lists of one v4 batch and one attributed v4 batch, a whole
+   524 288-flow shard a call (one of each timed).
 
 Prints the card's name and power limit, one JSON line with every
 kernel's numbers and, last, the result line
@@ -2334,6 +2345,163 @@ def k12_multi_checks(dev) -> None:
         fail("ident_gather took more shards than the kernel holds")
 
 
+K4_EDGE_C = (288, 4064, 4096, 4128)  # bench columns; up to the columns staged once a block; past
+K6_EDGE_W = (1, 15, 16, 17, 640, 4096)
+
+
+def k4_edge_world(rs, n_rows: int, c: int, n_eps: int, shuffle: bool, dev):
+    """A policymap laid out as the materializer lays it (endpoint-major:
+    each endpoint's L3 column, then its L4 slots; the -1 padding last,
+    port and proto 0), or with its columns shuffled; random allow and
+    redirect words."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.ops.lookup import PolicymapTables
+
+    pad = int(rs.integers(1, 32))
+    ep = np.sort(rs.integers(0, n_eps, c - pad)).astype(np.int32)
+    l3 = np.r_[True, ep[1:] != ep[:-1]] | (rs.random(c - pad) < 0.1)
+    port = np.where(l3, 0, rs.choice(np.array([80, 443, 8080], np.int32), c - pad))
+    proto = np.where(l3, 0, rs.choice(np.array([6, 17], np.int32), c - pad))
+    col = [np.r_[ep, np.full(pad, -1, np.int32)], np.r_[port, np.zeros(pad, np.int32)],
+           np.r_[proto, np.zeros(pad, np.int32)], np.r_[l3, np.zeros(pad, bool)]]
+    if shuffle:
+        perm = rs.permutation(c)
+        col = [a[perm] for a in col]
+    bits = rs.integers(-2**31, 2**31, (n_rows, c // 16), dtype=np.int64).astype(np.int32)
+    t = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in col]
+    return PolicymapTables(col_ep=t[0].to(torch.int32), col_port=t[1].to(torch.int32),
+                           col_proto=t[2].to(torch.int32), col_is_l3=t[3],
+                           id_bits=torch.from_numpy(bits & bits // 3).to(dev))
+
+
+def k4_edge_flows(rs, b: int, n_rows: int, n_eps: int, dev):
+    """Flows whose rows run from -3 to N + 2 and endpoints from -2 to
+    E + 2 (-1 selects the padding columns at port 0 / proto 0)."""
+    import numpy as np
+    import torch
+
+    return [torch.from_numpy(a).to(dev) for a in (
+        rs.integers(-3, n_rows + 3, b).astype(np.int32),
+        rs.integers(-2, n_eps + 3, b).astype(np.int32),
+        rs.choice(np.array([0, 80, 443, 22], np.int32), b),
+        rs.choice(np.array([0, 6, 17], np.int32), b))]
+
+
+def edge_checks8(dev) -> None:
+    """K4 (both entries, both row modes) and K6 (one to three terms)
+    against their plain versions, exactly:
+
+    - K4 on materializer-laid (sorted col_ep) and shuffled columns at C
+      in K4_EDGE_C (the bench's 288; 4 064 and 4 096, just under and at
+      the columns a block stages once, and 4 128, one word past it: the
+      chunked general path), flows with ep -1 and >= E, rows -3 to
+      N + 2; B = 0, 1, 4 097 and a ragged 100 003 (20 003 past 288
+      columns), with and without the prefilter mask, flow views one
+      flow in (unaligned: no 16-byte loads), counters in shared memory
+      (64 endpoints) and global (2 100), rule hits shared (300 rules)
+      and global (40 000);
+    - K4 over shard lists of 1, 2 and 4 shards of one table (a ragged
+      split, and each with an empty shard listed), ids -1 and N, in
+      direct and gathered mode, with and without attribution; a rule
+      list over other row ranges raises;
+    - K6 with 1, 2 and 3 terms at widths K6_EDGE_W, B = 0, 1, 777 and
+      8 192, all-zero rows, NO_RULE entries and a mask view whose rows
+      start off a 16-byte boundary."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.ops.lookup import (
+        RowShard, policymap_verdict, policymap_verdict_plain, policymap_verdict_shards,
+        policymap_verdict_shards_plain,
+    )
+    from cilium_tpu_torch.ops.verdict import NO_RULE, first_rule_terms, first_rule_terms_plain
+
+    rs = np.random.default_rng(8)
+
+    def same(tag, got, want):
+        for k, (g, w) in enumerate(zip(got, want)):
+            if (g is None) != (w is None) or (g is not None and max_abs_err(g, w)):
+                fail(f"policymap_verdict {tag}: output {k} differs from the plain version")
+
+    n_rows = 2048
+    for c in K4_EDGE_C:
+        for shuffle in (False, True):
+            pm = k4_edge_world(rs, n_rows, c, 64, shuffle, dev)
+            for b in (0, 1, 4097, 100_003 if c == 288 else 20_003):
+                fl = k4_edge_flows(rs, b, n_rows, 64, dev)
+                denied = torch.from_numpy(rs.random(b) < 0.1).to(dev)
+                tag = f"C {c} {'shuffled' if shuffle else 'sorted'} B {b}"
+                for eps, n_rules in ((64, 300), (2100, 40_000)):
+                    rule_tab = torch.from_numpy(np.where(
+                        rs.random((n_rows, c)) < 0.7, rs.integers(0, n_rules + 50, (n_rows, c)),
+                        -1).astype(np.int32)).to(dev)
+                    for pf in (None, denied):
+                        kw = dict(denied_pf=pf, ep_count=eps)
+                        same(tag, policymap_verdict(pm, *fl, **kw),
+                             policymap_verdict_plain(pm, *fl, **kw))
+                        kw.update(rule_tab=rule_tab, n_rules=n_rules)
+                        same(f"{tag} attrib", policymap_verdict(pm, *fl, **kw),
+                             policymap_verdict_plain(pm, *fl, **kw))
+                    if b > 1:  # views one flow in: no 16-byte flow loads
+                        off = [x[1:] for x in fl]
+                        same(f"{tag} unaligned", policymap_verdict(pm, *off, ep_count=eps),
+                             policymap_verdict_plain(pm, *off, ep_count=eps))
+
+    n = 96
+    for c in (288, 4128):
+        pm = k4_edge_world(rs, n, c, 12, False, dev)
+        rule_tab = torch.from_numpy(rs.integers(-1, 500, (n, c)).astype(np.int32)).to(dev)
+        fl = k4_edge_flows(rs, 5000, n, 12, dev)
+        fl[0][:2] = torch.tensor([-1, n], dtype=torch.int32, device=dev)
+        for cuts in ((0, n), (0, 48, n), (0, 33, n), (0, 24, 48, 72, n)):
+            spans = list(zip(cuts[:-1], cuts[1:]))
+            for empty in (False, True):
+                bits = [RowShard(lo, hi - lo, pm.id_bits[lo:hi]) for lo, hi in spans]
+                rules = [RowShard(lo, hi - lo, rule_tab[lo:hi]) for lo, hi in spans]
+                if empty:
+                    bits.append(RowShard(n, 0, pm.id_bits[n:]))
+                    rules.append(RowShard(n, 0, rule_tab[n:]))
+                for gathered in (False, True):
+                    for rs_ in (None, rules):
+                        kw = dict(ep_count=12, rule_shards=rs_, n_rules=500, gathered=gathered)
+                        same(f"C {c} shards {cuts} empty {empty} gathered {gathered}",
+                             policymap_verdict_shards(pm, bits, *fl, **kw),
+                             policymap_verdict_shards_plain(pm, bits, *fl, **kw))
+        try:
+            policymap_verdict_shards(pm, [RowShard(0, 48, pm.id_bits[:48]),
+                                          RowShard(48, 48, pm.id_bits[48:])], *fl,
+                                     rule_shards=[RowShard(0, n, rule_tab)], n_rules=500)
+        except ValueError:
+            pass
+        else:
+            fail("policymap_verdict took rule_tab shards over other row ranges")
+
+    for n_terms in (1, 2, 3):
+        for b in (0, 1, 777, 8192):
+            for w0 in K6_EDGE_W:
+                widths = [w0, *rs.choice(K6_EDGE_W, n_terms - 1)]
+                terms = []
+                for w in widths:
+                    mask = torch.from_numpy(rs.random((b, w)) < rs.choice([0.0, 0.003, 0.05])).to(dev)
+                    if b > 3:
+                        mask[b // 2] = False  # an all-zero row
+                    rule_of = rs.integers(0, 10**6, w).astype(np.int32)
+                    rule_of[rs.random(w) < 0.3] = NO_RULE
+                    terms.append((mask, torch.from_numpy(rule_of).to(dev)))
+                got, want = first_rule_terms(terms), first_rule_terms_plain(terms)
+                if any(max_abs_err(g, x) for g, x in zip(got, want)):
+                    fail(f"first_rule disagrees on {n_terms} terms of widths {widths}, B {b}")
+    flat = torch.from_numpy(rs.random(1 + 777 * 640) < 0.01).to(dev)
+    mask = flat[1:].view(777, 640)  # rows start one byte past a 16-byte boundary
+    rule_of = torch.from_numpy(rs.integers(0, 10**6, 640).astype(np.int32)).to(dev)
+    terms = [(mask, rule_of), (mask[:, :17].contiguous(), rule_of[:17])]
+    if any(max_abs_err(g, x) for g, x in zip(first_rule_terms(terms), first_rule_terms_plain(terms))):
+        fail("first_rule disagrees on a mask whose rows start off a 16-byte boundary")
+    torch.cuda.synchronize()
+
+
 class KernelClock:
     """CUDA events around every launch of the named kernels, by wrapping
     Kernel.launch while it is entered: ``ms()`` is the card's busy time
@@ -2888,14 +3056,15 @@ class CallRecorder:
     its plain version at the shapes a path gives it. ``targets``:
     (module, function) pairs; by default the K2 / K6 calls of a patch
     (``verdict.bool_mm``, ``materialize.bool_mm``,
-    ``verdict.first_rule``; a patch makes fewer than 100 of each)."""
+    ``verdict.first_rule_terms``; a patch makes fewer than 100 of
+    each)."""
 
     def __init__(self, targets=None, keep: int = 256):
         from cilium_tpu_torch.ops import materialize as matmod
         from cilium_tpu_torch.ops import verdict as verdictmod
 
         self.targets = targets or [
-            (verdictmod, "bool_mm"), (matmod, "bool_mm"), (verdictmod, "first_rule")]
+            (verdictmod, "bool_mm"), (matmod, "bool_mm"), (verdictmod, "first_rule_terms")]
         self.keep = keep
         self.calls = {name: [] for _, name in self.targets}
 
@@ -3208,6 +3377,23 @@ def k2_row(row, what: str, x, w, comp: bool, err: int) -> None:
         f"{note}", lib_fn=lib_fn, graph=True)
 
 
+def k6_row(row, what: str, terms, err: int) -> None:
+    """K6's kernel line for one launch over ``terms`` ([(mask, rule_of)],
+    one to three), on both clocks. Bound: bytes, each mask and rule_of
+    read once and 4 bytes written a row and term."""
+    from cilium_tpu_torch.ops.verdict import first_rule_terms, first_rule_terms_plain
+
+    b = terms[0][0].shape[0]
+    err = max([err] + [max_abs_err(g, w) for g, w in
+                       zip(first_rule_terms(terms), first_rule_terms_plain(terms))])
+    b_ms, b_by = bound(sum(nbytes(m, r) + 4 * b for m, r in terms),
+                       sum(2 * m.numel() for m, _r in terms))
+    shapes = " + ".join(f"[{m.shape[0]}, {m.shape[1]}] ({int(m.sum())} set)" for m, _r in terms)
+    row("first_rule", "cilium_tpu_torch/csrc/first_rule.cu", "cilium_tpu/ops/verdict.py:224",
+        err, lambda: first_rule_terms(terms), lambda: first_rule_terms_plain(terms), b_ms, b_by,
+        f"{what}: {len(terms)} term(s) in one launch, mask {shapes}", graph=True)
+
+
 def delta_rows(dl, row) -> None:
     """K2 and K6 at the shapes the patches give them, against their
     plain versions: the operands of one untimed identity row patch, one
@@ -3216,7 +3402,7 @@ def delta_rows(dl, row) -> None:
     import torch
 
     from cilium_tpu_torch.labels import parse_label_array
-    from cilium_tpu_torch.ops.verdict import bool_mm, bool_mm_plain, first_rule, first_rule_plain
+    from cilium_tpu_torch.ops.verdict import bool_mm, bool_mm_plain, first_rule_terms, first_rule_terms_plain
 
     step, reg, repo = dl["step"], dl["reg"], dl["repo"]
     dl["pipe"].set_attribution(False)
@@ -3234,9 +3420,10 @@ def delta_rows(dl, row) -> None:
             got = step(mutate)
             if not got["kept"]:
                 fail(f"deltas: the recorded {kind} did not patch in place")
-        if len(rec.calls["bool_mm"]) != got["k2"] or len(rec.calls["first_rule"]) != got["k6"]:
+        if len(rec.calls["bool_mm"]) != got["k2"] or len(rec.calls["first_rule_terms"]) != got["k6"]:
             fail(f"deltas: the {kind} recorded {len(rec.calls['bool_mm'])} K2 and "
-                 f"{len(rec.calls['first_rule'])} K6 calls of {got['k2']} and {got['k6']} launches")
+                 f"{len(rec.calls['first_rule_terms'])} K6 calls of {got['k2']} and {got['k6']} "
+                 "launches")
         recs[kind] = rec.calls
     for kind, calls in recs.items():
         k2 = calls["bool_mm"]
@@ -3248,17 +3435,18 @@ def delta_rows(dl, row) -> None:
         (x, w, *rest), kw = max(k2, key=lambda c: c[0][0].numel() * c[0][1].shape[1])
         comp = bool(rest[0]) if rest else bool(kw.get("complement_x", False))
         k2_row(row, f"{kind}: {len(k2)} calls checked, timed", x, w, comp, err)
-        k6 = calls["first_rule"]
+        k6 = calls["first_rule_terms"]
         if kind.startswith("attributed"):
             if not k6:
                 fail("deltas: the attributed column patch made no K6 call")
-            err = max(max_abs_err(first_rule(*a, **k), first_rule_plain(*a, **k)) for a, k in k6)
-            (mask, rule_of), _ = max(k6, key=lambda c: c[0][0].numel())
-            b_ms, b_by = bound(nbytes(mask, rule_of) + 4 * mask.shape[0], 2 * mask.numel())
-            row("first_rule", "cilium_tpu_torch/csrc/first_rule.cu", "cilium_tpu/ops/verdict.py:224",
-                err, lambda: first_rule(mask, rule_of), lambda: first_rule_plain(mask, rule_of),
-                b_ms, b_by, f"{kind}: {len(k6)} calls checked, timed mask [{mask.shape[0]}, "
-                f"{mask.shape[1]}]")
+            err = 0
+            for a, k in k6:
+                got_k6, want_k6 = first_rule_terms(*a, **k), first_rule_terms_plain(*a, **k)
+                err = max([err] + [max_abs_err(g, w) for g, w in zip(got_k6, want_k6)])
+            (terms,), _ = max(k6, key=lambda c: sum(m.numel() for m, _r in c[0][0]))
+            mask, rule_of = max(terms, key=lambda mr: mr[0].numel())
+            k6_row(row, f"{kind}: {len(k6)} calls checked, the widest term", [(mask, rule_of)], err)
+            k6_row(row, f"{kind}: its {len(terms)}-term call", terms, err)
 
 
 # the sparse-delta and epoch-swap phase (bench.py:2862-2877 ipcache churn,
@@ -3780,10 +3968,9 @@ def mesh_main_path(seed: int, card: str, dev=None):
     - The seam placement.visible_devices gives four records on cuda:0: a
       2 flows x 2 ident grid. rebuild() (the sweeps read the
       ident-sharded sel_match through K12), v4 and v6 1 048 576-flow
-      process() (each flow shard 524 288 flows, its policymap rows
-      gathered a 16 384-lane block at a time: one K12 launch over both
-      ident shards, both on the card, no partials, K4 on the gathered
-      rows; 64 K12 a batch or the phase fails), a
+      process() (each flow shard 524 288 flows in one K4 launch that
+      reads every row in place from the ident shard owning it, both
+      shards on the card: 2 K4 and no K12 a batch or the phase fails), a
       depth-2 submit() of three v4 batches, one identity add (row patch
       into the placed copies; with sparse_deltas the ident-sharded
       sel_match takes _scatter_sel_rows) and one rule append (column
@@ -3793,7 +3980,8 @@ def mesh_main_path(seed: int, card: str, dev=None):
     - Every result == the unplaced card pipeline over the same engine
       (its runs uncounted) and, on MESH_SLICE flows, the CPU plain path
       (device="cpu", unplaced); after the rule append 20 v4 flows ==
-      the host oracle. K12 launches per v4 batch and the wall of the 2D
+      the host oracle. K4 and K12 launches per v4 batch (and K4's
+      attribution entry per attributed batch) and the wall of the 2D
       process() beside the unplaced one.
 
     ``dev`` is the device of the four records (None: cuda:0; a CPU
@@ -3830,6 +4018,9 @@ def mesh_main_path(seed: int, card: str, dev=None):
     def k12():
         return _kernels.launches()["ident_gather"]
 
+    def k4(entry="policymap_verdict"):
+        return _kernels.launches()[entry]
+
     def same(tag, got, want, n=None):
         for g, w in zip(got, want):
             if not np.array_equal(g, w if n is None else w[:n]):
@@ -3846,7 +4037,8 @@ def mesh_main_path(seed: int, card: str, dev=None):
         ref.rebuild()
         want4 = ref.process(*flows4[:4])
         want6 = ref.process_v6(*flows6[:4])
-        _, t_ref = wall(lambda: ref.process(*flows4[:4]))
+        t_refs = sorted(wall(lambda: ref.process(*flows4[:4]))[1] for _ in range(3))
+        t_ref = median(t_refs)
     cpu = pipeline(cpu_engine, device="cpu")
     s = slice(0, MESH_SLICE)
 
@@ -3875,20 +4067,20 @@ def mesh_main_path(seed: int, card: str, dev=None):
         pm = pipe._placed_pm[TRAFFIC_INGRESS][2]
         if not isinstance(pm.id_bits, lookup.IdentSharded):
             fail("mesh: the placed policymap is not ident-sharded")
-        n0 = k12()
+        n0, k4_0 = k12(), k4()
         times, outs = [], []
         for _ in range(3):
             out, t = wall(lambda: pipe.process(*flows4[:4]))
             times.append(t)
             outs.append(out)
         per_batch = (k12() - n0) // 3
-        # one launch a 16 384-lane block of each flow shard: both ident
-        # shards lie on the one card
-        half = BATCH // 2
-        blocks = -(-half // 16384) + -(-(BATCH - half) // 16384)
-        if (k12() - n0) != 3 * blocks:
-            fail(f"mesh: 3 v4 batches launched {k12() - n0} K12, expected {3 * blocks} "
-                 "(one a 16 384-lane block)")
+        k4_per_batch = (k4() - k4_0) // 3
+        # one K4 launch a flow shard over both ident shards, which lie on
+        # the one card: no gather
+        flow_shards = len(pipe._placed.rows)
+        if k12() - n0 or k4() - k4_0 != 3 * flow_shards:
+            fail(f"mesh: 3 v4 batches launched {k12() - n0} K12 and {k4() - k4_0} K4, expected "
+                 f"0 and {3 * flow_shards} (one K4 a flow shard)")
         for out in outs:
             same("v4", out, want4)
         got6, t6 = wall(lambda: pipe.process_v6(*flows6[:4]))
@@ -3899,10 +4091,12 @@ def mesh_main_path(seed: int, card: str, dev=None):
         n_rows, w = pm.id_bits.shape
         print(f"main path mesh [2 flows x 2 ident on one card]: placement {st}; rebuild "
               f"{t_rebuild!r}s; id_bits [{n_rows}, {w}] in shards of {pm.id_bits.shards[0][0].rows} "
-              f"rows; process {BATCH} flows {times}s (unplaced {t_ref!r}s), process_v6 {t6!r}s; "
-              f"K12 launches per v4 batch {per_batch} (one a 16 384-lane block over both ident "
-              f"shards); == unplaced card pipeline and the CPU "
-              f"path on {MESH_SLICE} flows [{card}]", flush=True)
+              f"rows; process {BATCH} flows {times}s, median {median(sorted(times))!r}s against "
+              f"unplaced {t_refs}s, median {t_ref!r}s ({median(sorted(times)) / t_ref!r}x), "
+              f"process_v6 {t6!r}s; "
+              f"per v4 batch K4 launches {k4_per_batch} (one a flow shard, rows read in place "
+              f"from both ident shards) and K12 {per_batch}; == unplaced card pipeline and the "
+              f"CPU path on {MESH_SLICE} flows [{card}]", flush=True)
 
         # depth-2 submit: three v4 batches in flight
         batches = [tuple(np.roll(a, 7919 * k) for a in flows4[:4]) for k in range(3)]
@@ -3925,9 +4119,10 @@ def mesh_main_path(seed: int, card: str, dev=None):
             fail("mesh: the identity add re-materialized instead of patching")
         b4 = list(a.copy() for a in flows4[:4])
         b4[0][:8192:2] = int(ipaddress.IPv4Address("10.250.9.1"))
-        # this batch's K4 calls on the gathered blocks and its K12 calls
+        # this batch's K4 calls on the shard lists (and any K12 call: none)
         # recorded for mesh_rows
-        with CallRecorder([(lookup, "policymap_verdict"), (lookup, "ident_gather_shards")]) as rec_v4:
+        with CallRecorder([(lookup, "policymap_verdict_shards"),
+                           (lookup, "ident_gather_shards")]) as rec_v4:
             got = pipe.process(*b4)
         with uncounted():
             same("identity add", got, ref.process(*b4))
@@ -3981,8 +4176,12 @@ def mesh_main_path(seed: int, card: str, dev=None):
             for p_, counted in ((pipe, True), (ref, False)):
                 before = metric_series()
                 if counted:
-                    with CallRecorder([(lookup, "policymap_verdict")]) as rec:
+                    a0 = k4("policymap_verdict_attrib")
+                    with CallRecorder([(lookup, "policymap_verdict_shards")]) as rec:
                         outs.append(getattr(p_, call)(*flows))
+                    if k4("policymap_verdict_attrib") - a0 != flow_shards:
+                        fail(f"mesh: an attributed {fam} batch launched "
+                             f"{k4('policymap_verdict_attrib') - a0} K4, expected {flow_shards}")
                     if fam == "v4":
                         rec_attr = rec
                 else:
@@ -3993,13 +4192,11 @@ def mesh_main_path(seed: int, card: str, dev=None):
             if deltas[0] != deltas[1] or not deltas[0]:
                 fail(f"mesh attributed {fam}: metric deltas differ from the unplaced pipeline")
         print(f"main path mesh: attributed rebuild {t_attr!r}s; one attributed batch of each "
-              f"family == unplaced (verdicts, redirects, rule-hit and drop-reason deltas) [{card}]",
-              flush=True)
+              f"family == unplaced (verdicts, redirects, rule-hit and drop-reason deltas), "
+              f"{flow_shards} K4 attribution launches each [{card}]", flush=True)
     finally:
         placement.visible_devices = real_seam
 
-    if per_batch <= 0:
-        fail("mesh: a 2D process() launched no K12")
     # K12's inputs for its kernel row: the first 16 384-lane block of the
     # v4 batch's peer rows (the identity walk on grid row 0's tries)
     t = pipe._placed.rows[0][1][(TRAFFIC_INGRESS, 4)]
@@ -4008,15 +4205,19 @@ def mesh_main_path(seed: int, card: str, dev=None):
         hit = lpm_lookup_wide(t.ip_root_info, t.ip_root_child, t.ip_sub_child, t.ip_sub_info, peer)
     src = torch.where(hit > 0, hit - 1, t.world_row).to(torch.int32)[:16384].contiguous()
     print(f"mesh phase {time.perf_counter() - t_phase:.1f}s", flush=True)
-    if not rec_sweep.calls["ident_gather_shards"] or not rec_v4.calls["policymap_verdict"] or \
-            not rec_attr.calls["policymap_verdict"]:
-        fail("mesh: a recorded run made no K12 or K4 call")
+    if not rec_sweep.calls["ident_gather_shards"] or \
+            len(rec_v4.calls["policymap_verdict_shards"]) != flow_shards or \
+            len(rec_attr.calls["policymap_verdict_shards"]) != flow_shards:
+        fail("mesh: the sweeps made no K12 call, or a recorded batch did not make one K4 "
+             "shard-list call a flow shard")
+    if rec_v4.calls["ident_gather_shards"]:
+        fail("mesh: a 2D v4 batch gathered its rows through K12")
     return {"pm": pipe._placed_pm[TRAFFIC_INGRESS][2].id_bits,
             "full": pipe._mat[TRAFFIC_INGRESS].tables.id_bits, "src": src, "per_batch": per_batch,
-            "sel": engine.snapshot()[1].sel_match,
+            "k4_per_batch": k4_per_batch, "sel": engine.snapshot()[1].sel_match,
             "k12_sweep": rec_sweep.calls["ident_gather_shards"],
-            "k12_batch": rec_v4.calls["ident_gather_shards"],
-            "k4": rec_v4.calls["policymap_verdict"], "k4_attrib": rec_attr.calls["policymap_verdict"]}
+            "k4": rec_v4.calls["policymap_verdict_shards"],
+            "k4_attrib": rec_attr.calls["policymap_verdict_shards"]}
 
 
 def mesh_rows(ms, row) -> None:
@@ -4024,15 +4225,17 @@ def mesh_rows(ms, row) -> None:
     against their plain versions, exactly:
 
     - K12 ident_gather over both ident shards of grid row 0's placed
-      ingress id_bits ([N/2, 2W] each, one launch, as the main path
-      makes it) and a 16 384-lane block of the v4 batch's peer rows;
+      ingress id_bits ([N/2, 2W] each, one launch, as the several-device
+      route makes it) and a 16 384-lane block of the v4 batch's peer rows;
       the library yardstick is torch.index_select on the whole table;
     - every recorded K12 call: the sweeps' sel_match reads of the first
-      2D rebuild and one v4 batch's blocks; the sweeps' largest is timed
+      2D rebuild (a 2D batch makes none); the largest is timed
       (index_select on the engine's whole sel_match the yardstick);
-    - every recorded K4 call on a gathered [16 384, 2W] block
-      (src = arange(block)): one v4 batch's and one attributed v4
-      batch's; one of each is timed.
+    - every recorded K4 call over a shard list in gathered mode (a whole
+      524 288-flow shard of a 2D batch, rows read from both ident
+      shards): one v4 batch's and one attributed v4 batch's, against
+      policymap_verdict_shards_plain; one of each is timed on both
+      clocks.
 
     K12 and its yardstick are timed on both clocks (CUDA events around
     back-to-back wrapper calls, and the same calls replayed from a CUDA
@@ -4042,7 +4245,9 @@ def mesh_rows(ms, row) -> None:
     import torch
 
     from cilium_tpu_torch.ops.lookup import (
-        ident_gather_shards, ident_gather_shards_plain, policymap_verdict, policymap_verdict_plain)
+        ident_gather_shards, ident_gather_shards_plain, policymap_verdict_shards,
+        policymap_verdict_shards_plain,
+    )
 
     def k12_bound(shards, src):
         b, w = src.shape[0], shards[0].tensor.shape[1]
@@ -4061,14 +4266,13 @@ def mesh_rows(ms, row) -> None:
         lambda: ident_gather_shards(shards, src), lambda: ident_gather_shards_plain(shards, src),
         b_ms, b_by,
         f"{src.shape[0]} lanes over {len(shards)} shards of [{full.shape[0]}, {full.shape[1]}] in "
-        f"one launch, {n} distinct owned rows; {ms['per_batch']} launches per v4 batch",
+        f"one launch, {n} distinct owned rows; {ms['per_batch']} launches per 2D v4 batch",
         lib_fn=lambda: full.index_select(0, src64), graph=True)
 
     err = 0
-    for kind in ("k12_sweep", "k12_batch"):
-        for args, kw in ms[kind]:
-            err = max(err, max_abs_err(ident_gather_shards(*args, **kw),
-                                       ident_gather_shards_plain(*args, **kw)))
+    for args, kw in ms["k12_sweep"]:
+        err = max(err, max_abs_err(ident_gather_shards(*args, **kw),
+                                   ident_gather_shards_plain(*args, **kw)))
     if err:
         fail(f"mesh: a recorded ident_gather call differs from its plain version by {err}")
     (s_shards, s_src), _ = max(ms["k12_sweep"], key=lambda c: c[0][1].numel())
@@ -4080,7 +4284,7 @@ def mesh_rows(ms, row) -> None:
         lambda: ident_gather_shards_plain(s_shards, s_src), b_ms, b_by,
         f"sweep sel_match read: {s_src.shape[0]} ids over {len(s_shards)} shards of "
         f"[{sel.shape[0]}, {sel.shape[1]}] in one launch, {n} distinct owned rows; "
-        f"{len(ms['k12_sweep'])} sweep and {len(ms['k12_batch'])} batch calls checked",
+        f"{len(ms['k12_sweep'])} sweep calls checked",
         lib_fn=lambda: sel.index_select(0, s64), graph=True)
 
     for kind, name, replaces in (("k4", "policymap_verdict", "cilium_tpu/ops/lookup.py:146"),
@@ -4089,30 +4293,34 @@ def mesh_rows(ms, row) -> None:
         calls = ms[kind]
         err = 0
         for args, kw in calls:
-            got, want = policymap_verdict(*args, **kw), policymap_verdict_plain(*args, **kw)
+            got = policymap_verdict_shards(*args, **kw)
+            want = policymap_verdict_shards_plain(*args, **kw)
             err = max([err] + [max_abs_err(a, b) for a, b in zip(got, want) if a is not None])
         if err:
-            fail(f"mesh: a recorded gathered-block {name} call differs from its plain version")
+            fail(f"mesh: a recorded shard-list {name} call differs from its plain version")
         args, kw = calls[0]
-        out = policymap_verdict(*args, **kw)
-        pm, src_rows, ep = args[0], args[1], args[2]
-        moved = nbytes(pm.id_bits, pm.col_ep, pm.col_port, pm.col_proto, pm.col_is_l3, *args[1:5],
+        out = policymap_verdict_shards(*args, **kw)
+        pm, shards, src_rows, ep = args[0], args[1], args[2], args[3]
+        moved = nbytes(*(sh.tensor for sh in shards), pm.col_ep, pm.col_port, pm.col_proto,
+                       pm.col_is_l3, *args[2:6],
                        *(x for x in (kw.get("denied_pf"),) + tuple(out) if x is not None))
         note = ""
-        if kw.get("rule_tab") is not None:
+        if kw.get("rule_shards") is not None:
             # rule_tab cells read: one per distinct (row, endpoint) of the
             # flows a rule decided
             decided = out[3] >= 0
             eps = int(kw.get("ep_count") or N_ENDPOINTS)
             cells = torch.unique(src_rows.long()[decided] * eps + ep.long()[decided]).numel()
             moved += 4 * cells
-            note = f", rule rows [{kw['rule_tab'].shape[0]}, {kw['rule_tab'].shape[1]}], {cells} rule cells read"
+            note = f", rule_tab in {len(kw['rule_shards'])} shards, {cells} rule cells read"
         b_ms, b_by = bound(moved, 0)
         row(name, "cilium_tpu_torch/csrc/policymap_verdict.cu", replaces, err,
-            lambda args=args, kw=kw: policymap_verdict(*args, **kw),
-            lambda args=args, kw=kw: policymap_verdict_plain(*args, **kw), b_ms, b_by,
-            f"a gathered block: {src_rows.shape[0]} flows on id_bits {list(pm.id_bits.shape)}, "
-            f"src = arange{note}; {len(calls)} calls of one 2D v4 batch checked")
+            lambda args=args, kw=kw: policymap_verdict_shards(*args, **kw),
+            lambda args=args, kw=kw: policymap_verdict_shards_plain(*args, **kw), b_ms, b_by,
+            f"a 2D flow shard in one launch: {src_rows.shape[0]} flows, id_bits in "
+            f"{len(shards)} shards of {[list(sh.tensor.shape) for sh in shards]} read in place "
+            f"(gathered mode){note}; {len(calls)} calls of one 2D v4 batch checked, "
+            f"{ms['k4_per_batch']} K4 launches per 2D v4 batch", plain_iters=1, reps=3, graph=True)
 
 
 def metric_series():
@@ -4152,7 +4360,9 @@ def main() -> None:
     from cilium_tpu_torch.ops.lpm import (
         build_trie_elided, elided_lookup, lpm_lookup_wide, lpm_stride8_plain, lpm_wide_plain,
     )
-    from cilium_tpu_torch.ops.verdict import ATTR_NAMES, bool_mm, bool_mm_plain, first_rule, first_rule_plain
+    from cilium_tpu_torch.ops.verdict import (
+        ATTR_NAMES, bool_mm, bool_mm_plain, first_rule, first_rule_plain, first_rule_terms_plain,
+    )
     from cilium_tpu_torch.convert import words_i32
     from cilium_tpu_torch.l7.regex_compile import compile_patterns
     from cilium_tpu_torch.ops.dfa import (
@@ -4192,6 +4402,7 @@ def main() -> None:
     edge_checks5(dev)
     edge_checks6(dev)
     edge_checks7(dev)
+    edge_checks8(dev)
     print("edge shapes: every kernel equals its plain version (ragged K1/K2, "
           "16-8-8 K3, 1 280-column / 2 100-endpoint K4; K2 at every tile edge of "
           f"{len(k2_edge_shapes())} shapes, non-contiguous, bool and misaligned operands;  4- and 16-level K5 with "
@@ -4204,7 +4415,12 @@ def main() -> None:
           "255, both v4 layouts, rows past the table, v6 bytes outside [0, 255]; K12 at B = 0, 3, "
           "41, 77, 4 097, W = 1 to 2 500, shard offsets, an empty shard, ids outside the shard, "
           "and a 2 x 2 grid's gather == index_select; one launch over 1, 2 and 4 shards, "
-          "ragged and empty ones, W = 1 / 18 / 20 / 288 / 2 500, ids -1 and N)",
+          "ragged and empty ones, W = 1 / 18 / 20 / 288 / 2 500, ids -1 and N; K4 both entries "
+          f"on sorted and shuffled columns at C {K4_EDGE_C}, ep -1 and >= E against -1 padding, "
+          "B = 0, 1, 4 097 and ragged, unaligned flow views, shared and global counters and "
+          "hits, shard lists of 1, 2 and 4 shards with an empty one, ids -1 and N, direct and "
+          f"gathered mode; K6 with 1 to 3 terms at widths {K6_EDGE_W}, all-zero rows, rows off "
+          "a 16-byte boundary)",
           flush=True)
 
     # -- 2. world --------------------------------------------------------
@@ -4340,10 +4556,21 @@ def main() -> None:
     matmod.SWEEPS.clear()
     apipe = pipes["prefilter"]
     apipe.set_attribution(True)
-    t0 = time.perf_counter()
-    apipe.rebuild()
-    torch.cuda.synchronize()
-    t_rebuild = time.perf_counter() - t0
+    attr_blocks = [0]
+    real_block = verdictmod._verdict_block
+
+    def counted_block(*a, **kw):
+        attr_blocks[0] += kw.get("origin") is not None
+        return real_block(*a, **kw)
+
+    verdictmod._verdict_block = counted_block
+    try:
+        t0 = time.perf_counter()
+        apipe.rebuild()
+        torch.cuda.synchronize()
+        t_rebuild = time.perf_counter() - t0
+    finally:
+        verdictmod._verdict_block = real_block
     attr_out = {}
     for fam, call, flows in (("v4", "process", (ips, eps, dports, protos)),
                              ("v6", "process_v6", (addr6, eps6, dports6, protos6))):
@@ -4365,6 +4592,11 @@ def main() -> None:
     print(f"attributed rebuild {t_rebuild!r}s ({sweeps} sweep calls) [{card}]", flush=True)
     check_path("attribution", ["bool_mm", "first_rule", "policymap_verdict_attrib",
                                "lpm_wide", "lpm_stride8"])
+    k6_rebuild = launches["attribution"]["first_rule"]
+    print(f"attributed rebuild: K6 launches {k6_rebuild} over {attr_blocks[0]} attributed sweep "
+          "blocks (one launch a block for its three terms; the first version made three)", flush=True)
+    if k6_rebuild != attr_blocks[0]:
+        fail(f"the attributed rebuild launched K6 {k6_rebuild} times for {attr_blocks[0]} blocks")
     if sweeps.get("flow_attrib", 0) <= 0:
         fail("the attributed rebuild did not run the flow-route sweep")
 
@@ -4598,7 +4830,8 @@ def main() -> None:
         lambda: policymap_verdict(pm, src_rows, *flow_t, denied_pf=denied, ep_count=N_ENDPOINTS),
         lambda: policymap_verdict_plain(pm, src_rows, *flow_t, denied_pf=denied,
                                         ep_count=N_ENDPOINTS),
-        b_ms, b_by, f"{BATCH} flows, id_bits {list(pm.id_bits.shape)}, {pm.col_ep.shape[0]} columns")
+        b_ms, b_by, f"{BATCH} flows, id_bits {list(pm.id_bits.shape)}, {pm.col_ep.shape[0]} columns",
+        graph=True)
 
     # K4 attribution entry over the batch, the attributed pipeline's rule table
     rule_tab = apipe._rule_tabs[TRAFFIC_INGRESS]
@@ -4621,7 +4854,7 @@ def main() -> None:
         lambda: policymap_verdict_plain(pm_a, src_rows, *flow_t, denied_pf=denied,
                                         ep_count=N_ENDPOINTS, rule_tab=rule_tab, n_rules=n_rules),
         b_ms, b_by, f"{BATCH} flows, rule_tab {list(rule_tab.shape)}, {n_rules} rules, "
-        f"{rt_cells} (row, endpoint) rule cells read")
+        f"{rt_cells} (row, endpoint) rule cells read", graph=True)
 
     # K5 lpm_stride8 over the v6 batch: identity trie and fused trie, then
     # an edge trie with no elision (K = 0, 16 levels)
@@ -4664,11 +4897,8 @@ def main() -> None:
                                                         device=dev, dtype=torch.long)])
     peer8 = unpack_bits_u32(device.sel_match[torch.arange(sb, device=dev) % nrow])
     mask = subj8.to(torch.bool) & bool_mm(peer8, t_in.allow_t)
-    b_ms, b_by = bound(nbytes(mask, origin.allow_rule) + 4 * sb, 2 * mask.numel())
-    row("first_rule", "cilium_tpu_torch/csrc/first_rule.cu", "cilium_tpu/ops/verdict.py:224",
-        max_abs_err(first_rule(mask, origin.allow_rule), first_rule_plain(mask, origin.allow_rule)),
-        lambda: first_rule(mask, origin.allow_rule), lambda: first_rule_plain(mask, origin.allow_rule),
-        b_ms, b_by, f"mask [{sb}, {mask.shape[1]}] ({int(mask.sum())} set), allow term")
+    k6_row(row, "sweep block, allow term", [(mask, origin.allow_rule)],
+           max_abs_err(first_rule(mask, origin.allow_rule), first_rule_plain(mask, origin.allow_rule)))
 
     # K2 and K6 at the shapes the row and column patches give them
     delta_rows(dl, row)
@@ -4692,12 +4922,12 @@ def main() -> None:
         return matmod._sweep_device_attrib(device, *seg, origin, nrow, True, 8192, n_rules)
 
     def sweep_plain():
-        real = (verdictmod.bool_mm, verdictmod.first_rule)
-        verdictmod.bool_mm, verdictmod.first_rule = bool_mm_plain, first_rule_plain
+        real = (verdictmod.bool_mm, verdictmod.first_rule_terms)
+        verdictmod.bool_mm, verdictmod.first_rule_terms = bool_mm_plain, first_rule_terms_plain
         try:
             return sweep()
         finally:
-            verdictmod.bool_mm, verdictmod.first_rule = real
+            verdictmod.bool_mm, verdictmod.first_rule_terms = real
 
     k_out, p_out = sweep(), sweep_plain()
     err = max(max_abs_err(a, b) for a, b in zip(k_out, p_out))
@@ -4707,6 +4937,33 @@ def main() -> None:
         "cilium_tpu/ops/materialize.py:163", err, sweep, sweep_plain, b_ms, b_by,
         f"{seg[0].shape[0]} segments x {nrow} identity rows = {n_flows} flows, K2 + K6",
         iters=1, plain_iters=1, reps=3)
+
+    # K6 on one three-term launch of the sweep (its first block)
+    with CallRecorder([(verdictmod, "first_rule_terms")], keep=1) as rec:
+        sweep()
+    (terms,), _ = rec.calls["first_rule_terms"][0]
+    k6_row(row, "sweep block, its three terms (deny, pure-L3 allow, L4 combo)", list(terms), 0)
+
+    # where the attributed sweep's time goes: CUDA events around every K2
+    # and K6 launch of one sweep (the events add their own host work), the
+    # wall on the host clock and the device span from the first event to
+    # the last
+    for rep_ in range(3):
+        torch.cuda.synchronize()
+        with KernelClock(("bool_mm",)) as k2c, KernelClock(("first_rule",)) as k6c:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            t0 = time.perf_counter()
+            ev[0].record()
+            sweep()
+            ev[1].record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        k2_ms, k6_ms = k2c.ms(), k6c.ms()
+        print(f"attributed sweep split (run {rep_}): wall {wall!r} ms, device span "
+              f"{ev[0].elapsed_time(ev[1])!r} ms; K2 {len(k2c.pairs)} launches {k2_ms!r} ms, K6 "
+              f"{len(k6c.pairs)} launches {k6_ms!r} ms (CUDA events around each launch), the "
+              f"rest {wall - k2_ms - k6_ms!r} ms (host work and the torch ops between) [{card}]",
+              flush=True)
 
     # the plain flow-route sweep (_sweep_device, no attribution) at the
     # same segments: off the main paths, timed once for its row

@@ -41,8 +41,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 
-# K12 ident_gather takes its shards as one struct by value
-# (csrc/ident_gather.cu ShardList)
+# K12 ident_gather and K4 policymap_verdict take the row shards of an
+# identity table as one struct by value (csrc/common.cuh ShardList)
 IDENT_MAX_SHARDS = 16
 
 
@@ -51,6 +51,31 @@ class ShardList(ctypes.Structure):
         ("ptr", ctypes.c_void_p * IDENT_MAX_SHARDS),
         ("row_lo", ctypes.c_int64 * IDENT_MAX_SHARDS),
         ("rows", ctypes.c_int64 * IDENT_MAX_SHARDS),
+        ("n", ctypes.c_int),
+    ]
+
+
+def shard_list(shards) -> ShardList:
+    """A :class:`ShardList` of ``(tensor, row_lo)`` pairs, each tensor a
+    contiguous [rows, W] table holding rows [row_lo, row_lo + rows)."""
+    lst = ShardList()
+    for k, (t, row_lo) in enumerate(shards):
+        lst.ptr[k], lst.row_lo[k], lst.rows[k] = t.data_ptr(), row_lo, t.shape[0]
+    lst.n = len(shards)
+    return lst
+
+
+# K6 first_rule takes one to three terms as one struct by value
+# (csrc/first_rule.cu FirstRuleTerms)
+FIRST_RULE_MAX_TERMS = 3
+
+
+class FirstRuleTerms(ctypes.Structure):
+    _fields_ = [
+        ("mask", ctypes.c_void_p * FIRST_RULE_MAX_TERMS),
+        ("rule_of", ctypes.c_void_p * FIRST_RULE_MAX_TERMS),
+        ("out", ctypes.c_void_p * FIRST_RULE_MAX_TERMS),
+        ("width", ctypes.c_int * FIRST_RULE_MAX_TERMS),
         ("n", ctypes.c_int),
     ]
 
@@ -191,23 +216,24 @@ KERNELS: Dict[str, Kernel] = {
         # root_info, root_child, sub_child, sub_info, m, flat, addr, out, b
         Kernel("lpm_wide", "cilium_lpm_wide",
                [_P, _P, _P, _P, _I, _I, _P, _P, _L]),
-        # id_bits, n, words, col_ep, col_port, col_proto, col_is_l3, c,
-        # src_rows, ep_idx, dport, proto, denied_pf, verdict, redirect,
-        # counters, ep_count, b
+        # id_bits shards, words, gathered, col_ep, col_port, col_proto,
+        # col_is_l3, c, src_rows, ep_idx, dport, proto, denied_pf,
+        # verdict, redirect, counters, ep_count, b
         Kernel("policymap_verdict", "cilium_policymap_verdict",
-               [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+               [ShardList, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                 _P, _I, _L]),
         # child, info, m, common, k, addr, stride, levels, out, b
         Kernel("lpm_stride8", "cilium_lpm_stride8",
                [_P, _P, _I, _P, _I, _P, _I, _I, _P, _L]),
-        # mask, rule_of, s, b, out
-        Kernel("first_rule", "cilium_first_rule", [_P, _P, _I, _L, _P]),
-        # id_bits, n, words, col_ep, col_port, col_proto, col_is_l3, c,
-        # rule_tab, src_rows, ep_idx, dport, proto, denied_pf, verdict,
-        # redirect, rule, l4_covered, counters, ep_count, hits, n_hits, b
+        # terms (one to three masks, rule_of, outputs), b
+        Kernel("first_rule", "cilium_first_rule", [FirstRuleTerms, _L]),
+        # id_bits shards, rule_tab shards, words, gathered, col_ep,
+        # col_port, col_proto, col_is_l3, c, src_rows, ep_idx, dport,
+        # proto, denied_pf, verdict, redirect, rule, l4_covered,
+        # counters, ep_count, hits, n_hits, b
         Kernel("policymap_verdict_attrib", "cilium_policymap_verdict_attrib",
-               [_P, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                _P, _P, _P, _P, _I, _P, _I, _L]),
+               [ShardList, ShardList, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                _P, _P, _P, _P, _P, _I, _P, _I, _L]),
         # trans, q, accept_lo, accept_hi, starts, start_stride, bytes,
         # byte_size, row_stride, max_len, lengths, out_lo, out_hi, b; one
         # C entry, counted apart for the scalar start (stride 0) and the
@@ -264,6 +290,13 @@ def launches() -> Dict[str, int]:
 def ptr(t: Optional[torch.Tensor]):
     """Device pointer of a contiguous tensor (None → null)."""
     return None if t is None else t.data_ptr()
+
+
+def operand(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` as a contiguous ``dtype`` tensor: ``x`` itself when it is
+    one already, without a call into torch (a wrapper's host work is
+    a K4 or K6 launch's larger part)."""
+    return x if x.dtype == dtype and x.is_contiguous() else x.to(dtype).contiguous()
 
 
 def check_cuda(name: str, device: torch.device, *tensors: torch.Tensor) -> None:

@@ -20,3 +20,17 @@ static inline int cilium_set_device(int device) {
     if (cur != device) return (int)cudaSetDevice(device);
     return 0;
 }
+
+// A list of row shards of one identity table, passed by value (at most
+// MAX_SHARDS). Shard k holds rows [row_lo[k], row_lo[k] + rows[k]) as a
+// row-major [rows[k], W] array. K12 ident_gather and K4
+// policymap_verdict take their rows this way; ctypes mirror:
+// _kernels.py ShardList.
+constexpr int MAX_SHARDS = 16;  // _kernels.py IDENT_MAX_SHARDS
+
+struct ShardList {
+    const int32_t* ptr[MAX_SHARDS];
+    int64_t row_lo[MAX_SHARDS];
+    int64_t rows[MAX_SHARDS];
+    int n;
+};

@@ -31,17 +31,7 @@
 //
 // Bound: bytes. b x W x 4 written, the distinct owned rows read once,
 // b x 4 of ids.
-#include "common.cuh"
-
-constexpr int MAX_SHARDS = 16;  // _kernels.py IDENT_MAX_SHARDS
-
-// passed by value; ctypes mirror: _kernels.py ShardList
-struct ShardList {
-    const int32_t* ptr[MAX_SHARDS];  // [rows_k, W] row-major
-    int64_t row_lo[MAX_SHARDS];
-    int64_t rows[MAX_SHARDS];
-    int n;
-};
+#include "common.cuh"  // ShardList, MAX_SHARDS
 
 namespace {
 

@@ -86,12 +86,14 @@ the plan ``datapath/placement.py`` resolves over the visible devices: a
 batch splits over the grid's ``flows`` axis, each flow shard runs on
 its grid row's first device against tables replicated there (the tries,
 the shed table, the policymaps and rule tables), and on a 2D plan the
-identity tables row-shard over the ``ident`` axis, so every row fetch —
-the policymap lookup's and the materializer sweeps' ``sel_match`` reads
-— runs the ``ident_gather`` kernel once per device over the shards
-there, adding partials only across devices (``ops/lookup.py``
-``ident_gather_rows``). The device-CT path keeps the
-unplaced tables on the pipeline's device.
+identity tables row-shard over the ``ident`` axis. A batch's policymap
+lookup then reads each row in place from its shard, one launch a flow
+shard, when the grid row's shards lie on its device (one card's grid;
+``ops/lookup.py`` ``policymap_verdict_gathered``); otherwise, and for
+the materializer sweeps' ``sel_match`` reads, a row fetch runs the
+``ident_gather`` kernel once per device over the shards there, adding
+partials only across devices (``ident_gather_rows``). The device-CT
+path keeps the unplaced tables on the pipeline's device.
 
 Not ported yet: the failsafe ladder (retry, quarantine, host
 fallback), tracing, the watchdog, the profiler and the depth tuner,
@@ -285,9 +287,10 @@ def _verdict_tail(
     prefilter drop, which never reached the policymap), whether an L4
     column covered the flow, and the [max(n_rules, 1)] rule-hit
     counts. ``ident_gather=True`` (a 2D plan: ``policymap.id_bits`` and
-    ``rule_tab`` ident-sharded) reads the rows through
-    ``ident_gather_rows``, block by block; False keeps the one
-    policymap launch."""
+    ``rule_tab`` ident-sharded) runs ``policymap_verdict_gathered``: one
+    launch reading each row in place from its shard when the shards lie
+    on the flows' device, else a row gather and a launch a block; False
+    keeps the one direct policymap launch."""
     if attrib and rule_tab is None:
         raise ValueError("attribution needs the materializer's rule table")
     verdict = policymap_verdict_gathered if ident_gather else policymap_verdict
@@ -337,7 +340,7 @@ def process_flows_wide(
     deny-trie stage. ``row_override`` carries an identity row trusted
     over the ipcache walk (the overlay path): flows with a non-negative
     row skip both the identity LPM and the prefilter. ``ident_gather``
-    (a 2D plan) reads the policymap rows through ``ident_gather_rows``."""
+    (a 2D plan) reads the policymap rows as ``_verdict_tail`` says."""
     denied_pf, hit = _v4_lpm_stage(t, peer_u32, prefilter)
     denied_pf, peer_row = _peer_rows(denied_pf, hit, t.world_row, row_override)
     return _verdict_tail(
@@ -1316,7 +1319,8 @@ class DatapathPipeline:
         option). Takes effect on the next rebuild through the plan: the
         grid splits into flows×ident axes and the identity dimension of
         the policymaps / rule tables / sel_match shards over ``ident``.
-        Off never reaches ``ident_gather_rows``. Clears the tables and
+        Off never reaches ``ident_gather_rows`` nor the in-place shard
+        read (``local_row_shards``). Clears the tables and
         the placed copies, as set_sharding."""
         with self._lock:
             if bool(on) == self._mesh2d_requested:
@@ -1883,7 +1887,7 @@ class DatapathPipeline:
         Under a plan (``st``'s placed view) the flows split into the
         plan's flow shards: each shard's inputs go to its grid row's
         first device and run against that row's tables (the 2D plan's
-        row reads through ``ident_gather_rows``); the per-flow outputs
+        row reads as ``_verdict_tail`` says); the per-flow outputs
         land in their slices of the pinned buffers, the counters and
         rule hits are summed on the pipeline's device, and one event is
         recorded per device."""

@@ -20,7 +20,8 @@ tables placed on a stale grid.
 batches split over the ``flows`` axis, while the identity dimension
 (dim 0) of the policymap bitmaps / rule tables / sel_match matrices
 row-shards over ``ident`` (``ops/lookup.py`` ``shard_tables_ident``)
-and every row fetch becomes ``ident_gather_rows``. LPM trie nodes stay
+and every row fetch reads the shard that owns the row (in place, or
+through ``ident_gather_rows`` across devices). LPM trie nodes stay
 replicated. With ``ident`` of size 1 or 2D off, the plan is the 1D /
 replicated layout.
 

@@ -20,7 +20,10 @@ kernel (csrc/policymap_verdict.cu), on a CPU tensor it runs
 :func:`policymap_verdict_plain`. Given a ``rule_tab`` (verdict
 attribution) it also returns the deciding rule, the L4 coverage and
 the rule-hit counts of each flow, through the kernel's attribution
-entry (``policymap_verdict_attrib``).
+entry (``policymap_verdict_attrib``). A row outside [0, N) reads as
+no bits and rule -1; the reference's ``jnp.take`` fills (a row past N
+reads all ones, so an allow) or wraps (-1 reads row N - 1) there, a
+fault the port does not copy (ROADMAP queue C).
 
 Placement (``datapath/placement.py``): :func:`replicate_tables` puts a
 copy of every table on each device of a plan's grid
@@ -33,7 +36,11 @@ kernel launch per device over every shard there (csrc/ident_gather.cu;
 each lane's row from the shard that owns it, zeros where none does),
 and a sum of the partials on the caller's device only when the shards
 lie on several devices. ``lookup_batch(ident_gather=True)`` and the
-pipeline's 2D path run the policymap verdict on such gathered rows.
+pipeline's 2D path run :func:`policymap_verdict_gathered`: when every
+shard of the reader's grid row lies on its device
+(:func:`local_row_shards`), one ``policymap_verdict`` launch over the
+shard list reads each row in place (:func:`policymap_verdict_shards`),
+else the rows are gathered a block at a time and verdicted.
 """
 
 from __future__ import annotations
@@ -296,10 +303,7 @@ def ident_gather_shards(shards: Sequence[RowShard], src: torch.Tensor) -> torch.
     b = s.shape[0]
     out = torch.empty((b, w), dtype=torch.int32, device=dev)
     _kernels.check_cuda("ident_gather", dev, *tabs, s, out)
-    lst = _kernels.ShardList()
-    for k, (sh, t) in enumerate(zip(shards, tabs)):
-        lst.ptr[k], lst.row_lo[k], lst.rows[k] = t.data_ptr(), sh.row_lo, t.shape[0]
-    lst.n = len(tabs)
+    lst = _kernels.shard_list([(t, sh.row_lo) for sh, t in zip(shards, tabs)])
     _kernels.KERNELS["ident_gather"].launch(dev, lst, w, s.data_ptr(), b, out.data_ptr())
     return out
 
@@ -448,7 +452,8 @@ def policymap_verdict(
     ``rule_tab`` ([N, C] int32, the materializer's deciding rule per
     (identity row, column)) also returns the attribution: (rule [B]
     int32, -1 = none or a prefilter drop; l4_covered [B] bool; hits
-    [max(n_rules, 1)] int32 rule-hit counts)."""
+    [max(n_rules, 1)] int32 rule-hit counts). A row outside [0, N)
+    reads as no bits and rule -1."""
     tensors = [t.id_bits, src_rows, ep_idx, dport, proto]
     if denied_pf is not None:
         tensors.append(denied_pf)
@@ -460,21 +465,132 @@ def policymap_verdict(
             t, src_rows, ep_idx, dport, proto, denied_pf, ep_count, block,
             rule_tab=rule_tab, n_rules=n_rules,
         )
-    n, words = t.id_bits.shape
+    n = t.id_bits.shape[0]
+    return _launch(
+        dev, t, [RowShard(0, n, t.id_bits)],
+        None if rule_tab is None else [RowShard(0, rule_tab.shape[0], rule_tab)],
+        src_rows, ep_idx, dport, proto, denied_pf, ep_count, n_rules, gathered=False,
+    )
+
+
+def policymap_verdict_shards_plain(
+    t: PolicymapTables,
+    shards: Sequence[RowShard],
+    src_rows: torch.Tensor,
+    ep_idx: torch.Tensor,
+    dport: torch.Tensor,
+    proto: torch.Tensor,
+    denied_pf: Optional[torch.Tensor] = None,
+    ep_count: Optional[int] = None,
+    block: int = 16384,
+    rule_shards: Optional[Sequence[RowShard]] = None,
+    n_rules: int = 0,
+    gathered: bool = True,
+):
+    """Plain PyTorch version of the ``policymap_verdict`` kernel over a
+    shard list (:func:`policymap_verdict_shards`): ``block`` lanes at a
+    time, the rows (and rule rows) gathered with
+    :func:`ident_gather_shards_plain` (zeros where no shard owns a row),
+    then :func:`policymap_verdict_plain` on them with ``src =
+    arange(block)``; in direct mode (``gathered=False``) an unowned
+    row's lane gets src -1 (no bits, rule -1). Counters and hits are the
+    sums over the blocks."""
+    b = src_rows.shape[0]
+    outs = []
+    for lo in range(0, max(b, 1), block):
+        hi = min(lo + block, b)
+        src = src_rows[lo:hi]
+        rows = ident_gather_shards_plain(shards, src)
+        local = torch.arange(hi - lo, dtype=torch.int32, device=src.device)
+        if not gathered:
+            s = src.long()
+            owned = torch.zeros(hi - lo, dtype=torch.bool, device=src.device)
+            for sh in shards:
+                owned |= (s >= sh.row_lo) & (s < sh.row_lo + sh.tensor.shape[0])
+            local = torch.where(owned, local, -1).to(torch.int32)
+        outs.append(policymap_verdict_plain(
+            dataclasses.replace(t, id_bits=rows), local, ep_idx[lo:hi], dport[lo:hi],
+            proto[lo:hi], denied_pf=None if denied_pf is None else denied_pf[lo:hi],
+            ep_count=ep_count, block=block,
+            rule_tab=None if rule_shards is None else ident_gather_shards_plain(rule_shards, src),
+            n_rules=n_rules,
+        ))
+    return _combine(outs)
+
+
+def policymap_verdict_shards(
+    t: PolicymapTables,
+    shards: Sequence[RowShard],
+    src_rows: torch.Tensor,
+    ep_idx: torch.Tensor,
+    dport: torch.Tensor,
+    proto: torch.Tensor,
+    denied_pf: Optional[torch.Tensor] = None,
+    ep_count: Optional[int] = None,
+    block: int = 16384,
+    rule_shards: Optional[Sequence[RowShard]] = None,
+    n_rules: int = 0,
+    gathered: bool = True,
+):
+    """:func:`policymap_verdict` over an identity table held as row
+    shards, all on ``src_rows``' device: one ``policymap_verdict``
+    kernel launch reads each lane's row in the shard that owns it (the
+    attribution entry its rule row in ``rule_shards``, which must cover
+    the same row ranges). A row that no listed shard owns reads as no
+    bits; its rule is 0 where a column is chosen with ``gathered`` (the
+    zero row of the reference's one-hot contraction) and -1 without
+    (the direct lookup). :func:`policymap_verdict_shards_plain` on CPU
+    tensors."""
+    tensors = [t.col_ep, src_rows, ep_idx, dport, proto, *(sh.tensor for sh in shards)]
+    if denied_pf is not None:
+        tensors.append(denied_pf)
+    if rule_shards is not None:
+        _check_row_ranges(shards, rule_shards)
+        tensors += [sh.tensor for sh in rule_shards]
+    dev = _kernels.dispatch_device(*tensors)
+    if dev.type == "cpu":
+        return policymap_verdict_shards_plain(
+            t, shards, src_rows, ep_idx, dport, proto, denied_pf, ep_count, block,
+            rule_shards=rule_shards, n_rules=n_rules, gathered=gathered,
+        )
+    return _launch(dev, t, shards, rule_shards, src_rows, ep_idx, dport, proto, denied_pf,
+                   ep_count, n_rules, gathered)
+
+
+def _check_row_ranges(shards, rule_shards) -> None:
+    bits = [(sh.row_lo, sh.tensor.shape[0]) for sh in shards]
+    rules = [(sh.row_lo, sh.tensor.shape[0]) for sh in rule_shards]
+    if rules != bits:
+        raise ValueError(f"policymap_verdict: id_bits and rule_tab are not sharded over the "
+                         f"same row ranges ((row_lo, rows): {bits} vs {rules})")
+
+
+def _launch(dev, t, shards, rule_shards, src_rows, ep_idx, dport, proto, denied_pf, ep_count,
+            n_rules, gathered):
+    """Check the operands of a ``policymap_verdict`` launch, make its
+    outputs and launch the entry (the attribution one with
+    ``rule_shards``)."""
+    if not 1 <= len(shards) <= _kernels.IDENT_MAX_SHARDS:
+        raise ValueError(f"policymap_verdict: {len(shards)} row shards, the kernel takes 1 to "
+                         f"{_kernels.IDENT_MAX_SHARDS}")
+    i32, op = torch.int32, _kernels.operand
+    words = shards[0].tensor.shape[-1]
+    bits = [op(sh.tensor, i32) for sh in shards]
+    for x in bits:
+        if x.dim() != 2 or x.shape[1] != words:
+            raise ValueError(f"policymap_verdict: row shard {tuple(x.shape)}, expected [rows, {words}]")
     c = t.col_ep.shape[0]
     if words % 2 or c != (words // 2) * 32:
         raise ValueError(f"policymap_verdict: {c} columns vs {words} words per row")
     b = src_rows.shape[0]
-    i32 = torch.int32
-    id_bits = t.id_bits.to(i32).contiguous()
-    cols = [t.col_ep.to(i32).contiguous(), t.col_port.to(i32).contiguous(),
-            t.col_proto.to(i32).contiguous(), t.col_is_l3.to(torch.bool).contiguous()]
-    flows = [x.to(i32).contiguous() for x in (src_rows, ep_idx, dport, proto)]
-    if any(x.shape != (b,) for x in flows[1:]):
-        raise ValueError("policymap_verdict: flow arrays differ in length")
+    cols = [op(t.col_ep, i32), op(t.col_port, i32), op(t.col_proto, i32),
+            op(t.col_is_l3, torch.bool)]
+    flows = [op(x, i32) for x in (src_rows, ep_idx, dport, proto)]
+    if any(x.shape != (c,) for x in cols) or any(x.shape != (b,) for x in flows[1:]):
+        raise ValueError("policymap_verdict: column or flow arrays differ in length")
     pf = None
     if denied_pf is not None:
-        pf = denied_pf.to(torch.bool).contiguous()
+        pf = op(denied_pf, torch.bool)
         if pf.shape != (b,):
             raise ValueError("policymap_verdict: denied_pf length")
     verdict = torch.empty(b, dtype=torch.int8, device=dev)
@@ -482,17 +598,18 @@ def policymap_verdict(
     counters = None
     if ep_count is not None:
         counters = torch.zeros((ep_count, 3), dtype=i32, device=dev)
-    if rule_tab is not None:
+    lst = _kernels.shard_list([(x, sh.row_lo) for sh, x in zip(shards, bits)])
+    if rule_shards is not None:
         return _launch_attrib(
-            dev, id_bits, cols, rule_tab, flows, pf, verdict, redirect, counters,
-            ep_count, n_rules,
+            dev, lst, bits, shards, cols, rule_shards, flows, pf, verdict, redirect, counters,
+            ep_count, n_rules, gathered,
         )
     _kernels.check_cuda(
-        "policymap_verdict", dev, id_bits, *cols, *flows, verdict, redirect,
+        "policymap_verdict", dev, *bits, *cols, *flows, verdict, redirect,
         *(x for x in (pf, counters) if x is not None),
     )
     _kernels.KERNELS["policymap_verdict"].launch(
-        dev, id_bits.data_ptr(), n, words, *(x.data_ptr() for x in cols), c,
+        dev, lst, words, int(gathered), *(x.data_ptr() for x in cols), c,
         *(x.data_ptr() for x in flows), _kernels.ptr(pf), verdict.data_ptr(),
         redirect.data_ptr(), _kernels.ptr(counters),
         0 if ep_count is None else ep_count, b,
@@ -500,30 +617,75 @@ def policymap_verdict(
     return verdict, redirect, counters
 
 
-def _launch_attrib(dev, id_bits, cols, rule_tab, flows, pf, verdict, redirect, counters,
-                   ep_count, n_rules):
-    """The attribution entry of the ``policymap_verdict`` kernel."""
-    n, words = id_bits.shape
+def _launch_attrib(dev, lst, bits, shards, cols, rule_shards, flows, pf, verdict, redirect,
+                   counters, ep_count, n_rules, gathered):
+    """The attribution entry of the ``policymap_verdict`` kernel: the
+    rule_tab shards must hold the same row ranges as the id_bits ones."""
     c = cols[0].shape[0]
     b = flows[0].shape[0]
-    rt = rule_tab.to(torch.int32).contiguous()
-    if rt.shape != (n, c):
-        raise ValueError(f"policymap_verdict: rule_tab {tuple(rt.shape)} vs [{n}, {c}]")
+    _check_row_ranges(shards, rule_shards)
+    rts = [_kernels.operand(sh.tensor, torch.int32) for sh in rule_shards]
+    for x in rts:
+        if x.dim() != 2 or x.shape[1] != c:
+            raise ValueError(f"policymap_verdict: rule_tab shard {tuple(x.shape)} vs [rows, {c}]")
     rule = torch.empty(b, dtype=torch.int32, device=dev)
     l4x = torch.empty(b, dtype=torch.bool, device=dev)
     hits = torch.zeros(max(n_rules, 1), dtype=torch.int32, device=dev)
     _kernels.check_cuda(
-        "policymap_verdict_attrib", dev, id_bits, *cols, rt, *flows, verdict, redirect,
+        "policymap_verdict_attrib", dev, *bits, *cols, *rts, *flows, verdict, redirect,
         rule, l4x, hits, *(x for x in (pf, counters) if x is not None),
     )
+    rlst = _kernels.shard_list([(x, sh.row_lo) for sh, x in zip(rule_shards, rts)])
     _kernels.KERNELS["policymap_verdict_attrib"].launch(
-        dev, id_bits.data_ptr(), n, words, *(x.data_ptr() for x in cols), c,
-        rt.data_ptr(), *(x.data_ptr() for x in flows), _kernels.ptr(pf),
+        dev, lst, rlst, bits[0].shape[1], int(gathered), *(x.data_ptr() for x in cols), c,
+        *(x.data_ptr() for x in flows), _kernels.ptr(pf),
         verdict.data_ptr(), redirect.data_ptr(), rule.data_ptr(), l4x.data_ptr(),
         _kernels.ptr(counters), 0 if ep_count is None else ep_count,
         hits.data_ptr(), hits.shape[0], b,
     )
     return verdict, redirect, counters, rule, l4x, hits
+
+
+def local_row_shards(tab, device) -> Optional[List[RowShard]]:
+    """The row shards of an identity table as read from ``device``,
+    when all of them lie there: a tensor on ``device`` is one shard
+    [0, N), a :class:`Replicated` its copy there, an
+    :class:`IdentSharded` the shards of the reader's grid row (one
+    card's virtual grid). None when a row would have to come from
+    another device, or the kernel's list cannot hold the shards. The
+    one seam through which the 2D verdict reads ident-sharded rows in
+    place (:func:`policymap_verdict_gathered`)."""
+    device = torch.device(device)
+    if isinstance(tab, IdentSharded):
+        shards = list(tab.row_for(device))
+    elif isinstance(tab, Replicated):
+        if device not in tab.copies:
+            return None
+        x = tab.copies[device]
+        shards = [RowShard(0, x.shape[0], x)]
+    else:
+        shards = [RowShard(0, tab.shape[0], tab)]
+    if len(shards) > _kernels.IDENT_MAX_SHARDS or any(sh.tensor.device != device for sh in shards):
+        return None
+    return shards
+
+
+def _combine(outs):
+    """One result of per-block ``policymap_verdict`` results: per-flow
+    outputs concatenated, counters and rule hits summed."""
+    if len(outs) == 1:
+        return outs[0]
+
+    def cat(i):
+        return torch.cat([o[i] for o in outs])
+
+    def total(i):
+        return None if outs[0][i] is None else torch.stack([o[i] for o in outs]).sum(dim=0).to(
+            outs[0][i].dtype)
+
+    if len(outs[0]) == 3:
+        return cat(0), cat(1), total(2)
+    return cat(0), cat(1), total(2), cat(3), cat(4), total(5)
 
 
 def policymap_verdict_gathered(
@@ -538,17 +700,29 @@ def policymap_verdict_gathered(
     rule_tab=None,
     n_rules: int = 0,
 ):
-    """:func:`policymap_verdict` with every row read through
-    :func:`ident_gather_rows` — the reference's ``ident_gather=True``
-    lookup, for a ``t.id_bits`` (and ``rule_tab``) of any placement.
-    One ``block`` of lanes at a time, as the reference's ``lax.map``:
-    its ``[block, 2W]`` rows (and ``[block, C]`` rule rows) are
-    gathered, then the policymap kernel runs on them as a ``block``-row
-    table with ``src = arange(block)``. Same outputs as
-    :func:`policymap_verdict`; counters and rule hits are the sums over
+    """:func:`policymap_verdict` on rows read as the reference's
+    ``ident_gather=True`` lookup does, for a ``t.id_bits`` (and
+    ``rule_tab``) of any placement: a row outside [0, N) is all zeros,
+    so a chosen column's rule is 0.
+
+    When every shard the reader needs lies on ``src_rows``' device
+    (:func:`local_row_shards`; one card's grid, or an unplaced table),
+    one :func:`policymap_verdict_shards` launch in gathered mode reads
+    each row from its owning shard: no gather, no blocks. Otherwise one
+    ``block`` of lanes at a time, as the reference's ``lax.map``: its
+    ``[block, 2W]`` rows (and ``[block, C]`` rule rows) gathered with
+    :func:`ident_gather_rows`, then :func:`policymap_verdict` on them
+    with ``src = arange(block)``; counters and rule hits summed over
     the blocks."""
-    b = src_rows.shape[0]
     dev = src_rows.device
+    shards = local_row_shards(t.id_bits, dev)
+    rule_shards = None if rule_tab is None else local_row_shards(rule_tab, dev)
+    if shards is not None and (rule_tab is None or rule_shards is not None):
+        return policymap_verdict_shards(
+            t, shards, src_rows, ep_idx, dport, proto, denied_pf=denied_pf, ep_count=ep_count,
+            block=block, rule_shards=rule_shards, n_rules=n_rules, gathered=True,
+        )
+    b = src_rows.shape[0]
     outs = []
     for lo in range(0, max(b, 1), block):
         hi = min(lo + block, b)
@@ -561,19 +735,7 @@ def policymap_verdict_gathered(
             block=block, rule_tab=None if rule_tab is None else ident_gather_rows(rule_tab, src),
             n_rules=n_rules,
         ))
-    if len(outs) == 1:
-        return outs[0]
-
-    def cat(i):
-        return torch.cat([o[i] for o in outs])
-
-    def total(i):
-        return None if outs[0][i] is None else torch.stack([o[i] for o in outs]).sum(dim=0).to(
-            outs[0][i].dtype)
-
-    if rule_tab is None:
-        return cat(0), cat(1), total(2)
-    return cat(0), cat(1), total(2), cat(3), cat(4), total(5)
+    return _combine(outs)
 
 
 def lookup_batch(

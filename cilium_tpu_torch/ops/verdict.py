@@ -20,16 +20,17 @@ CUDA tensor launches the ``bool_mm`` kernel (csrc/bool_mm.cu) and on a
 CPU tensor runs :func:`bool_mm_plain`.
 
 With ``attrib=True`` the block also returns the attribution: the
-first-match rule of each deciding term (three row reductions on the
-``first_rule`` kernel, csrc/first_rule.cu; plain version
-:func:`first_rule_plain`), the decider select and the ATTR_* reason
+first-match rule of each deciding term (three row reductions in one
+launch of the ``first_rule`` kernel, csrc/first_rule.cu:
+:func:`first_rule_terms`; plain version :func:`first_rule_plain` per
+term), the decider select and the ATTR_* reason
 codes, and :func:`verdict_batch` adds the [n_rules] rule-hit counts.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Optional, Union
+from typing import TYPE_CHECKING, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -227,21 +228,51 @@ def first_rule_plain(mask: torch.Tensor, rule_of: torch.Tensor) -> torch.Tensor:
     return cand.min(dim=1).values.to(torch.int32)
 
 
+def first_rule_terms_plain(
+    terms: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+) -> List[torch.Tensor]:
+    """Plain PyTorch version of a multi-term ``first_rule`` launch:
+    :func:`first_rule_plain` on each ``(mask, rule_of)`` term."""
+    return [first_rule_plain(mask, rule_of) for mask, rule_of in terms]
+
+
+def first_rule_terms(terms: Sequence[Tuple[torch.Tensor, torch.Tensor]]) -> List[torch.Tensor]:
+    """First-match rules of one to three terms over the same rows, in
+    one ``first_rule`` kernel launch: per term ``(mask [B, S_k] bool,
+    rule_of [S_k])`` the [B] int32 lowest ``rule_of[s]`` over the set
+    cells of each row (NO_RULE when none is set)."""
+    if not 1 <= len(terms) <= _kernels.FIRST_RULE_MAX_TERMS:
+        raise ValueError(f"first_rule: {len(terms)} terms, the kernel takes 1 to "
+                         f"{_kernels.FIRST_RULE_MAX_TERMS}")
+    dev = _kernels.dispatch_device(*(x for term in terms for x in term))
+    if dev.type == "cpu":
+        return first_rule_terms_plain(terms)
+    b = terms[0][0].shape[0]
+    lst = _kernels.FirstRuleTerms()
+    keep, outs = [], []  # each term's operands live until the launch
+    for k, (mask, rule_of) in enumerate(terms):
+        if mask.dtype != torch.bool or mask.dim() != 2 or mask.shape[0] != b or \
+                rule_of.shape != (mask.shape[1],):
+            raise ValueError(f"first_rule: bad operands {tuple(mask.shape)} {mask.dtype}, "
+                             f"{tuple(rule_of.shape)} (rows {b})")
+        m = _kernels.operand(mask, torch.bool)
+        r = _kernels.operand(rule_of, torch.int32)
+        out = torch.empty(b, dtype=torch.int32, device=dev)
+        _kernels.check_cuda("first_rule", dev, m, r, out)
+        lst.mask[k], lst.rule_of[k], lst.out[k] = m.data_ptr(), r.data_ptr(), out.data_ptr()
+        lst.width[k] = m.shape[1]
+        keep += [m, r]
+        outs.append(out)
+    lst.n = len(terms)
+    _kernels.KERNELS["first_rule"].launch(dev, lst, b)
+    return outs
+
+
 def first_rule(mask: torch.Tensor, rule_of: torch.Tensor) -> torch.Tensor:
     """First-match rule of a term: per row the lowest ``rule_of[s]``
-    over the set cells of ``mask`` (NO_RULE when none is set)."""
-    dev = _kernels.dispatch_device(mask, rule_of)
-    if dev.type == "cpu":
-        return first_rule_plain(mask, rule_of)
-    b, s = mask.shape
-    if mask.dtype != torch.bool or rule_of.shape != (s,):
-        raise ValueError(f"first_rule: bad operands {tuple(mask.shape)} {mask.dtype}, {tuple(rule_of.shape)}")
-    m = mask.contiguous()
-    r = rule_of.to(torch.int32).contiguous()
-    out = torch.empty(b, dtype=torch.int32, device=dev)
-    _kernels.check_cuda("first_rule", dev, m, r, out)
-    _kernels.KERNELS["first_rule"].launch(dev, m.data_ptr(), r.data_ptr(), s, b, out.data_ptr())
-    return out
+    over the set cells of ``mask`` (NO_RULE when none is set); a
+    one-term :func:`first_rule_terms`."""
+    return first_rule_terms([(mask, rule_of)])[0]
 
 
 def _verdict_block(
@@ -303,10 +334,10 @@ def _verdict_block(
     # Masked min over the pre-reduction term vectors picks the LOWEST
     # repository rule index whose cell fired — the reference's in-order
     # rule walk stops at the first decider.
-    deny_rule = first_rule(deny_vec, origin.deny_rule)
-    allow_rule = first_rule(allow_vec, origin.allow_rule)
     combo_fired = en_hit | (req_ok[:, None] & ee_hit)  # [b, K1]
-    l4_rule = first_rule(combo_fired, origin.combo_rule)
+    deny_rule, allow_rule, l4_rule = first_rule_terms(
+        [(deny_vec, origin.deny_rule), (allow_vec, origin.allow_rule),
+         (combo_fired, origin.combo_rule)])
 
     # Attribute by what actually DECIDED: pure-L3 allow wins over the
     # L4 path (repository walk order); a deny only decides when the

@@ -22,6 +22,7 @@ import torch
 from jax.sharding import PartitionSpec as P
 
 from cilium_tpu import metrics as jmetrics
+from cilium_tpu.datapath import pipeline as jpipe
 from cilium_tpu.datapath import placement as jplace
 from cilium_tpu.engine import PolicyEngine as JaxEngine
 from cilium_tpu.ops import lookup as jlookup
@@ -322,6 +323,139 @@ def test_lookup_batch_ident_gather_matches_jax(attributed_maps, attrib, placed):
         assert (got[0].numpy() == 1).any()
 
 
+# -- K4 over shard lists: the 2D verdict reading rows in place ---------------
+
+def _grid_plans(grid: str):
+    """(JAX plan, the port's plan) of a flows x ident grid as
+    ``_grid_shardings`` gives it; (None, None) for 1x1 (one device)."""
+    if grid == "1x1":
+        return None, None
+    ids, ident = {"2x2": ((0, 1, 2, 3), 2), "2x4": (tuple(range(8)), 4)}[grid]
+    return tuple(m.resolve_plan(m.PlacementConfig(device_ids=ids, ident_axis=ident), sharding=True,
+                                mesh_2d=True) for m in (jplace, tplace))
+
+
+def _gathered_inputs(compiled, seed: int, b: int = 2000):
+    """Flows with rows -1 and N among live and random ones, endpoints -1
+    to E, a prefilter mask."""
+    n = compiled.id_bits.shape[0]
+    rs = np.random.default_rng(seed)
+    src = rs.integers(-1, n + 1, b).astype(np.int32)
+    src[:4] = [-1, n, 0, n - 1]
+    return (src, rs.integers(-1, N_EPS + 1, b).astype(np.int32),
+            rs.choice(np.array([80, 443, 8080, 53, 22], np.int32), b),
+            rs.choice(np.array([6, 17], np.int32), b)), rs.random(b) < 0.1
+
+
+@pytest.mark.parametrize("empty", [False, True])
+@pytest.mark.parametrize("attrib", [False, True])
+@pytest.mark.parametrize("grid", ["1x1", "2x2", "2x4"])
+def test_shard_list_plain_matches_jax_gather(attributed_maps, grid, attrib, empty):
+    """K4's shard-list plain version in gathered mode — the CPU path of
+    the one launch that reads each row from the ident shard owning it —
+    over each grid row's shards (and, with ``empty``, an empty shard
+    listed too) equals JAX lookup_batch(ident_gather=True) and the
+    verdict tail on the same sharded tables, ids -1 and N included
+    (the contraction's zero row: rule 0 where a column is chosen)."""
+    compiled, maps = attributed_maps
+    jt, tt, jrt, trt = maps[True]
+    n = compiled.id_bits.shape[0]
+    n_rules = int(np.asarray(jrt).max()) + 1
+    (src, ep, dp, pr), denied = _gathered_inputs(compiled, 21)
+    pj, pt = _grid_plans(grid)
+    if pj is not None:
+        jt = jlookup.shard_tables_ident(jt, pj.ident_sharding, pj.table_sharding)
+        jrt = jax.device_put(jrt, pj.ident_sharding)
+        held, rheld = (tlookup.shard_rows(x, pt.ident_sharding).shards for x in (tt.id_bits, trt))
+    else:
+        held, rheld = ((tlookup.RowShard(0, n, tt.id_bits),),), ((tlookup.RowShard(0, n, trt),),)
+    jkw = dict(attrib=True, rule_tab=jrt, n_rules=n_rules) if attrib else {}
+    want = [np.asarray(x) for x in jpipe._verdict_tail(
+        jt, *(jnp.asarray(a) for a in (denied, src, ep, dp, pr)), N_EPS, 512, ident_gather=True,
+        **jkw)]
+    assert (want[0] == 1).any()
+    if attrib:  # an id outside [0, N) whose flow a column covers: rule 0
+        assert (want[3][(src < 0) | (src >= n)] == 0).any()
+    args = [torch.from_numpy(a) for a in (src, ep, dp, pr)]
+    for row, rrow in zip(held, rheld):
+        shards, rules = list(row), list(rrow)
+        if empty:
+            shards.append(tlookup.RowShard(n, 0, tt.id_bits[n:]))
+            rules.append(tlookup.RowShard(n, 0, trt[n:]))
+        kw = dict(denied_pf=torch.from_numpy(denied), ep_count=N_EPS, block=512,
+                  rule_shards=rules if attrib else None, n_rules=n_rules, gathered=True)
+        for fn in (tlookup.policymap_verdict_shards_plain, tlookup.policymap_verdict_shards):
+            got = fn(tt, shards, *args, **kw)
+            assert len(got) == len(want)
+            for g, x in zip(got, want):
+                np.testing.assert_array_equal(g.numpy(), x)
+
+
+@pytest.mark.parametrize("attrib", [False, True])
+@pytest.mark.parametrize("placed", [False, True])
+def test_gathered_one_launch_route_equals_per_block_route(attributed_maps, monkeypatch, attrib,
+                                                          placed):
+    """policymap_verdict_gathered takes one shard-list launch when every
+    shard lies on the reader's device (here all of them: CPU records)
+    and reads no row through ident_gather_rows; with the seam
+    local_row_shards refusing, it takes the per-block route (K12
+    gathers, then K4 on each block). Both give the same verdicts,
+    redirects, counters, rules, coverage and rule hits."""
+    compiled, maps = attributed_maps
+    _jt, tt, _jrt, trt = maps[False]
+    (src, ep, dp, pr), denied = _gathered_inputs(compiled, 22, b=3000)
+    if placed:
+        pt = tplace.resolve_plan(None, sharding=True, mesh_2d=True)
+        tt = tlookup.tables_on(tlookup.shard_tables_ident(tt, pt.ident_sharding, pt.table_sharding),
+                               CPU)
+        trt = tlookup.shard_rows(trt, pt.ident_sharding)
+    kw = dict(denied_pf=torch.from_numpy(denied), ep_count=N_EPS, block=1024,
+              rule_tab=trt if attrib else None, n_rules=500)
+    args = [torch.from_numpy(a) for a in (src, ep, dp, pr)]
+    gathers = []
+    real = tlookup.ident_gather_rows
+
+    def spy(*a, **k):
+        gathers.append(a[1].shape[0])
+        return real(*a, **k)
+
+    monkeypatch.setattr(tlookup, "ident_gather_rows", spy)
+    one = tlookup.policymap_verdict_gathered(tt, *args, **kw)
+    assert gathers == []
+    monkeypatch.setattr(tlookup, "local_row_shards", lambda tab, device: None)
+    blocks = tlookup.policymap_verdict_gathered(tt, *args, **kw)
+    assert gathers and sum(gathers) == (2 if attrib else 1) * src.shape[0]
+    assert len(one) == len(blocks) == (6 if attrib else 3)
+    for a, b in zip(one, blocks):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert (one[0].numpy() == 1).any()
+
+
+def test_2d_batch_reads_rows_in_place(monkeypatch):
+    """A 2D batch (every record a CPU one, as on one card's grid) reads
+    its policymap and rule rows in place through local_row_shards and
+    never through ident_gather_rows; the results == JAX's 2D pipeline
+    and the port's unplaced one, attribution on."""
+    m = Mesh(4, attrib=True)
+    assert m.t._plan.is_2d
+    seen = []
+    real = tlookup.local_row_shards
+
+    def spy(tab, device):
+        seen.append(type(tab).__name__)
+        return real(tab, device)
+
+    def boom(*a, **k):
+        raise AssertionError("a 2D batch gathered its rows")
+
+    monkeypatch.setattr(tlookup, "local_row_shards", spy)
+    monkeypatch.setattr(tlookup, "ident_gather_rows", boom)
+    for fam in (4, 6):
+        m.run(fam, m.flows(fam, 300, 50 + fam))
+    assert seen and set(seen) == {"IdentSharded"}
+    m.counters_equal()
+
+
 # -- the selector scatters ----------------------------------------------------
 
 @pytest.mark.parametrize("placed", [False, True])
@@ -479,7 +613,8 @@ def test_2d_ct_depth2_attribution_matches_jax():
 def test_2d_device_ct_keeps_the_unplaced_tables(monkeypatch):
     """The device-CT path on a 2D plan runs on the pipeline's own
     (unplaced) tables: == JAX's 2D device-CT pipeline and the port's
-    unplaced one, and it reads no row through ident_gather_rows."""
+    unplaced one, and it reads no row through ident_gather_rows nor
+    in place through local_row_shards (the 2D verdict's two seams)."""
     now = [7000.0]
     import time as _time
     monkeypatch.setattr(_time, "monotonic", lambda: now[0])
@@ -492,6 +627,7 @@ def test_2d_device_ct_keeps_the_unplaced_tables(monkeypatch):
         raise AssertionError("the device-CT path read an ident-sharded row")
 
     monkeypatch.setattr(tlookup, "ident_gather_rows", boom)
+    monkeypatch.setattr(tlookup, "local_row_shards", boom)
     for _ in range(2):
         m.run(4, flows, sports=sp)
         now[0] += 1.0
@@ -613,12 +749,14 @@ def test_mesh_2d_toggles_off_and_gauges():
 
 
 def test_off_path_never_invokes_ident_gather(monkeypatch):
-    """With MeshSharding2D off the ident gather is unreachable: the 1D
-    sharded and the unsharded pipelines, rebuild and dispatch."""
+    """With MeshSharding2D off the ident gather is unreachable, and so is
+    the in-place shard read (local_row_shards): the 1D sharded and the
+    unsharded pipelines, rebuild and dispatch."""
     def boom(*a, **k):
         raise AssertionError("ident gather invoked with 2D off")
 
     monkeypatch.setattr(tlookup, "ident_gather_rows", boom)
+    monkeypatch.setattr(tlookup, "local_row_shards", boom)
     m = Mesh(3, mesh_2d=False)
     assert m.t._plan.axes == {"flows": 8} and not m.t._placed.ident2d
     for seed in (40, 41):

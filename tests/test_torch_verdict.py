@@ -146,3 +146,45 @@ def test_engine_refreshes_when_identities_or_rules_move():
         from_endpoints=(EndpointSelector.make(["k8s:app=a2"]),))])])
     assert te.refresh().revision == w.repo.revision
 
+
+
+@pytest.mark.parametrize("n_terms", [1, 2, 3])
+@pytest.mark.parametrize("width", [1, 15, 16, 17, 640])
+def test_first_rule_terms_plain_matches_single_calls_and_jax(n_terms, width):
+    """K6's multi-term entry (one launch for a sweep block's deny,
+    pure-L3 allow and L4 combo terms) on the CPU: each term's result
+    equals a one-term first_rule call and JAX's reduction
+    (cilium_tpu/ops/verdict.py:224 ``_first``, the min of ``rule_of``
+    over the set cells, NO_RULE for none) on the same masks; all-zero
+    rows and NO_RULE entries included."""
+    rs = np.random.default_rng(width * 3 + n_terms)
+    b = 203
+    widths = [width, *rs.choice([1, 15, 16, 17, 640], n_terms - 1)]
+    terms = []
+    for w in widths:
+        mask = rs.random((b, w)) < 0.02
+        mask[7] = False
+        rule_of = rs.integers(0, 10**6, w).astype(np.int32)
+        rule_of[rs.random(w) < 0.3] = tverdict.NO_RULE
+        terms.append((torch.from_numpy(mask), torch.from_numpy(rule_of)))
+    got = tverdict.first_rule_terms(terms)
+    assert len(got) == n_terms
+    np.testing.assert_array_equal(
+        np.stack([g.numpy() for g in tverdict.first_rule_terms_plain(terms)]),
+        np.stack([g.numpy() for g in got]))
+    for (mask, rule_of), g in zip(terms, got):
+        assert g.dtype == torch.int32 and g.shape == (b,)
+        want = jnp.min(jnp.where(jnp.asarray(mask.numpy()), jnp.asarray(rule_of.numpy())[None, :],
+                                 jnp.int32(tverdict.NO_RULE)), axis=1)
+        np.testing.assert_array_equal(g.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(tverdict.first_rule(mask, rule_of).numpy(), g.numpy())
+        assert g[7] == tverdict.NO_RULE
+
+
+def test_first_rule_terms_refuses_more_than_the_kernel_takes():
+    mask = torch.zeros((4, 3), dtype=torch.bool)
+    rule_of = torch.zeros(3, dtype=torch.int32)
+    with pytest.raises(ValueError, match="terms"):
+        tverdict.first_rule_terms([(mask, rule_of)] * 4)
+    with pytest.raises(ValueError, match="terms"):
+        tverdict.first_rule_terms([])
