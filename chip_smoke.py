@@ -11,7 +11,10 @@
    bytes and child ids, wide policymaps, global-atomic histograms; K4
    on sorted and shuffled columns around its staging budget and over
    shard lists in both row modes, K6 with one to three terms:
-   edge_checks8).
+   edge_checks8; K9's frontend index on its traps: repeated keys, ANY
+   frontends before and after specific ones, protocol-0 flows, dport -1
+   against padded slots, one forced chain, F = 20 000: edge_checks4;
+   K10 on tables at ~90% load: edge_checks5).
 2. Builds the headline deployment of bench.py with the port's own
    modules: 10 000 rules over 512 apps (30% with an L4 port), 2 048
    identities with one /32 and one fd00::{hi}:{lo}/128 ipcache entry
@@ -69,7 +72,7 @@
    flipped and return_rev_nat=True, and an overlay batch (1/8 of the
    lanes carry tunnel identities, half unknown). Host-clock times of
    each pass and its stages (LB stage, CT lookup, miss tail, CT create).
-   Checks: K9 launches once per egress batch, pass 2 dispatches exactly
+   Checks: both K9 entries launch once per egress batch, pass 2 dispatches exactly
    the flows pass 1 did not admit, replies of admitted flows forward
    with their services' revNAT ids, and 400 translated flows of each
    family against Repository.allows_egress for the backend's identity
@@ -180,14 +183,20 @@
    (bench.py:266-430: 16 path patterns, 131 072 requests) at every
    length rung, and K7 on the pattern-cap policy's fused table. K9 is
    timed on each family's pass-1 batch (1 048 576 flows x 1 024 / 256
-   frontends), its bound the int32 compares of a first-match scan on
-   the CUDA cores. K10 (both entries and the verdict tail) is timed on
-   each family's pass-1 inputs over a fresh table (insert-heavy) and
-   its pass-2 inputs over the table pass 2 saw (hit-heavy), its bound
-   the 32-byte sectors its probe windows touch in the seven arrays.
-   K11 (both entries) is timed on the gate's deny-heavy batches, its
-   bound the trie bytes its identity walk touches, 9 bytes a flow and
-   the shed table's sectors. K12 is timed over both ident shards of the
+   frontends) on both clocks, the whole call (index build + probe) and
+   the build entry alone, its bound the bytes the function needs (flows
+   in, results out, the tables once); the probe entry alone is timed in
+   a graph, and the compares of the first version's first-match scan
+   are printed beside them. K10 (both entries and the verdict tail) is
+   timed on each family's pass-1 inputs over a fresh table
+   (insert-heavy) and its pass-2 inputs over the table pass 2 saw
+   (hit-heavy), by CUDA events only (each step changes the table), its
+   bound the lesser of the 32-byte sectors its windows need in the
+   record layout and in the first version's seven arrays (both
+   printed). K3, K5 and K11 (both entries) are timed on both clocks
+   too; K11 on the gate's deny-heavy batches, its bound the trie bytes
+   its identity walk touches, 9 bytes a flow and the shed table's
+   sectors. K12 is timed over both ident shards of the
    mesh phase's ingress id_bits (one launch, as the several-device
    route makes it a block; one card's 2D batch reads in place instead)
    on a 16 384-lane block of peer rows, its bound the block's rows
@@ -1267,70 +1276,199 @@ def l7_cpu_checks(r) -> None:
           f"L7DeviceBatch off and on", flush=True)
 
 
-def random_lb_case(rs, f: int, length: int, nb: int, b: int):
+def random_lb_case(rs, f: int, length: int, nb: int, b: int, proto0: float = 0.0):
     """Random K9 inputs: frontends over a small pool of addresses and
-    ports (ANY frontends beside specific ones), 1/8 with no backend,
-    sequence lengths past the sequence width, sequence rows past the
-    backend table and negative ones, half the flows aimed at a
-    frontend, flow hashes of either sign."""
+    ports (ANY frontends beside specific ones, keys repeated), 1/8 with
+    no backend, sequence lengths past the sequence width, sequence rows
+    past the backend table and negative ones, half the flows aimed at a
+    frontend, flow hashes of either sign; a ``proto0`` share of the
+    flows keeps protocol 0 (which matches only ANY frontends)."""
     import numpy as np
-    import torch
-
-    from cilium_tpu_torch.convert import lb_tables_from_numpy
-    from cilium_tpu_torch.lb.device import MAX_SEQ
 
     pool = rs.integers(0, 256, (max(2, f // 3), length))
     fe_bytes = pool[rs.integers(0, pool.shape[0], f)]
     fe_port = rs.choice(np.array([53, 80, 443, 8080]), f)
     fe_proto = rs.choice(np.array([0, 6, 17]), f)
+    tables = lb_case_tables(rs, fe_bytes, fe_port, fe_proto, nb)
+    return tables, lb_case_flows(rs, fe_bytes, fe_port, fe_proto, b, proto0)
+
+
+def lb_case_tables(rs, fe_bytes, fe_port, fe_proto, nb: int):
+    """LBTables on the CPU around these frontend keys: random selection
+    sequences (1/8 of the frontends with no backend, lengths past the
+    width, rows past the backend table and negative), revNAT ids and
+    backends."""
+    import numpy as np
+
+    from cilium_tpu_torch.convert import lb_tables_from_numpy
+    from cilium_tpu_torch.lb.device import MAX_SEQ
+
+    f, length = fe_bytes.shape
     fe_seq_len = rs.integers(1, MAX_SEQ + 1, f)
     fe_seq_len[rs.random(f) < 0.125] = 0
     fe_seq_len[rs.random(f) < 0.05] = MAX_SEQ + 7
     fe_seq = rs.integers(0, nb, (f, MAX_SEQ))
     wild = rs.random((f, MAX_SEQ)) < 0.1
     fe_seq[wild] = rs.integers(-2 * nb - 3, 2 * nb + 3, int(wild.sum()))
-    tables = lb_tables_from_numpy(
+    return lb_tables_from_numpy(
         fe_bytes, fe_port, fe_proto, fe_seq, fe_seq_len, rs.integers(1, 65536, f),
         rs.integers(0, 256, (nb, length)), rs.integers(1, 65536, nb), device="cpu")
+
+
+def lb_case_flows(rs, fe_bytes, fe_port, fe_proto, b: int, proto0: float = 0.0):
+    """[peer, dport, proto, fhash] CPU tensors: half the flows aimed at a
+    frontend's address and port (its protocol 70% of the time, else TCP
+    or UDP; an ANY frontend's flows TCP unless kept at 0), the rest
+    random; a ``proto0`` share of all flows at protocol 0."""
+    import numpy as np
+    import torch
+
+    f, length = fe_bytes.shape
     pick = rs.integers(0, f, b)
     aim = rs.random(b) < 0.5
     peer = np.where(aim[:, None], fe_bytes[pick], rs.integers(0, 256, (b, length)))
     dport = np.where(aim, fe_port[pick], rs.choice(np.array([53, 80, 443, 22]), b))
     proto = np.where(rs.random(b) < 0.7, fe_proto[pick], rs.choice(np.array([6, 17]), b))
     proto = np.where(proto == 0, 6, proto)
-    flows = [torch.from_numpy(np.ascontiguousarray(a, np.int32)) for a in (
+    proto[rs.random(b) < proto0] = 0
+    return [torch.from_numpy(np.ascontiguousarray(a, np.int32)) for a in (
         peer, dport, proto, rs.integers(-(2 ** 31), 2 ** 31, b))]
-    return tables, flows
+
+
+def k9_check(dev, tables, flows, what: str) -> None:
+    """K9 on the card (both entries) against its plain version, exact:
+    the five outputs of lb_translate, and the frontends the card's
+    index holds against the plain index's (sorted)."""
+    import dataclasses
+
+    import torch
+
+    from cilium_tpu_torch.lb.device import (
+        lb_index_build, lb_index_build_plain, lb_index_entries, lb_translate, lb_translate_plain,
+    )
+
+    gt = dataclasses.replace(tables, **{
+        fl.name: getattr(tables, fl.name).to(dev) for fl in dataclasses.fields(tables)})
+    g_flows = [x.to(dev) for x in flows]
+    got = lb_translate(gt, *g_flows)
+    idx = lb_index_build(gt)
+    # the plain version's dense [B, F, L] compare, on the same device, in
+    # slices of at most 2^26 compares
+    f, length = tables.fe_bytes.shape
+    step = max(1, (1 << 26) // (f * length))
+    parts = [lb_translate_plain(gt, *(x[lo:lo + step] for x in g_flows))
+             for lo in range(0, max(flows[0].shape[0], 1), step)]
+    want = [torch.cat([p[k] for p in parts]) for k in range(5)]
+    torch.cuda.synchronize()
+    for name, g, w in zip(("new_bytes", "new_port", "revnat", "ok", "no_backend"), got, want):
+        if max_abs_err(g.cpu(), w.cpu()):
+            fail(f"K9 lb_translate edge {what}: {name} differs")
+    if not torch.equal(lb_index_entries(idx.cpu()), lb_index_entries(lb_index_build_plain(tables))):
+        fail(f"K9 lb_index_build edge {what}: the index holds other frontends than the plain one")
+
+
+def k9_trap_cases(rs, length: int):
+    """(what, tables, flows) of the index's traps, CPU tensors: keys
+    repeated (the lower frontend wins), ANY frontends before and after
+    specific ones, protocol-0 flows, dport -1 against padded slots
+    (fe_port -1, zero bytes, protocol 0), every key equal (one slot),
+    and keys whose hashes all share one home slot (one chain)."""
+    import numpy as np
+
+    from cilium_tpu_torch.lb.device import lb_index_slots, lb_key_hash_np
+
+    out = []
+    # repeated keys: 24 distinct keys, each at 8 frontends
+    keys = rs.integers(0, 256, (24, length))
+    ports = rs.choice(np.array([80, 443]), 24)
+    protos = rs.choice(np.array([0, 6, 17]), 24)
+    pick = rs.permutation(np.repeat(np.arange(24), 8))
+    fb, fp, fr = keys[pick], ports[pick], protos[pick]
+    out.append(("repeated keys", fb, fp, fr, 0.1))
+    # ANY before and after a specific frontend of one VIP and port
+    vip = rs.integers(0, 256, (4, length))
+    fb = vip[[0, 0, 1, 1, 2, 2, 2, 3]]
+    fp = np.array([80, 80, 80, 80, 53, 53, 53, 443])
+    fr = np.array([0, 6, 6, 0, 17, 0, 6, 0])
+    out.append(("ANY before / after specific", fb, fp, fr, 0.2))
+    # protocol-0 flows only
+    out.append(("protocol-0 flows", fb, fp, fr, 1.0))
+    # padded slots behind live frontends: dport -1 flows with zero bytes
+    f = 40
+    fb = np.zeros((f, length), np.int64)
+    fb[:20] = rs.integers(0, 256, (20, length))
+    fp = np.full(f, -1)
+    fp[:20] = rs.choice(np.array([80, 443]), 20)
+    fr = np.zeros(f, np.int64)
+    fr[:20] = rs.choice(np.array([0, 6, 17]), 20)
+    out.append(("padded slots", fb, fp, fr, 0.3))
+    # every key equal
+    f = 300
+    out.append(("every key equal", np.repeat(rs.integers(0, 256, (1, length)), f, 0),
+                np.full(f, 443), np.full(f, 6), 0.1))
+    # one chain: 100 distinct keys with one home slot (words outside
+    # [0, 255] among them: the index hashes full words)
+    f = 100
+    n = lb_index_slots(f)
+    cand = rs.integers(-(2 ** 31), 2 ** 31, (60_000, length))
+    cand[: 30_000] &= 255
+    c_port = rs.choice(np.array([80, 443, -1]), 60_000)
+    c_proto = rs.choice(np.array([0, 6, 17]), 60_000)
+    home = (lb_key_hash_np(cand, c_port, c_proto) & np.uint32(n - 1)).astype(np.int64)
+    top = np.bincount(home, minlength=n).argmax()
+    sel = np.nonzero(home == top)[0][:f]
+    if sel.size < f:
+        fail(f"K9 edge: only {sel.size} candidate keys share a home slot")
+    out.append(("one chain", cand[sel], c_port[sel], c_proto[sel], 0.1, int(top)))
+    cases = []
+    for what, fb, fp, fr, p0, *home in out:
+        tables = lb_case_tables(rs, np.asarray(fb), np.asarray(fp), np.asarray(fr), 17)
+        flows = lb_case_flows(rs, np.asarray(fb), np.asarray(fp), np.asarray(fr), 5000, p0)
+        if what == "padded slots":
+            flows[1][::3] = -1
+            flows[0][::6] = 0
+        cases.append((what, tables, flows, home[0] if home else None))
+    return cases
 
 
 def edge_checks4(dev) -> None:
-    """K9 lb_translate against its plain version, exact, on shapes the
-    main path does not reach: F = 1, F = 1025 (past four 256-frontend
-    tiles), B = 1 and ragged B, both address widths, ANY frontends
-    shadowing specific ones, no-backend frontends, sequence rows past
-    the backend table and negative, sequence lengths past the width,
-    negative flow hashes, and an empty batch."""
-    import dataclasses
-
+    """K9 lb_translate (both entries) against its plain version, exact,
+    on shapes the main path does not reach: F = 1, 300, 1025 and 20 000,
+    F at 2^k and 2^k + 1 around the index's size steps (32 / 33, 1 024
+    / 1 025, 4 096 / 4 097), B = 1 and ragged B, both address widths,
+    ANY frontends shadowing specific ones, no-backend frontends,
+    sequence rows past the backend table and negative, sequence lengths
+    past the width, negative flow hashes, an empty batch; and the
+    index's traps (k9_trap_cases): repeated keys, ANY before and after
+    a specific frontend, protocol-0 flows, dport -1 against padded
+    slots, every key equal, and 100 keys forced into one chain, whose
+    slots on the card must be the chain's run from its home slot."""
     import numpy as np
     import torch
 
-    from cilium_tpu_torch.lb.device import lb_translate, lb_translate_plain
+    from cilium_tpu_torch.lb.device import lb_index_build, lb_index_slots
 
     rs = np.random.default_rng(909)
     for length in (4, 16):
         for f, nb, b in ((1, 1, 1), (1, 3, 777), (2, 5, 1), (300, 40, 4099), (1025, 513, 1),
-                         (1025, 513, 70_001), (5, 2, 0)):
-            tables, flows = random_lb_case(rs, f, length, nb, b)
-            got = lb_translate(dataclasses.replace(tables, **{
-                fl.name: getattr(tables, fl.name).to(dev) for fl in dataclasses.fields(tables)}),
-                *(x.to(dev) for x in flows))
-            want = lb_translate_plain(tables, *flows)
-            torch.cuda.synchronize()
-            for name, g, w in zip(("new_bytes", "new_port", "revnat", "ok", "no_backend"),
-                                  got, want):
-                if max_abs_err(g.cpu(), w):
-                    fail(f"K9 lb_translate edge F={f} NB={nb} B={b} L={length}: {name} differs")
+                         (1025, 513, 70_001), (5, 2, 0), (32, 9, 3001), (33, 9, 3001),
+                         (1024, 300, 20_000), (4096, 900, 20_000), (4097, 900, 20_000),
+                         (20_000, 4000, 70_001)):
+            tables, flows = random_lb_case(rs, f, length, nb, b, proto0=0.05 if f > 30 else 0.0)
+            k9_check(dev, tables, flows, f"F={f} NB={nb} B={b} L={length}")
+        for what, tables, flows, home in k9_trap_cases(rs, length):
+            k9_check(dev, tables, flows, f"{what} L={length}")
+            if home is not None:
+                f = tables.fe_port.shape[0]
+                n = lb_index_slots(f)
+                idx = lb_index_build(dataclasses.replace(tables, **{
+                    fl.name: getattr(tables, fl.name).to(dev)
+                    for fl in dataclasses.fields(tables)})).cpu()
+                run = (home + torch.arange(n)) % n
+                used = (idx[run] >= 0).to(torch.int64)
+                if int(used[:f].sum()) != f or int(used[f:].sum()):
+                    fail(f"K9 lb_index_build edge {what} L={length}: the {f} keys do not fill "
+                         f"the {f} slots from their home slot {home}")
 
 
 def build_services_world(seed: int):
@@ -1440,10 +1578,11 @@ def lb_inputs(pipe, fam: int, pb, eps, dports, protos, sports):
 
 
 def lb_scan_ops(t, peer, dport, proto) -> int:
-    """int32 compares a first-match frontend scan cannot skip on these
-    flows: one for each frontend it passes over, L + 2 (address bytes,
-    port, protocol) for the one it stops at; all F for a flow that
-    matches none."""
+    """int32 compares the first version of K9 (a first-match frontend
+    scan) could not skip on these flows: one for each frontend it passes
+    over, L + 2 (address bytes, port, protocol) for the one it stops at;
+    all F for a flow that matches none. The old design's work, not the
+    function's: printed beside K9's row, not its bound."""
     import torch
 
     f, length = t.fe_bytes.shape
@@ -1678,9 +1817,9 @@ def services_main_path(seed: int, card: str):
               "flows share their key with an earlier admitted flow of another revNAT id",
               flush=True)
     clock.close()
-    if _kernels.launches()["lb_translate"] != 4:
-        fail(f"K9 launched {_kernels.launches()['lb_translate']} times, expected one per egress "
-             "batch (4)")
+    k9 = {k: _kernels.launches()[k] for k in ("lb_index_build", "lb_translate")}
+    if set(k9.values()) != {4}:
+        fail(f"K9's entries launched {k9}, expected each once per egress batch (4)")
     for fam in (4, 6):
         nb, npo, rv, ok, nobk = seqs[fam]["lb"]
         n = svc_oracle(repo, labels_of, idents, endpoints, fam, nb, npo, seqs[fam]["batch"][1],
@@ -1763,15 +1902,80 @@ def ct_state_err(a, b) -> int:
                for f in dataclasses.fields(a))
 
 
+def dense_ct_state(rs, bits: int, pool, kc, now: int):
+    """A CPU DeviceCTState at ~90% load around a pool of flows (``pool``
+    the four peer words, ``kc`` their kc words, uint32 or int32): live
+    slots with exp in (now, now + 200], random keys; in three slots of
+    each pool flow's forward window and two of its reply window a decoy
+    that carries the tuple's kc_lo tag and differs from its key in one
+    other word (the record must reject it); the real key in a slot of
+    the forward window for 1/3 of the flows and the flipped key in the
+    reply window for 1/4. → (state, lanes whose windows hold a live
+    decoy)."""
+    import numpy as np
+
+    from cilium_tpu_torch.convert import device_ct_state_from_numpy
+    from cilium_tpu_torch.datapath import device_ct as dct
+
+    def u(a):
+        return np.asarray(a).astype(np.int64).astype(np.uint32)
+
+    c = 1 << bits
+    fwd = [u(w) for w in (*pool, *kc)]
+    f_hi, f_lo = dct._flip_kc_words(torch_i32(fwd[4]), torch_i32(fwd[5]))
+    rep = [*fwd[:4], u(f_hi.numpy()), u(f_lo.numpy())]
+    arrays = [rs.integers(0, 1 << 32, c, dtype=np.uint64).astype(np.uint32) for _ in range(6)]
+    exp = np.zeros(c, np.int32)
+    live = rs.random(c) < 0.9
+    exp[live] = now + rs.integers(1, 201, int(live.sum()))
+    n = fwd[0].shape[0]
+    for key, n_decoy, share in ((fwd, 3, 1 / 3), (rep, 2, 1 / 4)):
+        h = dct._hash_tuple_np(*key).astype(np.int64)
+        slots = (h[:, None] + rs.integers(0, dct.CT_PROBES, (n, n_decoy))) & (c - 1)
+        other = rs.integers(0, 5, (n, n_decoy))  # the key word the decoy changes
+        for d in range(n_decoy):
+            for k in range(6):
+                arrays[k][slots[:, d]] = key[k]
+            col = other[:, d]
+            for k in range(5):
+                sel = col == k
+                arrays[k][slots[sel, d]] = key[k][sel] ^ np.uint32(1 + k)
+        real = np.nonzero(rs.random(n) < share)[0]
+        at = (h[real] + rs.integers(0, dct.CT_PROBES, real.size)) & (c - 1)
+        for k in range(6):
+            arrays[k][at] = key[k][real]
+        exp[at] = np.maximum(exp[at], now + 50)
+    st = device_ct_state_from_numpy([*arrays, exp], device="cpu")
+    h = dct._hash_tuple_np(*fwd).astype(np.int64)
+    win = (h[:, None] + np.arange(dct.CT_PROBES)[None, :]) & (c - 1)
+    tags = (exp[win] > now) & (arrays[5][win] == fwd[5][:, None])
+    same = np.ones(win.shape, bool)
+    for k in range(5):
+        same &= arrays[k][win] == fwd[k][:, None]
+    return st, int((tags & ~same).any(1).sum())
+
+
+def torch_i32(a):
+    import numpy as np
+    import torch
+
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a).astype(np.int64).astype(np.uint32)
+                                                 .view(np.int32)))
+
+
 def edge_checks5(dev) -> None:
     """K10 ct_step (both entries) against its plain version, exact, over
     several steps of one table: 16-, 64- and 1024-slot tables with live,
     expired (UDP after 60 s) and reply-tuple entries, flows that repeat
     in a batch (contested slots), probe windows that wrap past C-1, B = 0
     and B = 1, ct_step alone and with the verdict tail (a shared and a
-    global-atomic counter histogram, invalid lanes); and the wrapper's
-    refusals (C not a power of two, more endpoints than the 23 bits of
-    the kc word hold)."""
+    global-atomic counter histogram, invalid lanes); 1024- and 4096-slot
+    tables at ~90% load (dense_ct_state: windows full of live slots whose
+    kc_lo tags match the lanes' and whose records differ in one word);
+    4- and 8-slot tables (windows that wrap onto themselves);
+    and the wrapper's refusals (C not a power of two, more endpoints than
+    the 23 bits of the kc word hold, a record layout that is not [C, 8],
+    records off a 32-byte boundary)."""
     import dataclasses
 
     import numpy as np
@@ -1780,15 +1984,24 @@ def edge_checks5(dev) -> None:
     from cilium_tpu_torch.datapath import device_ct as dct
 
     rs = np.random.default_rng(4321)
-    for bits, b, n_pool, ep_count in ((4, 64, 24, 3), (4, 1, 4, 1), (4, 0, 4, 1),
-                                      (6, 777, 300, 64), (10, 3000, 1200, 2100)):
-        st = dct.make_state(bits, device="cpu")
+    for bits, b, n_pool, ep_count, dense in (
+            (4, 64, 24, 3, False), (4, 1, 4, 1, False), (4, 0, 4, 1, False),
+            (6, 777, 300, 64, False), (10, 3000, 1200, 2100, False), (10, 2000, 128, 64, True),
+            (12, 6000, 512, 64, True), (3, 200, 40, 4, False), (2, 50, 12, 4, False)):
         pool = [rs.integers(-2**31, 2**31, n_pool).astype(np.int32) for _ in range(4)]
         ep = rs.integers(0, ep_count, n_pool).astype(np.int32)
         sp = rs.integers(0, 65536, n_pool).astype(np.int32)
         dp = rs.integers(0, 65536, n_pool).astype(np.int32)
         pr = rs.choice(np.array([6, 17], np.int32), n_pool)
         dr = rs.integers(0, 2, n_pool).astype(np.int32)
+        if dense:
+            kc = dct.pack_kc_words(*(torch.from_numpy(x) for x in (ep, sp, dp, pr, dr)))
+            st, n_decoy = dense_ct_state(rs, bits, pool, [x.numpy() for x in kc], 1000)
+            if n_decoy < n_pool // 2:
+                fail(f"K10 ct_step edge C={1 << bits}: only {n_decoy} of {n_pool} forward "
+                     "windows hold a live decoy")
+        else:
+            st = dct.make_state(bits, device="cpu")
         for step in range(5):
             idx = rs.integers(0, n_pool, b)
             rep = rs.random(b) < (0.5 if step % 2 else 0.0)  # half the lanes as replies
@@ -1818,15 +2031,23 @@ def edge_checks5(dev) -> None:
             g_out, c_out = (o if isinstance(o, tuple) else (o,) for o in outs)
             err = max([max_abs_err(g.cpu(), c) for g, c in zip(g_out, c_out)] + [ct_state_err(gpu, cpu)])
             if err:
-                fail(f"K10 ct_step edge C={1 << bits} B={b} step {step}: card and plain differ")
+                fail(f"K10 ct_step edge C={1 << bits} B={b} step {step}{' dense' if dense else ''}: "
+                     "card and plain differ")
+            if dense and step == 0 and not bool(c_out[0].any()):
+                fail(f"K10 ct_step edge C={1 << bits} dense: no lane was established")
             st = cpu
         if b > 1 and not int((st.exp > 1000 + 40 * 4).sum()):
             fail(f"K10 ct_step edge C={1 << bits} B={b}: no live entry after five steps")
     bad = dct.make_state(4, device=dev)
-    cut = dataclasses.replace(bad, **{f.name: getattr(bad, f.name)[:12].clone()
-                                      for f in dataclasses.fields(bad)})
+    cut = dataclasses.replace(bad, exp=bad.exp[:12].clone(), kc_lo=bad.kc_lo[:12].clone(),
+                              rec=bad.rec[:12].clone())
+    wide = dataclasses.replace(bad, rec=torch.zeros((16, 6), dtype=torch.int32, device=dev))
+    off = dataclasses.replace(bad, rec=torch.zeros((17, 8), dtype=torch.int32, device=dev)
+                              .view(-1)[4:4 + 16 * 8].view(16, 8))
     one = torch.zeros(1, dtype=torch.int32, device=dev)
-    for what, state, ep_count in (("C = 12", cut, 4), ("ep_count 2**23 + 1", bad, (1 << 23) + 1)):
+    for what, state, ep_count in (("C = 12", cut, 4), ("ep_count 2**23 + 1", bad, (1 << 23) + 1),
+                                  ("a [16, 6] record table", wide, 4),
+                                  ("records off a 32-byte boundary", off, 4)):
         try:
             dct.ct_step_verdict(state, (one, one), (one, one), (one, one), one + 6, 5,
                                 (one + 1).to(torch.int8), one > 0, one == 0, one, ep_count)
@@ -2110,16 +2331,18 @@ def device_ct_cpu_checks(svc, r) -> None:
 
 
 def ct_step_bytes(before, after, words, now: int, n_lanes: int, ep_count: int):
-    """(bytes K10 must move, bytes if no two windows shared a sector),
-    as this run's data needs them. Of each forward and reply window: exp
-    up to the first live slot holding the key (all 8 slots without one),
-    kc_lo of the live slots among those, and the five other key words of
-    that matching slot, each as the distinct 32-byte sectors it falls
-    in, read once; the sectors whose content the step changed, written
-    once; and the flows in (six words, proto, verdict, redirect, valid,
-    ep_idx) and out (verdict, redirect, established, counters) once."""
-    import dataclasses
-
+    """Bytes K10 must move, as this run's data needs them, in the two
+    layouts → {"arrays": (distinct, per lane), "record": (distinct, per
+    lane)}: "distinct" counts each 32-byte sector once, "per lane" as if
+    no two windows shared a sector. Of each forward and reply window:
+    exp up to the first live slot holding the key (all 8 slots without
+    one), kc_lo of the live slots among those, and the other key words
+    of that matching slot: five sectors in the seven [C] arrays of the
+    first version, one record sector in the record layout; the sectors
+    whose content the step changed, written once (an insert: seven
+    arrays, or exp, kc_lo and the record); and the flows in (six words,
+    proto, verdict, redirect, valid, ep_idx) and out (verdict, redirect,
+    established, counters) once."""
     import torch
 
     from cilium_tpu_torch.datapath.device_ct import CT_PROBES, _flip_kc_words, _hash_u32, _window
@@ -2128,7 +2351,7 @@ def ct_step_bytes(before, after, words, now: int, n_lanes: int, ep_count: int):
     pos = torch.arange(CT_PROBES, device=live.device)
     f_hi, f_lo = _flip_kc_words(words[4], words[5])
     sectors = {"exp": [], "kc_lo": [], "key": []}
-    per_lane = 0
+    window_lane = key_lane = 0
     for ws in (words, (*words[:4], f_hi, f_lo)):
         slots = _window(_hash_u32(*ws), before.capacity)
         lv = live[slots]
@@ -2142,18 +2365,79 @@ def ct_step_bytes(before, after, words, now: int, n_lanes: int, ep_count: int):
         head = sec[:, :1]  # a window spans its first slot's sector and at most one more
         for name, m in (("exp", need), ("kc_lo", need & lv)):
             sectors[name].append(sec[m])
-            per_lane += int((m & (sec == head)).any(1).sum() + (m & (sec != head)).any(1).sum())
-        sectors["key"].append(sec.gather(1, first[:, None])[hit, 0])
-        per_lane += 5 * int(hit.sum())
-    n = {k: torch.unique(torch.cat(v)).numel() for k, v in sectors.items()}
-    read = (n["exp"] + n["kc_lo"] + 5 * n["key"]) * 32
-    written = 0
-    for f in dataclasses.fields(before):
-        if f.name != "owner":
-            moved = torch.nonzero(getattr(before, f.name) != getattr(after, f.name))[:, 0]
-            written += torch.unique(moved >> 3).numel() * 32
+            window_lane += int((m & (sec == head)).any(1).sum() + (m & (sec != head)).any(1).sum())
+        sectors["key"].append(slots.gather(1, first[:, None])[hit, 0])
+        key_lane += int(hit.sum())
+    n = {k: torch.unique(torch.cat(v) >> (3 if k == "key" else 0)).numel()
+         for k, v in sectors.items()}
+    n_rec = torch.unique(torch.cat(sectors["key"])).numel()
+
+    def changed(x, y, per_sector):
+        diff = (x != y) if x.dim() == 1 else (x != y).any(1)
+        return torch.unique(torch.nonzero(diff)[:, 0] // per_sector).numel() * 32
+
+    w_exp = changed(before.exp, after.exp, 8)
+    w_kc_lo = changed(before.kc_lo, after.kc_lo, 8)
+    w_arrays = w_exp + w_kc_lo + sum(changed(x, y, 8) for x, y in zip(before.keys()[:5],
+                                                                        after.keys()[:5]))
+    w_rec = w_exp + w_kc_lo + changed(before.rec[:, :5], after.rec[:, :5], 1)
     flows = n_lanes * (6 * 4 + 4 + 1 + 1 + 1 + 4) + n_lanes * 3 + ep_count * 3 * 4
-    return read + written + flows, per_lane * 32 + written + flows
+    window = (n["exp"] + n["kc_lo"]) * 32
+    return {
+        "arrays": (window + 5 * n["key"] * 32 + w_arrays + flows,
+                   (window_lane + 5 * key_lane) * 32 + w_arrays + flows),
+        "record": (window + n_rec * 32 + w_rec + flows,
+                   (window_lane + key_lane) * 32 + w_rec + flows),
+    }
+
+
+def lb_rows(svc, row, card: str) -> None:
+    """The K9 rows: ``row(...)`` for each family's pass-1 batch and both
+    entries, and the probe entry alone in a CUDA graph."""
+    from cilium_tpu_torch.lb.device import (
+        lb_index_build, lb_index_build_plain, lb_index_entries, lb_probe, lb_translate,
+        lb_translate_plain,
+    )
+
+    # K9 over each family's pass-1 batch of the services phase: v4
+    # 1 048 576 flows x 1 024 frontends, v6 x 256. lb_translate is the
+    # whole call (index build + probe, as the main path makes it), its
+    # bound the bytes the function needs: the flows in and the results
+    # out once and the tables once. lb_index_build is the build entry
+    # alone, its bound the frontend keys read and the index written. The
+    # compares a first-match scan makes on these flows (lb_scan_ops,
+    # the first version's work) are printed beside them
+    for fam in (4, 6):
+        q = svc["seqs"][fam]
+        tabs, flows = lb_inputs(svc["pipe"], fam, q["pb"], *q["batch"][1:])
+        k_out = lb_translate(tabs, *flows)
+        p_out = lb_translate_plain(tabs, *flows)
+        err = max(max_abs_err(a, b) for a, b in zip(k_out, p_out))
+        ops = lb_scan_ops(tabs, *flows[:3])
+        tab_t = [getattr(tabs, f.name) for f in dataclasses.fields(tabs)]
+        b_ms, b_by = bound(nbytes(*tab_t, *flows, *k_out), 0)
+        f_n, length = tabs.fe_bytes.shape
+        index = lb_index_build(tabs)
+        i_err = max_abs_err(lb_index_entries(index), lb_index_entries(lb_index_build_plain(tabs)))
+        i_ms, i_by = bound(nbytes(tabs.fe_bytes, tabs.fe_port, tabs.fe_proto, index), 0)
+        row("lb_index_build", "cilium_tpu_torch/csrc/lb_translate.cu",
+            "cilium_tpu/lb/device.py:51", i_err, lambda tabs=tabs: lb_index_build(tabs),
+            lambda tabs=tabs: lb_index_build_plain(tabs), i_ms, i_by,
+            f"v{fam}: {f_n} frontends (L {length}) into {index.shape[0]} slots, "
+            f"{int((index >= 0).sum())} distinct keys", plain_iters=2, reps=5, graph=True)
+        row("lb_translate", "cilium_tpu_torch/csrc/lb_translate.cu", "cilium_tpu/lb/device.py:51",
+            err, lambda tabs=tabs, flows=flows: lb_translate(tabs, *flows),
+            lambda tabs=tabs, flows=flows: lb_translate_plain(tabs, *flows), b_ms, b_by,
+            f"v{fam}: {BATCH} flows x {f_n} frontends (L {length}), {tabs.be_port.shape[0]} "
+            f"backends, both entries; the first version's scan made {ops} compares "
+            f"({ops / INT32_OPS_PER_S * 1e3!r} ms at {INT32_OPS_PER_S:.4g} int32 op/s)",
+            plain_iters=2, reps=5, graph=True)
+        # the probe entry alone over the built index
+        if max(max_abs_err(a, b) for a, b in zip(lb_probe(tabs, index, *flows), p_out)):
+            fail(f"K9 lb_translate v{fam}: the probe over a built index differs")
+        pr_ms = graph_ms(lambda tabs=tabs, index=index, flows=flows: lb_probe(tabs, index, *flows))
+        print(f"K9 v{fam} split (CUDA graph): the probe entry alone {median(pr_ms)!r} {pr_ms} ms "
+              f"over a built index; the build is the lb_index_build row [{card}]", flush=True)
 
 
 def ct_step_rows(dct, dev, row) -> None:
@@ -2178,8 +2462,8 @@ def ct_step_rows(dct, dev, row) -> None:
             k_out = ct_step_verdict(st_k, ka_w, kb_w, kc_w, proto_t, now0, *tail)
             p_out = ct_step_verdict_plain(st_p, ka_w, kb_w, kc_w, proto_t, now0, *tail)
             err = max([max_abs_err(x, y) for x, y in zip(k_out, p_out)] + [ct_state_err(st_k, st_p)])
-            b_bytes, lane_bytes = ct_step_bytes(start, st_k, words, now0, proto_t.shape[0],
-                                                tail[-1])
+            need = ct_step_bytes(start, st_k, words, now0, proto_t.shape[0], tail[-1])
+            b_bytes = min(need["arrays"][0], need["record"][0])
             b_ms, b_by = bound(b_bytes, 0)
             step = [0]
 
@@ -2194,9 +2478,12 @@ def ct_step_rows(dct, dev, row) -> None:
                 lambda st=st_p, t=tail, nf=now_of: ct_step_verdict_plain(st, ka_w, kb_w, kc_w,
                                                                          proto_t, nf(), *t),
                 b_ms, b_by, f"v{fam} {kind}: {proto_t.shape[0]} flows, {1 << CT_BITS} slots, "
-                f"{int(k_out[3].sum())} established, both entries + verdict tail; {b_bytes} bytes "
-                f"(distinct sectors needed), {lane_bytes} if no two windows shared a sector "
-                f"({lane_bytes / HBM_BYTES_PER_S * 1e3!r} ms)", plain_iters=2, reps=5)
+                f"{int(k_out[3].sum())} established, both entries + verdict tail; bytes needed "
+                f"(distinct sectors / if no two windows shared a sector): record layout "
+                f"{need['record'][0]} / {need['record'][1]}, the first version's seven arrays "
+                f"{need['arrays'][0]} / {need['arrays'][1]} "
+                f"({need['arrays'][0] / HBM_BYTES_PER_S * 1e3!r} ms); bound the lesser",
+                plain_iters=2, reps=5)
 
 
 def edge_checks6(dev) -> None:
@@ -2931,7 +3218,7 @@ def shed_rows(sub, dev, row) -> None:
             max_abs_err(k_out, p_out), lambda fn=fn, args=args: fn(*args),
             lambda plain=plain, args=args: plain(*args), b_ms, b_by,
             f"v{fam}: {n} flows (3/4 world), shed table {list(tab.shape)}, "
-            f"{int(k_out.sum())} shed, {sectors} table sectors")
+            f"{int(k_out.sum())} shed, {sectors} table sectors", graph=True)
         peer, _eps, dports, protos = g["batch"]
         walls = []
         for _ in range(3):
@@ -3939,7 +4226,8 @@ def sparse_rows(sp, dev, row) -> None:
                 max_abs_err(lpm_lookup_wide(*tabs, peer), lpm_wide_plain(*tabs, peer)),
                 lambda tabs=tabs, peer=peer: lpm_lookup_wide(*tabs, peer),
                 lambda tabs=tabs, peer=peer: lpm_wide_plain(*tabs, peer), b_ms, b_by,
-                f"{BATCH} addresses, patched ip trie ({kind}) sub_info {list(tabs[3].shape)}")
+                f"{BATCH} addresses, patched ip trie ({kind}) sub_info {list(tabs[3].shape)}",
+                graph=True)
         else:
             peer = torch.from_numpy(peers).to(dev)
             tabs = [getattr(t, f"ip_{f}") for f in ("child", "info", "common")]
@@ -3949,7 +4237,7 @@ def sparse_rows(sp, dev, row) -> None:
                 lambda tabs=tabs, peer=peer: elided_lookup(*tabs, peer, 16),
                 lambda tabs=tabs, peer=peer: lpm_stride8_plain(*tabs, peer, 16), b_ms, b_by,
                 f"{BATCH} addresses, patched ip trie ({kind}) [{tabs[0].shape[0]}, 256], "
-                f"K {tabs[2].shape[0]}")
+                f"K {tabs[2].shape[0]}", graph=True)
 
 
 MESH_GRID = 4  # virtual device records on one card: 2 flows x 2 ident
@@ -4355,7 +4643,6 @@ def main() -> None:
     from cilium_tpu_torch.ops import materialize as matmod
     from cilium_tpu_torch.ops import verdict as verdictmod
     from cilium_tpu_torch.ops.bitmap import compute_selector_matches, selector_match_plain, unpack_bits_u32
-    from cilium_tpu_torch.lb.device import lb_translate, lb_translate_plain
     from cilium_tpu_torch.ops.lookup import policymap_verdict, policymap_verdict_plain
     from cilium_tpu_torch.ops.lpm import (
         build_trie_elided, elided_lookup, lpm_lookup_wide, lpm_stride8_plain, lpm_wide_plain,
@@ -4408,9 +4695,13 @@ def main() -> None:
           f"{len(k2_edge_shapes())} shapes, non-contiguous, bool and misaligned operands;  4- and 16-level K5 with "
           "out-of-range bytes and child ids; ragged K6; K4 attribution with shared and "
           "global histograms; K7 both entries and K8 at every rung and odd caps, uint8 and "
-          "int32 bytes, out-of-range starts and bytes, lengths past max_len, empty batches; K9 at "
-          "F = 1 and 1025, B = 0, 1 and ragged, both address widths; K10 both entries on 16-, 64- and "
-          "1024-slot tables over five steps, wrapped windows, contested slots, B = 0 and 1; K11 both "
+          "int32 bytes, out-of-range starts and bytes, lengths past max_len, empty batches; K9 both "
+          "entries at F = 1, 32 / 33, 300, 1 024 / 1 025, 4 096 / 4 097 and 20 000, B = 0, 1 and "
+          "ragged, both address widths, repeated keys, ANY before and after specific frontends, "
+          "protocol-0 flows, dport -1 against padded slots, every key equal, one forced chain; "
+          "K10 both entries on 16-, 64- and 1024-slot tables over five steps, wrapped windows, "
+          "contested slots, B = 0 and 1, 1 024- and 4 096-slot tables at ~90% load with tag-"
+          "matching decoys, 4- and 8-slot tables; K11 both "
           "entries at B = 0, 1, 31 and 4 097 over every dport bucket edge and proto 0 / 6 / 17 / "
           "255, both v4 layouts, rows past the table, v6 bytes outside [0, 255]; K12 at B = 0, 3, "
           "41, 77, 4 097, W = 1 to 2 500, shard offsets, an empty shard, ids outside the shard, "
@@ -4720,7 +5011,8 @@ def main() -> None:
 
     # -- 3e. services+CT main path, launch counts from zero --------------
     svc = services_main_path(args.seed, card)
-    check_path("services", ["lb_translate", "lpm_wide", "lpm_stride8", "policymap_verdict"])
+    check_path("services", ["lb_index_build", "lb_translate", "lpm_wide", "lpm_stride8",
+                            "policymap_verdict"])
 
     # -- 4e. services+CT against the CPU path -----------------------------
     services_cpu_checks(svc)
@@ -4729,7 +5021,7 @@ def main() -> None:
     dct = device_ct_main_path(svc, card)
     check_path("device_ct", ["lpm_wide", "lpm_stride8", "policymap_verdict", "ct_probe_claim",
                              "ct_commit"])
-    if launches["device_ct"]["lb_translate"]:
+    if launches["device_ct"]["lb_translate"] or launches["device_ct"]["lb_index_build"]:
         fail("the device-CT pipeline has no LB, yet K9 launched")
 
     # -- 4f. device CT against the CPU path and the host CT -------------
@@ -4808,7 +5100,8 @@ def main() -> None:
         row("lpm_wide", "cilium_tpu_torch/csrc/lpm_wide.cu", "cilium_tpu/ops/lpm.py:346",
             max_abs_err(lpm_lookup_wide(*tabs, peer), lpm_wide_plain(*tabs, peer)),
             lambda: lpm_lookup_wide(*tabs, peer), lambda: lpm_wide_plain(*tabs, peer),
-            b_ms, b_by, f"{BATCH} addresses, {prefix} trie sub_info {list(tabs[3].shape)}")
+            b_ms, b_by, f"{BATCH} addresses, {prefix} trie sub_info {list(tabs[3].shape)}",
+            graph=True)
 
     # K4 policymap_verdict over the batch with the prefilter run's rows
     t = pipes["prefilter"]._tables[(TRAFFIC_INGRESS, 4)]
@@ -4867,7 +5160,7 @@ def main() -> None:
             max_abs_err(elided_lookup(*tabs, peer6, 16), lpm_stride8_plain(*tabs, peer6, 16)),
             lambda: elided_lookup(*tabs, peer6, 16), lambda: lpm_stride8_plain(*tabs, peer6, 16),
             b_ms, b_by, f"{BATCH} addresses, {prefix} trie [{tabs[0].shape[0]}, 256], "
-            f"K {tabs[2].shape[0]}")
+            f"K {tabs[2].shape[0]}", graph=True)
     edge = [f"fd00::{(i >> 8) & 255:x}:{i & 255:x}/128" for i in range(len(idents))]
     ech, ein, ecom = build_trie_elided([(c, i) for i, c in enumerate(edge)] + [("2000::/3", 9999)])
     if ecom.shape[0] != 0:
@@ -4877,7 +5170,8 @@ def main() -> None:
     row("lpm_stride8", "cilium_tpu_torch/csrc/lpm_stride8.cu", "cilium_tpu/ops/lpm.py:144",
         max_abs_err(elided_lookup(*tabs, peer6, 16), lpm_stride8_plain(*tabs, peer6, 16)),
         lambda: elided_lookup(*tabs, peer6, 16), lambda: lpm_stride8_plain(*tabs, peer6, 16),
-        b_ms, b_by, f"{BATCH} addresses, edge trie [{tabs[0].shape[0]}, 256], K 0, 16 levels")
+        b_ms, b_by, f"{BATCH} addresses, edge trie [{tabs[0].shape[0]}, 256], K 0, 16 levels",
+        graph=True)
 
     # K3 / K5 on the tries the sparse phase patched
     sparse_rows(sp, dev, row)
@@ -5052,27 +5346,7 @@ def main() -> None:
         b_ms, b_by, f"pattern-cap policy: {len(flat)} rows (3 fields), rung {rung}, "
         f"Q {ptab.n_states}", plain_iters=2, reps=3, graph=True)
 
-    # K9 lb_translate over each family's pass-1 batch of the services
-    # phase: v4 1 048 576 flows x 1 024 frontends, v6 x 256. Bound by the
-    # int32 compares of a first-match scan on the CUDA cores, not tensor-core
-    # work (lb_scan_ops), or by the bytes: tables, flows and outputs once
-    for fam in (4, 6):
-        q = svc["seqs"][fam]
-        tabs, flows = lb_inputs(svc["pipe"], fam, q["pb"], *q["batch"][1:])
-        k_out = lb_translate(tabs, *flows)
-        p_out = lb_translate_plain(tabs, *flows)
-        err = max(max_abs_err(a, b) for a, b in zip(k_out, p_out))
-        ops = lb_scan_ops(tabs, *flows[:3])
-        tab_t = [getattr(tabs, f.name) for f in dataclasses.fields(tabs)]
-        b_ms, b_by = bound(nbytes(*tab_t, *flows, *k_out), ops, INT32_OPS_PER_S)
-        f_n, length = tabs.fe_bytes.shape
-        row("lb_translate", "cilium_tpu_torch/csrc/lb_translate.cu", "cilium_tpu/lb/device.py:51",
-            err, lambda tabs=tabs, flows=flows: lb_translate(tabs, *flows),
-            lambda tabs=tabs, flows=flows: lb_translate_plain(tabs, *flows), b_ms, b_by,
-            f"v{fam}: {BATCH} flows x {f_n} frontends (L {length}), {tabs.be_port.shape[0]} "
-            f"backends, {ops} scan compares at {INT32_OPS_PER_S:.4g} int32 op/s",
-            plain_iters=2, reps=5)
-
+    lb_rows(svc, row, card)
     ct_step_rows(dct, dev, row)
 
     # one JSON entry per kernel: a kernel timed on several inputs keeps

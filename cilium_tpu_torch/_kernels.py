@@ -246,22 +246,26 @@ KERNELS: Dict[str, Kernel] = {
         # row_stride, max_len, lengths, out_lo, out_hi, b
         Kernel("dfa_pair_walk", "cilium_dfa_pair_walk",
                [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _L]),
-        # fe_bytes, fe_port, fe_proto, fe_seq, s, fe_seq_len, fe_revnat,
-        # f, be_bytes, be_port, nb, l, peer, dport, proto, fhash,
-        # new_bytes, new_port, revnat, ok, no_backend, b
+        # the two entries of K9 lb_translate. index build: fe_bytes,
+        # fe_port, fe_proto, f, l, index, n_slots
+        Kernel("lb_index_build", "cilium_lb_index_build", [_P, _P, _P, _I, _I, _P, _L]),
+        # translate: index, n_slots, fe_bytes, fe_port, fe_proto, fe_seq,
+        # s, fe_seq_len, fe_revnat, f, be_bytes, be_port, nb, l, peer,
+        # dport, proto, fhash, new_bytes, new_port, revnat, ok,
+        # no_backend, b
         Kernel("lb_translate", "cilium_lb_translate",
-               [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P,
+               [_P, _L, _P, _P, _P, _P, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P, _P,
                 _P, _P, _P, _P, _P, _L]),
-        # the two entries of K10 ct_step. Both take the table (ka_hi,
-        # ka_lo, kb_hi, kb_lo, kc_hi, kc_lo, exp, owner) and the six
-        # query word arrays. probe_claim: table, c, words, proto,
-        # verdict, redirect, valid, now, established, target, b
+        # the two entries of K10 ct_step. Both take the table (exp,
+        # kc_lo, rec) and the six query word arrays. probe_claim: table,
+        # c, words, proto, verdict, redirect, valid, now, established,
+        # target, b
         Kernel("ct_probe_claim", "cilium_ct_probe_claim",
-               [*[_P] * 8, _L, *[_P] * 6, _P, _P, _P, _P, _I, _P, _P, _L]),
+               [*[_P] * 3, _L, *[_P] * 6, _P, _P, _P, _P, _I, _P, _P, _L]),
         # commit: table, words, proto, now, target, established, verdict,
         # redirect, ep_idx, valid, counters, ep_count, b
         Kernel("ct_commit", "cilium_ct_commit",
-               [*[_P] * 8, *[_P] * 6, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _L]),
+               [*[_P] * 3, *[_P] * 6, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _L]),
         # the two entries of K11 shed_walk. wide: root_info, root_child,
         # sub_child, sub_info, m, flat, shed_tab, n_rows, world_row, addr,
         # dport, proto, out, b

@@ -169,19 +169,25 @@ def device_ct_state_from_numpy(arrays, device=None):
     """A JAX ``DeviceCTState``'s seven [C] arrays as numpy (ka_hi,
     ka_lo, kb_hi, kb_lo, kc_hi, kc_lo uint32; exp int32), in field
     order → the port's ``DeviceCTState`` on ``device`` (None = the
-    card), key words as int32 bit views and no insert claims."""
+    card): key words as int32 bit views, five of them in each slot's
+    record beside an owner word of -1 (no insert claims) and two zero
+    spare words."""
     from ._kernels import resolve_device
-    from .datapath.device_ct import DeviceCTState
+    from .datapath.device_ct import _REC_COLS, REC_WORDS, DeviceCTState
 
     arrays = [np.asarray(a) for a in arrays]
     c = arrays[-1].shape[0] if arrays else 0
     if len(arrays) != 7 or c <= 0 or c & (c - 1) or any(a.shape != (c,) for a in arrays):
         raise ValueError("expected the seven CT arrays, [C] each, C a power of two")
     dev = resolve_device(device)
+    words = dict(zip(("ka_hi", "ka_lo", "kb_hi", "kb_lo", "kc_hi", "kc_lo"), arrays[:6]))
+    rec = np.zeros((c, REC_WORDS), np.uint32)
+    for name, k in _REC_COLS.items():
+        rec[:, k] = (np.uint32(0xFFFFFFFF) if name == "owner"
+                     else np.asarray(words[name]).astype(np.int64).astype(np.uint32))
     return DeviceCTState(
-        *(words_i32(a, dev) for a in arrays[:6]),
-        exp=_tensor(arrays[6].astype(np.int32), dev),
-        owner=torch.full((c,), -1, dtype=torch.int32, device=dev),
+        exp=_tensor(arrays[6].astype(np.int32), dev), kc_lo=words_i32(words["kc_lo"], dev),
+        rec=words_i32(rec, dev),
     )
 
 

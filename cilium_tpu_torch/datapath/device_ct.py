@@ -1,12 +1,15 @@
 """Device-resident conntrack: the CT table lives in device memory and
 is probed, refreshed and inserted into inside the verdict dispatch.
 
-The port of the JAX package's ``datapath/device_ct.py``. The table is
-six [C] key-word arrays (the full 192-bit tuple keys: peer address
-hi/lo 64 bits and the packed kc word, each as two 32-bit words) plus
-an expiry word; a slot is live iff ``exp > now``. Key words travel as
-int32 bit views of the reference's uint32 words, as every packed word
-of the port does.
+The port of the JAX package's ``datapath/device_ct.py``. A slot holds
+six key words (the full 192-bit tuple keys: peer address hi/lo 64 bits
+and the packed kc word, each as two 32-bit words) and an expiry word;
+a slot is live iff ``exp > now``. Key words travel as int32 bit views
+of the reference's uint32 words, as every packed word of the port
+does. The reference keeps seven [C] arrays; the port keeps ``exp`` and
+``kc_lo`` (the words a probe window reads for every slot it passes) as
+[C] arrays and the other five key words, with the insert claims'
+``owner`` word, in one 32-byte record a slot (:class:`DeviceCTState`).
 
 Semantics mirrored from FlowConntrack / conntrack.h:
 - forward-tuple hit → ESTABLISHED (refresh lifetime)
@@ -32,7 +35,7 @@ Two differences from the reference, both deliberate:
 On CUDA tensors :func:`ct_step` and :func:`ct_step_verdict` launch the
 two entries of the ``ct_step`` kernel (csrc/ct_step.cu): ``ct_probe_claim``
 probes, refreshes and claims each insert slot with an ``atomicMax`` of
-the lane index into the state's ``owner`` scratch; ``ct_commit`` lets
+the lane index into the slot record's ``owner`` word; ``ct_commit`` lets
 each slot's winner write its key. On CPU tensors they run the dense
 [B, P] gather versions :func:`ct_step_plain` / :func:`ct_step_verdict_plain`.
 
@@ -58,25 +61,38 @@ LIFE_OTHER_S = 60
 
 _M32 = 0xFFFFFFFF
 _KEY_FIELDS = ("ka_hi", "ka_lo", "kb_hi", "kb_lo", "kc_hi", "kc_lo")
+# the words of a slot's record: five key words, the owner, two spare
+REC_WORDS = 8
+_REC_COLS = {"ka_hi": 0, "ka_lo": 1, "kb_hi": 2, "kb_lo": 3, "kc_hi": 4, "owner": 5}
+
+
+def _rec_col(k: int):
+    return property(lambda self: self.rec[:, k], doc=f"rec[:, {k}], a view that writes through")
 
 
 @dataclasses.dataclass(frozen=True)
 class DeviceCTState:
-    """CT table as [C] int32 tensors on one device, updated in place.
-    Key words: peer address (hi/lo 64 bits as 2×u32 each) and the
-    packed kc word (ep/sport/dport/proto/dir, conntrack.py pack_keys
-    layout) split into 2×u32, all as int32 bit views. ``owner`` is the
-    port's own scratch for the insert claims (-1 between steps); it is
-    not part of the table."""
+    """CT table on one device, updated in place, C slots: ``exp`` [C]
+    int32 (expiry, seconds, monotonic clock), ``kc_lo`` [C] int32 and
+    ``rec`` [C, 8] int32, one 32-byte record a slot holding ka_hi,
+    ka_lo, kb_hi, kb_lo, kc_hi, owner and two spare words. Key words:
+    peer address (hi/lo 64 bits as 2×u32 each) and the packed kc word
+    (ep/sport/dport/proto/dir, conntrack.py pack_keys layout) split into
+    2×u32, all as int32 bit views. ``owner`` is the port's own scratch
+    for the insert claims (-1 between steps); it is not part of the
+    table. The reference's seven word names and ``owner`` are properties:
+    column views of ``rec`` (or the arrays), which write through."""
 
-    ka_hi: torch.Tensor  # peer_hi >> 32
-    ka_lo: torch.Tensor  # peer_hi & 0xffffffff
-    kb_hi: torch.Tensor  # peer_lo >> 32
-    kb_lo: torch.Tensor
-    kc_hi: torch.Tensor  # kc >> 32
-    kc_lo: torch.Tensor
-    exp: torch.Tensor  # [C] int32 expiry (seconds, monotonic clock)
-    owner: torch.Tensor  # [C] int32 claiming lane, -1 = none
+    exp: torch.Tensor  # [C] int32 expiry
+    kc_lo: torch.Tensor  # [C] int32 kc & 0xffffffff
+    rec: torch.Tensor  # [C, REC_WORDS] int32
+
+    ka_hi = _rec_col(_REC_COLS["ka_hi"])  # peer_hi >> 32
+    ka_lo = _rec_col(_REC_COLS["ka_lo"])  # peer_hi & 0xffffffff
+    kb_hi = _rec_col(_REC_COLS["kb_hi"])  # peer_lo >> 32
+    kb_lo = _rec_col(_REC_COLS["kb_lo"])
+    kc_hi = _rec_col(_REC_COLS["kc_hi"])  # kc >> 32
+    owner = _rec_col(_REC_COLS["owner"])  # claiming lane, -1 = none
 
     @property
     def capacity(self) -> int:
@@ -91,10 +107,10 @@ def make_state(capacity_bits: int = 20, device=None) -> DeviceCTState:
     card): zero keys, zero expiry (every slot free), no claims."""
     dev = _kernels.resolve_device(device)
     c = 1 << capacity_bits
-    return DeviceCTState(
-        *(torch.zeros(c, dtype=torch.int32, device=dev) for _ in range(7)),
-        owner=torch.full((c,), -1, dtype=torch.int32, device=dev),
-    )
+    rec = torch.zeros((c, REC_WORDS), dtype=torch.int32, device=dev)
+    rec[:, _REC_COLS["owner"]] = -1
+    return DeviceCTState(torch.zeros(c, dtype=torch.int32, device=dev),
+                         torch.zeros(c, dtype=torch.int32, device=dev), rec)
 
 
 # -- 32-bit word arithmetic ---------------------------------------------------
@@ -248,11 +264,13 @@ def _check_state(name: str, state: DeviceCTState, dev: torch.device) -> int:
     c = state.capacity
     if c <= 0 or c & (c - 1) or c > 1 << 31:
         raise ValueError(f"{name}: capacity {c} is not a power of two in [1, 2**31]")
-    for f in dataclasses.fields(state):
-        t = getattr(state, f.name)
-        if t.dtype != torch.int32 or t.shape != (c,):
-            raise ValueError(f"{name}: state.{f.name} must be [{c}] int32")
-    _kernels.check_cuda(name, dev, *(getattr(state, f.name) for f in dataclasses.fields(state)))
+    for f, shape in (("exp", (c,)), ("kc_lo", (c,)), ("rec", (c, REC_WORDS))):
+        t = getattr(state, f)
+        if t.dtype != torch.int32 or t.shape != shape or not t.is_contiguous():
+            raise ValueError(f"{name}: state.{f} must be a contiguous {list(shape)} int32 tensor")
+    if state.rec.data_ptr() % 32:
+        raise ValueError(f"{name}: state.rec must start on a 32-byte boundary (a record a sector)")
+    _kernels.check_cuda(name, dev, state.exp, state.kc_lo, state.rec)
     return c
 
 
@@ -285,7 +303,7 @@ def _launch(state, words, proto, now: int, verdict, redirect, valid, ep_idx, ep_
     if b == 0:
         return established, counters
     target = torch.empty(b, dtype=torch.int32, device=dev)
-    tab = [getattr(state, f.name).data_ptr() for f in dataclasses.fields(state)]
+    tab = [state.exp.data_ptr(), state.kc_lo.data_ptr(), state.rec.data_ptr()]
     q = [w.data_ptr() for w in words]
     _kernels.KERNELS["ct_probe_claim"].launch(
         dev, *tab, c, *q, proto.data_ptr(), verdict.data_ptr(), redirect.data_ptr(),
@@ -393,20 +411,21 @@ def split_u64(x: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 def pull_live_entries(state: DeviceCTState, now_s: int, limit: int = 1 << 16) -> dict:
     """Pull the live device entries to host → {ka, kb, kc (uint64),
     ttl (float64 remaining seconds)} in slot order, bounded at
-    ``limit``."""
+    ``limit``. Only the live slots' records leave the device."""
     exp = state.exp.cpu().numpy()
     live = np.nonzero(exp > now_s)[0][:limit]
-
-    def word(t):
-        return t.cpu().numpy().view(np.uint32)[live].astype(np.uint64)
+    idx = torch.from_numpy(live).to(state.exp.device)
+    rec = state.rec[idx].cpu().numpy().view(np.uint32).astype(np.uint64)
+    kc_lo = state.kc_lo[idx].cpu().numpy().view(np.uint32).astype(np.uint64)
 
     def join(hi, lo):
-        return (word(hi) << np.uint64(32)) | word(lo)
+        return (hi << np.uint64(32)) | lo
 
+    col = _REC_COLS
     return {
-        "ka": join(state.ka_hi, state.ka_lo),
-        "kb": join(state.kb_hi, state.kb_lo),
-        "kc": join(state.kc_hi, state.kc_lo),
+        "ka": join(rec[:, col["ka_hi"]], rec[:, col["ka_lo"]]),
+        "kb": join(rec[:, col["kb_hi"]], rec[:, col["kb_lo"]]),
+        "kc": join(rec[:, col["kc_hi"]], kc_lo),
         "ttl": (exp[live] - now_s).astype(np.float64),
     }
 

@@ -6,18 +6,20 @@ and their Go programming side (pkg/maps/lbmap/lbmap.go:274,351).
 The kernel does three hash-map probes per packet: frontend lookup,
 slave-slot lookup, revNAT record.
 
-Here the frontend "hash map" is a scan for the first frontend whose
-address, port and protocol match (the reference caps frontends at 256,
-bpf/lib/lb.h:36, so F is small). Slave selection is one gather into a
-per-service **selection sequence**: the weighted-RR sequence of
-lbmap.go:351 and plain hash-mod selection collapse into the same
-tensor (equal weights ⇒ the sequence is just the backend list).
-Backend translation is one row gather.
+The function finds the first (lowest) frontend whose address, port and
+protocol match. The JAX step compares every flow with every frontend;
+on the card the ``lb_translate`` kernel (csrc/lb_translate.cu) finds it
+as the reference's datapath does, through a hash: :func:`lb_index_build`
+(entry ``lb_index_build``) indexes the frontends' keys by open
+addressing, and the ``lb_translate`` entry probes each flow's key.
+Slave selection is one gather into a per-service **selection
+sequence**: the weighted-RR sequence of lbmap.go:351 and plain hash-mod
+selection collapse into the same tensor (equal weights ⇒ the sequence
+is just the backend list). Backend translation is one row gather.
 
-:func:`lb_translate` launches the ``lb_translate`` kernel
-(csrc/lb_translate.cu) on CUDA tensors and runs its plain version,
-:func:`lb_translate_plain` (the dense ``[B, F]`` compare), on CPU
-tensors.
+:func:`lb_translate` launches both entries on CUDA tensors and runs its
+plain version, :func:`lb_translate_plain` (the dense ``[B, F]``
+compare), on CPU tensors.
 """
 
 from __future__ import annotations
@@ -104,6 +106,128 @@ def lb_translate_plain(
     return new_bytes, new_port, revnat, ok, no_backend
 
 
+def lb_index_slots(f: int) -> int:
+    """Slots of the frontend index for ``f`` frontends: the least power
+    of two ≥ 2f (a load of at most 1/2), and at least 64."""
+    return max(64, 1 << (2 * f - 1).bit_length())
+
+
+def _mix32_np(x: np.ndarray) -> np.ndarray:
+    with np.errstate(over="ignore"):
+        x = x.astype(np.uint32, copy=True)
+        x ^= x >> np.uint32(16)
+        x *= np.uint32(0x85EBCA6B)
+        x ^= x >> np.uint32(13)
+        x *= np.uint32(0xC2B2AE35)
+        x ^= x >> np.uint32(16)
+    return x
+
+
+def lb_key_hash_np(addr: np.ndarray, port: np.ndarray, proto: np.ndarray) -> np.ndarray:
+    """[K] uint32 hashes of index keys (the kernel's ``key_hash`` over
+    ``addr_port_hash``): the murmur3 fmix32 chain over the L address
+    words, the port and the protocol, each a full 32-bit word. A key's
+    home slot is its hash mod the index's slots."""
+    addr = np.asarray(addr).astype(np.int64).astype(np.uint32)
+    h = _mix32_np(addr[:, 0])
+    for k in range(1, addr.shape[1]):
+        h = _mix32_np(h ^ addr[:, k])
+    h = _mix32_np(h ^ np.asarray(port).astype(np.int64).astype(np.uint32))
+    return _mix32_np(h ^ np.asarray(proto).astype(np.int64).astype(np.uint32))
+
+
+def lb_index_build_plain(t: LBTables) -> torch.Tensor:
+    """The plain version of :func:`lb_index_build` → [N] int32 (N =
+    :func:`lb_index_slots`), -1 for an empty slot: each distinct key
+    (address words, port, fe_proto) holds its lowest frontend on its
+    linear-probing chain. Keys are placed in rounds, lowest frontend
+    first; the kernel's atomics may lay the same keys out in another
+    order along their chains, so two indexes are compared by their
+    sorted entries (:func:`lb_index_entries`)."""
+    f, _length = t.fe_bytes.shape
+    n = lb_index_slots(f)
+    keys = np.concatenate([t.fe_bytes.cpu().numpy(), t.fe_port.cpu().numpy()[:, None],
+                           t.fe_proto.cpu().numpy()[:, None]], 1)
+    _, first = np.unique(keys, axis=0, return_index=True)
+    pending = np.sort(first)  # the lowest frontend of each key
+    k = keys[pending]
+    pos = (lb_key_hash_np(k[:, :-2], k[:, -2], k[:, -1]) & np.uint32(n - 1)).astype(np.int64)
+    index = np.full(n, -1, np.int32)
+    while pending.size:
+        free = index[pos] < 0
+        # of the keys at one free slot, the lowest frontend takes it
+        _, win = np.unique(np.where(free, pos, -1), return_index=True)
+        win = win[free[win]]
+        index[pos[win]] = pending[win]
+        keep = np.ones(pending.size, bool)
+        keep[win] = False
+        pending, pos = pending[keep], (pos[keep] + 1) & (n - 1)
+    return torch.from_numpy(index).to(t.fe_port.device)
+
+
+def lb_index_entries(index: torch.Tensor) -> torch.Tensor:
+    """The frontends an index holds, sorted: equal for two indexes of
+    one table whatever the order their keys were placed in."""
+    return torch.sort(index[index >= 0]).values
+
+
+_FIELDS = tuple(f.name for f in dataclasses.fields(LBTables))
+
+
+def _int32_tables(t: LBTables):
+    return [_kernels.operand(getattr(t, f), torch.int32) for f in _FIELDS]
+
+
+def _launch_build(dev: torch.device, fe_bytes, fe_port, fe_proto) -> torch.Tensor:
+    """One ``lb_index_build`` launch over contiguous int32 frontend
+    columns → the index (the entry fills it with -1 first)."""
+    f, length = fe_bytes.shape
+    n = lb_index_slots(f)
+    index = torch.empty(n, dtype=torch.int32, device=dev)
+    _kernels.check_cuda("lb_index_build", dev, fe_bytes, fe_port, fe_proto, index)
+    _kernels.KERNELS["lb_index_build"].launch(
+        dev, fe_bytes.data_ptr(), fe_port.data_ptr(), fe_proto.data_ptr(), f, length,
+        index.data_ptr(), n)
+    return index
+
+
+def _launch_probe(dev: torch.device, tabs, index: torch.Tensor, flows):
+    """One ``lb_translate`` launch: contiguous int32 tables and flows,
+    checked by the caller → the five results."""
+    fe_bytes, fe_port, fe_proto, fe_seq, fe_seq_len, fe_revnat, be_bytes, be_port = tabs
+    b, length = flows[0].shape
+    if index.dtype != torch.int32 or index.shape != (lb_index_slots(fe_bytes.shape[0]),):
+        raise ValueError("lb_translate: the index does not fit the frontend table")
+    outs = (torch.empty((b, length), dtype=torch.int32, device=dev),
+            torch.empty(b, dtype=torch.int32, device=dev),
+            torch.empty(b, dtype=torch.int32, device=dev),
+            torch.empty(b, dtype=torch.bool, device=dev),
+            torch.empty(b, dtype=torch.bool, device=dev))
+    _kernels.check_cuda("lb_translate", dev, index, *tabs, *flows, *outs)
+    _kernels.KERNELS["lb_translate"].launch(
+        dev, index.data_ptr(), index.shape[0], fe_bytes.data_ptr(), fe_port.data_ptr(),
+        fe_proto.data_ptr(), fe_seq.data_ptr(), fe_seq.shape[1], fe_seq_len.data_ptr(),
+        fe_revnat.data_ptr(), fe_bytes.shape[0], be_bytes.data_ptr(), be_port.data_ptr(),
+        be_bytes.shape[0], length, *(x.data_ptr() for x in flows), *(x.data_ptr() for x in outs),
+        b,
+    )
+    return outs
+
+
+def lb_index_build(t: LBTables) -> torch.Tensor:
+    """The frontend index of ``t`` → [N] int32, N = :func:`lb_index_slots`
+    (F), -1 for an empty slot: one launch of the ``lb_index_build``
+    entry on CUDA tensors, :func:`lb_index_build_plain` on CPU tensors."""
+    dev = _kernels.dispatch_device(t.fe_bytes, t.fe_port, t.fe_proto)
+    f, length = t.fe_bytes.shape
+    if f == 0 or length not in (4, 16) or any(x.shape != (f,) for x in (t.fe_port, t.fe_proto)):
+        raise ValueError("lb_index_build: frontend tables do not fit together")
+    if dev.type == "cpu":
+        return lb_index_build_plain(t)
+    return _launch_build(dev, *(_kernels.operand(x, torch.int32)
+                                for x in (t.fe_bytes, t.fe_port, t.fe_proto)))
+
+
 def lb_translate(
     t: LBTables,
     peer_bytes: torch.Tensor,  # [B, L] int32 destination address bytes
@@ -117,32 +241,31 @@ def lb_translate(
     ``no_backend`` marks flows that matched a frontend with zero
     backends — the kernel drops these (lb4_local: slave lookup
     failure → DROP_NO_SERVICE). ``revnat`` is the matched frontend's
-    id whenever a frontend matched, a no-backend one included.
+    id whenever a frontend matched, a no-backend one included. On
+    CUDA tensors: one ``lb_index_build`` and one ``lb_translate``
+    launch.
     """
-    dev = _kernels.dispatch_device(
-        peer_bytes, dport, proto, fhash, *(getattr(t, f.name) for f in dataclasses.fields(t))
-    )
+    dev = _kernels.dispatch_device(peer_bytes, dport, proto, fhash,
+                                   *(getattr(t, f) for f in _FIELDS))
     if dev.type == "cpu":
         return lb_translate_plain(t, peer_bytes, dport, proto, fhash)
     _check(t, peer_bytes, dport, proto, fhash)
-    tabs = [getattr(t, f.name).to(torch.int32).contiguous() for f in dataclasses.fields(t)]
-    flows = [x.to(torch.int32).contiguous() for x in (peer_bytes, dport, proto, fhash)]
-    b, length = flows[0].shape
-    new_bytes = torch.empty((b, length), dtype=torch.int32, device=dev)
-    new_port = torch.empty(b, dtype=torch.int32, device=dev)
-    revnat = torch.empty(b, dtype=torch.int32, device=dev)
-    ok = torch.empty(b, dtype=torch.bool, device=dev)
-    no_backend = torch.empty(b, dtype=torch.bool, device=dev)
-    outs = (new_bytes, new_port, revnat, ok, no_backend)
-    _kernels.check_cuda("lb_translate", dev, *tabs, *flows, *outs)
-    fe_bytes, fe_port, fe_proto, fe_seq, fe_seq_len, fe_revnat, be_bytes, be_port = tabs
-    _kernels.KERNELS["lb_translate"].launch(
-        dev, fe_bytes.data_ptr(), fe_port.data_ptr(), fe_proto.data_ptr(),
-        fe_seq.data_ptr(), fe_seq.shape[1], fe_seq_len.data_ptr(), fe_revnat.data_ptr(),
-        fe_bytes.shape[0], be_bytes.data_ptr(), be_port.data_ptr(), be_bytes.shape[0],
-        length, *(x.data_ptr() for x in flows), *(x.data_ptr() for x in outs), b,
-    )
-    return outs
+    tabs = _int32_tables(t)
+    flows = [_kernels.operand(x, torch.int32) for x in (peer_bytes, dport, proto, fhash)]
+    return _launch_probe(dev, tabs, _launch_build(dev, *tabs[:3]), flows)
+
+
+def lb_probe(t: LBTables, index: torch.Tensor, peer_bytes, dport, proto, fhash):
+    """The ``lb_translate`` entry alone: the flows probed through
+    ``index`` (:func:`lb_index_build` of ``t``) → the results of
+    :func:`lb_translate`; on CPU tensors its plain version."""
+    dev = _kernels.dispatch_device(index, peer_bytes, dport, proto, fhash,
+                                   *(getattr(t, f) for f in _FIELDS))
+    if dev.type == "cpu":
+        return lb_translate_plain(t, peer_bytes, dport, proto, fhash)
+    _check(t, peer_bytes, dport, proto, fhash)
+    flows = [_kernels.operand(x, torch.int32) for x in (peer_bytes, dport, proto, fhash)]
+    return _launch_probe(dev, _int32_tables(t), index, flows)
 
 
 def flow_hash32(

@@ -397,3 +397,104 @@ def test_state_carried_across_and_ct_step_wrapper_on_cpu():
             assert torch.equal(getattr(ts, f), getattr(ref, f))
     assert bool(est.any())
     assert _kernels.launches() == before
+
+
+# -- the port's record layout ------------------------------------------------
+
+REC_COLS = {"ka_hi": 0, "ka_lo": 1, "kb_hi": 2, "kb_lo": 3, "kc_hi": 4, "owner": 5}
+
+
+def _check_records(ts, arrays):
+    """The port's layout holding the seven reference arrays: exp and
+    kc_lo as [C] arrays, the other five key words in the columns of one
+    contiguous [C, 8] record a slot, owner -1, the spare words 0."""
+    c = arrays[-1].shape[0]
+    assert ts.rec.shape == (c, tct.REC_WORDS) == (c, 8) and ts.rec.is_contiguous()
+    assert ts.rec.dtype == ts.exp.dtype == ts.kc_lo.dtype == torch.int32
+    for f, a in zip(FIELDS, arrays):
+        want = np.asarray(a).view(np.int32) if np.asarray(a).dtype == np.uint32 else np.asarray(a)
+        if f in REC_COLS:
+            np.testing.assert_array_equal(ts.rec[:, REC_COLS[f]].numpy(), want, err_msg=f)
+        else:
+            np.testing.assert_array_equal(getattr(ts, f).numpy(), want, err_msg=f)
+    assert bool((ts.rec[:, 5] == -1).all()) and not bool(ts.rec[:, 6:].any())
+
+
+@pytest.mark.parametrize("bits,n", [(4, 12), (10, 600), (12, 3000)])
+def test_jax_state_into_records_and_pulled_back(bits, n):
+    """A JAX table (seed_state_from_host) → convert.device_ct_state_from_numpy
+    → the record layout word for word → pull_live_entries equal to the
+    JAX package's pull of the same table, at several clocks and limits."""
+    rs = np.random.default_rng(bits + n)
+    ka, kb, kc, ttl = host_entries(rs, n)
+    js = jct.seed_state_from_host(ka, kb, kc, ttl, bits, NOW)
+    arrays = [np.asarray(a) for a in js]
+    ts = device_ct_state_from_numpy(arrays, device="cpu")
+    _check_records(ts, arrays)
+    for now_s, lim in ((NOW, 1 << 16), (NOW + 30, 1 << 16), (NOW, 5)):
+        want = jct.pull_live_entries(js, now_s, limit=lim)
+        got = tct.pull_live_entries(ts, now_s, limit=lim)
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert len(tct.pull_live_entries(ts, NOW)["ka"]) > 0
+
+
+@pytest.mark.parametrize("bits,n", [(4, 40), (10, 2000)])
+def test_seed_state_from_host_fills_records(bits, n):
+    """seed_state_from_host places each entry's five words in its slot's
+    record, exactly where the JAX package puts them in its arrays."""
+    rs = np.random.default_rng(bits * 7 + n)
+    ka, kb, kc, ttl = host_entries(rs, n)
+    js = jct.seed_state_from_host(ka, kb, kc, ttl, bits, NOW)
+    ts = tct.seed_state_from_host(ka, kb, kc, ttl, bits, NOW, device="cpu")
+    _check_records(ts, [np.asarray(a) for a in js])
+
+
+@pytest.mark.parametrize("name", ["ka_hi", "ka_lo", "kb_hi", "kb_lo", "kc_hi", "kc_lo", "exp",
+                                  "owner"])
+def test_word_views_write_through(name):
+    """The reference's seven word names and owner read and write the
+    port's state in place: the five record words and owner are column
+    views of rec, exp and kc_lo its arrays; keys() gives the six key
+    words in the reference's order."""
+    st = tct.make_state(5, device="cpu")
+    assert st.capacity == 32
+    view = getattr(st, name)
+    assert view.shape == (32,) and view.dtype == torch.int32
+    view[3] = 77
+    view[torch.tensor([5, 9])] = torch.tensor([-2, 1 << 30], dtype=torch.int32)
+    if name in REC_COLS:
+        col = st.rec[:, REC_COLS[name]]
+        assert view.data_ptr() == st.rec.data_ptr() + 4 * REC_COLS[name]
+        assert col[3].item() == 77 and col[5].item() == -2 and col[9].item() == 1 << 30
+        others = torch.cat([st.rec[:, :REC_COLS[name]], st.rec[:, REC_COLS[name] + 1:]], 1)
+        assert not bool((others == 77).any())
+    else:
+        assert getattr(st, name)[3].item() == 77 and st.rec[3, :5].eq(0).all()
+    assert [k.data_ptr() for k in st.keys()] == [getattr(st, f).data_ptr() for f in FIELDS[:6]]
+
+
+def test_ct_step_plain_writes_records_and_keeps_spares():
+    """ct_step_plain updates through the views: an insert writes its
+    slot's five record words, kc_lo and exp; the claims leave every
+    owner -1; the spare words are never written."""
+    rs = np.random.default_rng(12)
+    peers, fields = flow_pool(rs, 300)
+    kc = kc_np(fields)
+    st = tct.make_state(10, device="cpu")
+    st.rec[:, 6:] = torch.tensor([11, -12], dtype=torch.int32)
+    w = [t32(x) for x in (*peers, *kc)]
+    allow = torch.ones(300, dtype=torch.bool)
+    est = tct.ct_step(st, (w[0], w[1]), (w[2], w[3]), (w[4], w[5]),
+                      torch.from_numpy(fields[3]), NOW, allow)
+    assert not est.any()
+    live = torch.nonzero(st.exp > NOW)[:, 0]
+    assert live.numel() > 250
+    keyed = {tuple(int(x) for x in row) for row in torch.stack(w, 1)}
+    for s in live.tolist():
+        assert tuple(st.rec[s, :5].tolist()) + (st.kc_lo[s].item(),) in keyed
+    assert bool((st.owner == -1).all())
+    assert bool((st.rec[:, 6] == 11).all()) and bool((st.rec[:, 7] == -12).all())
+    est = tct.ct_step(st, (w[0], w[1]), (w[2], w[3]), (w[4], w[5]),
+                      torch.from_numpy(fields[3]), NOW, allow)
+    assert int(est.sum()) >= live.numel()

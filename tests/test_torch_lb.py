@@ -131,6 +131,166 @@ def test_lb_translate_first_match_and_edges():
     assert nobk.tolist() == [False, False, False, False, True, False]
 
 
+# -- the frontend index of the lb_translate kernel ----------------------------
+
+
+def _trap_frontends(rs, case: str, length: int):
+    """Frontend keys (fe_bytes, fe_port, fe_proto) and the protocol-0
+    share of the flows for each trap of the kernel's frontend index."""
+    if case == "repeated keys":  # 12 keys at 6 frontends each: the lowest wins
+        pick = rs.permutation(np.repeat(np.arange(12), 6))
+        return (rs.integers(0, 256, (12, length))[pick], rs.choice([80, 443], 12)[pick],
+                rs.choice([0, 6, 17], 12)[pick], 0.1)
+    if case == "ANY before and after":
+        vip = rs.integers(0, 256, (4, length))
+        return (vip[[0, 0, 1, 1, 2, 2, 2, 3]], np.array([80, 80, 80, 80, 53, 53, 53, 443]),
+                np.array([0, 6, 6, 0, 17, 0, 6, 0]), 0.2)
+    if case == "protocol-0 flows":
+        fb, fp, fr, _ = _trap_frontends(rs, "ANY before and after", length)
+        return fb, fp, fr, 1.0
+    if case == "padded slots":  # fe_port -1, zero bytes, protocol 0 past 10 live ones
+        fb = np.zeros((24, length), np.int64)
+        fb[:10] = rs.integers(0, 256, (10, length))
+        fp, fr = np.full(24, -1), np.zeros(24, np.int64)
+        fp[:10], fr[:10] = rs.choice([80, 443], 10), rs.choice([0, 6, 17], 10)
+        return fb, fp, fr, 0.3
+    if case == "every key equal":
+        return np.repeat(rs.integers(0, 256, (1, length)), 50, 0), np.full(50, 443), \
+            np.full(50, 6), 0.1
+    if case == "one chain":  # 40 keys with one home slot, words outside [0, 255]
+        n = tdev.lb_index_slots(40)
+        cand = rs.integers(-(2 ** 31), 2 ** 31, (30_000, length))
+        cand[:15_000] &= 255
+        port, proto = rs.choice([80, -1], 30_000), rs.choice([0, 6, 17], 30_000)
+        home = (tdev.lb_key_hash_np(cand, port, proto) & np.uint32(n - 1)).astype(np.int64)
+        sel = np.nonzero(home == np.bincount(home, minlength=n).argmax())[0][:40]
+        assert sel.size == 40
+        return cand[sel], port[sel], proto[sel], 0.1
+    raise AssertionError(case)
+
+
+TRAPS = ["repeated keys", "ANY before and after", "protocol-0 flows", "padded slots",
+         "every key equal", "one chain"]
+
+
+def _trap_case(case: str, length: int, seed: int):
+    """Tables around a trap's frontends (as random_tables makes them)
+    and 3 000 flows: half aimed at a frontend, some at protocol 0, and
+    for the padded slots every third dport -1 and every sixth peer zero."""
+    rs = np.random.default_rng(seed)
+    fb, fp, fr, p0 = _trap_frontends(rs, case, length)
+    f = fb.shape[0]
+    base = random_tables(rs, f, length, 9)
+    tables = [np.asarray(a, np.int32) for a in (fb, fp, fr)] + base[3:]
+    flows = random_flows(rs, tables, 3000)
+    flows[2][rs.random(3000) < p0] = 0
+    if case == "padded slots":
+        flows[1][::3] = -1
+        flows[0][::6] = 0
+    return tables, flows
+
+
+def _first_match(tables, flows):
+    """[B] the lowest matching frontend (the definition), -1 for none."""
+    fe_bytes, fe_port, fe_proto = tables[:3]
+    peer, dport, proto = flows[:3]
+    m = (fe_bytes[None] == peer[:, None]).all(-1) & (dport[:, None] == fe_port[None])
+    m &= (fe_proto[None] == 0) | (proto[:, None] == fe_proto[None])
+    return np.where(m.any(1), m.argmax(1), -1)
+
+
+def _index_probe(tables, flows):
+    """The kernel's lookup over the plain index, in numpy: probe the key
+    (peer, dport, proto) and, for proto != 0, (peer, dport, 0); each walks
+    its chain to a frontend with that key or to an empty slot; the
+    smaller frontend found wins. → [B] frontend or -1."""
+    fe_bytes, fe_port, fe_proto = tables[:3]
+    index = tdev.lb_index_build_plain(lb_tables_from_numpy(*tables, device="cpu")).numpy()
+    n = index.shape[0]
+    peer, dport, proto = flows[:3]
+    none = np.iinfo(np.int32).max
+
+    def probe(key_proto):
+        s = (tdev.lb_key_hash_np(peer, dport, key_proto) & np.uint32(n - 1)).astype(np.int64)
+        found = np.full(peer.shape[0], none)
+        walking = np.ones(peer.shape[0], bool)
+        for _ in range(n):
+            g = index[s]
+            walking &= g >= 0
+            g = np.where(walking, g, 0)
+            hit = walking & (fe_port[g] == dport) & (fe_proto[g] == key_proto)
+            hit &= (fe_bytes[g] == peer).all(1)
+            found[hit] = g[hit]
+            walking &= ~hit
+            if not walking.any():
+                break
+            s = (s + 1) & (n - 1)
+        return found
+
+    found = np.minimum(probe(proto), np.where(proto != 0, probe(np.zeros_like(proto)), none))
+    return np.where(found == none, -1, found)
+
+
+@pytest.mark.parametrize("length", [4, 16])
+@pytest.mark.parametrize("case", TRAPS)
+def test_lb_translate_plain_matches_jax_on_index_traps(case, length):
+    """The plain version is the kernel's yardstick on the card, so it
+    must equal JAX bit for bit on the frontend index's traps; and the
+    kernel's lookup (two probes of the plain index) finds the same
+    frontend as the dense first match on every flow."""
+    tables, flows = _trap_case(case, length, TRAPS.index(case) * 7 + length)
+    want = _jax_translate(tables, flows)
+    got = _torch_translate(tables, flows)
+    for name, g, w in zip(("new_bytes", "new_port", "revnat", "ok", "no_backend"), got, want):
+        assert g.dtype == w.dtype, name
+        np.testing.assert_array_equal(g, w, err_msg=name)
+    first = _first_match(tables, flows)
+    np.testing.assert_array_equal(_index_probe(tables, flows), first)
+    assert (first >= 0).any() and (first < 0).any()
+    if case == "protocol-0 flows":
+        assert (tables[2][first[first >= 0]] == 0).all()
+    if case == "padded slots":
+        assert (first[(flows[1] == -1) & (flows[0] == 0).all(1)] >= 10).all()
+
+
+@pytest.mark.parametrize("length", [4, 16])
+@pytest.mark.parametrize("f", [1, 31, 32, 33, 300, 1024, 1025])
+def test_lb_index_build_plain(f, length):
+    """The plain index: the least power of two ≥ 2F slots (at least 64);
+    each distinct key once, at its lowest frontend, on its
+    linear-probing chain (every slot from its home slot on is taken);
+    on CPU tensors lb_index_build is the plain version."""
+    rs = np.random.default_rng(f + length)
+    tables = random_tables(rs, f, length, 7)
+    t = lb_tables_from_numpy(*tables, device="cpu")
+    index = tdev.lb_index_build(t).numpy()
+    n = tdev.lb_index_slots(f)
+    assert index.shape == (n,) and n >= 2 * f and n & (n - 1) == 0 and n >= 64
+    assert n < 4 * f or n == 64
+    np.testing.assert_array_equal(index, tdev.lb_index_build_plain(t).numpy())
+    keys = np.concatenate([tables[0], tables[1][:, None], tables[2][:, None]], 1)
+    _, first = np.unique(keys, axis=0, return_index=True)
+    np.testing.assert_array_equal(np.sort(index[index >= 0]), np.sort(first))
+    np.testing.assert_array_equal(tdev.lb_index_entries(torch.from_numpy(index)).numpy(),
+                                  np.sort(first))
+    home = tdev.lb_key_hash_np(tables[0], tables[1], tables[2]) & np.uint32(n - 1)
+    for s in np.nonzero(index >= 0)[0]:
+        h = int(home[index[s]])
+        run = (h + np.arange((s - h) % n + 1)) % n
+        assert (index[run] >= 0).all()
+
+
+def test_lb_key_hash_uses_full_words():
+    """A word outside [0, 255] is hashed as its full 32 bits: keys that
+    agree in their low bytes do not share a hash, and the protocol and
+    port are parts of the key."""
+    a = np.array([[10, 96, 0, 1], [10 + 256, 96, 0, 1], [10 - 256, 96, 0, 1]])
+    h = tdev.lb_key_hash_np(a, np.full(3, 80), np.full(3, 6))
+    assert len(set(h.tolist())) == 3
+    assert h[0] != tdev.lb_key_hash_np(a[:1], np.array([80]), np.array([0]))[0]
+    assert h[0] != tdev.lb_key_hash_np(a[:1], np.array([-1]), np.array([6]))[0]
+
+
 @pytest.mark.parametrize("with_sports", [False, True])
 @pytest.mark.parametrize("length", [4, 16])
 def test_flow_hash32_matches_jax(length, with_sports):
