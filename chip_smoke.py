@@ -14,7 +14,9 @@
    edge_checks8; K9's frontend index on its traps: repeated keys, ANY
    frontends before and after specific ones, protocol-0 flows, dport -1
    against padded slots, one forced chain, F = 20 000: edge_checks4;
-   K10 on tables at ~90% load: edge_checks5).
+   K10 on tables at ~90% load: edge_checks5; K7, K5 and K11's stride-8
+   entry on the layouts that choose their routes, each launch on the
+   route its layout names: edge_checks9).
 2. Builds the headline deployment of bench.py with the port's own
    modules: 10 000 rules over 512 apps (30% with an L4 port), 2 048
    identities with one /32 and one fd00::{hi}:{lo}/128 ipcache entry
@@ -181,7 +183,13 @@
    events around each) and the rest.
    K7 (both entries) and K8 are timed on the bench's L7 corpus
    (bench.py:266-430: 16 path patterns, 131 072 requests) at every
-   length rung, and K7 on the pattern-cap policy's fused table. K9 is
+   length rung, and K7 on the pattern-cap policy's fused table and at
+   the shapes the L7 main path launched it (its launches by shape are
+   printed; one redirect group's path batch, int32 at max_len 256, and
+   one 16 384-row chunk of the pattern-cap table are timed, each with
+   its launches at that shape). Each K7, K5 and K11 stride-8 line names
+   the route its kernel took (the table in shared memory or through L2,
+   the row bytes as 16-byte vectors or one a step). K9 is
    timed on each family's pass-1 batch (1 048 576 flows x 1 024 / 256
    frontends) on both clocks, the whole call (index build + probe) and
    the build entry alone, its bound the bytes the function needs (flows
@@ -1053,6 +1061,56 @@ def edge_checks3(dev) -> None:
     torch.cuda.synchronize()
 
 
+class WalkRecorder:
+    """Counts a path's K7 launches by shape and keeps the operands of
+    the launches of the shapes section 5 times (``keep``): wraps
+    ops.dfa._walk, which every DFA walk wrapper calls. A shape is (part,
+    entry, byte type, row width, max_len, Q, rows); ``part`` tags the
+    launches that follow it."""
+
+    def __init__(self, device_type: str = "cuda"):
+        self.part = ""
+        self.shapes = {}
+        self.device_type = device_type
+
+    def keep(self, key) -> int:
+        """How many launches of a shape to keep the operands of: a
+        redirect group's first path or host walk, and the first 24
+        full chunks of the pattern-cap batch (one check_batch: its
+        methods, paths and hosts)."""
+        part, entry, dtype, _, max_len, _, rows = key
+        if (part, entry, dtype, max_len) == ("redirect", "dfa_walk", "int32", 256):
+            return 1
+        return 24 if (part, entry, rows) == ("cap", "dfa_walk_fused", 16384) else 0
+
+    def __enter__(self):
+        from cilium_tpu_torch.ops import dfa
+
+        self.real = real = dfa._walk
+
+        def walk(kernel, plain, table, width, accept_lo, accept_hi, starts, str_bytes, lengths,
+                 max_len, scalar_start, classes=None):
+            if (kernel != "dfa_pair_walk" and str_bytes.device.type == self.device_type
+                    and str_bytes.shape[0]):
+                key = (self.part, kernel, str(str_bytes.dtype).replace("torch.", ""),
+                       str_bytes.shape[1], max_len, table.shape[0], str_bytes.shape[0])
+                hit = self.shapes.setdefault(key, [0, []])
+                if len(hit[1]) < self.keep(key):
+                    hit[1].append((tuple(x.clone() for x in (table, accept_lo, accept_hi, starts,
+                                                             str_bytes, lengths)), classes))
+                hit[0] += 1
+            return real(kernel, plain, table, width, accept_lo, accept_hi, starts, str_bytes,
+                        lengths, max_len, scalar_start, classes)
+
+        dfa._walk = walk
+        return self
+
+    def __exit__(self, *exc):
+        from cilium_tpu_torch.ops import dfa
+
+        dfa._walk = self.real
+
+
 def l7_main_path(seed: int, card: str, v4_flows, endpoints):
     """The L7 main path on the card (see 4d in the module docstring),
     L7DeviceBatch off and then on; returns what the CPU checks and the
@@ -1152,25 +1210,32 @@ def l7_main_path(seed: int, card: str, v4_flows, endpoints):
               produce_frame("c", ["t1", "t2"]), produce_frame("c", ["t5", "t33"]), b"\x00\x00"]
     # each state runs twice: the first pass of the on state builds and
     # uploads the fused (and pair) tables, the second is the steady state
+    walks = WalkRecorder()
     for on in (False, True):
         tag = "on" if on else "off"
         l7rt.set_device_batch(on)
         for rep in ("first", "second"):
+            walks.part = "cap"
             t0 = time.perf_counter()
-            out_b = pol_b.check_batch(reqs_b)
+            with walks:
+                out_b = pol_b.check_batch(reqs_b)
             t_b = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            out_c = np.asarray(proxy.check_kafka(rk, k_reqs))
-            t_c = time.perf_counter() - t0
-            out_f = [proxy.handle_kafka_bytes(rk, f, src_identity=5) for f in frames]
+            walks.part = "kafka"
+            with walks:
+                t0 = time.perf_counter()
+                out_c = np.asarray(proxy.check_kafka(rk, k_reqs))
+                t_c = time.perf_counter() - t0
+                out_f = [proxy.handle_kafka_bytes(rk, f, src_identity=5) for f in frames]
+            walks.part = "redirect"
             allow = np.zeros(ep_r.size, bool)
-            t0 = time.perf_counter()
-            for (ep, port), sel in groups.items():
-                rd = proxy.lookup(ep, port, ingress=True)
-                if rd is None or rd.parser != "http":
-                    fail(f"a redirected flow to ({ep}, {port}) has no HTTP redirect")
-                allow[sel] = proxy.check_http(rd, [reqs_d[i] for i in sel])
-            t_d = time.perf_counter() - t0
+            with walks:
+                t0 = time.perf_counter()
+                for (ep, port), sel in groups.items():
+                    rd = proxy.lookup(ep, port, ingress=True)
+                    if rd is None or rd.parser != "http":
+                        fail(f"a redirected flow to ({ep}, {port}) has no HTTP redirect")
+                    allow[sel] = proxy.check_http(rd, [reqs_d[i] for i in sel])
+                t_d = time.perf_counter() - t0
             if rep == "second" and not (np.array_equal(out_b, r[("b", tag)])
                                         and np.array_equal(out_c, r[("c", tag)])
                                         and out_f == r[("frames", tag)]
@@ -1198,9 +1263,63 @@ def l7_main_path(seed: int, card: str, v4_flows, endpoints):
     for part in ("b", "c", "d"):
         if not (r[(part, "on")].any() and not r[(part, "on")].all()):
             fail(f"L7 {part}: the requests are all allowed or all denied")
-    r.update(pol_b=pol_b, reqs_b=reqs_b, k_rules=k_rules, k_reqs=k_reqs, frames=frames,
+    r.update(walks=walks.shapes, pol_b=pol_b, reqs_b=reqs_b, k_rules=k_rules, k_reqs=k_reqs,
+             frames=frames,
              proxy=proxy, groups=groups, reqs_d=reqs_d, repo=repo, reg=reg, labels_of=labels_of)
     return r
+
+
+def walk_rows(shapes, row) -> None:
+    """K7 at the shapes the L7 main path launched it (a WalkRecorder's
+    ``shapes``): prints its launches by shape, then holds and times one
+    redirect group's path batch (HTTPPolicy.masks, the off path: the
+    kept shape launched most often, then the largest) and the 24
+    16 384-row chunks of one pattern-cap check_batch (l7_pipeline.submit,
+    the on path: methods, paths and hosts; times and bound per launch,
+    the mean over the 24), each with its launches at that shape."""
+    from cilium_tpu_torch.ops.dfa import (
+        dfa_match_batch, dfa_match_batch_classes, dfa_match_batch_fused, dfa_walk_plain,
+    )
+
+    for key in sorted(shapes, key=lambda k: -shapes[k][0] * k[6]):
+        print(f"L7 main path K7 shape {key[0]} {key[1]} {key[2]} width {key[3]} max_len "
+              f"{key[4]} Q {key[5]} rows {key[6]}: {shapes[key][0]} launches", flush=True)
+    for entry, part in (("dfa_walk", "redirect"), ("dfa_walk_fused", "cap")):
+        kept = [k for k in shapes if k[:2] == (part, entry) and shapes[k][1]]
+        if not kept:
+            fail(f"the L7 main path launched no {entry} at a kept {part} shape")
+        key = max(kept, key=lambda k: (shapes[k][0], k[6]))
+        n_at, launches = shapes[key]
+        max_len, q, rows = key[4], key[5], key[6]
+
+        def call(ops, classes, m=max_len):
+            if entry == "dfa_walk":
+                return dfa_match_batch(*ops, m)
+            if classes is None:
+                return dfa_match_batch_fused(*ops, m)
+            return dfa_match_batch_classes(ops[0], *classes, *ops[1:], m)
+
+        def plain_of(ops, m=max_len):
+            tab, alo, ahi, st, sb, ln = ops
+            return dfa_walk_plain(tab, alo, ahi, st.reshape(-1).expand(sb.shape[0])
+                                  if st.numel() == 1 else st, sb, ln, m)
+
+        err = max(max_abs_err(x, y) for ops, cls in launches
+                  for x, y in zip(call(ops, cls), plain_of(ops)))
+        moved = sum(dfa_touched_bytes(ops[0], ops[3].reshape(-1), ops[4], ops[5], max_len, False)
+                    for ops, _ in launches)
+        b_ms, b_by = bound(moved // len(launches), 0)
+        if entry == "dfa_walk":
+            what = f"one redirect group's path batch: {rows} rows, int32, max_len {max_len}"
+        else:
+            what = (f"the {len(launches)} {rows}-row chunks of one pattern-cap check_batch at "
+                    f"rung {max_len} (per launch, their mean)")
+        row(entry, "cilium_tpu_torch/csrc/dfa_walk.cu",
+            f"cilium_tpu/ops/dfa.py:{104 if entry == 'dfa_walk' else 236}", err,
+            lambda: [call(ops, cls) for ops, cls in launches],
+            lambda: [plain_of(ops) for ops, _ in launches], b_ms, b_by,
+            f"{what}, Q {q}; {n_at} launches at this shape on the L7 main path", plain_iters=1,
+            reps=3, graph=True, per_call=len(launches))
 
 
 def l7_cpu_checks(r) -> None:
@@ -2786,6 +2905,260 @@ def edge_checks8(dev) -> None:
     terms = [(mask, rule_of), (mask[:, :17].contiguous(), rule_of[:17])]
     if any(max_abs_err(g, x) for g, x in zip(first_rule_terms(terms), first_rule_terms_plain(terms))):
         fail("first_rule disagrees on a mask whose rows start off a 16-byte boundary")
+    torch.cuda.synchronize()
+
+
+# K7's edge tables: (Q, distinct columns, the fused walk's table route
+# at DFA_SHARED_MIN_ROWS rows or more, the class walk's; None where
+# class_table gives none): tables at DFA_SHARED_SMALL_Q states and one
+# past it (shared at any row count; from DFA_SHARED_MIN_ROWS), the [Q, 256]
+# table at the shared-memory budget and one state past it (256 classes
+# save nothing), a class table under it, class tables at the budget's
+# entries ([802, 128]) and one row past them, and the pattern-cap
+# policy's Q 735 over 43 classes
+K7_EDGE_TABLES = ((32, 32, "shared", "classes"), (33, 33, "shared", "classes"),
+                  (400, 256, "shared", None), (401, 256, "l2", None),
+                  (400, 100, "shared", "classes"), (801, 127, "l2", "classes"),
+                  (802, 127, "l2", None), (735, 43, "l2", "classes"))
+
+
+def k7_layout_cases():
+    """K7's layout edges: (name, byte dtype, width, max_len, row offset,
+    element offset, the route dfa_walk_route must give). Row strides of
+    16 / 32 / 64 / 1 024 bytes take 16-byte vectors; 17, 20 and 24 bytes
+    do not; a view one row in stays aligned when the row is, one
+    element in never is."""
+    import numpy as np
+
+    return [
+        ("u8 w16", np.uint8, 16, 16, 0, 0, "vector"),
+        ("u8 w32 max_len 29", np.uint8, 32, 29, 0, 0, "vector"),
+        ("u8 w17", np.uint8, 17, 17, 0, 0, "scalar"),
+        ("u8 w20 max_len 17", np.uint8, 20, 17, 0, 0, "scalar"),
+        ("u8 w16 one row in", np.uint8, 16, 16, 1, 0, "vector"),
+        ("u8 w16 one element in", np.uint8, 16, 16, 0, 1, "scalar"),
+        ("i32 w4", np.int32, 4, 4, 0, 0, "vector"),
+        ("i32 w16 max_len 13", np.int32, 16, 13, 0, 0, "vector"),
+        ("i32 w5", np.int32, 5, 5, 0, 0, "scalar"),
+        ("i32 w6 max_len 5", np.int32, 6, 5, 0, 0, "scalar"),
+        ("i32 w256", np.int32, 256, 256, 0, 0, "vector"),
+        ("i32 w8 one row in", np.int32, 8, 8, 1, 0, "vector"),
+        ("i32 w8 one element in", np.int32, 8, 8, 0, 1, "scalar"),
+    ]
+
+
+def strided_view(a, row_off: int, elem_off: int, dev):
+    """``a`` ([B, W]) on ``dev`` as a contiguous view into a larger
+    buffer, ``row_off`` rows and ``elem_off`` elements from its start."""
+    import numpy as np
+    import torch
+
+    b, w = a.shape
+    pad = np.zeros((row_off + b + 1) * w + elem_off, a.dtype)
+    start = row_off * w + elem_off
+    pad[start:start + b * w] = a.reshape(-1)
+    buf = torch.from_numpy(pad).to(dev)
+    view = buf[start:start + b * w].view(b, w)
+    if not view.is_contiguous():
+        fail("strided_view made a non-contiguous view")
+    return view
+
+
+def edge_checks9(dev) -> None:
+    """K7 (both entries), K5 and K11's stride-8 entry against their plain
+    versions, exactly, on the layouts that choose their paths, and each
+    launch's route against the one the case names:
+
+    - K7 on the synthetic tables of K7_EDGE_TABLES: Q = DFA_SMEM_MAX_Q
+      (the shared-memory table) and one state past it (L1 / L2), class
+      tables at the shared-memory entries and one row past them, the
+      pattern-cap policy's Q 735 over 43 classes; a few entries outside
+      [0, Q) (the sink state); uint8 and int32 bytes over every
+      k7_layout_cases() layout, lengths -1, 0 and each one at, one
+      under and one past every 16-byte chunk's end and past max_len,
+      starts outside [0, Q); B = 1, 33 and 300 000 (several rows a
+      thread of the persistent grid; the only B at which a [Q + 1, 256]
+      table is copied to shared memory); each table through both entries
+      and, where its classes fit, dfa_match_batch_classes; the C entry
+      refuses a shared or class table past the budget, a class route
+      with no class map and vector bytes on a misaligned row;
+    - K5 at strides 16 and 20 (vector), 17 and 5 (scalar), levels 4 and
+      16, a view one element in (scalar) and one row in (vector), K 0,
+      13 and 16, bytes outside [0, 255] in the compared part and in the
+      walked part; K11's stride-8 entry on the vector and scalar
+      routes; the C entries refuse a vector walk on a misaligned row."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch import _kernels
+    from cilium_tpu_torch.ops import dfa as dfamod
+    from cilium_tpu_torch.ops import lpm as lpmmod
+    from cilium_tpu_torch.ops.dfa import (
+        DFA_SHARED_MIN_ROWS, DFA_SHARED_SMALL_Q, DFA_SMEM_MAX_Q, class_table, dfa_match_batch,
+        dfa_match_batch_classes, dfa_match_batch_fused, dfa_walk_plain,
+    )
+    from cilium_tpu_torch.ops.lpm import build_trie, elided_lookup, lpm_stride8_plain
+    from cilium_tpu_torch.ops.shed import shed_walk_stride8, shed_walk_stride8_plain
+
+    rs = np.random.default_rng(9009)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    for q, n_cols, tab_fused, tab_classes in K7_EDGE_TABLES:
+        # a table over n_cols distinct columns: n_cols byte classes
+        base = rs.integers(0, q, (q, n_cols)).astype(np.int32)
+        base[rs.random(base.shape) < 0.0005] = rs.choice(
+            np.array([-1, q, q + 7, 65535, 65536 + 3, 1 << 30], np.int32))
+        trans = base[:, rs.permutation(np.arange(256) % n_cols)]
+        cls = class_table(trans)
+        if (cls is not None) != (tab_classes == "classes"):
+            fail(f"class_table at Q {q} over {n_cols} columns: {cls is not None}")
+        lo, hi = (t(rs.integers(-2**31, 2**31, q).astype(np.int32)) for _ in range(2))
+        tr = t(trans)
+        bc, ct = (t(a) for a in cls) if cls is not None else (None, None)
+        for name, dtype, width, max_len, row_off, elem_off, want in k7_layout_cases():
+            for b in (1, 33, 300_000 if name == "u8 w16" else 4_099):
+                sb = rs.integers(0, 256, (b, width)).astype(dtype)
+                if dtype == np.int32:
+                    sb[rs.random(sb.shape) < 0.001] = rs.choice(np.array([-1, 256, 1 << 20], np.int32))
+                ch = 16 // np.dtype(dtype).itemsize
+                edges = [-1, 0, max_len, max_len + 1] + [
+                    c * ch + d for c in range(1, max_len // ch + 1) for d in (-1, 0, 1)]
+                lens = np.array(edges, np.int32)[np.arange(b) % len(edges)]
+                lens = np.where(rs.random(b) < 0.5, lens, rs.integers(-1, max_len + 3, b)).astype(np.int32)
+                starts = rs.integers(0, q, b).astype(np.int32)
+                starts[rs.random(b) < 0.01] = rs.choice(np.array([-1, q, q + 100], np.int32))
+                view = strided_view(sb, row_off, elem_off, dev)
+                args = (lo, hi, t(starts), view, t(lens), max_len)
+                ref = dfa_walk_plain(tr, *args)
+                st = torch.tensor(int(starts[0]), dtype=torch.int32, device=dev)
+                calls = [("dfa_walk_fused", tab_fused, lambda: dfa_match_batch_fused(tr, *args), ref),
+                         ("dfa_walk", tab_fused, lambda: dfa_match_batch(tr, lo, hi, st, *args[3:]),
+                          dfa_walk_plain(tr, lo, hi, st.expand(b), *args[3:]))]
+                if cls is not None:
+                    calls.append(("dfa_walk_fused", "classes",
+                                  lambda: dfa_match_batch_classes(tr, bc, ct, *args), ref))
+                for kname, table, call, want_out in calls:
+                    if table == "shared" and b < DFA_SHARED_MIN_ROWS and q > DFA_SHARED_SMALL_Q:
+                        table = "l2"  # the copy of a [Q + 1, 256] table does not pay
+                    got = call()
+                    if any(max_abs_err(g, w) for g, w in zip(got, want_out)):
+                        fail(f"{kname} ({table}) disagrees at Q {q}, {n_cols} columns, {name}, "
+                             f"B = {b}")
+                    if dfamod.WALK_ROUTES[kname] != (table, want):
+                        fail(f"{kname} took route {dfamod.WALK_ROUTES[kname]} at Q {q}, {n_cols} "
+                             f"columns, {name}; expected {(table, want)}")
+    # the C entry refuses a route its inputs do not allow
+    k7 = _kernels.KERNELS["dfa_walk_fused"]
+    tr = t(rs.integers(0, DFA_SMEM_MAX_Q + 1, (DFA_SMEM_MAX_Q + 1, 256)).astype(np.int32))
+    acc = t(np.zeros(DFA_SMEM_MAX_Q + 1, np.int32))
+    b = 64
+    st, ln = t(np.zeros(b, np.int32)), t(np.full(b, 16, np.int32))
+    out_lo, out_hi = (torch.empty(b, dtype=torch.int32, device=dev) for _ in range(2))
+    aligned = t(np.zeros((b, 16), np.uint8))
+    odd = strided_view(np.zeros((b, 16), np.uint8), 0, 1, dev)
+    cmap = t(np.zeros(256, np.uint8))
+    ctab = t(np.zeros((DFA_SMEM_MAX_Q + 2, 256), np.int16))
+    for what, q, bytes_, table, vec, cls, n_cls in (
+        ("a shared table past the budget", DFA_SMEM_MAX_Q + 1, aligned, 1, 0, None, 0),
+        ("a class table past the budget", DFA_SMEM_MAX_Q + 1, aligned, 2, 0, cmap, 256),
+        ("a class table wider than the table", 64, aligned, 2, 0, cmap, 264),
+        ("a class table with no class map", DFA_SMEM_MAX_Q + 1, aligned, 2, 0, None, 8),
+        ("vector bytes on a misaligned row", DFA_SMEM_MAX_Q, odd, 0, 1, None, 0),
+        ("vector bytes on a 17-byte row", DFA_SMEM_MAX_Q,
+         t(np.zeros((b, 17), np.uint8)), 0, 1, None, 0),
+    ):
+        before = k7.launches
+        try:
+            k7.launch(dev, tr.data_ptr(), q, acc.data_ptr(), acc.data_ptr(), st.data_ptr(), 1,
+                      bytes_.data_ptr(), 1, bytes_.shape[1], 16, ln.data_ptr(), out_lo.data_ptr(),
+                      out_hi.data_ptr(), b, table, vec, None if cls is None else cls.data_ptr(),
+                      ctab.data_ptr(), n_cls)
+        except RuntimeError:
+            pass
+        else:
+            fail(f"the dfa_walk C entry took {what}")
+        if k7.launches != before:
+            fail("a refused dfa_walk launch was counted")
+
+    # K5 and K11's stride-8 entry
+    prefixes = [("::/0", 1)] + [
+        (str(ipaddress.ip_network((int(ipaddress.ip_address("fd00::")) + int(rs.integers(0, 1 << 40)),
+                                   int(rs.choice([64, 100, 120, 128]))), strict=False)), j + 2)
+        for j in range(2000)]
+    c6, i6 = build_trie(prefixes, ipv6=True)
+    c4, i4 = build_trie([("0.0.0.0/0", 1)] + [
+        (f"10.{j % 256}.{(j * 7) % 256}.0/{int(rs.choice([16, 24, 28, 32]))}", j + 2)
+        for j in range(1500)])
+    shed_tab = t((rs.random((4100, 9)) < 0.5).astype(np.uint8))
+
+    def addresses(b, levels, width, k, common):
+        a = np.zeros((b, width), np.int32)
+        a[:, :k] = common
+        a[:, k:levels] = rs.integers(0, 256, (b, levels - k))
+        if levels == 16:
+            a[:, 0], a[:, 1] = 0xFD, 0
+        a[:, levels:] = rs.integers(-5, 300, (b, width - levels))  # never read
+        a[rs.random(b) < 0.2, :k] = 7 if k else 0  # differs in the compared part
+        cmp = rs.random(a.shape) < 0.01
+        cmp[:, k:] = False
+        a[cmp] = rs.choice(np.array([-1, 256, 1 << 20], np.int32), int(cmp.sum()))
+        walk = rs.random(a.shape) < 0.02
+        walk[:, :k] = False
+        walk[:, levels:] = False
+        a[walk] = rs.choice(np.array([-1, 256, 1 << 20], np.int32), int(walk.sum()))
+        return a
+
+    for levels, width, k, row_off, elem_off, want in (
+        (16, 16, 0, 0, 0, "vector"), (16, 16, 13, 0, 0, "vector"), (16, 16, 16, 0, 0, "vector"),
+        (16, 20, 13, 0, 0, "vector"), (16, 17, 13, 0, 0, "scalar"), (16, 17, 0, 0, 0, "scalar"),
+        (16, 16, 13, 1, 0, "vector"), (16, 16, 13, 0, 1, "scalar"), (16, 16, 0, 0, 1, "scalar"),
+        (4, 5, 0, 0, 0, "scalar"), (4, 4, 0, 0, 0, "vector"), (4, 4, 2, 0, 1, "scalar"),
+    ):
+        common = np.array(list(bytes.fromhex("fd00") + bytes(14)), np.int32)[:k] if levels == 16 \
+            else np.array([10, 3, 0, 0], np.int32)[:k]
+        if levels == 16:
+            child, info = c6, i6
+        else:
+            child, info = c4, i4
+        tabs = [t(child), t(info), t(common)]
+        for b in (1, 33, 20_003):
+            a = addresses(b, levels, width, k, common)
+            view = strided_view(a, row_off, elem_off, dev)
+            got = elided_lookup(*tabs, view, levels)
+            if max_abs_err(got, lpm_stride8_plain(*tabs, view, levels)):
+                fail(f"lpm_stride8 disagrees at levels {levels}, width {width}, K {k}, "
+                     f"offset {row_off} rows {elem_off} elements, B = {b}")
+            if lpmmod.STRIDE8_ROUTES["lpm_stride8"] != want:
+                fail(f"lpm_stride8 took route {lpmmod.STRIDE8_ROUTES['lpm_stride8']} at width "
+                     f"{width}, offset {row_off} / {elem_off}; expected {want}")
+            if b == 20_003 and k < levels and not bool((got > 0).any()):
+                fail(f"lpm_stride8 edge case width {width}, K {k} matched nothing")
+            if levels == 16:
+                dp = t(rs.integers(0, 65536, b).astype(np.int32))
+                pr = t(rs.choice(np.array([0, 6, 17], np.int32), b))
+                got = shed_walk_stride8(*tabs, shed_tab, 5, view, dp, pr, levels)
+                want_s = shed_walk_stride8_plain(*tabs, shed_tab, 5, view, dp, pr, levels)
+                if max_abs_err(got, want_s):
+                    fail(f"shed_walk_stride8 disagrees at width {width}, K {k}, offset "
+                         f"{row_off} / {elem_off}, B = {b}")
+                if lpmmod.STRIDE8_ROUTES["shed_walk_stride8"] != want:
+                    fail(f"shed_walk_stride8 took route {lpmmod.STRIDE8_ROUTES['shed_walk_stride8']}"
+                         f" at width {width}, offset {row_off} / {elem_off}; expected {want}")
+    odd = strided_view(np.zeros((64, 16), np.int32), 0, 1, dev)
+    tabs = [t(c6), t(i6), t(np.zeros(0, np.int32))]
+    out = torch.empty(64, dtype=torch.int32, device=dev)
+    for what, view, levels in (("a misaligned row", odd, 16),
+                               ("a 17-element row", t(np.zeros((64, 17), np.int32)), 16)):
+        try:
+            _kernels.KERNELS["lpm_stride8"].launch(
+                dev, tabs[0].data_ptr(), tabs[1].data_ptr(), c6.shape[0], tabs[2].data_ptr(), 0,
+                view.data_ptr(), view.shape[1], levels, out.data_ptr(), 64, 1)
+        except RuntimeError:
+            pass
+        else:
+            fail(f"the lpm_stride8 C entry took a vector walk on {what}")
     torch.cuda.synchronize()
 
 
@@ -4652,10 +5025,12 @@ def main() -> None:
     )
     from cilium_tpu_torch.convert import words_i32
     from cilium_tpu_torch.l7.regex_compile import compile_patterns
+    from cilium_tpu_torch.ops import dfa as dfamod
+    from cilium_tpu_torch.ops import lpm as lpmmod
     from cilium_tpu_torch.ops.dfa import (
         L7_LEN_LADDER, DeviceDFATable, device_dfa, dfa_match_batch, dfa_match_batch_fused,
-        dfa_match_batch_pair, dfa_pair_walk_plain, dfa_walk_plain, fuse_dfas, len_rung,
-        strings_to_batch, strings_to_batch_u8,
+        dfa_match_batch_classes, dfa_match_batch_pair, dfa_pair_walk_plain, dfa_walk_plain,
+        fuse_dfas, len_rung, strings_to_batch, strings_to_batch_u8,
     )
 
     dev = torch.device("cuda")
@@ -4690,6 +5065,7 @@ def main() -> None:
     edge_checks6(dev)
     edge_checks7(dev)
     edge_checks8(dev)
+    edge_checks9(dev)
     print("edge shapes: every kernel equals its plain version (ragged K1/K2, "
           "16-8-8 K3, 1 280-column / 2 100-endpoint K4; K2 at every tile edge of "
           f"{len(k2_edge_shapes())} shapes, non-contiguous, bool and misaligned operands;  4- and 16-level K5 with "
@@ -4711,7 +5087,12 @@ def main() -> None:
           "B = 0, 1, 4 097 and ragged, unaligned flow views, shared and global counters and "
           "hits, shard lists of 1, 2 and 4 shards with an empty one, ids -1 and N, direct and "
           f"gathered mode; K6 with 1 to 3 terms at widths {K6_EDGE_W}, all-zero rows, rows off "
-          "a 16-byte boundary)",
+          "a 16-byte boundary; K7 both entries at Q 400 / 401 around the shared-memory table, "
+          "row strides of 16 / 32 / 64 / 1 024 bytes and of 17, 20, 24, views one row and one "
+          "element in, lengths around every 16-byte chunk, B to 300 000; K5 and K11's stride-8 "
+          "entry at strides 16, 20, 17, 5 and 4, views one row and one element in, K 0, 2, 13 "
+          "and 16, bytes outside [0, 255] compared and walked; each launch on the route its "
+          "layout names, and the C entries refuse a route their inputs do not allow)",
           flush=True)
 
     # -- 2. world --------------------------------------------------------
@@ -5053,18 +5434,35 @@ def main() -> None:
     compiled, device = engine.snapshot()
     rows = []
 
+    def route_of(name):
+        """The path the kernel's latest launch took inside it (K7, K5,
+        K11's stride-8 entry), else None."""
+        if name in ("dfa_walk", "dfa_walk_fused"):
+            return " + ".join(dfamod.WALK_ROUTES[name])
+        if name in ("lpm_stride8", "shed_walk_stride8"):
+            return lpmmod.STRIDE8_ROUTES[name]
+        return None
+
     def row(name, source, replaces, err, fn, plain_fn, b_ms, b_by, shape, lib_fn=None,
-            iters=20, plain_iters=5, reps=5, graph=False):
+            iters=20, plain_iters=5, reps=5, graph=False, per_call=1):
+        """Times fn, its plain version and lib_fn; ``per_call``: the
+        launches one call of fn makes (each time is then per launch, the
+        mean over them, and b_ms the bound of one such launch)."""
+        def each(times):
+            return None if times is None else [t / per_call for t in times]
+
         ms, clk = timed(fn, iters=iters, reps=reps)
+        route = route_of(name)
         plain_ms, pclk = timed(plain_fn, iters=plain_iters, reps=reps)
         lib = lib_graph = None
         if lib_fn is not None:
             lib, _ = timed(lib_fn, iters=iters, reps=reps)
             lib_graph = graph_ms(lib_fn) if graph else None
-        rows.append(dict(name=name, source=source, replaces=replaces, err=err, ms=ms,
-                         plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                         shape=shape, clock=clk, plain_clock=pclk,
-                         graph_ms=graph_ms(fn) if graph else None, library_graph_ms=lib_graph))
+        rows.append(dict(name=name, source=source, replaces=replaces, err=err, ms=each(ms),
+                         plain_ms=each(plain_ms), library_ms=each(lib), bound_ms=b_ms,
+                         bound_by=b_by, shape=shape, clock=clk, plain_clock=pclk, route=route,
+                         graph_ms=each(graph_ms(fn)) if graph else None,
+                         library_graph_ms=each(lib_graph)))
 
     # K1 selector_match at the engine's shapes
     k1_in = (
@@ -5326,7 +5724,8 @@ def main() -> None:
                 f"{L7_BATCH} paths, uint8 bytes, rung {rung}, Q {table.n_states}", graph=True)
     # K7's fused entry on the pattern-cap policy's table (Q 735, no pair
     # table) over its main-path batch packed as submit() packs it, in
-    # one launch (the pipeline launches it in 16 384-row chunks)
+    # one launch, through its class table as the pipeline walks it (the
+    # pipeline launches it in 16 384-row chunks: walk_rows)
     ptab = l7res["pol_b"]._fused_table
     reqs_b = l7res["reqs_b"]
     cols = [[q.method.encode() for q in reqs_b], [q.path.encode() for q in reqs_b],
@@ -5338,13 +5737,20 @@ def main() -> None:
     usb, ul = torch.from_numpy(usb).to(dev), torch.from_numpy(ul).to(dev)
     st = torch.from_numpy(np.repeat(ptab.starts_host, L7_BATCH)).to(dev)
     a8 = (ptab.accept_lo, ptab.accept_hi, st, usb, ul, rung)
-    k_out = dfa_match_batch_fused(ptab.trans, *a8)
+    if ptab.class_trans is None:
+        fail("the pattern-cap policy's table has no class table")
+    cap_cls = (ptab.byte_class, ptab.class_trans)
+    k_out = dfa_match_batch_classes(ptab.trans, *cap_cls, *a8)
     b_ms, b_by = bound(dfa_touched_bytes(ptab.trans, st, usb, ul, rung, False), 0)
     row("dfa_walk_fused", "cilium_tpu_torch/csrc/dfa_walk.cu", "cilium_tpu/ops/dfa.py:236",
         max(max_abs_err(x, y) for x, y in zip(k_out, dfa_walk_plain(ptab.trans, *a8))),
-        lambda: dfa_match_batch_fused(ptab.trans, *a8), lambda: dfa_walk_plain(ptab.trans, *a8),
+        lambda: dfa_match_batch_classes(ptab.trans, *cap_cls, *a8),
+        lambda: dfa_walk_plain(ptab.trans, *a8),
         b_ms, b_by, f"pattern-cap policy: {len(flat)} rows (3 fields), rung {rung}, "
-        f"Q {ptab.n_states}", plain_iters=2, reps=3, graph=True)
+        f"Q {ptab.n_states}, class table {list(ptab.class_trans.shape)}", plain_iters=2, reps=3,
+        graph=True)
+
+    walk_rows(l7res["walks"], row)
 
     lb_rows(svc, row, card)
     ct_step_rows(dct, dev, row)
@@ -5371,6 +5777,8 @@ def main() -> None:
             f", in a CUDA graph (no wrapper host work) {median(r['graph_ms'])!r} {r['graph_ms']}")
         if r["graph_ms"] is not None:
             share += f" ({r['bound_ms'] / median(r['graph_ms'])!r} in the graph)"
+        if r["route"] is not None:
+            graph += f", route {r['route']}"
         print(f"kernel {r['name']:<24} {r['shape']}: launches {total[r['name']]}, "
               f"max_abs_err {r['err']}, ms {median(r['ms'])!r} {r['ms']} (SM clock after: "
               f"{r['clock']}){graph}, plain_ms {median(r['plain_ms'])!r} {r['plain_ms']} (SM "

@@ -222,9 +222,9 @@ KERNELS: Dict[str, Kernel] = {
         Kernel("policymap_verdict", "cilium_policymap_verdict",
                [ShardList, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                 _P, _I, _L]),
-        # child, info, m, common, k, addr, stride, levels, out, b
+        # child, info, m, common, k, addr, stride, levels, out, b, vec
         Kernel("lpm_stride8", "cilium_lpm_stride8",
-               [_P, _P, _I, _P, _I, _P, _I, _I, _P, _L]),
+               [_P, _P, _I, _P, _I, _P, _I, _I, _P, _L, _I]),
         # terms (one to three masks, rule_of, outputs), b
         Kernel("first_rule", "cilium_first_rule", [FirstRuleTerms, _L]),
         # id_bits shards, rule_tab shards, words, gathered, col_ep,
@@ -235,13 +235,14 @@ KERNELS: Dict[str, Kernel] = {
                [ShardList, ShardList, _I, _I, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
                 _P, _P, _P, _P, _P, _I, _P, _I, _L]),
         # trans, q, accept_lo, accept_hi, starts, start_stride, bytes,
-        # byte_size, row_stride, max_len, lengths, out_lo, out_hi, b; one
-        # C entry, counted apart for the scalar start (stride 0) and the
+        # byte_size, row_stride, max_len, lengths, out_lo, out_hi, b,
+        # table, vec_bytes, byte_class, class_trans, classes; one C
+        # entry, counted apart for the scalar start (stride 0) and the
         # per-row starts of a fused table (stride 1)
         Kernel("dfa_walk", "cilium_dfa_walk",
-               [_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _L]),
+               [_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _L, _I, _I, _P, _P, _I]),
         Kernel("dfa_walk_fused", "cilium_dfa_walk",
-               [_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _L]),
+               [_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _L, _I, _I, _P, _P, _I]),
         # pair, q, accept_lo, accept_hi, starts, bytes, byte_size,
         # row_stride, max_len, lengths, out_lo, out_hi, b
         Kernel("dfa_pair_walk", "cilium_dfa_pair_walk",
@@ -272,9 +273,9 @@ KERNELS: Dict[str, Kernel] = {
         Kernel("shed_walk_wide", "cilium_shed_walk_wide",
                [_P, _P, _P, _P, _I, _I, _P, _L, _I, _P, _P, _P, _P, _L]),
         # stride8: child, info, m, common, k, shed_tab, n_rows, world_row,
-        # addr, stride, levels, dport, proto, out, b
+        # addr, stride, levels, dport, proto, out, b, vec
         Kernel("shed_walk_stride8", "cilium_shed_walk_stride8",
-               [_P, _P, _I, _P, _I, _P, _L, _I, _P, _I, _I, _P, _P, _P, _L]),
+               [_P, _P, _I, _P, _I, _P, _L, _I, _P, _I, _I, _P, _P, _P, _L, _I]),
         # K12 ident_gather: shards (every shard on one device), w, src,
         # b, out
         Kernel("ident_gather", "cilium_ident_gather", [ShardList, _I, _P, _L, _P]),

@@ -52,19 +52,70 @@ __device__ __forceinline__ int lpm_wide_walk(
 //       flat = node * 256 + a[lvl]
 //       if info[flat] > 0: best = info[flat]  (deepest match wins)
 //       node = child[flat]; stop when node is 0
+//
+// VEC (levels <= LPM_VEC_LEVELS, ``a`` and the row stride multiples of
+// 16 bytes: ops/lpm.py lpm_stride8_route): the address comes in as
+// ceil(levels / 4) 16-byte loads issued together, the K compare runs on
+// registers against ``common`` staged in shared memory
+// (lpm_stage_common) with no load behind its branch, and each level
+// takes its byte from registers, so only the info / child gathers stay
+// in the dependent chain. Otherwise one __ldg a byte (``common`` in
+// device memory).
+constexpr int LPM_VEC_LEVELS = 16;  // ops/lpm.py LPM_VEC_LEVELS
+
+// The K <= LPM_VEC_LEVELS common bytes copied into ``s_common`` once a
+// block for the vector walk; every thread of the block calls it.
+__device__ __forceinline__ const int32_t* lpm_stage_common(
+    const int32_t* __restrict__ common, int k, int32_t* s_common) {
+    if ((int)threadIdx.x < k) s_common[threadIdx.x] = __ldg(common + threadIdx.x);
+    __syncthreads();
+    return s_common;
+}
+
+template <bool VEC>
 __device__ __forceinline__ int lpm_stride8_walk(
     const int32_t* __restrict__ child,   // [M, 256]
     const int32_t* __restrict__ info,    // [M, 256]
     int m,
-    const int32_t* __restrict__ common,  // [K]
+    const int32_t* common,               // [K]; VEC: in shared memory
     int k,
     const int32_t* __restrict__ a,       // this address's bytes
     int levels) {
+    int best = 0;
+    int node = 0;
+    if (VEC) {
+        int v[LPM_VEC_LEVELS];
+#pragma unroll
+        for (int c = 0; c < LPM_VEC_LEVELS / 4; ++c) {
+            const int4 x = c * 4 < levels ? __ldg((const int4*)a + c) : make_int4(0, 0, 0, 0);
+            v[c * 4] = x.x;
+            v[c * 4 + 1] = x.y;
+            v[c * 4 + 2] = x.z;
+            v[c * 4 + 3] = x.w;
+        }
+        bool same = true;
+#pragma unroll
+        for (int j = 0; j < LPM_VEC_LEVELS; ++j) {
+            if (j < k) same &= v[j] == common[j];
+        }
+        if (!same) return 0;
+#pragma unroll
+        for (int j = 0; j < LPM_VEC_LEVELS; ++j) {
+            if (j < k || j >= levels) continue;
+            const int byte = v[j];
+            if ((unsigned)byte > 255u) break;
+            const int64_t flat = (int64_t)node * 256 + byte;
+            const int hit = __ldg(info + flat);
+            if (hit > 0) best = hit;
+            const int nxt = __ldg(child + flat);
+            if (nxt <= 0 || nxt >= m) break;
+            node = nxt;
+        }
+        return best;
+    }
     for (int j = 0; j < k; ++j) {
         if (__ldg(a + j) != __ldg(common + j)) return 0;
     }
-    int best = 0;
-    int node = 0;
     for (int lvl = k; lvl < levels; ++lvl) {
         const int byte = __ldg(a + lvl);
         if ((unsigned)byte > 255u) break;
@@ -76,4 +127,10 @@ __device__ __forceinline__ int lpm_stride8_walk(
         node = nxt;
     }
     return best;
+}
+
+// The vector walk's precondition, checked by every C entry that takes
+// it (the wrapper's route, ops/lpm.py lpm_stride8_route).
+inline bool lpm_stride8_vec_ok(const int32_t* addr, int stride, int levels) {
+    return levels <= LPM_VEC_LEVELS && stride % 4 == 0 && ((uintptr_t)addr & 15) == 0;
 }

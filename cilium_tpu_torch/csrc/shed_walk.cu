@@ -18,7 +18,9 @@
 // Two entries: shed_walk_wide walks the wide IPv4 identity trie with a
 // uint32 address per flow; shed_walk_stride8 walks the elided
 // stride-8 IPv6 identity trie with 16 int32 bytes per flow, ending the
-// walk at a byte outside [0, 255] as K5 does.
+// walk at a byte outside [0, 255] as K5 does, and on K5's routes: the
+// row as 16-byte loads where ``vec`` (ops/lpm.py lpm_stride8_route),
+// else a byte a step.
 //
 // Bound: bytes. Per flow 12 bytes in (v4; 72 on v6) and 1 byte out,
 // plus the trie cells and table sectors the walk reaches, which sit in
@@ -56,6 +58,7 @@ __global__ void shed_walk_wide_kernel(
     out[i] = shed_lookup(shed_tab, n_rows, world_row, hit, dport[i], proto[i]);
 }
 
+template <bool VEC>
 __global__ void shed_walk_stride8_kernel(
     const int32_t* __restrict__ child, const int32_t* __restrict__ info, int m,
     const int32_t* __restrict__ common, int k,
@@ -64,9 +67,11 @@ __global__ void shed_walk_stride8_kernel(
     int stride, int levels,
     const int32_t* __restrict__ dport, const int32_t* __restrict__ proto,
     uint8_t* __restrict__ out, int64_t b) {
+    __shared__ int32_t s_common[LPM_VEC_LEVELS];
+    const int32_t* com = VEC ? lpm_stage_common(common, k, s_common) : common;
     const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
     if (i >= b) return;
-    const int hit = lpm_stride8_walk(child, info, m, common, k, addr + i * stride, levels);
+    const int hit = lpm_stride8_walk<VEC>(child, info, m, com, k, addr + i * stride, levels);
     out[i] = shed_lookup(shed_tab, n_rows, world_row, hit, dport[i], proto[i]);
 }
 
@@ -92,14 +97,24 @@ CILIUM_API int cilium_shed_walk_stride8(
     const int32_t* child, const int32_t* info, int m, const int32_t* common, int k,
     const uint8_t* shed_tab, int64_t n_rows, int world_row, const int32_t* addr,
     int stride, int levels, const int32_t* dport, const int32_t* proto, uint8_t* out,
-    int64_t b, int device, void* stream) {
+    int64_t b, int vec, int device, void* stream) {
     int err = cilium_set_device(device);
     if (err) return err;
-    if (b == 0) return (int)cudaGetLastError();
+    // report this launch's error, not one an earlier runtime call left
+    (void)cudaGetLastError();
+    if (vec && !lpm_stride8_vec_ok(addr, stride, levels)) return (int)cudaErrorInvalidValue;
+    if (b == 0) return 0;
     const int threads = 256;
     const int64_t blocks = (b + threads - 1) / threads;
-    shed_walk_stride8_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-        child, info, m, common, k, shed_tab, n_rows, world_row, addr, stride, levels,
-        dport, proto, out, b);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (vec) {
+        shed_walk_stride8_kernel<true><<<(unsigned)blocks, threads, 0, s>>>(
+            child, info, m, common, k, shed_tab, n_rows, world_row, addr, stride, levels,
+            dport, proto, out, b);
+    } else {
+        shed_walk_stride8_kernel<false><<<(unsigned)blocks, threads, 0, s>>>(
+            child, info, m, common, k, shed_tab, n_rows, world_row, addr, stride, levels,
+            dport, proto, out, b);
+    }
     return (int)cudaGetLastError();
 }

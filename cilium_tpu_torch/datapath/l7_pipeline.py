@@ -37,6 +37,7 @@ from ..observe.tracer import NOOP_BATCH, Tracer
 from ..ops.dfa import (
     DeviceDFATable,
     L7_LEN_LADDER,
+    dfa_match_batch_classes,
     dfa_match_batch_fused,
     dfa_match_batch_pair,
     len_rung,
@@ -168,6 +169,11 @@ class L7Pipeline:
         if table.has_pair:
             return dfa_match_batch_pair(
                 table.pair, table.accept_lo, table.accept_hi, *args, rung,
+            )
+        if table.class_trans is not None:
+            return dfa_match_batch_classes(
+                table.trans, table.byte_class, table.class_trans, table.accept_lo,
+                table.accept_hi, *args, rung,
             )
         return dfa_match_batch_fused(
             table.trans, table.accept_lo, table.accept_hi, *args, rung,

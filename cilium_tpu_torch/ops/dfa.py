@@ -19,10 +19,12 @@ The numpy packers, ``len_rung``, ``FusedDFA``, ``_pair_table`` and
 kernel on a CUDA tensor and run its plain version on a CPU tensor:
 
 - :func:`dfa_match_batch` (one scalar start, int32 bytes) and
-  :func:`dfa_match_batch_fused` (per-row starts, uint8 bytes): the two
-  entries of the ``dfa_walk`` kernel (csrc/dfa_walk.cu, plain
-  :func:`dfa_walk_plain`), counted as ``dfa_walk`` and
-  ``dfa_walk_fused``;
+  :func:`dfa_match_batch_fused` (per-row starts, uint8 bytes; and
+  :func:`dfa_match_batch_classes`, the same walk given an interned
+  table's byte classes): the two entries of the ``dfa_walk`` kernel
+  (csrc/dfa_walk.cu, plain :func:`dfa_walk_plain`), counted as
+  ``dfa_walk`` and ``dfa_walk_fused``; the path each launch takes
+  inside the kernel is :func:`dfa_walk_route`'s;
 - :func:`dfa_match_batch_pair`: the ``dfa_pair_walk`` kernel
   (csrc/dfa_pair_walk.cu, plain :func:`dfa_pair_walk_plain`).
 
@@ -44,7 +46,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 from collections import OrderedDict
-from typing import TYPE_CHECKING, Callable, Optional, Sequence, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -118,6 +120,92 @@ def strings_to_batch_u8(strings: Sequence[bytes], max_len: int) -> Tuple[np.ndar
 # ---------------------------------------------------------------------------
 # the walks: kernel wrappers and their plain versions
 # ---------------------------------------------------------------------------
+
+
+# K7's largest table served from shared memory (csrc/dfa_walk.cu
+# SMEM_MAX_Q): [Q + 1, 256] uint16 transitions (a sink state last),
+# 201 KB at Q = 400; a table's byte classes go there when their
+# [Q + 1, C] class table fits as many entries (DFA_SMEM_ENTRIES).
+DFA_SMEM_MAX_Q = 400
+DFA_SMEM_ENTRIES = (DFA_SMEM_MAX_Q + 1) * 256
+# When a block's copy of a [Q + 1, 256] table pays (tools/k7_probe.py
+# route_sweep on an H100): always for Q <= DFA_SHARED_SMALL_Q (32 KB of
+# int32 read a block), else from DFA_SHARED_MIN_ROWS rows (Q 59 and 245:
+# the L2 walk is faster at 2 048 to 32 768 rows, the shared one from
+# 65 536); a class table is small enough at any row count.
+DFA_SHARED_SMALL_Q = 32
+DFA_SHARED_MIN_ROWS = 1 << 16
+# the kernel's table routes (csrc/dfa_walk.cu Table)
+WALK_TABLES = {"l2": 0, "shared": 1, "classes": 2}
+
+# The route of each K7 entry's latest launch on the card: (table, bytes)
+# as dfa_walk_route gives it, keyed by kernel name.
+WALK_ROUTES: Dict[str, Tuple[str, str]] = {}
+
+
+def dfa_walk_route(q: int, rows: int, row_stride: int, elem_size: int, data_ptr: int,
+                   classes: int = 0) -> Tuple[str, str]:
+    """The path a ``dfa_walk`` launch over ``rows`` rows takes inside
+    its kernel → (table, bytes). Table: "classes" (a [Q + 1, C] class
+    table and the class map in shared memory: :func:`class_table`) when
+    the launch is given a table's ``classes`` (C, its class table's
+    width; 0 for none) and (Q + 1) x C <= DFA_SMEM_ENTRIES; else
+    "shared" (the [Q, 256] table copied into shared memory as uint16)
+    for 1 <= Q <= DFA_SHARED_SMALL_Q at any row count, and for Q <=
+    DFA_SMEM_MAX_Q from DFA_SHARED_MIN_ROWS rows; else "l2" (gathered
+    through L1 / L2). Bytes: "vector" (16-byte
+    loads) when the row stride in bytes and the base pointer are
+    multiples of 16, else "scalar" (one element a step). The C entry
+    refuses a route its inputs do not allow."""
+    if 2 <= classes <= 256 and q >= 1 and (q + 1) * classes <= DFA_SMEM_ENTRIES:
+        table = "classes"
+    elif 1 <= q <= DFA_SMEM_MAX_Q and (q <= DFA_SHARED_SMALL_Q or rows >= DFA_SHARED_MIN_ROWS):
+        table = "shared"
+    else:
+        table = "l2"
+    vec = (row_stride * elem_size) % 16 == 0 and data_ptr % 16 == 0
+    return table, "vector" if vec else "scalar"
+
+
+# the class table's width is padded to a multiple of this many columns
+# (16-byte rows of uint16 for the kernel's copy)
+DFA_CLASS_PAD = 8
+
+
+def byte_classes(trans: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """[Q, 256] transitions → (byte_class [256] uint8, class_trans
+    [Q, C] int32): bytes whose columns of ``trans`` are equal share a
+    class (numbered in the order of their first byte), and class_trans
+    holds one column a class, so ``class_trans[s, byte_class[b]] ==
+    trans[s, b]`` for every state and byte."""
+    trans = np.asarray(trans, np.int32)
+    _, first, inverse = np.unique(np.ascontiguousarray(trans.T), axis=0, return_index=True,
+                                  return_inverse=True)
+    order = np.argsort(first)
+    rank = np.empty_like(order)
+    rank[order] = np.arange(order.size)
+    byte_class = rank[inverse.reshape(-1)].astype(np.uint8)
+    return byte_class, np.ascontiguousarray(trans[:, first[order]])
+
+
+def class_table(trans: np.ndarray) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """K7's shared-memory form of a table's byte classes → (byte_class
+    [256] uint8, class_trans [Q + 1, C'] int16 bit views of uint16
+    state ids), or None where it saves nothing (C' > 256) or does not
+    fit (Q + 1) x C' <= DFA_SMEM_ENTRIES. C' is the class count plus
+    one, padded to DFA_CLASS_PAD. Row Q is the kernel's sink state:
+    every entry outside [0, Q), every entry of row Q and every column
+    past the classes (the last is where the kernel sends a byte outside
+    [0, 255]) is Q, so ``class_trans[s, byte_class[b]] == trans[s, b]``
+    wherever ``trans`` stays inside [0, Q)."""
+    q = trans.shape[0]
+    byte_class, ct = byte_classes(trans)
+    width = -(-(ct.shape[1] + 1) // DFA_CLASS_PAD) * DFA_CLASS_PAD
+    if width > 256 or (q + 1) * width > DFA_SMEM_ENTRIES:
+        return None
+    out = np.full((q + 1, width), q, np.uint16)
+    out[:q, :ct.shape[1]] = np.where((ct >= 0) & (ct < q), ct, q)
+    return byte_class, out.view(np.int16)
 
 
 def _accept(alive, state, accept_lo, accept_hi):
@@ -218,10 +306,19 @@ def _check_walk(name, table, width, accept_lo, accept_hi, starts, str_bytes,
 
 
 def _walk(kernel, plain, table, width, accept_lo, accept_hi, starts,
-          str_bytes, lengths, max_len, scalar_start):
+          str_bytes, lengths, max_len, scalar_start, classes=None):
     dev = _kernels.dispatch_device(table, accept_lo, accept_hi, starts, str_bytes, lengths)
     _check_walk(kernel, table, width, accept_lo, accept_hi, starts, str_bytes,
                 lengths, max_len, scalar_start)
+    if classes is not None:
+        byte_class, class_trans = classes
+        if (
+            byte_class.shape != (256,) or byte_class.dtype != torch.uint8
+            or class_trans.dim() != 2 or class_trans.shape[0] != table.shape[0] + 1
+            or class_trans.dtype != torch.int16
+            or byte_class.device != dev or class_trans.device != dev
+        ):
+            raise ValueError(f"{kernel}: not a [256] uint8 class map and a [Q + 1, C] class table")
     b = str_bytes.shape[0]
     if dev.type == "cpu":
         rows = starts.reshape(-1).expand(b) if scalar_start else starts
@@ -234,11 +331,21 @@ def _walk(kernel, plain, table, width, accept_lo, accept_hi, starts,
     _kernels.check_cuda(kernel, dev, *args, out_lo, out_hi)
     tab, lo, hi, st, sb, ln = args
     head = [tab.data_ptr(), tab.shape[0], lo.data_ptr(), hi.data_ptr(), st.data_ptr()]
+    tail = []
     if kernel != "dfa_pair_walk":
         head.append(0 if scalar_start else 1)  # dfa_walk's start stride
+        n_cls = 0 if classes is None else classes[1].shape[1]
+        route = dfa_walk_route(tab.shape[0], b, sb.shape[1], sb.element_size(), sb.data_ptr(),
+                               n_cls)
+        cls = [None, None, 0]
+        if route[0] == "classes":
+            byte_class, class_trans = (x.contiguous() for x in classes)
+            cls = [byte_class.data_ptr(), class_trans.data_ptr(), n_cls]
+        tail = [WALK_TABLES[route[0]], int(route[1] == "vector"), *cls]
+        WALK_ROUTES[kernel] = route
     _kernels.KERNELS[kernel].launch(
         dev, *head, sb.data_ptr(), sb.element_size(), sb.shape[1], max_len,
-        ln.data_ptr(), out_lo.data_ptr(), out_hi.data_ptr(), b,
+        ln.data_ptr(), out_lo.data_ptr(), out_hi.data_ptr(), b, *tail,
     )
     return out_lo, out_hi
 
@@ -273,6 +380,26 @@ def dfa_match_batch_fused(
     the K7 kernel)."""
     return _walk("dfa_walk_fused", dfa_walk_plain, trans, 256, accept_lo, accept_hi,
                  starts, str_bytes, lengths, max_len, scalar_start=False)
+
+
+def dfa_match_batch_classes(
+    trans: torch.Tensor,  # [Q, 256] int32 (stacked fields, absolute ids)
+    byte_class: torch.Tensor,  # [256] uint8 (class_table)
+    class_trans: torch.Tensor,  # [Q + 1, C] int16 (class_table)
+    accept_lo: torch.Tensor,  # [Q] int32
+    accept_hi: torch.Tensor,  # [Q] int32
+    starts: torch.Tensor,  # [B] int32 per-row start state
+    str_bytes: torch.Tensor,  # [B, max_len] uint8 (or int32)
+    lengths: torch.Tensor,  # [B] int32 (-1 = fail closed)
+    max_len: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`dfa_match_batch_fused` over a table whose byte classes
+    (:func:`class_table`, built once per :class:`DeviceDFATable`) the
+    kernel walks from shared memory (the same ``dfa_walk_fused`` entry
+    and result; on the CPU the plain version walks ``trans``)."""
+    return _walk("dfa_walk_fused", dfa_walk_plain, trans, 256, accept_lo, accept_hi,
+                 starts, str_bytes, lengths, max_len, scalar_start=False,
+                 classes=(byte_class, class_trans))
 
 
 def dfa_match_batch_pair(
@@ -436,12 +563,16 @@ class DeviceDFATable:
     """Residence of one FusedDFA on one device (interned — see below).
 
     Holds the transfer-once tensors plus the host-side start vector
-    from which per-batch start columns are built."""
+    from which per-batch start columns are built, and K7's byte-class
+    form of the table (:func:`class_table`; None where it does not fit
+    the kernel's shared memory), built here once. ``device_bytes`` is
+    the reference's ledger of its tensors; ``class_bytes`` the class
+    form's."""
 
     __slots__ = (
         "key", "device", "trans", "accept_lo", "accept_hi", "pair",
         "starts_host", "n_states", "n_fields", "q_pad", "has_pair",
-        "device_bytes",
+        "device_bytes", "byte_class", "class_trans", "class_bytes",
     )
 
     def __init__(self, key: Tuple, fused: FusedDFA, device=None) -> None:
@@ -464,6 +595,12 @@ class DeviceDFATable:
             for t in (self.trans, self.accept_lo, self.accept_hi, self.pair)
             if t is not None
         )
+        classes = class_table(np.asarray(fused.trans, np.int32))
+        self.byte_class = self.class_trans = None
+        self.class_bytes = 0
+        if classes is not None:
+            self.byte_class, self.class_trans = (_on(a, dev) for a in classes)
+            self.class_bytes = 256 + self.class_trans.numel() * 2
 
 
 # Interned device tables, keyed by (device, pattern-set key): N

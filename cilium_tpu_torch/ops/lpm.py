@@ -152,6 +152,27 @@ def build_trie_elided(
     return child, info, common
 
 
+# The deepest walk K5 and K11 read as 16-byte vectors (csrc/lpm_walk.cuh
+# LPM_VEC_LEVELS): an IPv6 address's 16 int32 bytes.
+LPM_VEC_LEVELS = 16
+
+# The route of each stride-8 walk's latest launch on the card, keyed by
+# kernel name ("lpm_stride8", "shed_walk_stride8").
+STRIDE8_ROUTES: Dict[str, str] = {}
+
+
+def lpm_stride8_route(stride: int, levels: int, data_ptr: int) -> str:
+    """The path a stride-8 walk (K5, K11's v6 entry) takes inside its
+    kernel: "vector" (the row as 16-byte loads issued together, the
+    compare and the walk on registers) when ``levels`` <=
+    LPM_VEC_LEVELS and both the row stride in bytes (4 x ``stride``)
+    and the base pointer are multiples of 16; else "scalar" (one
+    int32 byte a step). The C entries refuse a vector route their
+    inputs do not allow."""
+    vec = levels <= LPM_VEC_LEVELS and (4 * stride) % 16 == 0 and data_ptr % 16 == 0
+    return "vector" if vec else "scalar"
+
+
 def lpm_stride8_plain(
     child: torch.Tensor,  # [M, 256] int32
     info: torch.Tensor,  # [M, 256] int32
@@ -212,9 +233,12 @@ def elided_lookup(
     out = torch.empty(addr_bytes.shape[0], dtype=torch.int32, device=dev)
     _kernels.check_cuda("lpm_stride8", dev, *args, out)
     ch, inf, com, addr = args
+    route = lpm_stride8_route(addr.shape[1], levels, addr.data_ptr())
+    STRIDE8_ROUTES["lpm_stride8"] = route
     _kernels.KERNELS["lpm_stride8"].launch(
         dev, ch.data_ptr(), inf.data_ptr(), ch.shape[0], com.data_ptr(), k,
         addr.data_ptr(), addr.shape[1], levels, out.data_ptr(), addr.shape[0],
+        int(route == "vector"),
     )
     return out
 

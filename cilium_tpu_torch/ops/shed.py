@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from .. import _kernels
-from .lpm import lpm_stride8_plain, lpm_wide_plain
+from .lpm import STRIDE8_ROUTES, lpm_stride8_plain, lpm_stride8_route, lpm_wide_plain
 
 # the table's columns: 3 proto classes (TCP, UDP, other) x 3 dport
 # buckets (< 1024, < 32768, the rest), as the kernel counts them and as
@@ -135,9 +135,11 @@ def shed_walk_stride8(
     out = torch.empty(b, dtype=torch.uint8, device=dev)
     _kernels.check_cuda("shed_walk_stride8", dev, *tries, tab, addr, *flows, out)
     ch, inf, com = tries
+    route = lpm_stride8_route(addr.shape[1], levels, addr.data_ptr())
+    STRIDE8_ROUTES["shed_walk_stride8"] = route
     _kernels.KERNELS["shed_walk_stride8"].launch(
         dev, ch.data_ptr(), inf.data_ptr(), ch.shape[0], com.data_ptr(), k, tab.data_ptr(),
         tab.shape[0], int(world_row), addr.data_ptr(), addr.shape[1], levels,
-        *(x.data_ptr() for x in flows), out.data_ptr(), b,
+        *(x.data_ptr() for x in flows), out.data_ptr(), b, int(route == "vector"),
     )
     return out.view(torch.bool)
