@@ -16,13 +16,17 @@
    against padded slots, one forced chain, F = 20 000: edge_checks4;
    K10 on tables at ~90% load: edge_checks5; K7, K5 and K11's stride-8
    entry on the layouts that choose their routes, each launch on the
-   route its layout names: edge_checks9).
+   route its layout names: edge_checks9; K3 on both trie layouts at
+   ragged batch sizes and offset views, K1's staged and wide routes over
+   W 1 to 800, S 1 to 640, CPS 0 to 3, N 0 to 2 048 and its conjunct
+   kinds: edge_checks10).
 2. Builds the headline deployment of bench.py with the port's own
    modules: 10 000 rules over 512 apps (30% with an L4 port), 2 048
    identities with one /32 and one fd00::{hi}:{lo}/128 ipcache entry
    each (bench.py:588-593), 64 endpoints.
 3. Drives three main paths, every launch count set to 0 just before
-   each and read just after; each fails unless its kernels launched:
+   each and read just after; each fails unless its kernels launched;
+   a path that launched K1 prints the route its latest launch took:
    - v4: PolicyEngine.refresh → DatapathPipeline.rebuild → process()
      of 1 048 576-flow batches, once with an empty prefilter (identity
      walk only) and once with the four bench prefilter CIDRs plus two
@@ -165,6 +169,10 @@
    call computing the same function (CUDA events: the median of five
    runs' per-launch means, after 50 ms of warm-up launches), printing
    the SM clock (nvidia-smi clocks.sm) right after each timed series.
+   K1 is timed on both clocks too, its bound the larger of its bytes
+   and one popcount a row for each nonzero word of a valid conjunct at
+   132 SMs x 16 a clock (the SM clock read), the first version's dense
+   int8-product figure printed beside it.
    K2 and K6 are also held, call by call, at the shapes one row patch,
    one column patch and one attributed column patch give them, and the
    largest of each is timed. K2 (at the sweep's shape and the three
@@ -3162,6 +3170,165 @@ def edge_checks9(dev) -> None:
     torch.cuda.synchronize()
 
 
+# K3's batch sizes: empty, one address, ragged against 4 and 256
+K3_EDGE_B = (0, 1, 3, 4, 5, 1023, 1025, 200_003)
+
+
+def k3_edge_trie(rs, layout: str):
+    """Wide-trie arrays of one layout (flat 16+16: 6 deep /16s; 16-8-8:
+    129), with root_child and sub_child entries outside [1, M)."""
+    import numpy as np
+
+    from cilium_tpu_torch.ops.lpm import build_wide_trie
+
+    prefixes = [("0.0.0.0/0", 1), ("10.0.0.0/8", 2), ("100.0.0.0/8", 3)]
+    for j in range(129 if layout == "16-8-8" else 6):
+        for _ in range(4):
+            addr = ((100 << 24) | (j << 16)) | int(rs.integers(0, 1 << 16))
+            plen = int(rs.choice([17, 20, 24, 28, 32]))
+            prefixes.append((str(ipaddress.ip_network((addr, plen), strict=False)), len(prefixes) + 1))
+    ri, rc, sc, si = (np.array(a) for a in build_wide_trie(prefixes))
+    if (si.shape[-1] == 65536) != (layout == "flat"):
+        fail(f"the K3 edge trie did not build the {layout} layout")
+    m = si.shape[0]
+    rc[np.nonzero(rc)[0][:3]] = [m, m + 3, -1]
+    rc[(100 << 8) | 200] = -7
+    if layout == "16-8-8":
+        live = np.nonzero(sc)
+        pick = rs.choice(live[0].shape[0], 6, replace=False)
+        sc[live[0][pick], live[1][pick]] = [m, m + 1, m + 9, -1, -2, 0]
+    return ri, rc, sc, si
+
+
+def k1_edge_case(rs, n: int, w: int, s: int, cps: int):
+    """K1 inputs: identity rows of a few labels; conjuncts of one to
+    three required labels of a row (so some match), some with a
+    forbidden label; in fixed shares invalid, req_count 0 with no forbid
+    (every row), forbid-only, every word nonzero (bit 0 of each word,
+    which row 0 holds everywhere), and a req_count one off."""
+    import numpy as np
+
+    ids = np.zeros((max(n, 1), w), np.uint32)
+    for r in range(ids.shape[0]):
+        for b in rs.choice(32 * w, min(32 * w, 6), replace=False):
+            ids[r, b // 32] |= np.uint32(1 << (b % 32))
+    ids[0] |= np.uint32(1)
+    req = np.zeros((s, cps, w), np.uint32)
+    forbid = np.zeros((s, cps, w), np.uint32)
+    kind = rs.choice(6, (s, cps), p=[0.55, 0.1, 0.1, 0.1, 0.1, 0.05])
+    for si in range(s):
+        for ci in range(cps):
+            src = ids[rs.integers(0, ids.shape[0])]
+            bits = np.nonzero(np.unpackbits(src.view(np.uint8), bitorder="little"))[0]
+            if kind[si, ci] in (0, 1, 5):
+                for b in rs.choice(bits, min(bits.size, int(rs.integers(1, 4))), replace=False):
+                    req[si, ci, b // 32] |= np.uint32(1 << (b % 32))
+            if kind[si, ci] in (0, 3) and rs.random() < 0.6:
+                b = int(rs.integers(0, 32 * w))
+                forbid[si, ci, b // 32] |= np.uint32(1 << (b % 32))
+            if kind[si, ci] == 4:
+                req[si, ci] = 1
+    count = np.unpackbits(req.view(np.uint8), axis=-1).sum(axis=-1).astype(np.int32)
+    count[kind == 5] += 1
+    return (ids[:n].view(np.int32), req.view(np.int32), forbid.view(np.int32), kind != 1, count)
+
+
+def edge_checks10(dev) -> None:
+    """K3 and K1 against their plain versions, exactly, on the shapes and
+    layouts the main paths do not reach, and K1's launches against the
+    route each case names:
+
+    - K3 on both layouts (flat 16+16 and 16-8-8) with node ids outside
+      [1, M), at B of K3_EDGE_B and on views one to four elements into
+      a buffer;
+    - K1 at W 1 / 34 / 300 (staged) and 800 (wide), S 1 / 31 / 33 /
+      640, CPS 1 / 3 with invalid, req_count-0, forbid-only, dense and
+      one-off conjuncts, N 0 / 1 / 129 / 2 048, W = 0, and rows and
+      conjuncts off a 16-byte boundary (the kernel's 4-byte copies); the
+      C entry refuses a staged route past the budget and shapes an entry
+      cannot pack."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch import _kernels
+    from cilium_tpu_torch.ops import bitmap as bitmod
+    from cilium_tpu_torch.ops.bitmap import compute_selector_matches, selector_match_plain
+    from cilium_tpu_torch.ops.lpm import lpm_lookup_wide, lpm_wide_plain
+
+    rs = np.random.default_rng(1010)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    for layout in ("flat", "16-8-8"):
+        tabs = [t(a) for a in k3_edge_trie(rs, layout)]
+        for b in K3_EDGE_B:
+            a = ((100 << 24) | (rs.integers(0, 8, b) << 16) | rs.integers(0, 1 << 16, b))
+            a = np.where(rs.random(b) < 0.2, rs.integers(0, 1 << 32, b), a).astype(np.uint32)
+            for elems_in in range(5):
+                view = strided_view(a.view(np.int32).reshape(-1, 1), 0, elems_in, dev).reshape(-1)
+                got = lpm_lookup_wide(*tabs, view)
+                if max_abs_err(got, lpm_wide_plain(*tabs, view)):
+                    fail(f"lpm_wide disagrees on the {layout} layout at B = {b}, {elems_in} "
+                         f"elements in")
+                if b > 1000 and not bool((got > 3).any()):
+                    fail(f"lpm_wide edge case {layout}, B = {b} matched no deep prefix")
+
+    def k1(case, offs=(0, 0)):
+        ids, req, fb, valid, count = case
+        n, w = ids.shape
+        s, cps, _ = req.shape
+        args = (strided_view(ids, 0, offs[0], dev),
+                strided_view(req.reshape(s * cps, w), 0, offs[1], dev).view(s, cps, w),
+                strided_view(fb.reshape(s * cps, w), 0, offs[1], dev).view(s, cps, w),
+                t(valid), t(count))
+        got = compute_selector_matches(*args)
+        want = selector_match_plain(*args)
+        if max_abs_err(got, want):
+            fail(f"selector_match disagrees at N {n}, W {w}, S {s}, CPS {cps}, offsets {offs}")
+        route = "wide" if w == 800 else "staged"
+        if (n and s) and bitmod.SELECTOR_ROUTES["selector_match"] != route:
+            fail(f"selector_match took route {bitmod.SELECTOR_ROUTES['selector_match']} at W {w}; "
+                 f"expected {route}")
+        return want
+
+    for w, s, cps, n in ((1, 1, 1, 129), (1, 640, 3, 129), (34, 31, 1, 129), (34, 33, 3, 129),
+                         (34, 640, 1, 2048), (34, 640, 3, 129), (300, 33, 3, 129),
+                         (300, 640, 1, 129), (800, 64, 3, 129), (800, 33, 1, 1), (34, 33, 3, 0),
+                         (34, 0, 1, 129), (34, 45, 0, 77)):
+        want = k1(k1_edge_case(rs, n, w, s, cps))
+        if n > 100 and s >= 31 and cps:
+            bits = torch.stack([(want >> k) & 1 for k in range(32)], -1).reshape(n, -1)[:, :s]
+            share = float(bits.float().mean())
+            if not 0 < share < 1:
+                fail(f"selector_match edge case W {w}, S {s}, CPS {cps} matched a share {share}")
+    for offs in ((1, 0), (0, 1), (3, 2)):
+        k1(k1_edge_case(rs, 129, 34, 70, 3), offs)
+    k1(k1_edge_case(rs, 129, 300, 33, 1), (1, 3))
+    # W = 0: no label words; a valid req_count-0 conjunct matches every row
+    empty = (t(np.zeros((5, 0), np.int32)), t(np.zeros((40, 2, 0), np.int32)),
+             t(np.zeros((40, 2, 0), np.int32)), t(rs.random((40, 2)) < 0.5),
+             t(rs.integers(0, 2, (40, 2)).astype(np.int32)))
+    if max_abs_err(compute_selector_matches(*empty), selector_match_plain(*empty)):
+        fail("selector_match disagrees at W = 0")
+    k1k = _kernels.KERNELS["selector_match"]
+    ids, req, fb, valid, count = (t(x) for x in k1_edge_case(rs, 64, 800, 40, 1))
+    out = torch.empty((64, 2), dtype=torch.int32, device=dev)
+    for what, w, cps in (("a staged route past the budget", 800, 1),
+                         ("W past 65 535", 65536, 1), ("CPS past 1 023", 34, 1024)):
+        before = k1k.launches
+        try:
+            k1k.launch(dev, ids.data_ptr(), req.data_ptr(), fb.data_ptr(), valid.data_ptr(),
+                       count.data_ptr(), out.data_ptr(), 64, w, 40, cps, 1)
+        except RuntimeError:
+            pass
+        else:
+            fail(f"the selector_match C entry took {what}")
+        if k1k.launches != before:
+            fail("a refused selector_match launch was counted")
+    torch.cuda.synchronize()
+
+
 class KernelClock:
     """CUDA events around every launch of the named kernels, by wrapping
     Kernel.launch while it is entered: ``ms()`` is the card's busy time
@@ -5026,6 +5193,7 @@ def main() -> None:
     from cilium_tpu_torch.convert import words_i32
     from cilium_tpu_torch.l7.regex_compile import compile_patterns
     from cilium_tpu_torch.ops import dfa as dfamod
+    from cilium_tpu_torch.ops import bitmap as bitmod
     from cilium_tpu_torch.ops import lpm as lpmmod
     from cilium_tpu_torch.ops.dfa import (
         L7_LEN_LADDER, DeviceDFATable, device_dfa, dfa_match_batch, dfa_match_batch_fused,
@@ -5066,6 +5234,7 @@ def main() -> None:
     edge_checks7(dev)
     edge_checks8(dev)
     edge_checks9(dev)
+    edge_checks10(dev)
     print("edge shapes: every kernel equals its plain version (ragged K1/K2, "
           "16-8-8 K3, 1 280-column / 2 100-endpoint K4; K2 at every tile edge of "
           f"{len(k2_edge_shapes())} shapes, non-contiguous, bool and misaligned operands;  4- and 16-level K5 with "
@@ -5091,8 +5260,11 @@ def main() -> None:
           "row strides of 16 / 32 / 64 / 1 024 bytes and of 17, 20, 24, views one row and one "
           "element in, lengths around every 16-byte chunk, B to 300 000; K5 and K11's stride-8 "
           "entry at strides 16, 20, 17, 5 and 4, views one row and one element in, K 0, 2, 13 "
-          "and 16, bytes outside [0, 255] compared and walked; each launch on the route its "
-          "layout names, and the C entries refuse a route their inputs do not allow)",
+          "and 16, bytes outside [0, 255] compared and walked; K3 on both layouts at B = 0 to "
+          "200 003 and offset views; K1 on its staged and wide routes at W 0 to 800, S 0 to 640, "
+          "CPS 0 to 3, N 0 to 2 048, dense and empty conjuncts, offset rows and conjuncts; each "
+          "launch on the route its layout names, and the C entries refuse a route their inputs "
+          "do not allow)",
           flush=True)
 
     # -- 2. world --------------------------------------------------------
@@ -5112,6 +5284,9 @@ def main() -> None:
         for k in names:
             if got[k] <= 0:
                 fail(f"kernel {k} never launched on the {path} main path")
+        if got["selector_match"]:
+            print(f"main path [{path}] selector_match route (latest launch) "
+                  f"{bitmod.SELECTOR_ROUTES['selector_match']} [{card}]", flush=True)
 
     # -- 3a. v4 main path on the card, launch counts from zero -----------
     _kernels.reset_launches()
@@ -5441,13 +5616,16 @@ def main() -> None:
             return " + ".join(dfamod.WALK_ROUTES[name])
         if name in ("lpm_stride8", "shed_walk_stride8"):
             return lpmmod.STRIDE8_ROUTES[name]
+        if name == "selector_match":
+            return bitmod.SELECTOR_ROUTES[name]
         return None
 
     def row(name, source, replaces, err, fn, plain_fn, b_ms, b_by, shape, lib_fn=None,
-            iters=20, plain_iters=5, reps=5, graph=False, per_call=1):
+            iters=20, plain_iters=5, reps=5, graph=False, per_call=1, note=None):
         """Times fn, its plain version and lib_fn; ``per_call``: the
         launches one call of fn makes (each time is then per launch, the
-        mean over them, and b_ms the bound of one such launch)."""
+        mean over them, and b_ms the bound of one such launch); ``note``
+        is printed after the bound."""
         def each(times):
             return None if times is None else [t / per_call for t in times]
 
@@ -5462,7 +5640,7 @@ def main() -> None:
                          plain_ms=each(plain_ms), library_ms=each(lib), bound_ms=b_ms,
                          bound_by=b_by, shape=shape, clock=clk, plain_clock=pclk, route=route,
                          graph_ms=each(graph_ms(fn)) if graph else None,
-                         library_graph_ms=each(lib_graph)))
+                         library_graph_ms=each(lib_graph), note=note))
 
     # K1 selector_match at the engine's shapes
     k1_in = (
@@ -5475,11 +5653,22 @@ def main() -> None:
     p_out = selector_match_plain(*k1_in)
     n, w = compiled.id_bits.shape
     s_, cps, _ = compiled.conj_req.shape
-    b_ms, b_by = bound(nbytes(*k1_in, k_out), 2 * 2 * n * (w * 32) * s_ * cps)
+    # the function's least time: its bytes, or one popcount a row for
+    # each nonzero word of a valid conjunct at 132 SMs x 16 a clock (the
+    # SM clock read now); the TPU form's dense int8 products are printed
+    # beside it, no floor for a kernel that skips the zero words
+    nz_words = int(((k1_in[1] | k1_in[2]) != 0)[k1_in[3]].sum())
+    clk = sm_clock().split()[0]
+    clk_mhz = int(clk) if clk.isdigit() else 1980  # the H100 SXM's boost clock if unread
+    b_ms, b_by = bound(nbytes(*k1_in, k_out), n * nz_words, 132 * 16 * clk_mhz * 1e6)
+    dense_ms, _ = bound(0, 2 * 2 * n * (w * 32) * s_ * cps)
     row("selector_match", "cilium_tpu_torch/csrc/selector_match.cu", "cilium_tpu/ops/bitmap.py:57",
         max_abs_err(k_out, p_out), lambda: compute_selector_matches(*k1_in),
         lambda: selector_match_plain(*k1_in), b_ms, b_by,
-        f"id_bits [{n},{w}], conj [{s_},{cps},{w}]")
+        f"id_bits [{n},{w}], conj [{s_},{cps},{w}]", graph=True,
+        note=f"the bound: bytes {nbytes(*k1_in, k_out)} and {n} x {nz_words} popcounts over "
+             f"the valid conjuncts' nonzero words at {clk_mhz} MHz; the dense int8-product "
+             f"figure (the first version's bound) {dense_ms!r} ms is no floor")
 
     # K2 bool_mm at the sweep's largest product: [1024, S] x [S, S], the
     # deny product with its complemented left operand
@@ -5779,11 +5968,12 @@ def main() -> None:
             share += f" ({r['bound_ms'] / median(r['graph_ms'])!r} in the graph)"
         if r["route"] is not None:
             graph += f", route {r['route']}"
+        note = "" if r["note"] is None else f" ({r['note']})"
         print(f"kernel {r['name']:<24} {r['shape']}: launches {total[r['name']]}, "
               f"max_abs_err {r['err']}, ms {median(r['ms'])!r} {r['ms']} (SM clock after: "
               f"{r['clock']}){graph}, plain_ms {median(r['plain_ms'])!r} {r['plain_ms']} (SM "
               f"clock after: {r['plain_clock']}), library_ms {lib}, bound_ms {r['bound_ms']!r} "
-              f"({r['bound_by']}), {share} [{card}]", flush=True)
+              f"({r['bound_by']}){note}, {share} [{card}]", flush=True)
         if r["err"] != 0:
             fail(f"kernel {r['name']} disagrees with its plain version")
         if total[r["name"]] <= 0:

@@ -208,9 +208,10 @@ class Kernel:
 KERNELS: Dict[str, Kernel] = {
     k.name: k
     for k in (
-        # id_bits, conj_req, conj_forbid, conj_valid, req_count, out, n, w, s, cps
+        # id_bits, conj_req, conj_forbid, conj_valid, req_count, out, n, w, s,
+        # cps, staged
         Kernel("selector_match", "cilium_selector_match",
-               [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I]),
+               [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I]),
         # x, w, out, b, a, c, complement_x
         Kernel("bool_mm", "cilium_bool_mm", [_P, _P, _P, _I, _I, _I, _I]),
         # root_info, root_child, sub_child, sub_info, m, flat, addr, out, b

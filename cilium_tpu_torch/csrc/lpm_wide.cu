@@ -17,6 +17,14 @@
 // Bound: bytes. Each address moves 4 bytes in and 4 bytes out; the
 // table reads are random but land in the 50 MB L2 for the main path's
 // tries, so the flow arrays are the floor.
+//
+// What holds it above that floor is the sub-table gather, not the
+// chain's latency: one scattered 4-byte read an address, so a warp's
+// request touches 32 lines, which L1 serves one at a time. A vector
+// walk (tools/k3_vector_walk.cu: 2, 4 or 8 addresses a thread, one
+// 16-byte load and store, one wave of resident blocks) keeps more
+// chains in flight and is no faster, on the main path's tries or on
+// tries past L1 and L2 (tools/k3_probe.py), so this kernel stays.
 #include "common.cuh"
 #include "lpm_walk.cuh"
 

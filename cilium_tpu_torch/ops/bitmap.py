@@ -17,15 +17,54 @@ is ``(w >> k) & 1``, where the mask makes the arithmetic shift of bit
 31 harmless.
 
 On a CUDA tensor :func:`compute_selector_matches` launches the
-``selector_match`` kernel (csrc/selector_match.cu); on a CPU tensor it
-runs :func:`selector_match_plain`, the same function in plain PyTorch.
+``selector_match`` kernel (csrc/selector_match.cu) on the route
+:func:`selector_match_route` names; on a CPU tensor it runs
+:func:`selector_match_plain`, the same function in plain PyTorch.
 """
 
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 
 from .. import _kernels
+
+# K1's tiles and shared-memory budget (csrc/selector_match.cu): a block
+# takes SEL_ROWS identity rows (a lane each, SEL_WARPS warps) and one
+# output word; it stages its selectors' conjunct words SEL_STAGE_MAX at
+# most a round; a block may take SEL_SMEM_BUDGET bytes.
+SEL_ROWS = 128
+SEL_WARPS = 4
+SEL_STAGE_MAX = 2048
+SEL_SMEM_BUDGET = 232448
+
+# The route of K1's latest launch on the card, keyed "selector_match".
+SELECTOR_ROUTES: Dict[str, str] = {}
+
+
+def selector_match_smem_bytes(w: int, cps: int, staged: bool) -> int:
+    """Shared memory of one K1 block: a round's entries (4 words each),
+    its req and forbid words and its conjuncts' req_count, the warps'
+    entry counts, and the [SEL_ROWS, W | 1] row tile when staged
+    (csrc/selector_match.cu sel_smem_words)."""
+    piece = 32 * SEL_WARPS
+    stage = min(-(-32 * cps * w // piece) * piece, SEL_STAGE_MAX)
+    return 4 * (7 * stage + 8 + (SEL_ROWS * (w | 1) if staged else 0))
+
+
+def selector_match_route(w: int, cps: int) -> str:
+    """The path K1 takes inside its kernel: "staged" (the row tile in
+    shared memory) when a block's tiles fit SEL_SMEM_BUDGET, else
+    "wide" (each list entry's word read from the row in device
+    memory). A dense conjunct changes neither: its longer list runs
+    over more rounds. Shapes past what a list entry packs (W > 65535,
+    CPS > 1023) raise ValueError; the C entry refuses them too, and a
+    staged route past the budget."""
+    if not 0 <= w <= 65535 or not 0 <= cps <= 1023:
+        raise ValueError(f"selector_match: W {w}, CPS {cps} past the kernel's entry packing")
+    return "staged" if selector_match_smem_bytes(max(w, 1), cps, True) <= SEL_SMEM_BUDGET \
+        else "wide"
 
 
 def unpack_bits_u32(words: torch.Tensor) -> torch.Tensor:
@@ -79,8 +118,10 @@ def selector_match_plain(
         hit_req = bits @ req_t
         hit_forbid = bits @ forbid_t
         ok = valid & (hit_req == req_n) & (hit_forbid == 0)
-        sel = ok.reshape(-1, s, cps).any(dim=-1)
+        sel = ok.reshape(bits.shape[0], s, cps).any(dim=-1)
         out.append(pack_bool_bits(sel))
+    if not out:  # N = 0
+        return torch.zeros((0, (s + 31) // 32), dtype=torch.int32, device=id_bits.device)
     return torch.cat(out)
 
 
@@ -103,16 +144,23 @@ def compute_selector_matches(
     if w2 != w or conj_forbid.shape != conj_req.shape or conj_valid.shape != (s, cps) \
             or req_count.shape != (s, cps):
         raise ValueError("compute_selector_matches: inconsistent shapes")
+    route = selector_match_route(w, cps)
+    if w == 0:  # no label words: one zero word matches the same way
+        id_bits = id_bits.new_zeros((n, 1))
+        conj_req = conj_forbid = conj_req.new_zeros((s, cps, 1))
+        w = 1
     args = (
-        id_bits.to(torch.int32).contiguous(),
-        conj_req.to(torch.int32).contiguous(),
-        conj_forbid.to(torch.int32).contiguous(),
-        conj_valid.to(torch.bool).contiguous(),
-        req_count.to(torch.int32).contiguous(),
+        _kernels.operand(id_bits, torch.int32),
+        _kernels.operand(conj_req, torch.int32),
+        _kernels.operand(conj_forbid, torch.int32),
+        _kernels.operand(conj_valid, torch.bool),
+        _kernels.operand(req_count, torch.int32),
     )
     out = torch.empty((n, (s + 31) // 32), dtype=torch.int32, device=dev)
     _kernels.check_cuda("selector_match", dev, *args, out)
+    SELECTOR_ROUTES["selector_match"] = route
     _kernels.KERNELS["selector_match"].launch(
-        dev, *(_kernels.ptr(a) for a in args), _kernels.ptr(out), n, w, s, cps
+        dev, *(_kernels.ptr(a) for a in args), _kernels.ptr(out), n, w, s, cps,
+        int(route == "staged"),
     )
     return out
