@@ -19,7 +19,11 @@
    route its layout names: edge_checks9; K3 on both trie layouts at
    ragged batch sizes and offset views, K1's staged and wide routes over
    W 1 to 800, S 1 to 640, CPS 0 to 3, N 0 to 2 048 and its conjunct
-   kinds: edge_checks10).
+   kinds: edge_checks10; K8 on its vector and scalar row reads, and K7's
+   class route on the same tables' byte classes, over odd and even
+   max_len from 0 to 256, offset views, B = 0 to 200 003, Q 126 tables
+   whose byte classes fit and do not, and a pair table _pair_table did
+   not build: edge_checks11).
 2. Builds the headline deployment of bench.py with the port's own
    modules: 10 000 rules over 512 apps (30% with an L4 port), 2 048
    identities with one /32 and one fd00::{hi}:{lo}/128 ipcache entry
@@ -62,7 +66,9 @@
      HTTP batch (131 072 port-80 flows to the redirecting peers) through
      Proxy.check_http.
    Each is held against the port's CPU path (a slice) and re.fullmatch
-   of the rules (400 requests), on and off.
+   of the rules (400 requests), on and off. K8's launches are printed
+   by table and shape with their route, Q and class table width C;
+   every one must take the "classes" route.
 4e. The services+CT main path, launch counts from zero: the bench world
    plus one egress rule per endpoint app (pods of zones z0-z3 on the
    service ports; the bench world alone has no egress rule, so every
@@ -191,7 +197,10 @@
    events around each) and the rest.
    K7 (both entries) and K8 are timed on the bench's L7 corpus
    (bench.py:266-430: 16 path patterns, 131 072 requests) at every
-   length rung, and K7 on the pattern-cap policy's fused table and at
+   length rung, K8 on its pair table (its bound on the pair table's
+   entries), K7 on the same rows on its [Q + 1, 256] and class routes
+   (the L7 walk of this table from 16-byte rows), and K7 on the pattern-cap
+   policy's fused table and at
    the shapes the L7 main path launched it (its launches by shape are
    printed; one redirect group's path batch, int32 at max_len 256, and
    one 16 384-row chunk of the pattern-cap table are timed, each with
@@ -1074,11 +1083,14 @@ class WalkRecorder:
     the launches of the shapes section 5 times (``keep``): wraps
     ops.dfa._walk, which every DFA walk wrapper calls. A shape is (part,
     entry, byte type, row width, max_len, Q, rows); ``part`` tags the
-    launches that follow it."""
+    launches that follow it. K8's launches are counted apart (``pairs``)
+    by (part, byte type, row width, max_len, Q, rows, the route the
+    launch took)."""
 
     def __init__(self, device_type: str = "cuda"):
         self.part = ""
         self.shapes = {}
+        self.pairs = {}
         self.device_type = device_type
 
     def keep(self, key) -> int:
@@ -1107,8 +1119,15 @@ class WalkRecorder:
                     hit[1].append((tuple(x.clone() for x in (table, accept_lo, accept_hi, starts,
                                                              str_bytes, lengths)), classes))
                 hit[0] += 1
-            return real(kernel, plain, table, width, accept_lo, accept_hi, starts, str_bytes,
-                        lengths, max_len, scalar_start, classes)
+            out = real(kernel, plain, table, width, accept_lo, accept_hi, starts, str_bytes,
+                       lengths, max_len, scalar_start, classes)
+            if (kernel == "dfa_pair_walk" and str_bytes.device.type == self.device_type
+                    and str_bytes.shape[0]):
+                route = dfa.WALK_ROUTES.get(kernel) if self.device_type == "cuda" else None
+                key = (self.part, str(str_bytes.dtype).replace("torch.", ""), str_bytes.shape[1],
+                       max_len, table.shape[0], str_bytes.shape[0], route)
+                self.pairs[key] = self.pairs.get(key, 0) + 1
+            return out
 
         dfa._walk = walk
         return self
@@ -1271,10 +1290,33 @@ def l7_main_path(seed: int, card: str, v4_flows, endpoints):
     for part in ("b", "c", "d"):
         if not (r[(part, "on")].any() and not r[(part, "on")].all()):
             fail(f"L7 {part}: the requests are all allowed or all denied")
-    r.update(walks=walks.shapes, pol_b=pol_b, reqs_b=reqs_b, k_rules=k_rules, k_reqs=k_reqs,
+    r.update(walks=walks.shapes, pairs=walks.pairs, pol_b=pol_b, reqs_b=reqs_b, k_rules=k_rules, k_reqs=k_reqs,
              frames=frames,
              proxy=proxy, groups=groups, reqs_d=reqs_d, repo=repo, reg=reg, labels_of=labels_of)
     return r
+
+
+def pair_walk_lines(pairs, card: str) -> None:
+    """Prints the L7 main path's K8 launches (a WalkRecorder's
+    ``pairs``) by table and shape: its route and Q; fails unless every
+    launch walked rows under PAIR_WALK_BELOW_RUNG bytes on the pair
+    route (a table with a pair table walks its byte classes on K7 from
+    there: ops/dfa.py l7_walk_route, and every main-path table has
+    them)."""
+    from cilium_tpu_torch.ops.dfa import PAIR_WALK_BELOW_RUNG
+
+    total = 0
+    for key in sorted(pairs, key=lambda k: (k[0], k[4], -pairs[k])):
+        part, dtype, width, max_len, q, rows, route = key
+        print(f"L7 main path K8 {part} table Q {q}: {dtype} width {width} max_len {max_len} "
+              f"rows {rows}, route {route}: {pairs[key]} launches [{card}]", flush=True)
+        if route is None or route[0] != "pair" or max_len >= PAIR_WALK_BELOW_RUNG:
+            fail(f"a K8 launch of the L7 main path took route {route} at max_len {max_len} "
+                 f"({part}, Q {q})")
+        total += pairs[key]
+    print(f"L7 main path K8: {total} launches over {len({(k[0], k[4]) for k in pairs})} "
+          f"(part, table) pairs, every one on the pair route under {PAIR_WALK_BELOW_RUNG} "
+          f"bytes a row [{card}]", flush=True)
 
 
 def walk_rows(shapes, row) -> None:
@@ -3329,6 +3371,199 @@ def edge_checks10(dev) -> None:
     torch.cuda.synchronize()
 
 
+def k8_edge_tables(rs):
+    """K8's edge tables: (name, pair [Q, 257 * 257], the single-step
+    table it was composed from or None, accept [Q] uint64, whether that
+    table's byte classes fit K7's class route).
+
+    - "edge automata": three fields of random patterns fused with
+      fuse_dfas (its pair table and byte classes);
+    - "Q 126, 40 columns": a synthetic [126, 256] table over 40 distinct
+      columns and its pair table: a [127, 48] class table;
+    - "Q 126, 256 columns": one whose 256 columns all differ, so that
+      its classes do not fit (256 classes and the sink's column) and the
+      L7 walk takes its pair table at every rung;
+    - "hand-made": a [40, 257 * 257] pair table that _pair_table did not
+      build (no single-step table, no classes), drawn as a [40, 9, 11]
+      table through random maps of both positions, a few entries
+      outside [0, Q) (-1, Q, Q + 5, 65 535) among them."""
+    import numpy as np
+
+    from cilium_tpu_torch.l7.regex_compile import compile_patterns
+    from cilium_tpu_torch.ops.dfa import PAIR_ALPHA, _pair_table, fuse_dfas
+
+    rng = random.Random(1111)
+    atoms = ["a", "b", "/", "[a-z]", "[0-9]", ".", "x+", "b*", "(ab|ba)", "c?", "[^a]"]
+
+    def pats(n):
+        return ["".join(rng.choice(atoms) for _ in range(rng.randrange(1, 6))) for _ in range(n)]
+
+    fused = fuse_dfas([compile_patterns(pats(rng.randrange(2, 8))) for _ in range(3)])
+    if fused.pair is None:
+        fail("the K8 edge automata are too large for a pair table")
+    out = [("edge automata", fused.pair, fused.trans, fused.accept, True)]
+    q = 126
+    for n_cols, fits in ((40, True), (256, False)):
+        base = rs.integers(0, q, (q, n_cols)).astype(np.int32)
+        trans = np.ascontiguousarray(base[:, rs.permutation(np.arange(256) % n_cols)])
+        out.append((f"Q 126, {n_cols} columns", _pair_table(trans), trans,
+                    rs.integers(0, 1 << 63, q, dtype=np.uint64), fits))
+    q = 40
+    small = rs.integers(0, q, (q, 9, 11)).astype(np.int32)
+    small[rs.random(small.shape) < 0.01] = rs.choice(np.array([-1, q, q + 5, 65535], np.int32))
+    m0, m1 = (rs.permutation(np.arange(PAIR_ALPHA) % n) for n in (9, 11))
+    pair = np.ascontiguousarray(small[:, m0][:, :, m1].reshape(q, -1))
+    out.append(("hand-made", pair, None, rs.integers(0, 1 << 63, q, dtype=np.uint64), False))
+    return out
+
+
+# K8's row layouts: (name, byte dtype, width, max_len, row offset, element
+# offset, bytes route); odd and even max_len from 0 to 256, rows wider
+# than max_len
+K8_LAYOUTS = [
+    ("u8 w16 max_len 0", "uint8", 16, 0, 0, 0, "vector"),
+    ("u8 w16 max_len 1", "uint8", 16, 1, 0, 0, "vector"),
+    ("u8 w16 max_len 15", "uint8", 16, 15, 0, 0, "vector"),
+    ("u8 w32 max_len 16", "uint8", 32, 16, 0, 0, "vector"),
+    ("u8 w32 max_len 17", "uint8", 32, 17, 0, 0, "vector"),
+    ("u8 w33 max_len 33", "uint8", 33, 33, 0, 0, "scalar"),
+    ("u8 w64 max_len 63", "uint8", 64, 63, 0, 0, "vector"),
+    ("u8 w128 max_len 128", "uint8", 128, 128, 0, 0, "vector"),
+    ("u8 w256 max_len 255", "uint8", 256, 255, 0, 0, "vector"),
+    ("u8 w256 max_len 256", "uint8", 256, 256, 0, 0, "vector"),
+    ("u8 w20 max_len 18 one row in", "uint8", 20, 18, 1, 0, "scalar"),
+    ("u8 w16 max_len 16 one row in", "uint8", 16, 16, 1, 0, "vector"),
+    ("u8 w16 max_len 16 one element in", "uint8", 16, 16, 0, 1, "scalar"),
+    ("i32 w4 max_len 3", "int32", 4, 3, 0, 0, "vector"),
+    ("i32 w8 max_len 8", "int32", 8, 8, 0, 0, "vector"),
+    ("i32 w7 max_len 7", "int32", 7, 7, 0, 0, "scalar"),
+    ("i32 w20 max_len 17", "int32", 20, 17, 0, 0, "vector"),
+    ("i32 w256 max_len 256", "int32", 256, 256, 0, 0, "vector"),
+    ("i32 w8 max_len 5 one row in", "int32", 8, 5, 1, 0, "vector"),
+    ("i32 w8 max_len 8 one element in", "int32", 8, 8, 0, 1, "scalar"),
+]
+
+
+def edge_checks11(dev) -> None:
+    """K8 against its plain version, exactly, on both of its row reads,
+    and each launch's route against the one the case names: the tables
+    of k8_edge_tables (byte classes that fit, at Q 126 too, a Q 126 table
+    whose classes do not, and a pair table _pair_table did not build);
+    uint8 and int32 bytes over K8_LAYOUTS (odd and even max_len from 0
+    to 256, widths past max_len, views one row and one element in, so
+    the vector route falls back to scalar), lengths -1, 0 and at, under
+    and past every 16-byte chunk's end and past max_len, starts outside
+    [0, Q), int32 bytes -1, 256 and 2^20; B = 1, 255, 257 and 200 003
+    (several rows a thread of the persistent grid), and B = 0 (no
+    launch). Where the pair table was composed from a single-step table,
+    the pair walk equals K7's walk on it, and on its byte classes (the
+    class route, which the L7 walk takes for such a table from 16-byte
+    rows: ops/dfa.py l7_walk_route). The C entry refuses a route its
+    inputs do not allow."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch import _kernels
+    from cilium_tpu_torch.ops import dfa as dfamod
+    from cilium_tpu_torch.ops.dfa import (
+        accept_words, class_table, dfa_match_batch_classes, dfa_match_batch_fused,
+        dfa_match_batch_pair, dfa_pair_walk_plain,
+    )
+
+    rs = np.random.default_rng(1111)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    k8 = _kernels.KERNELS["dfa_pair_walk"]
+    tables = k8_edge_tables(rs)
+    for tname, pair, trans, accept, has_classes in tables:
+        q = pair.shape[0]
+        form = None if trans is None else class_table(trans)
+        if (form is not None) != has_classes:
+            fail(f"class_table of the {tname} table: {form is not None}")
+        cls = None if form is None else tuple(t(a) for a in form)
+        pr, tr = t(pair), None if trans is None else t(trans)
+        lo, hi = (t(w) for w in accept_words(accept))
+        accepted = 0
+        for name, dtype, width, max_len, row_off, elem_off, want_bytes in K8_LAYOUTS:
+            for b in (1, 255, 257, 200_003 if name in ("u8 w256 max_len 255", "i32 w20 max_len 17")
+                      else 1_999):
+                if dtype == "uint8":
+                    sb = rs.choice(np.frombuffer(b"ab/xyz019c\x00", np.uint8), (b, width))
+                    sb[rs.random(sb.shape) < 0.05] = rs.integers(0, 256)
+                    ch = 16
+                else:
+                    sb = rs.integers(0, 256, (b, width)).astype(np.int32)
+                    sb[rs.random(sb.shape) < 0.002] = rs.choice(np.array([-1, 256, 1 << 20],
+                                                                         np.int32))
+                    ch = 4
+                edges = [-1, 0, max_len, max_len + 1, max_len + 7] + [
+                    c * ch + d for c in range(1, max_len // ch + 1) for d in (-1, 0, 1)]
+                lens = np.array(edges, np.int32)[np.arange(b) % len(edges)]
+                lens = np.where(rs.random(b) < 0.5, lens,
+                                rs.integers(-1, max_len + 3, b)).astype(np.int32)
+                starts = rs.integers(0, q, b).astype(np.int32)
+                starts[rs.random(b) < 0.01] = rs.choice(np.array([-1, q, q + 100], np.int32))
+                args = (lo, hi, t(starts), strided_view(sb, row_off, elem_off, dev), t(lens),
+                        max_len)
+                want = dfa_pair_walk_plain(pr, *args)
+                if any(max_abs_err(g, w) for g, w in zip(dfa_match_batch_pair(pr, *args), want)):
+                    fail(f"dfa_pair_walk disagrees on the {tname} table, {name}, B = {b}")
+                if dfamod.WALK_ROUTES["dfa_pair_walk"] != ("pair", want_bytes):
+                    fail(f"dfa_pair_walk took route {dfamod.WALK_ROUTES['dfa_pair_walk']} on "
+                         f"the {tname} table, {name}; expected {('pair', want_bytes)}")
+                if tr is not None and any(max_abs_err(g, w) for g, w in zip(
+                        want, dfa_match_batch_fused(tr, *args))):
+                    fail(f"the pair walk and the single-byte walk differ on the {tname} table, "
+                         f"{name}, B = {b}")
+                if cls is not None:
+                    if any(max_abs_err(g, w) for g, w in zip(
+                            want, dfa_match_batch_classes(tr, *cls, *args))):
+                        fail(f"the pair walk and K7's class walk differ on the {tname} table, "
+                             f"{name}, B = {b}")
+                    if dfamod.WALK_ROUTES["dfa_walk_fused"] != ("classes", want_bytes):
+                        fail(f"K7 took route {dfamod.WALK_ROUTES['dfa_walk_fused']} on the "
+                             f"{tname} table's classes, {name}")
+                accepted += int((want[0] != 0).sum())
+        if not accepted:
+            fail(f"no row of the K8 edge cases on the {tname} table was accepted")
+        # B = 0: no launch
+        before = k8.launches
+        empty = (lo, hi, t(np.zeros(0, np.int32)), t(np.zeros((0, 16), np.uint8)),
+                 t(np.zeros(0, np.int32)), 16)
+        if dfa_match_batch_pair(pr, *empty)[0].shape != (0,):
+            fail("an empty pair-walk batch returned rows")
+        if k8.launches != before:
+            fail("an empty pair-walk batch launched a kernel")
+    # the C entry refuses a route its inputs do not allow
+    _, pair, _, accept, _ = tables[0]
+    pr = t(pair)
+    lo, hi = (t(w) for w in accept_words(accept))
+    b = 64
+    st, ln = t(np.zeros(b, np.int32)), t(np.full(b, 16, np.int32))
+    out_lo, out_hi = (torch.empty(b, dtype=torch.int32, device=dev) for _ in range(2))
+    aligned = t(np.zeros((b, 16), np.uint8))
+    odd = strided_view(np.zeros((b, 16), np.uint8), 0, 1, dev)
+    for what, bytes_, size, vec in (
+        ("2-byte bytes", aligned, 2, 0),
+        ("vector bytes on a misaligned row", odd, 1, 1),
+        ("vector bytes on a 17-byte row", t(np.zeros((b, 17), np.uint8)), 1, 1),
+    ):
+        before = k8.launches
+        try:
+            k8.launch(dev, pr.data_ptr(), pair.shape[0], lo.data_ptr(), hi.data_ptr(),
+                      st.data_ptr(), bytes_.data_ptr(), size, bytes_.shape[1], 16, ln.data_ptr(),
+                      out_lo.data_ptr(), out_hi.data_ptr(), b, vec)
+        except RuntimeError:
+            pass
+        else:
+            fail(f"the dfa_pair_walk C entry took {what}")
+        if k8.launches != before:
+            fail("a refused dfa_pair_walk launch was counted")
+    torch.cuda.synchronize()
+
+
 class KernelClock:
     """CUDA events around every launch of the named kernels, by wrapping
     Kernel.launch while it is entered: ``ms()`` is the card's busy time
@@ -5235,6 +5470,7 @@ def main() -> None:
     edge_checks8(dev)
     edge_checks9(dev)
     edge_checks10(dev)
+    edge_checks11(dev)
     print("edge shapes: every kernel equals its plain version (ragged K1/K2, "
           "16-8-8 K3, 1 280-column / 2 100-endpoint K4; K2 at every tile edge of "
           f"{len(k2_edge_shapes())} shapes, non-contiguous, bool and misaligned operands;  4- and 16-level K5 with "
@@ -5262,9 +5498,11 @@ def main() -> None:
           "entry at strides 16, 20, 17, 5 and 4, views one row and one element in, K 0, 2, 13 "
           "and 16, bytes outside [0, 255] compared and walked; K3 on both layouts at B = 0 to "
           "200 003 and offset views; K1 on its staged and wide routes at W 0 to 800, S 0 to 640, "
-          "CPS 0 to 3, N 0 to 2 048, dense and empty conjuncts, offset rows and conjuncts; each "
-          "launch on the route its layout names, and the C entries refuse a route their inputs "
-          "do not allow)",
+          "CPS 0 to 3, N 0 to 2 048, dense and empty conjuncts, offset rows and conjuncts; K8 on "
+          "its classes and L2 routes over odd and even max_len from 0 to 256, uint8 and int32 "
+          "bytes, offset views, B = 0 to 200 003, Q 126 tables whose classes fit and do not "
+          "and a hand-made pair table; each launch on the route its layout names, ill-formed "
+          "class forms refused, and the C entries refuse a route their inputs do not allow)",
           flush=True)
 
     # -- 2. world --------------------------------------------------------
@@ -5559,6 +5797,10 @@ def main() -> None:
     if off["dfa_walk_fused"] or off["dfa_pair_walk"] or not off["dfa_walk"]:
         fail(f"the L7DeviceBatch-off path launched {off}")
     check_path("l7", ["dfa_walk", "dfa_walk_fused", "dfa_pair_walk"])
+    pair_walk_lines(l7res["pairs"], card)
+    if sum(l7res["pairs"].values()) != launches["l7"]["dfa_pair_walk"]:
+        fail(f"the L7 main path's K8 launches by shape {sum(l7res['pairs'].values())} differ from "
+             f"its count {launches['l7']['dfa_pair_walk']}")
 
     # -- 4d. L7 against the CPU path and the rules' oracle -----------------
     t0 = time.perf_counter()
@@ -5612,7 +5854,7 @@ def main() -> None:
     def route_of(name):
         """The path the kernel's latest launch took inside it (K7, K5,
         K11's stride-8 entry), else None."""
-        if name in ("dfa_walk", "dfa_walk_fused"):
+        if name in ("dfa_walk", "dfa_walk_fused", "dfa_pair_walk"):
             return " + ".join(dfamod.WALK_ROUTES[name])
         if name in ("lpm_stride8", "shed_walk_stride8"):
             return lpmmod.STRIDE8_ROUTES[name]
@@ -5892,14 +6134,29 @@ def main() -> None:
     table = DeviceDFATable(("bench-l7",), fuse_dfas([mdfa]))
     if not table.has_pair:
         fail("the bench corpus's fused table has no pair table")
+    if table.class_trans is None:
+        fail("the bench corpus's table has no class table")
+    bcls = (table.byte_class, table.class_trans)
+    print(f"bench corpus pair table [{table.n_states}, 257 x 257] ({nbytes(table.pair)} bytes); "
+          f"class table {list(table.class_trans.shape)} ({table.class_bytes} bytes with its "
+          f"class map)", flush=True)
     st = torch.from_numpy(np.repeat(table.starts_host, L7_BATCH)).to(dev)
     for rung in L7_LEN_LADDER:
         rp = l7_paths if rung == L7_LEN_LADDER[0] else [(x + b"x" * rung)[:rung] for x in l7_paths]
         usb, ul = (torch.from_numpy(a).to(dev) for a in strings_to_batch_u8(rp, rung))
         a8 = (table.accept_lo, table.accept_hi, st, usb, ul, rung)
-        for name, rep, fn, plain, tab, pair in (
-            ("dfa_walk_fused", ":236", dfa_match_batch_fused, dfa_walk_plain, table.trans, False),
-            ("dfa_pair_walk", ":264", dfa_match_batch_pair, dfa_pair_walk_plain, table.pair, True),
+        # K8 on the pair table (bound on the pair table's entries), then
+        # K7 on the same rows: its [Q + 1, 256] table and its byte classes
+        # in shared memory (the L7 pipeline's walk of this table from
+        # 16-byte rows: ops/dfa.py l7_walk_route)
+        for name, rep, fn, plain, tab, pair, what in (
+            ("dfa_pair_walk", ":264", dfa_match_batch_pair, dfa_pair_walk_plain, table.pair,
+             True, "pair table"),
+            ("dfa_walk_fused", ":236", dfa_match_batch_fused, dfa_walk_plain, table.trans, False,
+             "[Q + 1, 256] table"),
+            ("dfa_walk_fused", ":236",
+             lambda tr, *a: dfa_match_batch_classes(tr, *bcls, *a), dfa_walk_plain, table.trans,
+             False, "byte classes"),
         ):
             k_out = fn(tab, *a8)
             if not bool((k_out[0] != 0).all()):
@@ -5910,7 +6167,8 @@ def main() -> None:
                 max(max_abs_err(x, y) for x, y in zip(k_out, plain(tab, *a8))),
                 lambda fn=fn, tab=tab, a8=a8: fn(tab, *a8),
                 lambda plain=plain, tab=tab, a8=a8: plain(tab, *a8), b_ms, b_by,
-                f"{L7_BATCH} paths, uint8 bytes, rung {rung}, Q {table.n_states}", graph=True)
+                f"{L7_BATCH} paths, uint8 bytes, rung {rung}, Q {table.n_states}, {what}",
+                graph=True)
     # K7's fused entry on the pattern-cap policy's table (Q 735, no pair
     # table) over its main-path batch packed as submit() packs it, in
     # one launch, through its class table as the pipeline walks it (the

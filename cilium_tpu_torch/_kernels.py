@@ -245,9 +245,9 @@ KERNELS: Dict[str, Kernel] = {
         Kernel("dfa_walk_fused", "cilium_dfa_walk",
                [_P, _I, _P, _P, _P, _I, _P, _I, _I, _I, _P, _P, _P, _L, _I, _I, _P, _P, _I]),
         # pair, q, accept_lo, accept_hi, starts, bytes, byte_size,
-        # row_stride, max_len, lengths, out_lo, out_hi, b
+        # row_stride, max_len, lengths, out_lo, out_hi, b, vec_bytes
         Kernel("dfa_pair_walk", "cilium_dfa_pair_walk",
-               [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _L]),
+               [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _L, _I]),
         # the two entries of K9 lb_translate. index build: fe_bytes,
         # fe_port, fe_proto, f, l, index, n_slots
         Kernel("lb_index_build", "cilium_lb_index_build", [_P, _P, _P, _I, _I, _P, _L]),

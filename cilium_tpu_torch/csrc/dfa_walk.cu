@@ -4,7 +4,8 @@
 // int32 bytes: the L7DeviceBatch-off path of every HTTP field) and
 // :236 dfa_match_batch_fused (per-row starts into a stacked multi-field
 // table, uint8 bytes: the L7DeviceBatch-on path when the fused table
-// has no pair table). One thread per row:
+// has no pair table, or has byte classes and rows of 16 bytes or more:
+// ops/dfa.py l7_walk_route). One thread per row:
 //
 //   state = starts[i * start_stride]        (stride 0: one scalar start)
 //   for lvl in 0 .. min(length, max_len) - 1:
@@ -36,7 +37,10 @@
 //   shared-memory read and a select (a step past the row's end keeps
 //   the state), with no branch in a chunk's steps, and a walk that ends
 //   in Q gives mask 0. A chunk's columns are looked up before its
-//   steps.
+//   steps. A row of the class route read one element a step goes two
+//   steps a pair with the sink in place of a bound check, 2-16% faster
+//   than a step and a check a byte (tools/k8_probe.py); on 16-byte rows
+//   two steps a pair gained nothing there or on the [Q + 1, 256] route.
 //   * "shared": each block's prologue copies trans as uint16 [Q + 1,
 //     256] rows (the sink row last) while the first row's length and
 //     start are in flight; for Q <= SMEM_MAX_Q.
@@ -44,16 +48,18 @@
 //     columns of trans are equal: ops/dfa.py class_table, built once
 //     per DeviceDFATable as a uint16 [Q + 1, C] class table whose last
 //     column and row lead to the sink, and a [256] class map), copied
-//     as they are, when (Q + 1) x C <= SMEM_ENTRIES: a smaller copy,
-//     and a table that fits where the [Q, 256] one does not (the
-//     pattern-cap policy's Q 735 has 43 classes).
+//     by asynchronous 16-byte copies while the class map is read, then
+//     clamped to the sink (an entry past Q or a class past the table
+//     leads to it, so no step leaves the table), when (Q + 1) x C <=
+//     SMEM_ENTRIES: a smaller copy, and a table that fits where the
+//     [Q, 256] one does not (the pattern-cap policy's Q 735 has 43
+//     classes; the bench corpus's is 2.9 KB: Q 59, 24 columns).
 //   The grid is persistent and one block an SM where it can be, so a
 //   table is copied once an SM, not once per 256 rows.
 // - "l2": any other table is gathered through L1 / L2; a bad byte or
 //   state clears ``alive`` and the walk goes on from state 0 to the
 //   chunk's end, so no branch is in a chunk's steps there either.
 #include <algorithm>
-#include <mutex>
 
 #include "common.cuh"
 
@@ -104,14 +110,12 @@ __device__ __forceinline__ int shared_step(const Walk& p, const uint16_t* s_tran
     return (int)s_trans[col < 0 ? p.q * 256 : state * 256 + col];
 }
 
-// element j (a compile-time index once unrolled) of a 16-byte chunk
-template <typename ByteT>
-__device__ __forceinline__ int element(const uint4& c, int j) {
-    constexpr int PER_WORD = 4 / sizeof(ByteT);
-    const int k = j / PER_WORD;
-    const uint32_t w = k == 0 ? c.x : k == 1 ? c.y : k == 2 ? c.z : c.w;
-    if (sizeof(ByteT) == 1) return (int)((w >> ((j & 3) * 8)) & 0xFFu);
-    return (int)w;
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
 }
 
 // One row's walk: the final state, or -1 once it met a byte outside
@@ -133,7 +137,8 @@ __device__ __forceinline__ int walk_row(const Walk& p, const uint16_t* s_trans,
             // the chunk's columns first: none of them waits on the state
             int col[CH];
 #pragma unroll
-            for (int j = 0; j < CH; ++j) col[j] = column<TAB>(p, s_class, element<ByteT>(cur, j));
+            for (int j = 0; j < CH; ++j)
+                col[j] = column<TAB>(p, s_class, chunk_element<ByteT>(cur, j));
 #pragma unroll
             for (int j = 0; j < CH; ++j) {
                 const bool in = j < left;
@@ -149,6 +154,16 @@ __device__ __forceinline__ int walk_row(const Walk& p, const uint16_t* s_trans,
             }
             if (TAB == TAB_L2 && !alive) return -1;
             cur = nxt;
+        }
+        return (unsigned)state < q ? state : -1;
+    }
+    if (TAB == TAB_CLASSES) {  // two steps a pair, the sink in place of a bound check
+        for (int lvl = 0; lvl < end; lvl += 2) {
+            state = shared_step<TAB>(p, s_trans, state,
+                                     column<TAB>(p, s_class, (int)__ldg(row + lvl)));
+            if (lvl + 1 < end)
+                state = shared_step<TAB>(p, s_trans, state,
+                                         column<TAB>(p, s_class, (int)__ldg(row + lvl + 1)));
         }
         return (unsigned)state < q ? state : -1;
     }
@@ -179,15 +194,33 @@ __global__ void __launch_bounds__(MAX_THREADS) dfa_walk_kernel(Walk p) {
     const uint8_t* s_class = nullptr;
     if (TAB == TAB_CLASSES) {
         const int n = (p.q + 1) * p.classes;
-        if (((uintptr_t)p.class_trans & 15) == 0 && n % 8 == 0) {
-#pragma unroll 8
-            for (int e = threadIdx.x; e < n / 8; e += blockDim.x)
-                ((uint4*)s_trans)[e] = __ldg((const uint4*)p.class_trans + e);
-        } else {
-            for (int e = threadIdx.x; e < n; e += blockDim.x) s_trans[e] = p.class_trans[e];
-        }
         uint8_t* cls = (uint8_t*)(s_trans + ((n + 7) & ~7));
-        for (int e = threadIdx.x; e < 256; e += blockDim.x) cls[e] = __ldg(p.byte_class + e);
+        const uint32_t qq = (uint32_t)p.q * 0x10001u;  // Q in both halves of a word
+        const bool async = ((uintptr_t)p.class_trans & 15) == 0 && n % 8 == 0;
+        if (async) {
+            const uint32_t base = (uint32_t)__cvta_generic_to_shared(s_trans);
+            for (int e = threadIdx.x; e < n / 8; e += blockDim.x)
+                cp_async16(base + 16u * e, (const uint4*)p.class_trans + e);
+        } else {
+            for (int e = threadIdx.x; e < n; e += blockDim.x)
+                s_trans[e] = (uint16_t)min((int)p.class_trans[e], p.q);
+        }
+        // the class map while the copies are in flight, a class past
+        // the table taken as the sink's column
+        for (int e = threadIdx.x; e < 256; e += blockDim.x)
+            cls[e] = (uint8_t)min((int)__ldg(p.byte_class + e), p.classes - 1);
+        if (async) {
+            // each thread clamps the entries it copied, once they landed
+            cp_async_wait_all();
+            for (int e = threadIdx.x; e < n / 8; e += blockDim.x) {
+                uint4 v = ((uint4*)s_trans)[e];
+                v.x = __vminu2(v.x, qq);
+                v.y = __vminu2(v.y, qq);
+                v.z = __vminu2(v.z, qq);
+                v.w = __vminu2(v.w, qq);
+                ((uint4*)s_trans)[e] = v;
+            }
+        }
         s_class = cls;
         __syncthreads();
     } else if (TAB == TAB_SHARED) {
@@ -236,60 +269,6 @@ __global__ void __launch_bounds__(MAX_THREADS) dfa_walk_kernel(Walk p) {
     }
 }
 
-// Asked once, not at every launch: per (device, kernel) the SM count
-// (and the shared-memory limit raised), per (device, kernel, block,
-// shared bytes) the blocks an SM holds
-std::mutex fit_mu;
-struct Dev {
-    int device;
-    const void* kern;
-    int sms;
-};
-struct Fit {
-    int device;
-    const void* kern;
-    int threads;
-    size_t smem;
-    int per_sm;
-};
-Dev devs[64];
-Fit fits[256];
-int n_devs = 0, n_fits = 0;
-
-int sm_count(const void* kern, bool raise, int device, int& sms) {
-    std::lock_guard<std::mutex> hold(fit_mu);
-    for (int k = 0; k < n_devs; ++k) {
-        if (devs[k].device == device && devs[k].kern == kern) {
-            sms = devs[k].sms;
-            return 0;
-        }
-    }
-    int err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err) return err;
-    if (raise) {
-        err = (int)cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                        SMEM_MAX_BYTES);
-        if (err) return err;
-    }
-    if (n_devs < 64) devs[n_devs++] = Dev{device, kern, sms};
-    return 0;
-}
-
-int blocks_per_sm(const void* kern, int device, int threads, size_t smem, int& per_sm) {
-    std::lock_guard<std::mutex> hold(fit_mu);
-    for (int k = 0; k < n_fits; ++k) {
-        const Fit& f = fits[k];
-        if (f.device == device && f.kern == kern && f.threads == threads && f.smem == smem) {
-            per_sm = f.per_sm;
-            return 0;
-        }
-    }
-    int err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
-    if (err) return err;
-    if (n_fits < 256) fits[n_fits++] = Fit{device, kern, threads, smem, per_sm};
-    return 0;
-}
-
 template <typename ByteT, int TAB, bool VEC>
 int launch(Walk& p, int device, cudaStream_t stream) {
     auto kern = dfa_walk_kernel<ByteT, TAB, VEC>;
@@ -300,7 +279,7 @@ int launch(Walk& p, int device, cudaStream_t stream) {
                       : TAB == TAB_SHARED ? (size_t)entries * 2
                                           : (size_t)((entries + 7) & ~7) * 2 + 256;
     int sms = 0, per_sm = 0;
-    int err = sm_count(k, smem_table, device, sms);
+    int err = launch_fit::sm_count(k, smem_table ? SMEM_MAX_BYTES : 0, device, sms);
     if (err) return err;
     // a shared table is copied once a block: one block an SM covers the
     // batch where it can (blocks of 256 to 1 024); the L2 walk takes
@@ -311,7 +290,7 @@ int launch(Walk& p, int device, cudaStream_t stream) {
         threads = 256;
         while (threads < MAX_THREADS && threads < per) threads *= 2;
     }
-    err = blocks_per_sm(k, device, threads, smem, per_sm);
+    err = launch_fit::blocks_per_sm(k, device, threads, smem, per_sm);
     if (err) return err;
     const int64_t blocks = std::min<int64_t>((p.b + threads - 1) / threads,
                                              (int64_t)sms * std::max(per_sm, 1));

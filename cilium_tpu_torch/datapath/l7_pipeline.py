@@ -40,6 +40,7 @@ from ..ops.dfa import (
     dfa_match_batch_classes,
     dfa_match_batch_fused,
     dfa_match_batch_pair,
+    l7_walk_route,
     len_rung,
     masks_u64,
     strings_to_batch_u8,
@@ -166,11 +167,12 @@ class L7Pipeline:
               starts: np.ndarray, rung: int):
         dev = self.device
         args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (starts, sb, lens)]
-        if table.has_pair:
+        route = l7_walk_route(table.has_pair, table.class_trans is not None, rung)
+        if route == "pair":
             return dfa_match_batch_pair(
                 table.pair, table.accept_lo, table.accept_hi, *args, rung,
             )
-        if table.class_trans is not None:
+        if route == "classes":
             return dfa_match_batch_classes(
                 table.trans, table.byte_class, table.class_trans, table.accept_lo,
                 table.accept_hi, *args, rung,

@@ -26,7 +26,9 @@ kernel on a CUDA tensor and run its plain version on a CPU tensor:
   ``dfa_walk`` and ``dfa_walk_fused``; the path each launch takes
   inside the kernel is :func:`dfa_walk_route`'s;
 - :func:`dfa_match_batch_pair`: the ``dfa_pair_walk`` kernel
-  (csrc/dfa_pair_walk.cu, plain :func:`dfa_pair_walk_plain`).
+  (csrc/dfa_pair_walk.cu, plain :func:`dfa_pair_walk_plain`); its row
+  reads are :func:`dfa_pair_walk_route`'s. Which of the walks an
+  interned table takes on the L7 path is :func:`l7_walk_route`'s.
 
 Where the JAX walks gather out of range (a state outside [0, Q), or an
 int32 byte outside [0, 255] given to ``dfa_match_batch``), ``jnp.take``
@@ -138,8 +140,9 @@ DFA_SHARED_MIN_ROWS = 1 << 16
 # the kernel's table routes (csrc/dfa_walk.cu Table)
 WALK_TABLES = {"l2": 0, "shared": 1, "classes": 2}
 
-# The route of each K7 entry's latest launch on the card: (table, bytes)
-# as dfa_walk_route gives it, keyed by kernel name.
+# The route of each K7 entry's and K8's latest launch on the card:
+# (table, bytes) as dfa_walk_route gives it, or ("pair",
+# dfa_pair_walk_route) for K8, keyed by kernel name.
 WALK_ROUTES: Dict[str, Tuple[str, str]] = {}
 
 
@@ -206,6 +209,39 @@ def class_table(trans: np.ndarray) -> Optional[Tuple[np.ndarray, np.ndarray]]:
     out = np.full((q + 1, width), q, np.uint16)
     out[:q, :ct.shape[1]] = np.where((ct >= 0) & (ct < q), ct, q)
     return byte_class, out.view(np.int16)
+
+
+def dfa_pair_walk_route(row_stride: int, elem_size: int, data_ptr: int) -> str:
+    """How a ``dfa_pair_walk`` launch reads its rows: K7's rule
+    (:func:`dfa_walk_route`), "vector" (16-byte loads, whole pairs) when
+    the row stride in bytes and the base pointer are multiples of 16,
+    else "scalar". The C entry refuses "vector" where it does not hold."""
+    vec = (row_stride * elem_size) % 16 == 0 and data_ptr % 16 == 0
+    return "vector" if vec else "scalar"
+
+
+# The L7 walk takes a table's pair table (K8) for rows under this many
+# bytes, its byte classes (K7) from it: tools/k8_probe.py on the bench
+# corpus and the main path's shapes.
+PAIR_WALK_BELOW_RUNG = L7_LEN_LADDER[0]
+
+
+def l7_walk_route(has_pair: bool, has_classes: bool, rung: int) -> str:
+    """Which walk an interned table's L7 batch at ``rung`` bytes a row
+    takes → "pair" (:func:`dfa_match_batch_pair`, K8), "classes"
+    (:func:`dfa_match_batch_classes`, K7's class route) or "fused"
+    (:func:`dfa_match_batch_fused`, K7). The reference walks every table
+    with a pair table through it; the results are equal (the pair walk's
+    one reference fault aside, see above). A table with byte classes
+    (:func:`class_table`) walks them from shared memory at rungs from
+    PAIR_WALK_BELOW_RUNG up, faster than the pair table's one gather a
+    pair at every lane rung the pipeline launches there
+    (tools/k8_probe.py); under it a row is less than one 16-byte vector
+    and a short pair walk pays no table copy, so a pair table takes it.
+    A table without classes walks its pair table where it has one."""
+    if has_pair and (rung < PAIR_WALK_BELOW_RUNG or not has_classes):
+        return "pair"
+    return "classes" if has_classes else "fused"
 
 
 def _accept(alive, state, accept_lo, accept_hi):
@@ -331,8 +367,10 @@ def _walk(kernel, plain, table, width, accept_lo, accept_hi, starts,
     _kernels.check_cuda(kernel, dev, *args, out_lo, out_hi)
     tab, lo, hi, st, sb, ln = args
     head = [tab.data_ptr(), tab.shape[0], lo.data_ptr(), hi.data_ptr(), st.data_ptr()]
-    tail = []
-    if kernel != "dfa_pair_walk":
+    if kernel == "dfa_pair_walk":
+        route = ("pair", dfa_pair_walk_route(sb.shape[1], sb.element_size(), sb.data_ptr()))
+        tail = [int(route[1] == "vector")]
+    else:
         head.append(0 if scalar_start else 1)  # dfa_walk's start stride
         n_cls = 0 if classes is None else classes[1].shape[1]
         route = dfa_walk_route(tab.shape[0], b, sb.shape[1], sb.element_size(), sb.data_ptr(),
@@ -342,7 +380,7 @@ def _walk(kernel, plain, table, width, accept_lo, accept_hi, starts,
             byte_class, class_trans = (x.contiguous() for x in classes)
             cls = [byte_class.data_ptr(), class_trans.data_ptr(), n_cls]
         tail = [WALK_TABLES[route[0]], int(route[1] == "vector"), *cls]
-        WALK_ROUTES[kernel] = route
+    WALK_ROUTES[kernel] = route
     _kernels.KERNELS[kernel].launch(
         dev, *head, sb.data_ptr(), sb.element_size(), sb.shape[1], max_len,
         ln.data_ptr(), out_lo.data_ptr(), out_hi.data_ptr(), b, *tail,
