@@ -23,7 +23,11 @@
    class route on the same tables' byte classes, over odd and even
    max_len from 0 to 256, offset views, B = 0 to 200 003, Q 126 tables
    whose byte classes fit and do not, and a pair table _pair_table did
-   not build: edge_checks11).
+   not build: edge_checks11; K11's IPv6 entry on its vector and
+   scalar routes at K 0 to 16, levels 8 / 12 / 16, B = 0 to 1 048 583,
+   addresses that differ from a stored prefix in each byte 0-15, bytes
+   outside [0, 255] in either 32-byte sector of a row and rows past the
+   shed table, and the C entry's refusals: edge_checks12).
 2. Builds the headline deployment of bench.py with the port's own
    modules: 10 000 rules over 512 apps (30% with an L4 port), 2 048
    identities with one /32 and one fd00::{hi}:{lo}/128 ipcache entry
@@ -124,7 +128,8 @@
    peers moved to the world): shed lanes DROP_PREFILTER, no lane the
    ungated run forwards shed, kept lanes equal, admission_shed_total
    and drop_reasons_total{producer="admission"} moved by the shed
-   count; the _shed_walk and process() wall times.
+   count; the _shed_walk and process() wall times; the route of the v6
+   gate's K11 launch, printed.
 4h. The incremental-update main path, launch counts from zero, on a
    bench world of its own (bench.py:2622-2770 without the epoch swap):
    the full refresh + forced rebuild for comparison; then through
@@ -221,7 +226,11 @@
    printed). K3, K5 and K11 (both entries) are timed on both clocks
    too; K11 on the gate's deny-heavy batches, its bound the trie bytes
    its identity walk touches, 9 bytes a flow and the shed table's
-   sectors. K12 is timed over both ident shards of the
+   sectors; its v6 entry on each route (vector, scalar: views 0 and 1
+   int32 in) on the deny-heavy and the ungated batch, each beside its
+   sector floor (what a read of only the 32-byte sectors the walk needs
+   would move: one of a lane's two when its compare fails in bytes
+   0-7, plus dport, proto and out). K12 is timed over both ident shards of the
    mesh phase's ingress id_bits (one launch, as the several-device
    route makes it a block; one card's 2D batch reads in place instead)
    on a 16 384-lane block of peer rows, its bound the block's rows
@@ -233,8 +242,9 @@
    shard lists of one v4 batch and one attributed v4 batch, a whole
    524 288-flow shard a call (one of each timed).
 
-Prints the card's name and power limit, one JSON line with every
-kernel's numbers and, last, the result line
+Prints each phase's wall time as it ends ("phase ..." lines, the
+numbers of the sections above), then the card's name and power limit,
+one JSON line with every kernel's numbers and, last, the result line
 {"ok": true, "device": {...}}. Any failure exits non-zero before that
 line. Without CUDA it exits non-zero at once.
 """
@@ -3564,6 +3574,133 @@ def edge_checks11(dev) -> None:
     torch.cuda.synchronize()
 
 
+# K11's v6 edge cases: (K, levels) with K <= levels on both sides of
+# byte 8 (where a 64-byte int32 row's second 32-byte sector starts),
+# batch sizes around a warp and a block, and views whose offsets take
+# each route (int32 elements in: 0, 4 and 8 on 16 bytes, 1 on neither)
+K11_EDGE_KL = tuple((k, lv) for lv in (8, 12, 16) for k in (0, 7, 8, 9, 13, 16) if k <= lv)
+K11_EDGE_B = (0, 1, 31, 33, 4_097)
+K11_EDGE_BIG = 1_048_583
+K11_EDGE_OFFSETS = {0: "vector", 1: "scalar", 4: "vector", 8: "vector"}
+
+
+def k11_edge_case(rs, k: int, n_rows: int):
+    """A stride-8 trie over address bytes k.. of 40 prefixes sharing
+    ``base[:k]`` (tails 1 to 16 - k bytes, values 0 .. n_rows + 7: some
+    point past an [n_rows, 9] table), ``common`` = ``base[:k]``, and
+    addresses: each prefix's full 16 bytes as it is and with byte j
+    changed, for each j in 0-15."""
+    import numpy as np
+
+    from cilium_tpu_torch.ops.lpm import TrieBuilder
+
+    base = rs.integers(0, 256, 16)
+    trie = TrieBuilder(max(16 - k, 1))
+    stored = []
+    for _ in range(40 if k < 16 else 0):
+        a = base.copy()
+        a[k:] = rs.integers(0, 256, 16 - k)
+        trie.insert(bytes(int(x) for x in a[k:]), 8 * int(rs.integers(1, 16 - k + 1)),
+                    int(rs.integers(0, n_rows + 8)))
+        stored.append(a)
+    stored = np.array(stored or [base], np.int32)
+    rows = [stored]
+    for j in range(16):
+        a = stored.copy()
+        a[:, j] = (a[:, j] + rs.integers(1, 256, a.shape[0])) % 256
+        rows.append(a)
+    child, info = trie.arrays()
+    return child, info, base[:k].astype(np.int32), np.concatenate(rows).astype(np.int32)
+
+
+def edge_checks12(dev) -> None:
+    """K11's IPv6 entry against its plain version, exactly, on both of
+    its routes: (K, levels) over K11_EDGE_KL, B over K11_EDGE_B and
+    1 048 583 (K 0 and 13 at levels 16, vector), each view of
+    K11_EDGE_OFFSETS taking the route ``lpm_stride8_route`` names (read
+    back from STRIDE8_ROUTES); addresses that differ from a stored
+    prefix in each byte 0-15, bytes outside [0, 255] in either half of
+    the row, rows past the shed table (which shed nothing). The C entry
+    must refuse the vector route on a misaligned row and past 16
+    levels."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch import _kernels
+    from cilium_tpu_torch.ops import lpm as lpmmod
+    from cilium_tpu_torch.ops.shed import shed_walk_stride8, shed_walk_stride8_plain
+
+    rs = np.random.default_rng(12012)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    n_rows, world_row = 64, 5
+    full = (rs.random((n_rows + 8, 9)) < 0.5).astype(np.uint8)
+    full[world_row] = 1
+    tabs = {"full": t(full), "short": t(full[:n_rows])}
+    past = 0
+    t0 = time.perf_counter()
+    for k, levels in K11_EDGE_KL:
+        child, info, common, pool = k11_edge_case(rs, k, n_rows)
+        tries = [t(child), t(info), t(common)]
+        sizes = K11_EDGE_B + ((K11_EDGE_BIG,) if levels == 16 and k in (0, 13) else ())
+        for b in sizes:
+            addr = pool[rs.integers(0, pool.shape[0], b)]
+            bad = rs.random(addr.shape) < 0.02  # in either half of the row
+            addr[bad] = rs.choice(np.array([-1, 256, 1 << 20, -(1 << 20)], np.int32), int(bad.sum()))
+            dp = t(rs.choice(np.array([-1, 0, 80, 1024, 32768, 65535], np.int32), b))
+            pr = t(rs.choice(np.array([0, 6, 17, 132], np.int32), b))
+            offsets = (0, 1) if b == K11_EDGE_BIG else tuple(K11_EDGE_OFFSETS)
+            for elem_off in offsets:
+                view = strided_view(addr, 0, elem_off, dev)
+                route = lpmmod.lpm_stride8_route(16, levels, view.data_ptr())
+                # an empty view's data_ptr is 0, which is on 16 bytes
+                if route != (K11_EDGE_OFFSETS[elem_off] if b else "vector"):
+                    fail(f"lpm_stride8_route named {route} for a view {elem_off} int32 in, "
+                         f"B = {b}")
+                for tname, tab in tabs.items():
+                    got = shed_walk_stride8(*tries, tab, world_row, view, dp, pr, levels)
+                    if lpmmod.STRIDE8_ROUTES["shed_walk_stride8"] != route:
+                        fail(f"shed_walk_stride8 took route "
+                             f"{lpmmod.STRIDE8_ROUTES['shed_walk_stride8']}, not {route}")
+                    want = shed_walk_stride8_plain(*tries, tab, world_row, view, dp, pr, levels)
+                    if max_abs_err(got, want):
+                        fail(f"shed_walk_stride8 ({route}) disagrees at K {k}, levels {levels}, "
+                             f"B = {b}, {elem_off} int32 in, {tname} table")
+                    if tname == "short" and b == 4_097 and elem_off == 0:
+                        hit = lpmmod.lpm_stride8_plain(*tries, view, levels)
+                        past += int((hit > n_rows).sum())
+    if not past:
+        fail("K11 edge checks: no lane's row fell past the short shed table")
+    # the C entry refuses a vector route its inputs do not allow
+    k11 = _kernels.KERNELS["shed_walk_stride8"]
+    child, info, common, _pool = k11_edge_case(rs, 13, n_rows)
+    tries = [t(child), t(info), t(common)]
+    b = 64
+    dp, pr = t(np.zeros(b, np.int32)), t(np.zeros(b, np.int32))
+    out = torch.empty(b, dtype=torch.uint8, device=dev)
+    for what, view, levels in (
+        ("a row off 16 bytes", strided_view(np.zeros((b, 16), np.int32), 0, 1, dev), 16),
+        ("17 levels", t(np.zeros((b, 24), np.int32)), 17),
+    ):
+        before = k11.launches
+        try:
+            k11.launch(dev, tries[0].data_ptr(), tries[1].data_ptr(), child.shape[0],
+                       tries[2].data_ptr(), common.shape[0], tabs["full"].data_ptr(), n_rows + 8,
+                       world_row, view.data_ptr(), view.shape[1], levels, dp.data_ptr(),
+                       pr.data_ptr(), out.data_ptr(), b, 1)
+        except RuntimeError:
+            pass
+        else:
+            fail(f"the shed_walk_stride8 C entry took the vector route on {what}")
+        if k11.launches != before:
+            fail("a refused shed_walk_stride8 launch was counted")
+    torch.cuda.synchronize()
+    print(f"edge_checks12: K11 v6 on both routes in {time.perf_counter() - t0:.2f}s "
+          f"({past} lanes past the short table)", flush=True)
+
+
 class KernelClock:
     """CUDA events around every launch of the named kernels, by wrapping
     Kernel.launch while it is entered: ``ms()`` is the card's busy time
@@ -3683,10 +3820,11 @@ def staging_copies(pipe, card: str) -> None:
           f"copy: one buffer {ms[1]}, five in turn {ms[5]} [{card}]", flush=True)
 
 
-def shed_inputs(pipe, fam: int, batch, dev):
+def shed_inputs(pipe, fam: int, batch, dev, elem_off: int = 0):
     """K11's entry (``fn``), its plain version and their arguments for
     one batch through the pipeline's published ingress tries and shed
-    table."""
+    table; v6 peers ``elem_off`` int32 into their buffer (a view whose
+    offset takes another route: strided_view)."""
     import numpy as np
     import torch
 
@@ -3704,7 +3842,7 @@ def shed_inputs(pipe, fam: int, batch, dev):
         return dict(fn=shed_walk_wide, plain=shed_walk_wide_plain, name="shed_walk_wide",
                     replaces=":521", t=t, tries=tries, addr=addr, dp=dp, pr=pr,
                     args=(*tries, pipe._shed_tab, t.world_row, addr, dp, pr))
-    addr = torch.from_numpy(peer).to(dev)
+    addr = strided_view(peer, 0, elem_off, dev) if elem_off else torch.from_numpy(peer).to(dev)
     tries = (t.ip_child, t.ip_info, t.ip_common)
     return dict(fn=shed_walk_stride8, plain=shed_walk_stride8_plain, name="shed_walk_stride8",
                 replaces=":537", t=t, tries=tries, addr=addr, dp=dp, pr=pr,
@@ -3748,7 +3886,8 @@ def submit_main_path(engine, cache, endpoints, flows4, flows6, seed: int, n_iden
     - A deny-heavy batch of each family with the gate forced by the
       fault hub: shed lanes DROP_PREFILTER, no lane the ungated run
       forwards shed, kept lanes equal, the admission metrics moved by
-      the shed count; the _shed_walk and process() wall times."""
+      the shed count; the _shed_walk and process() wall times; the v6
+      gate's K11 route."""
     import numpy as np
     import torch
 
@@ -3756,6 +3895,7 @@ def submit_main_path(engine, cache, endpoints, flows4, flows6, seed: int, n_iden
     from cilium_tpu_torch.datapath.conntrack import FlowConntrack
     from cilium_tpu_torch.datapath.pipeline import DROP_PREFILTER, FORWARD, DatapathPipeline
     from cilium_tpu_torch.ipcache.prefilter import PreFilter
+    from cilium_tpu_torch.ops import lpm as lpmmod
 
     t_phase = time.perf_counter()
     pf = PreFilter()
@@ -3947,7 +4087,11 @@ def submit_main_path(engine, cache, endpoints, flows4, flows6, seed: int, n_iden
         if (m1[0] - m0[0], m1[1] - m0[1]) != (n_shed, n_shed):
             fail(f"submit gate v{fam}: the admission metrics moved by {m1[0] - m0[0]} and "
                  f"{m1[1] - m0[1]}, not {n_shed}")
-        gate[fam] = dict(batch=batch, mask=mask, t_full=t_full)
+        if fam == 6:
+            route = lpmmod.STRIDE8_ROUTES["shed_walk_stride8"]
+            print(f"main path submit [gate v6]: shed_walk_stride8 route (latest launch) {route} "
+                  f"[{card}]", flush=True)
+        gate[fam] = dict(batch=batch, mask=mask, t_full=t_full, ungated=flows)
     clock.close()
     print(f"submit main path and its checks in {time.perf_counter() - t_phase:.2f}s", flush=True)
     return dict(pipe=pipe, gate=gate, card=card)
@@ -3959,41 +4103,72 @@ def shed_rows(sub, dev, row) -> None:
     trie bytes the identity walk touches (lpm_touched_bytes /
     stride8_touched_bytes, less their 4-byte output), 8 bytes of dport
     and proto in and 1 byte out per flow, and the 32-byte sectors of
-    the shed table the flows reach. Then the gate's whole shed decision
-    (_shed_walk: h2d, K11, d2h of the mask) on the same batches, after
-    the main path's launch counts were read."""
+    the shed table the flows reach. The v6 entry on its vector and
+    scalar routes (views 0 and 1 int32 into their buffer), on the
+    deny-heavy and the ungated batch (make_flows6's: 1/16 world), each
+    beside a second, named figure: the sector floor, what a read of only
+    the 32-byte sectors the walk needs would move (one of a row's two
+    for a lane whose compare fails in bytes 0-7, two for the rest) plus
+    dport, proto and out; the L2 fetches a 64-byte row whole, so the
+    kernel cannot reach it on int32 rows. Then the gate's whole
+    shed decision (_shed_walk: h2d, K11, d2h of the mask) on the
+    deny-heavy batches, after the main path's launch counts were
+    read."""
     import numpy as np
     import torch
 
     from cilium_tpu_torch.datapath.admission import flow_class
+    from cilium_tpu_torch.ops import lpm as lpmmod
     from cilium_tpu_torch.ops.lpm import elided_lookup, lpm_lookup_wide
 
     pipe = sub["pipe"]
     tab = pipe._shed_tab
     for fam in (4, 6):
         g = sub["gate"][fam]
-        k11 = shed_inputs(pipe, fam, g["batch"], dev)
-        fn, plain, name, t, tries, addr, args = (
-            k11[k] for k in ("fn", "plain", "name", "t", "tries", "addr", "args"))
-        if fam == 4:
-            hit = lpm_lookup_wide(*tries, addr)
-            walk = lpm_touched_bytes(tries[0], tries[1], tries[3], addr)
-        else:
-            hit = elided_lookup(*tries, addr, 16)
-            walk = stride8_touched_bytes(*tries, addr, 16)
-        k_out, p_out = fn(*args), plain(*args)
-        if not torch.equal(k_out.cpu(), torch.from_numpy(g["mask"])):
-            fail(f"{name}: the kernel's mask differs from the gate's")
-        row_ = torch.where(hit > 0, hit.long() - 1, t.world_row)
-        idx = row_ * 9 + flow_class(k11["dp"].long(), k11["pr"].long())
-        sectors = torch.unique(idx[idx < tab.numel()] // 32).numel()
-        n = addr.shape[0]
-        b_ms, b_by = bound(walk - 4 * n + 9 * n + 32 * sectors, 0)
-        row(name, "cilium_tpu_torch/csrc/shed_walk.cu", f"cilium_tpu/datapath/pipeline.py{k11['replaces']}",
-            max_abs_err(k_out, p_out), lambda fn=fn, args=args: fn(*args),
-            lambda plain=plain, args=args: plain(*args), b_ms, b_by,
-            f"v{fam}: {n} flows (3/4 world), shed table {list(tab.shape)}, "
-            f"{int(k_out.sum())} shed, {sectors} table sectors", graph=True)
+        cases = [("deny-heavy", g["batch"], 0)]
+        if fam == 6:
+            cases += [("deny-heavy", g["batch"], 1)]
+            cases += [("ungated", g["ungated"], off) for off in (0, 1)]
+        for bname, batch, elem_off in cases:
+            k11 = shed_inputs(pipe, fam, batch, dev, elem_off)
+            fn, plain, name, t, tries, addr, args = (
+                k11[k] for k in ("fn", "plain", "name", "t", "tries", "addr", "args"))
+            if fam == 4:
+                hit = lpm_lookup_wide(*tries, addr)
+                walk = lpm_touched_bytes(tries[0], tries[1], tries[3], addr)
+            else:
+                hit = elided_lookup(*tries, addr, 16)
+                walk = stride8_touched_bytes(*tries, addr, 16)
+            k_out, p_out = fn(*args), plain(*args)
+            if bname == "deny-heavy" and not torch.equal(k_out.cpu(), torch.from_numpy(g["mask"])):
+                fail(f"{name}: the kernel's mask differs from the gate's")
+            row_ = torch.where(hit > 0, hit.long() - 1, t.world_row)
+            idx = row_ * 9 + flow_class(k11["dp"].long(), k11["pr"].long())
+            sectors = torch.unique(idx[idx < tab.numel()] // 32).numel()
+            n = addr.shape[0]
+            b_ms, b_by = bound(walk - 4 * n + 9 * n + 32 * sectors, 0)
+            shape = (f"v{fam}: {n} flows ({bname}), shed table {list(tab.shape)}, "
+                     f"{int(k_out.sum())} shed, {sectors} table sectors")
+            note = None
+            if fam == 6:
+                common = tries[2]
+                kk = min(common.shape[0], 8)
+                holds = (addr[:, :kk] == common[:kk]).all(1) if kk else torch.ones(
+                    n, dtype=torch.bool, device=addr.device)
+                floor = 32 * n + 32 * int(holds.sum()) + 9 * n
+                note = (f"sector floor {floor / HBM_BYTES_PER_S * 1e3!r} ms: {floor} bytes, "
+                        f"{n - int(holds.sum())} lanes whose compare fails in bytes 0-7")
+                shape += f", rows {elem_off} int32 into their buffer"
+            row(name, "cilium_tpu_torch/csrc/shed_walk.cu",
+                f"cilium_tpu/datapath/pipeline.py{k11['replaces']}",
+                max_abs_err(k_out, p_out), lambda fn=fn, args=args: fn(*args),
+                lambda plain=plain, args=args: plain(*args), b_ms, b_by, shape, graph=True,
+                note=note)
+            if fam == 6:
+                want = {0: "vector", 1: "scalar"}[elem_off]
+                if lpmmod.STRIDE8_ROUTES[name] != want:
+                    fail(f"{name} took route {lpmmod.STRIDE8_ROUTES[name]} on rows {elem_off} "
+                         f"int32 in, not {want}")
         peer, _eps, dports, protos = g["batch"]
         walls = []
         for _ in range(3):
@@ -5445,6 +5620,13 @@ def main() -> None:
         fail(f"nvidia-smi: {smi.stderr.strip()}")
     card = smi.stdout.strip().splitlines()[0]
     t_start = time.perf_counter()
+    t_mark = [t_start]
+
+    def phase(label):
+        """The wall time of the phase that ends here, and since the start."""
+        now = time.perf_counter()
+        print(f"phase {label}: {now - t_mark[0]:.1f}s (at {now - t_start:.1f}s)", flush=True)
+        t_mark[0] = now
 
     # -- 1. build --------------------------------------------------------
     t0 = time.perf_counter()
@@ -5471,6 +5653,7 @@ def main() -> None:
     edge_checks9(dev)
     edge_checks10(dev)
     edge_checks11(dev)
+    edge_checks12(dev)
     print("edge shapes: every kernel equals its plain version (ragged K1/K2, "
           "16-8-8 K3, 1 280-column / 2 100-endpoint K4; K2 at every tile edge of "
           f"{len(k2_edge_shapes())} shapes, non-contiguous, bool and misaligned operands;  4- and 16-level K5 with "
@@ -5501,9 +5684,14 @@ def main() -> None:
           "CPS 0 to 3, N 0 to 2 048, dense and empty conjuncts, offset rows and conjuncts; K8 on "
           "its classes and L2 routes over odd and even max_len from 0 to 256, uint8 and int32 "
           "bytes, offset views, B = 0 to 200 003, Q 126 tables whose classes fit and do not "
-          "and a hand-made pair table; each launch on the route its layout names, ill-formed "
-          "class forms refused, and the C entries refuse a route their inputs do not allow)",
+          "and a hand-made pair table; K11's v6 entry on its vector and scalar routes at "
+          "K 0 to 16, levels 8 / 12 / 16, B = 0 to 1 048 583, views 0 / 1 / 4 / 8 int32 in, bytes "
+          "outside [0, 255] in either half of a row, rows past the shed table; each launch on the route "
+          "its layout names, ill-formed class forms refused, and the C entries refuse a route "
+          "their inputs do not allow)",
           flush=True)
+
+    phase("1 build, edge checks")
 
     # -- 2. world --------------------------------------------------------
     t0 = time.perf_counter()
@@ -5525,6 +5713,8 @@ def main() -> None:
         if got["selector_match"]:
             print(f"main path [{path}] selector_match route (latest launch) "
                   f"{bitmod.SELECTOR_ROUTES['selector_match']} [{card}]", flush=True)
+
+    phase("2 world")
 
     # -- 3a. v4 main path on the card, launch counts from zero -----------
     _kernels.reset_launches()
@@ -5569,6 +5759,8 @@ def main() -> None:
     if not pipes["prefilter"]._tables[(TRAFFIC_INGRESS, 4)].merged_sub_info.shape[-1] == 65536:
         fail("prefilter run did not take the fused walk")
 
+    phase("3a v4 main path")
+
     # -- 3b. v6 main path -------------------------------------------------
     _kernels.reset_launches()
     results6 = {}
@@ -5599,6 +5791,8 @@ def main() -> None:
         fail("the v6 walks are not identity-only / fused as configured")
     if pipes["prefilter"]._tables[(TRAFFIC_INGRESS, 6)].merged_common.shape[0] != 13:
         fail("the fused v6 trie did not keep the 13 shared bytes")
+
+    phase("3b v6 main path")
 
     # -- 4. against the plain path on the CPU and the host oracle --------
     t0 = time.perf_counter()
@@ -5635,6 +5829,8 @@ def main() -> None:
     print(f"card == CPU plain path on {SLICE} flows (verdicts, redirects, counters) and "
           f"== host oracle on {N_ORACLE} flows, v4 and v6, both pipelines, in "
           f"{time.perf_counter() - t0:.2f}s", flush=True)
+
+    phase("4 CPU parity")
 
     # -- 3c. attribution main path ---------------------------------------
     _kernels.reset_launches()
@@ -5684,6 +5880,8 @@ def main() -> None:
         fail(f"the attributed rebuild launched K6 {k6_rebuild} times for {attr_blocks[0]} blocks")
     if sweeps.get("flow_attrib", 0) <= 0:
         fail("the attributed rebuild did not run the flow-route sweep")
+
+    phase("3c attribution main path")
 
     # -- 4b. attribution against the CPU path on a slice -------------------
     t0 = time.perf_counter()
@@ -5740,6 +5938,8 @@ def main() -> None:
           f"{N_ATTR_EPS} endpoints (verdicts, rules, l4_covered, rule hits, counters, metric "
           f"deltas) and explain_one on 16 queries, in {time.perf_counter() - t0:.2f}s", flush=True)
 
+    phase("4b attribution parity")
+
     # -- 4c. small world: every reason code on the card --------------------
     t0 = time.perf_counter()
     srepo, sreg, scache, sidents = build_small_world(args.seed)
@@ -5790,6 +5990,8 @@ def main() -> None:
           f"{sorted(ATTR_NAMES.values())} on the card, engine attribution, explain_one and "
           f"pipeline metric deltas == CPU, in {time.perf_counter() - t0:.2f}s", flush=True)
 
+    phase("4c small world")
+
     # -- 3d. L7 main path, launch counts from zero -----------------------
     _kernels.reset_launches()
     l7res = l7_main_path(args.seed, card, (ips, eps, dports, protos), endpoints)
@@ -5802,18 +6004,26 @@ def main() -> None:
         fail(f"the L7 main path's K8 launches by shape {sum(l7res['pairs'].values())} differ from "
              f"its count {launches['l7']['dfa_pair_walk']}")
 
+    phase("3d L7 main path")
+
     # -- 4d. L7 against the CPU path and the rules' oracle -----------------
     t0 = time.perf_counter()
     l7_cpu_checks(l7res)
     print(f"L7 CPU and oracle checks in {time.perf_counter() - t0:.2f}s", flush=True)
+
+    phase("4d L7 parity")
 
     # -- 3e. services+CT main path, launch counts from zero --------------
     svc = services_main_path(args.seed, card)
     check_path("services", ["lb_index_build", "lb_translate", "lpm_wide", "lpm_stride8",
                             "policymap_verdict"])
 
+    phase("3e services main path")
+
     # -- 4e. services+CT against the CPU path -----------------------------
     services_cpu_checks(svc)
+
+    phase("4e services parity")
 
     # -- 3f. device-CT main path, launch counts from zero ----------------
     dct = device_ct_main_path(svc, card)
@@ -5822,9 +6032,13 @@ def main() -> None:
     if launches["device_ct"]["lb_translate"] or launches["device_ct"]["lb_index_build"]:
         fail("the device-CT pipeline has no LB, yet K9 launched")
 
+    phase("3f device-CT main path")
+
     # -- 4f. device CT against the CPU path and the host CT -------------
     device_ct_cpu_checks(svc, dct)
     host_ct_compare(svc, dct, card)
+
+    phase("4f device-CT parity")
 
     # -- 3g. submit and the admission gate, launch counts from zero ------
     sub = submit_main_path(engine, cache, endpoints, (ips, eps, dports, protos),
@@ -5832,20 +6046,28 @@ def main() -> None:
     check_path("submit", ["lpm_wide", "lpm_stride8", "policymap_verdict", "shed_walk_wide",
                           "shed_walk_stride8"])
 
+    phase("3g submit main path")
+
     # -- 3h. incremental policy updates, launch counts from zero --------
     dl = deltas_main_path(args.seed, card)
     check_path("deltas", ["bool_mm", "first_rule", "lpm_wide", "lpm_stride8", "policymap_verdict"])
     if launches["deltas"]["selector_match"]:
         fail("a delta launched K1 selector_match: the engine recompiled in full")
 
+    phase("3h deltas main path")
+
     # -- 3i. sparse trie deltas and the epoch swap, launch counts from zero
     sp = sparse_main_path(args.seed, card)
     check_path("sparse", ["selector_match", "bool_mm", "lpm_wide", "lpm_stride8", "policymap_verdict"])
+
+    phase("3i sparse main path")
 
     # -- 3j. multi-device placement on a virtual grid, counts from zero --
     ms = mesh_main_path(args.seed, card)
     check_path("mesh", ["selector_match", "bool_mm", "first_rule", "ident_gather", "lpm_wide",
                         "lpm_stride8", "policymap_verdict", "policymap_verdict_attrib"])
+
+    phase("3j mesh main path")
 
     # -- 5. each kernel against its plain version on the card ------------
     compiled, device = engine.snapshot()
@@ -6237,6 +6459,7 @@ def main() -> None:
         if total[r["name"]] <= 0:
             fail(f"kernel {r['name']} has no launch on a main path")
     torch.cuda.synchronize()
+    phase("5 kernel rows")
     print(f"total {time.perf_counter() - t_start:.1f}s", flush=True)
 
     print(card)

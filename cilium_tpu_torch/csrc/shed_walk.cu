@@ -26,6 +26,15 @@
 // plus the trie cells and table sectors the walk reaches, which sit in
 // L2 for the main path's tables. A dependent chain of 2 (v4) or up to
 // 16 (v6) gathers per thread; many threads in flight hide it.
+//
+// On the gate's deny-heavy v6 batch about 3/4 of the lanes are world
+// peers whose K compare fails on byte 0, yet each reads its whole
+// 64-byte row. A route that loads a row's second 32-byte sector only
+// for lanes whose compare holds (tools/k11_sector_walk.cu) is no
+// faster: the L2 fetches the 64-byte row whole (tools/k11_probe.py's
+// no-walk floors), so this kernel stays. Rows of 16 uint8 bytes
+// (tools/k11_u8_rows.cu) would read fewer bytes, but the pipeline
+// uploads int32 rows.
 #include "common.cuh"
 #include "lpm_walk.cuh"
 

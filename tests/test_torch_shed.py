@@ -11,6 +11,13 @@
   by either package, except one named case: an index ``row * 9 + cls``
   past the table, where JAX's uint8 ``jnp.take`` fills 255 and sheds
   and the port does not (ROADMAP queue C).
+- ``shed_flows``' stride-8 walk where the row's layout matters: the
+  plain version against JAX, bit for bit, on synthetic tries at K 0 to
+  16 and levels 8 / 12 / 16 with the mismatch in each byte 0-15 (both
+  sides of byte 8, where a 64-byte int32 row's second 32-byte sector
+  starts), on the gate's deny-heavy mix, and with bytes outside
+  [0, 255] in either half of the row (ROADMAP queue C's first
+  reference fault, named), at view offsets that take each route.
 - ``AdmissionController``'s AIMD and accounting on the port's copy.
 """
 
@@ -30,6 +37,7 @@ from cilium_tpu_torch.datapath import admission as tadm
 from cilium_tpu_torch.datapath import pipeline as tpipe
 from cilium_tpu_torch.engine import PolicyEngine as TorchEngine
 from cilium_tpu_torch.ipcache.prefilter import PreFilter as TorchPreFilter
+from cilium_tpu_torch.ops import lpm as tlpm
 from cilium_tpu_torch.ops import shed as tshed
 from cilium_tpu_torch.ops.lpm import ipv6_to_bytes, lpm_stride8_plain, lpm_wide_plain
 from test_torch_harness import build_world, random_flows
@@ -232,6 +240,209 @@ def test_out_of_range_row_does_not_shed():
         assert want[past].all(), "JAX sheds every lane past the table"
         assert not got[past].any(), "the port sheds no lane past the table"
         np.testing.assert_array_equal(got[~past], want[~past])
+
+
+
+# ---------------------------------------------------------------------------
+# the stride-8 walk at K, levels and the byte a mismatch sits in
+# ---------------------------------------------------------------------------
+
+FAR = 1 << 24  # a byte value past every table: jnp.take fills
+N_ROWS = 64  # shed table rows of the synthetic cases
+WORLD_ROW = 5
+K_LEVELS = [(k, lv) for lv in (8, 12, 16) for k in (0, 7, 8, 9, 13, 16) if k <= lv]
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _view(a: np.ndarray, elems_in: int) -> torch.Tensor:
+    """``a`` as a contiguous view ``elems_in`` elements into a buffer."""
+    buf = np.zeros(a.size + elems_in + 1, a.dtype)
+    buf[elems_in:elems_in + a.size] = a.reshape(-1)
+    view = torch.from_numpy(buf)[elems_in:elems_in + a.size].view(a.shape)
+    assert view.is_contiguous() and torch.equal(view, _t(a))
+    return view
+
+
+def _case(seed: int, k: int):
+    """A trie over address bytes k.. of 40 prefixes that share ``base[:k]``
+    (tails 1 to 16 - k bytes long, values 0 .. N_ROWS - 1: rows of the
+    table), its ``common`` = ``base[:k]``, and the prefixes' full
+    16-byte addresses."""
+    rs = np.random.default_rng(seed)
+    base = rs.integers(0, 256, 16)
+    t = tlpm.TrieBuilder(max(16 - k, 1))
+    stored = []
+    for _ in range(40 if k < 16 else 0):
+        a = base.copy()
+        a[k:] = rs.integers(0, 256, 16 - k)
+        tail = int(rs.integers(1, 16 - k + 1))
+        t.insert(bytes(int(x) for x in a[k:]), 8 * tail, int(rs.integers(0, N_ROWS)))
+        stored.append(a)
+    child, info = t.arrays()
+    stored = np.array(stored or [base], np.int32)
+    return child, info, base[:k].astype(np.int32), stored
+
+
+def _mismatch_addresses(rs, stored: np.ndarray) -> np.ndarray:
+    """Each stored address as it is, then with its byte j changed, for
+    every j in 0-15: both sides of byte 8."""
+    rows = [stored]
+    for j in range(16):
+        a = stored.copy()
+        a[:, j] = (a[:, j] + rs.integers(1, 256, a.shape[0])) % 256
+        rows.append(a)
+    return np.concatenate(rows).astype(np.int32)
+
+
+def _classes(rs, b: int):
+    dport = rs.choice(np.array([-1, 0, 80, 1023, 1024, 8080, 32767, 32768, 65535], np.int32), b)
+    proto = rs.choice(np.array([0, 6, 17, 132], np.int32), b)
+    return dport.astype(np.int32), proto.astype(np.int32)
+
+
+def _table(seed: int, n_rows: int = N_ROWS) -> np.ndarray:
+    tab = (np.random.default_rng(seed).random((n_rows, 9)) < 0.5).astype(np.uint8)
+    tab[WORLD_ROW] = 1  # the world sheds in every class
+    return tab
+
+
+def _jax_shed(child, info, common, tab, addr, dport, proto, levels):
+    arrays = dict(ip_child=child, ip_info=info, ip_common=common)
+    jt = jpipe.DatapathTables(
+        **{f"{p}_{n}": jnp.asarray(arrays[f"ip_{n}"]) for p in ("pf", "ip", "merged")
+           for n in ("child", "info", "common")},
+        world_row=jnp.int32(WORLD_ROW), policymap=None,
+    )
+    return np.asarray(jpipe.shed_flows(jt, jnp.asarray(tab), jnp.asarray(addr),
+                                       jnp.asarray(dport), jnp.asarray(proto), levels=levels))
+
+
+def _port_shed(child, info, common, tab, addr, dport, proto, levels):
+    got = tshed.shed_walk_stride8_plain(_t(child), _t(info), _t(common), _t(tab), WORLD_ROW,
+                                        addr if isinstance(addr, torch.Tensor) else _t(addr),
+                                        _t(dport), _t(proto), levels)
+    assert got.dtype == torch.bool
+    return got.numpy()
+
+
+@pytest.mark.parametrize("k, levels", K_LEVELS)
+def test_mismatch_in_each_byte_matches_jax(k, levels):
+    """A stored address with one byte changed, in each byte 0-15: in the
+    compared part the lane matches nothing (the world row), in the
+    walked part the walk leaves the prefix there, past ``levels`` the
+    byte is never read. Equal to JAX on every lane, on the aligned
+    layout and on views 1, 4 and 8 int32 in."""
+    child, info, common, stored = _case(100 * k + levels, k)
+    rs = np.random.default_rng(k + levels)
+    addr = _mismatch_addresses(rs, stored)
+    dport, proto = _classes(rs, addr.shape[0])
+    tab = _table(k)
+    want = _jax_shed(child, info, common, tab, addr, dport, proto, levels)
+    for elems_in in (0, 1, 4, 8):
+        got = _port_shed(child, info, common, tab, _view(addr, elems_in), dport, proto, levels)
+        np.testing.assert_array_equal(got, want)
+    # both answers occur where a level is walked, and a change in the
+    # compared part always sheds as the world does
+    assert want.any() and (k == levels or not want.all())
+    n = stored.shape[0]
+    for j in range(min(k, 16)):
+        lanes = slice((j + 1) * n, (j + 2) * n)
+        np.testing.assert_array_equal(
+            want[lanes], tab[WORLD_ROW][tshed._flow_class(_t(dport[lanes]), _t(proto[lanes]))
+                                        .numpy()] != 0)
+
+
+def _deny_heavy(seed: int, b: int, n_idents: int):
+    """chip_smoke's gate batch at ``b`` flows: make_flows6's peers
+    (fd00::{hi}:{lo} over the identities, 1/16 in 2001:db8::/32), then
+    3/4 of them moved to 2001:db8::/32 (chip_smoke.deny_heavy)."""
+    rs = np.random.default_rng(seed)
+    i_sel = rs.integers(0, n_idents, b)
+    addr = np.zeros((b, 16), np.int32)
+    addr[:, 0] = 0xFD
+    addr[:, 13] = (i_sel >> 8) & 255
+    addr[:, 15] = i_sel & 255
+    world = (rs.random(b) < 1 / 16) | (rs.random(b) < 0.75)
+    addr[world] = rs.integers(0, 256, (int(world.sum()), 16))
+    addr[world, :4] = (0x20, 0x01, 0x0D, 0xB8)
+    dport = rs.choice(np.array([80, 443, 8080, 53, 22], np.int32), b).astype(np.int32)
+    proto = np.where(dport == 53, 17, 6).astype(np.int32)
+    return addr, dport, proto, world
+
+
+@pytest.mark.parametrize("trie", ["identity", "edge"])
+def test_deny_heavy_mix_matches_jax(trie):
+    """The gate's deny-heavy mix at 4 097 flows over the bench's
+    identity trie (K 13 elided bytes from 0xFD: a world lane fails its
+    compare on byte 0) and with 2000::/3 added (K 0: every lane walks
+    from byte 0)."""
+    n_idents = 600
+    ident = [(f"fd00::{(i >> 8) & 255:x}:{i & 255:x}/128", i % N_ROWS) for i in range(n_idents)]
+    extra = [("2000::/3", WORLD_ROW + 1)] if trie == "edge" else []
+    child, info, common = tlpm.build_trie_elided(ident + extra)
+    assert common.shape[0] == (13 if trie == "identity" else 0)
+    addr, dport, proto, world = _deny_heavy(4097, 4097, n_idents)
+    assert 0.7 < world.mean() < 0.85
+    tab = _table(3)
+    want = _jax_shed(child, info, common, tab, addr, dport, proto, 16)
+    for elems_in in (0, 4, 8):
+        got = _port_shed(child, info, common, tab, _view(addr, elems_in), dport, proto, 16)
+        np.testing.assert_array_equal(got, want)
+    assert want[world].all() if trie == "identity" else want.any()
+    assert not want.all()
+
+
+@pytest.mark.parametrize("sector", ["first", "second"])
+@pytest.mark.parametrize("k, levels", [(0, 16), (7, 16), (8, 16), (13, 16), (9, 12)])
+def test_out_of_range_bytes_by_sector(sector, k, levels):
+    """Bytes outside [0, 255] in one 32-byte sector of the row (bytes
+    0-7 or 8-15). In the K compared bytes they match nothing, as in JAX.
+    In the walked bytes the port ends the walk where JAX's ``jnp.take``
+    may read another node's slot (ROADMAP queue C's first reference
+    fault): JAX's answer with each such walked byte moved to FAR, every
+    lane compared."""
+    child, info, common, stored = _case(7 * k + levels + (sector == "second"), k)
+    rs = np.random.default_rng(k * 31 + levels)
+    addr = _mismatch_addresses(rs, stored)
+    cols = slice(0, 8) if sector == "first" else slice(8, 16)
+    bad = np.zeros(addr.shape, bool)
+    bad[:, cols] = rs.random((addr.shape[0], 8)) < 0.08
+    vals = rs.choice(np.array([-1, -7, 256, 300, 1 << 20, -(1 << 20)], np.int32), addr.shape)
+    raw = np.where(bad, vals, addr).astype(np.int32)
+    walked = bad.copy()
+    walked[:, :k] = False
+    far = np.where(walked, FAR, raw).astype(np.int32)
+    dport, proto = _classes(rs, addr.shape[0])
+    tab = _table(k + 1)
+    want = _jax_shed(child, info, common, tab, far, dport, proto, levels)
+    for elems_in in (0, 4, 8):
+        got = _port_shed(child, info, common, tab, _view(raw, elems_in), dport, proto, levels)
+        np.testing.assert_array_equal(got, want)
+    assert bad.any(axis=1).sum() > 50
+
+
+def test_wrapper_takes_the_plain_version_on_the_cpu():
+    """The stride-8 wrapper on CPU tensors gives the plain version's mask
+    at every view offset, records no route, and refuses K past
+    ``levels``."""
+    child, info, common, stored = _case(5, 13)
+    rs = np.random.default_rng(5)
+    addr = _mismatch_addresses(rs, stored)
+    dport, proto = _classes(rs, addr.shape[0])
+    tab = _t(_table(5))
+    tlpm.STRIDE8_ROUTES.pop("shed_walk_stride8", None)
+    for elems_in in (0, 1, 4, 8):
+        args = (_t(child), _t(info), _t(common), tab, WORLD_ROW, _view(addr, elems_in),
+                _t(dport), _t(proto))
+        np.testing.assert_array_equal(tshed.shed_walk_stride8(*args, 16).numpy(),
+                                      tshed.shed_walk_stride8_plain(*args, 16).numpy())
+    assert "shed_walk_stride8" not in tlpm.STRIDE8_ROUTES
+    with pytest.raises(ValueError, match="stride-8"):
+        tshed.shed_walk_stride8(_t(child), _t(info), _t(common), tab, WORLD_ROW, _t(addr),
+                                _t(dport), _t(proto), 12)
 
 
 # the reference's TestAdmissionController cases on the port's copy

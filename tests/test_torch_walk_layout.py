@@ -114,6 +114,11 @@ def test_dfa_walk_route_bytes(row_stride, elem_size, ptr, route):
     (16, 16, 0, "vector"), (20, 16, 64, "vector"), (17, 16, 0, "scalar"), (5, 4, 0, "scalar"),
     (4, 4, 0, "vector"), (16, 16, 4, "scalar"), (16, 16, 16, "vector"), (32, 17, 0, "scalar"),
     (32, 16, 0, "vector"), (16, 0, 0, "vector"),
+] + [
+    # row strides of 64, 80, 96 and 128 bytes, base pointers 0, 4, 16
+    # and 32 bytes past a 4 096-byte boundary, 8 / 16 / 17 levels
+    (stride, levels, 4096 + off, "vector" if levels <= 16 and off % 16 == 0 else "scalar")
+    for stride in (16, 20, 24, 32) for off in (0, 4, 16, 32) for levels in (8, 16, 17)
 ])
 def test_lpm_stride8_route(stride, levels, ptr, route):
     assert tlpm.lpm_stride8_route(stride, levels, ptr) == route
