@@ -174,6 +174,24 @@
    16 384 flows, the CPU plain path; K4 and K12 launches per batch and
    the 2D wall beside the unplaced one. Real multi-GPU transfers are not
    exercised: every record is one card.
+4k. The failsafe main path, launch counts from zero, on the bench
+   world's engine and batches (failsafe_main_path): the fault hub armed
+   but quiet against off (bit-identical outputs, counters and launches,
+   v4 and v6); each site (h2d, dispatch, complete) fired once as a
+   transient (invisible) and as a poisoned fault (DROP_DEGRADED, one
+   quarantine, the next batch clean), three transients at complete, and
+   ct_epoch on a host-CT pipeline; the ladder on four virtual records
+   (0 → 1 → 2 → 0: level 2 launches no K3 / K4 / K5 and equals the
+   device verdicts on 65 536-flow cuts); the device-CT rescue (a
+   poisoned completion after a 1M-flow pass on 2^22 slots, the next pass
+   seeded: exactly the rescued flows established); a real stall under
+   the watchdog (a spin on the stream ahead of one submitted batch: the
+   waiter unblocks inside 2 x 50 ms plus one sweep, the late result does
+   not overwrite it; a spun forced rebuild shows one compile stall).
+   Every pipeline the other phases made ends at level 0 with no
+   quarantine, and pipeline_faults_total moves only by the phase's own
+   injected faults and stalls (FailsafeWatch, checked before and after
+   the phase and at the end).
 5. Holds every kernel against its plain version on the card, at the
    main paths' shapes, with exact equality (all outputs are integers),
    and times kernel, plain version and, where one exists, a library
@@ -5561,6 +5579,470 @@ def mesh_rows(ms, row) -> None:
             f"{ms['k4_per_batch']} K4 launches per 2D v4 batch", plain_iters=1, reps=3, graph=True)
 
 
+FAILSAFE_CUT = 1 << 16  # flows of the host rung's batches: it walks the ipcache per flow in Python
+FAILSAFE_STALL_MS = 50.0  # the watchdog's budget in the stall case
+FAILSAFE_REPS = 3  # rounds of the quiet-hub and per-site cases
+SPIN_CYCLES = 2_000_000_000  # torch.cuda._sleep clocks: about 1 s at the H100's 1.98 GHz
+
+
+def device_spin(cycles: int) -> None:
+    """Queue a spin of ``cycles`` SM clocks on the current CUDA stream:
+    whatever is queued after it there, a batch's copies and its event
+    too, waits on the card."""
+    import torch
+
+    torch.cuda._sleep(cycles)
+
+
+class FailsafeWatch:
+    """Every DatapathPipeline the script makes (weakly held), and every
+    quarantine and ladder move any of them makes. Pipelines the failsafe
+    phase makes for its faults go into ``allowed``; anywhere else a
+    quarantine, a ladder move or a pipeline_faults_total move is a fault
+    nobody injected, and ``check`` fails the run."""
+
+    def __init__(self) -> None:
+        import weakref
+
+        from cilium_tpu_torch import metrics
+        from cilium_tpu_torch.datapath.pipeline import DatapathPipeline, _MODE_NAMES
+
+        self.pipes = weakref.WeakSet()
+        self.allowed = weakref.WeakSet()
+        self.quarantines = {True: 0, False: 0}  # allowed → count
+        self.moves = {True: 0, False: 0}
+        self.faults0 = dict(metrics.pipeline_faults_total.series())
+        cls, watch = DatapathPipeline, self
+        real_init, real_q, real_set = cls.__init__, cls._quarantine, cls._set_level
+
+        def init(pipe, *a, **k):
+            real_init(pipe, *a, **k)
+            watch.pipes.add(pipe)
+
+        def quarantine(pipe, inf):
+            watch.quarantines[pipe in watch.allowed] += 1
+            return real_q(pipe, inf)
+
+        def set_level(pipe, level):
+            if max(0, min(len(_MODE_NAMES) - 1, int(level))) != pipe._ladder_level:
+                watch.moves[pipe in watch.allowed] += 1
+            return real_set(pipe, level)
+
+        cls.__init__, cls._quarantine, cls._set_level = init, quarantine, set_level
+
+    def check(self, label: str, faults_expected: float = 0.0) -> None:
+        """Every pipeline outside the failsafe phase at level 0 with no
+        quarantine, no quarantine or ladder move outside it, and
+        pipeline_faults_total (but its queue_full series) moved by
+        exactly ``faults_expected`` (the failsafe phase's injected and
+        real faults)."""
+        from cilium_tpu_torch import metrics
+
+        others = [p for p in self.pipes if p not in self.allowed]
+        for p in others:
+            st = p.failsafe_state()
+            if st["level"] or st["quarantined_batches"] or st["breaker_faults"]:
+                fail(f"failsafe watch [{label}]: a pipeline of another phase ended at {st}")
+        if self.quarantines[False] or self.moves[False]:
+            fail(f"failsafe watch [{label}]: {self.quarantines[False]} quarantines and "
+                 f"{self.moves[False]} ladder moves outside the failsafe phase")
+        # the submit phase forces the admission gate through the hub's
+        # queue_full site: an overload signal, not a fault
+        def faults(series):
+            return sum(v for k, v in series.items() if ("site", "queue_full") not in k)
+
+        now = dict(metrics.pipeline_faults_total.series())
+        moved = faults(now) - faults(self.faults0)
+        if moved != faults_expected:
+            fail(f"failsafe watch [{label}]: pipeline_faults_total moved by {moved}, expected "
+                 f"{faults_expected} ({metric_delta(self.faults0, now)})")
+        print(f"failsafe watch [{label}]: {len(others)} pipelines of the other phases at level 0 "
+              f"with no quarantine and no breaker fault; quarantines / ladder moves outside the "
+              f"failsafe phase 0 / 0, inside it {self.quarantines[True]} / {self.moves[True]}; "
+              f"pipeline_faults_total moved by {moved} (expected {faults_expected})", flush=True)
+
+
+def failsafe_main_path(engine, cache, endpoints, flows4, flows6, seed: int, card: str, watch,
+                       dev=None):
+    """The failsafe on the card, on the bench world the script built
+    (its engine, ipcache, endpoints and 1 048 576-flow batches), every
+    pipeline with the prefilter CIDRs and registered in ``watch.allowed``:
+
+    1. the hub armed but quiet: v4 and v6 batches bit-identical to the
+       hub off (verdicts, redirects, counters, per-kernel launches),
+       FAILSAFE_REPS of each in turns;
+    2. each site fired once, v4 and v6 (h2d, dispatch, complete; the
+       breaker threshold raised, the ladder is case 3's), in
+       FAILSAFE_REPS rounds: a transient is invisible, a poisoned one
+       gives DROP_DEGRADED and one quarantine and the next batch equals
+       the clean one; three
+       transients at complete quarantine; ct_epoch on a host-CT
+       pipeline over a copy of the ipcache (FAILSAFE_CUT flows, a basis
+       move by an unrelated /32 upsert);
+    3. the ladder on four virtual records on the card (sharding=True,
+       breaker_threshold 2, recover_after_clean 3): level 1 excludes
+       records 1-3 and equals level 0, level 2 launches no K3 / K4 / K5
+       and equals the device verdicts on FAILSAFE_CUT flows of each
+       family, clean streaks climb to 0 and the launches return;
+    4. the device-CT rescue (device_ct_bits=CT_BITS): a 1M-flow pass
+       fills K10, a poisoned completion on a batch without sports
+       quarantines, the rescue pulls up to device_ct_rescue_limit
+       entries into the host CT, and the next device-CT pass seeds its
+       table from it: exactly the rescued flows come back established;
+    5. a real device stall under the watchdog (stall_ms 50): a spin
+       ahead of a full rebuild shows one compile stall, and a spin ahead
+       of one submitted batch holds its event, the waiter gets
+       DROP_DEGRADED within 2 x 50 ms plus one sweep, and the late
+       completion does not overwrite it.
+    Times (host clock) beside the card: a transient retry's cost, a
+    quarantine, the host rung's flows/s, a ladder move's first rebuild,
+    the rescue's pull and seed. → the phase's injected and real fault
+    count, for ``watch.check``."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch import _kernels, faults
+    from cilium_tpu_torch.datapath import placement
+    from cilium_tpu_torch.datapath import pipeline as pmod
+    from cilium_tpu_torch.datapath.conntrack import CT_NEW, FlowConntrack, pack_keys
+    from cilium_tpu_torch.datapath.pipeline import DROP_DEGRADED, DatapathPipeline
+    from cilium_tpu_torch.ipcache.ipcache import IPCache
+    from cilium_tpu_torch.ipcache.prefilter import PreFilter
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0) if dev is None else dev
+    hub = faults.hub
+    hub.reset()
+    fl4, fl6 = tuple(flows4[:4]), tuple(flows6[:4])
+    call = {4: "process", 6: "process_v6"}
+    fam_flows = {4: fl4, 6: fl6}
+    cut = slice(0, FAILSAFE_CUT)
+
+    def cutflows(fam):
+        return tuple(a[cut] for a in fam_flows[fam])
+
+    def pipeline(ipcache=cache, **kw):
+        pf = PreFilter()
+        pf.insert(pf.revision, PREFILTER_CIDRS + V6_DENY)
+        p = DatapathPipeline(engine, ipcache, pf, **kw)
+        watch.allowed.add(p)
+        p.set_endpoints(endpoints)
+        p.rebuild()
+        return p
+
+    def run(p, fam, flows=None, **kw):
+        """→ (outputs, host-clock seconds, launches it made)."""
+        k0 = _kernels.launches()
+        t0 = time.perf_counter()
+        out = getattr(p, call[fam])(*(fam_flows[fam] if flows is None else flows), **kw)
+        dt = time.perf_counter() - t0
+        k1 = _kernels.launches()
+        return out, dt, {k: k1[k] - k0[k] for k in k1 if k1[k] != k0[k]}
+
+    def same(tag, got, want):
+        for g, w in zip(got, want):
+            if not np.array_equal(g, w):
+                fail(f"failsafe {tag}: differs at flow {int(np.argmax(g != w))}")
+
+    def degraded(tag, out):
+        if not ((out[0] == DROP_DEGRADED).all() and not out[1].any()):
+            fail(f"failsafe {tag}: not every lane DROP_DEGRADED without a redirect")
+
+    def state(tag, p, **want):
+        st = p.failsafe_state()
+        for k, v in want.items():
+            if st[k] != v:
+                fail(f"failsafe {tag}: failsafe_state {st}, expected {k} = {v}")
+        return st
+
+    # -- 1. the hub armed but quiet ------------------------------------------
+    # off and on in turns, FAILSAFE_REPS each: the first call of a family
+    # pays for warming its staging
+    base = pipeline()
+    ref = {}
+    for fam in (4, 6):
+        got = {False: [], True: []}
+        for _ in range(FAILSAFE_REPS):
+            for on in (False, True):
+                if on:
+                    hub.enable()
+                base.counters[:] = 0
+                out, dt, k = run(base, fam)
+                got[on].append((out, base.counters.copy(), k, dt))
+                hub.disable()
+        (o_off, c_off, k_off, _), (o_on, c_on, k_on, _) = got[False][0], got[True][0]
+        for o, c_, k, _ in got[False][1:] + got[True]:
+            same(f"quiet hub v{fam}", o, o_off)
+            if not np.array_equal(c_, c_off) or k != k_off or not k_off:
+                fail(f"failsafe quiet hub v{fam}: counters or launches differ ({k_off} / {k})")
+        ref[fam] = o_off
+        t_off, t_on = ([g[3] for g in got[on]] for on in (False, True))
+        print(f"failsafe [quiet hub v{fam}]: {BATCH} flows, hub on == hub off (verdicts, redirects, "
+              f"counters), launches {k_on} each; process off {t_off}s, on {t_on}s in turns "
+              f"(medians {median(t_off)!r} / {median(t_on)!r}s) [{card}]", flush=True)
+    state("quiet hub", base, level=0, quarantined_batches=0, breaker_faults=0)
+
+    # -- 2. each site fired once ----------------------------------------------
+    # FAILSAFE_REPS rounds a site: clean, one transient, one poisoned, the
+    # next batch, each checked; the times are host-clock medians
+    sp = pipeline()
+    sp.breaker_threshold = 1 << 20  # the ladder is case 3's
+    site_t = {}  # (family, site) → [clean], [transient], [poisoned] seconds
+    n_q = 0
+    for fam in (4, 6):
+        for site in (faults.SITE_H2D, faults.SITE_DISPATCH, faults.SITE_COMPLETE):
+            ts = site_t[(fam, site)] = ([], [], [])
+            for _ in range(FAILSAFE_REPS):
+                out, dt, _ = run(sp, fam)
+                same(f"clean v{fam}", out, ref[fam])
+                ts[0].append(dt)
+                hub.fail(site, faults.KIND_TRANSIENT, times=1)
+                out, dt, _ = run(sp, fam)
+                same(f"transient {site} v{fam}", out, ref[fam])
+                ts[1].append(dt)
+                state(f"transient {site} v{fam}", sp, level=0, quarantined_batches=n_q)
+                hub.fail(site, faults.KIND_POISONED, times=1)
+                out, dt, _ = run(sp, fam)
+                degraded(f"poisoned {site} v{fam}", out)
+                ts[2].append(dt)
+                n_q += 1
+                state(f"poisoned {site} v{fam}", sp, level=0, quarantined_batches=n_q)
+                out, _, _ = run(sp, fam)
+                same(f"after poisoned {site} v{fam}", out, ref[fam])
+        hub.fail(faults.SITE_COMPLETE, faults.KIND_TRANSIENT, times=3)
+        out, _, _ = run(sp, fam)
+        degraded(f"three transients v{fam}", out)
+        n_q += 1
+        state(f"three transients v{fam}", sp, level=0, quarantined_batches=n_q)
+    print(f"failsafe [sites h2d / dispatch / complete, v4 and v6, {BATCH} flows, "
+          f"{FAILSAFE_REPS} rounds each]: each transient == the clean run with 0 quarantines at "
+          f"level 0; each poisoned one DROP_DEGRADED on every lane and one quarantine, the next "
+          f"batch == the clean run; three transients at complete quarantine; {n_q} quarantines "
+          f"in all [{card}]", flush=True)
+    for (fam, site), (t_clean, t_retry, t_quar) in site_t.items():
+        print(f"failsafe times [v{fam} {site}, {BATCH}-flow process(), host clock, backoff "
+              f"{sp.retry_min_s * 1e3:g} ms]: clean {t_clean}s, one transient (a retry) "
+              f"{t_retry}s, poisoned (a quarantined batch) {t_quar}s; medians "
+              f"{median(t_clean)!r} / {median(t_retry)!r} / {median(t_quar)!r}s, a retry "
+              f"+{median(t_retry) - median(t_clean)!r}s [{card}]", flush=True)
+
+    # ct_epoch on a host-CT pipeline over a copy of the ipcache
+    hcache = IPCache()
+    for cidr, e in cache.items():
+        hcache.upsert(cidr, e.identity, source="k8s")
+    hp = pipeline(ipcache=hcache, conntrack=FlowConntrack(capacity_bits=20))
+    rs = np.random.default_rng(seed + 19)
+    sports = rs.integers(1024, 65535, BATCH).astype(np.int32)
+    c4 = cutflows(4)
+    ct_ref, _, _ = run(hp, 4, c4, sports=sports[cut])
+    same("host CT pass", ct_ref, tuple(a[cut] for a in ref[4]))
+    for k, kind in enumerate((faults.KIND_TRANSIENT, faults.KIND_POISONED)):
+        epoch0 = hp._ct_epoch
+        hcache.upsert(f"203.0.113.{k + 7}/32", endpoints[0], source="k8s")  # no flow's peer
+        hub.fail(faults.SITE_CT_EPOCH, kind, times=1)
+        out, _, _ = run(hp, 4, c4, sports=sports[cut])
+        if kind == faults.KIND_TRANSIENT:
+            same("ct_epoch transient", out, ct_ref)
+            if hp._ct_epoch <= epoch0 or hp._ct_flush_pending:
+                fail("failsafe ct_epoch transient: the retried rebuild did not flush the CT")
+            state("ct_epoch transient", hp, level=0, quarantined_batches=0)
+        else:
+            degraded("ct_epoch poisoned", out)
+            state("ct_epoch poisoned", hp, level=0, quarantined_batches=1)
+            out, _, _ = run(hp, 4, c4, sports=sports[cut])
+            same("after ct_epoch poisoned", out, ct_ref)
+            if hp._ct_flush_pending:
+                fail("failsafe ct_epoch poisoned: the next rebuild did not flush the CT")
+    print(f"failsafe [ct_epoch, host-CT pipeline, {FAILSAFE_CUT} flows with sports]: a transient "
+          f"at the publish's CT flush == the clean pass (the retried rebuild flushed), a poisoned "
+          f"one DROP_DEGRADED and one quarantine, the next pass == the clean pass [{card}]",
+          flush=True)
+
+    # -- 3. the ladder on four virtual records ---------------------------------
+    real_seam = placement.visible_devices
+    placement.visible_devices = lambda: [
+        placement.DeviceRecord(i, 0, dev) for i in range(MESH_GRID)]
+    walks = ("lpm_wide", "lpm_stride8", "policymap_verdict")
+    try:
+        lp = pipeline(sharding=True)
+        lp.breaker_threshold, lp.recover_after_clean = 2, 3
+        if lp.placement_state()["devices"] != list(range(MESH_GRID)):
+            fail(f"failsafe ladder: plan {lp.placement_state()}")
+        out, _, k_l0 = run(lp, 4)
+        same("ladder level 0", out, ref[4])
+        for _ in range(2):
+            hub.fail(faults.SITE_COMPLETE, faults.KIND_POISONED, times=1)
+            degraded("ladder poisoned complete", run(lp, 4, c4)[0])
+        st = state("ladder level 1", lp, level=1, mode="single-device",
+                   excluded_devices=list(range(1, MESH_GRID)))
+        t0 = time.perf_counter()
+        lp.rebuild()
+        torch.cuda.synchronize()
+        t_move1 = time.perf_counter() - t0
+        out, _, k_l1 = run(lp, 4)
+        same("ladder level 1", out, ref[4])
+        if lp._plan.mesh is not None or lp.placement_state()["devices"] != [0]:
+            fail(f"failsafe ladder level 1: plan {lp.placement_state()}")
+        for _ in range(2):
+            hub.fail(faults.SITE_DISPATCH, faults.KIND_POISONED, times=1)
+            degraded("ladder poisoned dispatch", run(lp, 4, c4)[0])
+        state("ladder level 2", lp, level=2, mode="host")
+        t0 = time.perf_counter()
+        lp.rebuild()
+        torch.cuda.synchronize()
+        t_move2 = time.perf_counter() - t0
+        host_t = {}
+        for fam in (4, 6):
+            out, dt, k = run(lp, fam, cutflows(fam))
+            same(f"ladder level 2 v{fam}", out, tuple(a[cut] for a in ref[fam]))
+            if any(k.get(w) for w in walks):
+                fail(f"failsafe ladder level 2 v{fam}: device walks launched {k}")
+            host_t[fam] = dt
+        levels = []
+        while lp.pipeline_mode != "sharded" and len(levels) < 12:
+            fam_flows_l = c4 if lp._ladder_level == 2 else None
+            out, _, _ = run(lp, 4, fam_flows_l)
+            same("ladder climb", out, ref[4] if fam_flows_l is None
+                 else tuple(a[cut] for a in ref[4]))
+            levels.append(lp._ladder_level)
+        state("ladder back", lp, level=0, excluded_devices=[], quarantined_batches=4)
+        out, _, k_back = run(lp, 4)
+        same("ladder level 0 again", out, ref[4])
+        if k_back != k_l0 or lp.placement_state()["devices"] != list(range(MESH_GRID)):
+            fail(f"failsafe ladder: launches {k_back} against {k_l0} at level 0 before, plan "
+                 f"{lp.placement_state()}")
+    finally:
+        placement.visible_devices = real_seam
+    print(f"failsafe [ladder, {MESH_GRID} virtual records on one card, breaker 2, recovery 3]: "
+          f"0 → 1 on two poisoned completions (excluded {st['excluded_devices']}, {BATCH} flows == "
+          f"level 0, launches {k_l1}), 1 → 2 on two poisoned dispatches, level 2 on "
+          f"{FAILSAFE_CUT}-flow cuts of each family (the host rung walks the ipcache per flow in "
+          f"Python) == the device verdicts with no K3 / K4 / K5 launch; the climb's levels "
+          f"{levels}; back at level 0 launches {k_back} == before {k_l0} [{card}]", flush=True)
+    print(f"failsafe times [ladder]: the first rebuild after the move to level 1 {t_move1!r}s, to "
+          f"level 2 {t_move2!r}s; host rung {FAILSAFE_CUT} flows v4 {host_t[4]!r}s = "
+          f"{FAILSAFE_CUT / host_t[4]!r} flows/s, v6 {host_t[6]!r}s = {FAILSAFE_CUT / host_t[6]!r} "
+          f"flows/s [{card}]", flush=True)
+
+    # -- 4. the device-CT rescue ---------------------------------------------
+    cp = pipeline(device_ct_bits=CT_BITS)
+    ct_out, t_pass, k_pass = run(cp, 4, sports=sports)
+    if not (k_pass.get("ct_probe_claim") and k_pass.get("ct_commit")):
+        fail(f"failsafe rescue: the device-CT pass launched {k_pass}")
+    live = int((cp._device_ct.exp > int(time.monotonic())).sum())
+    clocked = {}
+    for name in ("_rescue_device_ct", "_seed_device_ct"):
+        real = getattr(cp, name)
+
+        def timed_call(*a, _r=real, _n=name):
+            t0 = time.perf_counter()
+            r = _r(*a)
+            torch.cuda.synchronize()
+            clocked[_n] = time.perf_counter() - t0
+            return r
+
+        setattr(cp, name, timed_call)
+    hub.fail(faults.SITE_COMPLETE, faults.KIND_POISONED, times=1)
+    degraded("rescue's quarantine", run(cp, 4, c4)[0])
+    state("rescue's quarantine", cp, level=0, quarantined_batches=1)
+    kept = len(cp.conntrack)
+    if cp._device_ct is not None or not cp._device_ct_seed or kept != min(live, cp.device_ct_rescue_limit):
+        fail(f"failsafe rescue: {kept} host entries from {live} live device entries "
+             f"(limit {cp.device_ct_rescue_limit}), seed armed {cp._device_ct_seed}")
+    ips, eps, dports, protos = fl4
+    ka, kb, kc = pack_keys(np.zeros(BATCH, np.uint64), ips.astype(np.uint64),
+                           eps.astype(np.uint64), sports.astype(np.int64),
+                           dports.astype(np.uint64), protos.astype(np.uint64),
+                           np.zeros(BATCH, np.uint64))
+    rescued = cp.conntrack.lookup_batch(ka, kb, kc)[0] != CT_NEW
+    est = []
+    real_step = pmod.ct_step_verdict
+
+    def spy(*a, **k):
+        r = real_step(*a, **k)
+        est.append(r[3].cpu().numpy())
+        return r
+
+    pmod.ct_step_verdict = spy
+    try:
+        out, t_seeded, _ = run(cp, 4, sports=sports)
+    finally:
+        pmod.ct_step_verdict = real_step
+    same("rescue's seeded pass", out, ct_out)
+    if cp._device_ct_seed or "_seed_device_ct" not in clocked:
+        fail("failsafe rescue: the next device-CT pass did not seed its table")
+    if not rescued.any() or not np.array_equal(est[0], rescued):
+        fail(f"failsafe rescue: {int(est[0].sum())} lanes established, {int(rescued.sum())} "
+             f"lanes' keys rescued")
+    print(f"failsafe [device-CT rescue, device_ct_bits={CT_BITS}]: a {BATCH}-flow pass left {live} "
+          f"live entries; a poisoned completion on a {FAILSAFE_CUT}-flow batch without sports "
+          f"quarantined and the rescue kept {kept} in the host CT (limit "
+          f"{cp.device_ct_rescue_limit}); the next pass seeded K10's table and established exactly "
+          f"the {int(rescued.sum())} lanes whose keys were rescued; verdicts == the first pass "
+          f"[{card}]", flush=True)
+    print(f"failsafe times [rescue]: pull into the host CT {clocked['_rescue_device_ct'] * 1e3!r} "
+          f"ms, seed {clocked['_seed_device_ct'] * 1e3!r} ms (host clock, synchronized); device-CT "
+          f"pass {t_pass!r}s, the seeded pass {t_seeded!r}s [{card}]", flush=True)
+
+    # -- 5. a real device stall under the watchdog --------------------------
+    wp = pipeline(pipeline_depth=2)
+    run(wp, 4, c4)
+    wp.set_stall_ms(FAILSAFE_STALL_MS)
+    wd = wp._watchdog
+    try:
+        s0 = wd.stalls
+        device_spin(SPIN_CYCLES // 5)
+        t0 = time.perf_counter()
+        wp.rebuild(force=True)
+        torch.cuda.synchronize()
+        t_full = time.perf_counter() - t0
+        if wd.stalls != s0 + 1 or wd.last_stall["site"] != "compile":
+            fail(f"failsafe watchdog: a spun full rebuild gave stalls {s0} → {wd.stalls}, last "
+                 f"{wd.last_stall}")
+        compile_stall = dict(wd.last_stall)
+        out, _, _ = run(wp, 4)
+        same("watchdog rebuilt", out, ref[4])
+        device_spin(SPIN_CYCLES)
+        pend = wp.submit(*fl4)
+        th = threading.Thread(target=pend.result, daemon=True)
+        th.start()
+        time.sleep(0.01)  # the thread waits in the batch's event
+        t0 = time.monotonic()
+        v, red = pend.result()
+        waited = time.monotonic() - t0
+        limit = 2 * FAILSAFE_STALL_MS / 1e3 + wd._poll_s
+        degraded("watchdog waiter", (v, red))
+        if waited >= limit or wd.last_stall["site"] != "dispatch":
+            fail(f"failsafe watchdog: the waiter waited {waited!r}s (limit {limit!r}s), last "
+                 f"stall {wd.last_stall}")
+        published = pend._value
+        th.join(10.0)
+        if th.is_alive():
+            fail("failsafe watchdog: the stalled completion never returned")
+        if pend._value is not published or not (pend.result()[0] == DROP_DEGRADED).all():
+            fail("failsafe watchdog: the late completion overwrote the degraded result")
+        state("watchdog", wp, quarantined_batches=1)
+        n_stalls = wd.stalls
+    finally:
+        torch.cuda.synchronize()
+        wp.set_stall_ms(0)
+    print(f"failsafe [watchdog, stall_ms {FAILSAFE_STALL_MS:g}, a spin of {SPIN_CYCLES} clocks "
+          f"ahead of one {BATCH}-flow submit]: the waiter got DROP_DEGRADED after {waited!r}s "
+          f"(limit 2 x budget + one {wd._poll_s!r}s sweep = {limit!r}s), the late completion did "
+          f"not overwrite it; a spin of {SPIN_CYCLES // 5} clocks ahead of rebuild(force=True) "
+          f"({t_full!r}s) gave one compile stall {compile_stall}; {n_stalls} stalls in all "
+          f"[{card}]", flush=True)
+
+    injected = float(sum(hub.injected.values()))
+    hub.reset()
+    print(f"failsafe: {int(injected)} injected faults, {n_stalls} watchdog stalls, "
+          f"{watch.quarantines[True]} quarantines, {watch.moves[True]} ladder moves in "
+          f"{time.perf_counter() - t_phase:.1f}s [{card}]", flush=True)
+    return injected + n_stalls
+
+
 def metric_series():
     """Snapshot of the attribution metrics (rule_hits_total and
     drop_reasons_total), keyed by (metric, labels)."""
@@ -5713,6 +6195,9 @@ def main() -> None:
         if got["selector_match"]:
             print(f"main path [{path}] selector_match route (latest launch) "
                   f"{bitmod.SELECTOR_ROUTES['selector_match']} [{card}]", flush=True)
+
+    # every pipeline from here on, and every quarantine and ladder move
+    watch = FailsafeWatch()
 
     phase("2 world")
 
@@ -6068,6 +6553,17 @@ def main() -> None:
                         "lpm_stride8", "policymap_verdict", "policymap_verdict_attrib"])
 
     phase("3j mesh main path")
+
+    # -- 3k. the failsafe ladder and the watchdog, counts from zero -----
+    watch.check("after the other phases")
+    _kernels.reset_launches()
+    faults_expected = failsafe_main_path(engine, cache, endpoints, (ips, eps, dports, protos),
+                                         (addr6, eps6, dports6, protos6), args.seed, card, watch)
+    check_path("failsafe", ["bool_mm", "lpm_wide", "lpm_stride8", "policymap_verdict",
+                            "ct_probe_claim", "ct_commit"])
+    watch.check("after the failsafe phase", faults_expected)
+
+    phase("3k failsafe main path")
 
     # -- 5. each kernel against its plain version on the card ------------
     compiled, device = engine.snapshot()
@@ -6459,6 +6955,7 @@ def main() -> None:
         if total[r["name"]] <= 0:
             fail(f"kernel {r['name']} has no launch on a main path")
     torch.cuda.synchronize()
+    watch.check("end", faults_expected)
     phase("5 kernel rows")
     print(f"total {time.perf_counter() - t_start:.1f}s", flush=True)
 

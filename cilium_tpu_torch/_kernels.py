@@ -13,6 +13,11 @@ Each kernel is reached through a :class:`Kernel`, which checks the
 launch's return code (``cudaGetLastError()`` right after the launch)
 and counts its launches, so a run can show which kernels a path went
 through.
+
+A missing ``nvcc``, a failed compile or link, a library that does not
+load and a launch the C entry refuses all raise :class:`KernelError`:
+the pipeline's failsafe treats it as a programmer error and lets it
+reach the caller, never retrying it nor serving around it.
 """
 
 from __future__ import annotations
@@ -80,6 +85,12 @@ class FirstRuleTerms(ctypes.Structure):
     ]
 
 
+class KernelError(RuntimeError):
+    """A kernel that could not be built, loaded or launched. Raised to
+    the caller as is: it is no device fault a retry or a quarantine
+    could cure (``datapath/pipeline.py`` ``_classify``)."""
+
+
 _lock = threading.Lock()
 # launch counts: a shadow rebuild launches K2 on its own thread while
 # the serving thread launches K3 / K4, and ``+=`` is not atomic
@@ -122,7 +133,7 @@ def _nvcc() -> str:
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
     path = os.path.join(home, "bin", "nvcc")
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+        raise KernelError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
     return path
 
 
@@ -154,14 +165,14 @@ def build() -> Path:
             if proc.returncode != 0:
                 failed.append(f"{src.name}:\n{out}")
         if failed:
-            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+            raise KernelError("nvcc failed:\n" + "\n".join(failed))
         tmp_lib = Path(tmp) / lib_path.name
         proc = subprocess.run(
             [nvcc, *NVCC_FLAGS, "-shared", *map(str, objs), "-o", str(tmp_lib)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
         if proc.returncode != 0:
-            raise RuntimeError("nvcc link failed:\n" + proc.stdout)
+            raise KernelError("nvcc link failed:\n" + proc.stdout)
         # atomic publish: a concurrent builder sees the old state or the
         # whole library, never a half-written file
         os.replace(tmp_lib, lib_path)
@@ -173,7 +184,11 @@ def library() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            path = build()
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:  # a transient kind to the failsafe: say what it is
+                raise KernelError(f"kernel library {path} failed to load: {e}") from e
             for k in KERNELS.values():
                 fn = getattr(lib, k.symbol)
                 fn.argtypes = [*k.argtypes, _I, _P]  # + device, stream
@@ -200,7 +215,7 @@ class Kernel:
         err = getattr(lib, self.symbol)(*args, index, stream)
         if err != 0:
             msg = lib.cilium_error_string(err).decode()
-            raise RuntimeError(f"CUDA kernel {self.name} failed to launch: {msg} ({err})")
+            raise KernelError(f"CUDA kernel {self.name} failed to launch: {msg} ({err})")
         with _count_lock:
             self.launches += 1
 

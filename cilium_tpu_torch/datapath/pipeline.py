@@ -95,9 +95,24 @@ the materializer sweeps' ``sel_match`` reads, a row fetch runs the
 partials only across devices (``ident_gather_rows``). The device-CT
 path keeps the unplaced tables on the pipeline's device.
 
-Not ported yet: the failsafe ladder (retry, quarantine, host
-fallback), tracing, the watchdog, the profiler and the depth tuner,
-the flow ring and flow events.
+Every batch runs under the failsafe (the reference's
+policyd-failsafe): a fault at a named site (``faults.SITE_H2D``,
+``SITE_DISPATCH``, ``SITE_COMPLETE``, ``SITE_CT_EPOCH``) or a real
+exception is classified. A transient one retries, bounded; a poisoned
+one, or a transient one past its retries, quarantines the batch: a
+DROP_DEGRADED result for every flow (FORWARD under FailOpen), the CT
+epoch advanced and the device CT rescued into the host table. A
+programmer error, and a kernel that failed to build, load or launch
+(``_kernels.KernelError``), reach the caller raw. Quarantines trip a
+breaker that walks the ladder sharded → single-device → host (numpy
+verdicts from the host ipcache and the policymap's host copy), and a
+clean streak climbs back one level at a time. With ``stall_ms`` the
+watchdog (datapath/admission.py ``Watchdog``) abandons a completion
+that waits longer than that through the same quarantine, and counts a
+full sweep that outlasts it as a ``compile`` stall.
+
+Not ported yet: tracing, the profiler and the depth tuner, the flow
+ring and flow events.
 """
 
 from __future__ import annotations
@@ -117,11 +132,17 @@ from .. import metrics as _metrics
 from ..compiler.selectors import selector_word_window
 from ..contracts import PIPELINE_DEPTH_MAX, PIPELINE_DEPTH_MIN
 from ..convert import shed_table_from_numpy, v6_tables_from_numpy, wide_tables_from_numpy
+from ..utils.backoff import Backoff
+from . import placement as _placement
 from .admission import (
-    REASON_SHED_DEADLINE, REASON_SHED_PREFILTER, AdmissionController, compile_shed_table,
+    REASON_SHED_DEADLINE, REASON_SHED_PREFILTER, AdmissionController, Watchdog,
+    compile_shed_table,
 )
 from .conntrack import CT_NEW, CT_REPLY, FlowConntrack, pack_keys
-from .device_ct import DeviceCTState, _i32, _u32, ct_step_verdict, make_state, pack_kc_words
+from .device_ct import (
+    DeviceCTState, _i32, _u32, ct_step_verdict, make_state, pack_kc_words, pull_live_entries,
+    seed_state_from_host,
+)
 from ..engine import PolicyEngine
 from ..identity.model import ID_WORLD
 from ..ipcache.ipcache import IPCache
@@ -160,6 +181,23 @@ _OUTCOME_NAMES = (
     (DROP_NO_SERVICE, "dropped_no_service"),
     (DROP_DEGRADED, "dropped_degraded"),
 )
+
+# degradation-ladder levels (policyd-failsafe): index = ladder level.
+# Level 0 is the full device complement (sharded over the plan's grid
+# when VerdictSharding is on), 1 re-forms the plan on one device, 2
+# verdicts on host numpy.
+_MODE_NAMES = ("sharded", "single-device", "host")
+
+
+def _classify(exc: BaseException) -> str:
+    """``faults.classify`` with one more programmer error: a kernel that
+    could not be built, loaded or launched (``_kernels.KernelError``,
+    a RuntimeError that classify would call poisoned) is raised raw,
+    never retried, quarantined or served around by the ladder. Every
+    guarded path of the pipeline classifies through here."""
+    if isinstance(exc, _kernels.KernelError):
+        return _faults.KIND_ERROR
+    return _faults.classify(exc)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -599,13 +637,14 @@ class _InFlight:
     def __init__(self, pending: PendingBatch, finish, b: int = 0, rev: bool = False) -> None:
         self.pending = pending
         self.finish = finish
-        # batch size and revNAT flag: a drained batch gets a
-        # shape-correct degraded result from these
+        # batch size and revNAT flag: a drained or quarantined batch
+        # gets a shape-correct degraded result from these
         self.b = b
         self.rev = rev
         # submit time (monotonic; 0 = not tracked, set only while
-        # admission control is on) and the drain's abandonment mark:
-        # an abandoned batch is already resolved degraded
+        # admission control or the watchdog is on) and the drain's or
+        # the watchdog's abandonment mark: an abandoned batch is already
+        # resolved degraded, and a late finish must not overwrite it
         self.t0 = 0.0
         self.abandoned = False
 
@@ -673,17 +712,21 @@ class _Enqueued:
     staging tuples to release once the events have completed, and the
     tensors the launches read, kept alive until then. ``ndev`` is the
     plan's flows-axis size the batch was split over. On the CPU the
-    outputs are final at enqueue and there is no event."""
+    outputs are final at enqueue and there is no event. ``done`` holds
+    the pulled result once the completion half has it (a retried
+    finish returns it again), or from the start at ladder level 2,
+    where the verdicts are computed on the host at enqueue."""
 
-    __slots__ = ("outs", "host", "events", "staging", "keep", "ndev")
+    __slots__ = ("outs", "host", "events", "staging", "keep", "ndev", "done")
 
-    def __init__(self, outs, host, events, staging, keep, ndev=1) -> None:
+    def __init__(self, outs, host, events, staging, keep, ndev=1, done=None) -> None:
         self.outs = outs
         self.host = host
         self.events = events
         self.staging = staging
         self.keep = keep
         self.ndev = ndev
+        self.done = done
 
     @property
     def event(self):
@@ -730,10 +773,20 @@ class DatapathPipeline:
     ``mesh_2d`` (MeshSharding2D) the grid is ``flows × ident`` and the
     identity tables row-shard over ``ident``.
 
+    Every batch runs under the failsafe (the module docstring): read
+    it with :meth:`failsafe_state` and :attr:`pipeline_mode`; the
+    breaker and retry knobs (``breaker_threshold``,
+    ``recover_after_clean``, ``retry_limit``, ``retry_min_s``,
+    ``retry_max_s``, ``device_ct_rescue_limit``) are plain attributes.
+    ``stall_ms`` > 0 arms the watchdog (:meth:`set_stall_ms`);
+    ``on_journal``, when set, is called as ``fn(kind=..., severity=...,
+    attrs=...)`` for the ``ladder_move``, ``quarantine``, ``rebuild``
+    and ``epoch_swap`` events, outside the pipeline's locks.
+
     The positional order is the reference's; ``device`` (None = the
     card) is keyword-only. Arguments whose feature is not ported yet
-    (``monitor``, ``tracer``, ``flow_ring``, ``autotune``, ``stall_ms``
-    and ``profiling``) raise NotImplementedError when given anything but
+    (``monitor``, ``tracer``, ``flow_ring``, ``autotune`` and
+    ``profiling``) raise NotImplementedError when given anything but
     their default."""
 
     def __init__(
@@ -767,7 +820,7 @@ class DatapathPipeline:
         for name, given in (
             ("monitor", monitor is not None), ("tracer", tracer is not None),
             ("flow_ring", flow_ring is not None), ("autotune", bool(autotune)),
-            ("stall_ms", stall_ms > 0), ("profiling", bool(profiling)),
+            ("profiling", bool(profiling)),
         ):
             if given:
                 raise NotImplementedError(f"the pipeline's {name} is not in the torch port yet")
@@ -821,8 +874,13 @@ class DatapathPipeline:
         # creates no entries verdicted under the old basis
         self._ct_epoch = 0
         # set by a basis move or an epoch-swap install; the next rebuild
-        # flushes the CT and clears it
+        # flushes the CT and clears it, after the SITE_CT_EPOCH check, so
+        # a fault there leaves it set and a retried rebuild flushes
         self._ct_flush_pending = False
+        # (revision, identity_version, vocab_version) of the served
+        # generation, committed after the flush; a move is the
+        # ``rebuild`` journal event
+        self._mat_basis: Optional[Tuple[int, int, int]] = None
         # -- epoch-swapped full rebuilds (EpochSwap) --------------------
         # A full re-materialization the delta log demands builds on a
         # shadow thread while batches keep the current generation; the
@@ -845,8 +903,8 @@ class DatapathPipeline:
         # the resolved MeshPlan owns the grid, the axis shardings and the
         # generation counter; every placed-table cache below is keyed on
         # that generation, so a plan move never serves tables placed on
-        # a stale grid. _excluded_devices is the reference's failsafe
-        # exclusion set: only the ladder (not ported) fills it.
+        # a stale grid. _excluded_devices: device ids the plan must leave
+        # out, filled by the ladder's sharded → single-device descent.
         self._sharding_requested = bool(sharding)
         self._placement: Optional[PlacementConfig] = placement
         self._mesh2d_requested = bool(mesh_2d)
@@ -865,6 +923,38 @@ class DatapathPipeline:
         # what dispatch reads under a plan (_Placed), published by
         # rebuild with the tables; None without one
         self._placed: Optional[_Placed] = None
+        # -- the failsafe: ladder, breaker, bounded retry ---------------
+        # ladder level (index into _MODE_NAMES); moves under self._lock,
+        # dispatch reads the int without it
+        self._ladder_level = 0
+        # quarantines add to _breaker_faults and a clean streak clears
+        # them; at breaker_threshold the ladder descends one level, and
+        # recover_after_clean clean batches at a degraded level climb one
+        self.breaker_threshold = 3
+        self.recover_after_clean = 32
+        self._breaker_faults = 0
+        self._clean_batches = 0
+        # bounded retry of transient faults (completion and enqueue):
+        # retry_limit attempts spaced by a fresh Backoff(min → max)
+        self.retry_limit = 2
+        self.retry_min_s = 0.005
+        self.retry_max_s = 0.1
+        self._quarantined = 0  # batches resolved degraded (lifetime)
+        # direction → (source PolicymapTables, host numpy copy) for the
+        # host rung, pulled once per materialization
+        self._host_pm: Dict[int, Tuple[object, Tuple]] = {}
+        # a quarantine rescued device-CT entries into the host table:
+        # the next fresh device table seeds from the host CT
+        self._device_ct_seed = False
+        self.device_ct_rescue_limit = 1 << 16
+        # lifecycle-event hook: fn(kind=..., severity=..., attrs=...),
+        # always called outside this pipeline's locks; set before the
+        # admission toggle below, which hands it to the controller
+        self.on_journal = None
+        # the stuck-completion watchdog (stall_ms > 0) and the batch a
+        # thread is completing, (inflight, t0), written only while it runs
+        self._watchdog: Optional[Watchdog] = None
+        self._completing: Optional[Tuple] = None
         self.counters = np.zeros((0, 3), np.int64)
         # -- bounded in-flight dispatch queue -------------------------
         # submit() enqueues the device work and defers the host pull
@@ -901,6 +991,9 @@ class DatapathPipeline:
         self._shed_tab: Optional[torch.Tensor] = None
         # graceful drain: new batches resolve degraded at once
         self._draining = False
+        if stall_ms > 0:
+            self.set_stall_ms(stall_ms)
+        _metrics.pipeline_mode.set(0.0)
 
     def set_endpoints(self, endpoints: Sequence) -> None:
         """Accepts identity ids (endpoint id == identity id) or
@@ -970,7 +1063,14 @@ class DatapathPipeline:
         ao, nr = self._attrib_origins(compiled)
         self._attrib_n_rules = nr
         self._attrib_names = self.engine.repo.origin_names() if nr else []
-        self._mat = self._build_mats(compiled, device, self._endpoints, ao, nr)
+        # the slowest thing rebuild() does: with the watchdog armed, a
+        # sweep that outlasts the stall budget shows as a "compile" stall
+        wd = self._watchdog
+        if wd is not None:
+            with wd.watching("compile"):
+                self._mat = self._build_mats(compiled, device, self._endpoints, ao, nr)
+        else:
+            self._mat = self._build_mats(compiled, device, self._endpoints, ao, nr)
 
     @staticmethod
     def _build_mats(compiled, device, endpoints, ao, nr):
@@ -1002,7 +1102,24 @@ class DatapathPipeline:
         ipcache move that is the only trigger patches them in place. The
         LB tables follow the service table. Any of those moves, any rule
         delta and a swap install flush the conntrack.
-        Returns {(direction, family): tables}."""
+        Returns {(direction, family): tables}.
+
+        A move of the served basis is one ``rebuild`` journal event,
+        sent after the lock is released."""
+        oj = self.on_journal
+        prev_basis = self._mat_basis if oj is not None else None
+        tables = self._rebuild_locked(force)
+        if oj is not None and self._mat_basis != prev_basis:
+            basis = self._mat_basis
+            oj(kind="rebuild", attrs={
+                "prev_basis": None if prev_basis is None else list(prev_basis),
+                "basis": None if basis is None else list(basis),
+                "policy_epoch": self._policy_epoch,
+                "generation": self._plan.generation,
+            })
+        return tables
+
+    def _rebuild_locked(self, force: bool = False) -> Dict[Tuple[int, int], object]:
         with self._lock:
             self._refresh_mesh_locked()
             # versions captured before the sources are read: a mutation
@@ -1092,9 +1209,18 @@ class DatapathPipeline:
             if mat_fresh or saw_row_event or saw_rule_delta or basis_moved:
                 self._ct_flush_pending = True
             if self._ct_flush_pending:
+                if _faults.hub.active:
+                    # before the flush: a retried rebuild re-runs this
+                    # whole block (pending stays set), nothing half done
+                    _faults.hub.check(_faults.SITE_CT_EPOCH)
                 self._flush_ct_locked()
                 self._ct_flush_pending = False
             self._refresh_lb_locked()
+            # the served basis, after the flushes: a pending shadow swap
+            # keeps serving the old generation until its install publishes
+            if not swap_pending:
+                self._mat_basis = (compiled.revision, compiled.identity_version,
+                                   compiled.vocab_version)
             return self._tables
 
     def _build_tries_locked(self, compiled) -> None:
@@ -1381,6 +1507,195 @@ class DatapathPipeline:
             "excluded_devices": sorted(self._excluded_devices),
         }
 
+    # -- the failsafe: ladder and classified error handling -------------
+    @property
+    def pipeline_mode(self) -> str:
+        return _MODE_NAMES[self._ladder_level]
+
+    def failsafe_state(self) -> Dict:
+        """Degraded-state snapshot (the reference's GET /healthz block)."""
+        return {
+            "mode": self.pipeline_mode,
+            "level": self._ladder_level,
+            "degraded": self._ladder_level > 0,
+            "fail_open": self._fail_open,
+            "breaker_faults": self._breaker_faults,
+            "clean_batches": self._clean_batches,
+            "quarantined_batches": self._quarantined,
+            "excluded_devices": sorted(self._excluded_devices),
+            "fault_injection": _faults.hub.active,
+        }
+
+    def _set_level(self, level: int) -> None:
+        """Move the ladder (descent on a tripped breaker, one level up on
+        a clean streak). Drops the tables and the placed copies, as a
+        sharding toggle does: the next rebuild re-forms the plan over
+        the devices left and places the tables again."""
+        with self._lock:
+            cur = self._ladder_level
+            level = max(0, min(len(_MODE_NAMES) - 1, int(level)))
+            if level == cur:
+                return
+            frm, to = _MODE_NAMES[cur], _MODE_NAMES[level]
+            self._ladder_level = level
+            if level == 0:
+                # full re-promotion: every device eligible again
+                self._excluded_devices.clear()
+            elif cur == 0:
+                # sharded → single-device: which device faulted cannot
+                # be told on the host, so keep the first of the active
+                # plan (never one its placement left out) and exclude
+                # the rest; the clean-streak probe re-admits them
+                plan_ids = self._plan.device_ids or tuple(
+                    r.id for r in _placement.visible_devices())
+                self._excluded_devices.update(plan_ids[1:])
+            # also bumps _swap_gen: a shadow built for the old device set
+            # must never install
+            self._drop_placed_locked()
+            self._breaker_faults = 0
+            self._clean_batches = 0
+        _metrics.degradations_total.inc({"from": frm, "to": to})
+        _metrics.pipeline_mode.set(float(level))
+        oj = self.on_journal
+        if oj is not None:
+            oj(kind="ladder_move", severity="warning" if level > cur else "info",
+               attrs={"from": frm, "to": to, "level": level})
+
+    def _note_fault(self, exc: BaseException, kind: str) -> None:
+        """Account one classified fault and trip the breaker when due.
+        An injected FaultError was counted where it fired
+        (``faults.hub.check``); only a real one adds to the metric."""
+        if not isinstance(exc, _faults.FaultError):
+            _metrics.pipeline_faults_total.inc(
+                {"site": getattr(exc, "site", "pipeline"), "kind": kind})
+        with self._lock:
+            self._clean_batches = 0
+            self._breaker_faults += 1
+            trip = self._breaker_faults >= self.breaker_threshold
+            lvl = self._ladder_level
+        if trip and lvl < len(_MODE_NAMES) - 1:
+            self._set_level(lvl + 1)
+
+    def _note_clean_batch(self) -> None:
+        """One healthy completion: a short streak clears the breaker; at
+        a degraded level a long enough one climbs one level."""
+        if self._ladder_level == 0 and self._breaker_faults == 0:
+            return  # steady state: two reads, no lock
+        with self._lock:
+            self._clean_batches += 1
+            if self._clean_batches >= self.breaker_threshold:
+                self._breaker_faults = 0
+            lvl = self._ladder_level
+            promote = lvl > 0 and self._clean_batches >= self.recover_after_clean
+        if promote:
+            self._set_level(lvl - 1)
+
+    def _quarantine(self, inf: _InFlight):
+        """Give up on a batch: advance the CT epoch under the lock (a
+        batch completing after this creates no entry verdicted under a
+        basis that may be poisoned), drop the device CT after rescuing
+        its live entries into the host table, abandon any shadow build,
+        and resolve the batch degraded. Its pinned staging tuples are
+        never returned to the free-lists: a copy may still be writing
+        them while its event is pending."""
+        with self._lock:
+            dct = self._device_ct
+            self._ct_epoch += 1
+            ct_epoch = self._ct_epoch
+            self._device_ct = None
+            self._quarantined += 1
+            quarantined = self._quarantined
+            # the generation a shadow bound to may be the poisoned one
+            self._swap_gen += 1
+        # outside the lock: the pull can be slow, or fail, on a device
+        # being quarantined
+        rescue = None
+        if dct is not None and self.conntrack is not None:
+            rescue = self._rescue_device_ct(dct)
+        oj = self.on_journal
+        if oj is not None:
+            oj(kind="quarantine", severity="error", attrs={
+                "ct_epoch": ct_epoch,
+                "quarantined": quarantined,
+                "ct_rescue": "skipped" if rescue is None else rescue,
+            })
+        return self._degraded_result(inf)
+
+    def _rescue_device_ct(self, state) -> Optional[Dict]:
+        """Pull the live device-CT entries (at most
+        ``device_ct_rescue_limit``) into the host FlowConntrack, so the
+        degraded levels keep serving established flows, and mark the
+        next fresh device table to seed from the host CT. The device is
+        the thing quarantined, so any fault, an injected one at
+        SITE_COMPLETE too, skips the rescue (None) and never escalates;
+        a programmer error is raised. → {kept, expired} for the
+        quarantine event."""
+        try:
+            if _faults.hub.active:
+                _faults.hub.check(_faults.SITE_COMPLETE)
+            pulled = pull_live_entries(state, int(time.monotonic()),
+                                       limit=self.device_ct_rescue_limit)
+            kept, expired = self.conntrack.restore_arrays(
+                pulled["ka"], pulled["kb"], pulled["kc"], pulled["ttl"])
+        except BaseException as e:
+            if _classify(e) == _faults.KIND_ERROR:
+                raise
+            return None  # the quarantine goes on cold
+        if kept:
+            _metrics.ct_restored_entries_total.inc({"result": "kept"}, float(kept))
+            with self._lock:  # read by _process_device_ct under it
+                self._device_ct_seed = True
+        if expired:
+            _metrics.ct_restored_entries_total.inc({"result": "expired"}, float(expired))
+        return {"kept": int(kept), "expired": int(expired)}
+
+    def _seed_device_ct(self) -> DeviceCTState:
+        """A fresh device CT holding the host table's entries (the
+        re-upload half of the rescue; the caller holds self._lock). A
+        classified failure gives an empty table: seeding saves the
+        established flows a re-verdict, nothing depends on it."""
+        try:
+            snap = self.conntrack.snapshot_arrays()
+            return seed_state_from_host(
+                snap["ka"], snap["kb"], snap["kc"], snap["ttl"], self._device_ct_bits,
+                int(time.monotonic()), limit=self.device_ct_rescue_limit, device=self.device)
+        except BaseException as e:
+            if _classify(e) == _faults.KIND_ERROR:
+                raise
+            return make_state(self._device_ct_bits, device=self.device)
+
+    def _finish_guarded(self, inf: _InFlight):
+        """Run a batch's finish closure under classification → (value,
+        exc), exactly one not None:
+
+        - transient: retried, ``retry_limit`` times, each after a fresh
+          Backoff's sleep. Sound because SITE_COMPLETE and the event
+          wait come before anything the closure changes, and a pulled
+          result stays on its _Enqueued, so a re-run starts whole;
+        - poisoned, or transient past its retries: quarantined, a
+          degraded result, FIFO order kept;
+        - error (a programmer error, a KernelError): returned for
+          ``result()`` to raise."""
+        attempt = 0
+        bo: Optional[Backoff] = None
+        while True:
+            try:
+                out = inf.finish()
+            except BaseException as e:
+                kind = _classify(e)
+                if kind == _faults.KIND_ERROR:
+                    return None, e
+                self._note_fault(e, kind)
+                if kind == _faults.KIND_TRANSIENT and attempt < self.retry_limit:
+                    attempt += 1
+                    if bo is None:
+                        bo = Backoff(min_s=self.retry_min_s, max_s=self.retry_max_s, jitter=False)
+                    time.sleep(bo.duration())
+                    continue
+                return self._quarantine(inf), None
+            self._note_clean_batch()
+            return out, None
+
     def _replicated_policymap(self, direction: int, pm: PolicymapTables) -> PolicymapTables:
         """Grid-placed copy of one direction's policymap, cached on the
         source object AND the plan generation: patches (which swap the
@@ -1635,7 +1950,7 @@ class DatapathPipeline:
         exc = self._shadow_exc
         if exc is not None:
             self._shadow_exc = None
-            if _faults.classify(exc) == _faults.KIND_ERROR:
+            if _classify(exc) == _faults.KIND_ERROR:
                 raise exc
             return False
         t = self._shadow_thread
@@ -1686,7 +2001,7 @@ class DatapathPipeline:
                             t.record_stream(main)
         # The broad catch is the point: any shadow failure, a
         # BaseException too, parks in _shadow_exc, so the next kick routes
-        # it through faults.classify (KIND_ERROR re-raises there, the rest
+        # it through _classify (KIND_ERROR re-raises there, the rest
         # fall back to a synchronous sweep); a raise on this daemon thread
         # would vanish.
         except BaseException as e:
@@ -1708,7 +2023,14 @@ class DatapathPipeline:
             # which also flushes the CT
             self._ct_flush_pending = True
             self._policy_epoch += 1
+            epoch = self._policy_epoch
         _metrics.engine_epoch_swaps_total.inc()
+        oj = self.on_journal
+        if oj is not None:
+            oj(kind="epoch_swap", attrs={
+                "policy_epoch": epoch,
+                "basis": [compiled.revision, compiled.identity_version, compiled.vocab_version],
+            })
 
     def snapshots(self, ingress: bool = True) -> List[EndpointPolicySnapshot]:
         """The realized policymap of every endpoint (host dicts, patched
@@ -1875,6 +2197,106 @@ class DatapathPipeline:
         widths = [hi - lo for lo, hi in cls._shard_spans(b, ndev)]
         return np.repeat(np.arange(ndev, dtype=np.int32), widths)
 
+    # -- the failsafe's host rung (ladder level 2) ----------------------
+    def _host_tables(self, direction: int) -> Optional[Tuple]:
+        """Host numpy copy of one direction's policymap (col_ep,
+        col_port, col_proto, col_is_l3, id_bits as uint32), cached on the
+        source tables. The pull touches the device: a classified failure
+        gives None, and the caller falls back to the fail policy."""
+        mat = self._mat.get(direction)
+        if mat is None:
+            return None
+        pm = mat.tables
+        src, ht = self._host_pm.get(direction, (None, None))
+        if src is pm:
+            return ht
+        try:
+            ht = (
+                pm.col_ep.cpu().numpy(),
+                pm.col_port.cpu().numpy(),
+                pm.col_proto.cpu().numpy(),
+                pm.col_is_l3.cpu().numpy().astype(bool),
+                # the int32 bit view as the words it carries
+                pm.id_bits.cpu().numpy().view(np.uint32),
+            )
+        except BaseException as e:
+            if _classify(e) == _faults.KIND_ERROR:
+                raise
+            return None
+        self._host_pm[direction] = (pm, ht)
+        return ht
+
+    def _host_verdicts(self, fl: _Batch, *, ingress: bool) -> Tuple[np.ndarray, np.ndarray]:
+        """Numpy mirror of the device verdict path (the ladder's last
+        rung): the peer's identity from the host ipcache, the source the
+        tries are built from, then the policymap decision exactly as
+        ``policymap_verdict`` makes it. O(B · C) numpy and a Python
+        ipcache walk per flow: an emergency path, not a fast one. With
+        the host tables out of reach: FORWARD under FailOpen, else
+        DROP_DEGRADED."""
+        import ipaddress as _ipa
+
+        b = fl.ep_idx.shape[0]
+        direction = TRAFFIC_INGRESS if ingress else TRAFFIC_EGRESS
+        ht = self._host_tables(direction)
+        if ht is None:
+            v = np.full(b, FORWARD if self._fail_open else DROP_DEGRADED, np.int8)
+            if not self._fail_open and b:
+                _metrics.drop_reasons_total.inc({"reason": "pipeline-degraded"}, float(b))
+            return v, np.zeros(b, bool)
+        col_ep, col_port, col_proto, col_is_l3, id_bits = ht
+        peer_bytes = fl.bytes_()
+        addrs = [_ipa.ip_address(bytes(int(x) & 0xFF for x in peer_bytes[i])) for i in range(b)]
+        idents = np.empty(b, np.int64)
+        for i, a in enumerate(addrs):
+            e = self.ipcache.lookup_by_ip(str(a))
+            idents[i] = ID_WORLD if e is None else e.identity
+        rows = np.asarray(self.engine.rows_or_negative(idents))
+        world = np.asarray(self.engine.rows_or_negative(np.array([ID_WORLD], np.int64)))[0]
+        rows = np.where(rows < 0, world, rows).astype(np.int64)
+        # the prefilter deny, ingress only as on the device
+        pf_drop = np.zeros(b, bool)
+        if ingress:
+            _, pf_cidrs = self.prefilter.dump()
+            nets = [_ipa.ip_network(c) for c in pf_cidrs if (":" in c) == (fl.family == 6)]
+            if nets:
+                for i, a in enumerate(addrs):
+                    pf_drop[i] = any(a in n for n in nets)
+        w = id_bits.shape[1] // 2
+        gathered = id_bits[np.clip(rows, 0, id_bits.shape[0] - 1)]
+        shifts = np.arange(32, dtype=np.uint32)
+        both = ((gathered[:, :, None] >> shifts) & np.uint32(1)).astype(bool).reshape(b, -1)
+        c = col_ep.shape[0]
+        allow_bits = both[:, : w * 32][:, :c]
+        red_bits = both[:, w * 32:][:, :c]
+        ep = np.asarray(fl.ep_idx, np.int64)
+        # col_ep's -1 padding matches no endpoint
+        colsel = (ep[:, None] == col_ep[None, :]) & (
+            col_is_l3[None, :]
+            | ((np.asarray(fl.dports)[:, None] == col_port[None, :])
+               & (np.asarray(fl.protos)[:, None] == col_proto[None, :])))
+        hit = colsel & allow_bits
+        allow = hit.any(axis=1)
+        red = (hit & red_bits).any(axis=1)
+        v = np.where(allow, np.int8(FORWARD), np.int8(DROP_POLICY))
+        v = np.where(pf_drop, np.int8(DROP_PREFILTER), v).astype(np.int8)
+        return v, (red & (v == FORWARD))
+
+    def _host_enqueue(self, st, fl: _Batch, sel, *, ingress: bool) -> _Enqueued:
+        """``_dispatch_enqueue`` at ladder level 2: the verdicts of the
+        flows ``sel`` (None = all) computed on the host now, carried
+        finished in ``done`` so the completion half runs unchanged and
+        touches no device. With attribution the host rung decides no
+        rule: every flow's rule is -1 and nothing is counted as a hit."""
+        part = fl if sel is None else fl.take(sel)
+        v, red = self._host_verdicts(part, ingress=ingress)
+        b = v.shape[0]
+        if st[3] is None:
+            done = (v, red, None, None, None, None)
+        else:
+            done = (v, red, None, np.full(b, -1, np.int32), np.zeros(b, bool), None)
+        return _Enqueued((), [], [], [], [], done=done)
+
     def _dispatch_enqueue(self, st, fl: _Batch, sel, row_override, *, ingress: bool) -> _Enqueued:
         """The enqueue half of the device work for the flows ``sel``
         (None = all), at their exact shape: stage the int32 inputs in a
@@ -1890,7 +2312,16 @@ class DatapathPipeline:
         row reads as ``_verdict_tail`` says); the per-flow outputs
         land in their slices of the pinned buffers, the counters and
         rule hits are summed on the pipeline's device, and one event is
-        recorded per device."""
+        recorded per device.
+
+        At ladder level 2 the host rung verdicts the flows instead
+        (``_host_enqueue``). The SITE_DISPATCH and SITE_H2D checks come
+        before any staging tuple is taken, so a retry leaks none."""
+        if self._ladder_level >= 2:
+            return self._host_enqueue(st, fl, sel, ingress=ingress)
+        if _faults.hub.active:
+            _faults.hub.check(_faults.SITE_DISPATCH)
+            _faults.hub.check(_faults.SITE_H2D)
         t, pf_empty, v6_fused, rule_tab, n_rules, ep_count, _lbt, placed = st
 
         def part(a):
@@ -1987,13 +2418,21 @@ class DatapathPipeline:
         outputs out of the staging and release it → (verdict, redirect,
         counters, rule, l4_covered, hits) numpy; the last three are None
         without attribution. Launches no device work, so any thread may
-        run it."""
+        run it. The result stays on ``enq``: a retried finish gets it
+        again. A host-rung batch carries its result from the enqueue
+        and never reaches the SITE_COMPLETE check, which fires before
+        the wait, ahead of anything a retry could see changed."""
+        if enq.done is not None:
+            return enq.done
+        if _faults.hub.active:
+            _faults.hub.check(_faults.SITE_COMPLETE)
         for event in enq.events:
             event.synchronize()
         out = [np.array(h.numpy()) for h in enq.host]
         self._staging_release(enq.staging)
         enq.host = enq.keep = enq.outs = None
-        return (*out, None, None, None) if len(out) == 3 else tuple(out)
+        enq.done = (*out, None, None, None) if len(out) == 3 else tuple(out)
+        return enq.done
 
     def _lb_stage(self, lbt, fl: _Batch, sports):
         """Egress VIP→backend translation (bpf_lxc.c:444-455: the
@@ -2085,9 +2524,11 @@ class DatapathPipeline:
         # to batch, so this path stays synchronous. An LB family falls
         # back to the host CT in BOTH directions: the CT is one
         # bidirectional structure, and an egress VIP flow's entry must
-        # be visible to its reply.
+        # be visible to its reply. At ladder level 2 every batch takes
+        # the host CT and the host rung.
         if (
             self._device_ct_bits is not None
+            and self._ladder_level < 2
             and sports is not None
             and svc_drop is None
             and row_override is None
@@ -2226,7 +2667,14 @@ class DatapathPipeline:
         with self._lock:
             t = self._tables[(direction, family)]
             if self._device_ct is None:
-                self._device_ct = make_state(self._device_ct_bits, device=self.device)
+                # after a quarantine rescued the device entries into the
+                # host table, the fresh table seeds from it, so the
+                # rescued flows stay established on the device path
+                if self._device_ct_seed and self.conntrack is not None:
+                    self._device_ct_seed = False
+                    self._device_ct = self._seed_device_ct()
+                else:
+                    self._device_ct = make_state(self._device_ct_bits, device=self.device)
             v, red, counters = process_flows_ct(
                 t, self._device_ct, peer, *flows, 0 if ingress else 1, now, valid,
                 ep_count=max(1, len(self._endpoints)),
@@ -2248,25 +2696,41 @@ class DatapathPipeline:
     def _complete_oldest(self) -> bool:
         """Pull and finish the oldest in-flight batch. Returns False when
         nothing was queued. The finish closure runs OUTSIDE the queue
-        lock; an exception it raises is kept for ``result()`` to raise
-        (the classified retry and quarantine are not ported)."""
+        lock, under classification (``_finish_guarded``): a transient
+        fault retries, a poisoned one quarantines into a degraded
+        result, and only an error comes back for ``result()`` to raise."""
         with self._queue_lock:
             if not self._inflight:
                 return False
             inf = self._inflight.popleft()
             _metrics.pipeline_inflight_depth.set(float(len(self._inflight)))
         adm = self._admission
+        wd = self._watchdog
         try:
+            # the watchdog's stall clock starts when a thread pulls the
+            # batch: batches nobody is pulling yet are no stall
+            if wd is not None:
+                self._completing = (inf, time.monotonic())
             try:
-                value, exc = inf.finish(), None
-            except Exception as e:  # surfaced by result(), never swallowed
+                value, exc = self._finish_guarded(inf)
+            except Exception as e:  # the quarantine itself failed: result() raises it
                 value, exc = None, e
+            # value and event published together under the queue lock,
+            # where the watchdog decides abandonment: an abandoned batch is
+            # resolved by the watchdog (or the drain), which sets its event
+            # after its degraded value, and a late result never overwrites
+            # it (the reference sets the event here regardless, so a
+            # waiter could read the empty value in between)
             with self._queue_lock:
                 if not inf.abandoned:
                     inf.pending._value = value
                     inf.pending._exc = exc
+                    inf.pending._event.set()
         finally:
-            inf.pending._event.set()
+            if wd is not None:
+                self._completing = None
+            if not inf.abandoned and not inf.pending._event.is_set():
+                inf.pending._event.set()  # an interrupt on the way: never park a waiter
         if adm is not None and inf.t0:
             adm.observe_completion(time.monotonic() - inf.t0)
         return True
@@ -2320,7 +2784,7 @@ class DatapathPipeline:
 
     def _degraded_result(self, inf: _InFlight):
         """Shape-correct result for a batch that will not be verdicted
-        (drained): FORWARD under FailOpen, DROP_DEGRADED (monitor reason
+        (drained, quarantined): FORWARD under FailOpen, DROP_DEGRADED (monitor reason
         155) fail-closed. Never an exception; the batch still lands in
         verdicts_total and drop_reasons_total, but not in the
         per-endpoint counters (its flows are no longer at hand)."""
@@ -2364,9 +2828,35 @@ class DatapathPipeline:
             pending._value = self._degraded_result(_InFlight(pending, None, b=b, rev=want_rev_nat))
             pending._event.set()
             return pending
-        inf = self._submit_inner(fl, sports, ingress=ingress, want_rev_nat=want_rev_nat,
-                                 tunnel_identities=tunnel_identities)
-        if self._admission is not None:
+        # the classified enqueue: a fault in the enqueue half (rebuild,
+        # h2d, dispatch) retries bounded when transient, then resolves
+        # the batch degraded; an error is raised. Each attempt takes a
+        # copy of the batch, whose stages rebind its arrays (the LB stage
+        # rewrites the peers), so a retry starts from the caller's flows.
+        attempt = 0
+        bo: Optional[Backoff] = None
+        while True:
+            try:
+                inf = self._submit_inner(
+                    dataclasses.replace(fl), sports, ingress=ingress, want_rev_nat=want_rev_nat,
+                    tunnel_identities=tunnel_identities)
+                break
+            except BaseException as e:
+                kind = _classify(e)
+                if kind == _faults.KIND_ERROR:
+                    raise
+                self._note_fault(e, kind)
+                if kind == _faults.KIND_TRANSIENT and attempt < self.retry_limit:
+                    attempt += 1
+                    if bo is None:
+                        bo = Backoff(min_s=self.retry_min_s, max_s=self.retry_max_s, jitter=False)
+                    time.sleep(bo.duration())
+                    continue
+                pending = PendingBatch(self)
+                pending._value = self._quarantine(_InFlight(pending, None, b=b, rev=want_rev_nat))
+                pending._event.set()
+                return pending
+        if self._admission is not None or self._watchdog is not None:
             inf.t0 = time.monotonic()
         if inf.finish is None:
             return inf.pending  # ran synchronously (device CT)
@@ -2398,6 +2888,9 @@ class DatapathPipeline:
                     max_depth=max(self.pipeline_depth, self.pipeline_max_depth),
                     deadline_ms=self.deadline_ms,
                 )
+                # a journal armed before the controller existed still
+                # sees its shed episodes
+                self._admission.on_journal = self.on_journal
         else:
             self._admission = None
 
@@ -2407,10 +2900,22 @@ class DatapathPipeline:
         The next rebuild makes the change visible to the gate."""
         self._shed_requested = bool(on)
 
+    def set_stall_ms(self, stall_ms: float) -> None:
+        """(Re)arm the stuck-completion watchdog with a budget of
+        ``stall_ms``; 0 stops it."""
+        wd = self._watchdog
+        if wd is not None:
+            wd.stop()
+            self._watchdog = None
+        if stall_ms and stall_ms > 0:
+            self._watchdog = Watchdog(self, float(stall_ms))
+            self._watchdog.start()
+
     def admission_state(self) -> Dict:
         """Overload snapshot: gate limit and shed accounting, queue
-        depth; ``watchdog`` is None (not ported)."""
+        depth and the watchdog's state (None while it is off)."""
         adm = self._admission
+        wd = self._watchdog
         out: Dict = {
             "enabled": adm is not None,
             "prefilter": self._shed_requested,
@@ -2421,7 +2926,7 @@ class DatapathPipeline:
             out.update(adm.snapshot())
         else:
             out["shed_ratio"] = 0.0
-        out["watchdog"] = None
+        out["watchdog"] = wd.snapshot() if wd is not None else None
         return out
 
     def _shed_walk(self, peer, dports, protos, *, family: int) -> Optional[np.ndarray]:
@@ -2535,10 +3040,12 @@ class DatapathPipeline:
                 shed_mask = self._shed_walk(
                     fl.peer_u32 if fl.family == 4 else fl.peer_bytes, fl.dports, fl.protos,
                     family=fl.family)
-            except _faults.FaultError:
+            except _faults.FaultError as e:
                 # an injected fault: the shed walk is an optimization
-                # and must not fail the submission. Any other exception
-                # (a kernel that failed to build or launch) propagates.
+                # and must not fail the submission; the breaker counts it,
+                # as the reference's does. Any other exception (a kernel
+                # that failed to build or launch) propagates.
+                self._note_fault(e, e.kind)
                 shed_mask = None
         if shed_mask is not None and shed_mask.any():
             shed_idx = np.nonzero(shed_mask)[0]

@@ -15,9 +15,9 @@ run through both packages on the same world and calls.
   inside the deferral, so no wall-clock bound is asserted.
 - Off, tripwires prove that no gate code runs.
 
-The port has no degradation ladder yet, so where the reference asserts
-``pipeline_mode == "sharded"`` (overload must not move the ladder) the
-port asserts nothing about a mode.
+Where the reference asserts ``pipeline_mode == "sharded"`` (overload
+must not move the ladder), so does the port, with its failsafe state
+equal to the JAX pipeline's.
 """
 
 from __future__ import annotations
@@ -145,6 +145,8 @@ class TestShedGate:
         for limit0, p in zip(limits0, (gp.j, gp.t)):
             assert limit0 / 2.0 <= p._admission.limit < limit0
         assert gp.t._admission.limit == gp.j._admission.limit
+        assert gp.t.pipeline_mode == gp.j.pipeline_mode == "sharded"
+        assert gp.t.failsafe_state() == gp.j.failsafe_state()
         gp.state_equal()
 
     def test_gated_merge_with_rev_nat(self):
@@ -252,6 +254,9 @@ class TestShedGate:
         monkeypatch.setattr(gp.t, "_shed_walk", injected)
         tfaults.hub.fail(tfaults.SITE_QUEUE_FULL, tfaults.KIND_TRANSIENT, times=1)
         gp.equal(gp.t.process(*bt), base.t.process(*bt))
+        # the breaker counts it, the batch is not quarantined
+        st = gp.t.failsafe_state()
+        assert (st["breaker_faults"], st["quarantined_batches"], st["level"]) == (1, 0, 0)
 
         def kernel_failed(*_a, **_k):
             raise RuntimeError("CUDA kernel shed_walk_wide failed to launch")

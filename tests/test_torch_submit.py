@@ -267,21 +267,24 @@ def test_drain_with_spent_deadline_abandons_degraded():
 
 
 def test_finish_exception_is_raised_by_result():
-    """An exception in the completion half reaches result(), not the
-    thread that happened to complete the batch."""
+    """An error in the completion half (a programmer error: the failsafe
+    classifies a RuntimeError as a device fault and quarantines it)
+    reaches result(), not the thread that happened to complete the
+    batch."""
     pr = Pair(3, depth=4)
     h = pr.t.submit(*pr.flows(4, 64, 3))
 
     def boom(_enq):
-        raise RuntimeError("pull failed")
+        raise TypeError("pull failed")
 
     pr.t._dispatch_complete = boom
     later = pr.t.submit(*pr.flows(4, 64, 4))
-    with pytest.raises(RuntimeError, match="pull failed"):
+    with pytest.raises(TypeError, match="pull failed"):
         later.result()
     assert h.done
-    with pytest.raises(RuntimeError, match="pull failed"):
+    with pytest.raises(TypeError, match="pull failed"):
         h.result()
+    assert pr.t.failsafe_state()["quarantined_batches"] == 0
 
 
 def test_constructor_depth_bounds_and_alias():
@@ -293,7 +296,7 @@ def test_constructor_depth_bounds_and_alias():
         assert pipe.pipeline_max_depth == max(want, 4)
     assert tpipe.process_ipv4 is tpipe.process_flows
     for kw in ({"tracer": object()}, {"flow_ring": object()}, {"autotune": True},
-               {"stall_ms": 5.0}, {"profiling": True}):
+               {"profiling": True}):
         with pytest.raises(NotImplementedError):
             tpipe.DatapathPipeline(eng, w.ipcache, device="cpu", **kw)
     # placement is ported: the three arguments are taken as given
