@@ -192,6 +192,22 @@
    quarantine, and pipeline_faults_total moves only by the phase's own
    injected faults and stalls (FailsafeWatch, checked before and after
    the phase and at the end).
+4l. The observe main path, launch counts from zero (observe_main_path):
+   the tracer, the device profiler and the depth tuner on three new
+   pipelines. 1 048 576-flow v4 and v6 process() on the bench world's
+   prefilter pipeline, twice each with everything off, traced, and
+   traced and profiled at every batch: results, counters and K3 / K4 /
+   K5 launches equal; each traced batch's phases in ms and their
+   coverage of its total_ns (within 20%, else the run fails), beside the
+   sample's h2d / device_compute / d2h from CUDA events. Then the
+   services (host CT + LB) and device-CT v4 passes of 4e / 4f on fresh
+   pipelines, traced and sampled: each pass equal to its phase's, one
+   sample a K4 launch. One pattern-cap check_batch with L7DeviceBatch
+   on, sampled at the l7 site, equal to 4d's. Then 8 v4 batches
+   submitted at depth 2, autotune off and on (epoch 2, max depth 4) in
+   turns off, on, on, off: the depth after each submit, the tuner's
+   state, results, counters and launches equal. Last, with everything
+   off, one batch builds no trace, span, profiler, sample or tuner.
 5. Holds every kernel against its plain version on the card, at the
    main paths' shapes, with exact equality (all outputs are integers),
    and times kernel, plain version and, where one exists, a library
@@ -6043,6 +6059,281 @@ def failsafe_main_path(engine, cache, endpoints, flows4, flows6, seed: int, card
     return injected + n_stalls
 
 
+OBSERVE_BATCHES = 8  # v4 1M-flow batches of the autotune case
+OBSERVE_SUBMIT_DEPTH = 2  # their static depth; the tuner moves it in [1, 4]
+
+
+def trace_line(t) -> str:
+    """One trace as "phase ms" pairs (a phase that recurs is summed) and
+    its coverage of the batch's total_ns."""
+    ms = {}
+    for name, _rel, dur in t["phases"]:
+        ms[name] = ms.get(name, 0.0) + dur / 1e6
+    covered = sum(dur for _n, _r, dur in t["phases"]) / t["total_ns"]
+    return (f"{t['kind']} total {t['total_ns'] / 1e6!r} ms, phases "
+            f"{ {k: round(v, 4) for k, v in ms.items()} } ms, covered {covered!r}")
+
+
+def sample_line(s) -> str:
+    return (f"h2d {s['h2d_ms']!r} ms, device_compute {s['device_compute_ms']!r} ms, d2h "
+            f"{s['d2h_ms']!r} ms (notes {s['notes']})")
+
+
+def check_coverage(traces, what: str) -> None:
+    """The phases of every traced batch cover its wall within 20% (the
+    reference's bound, tests/test_observe.py)."""
+    for t in traces:
+        covered = sum(dur for _n, _r, dur in t["phases"])
+        if not t["total_ns"] or abs(covered - t["total_ns"]) / t["total_ns"] > 0.20:
+            fail(f"observe {what}: the phases cover {covered} of {t['total_ns']} ns")
+
+
+class nothing_built:
+    """Inside: building a BatchTrace, a _Span, a DeviceProfiler, a
+    _DispatchSample or a DepthTuner raises (the off path builds none)."""
+
+    def __enter__(self):
+        from cilium_tpu_torch.datapath import pipeline as pmod
+        from cilium_tpu_torch.observe import profiler as prof_mod
+        from cilium_tpu_torch.observe import tracer as tr_mod
+
+        def boom(*_a, **_k):
+            raise AssertionError("an observer object was built with everything off")
+
+        self.saved = [(m, n, getattr(m, n)) for m, n in (
+            (tr_mod, "BatchTrace"), (tr_mod, "_Span"), (prof_mod, "DeviceProfiler"),
+            (prof_mod, "_DispatchSample"), (pmod, "DepthTuner"))]
+        for m, n, _v in self.saved:
+            setattr(m, n, boom)
+        return self
+
+    def __exit__(self, *exc):
+        for m, n, v in self.saved:
+            setattr(m, n, v)
+        return False
+
+
+def observe_main_path(engine, cache, endpoints, flows4, flows6, svc, dct, l7res, card: str):
+    """Phase 3l: the tracer, the device profiler and the depth tuner
+    (A5b) on the bench world at full width, each case against the same
+    batches with them off: results, counters and launch counts equal;
+    per-phase ms and the h2d / compute / d2h split printed. The services
+    and device-CT replays are held to their phases' results. Every
+    pipeline here is made before the launch counts are reset."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch import _kernels
+    from cilium_tpu_torch import metrics as tmetrics
+    from cilium_tpu_torch.datapath import l7_pipeline as l7rt
+    from cilium_tpu_torch.datapath.conntrack import FlowConntrack
+    from cilium_tpu_torch.datapath.pipeline import DatapathPipeline
+    from cilium_tpu_torch.ipcache.prefilter import PreFilter
+    from cilium_tpu_torch.observe import DeviceProfiler
+
+    t0 = time.perf_counter()
+    pf = PreFilter()
+    pf.insert(pf.revision, PREFILTER_CIDRS + V6_DENY)
+    pipe = DatapathPipeline(engine, cache, pf, pipeline_depth=OBSERVE_SUBMIT_DEPTH)
+    pipe.set_endpoints(endpoints)
+    pipe.rebuild()
+    ep_ids = [(10_000 + j, e) for j, e in enumerate(svc["endpoints"])]
+    spipe = DatapathPipeline(svc["pipe"].engine, svc["cache"],
+                             conntrack=FlowConntrack(capacity_bits=CT_BITS), lb=svc["manager"])
+    spipe.set_endpoints(ep_ids)
+    spipe.rebuild()
+    dpipe = DatapathPipeline(svc["pipe"].engine, svc["cache"], PreFilter(), device_ct_bits=CT_BITS)
+    dpipe.set_endpoints(ep_ids)
+    dpipe.rebuild()
+    torch.cuda.synchronize()
+    print(f"observe: three pipelines (bench world with the prefilter, services with host CT "
+          f"and LB, device CT) built in {time.perf_counter() - t0:.2f}s", flush=True)
+
+    _kernels.reset_launches()
+    walks = ("lpm_wide", "lpm_stride8", "policymap_verdict")
+
+    # -- tracing and profiling on the 1M-flow v4 / v6 batches ------------
+    calls = (("v4", "process", flows4), ("v6", "process_v6", flows6))
+    modes = ("off", "traced", "traced+profiled")
+    out, counts, ctr, traces, samples = {}, {}, {}, {}, {}
+    for mode in modes:
+        pipe.tracer.clear()
+        if mode != "off":
+            pipe.tracer.enable()
+        if mode == "traced+profiled":
+            pipe.set_profiling(True, sample_every=1)
+        for fam, call, flows in calls:
+            pipe.counters[:] = 0
+            k0 = _kernels.launches()
+            outs = [getattr(pipe, call)(*flows) for _ in range(2)]
+            torch.cuda.synchronize()
+            k1 = _kernels.launches()
+            out[mode, fam] = outs
+            counts[mode, fam] = {k: k1[k] - k0[k] for k in walks}
+            ctr[mode, fam] = pipe.counters.copy()
+        traces[mode] = pipe.tracer.traces()
+        samples[mode] = pipe.profiler.samples() if pipe.profiler is not None else []
+        pipe.tracer.disable()
+        pipe.set_profiling(False)
+    for mode in modes[1:]:
+        for fam, _call, _flows in calls:
+            for (v, r), (v0, r0) in zip(out[mode, fam], out["off", fam]):
+                if not (np.array_equal(v, v0) and np.array_equal(r, r0)):
+                    fail(f"observe {fam}: {mode} changed the verdicts or redirects")
+            if not np.array_equal(ctr[mode, fam], ctr["off", fam]):
+                fail(f"observe {fam}: {mode} changed the counters")
+            if counts[mode, fam] != counts["off", fam]:
+                fail(f"observe {fam}: launches {counts[mode, fam]} {mode}, "
+                     f"{counts['off', fam]} off")
+        if len(traces[mode]) != 4:
+            fail(f"observe: {len(traces[mode])} traces {mode}, expected 4")
+        check_coverage(traces[mode], mode)
+    if traces["off"] or samples["off"] or samples["traced"]:
+        fail("observe: a trace or a sample was made with the tracer or the profiler off")
+    if len(samples["traced+profiled"]) != 4:
+        fail(f"observe: {len(samples['traced+profiled'])} samples at sample_every=1, expected 4")
+    for (fam, _c, _f), k in zip(calls, (0, 2)):
+        print(f"observe [{fam}]: launches per 2 batches {counts['off', fam]} with everything "
+              f"off, equal traced and traced+profiled; results and counters bit-identical "
+              f"[{card}]", flush=True)
+        for mode in modes[1:]:
+            for j in (k, k + 1):
+                line = trace_line(traces[mode][j])
+                if mode == "traced+profiled":
+                    line += "; " + sample_line(samples[mode][j])
+                print(f"  {mode} batch {j - k + 1}: {line}", flush=True)
+        for s in samples["traced+profiled"][k:k + 2]:
+            if s["device_compute_ms"] <= 0 or s["h2d_ms"] <= 0 or s["d2h_ms"] <= 0:
+                fail(f"observe {fam}: a split part is not positive: {sample_line(s)}")
+    check_path_counts = {k: sum(counts[m, f][k] for m in modes for f in ("v4", "v6"))
+                         for k in walks}
+
+    # -- host CT with LB (services) and device CT, v4, traced + profiled -
+    stateful = {}
+    for name, p, ref in (("services", spipe, svc), ("device CT", dpipe, dct)):
+        p.tracer.enable()
+        p.set_profiling(True, sample_every=1)
+        q = ref["seqs"][4]
+        k0 = _kernels.launches()
+        t1 = time.perf_counter()
+        got = svc_sequence(p, 4, q["batch"], q["reply"], q["overlay"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        k1 = _kernels.launches()
+        stateful[name] = {k: k1[k] - k0[k] for k in k1}
+        for j, (a, b) in enumerate(zip(got, ref["res"][4])):
+            if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+                fail(f"observe {name}: pass {j + 1} differs from the untraced run of its phase")
+        tr, sm = p.tracer.traces(), p.profiler.samples()
+        p.tracer.disable()
+        p.set_profiling(False)
+        print(f"observe [{name} v4]: the 4 passes in {wall!r}s, each equal to its phase's "
+              f"untraced run; launches {stateful[name]}; {len(sm)} samples [{card}]", flush=True)
+        for j, t in enumerate(tr):
+            print(f"  pass {j + 1}: {trace_line(t)}", flush=True)
+        for s in sm:
+            print(f"  sample: {sample_line(s)}", flush=True)
+        # one sample a dispatch: a miss tail's or a device-CT pass's, one K4 each
+        k4 = stateful[name]["policymap_verdict"]
+        if len(sm) != k4 or len(tr) != 4:
+            fail(f"observe {name}: {len(sm)} samples and {len(tr)} traces for {k4} K4 launches")
+    s_l = stateful["services"]
+    if (s_l["lb_index_build"], s_l["lb_translate"]) != (2, 2) or s_l["lpm_wide"] != s_l[
+            "policymap_verdict"] or s_l["ct_probe_claim"]:
+        fail(f"observe services: launches {s_l}")
+    d_l = stateful["device CT"]
+    if (d_l["ct_probe_claim"], d_l["ct_commit"]) != (3, 3) or d_l["lb_translate"]:
+        fail(f"observe device CT: launches {d_l}")
+
+    # -- one L7 check_batch with L7DeviceBatch on, sampled at the l7 site
+    prof = DeviceProfiler(sample_every=1)
+    l7rt.set_device_batch(True)
+    l7rt.set_profiler(prof)
+    k0 = _kernels.launches()
+    t1 = time.perf_counter()
+    out_b = l7res["pol_b"].check_batch(l7res["reqs_b"])
+    wall = time.perf_counter() - t1
+    k1 = _kernels.launches()
+    l7rt.set_profiler(None)
+    l7rt.set_device_batch(False)
+    if not np.array_equal(out_b, l7res[("b", "on")]):
+        fail("observe l7: the sampled check_batch differs from the L7 phase's")
+    l7_samples = prof.samples()
+    l7_k = {k: k1[k] - k0[k] for k in k1 if k1[k] != k0[k]}
+    if len(l7_samples) != 1 or l7_samples[0]["site"] != "l7":
+        fail(f"observe l7: {len(l7_samples)} samples")
+    print(f"observe [l7]: pattern-cap check_batch {L7_BATCH} requests {wall!r}s, equal to the "
+          f"L7 phase's; launches {l7_k}; sample {sample_line(l7_samples[0])} [{card}]",
+          flush=True)
+
+    # -- the depth tuner: 8 v4 batches in flight, autotune on and off, in
+    # turns (off, on, on, off), each "on" with a fresh tuner ------------
+    adj0 = {d: tmetrics.autotune_adjustments_total.get({"direction": d}) for d in ("up", "down")}
+    runs, walls, trajectories = {}, {"off": [], "on": []}, []
+    for mode in ("off", "on", "on", "off"):
+        pipe.set_autotune(False)  # back at the static depth
+        if mode == "on":
+            pipe.set_autotune(True, max_depth=4, epoch=2)
+        pipe.counters[:] = 0
+        depths = []
+        k0 = _kernels.launches()
+        t1 = time.perf_counter()
+        pend = []
+        for _ in range(OBSERVE_BATCHES):
+            pend.append(pipe.submit(*flows4))
+            depths.append(pipe.pipeline_depth)
+        res = [h.result() for h in pend]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+        k1 = _kernels.launches()
+        walls[mode].append(wall)
+        if mode == "on":
+            trajectories.append(depths)
+        if mode in runs:
+            continue  # the repeat of each mode is timed only
+        runs[mode] = dict(res=res, depths=depths, wall=wall, counters=pipe.counters.copy(),
+                          launches={k: k1[k] - k0[k] for k in walks},
+                          state=pipe.autotune_state())
+    pipe.set_autotune(False)
+    adj = {d: tmetrics.autotune_adjustments_total.get({"direction": d}) - adj0[d]
+           for d in ("up", "down")}
+    for (v, r), (v0, r0) in zip(runs["on"]["res"], runs["off"]["res"]):
+        if not (np.array_equal(v, v0) and np.array_equal(r, r0)):
+            fail("observe autotune: the tuned run's verdicts differ from the static run's")
+    if not np.array_equal(runs["on"]["counters"], runs["off"]["counters"]):
+        fail("observe autotune: counters differ")
+    if runs["on"]["launches"] != runs["off"]["launches"]:
+        fail(f"observe autotune: launches {runs['on']['launches']} on, "
+             f"{runs['off']['launches']} off")
+    state = runs["on"]["state"]
+    if state is None or state["epochs_seen"] < OBSERVE_BATCHES // 2 - 1:
+        fail(f"observe autotune: the tuner saw too few epochs: {state}")
+    print(f"observe [autotune]: {OBSERVE_BATCHES} v4 batches of {BATCH} flows submitted at "
+          f"static depth {OBSERVE_SUBMIT_DEPTH}, in turns off, on, on, off: walls off "
+          f"{walls['off']}s, on (epoch 2, max depth 4) {walls['on']}s; depth after each submit "
+          f"{trajectories}; autotune_adjustments_total over both and the restores {adj}; the "
+          f"first tuner's autotune_state {state}; "
+          f"results, counters and launches {runs['on']['launches']} equal [{card}]",
+          flush=True)
+
+    # -- off again: a batch builds no trace, sample or tuner -------------
+    if pipe.pipeline_depth != OBSERVE_SUBMIT_DEPTH or pipe.autotune_state() is not None:
+        fail("observe: autotune off did not restore the static depth")
+    n_tr = len(pipe.tracer.traces())
+    with nothing_built():
+        v, r = pipe.process(*flows4)
+    if not (np.array_equal(v, out["off", "v4"][0][0]) and len(pipe.tracer.traces()) == n_tr
+            and pipe.profiler is None):
+        fail("observe: the batch after everything was turned off differs or was observed")
+    print("observe [off again]: a v4 batch built no trace, span, profiler, sample or tuner",
+          flush=True)
+    counts_all = {k: check_path_counts[k] + 2 * (runs["on"]["launches"][k]
+                                                 + runs["off"]["launches"][k]) for k in walks}
+    print(f"observe: K3 / K5 / K4 launches of the v4 / v6 cases {counts_all}; phase in "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    return dict(traces=traces, samples=samples, stateful=stateful, l7=l7_samples, runs=runs)
+
+
 def metric_series():
     """Snapshot of the attribution metrics (rule_hits_total and
     drop_reasons_total), keyed by (metric, labels)."""
@@ -6564,6 +6855,14 @@ def main() -> None:
     watch.check("after the failsafe phase", faults_expected)
 
     phase("3k failsafe main path")
+
+    # -- 3l. tracing, the profiler and the depth tuner, counts from zero --
+    observe_main_path(engine, cache, endpoints, (ips, eps, dports, protos),
+                      (addr6, eps6, dports6, protos6), svc, dct, l7res, card)
+    check_path("observe", ["lpm_wide", "lpm_stride8", "policymap_verdict", "lb_index_build",
+                           "lb_translate", "ct_probe_claim", "ct_commit", "dfa_walk_fused"])
+
+    phase("3l observe main path")
 
     # -- 5. each kernel against its plain version on the card ------------
     compiled, device = engine.snapshot()

@@ -16,6 +16,13 @@ chunk (131 072 requests × 3 fields are 24 launches of 16 384 rows).
 Pad rows are marked length -1 (the kernels mask them to an empty accept
 mask) and counted in ``l7_pad_lanes_total``.
 
+With a profiler installed (``set_profiler``) every Nth submit is
+sampled at the ``l7`` site: on the card CUDA events on the walk's
+stream before the batch's copies in, after them and after its last
+launch, and around the copies out at completion, read after the pull
+that waits anyway; on the CPU ``time.perf_counter`` around the same
+stretches.
+
 The module also owns the ``L7DeviceBatch`` runtime gate: policies read
 ``device_batch_enabled()`` per batch and fall back to their exact
 pre-option code path when it is off.
@@ -81,9 +88,9 @@ class PendingL7Batch:
 
 
 class _InFlight:
-    __slots__ = ("pending", "chunks", "n_req", "n_fields", "bt", "t0")
+    __slots__ = ("pending", "chunks", "n_req", "n_fields", "bt", "t0", "ps")
 
-    def __init__(self, pending, chunks, n_req, n_fields, bt, t0) -> None:
+    def __init__(self, pending, chunks, n_req, n_fields, bt, t0, ps=None) -> None:
         self.pending = pending
         # [(lo, hi, rows_live)] — device tensors; pulled at completion
         # time, not submit time (that's the overlap)
@@ -92,6 +99,23 @@ class _InFlight:
         self.n_fields = n_fields
         self.bt = bt
         self.t0 = t0
+        # the profiler's sample and its submit-time stamps (before the
+        # copies in, after them, after the last launch), or None
+        self.ps = ps
+
+
+def _stamp(dev: torch.device):
+    """A point on the walk's clock: a timing CUDA event recorded on the
+    device's current stream, or ``time.perf_counter()`` on the CPU."""
+    if dev.type != "cuda":
+        return time.perf_counter()
+    event = torch.cuda.Event(enable_timing=True)
+    event.record(torch.cuda.current_stream(dev))
+    return event
+
+
+def _secs(a, b) -> float:
+    return b - a if isinstance(a, float) else a.elapsed_time(b) / 1e3
 
 
 class L7Pipeline:
@@ -107,8 +131,7 @@ class L7Pipeline:
         self.depth = max(1, int(depth))
         self.tracer = tracer
         self.device = _kernels.resolve_device(device)
-        # set_profiler() installs the shared profiler here; the port's
-        # pipeline does not sample it yet
+        # set_profiler() installs the shared DeviceProfiler here
         self.profiler = None
         self._lock = threading.Lock()
         self._inflight: "deque[_InFlight]" = deque()
@@ -163,10 +186,12 @@ class L7Pipeline:
                 f"DFA table on {table.device}, L7 pipeline on {self.device}"
             )
 
-    def _walk(self, table: DeviceDFATable, sb: np.ndarray, lens: np.ndarray,
-              starts: np.ndarray, rung: int):
+    def _upload(self, sb: np.ndarray, lens: np.ndarray, starts: np.ndarray):
+        """One chunk's (starts, bytes, lengths) on the pipeline's device."""
         dev = self.device
-        args = [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (starts, sb, lens)]
+        return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in (starts, sb, lens)]
+
+    def _walk(self, table: DeviceDFATable, args, rung: int):
         route = l7_walk_route(table.has_pair, table.class_trans is not None, rung)
         if route == "pair":
             return dfa_match_batch_pair(
@@ -228,8 +253,13 @@ class L7Pipeline:
             live = int(lens.size)
             live_bytes = int(np.maximum(lens, 0).sum())
 
+        # one attribute read while off; a sampled batch stamps its copies
+        # in and its launches
+        prof = self.profiler
+        ps = prof.begin_dispatch("l7", n_req) if prof is not None else None
+
         with bt.phase("dispatch"):
-            chunks = []
+            parts = []
             top = L7_LANE_RUNGS[-1]
             pad_rows = 0
             off = 0
@@ -250,9 +280,24 @@ class L7Pipeline:
                     clens = lens[off : off + take]
                     cstarts = starts[off : off + take]
                 self._note_shape(kind, table.n_states, lanes, rung)
-                lo, hi = self._walk(table, csb, clens, cstarts, rung)
-                chunks.append((lo, hi, take))
+                parts.append((csb, clens, cstarts, take))
                 off += take
+            # every chunk's copies in, then every launch: the split's
+            # h2d and compute are two stretches of the stream
+            stamps = None if ps is None else [_stamp(self.device)]
+            ins = [self._upload(*p[:3]) for p in parts]
+            if ps is not None:
+                stamps.append(_stamp(self.device))
+            chunks = []
+            for args, p in zip(ins, parts):
+                lo, hi = self._walk(table, args, rung)
+                chunks.append((lo, hi, p[3]))
+            if ps is not None:
+                stamps.append(_stamp(self.device))
+                ps.mark(rungs=[lane_rung(min(top, c[2])) for c in chunks], len_rung=int(rung),
+                        lanes=int(live), pad_lanes=int(pad_rows), chunks=len(chunks),
+                        parser=parser)
+                ps = (ps, stamps)
             metrics.l7_pad_lanes_total.inc({"kind": "lane"}, pad_rows)
             metrics.l7_pad_lanes_total.inc({"kind": "lane_live"}, live)
             metrics.l7_pad_lanes_total.inc(
@@ -262,7 +307,7 @@ class L7Pipeline:
             metrics.l7_batches_total.inc({"parser": parser})
 
         pending = PendingL7Batch(self)
-        entry = _InFlight(pending, chunks, n_req, table.n_fields, bt, t0)
+        entry = _InFlight(pending, chunks, n_req, table.n_fields, bt, t0, ps)
         if bt is not NOOP_BATCH:
             tr.detach(bt)
         overflow: List[_InFlight] = []
@@ -285,6 +330,8 @@ class L7Pipeline:
 
     def _finish(self, entry: _InFlight) -> None:
         bt = entry.bt
+        ps = entry.ps
+        t_out = None if ps is None else _stamp(self.device)
         try:
             with bt.phase("host_sync"):
                 parts = [masks_u64(lo, hi)[:take] for lo, hi, take in entry.chunks]
@@ -298,6 +345,20 @@ class L7Pipeline:
             entry.pending._value = [
                 masks[f * b : (f + 1) * b] for f in range(entry.n_fields)
             ]
+            if ps is not None:
+                # the copies out: from t_out, recorded behind the walks,
+                # to a stamp after the pulls, which waited for them
+                entry.ps = None
+                sample, (e0, e1, e2) = ps
+                e3 = _stamp(self.device)
+                if not isinstance(e3, float):
+                    e3.synchronize()
+                sample.add_h2d(_secs(e0, e1))
+                sample.add_compute(_secs(e1, e2))
+                sample.add_d2h(_secs(t_out, e3))
+                prof = self.profiler
+                if prof is not None:
+                    prof.complete(sample)
         # not swallowed: the error is stored and re-raised by the
         # caller's result() — completion must still mark the batch done
         # or FIFO draining would deadlock behind it
@@ -323,8 +384,9 @@ class L7Pipeline:
 _rt_lock = threading.Lock()
 _enabled = False
 _pipeline: Optional[L7Pipeline] = None
-# shared profiler: carried onto any pipeline set_device_batch creates
-# later so toggle order doesn't matter (the port does not sample it yet)
+# shared DeviceProfiler: installed while DeviceProfiling is on, carried
+# onto any pipeline set_device_batch creates later so toggle order
+# doesn't matter
 _profiler = None
 
 
@@ -355,9 +417,9 @@ def set_device_batch(on: bool, tracer: Optional[Tracer] = None,
 
 
 def set_profiler(prof) -> None:
-    """Install (or clear, with None) the shared profiler on the L7
-    pipeline. Kept so the gate's API matches the JAX package's; the
-    port's pipeline does not sample it yet."""
+    """Install (or clear, with None) the shared DeviceProfiler on the
+    L7 pipeline — the DeviceProfiling half of the L7DeviceBatch gate:
+    every ``sample_every``-th submit is sampled at the ``l7`` site."""
     global _profiler
     with _rt_lock:
         _profiler = prof

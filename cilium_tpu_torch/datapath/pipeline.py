@@ -111,8 +111,19 @@ watchdog (datapath/admission.py ``Watchdog``) abandons a completion
 that waits longer than that through the same quarantine, and counts a
 full sweep that outlasts it as a ``compile`` stall.
 
-Not ported yet: tracing, the profiler and the depth tuner, the flow
-ring and flow events.
+Every batch can be watched without changing what it computes: the
+span tracer (``tracer``, observe/tracer.py) times the phases of
+``contracts.TRACE_PHASES`` of a batch from its submit to its
+completion; the device profiler (``set_profiling``,
+observe/profiler.py) splits every Nth dispatch into h2d / device
+compute / d2h, on the card by CUDA events recorded on the batch's own
+stream and read after its completion wait (no added synchronization),
+on the CPU by ``time.perf_counter``; and the depth tuner
+(``set_autotune``, datapath/tuner.py) moves ``pipeline_depth`` from the
+enqueue and completion halves' clocks. Off, each costs one attribute
+read a batch.
+
+Not ported yet: the flow ring and flow events.
 """
 
 from __future__ import annotations
@@ -148,6 +159,7 @@ from ..identity.model import ID_WORLD
 from ..ipcache.ipcache import IPCache
 from ..ipcache.prefilter import PreFilter
 from ..lb.device import flow_hash32, lb_translate
+from ..observe.tracer import NOOP_BATCH as _NOOP_BATCH, Tracer
 from ..ops.lookup import (
     PolicymapTables, Replicated, policymap_verdict, policymap_verdict_gathered, replicate,
     replicate_tables, shard_rows, shard_tables_ident, tables_on,
@@ -164,6 +176,7 @@ from ..ops.materialize import (
 )
 from ..ops.shed import shed_walk_stride8, shed_walk_wide
 from .placement import EMPTY_PLAN, MeshPlan, PlacementConfig, resolve_plan
+from .tuner import DepthTuner
 
 FORWARD = 1
 DROP_POLICY = 2
@@ -628,15 +641,22 @@ class PendingBatch:
 
 
 class _InFlight:
-    """One submitted batch: its handle and the completion closure (host
-    pull, counters, CT create, metrics). ``finish=None`` marks a batch
-    that ran synchronously (the device-CT path)."""
+    """One submitted batch: its handle, the completion closure (host
+    pull, counters, CT create, metrics) and the trace that ends when the
+    batch completes. ``finish=None`` marks a batch that ran
+    synchronously (the device-CT path)."""
 
-    __slots__ = ("pending", "finish", "b", "rev", "t0", "abandoned")
+    __slots__ = ("pending", "finish", "bt", "enq_ns", "occ", "b", "rev", "t0", "abandoned")
 
     def __init__(self, pending: PendingBatch, finish, b: int = 0, rev: bool = False) -> None:
         self.pending = pending
         self.finish = finish
+        self.bt = _NOOP_BATCH
+        # depth-tuner observations, set only while DispatchAutoTune is
+        # on: the enqueue half's ns and the queue occupancy at admission
+        # (enq_ns == 0: not observed)
+        self.enq_ns = 0
+        self.occ = 0
         # batch size and revNAT flag: a drained or quarantined batch
         # gets a shape-correct degraded result from these
         self.b = b
@@ -715,11 +735,15 @@ class _Enqueued:
     outputs are final at enqueue and there is no event. ``done`` holds
     the pulled result once the completion half has it (a retried
     finish returns it again), or from the start at ladder level 2,
-    where the verdicts are computed on the host at enqueue."""
+    where the verdicts are computed on the host at enqueue. ``bt`` is
+    the batch's trace (the no-op one while tracing is off) and
+    ``split`` the profiler's sample with its clocks (None unless this
+    dispatch was sampled); the completion half times and retires it."""
 
-    __slots__ = ("outs", "host", "events", "staging", "keep", "ndev", "done")
+    __slots__ = ("outs", "host", "events", "staging", "keep", "ndev", "done", "bt", "split")
 
-    def __init__(self, outs, host, events, staging, keep, ndev=1, done=None) -> None:
+    def __init__(self, outs, host, events, staging, keep, ndev=1, done=None, bt=_NOOP_BATCH,
+                 split=None) -> None:
         self.outs = outs
         self.host = host
         self.events = events
@@ -727,11 +751,55 @@ class _Enqueued:
         self.keep = keep
         self.ndev = ndev
         self.done = done
+        self.bt = bt
+        self.split = split
 
     @property
     def event(self):
         """The last event recorded (the only one without a plan)."""
         return self.events[-1] if self.events else None
+
+
+class _Split:
+    """The clocks of one dispatch the profiler sampled: for each flow
+    shard, stamps before its copies in, after them and after its last
+    launch; for each device, one after the copies out (the event the
+    completion half waits on). On the card a stamp is a timing CUDA
+    event recorded on the device's current stream, read only after that
+    wait, so sampling adds no synchronization; on the CPU it is
+    ``time.perf_counter()`` around the same stretches."""
+
+    __slots__ = ("sample", "cuda", "shards", "ends")
+
+    def __init__(self, sample, cuda: bool) -> None:
+        self.sample = sample
+        self.cuda = cuda
+        self.shards: list = []  # (device, before h2d, after h2d, after launches)
+        self.ends: dict = {}  # device → after its copies out
+
+    def stamp(self, dev):
+        if not self.cuda:
+            return time.perf_counter()
+        event = torch.cuda.Event(enable_timing=True)
+        event.record(torch.cuda.current_stream(dev))
+        return event
+
+    def _secs(self, a, b) -> float:
+        return a.elapsed_time(b) / 1e3 if self.cuda else b - a
+
+    def close(self) -> None:
+        """Add the longest flow shard's h2d / compute / d2h to the
+        sample; a device's copies out are timed from its last shard's
+        last launch."""
+        last = {dev: e2 for dev, _e0, _e1, e2 in self.shards}
+        best = None
+        for dev, e0, e1, e2 in self.shards:
+            parts = (self._secs(e0, e1), self._secs(e1, e2), self._secs(last[dev], self.ends[dev]))
+            if best is None or sum(parts) > sum(best):
+                best = parts
+        self.sample.add_h2d(best[0])
+        self.sample.add_compute(best[1])
+        self.sample.add_d2h(best[2])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -783,11 +851,18 @@ class DatapathPipeline:
     attrs=...)`` for the ``ladder_move``, ``quarantine``, ``rebuild``
     and ``epoch_swap`` events, outside the pipeline's locks.
 
+    ``tracer`` (a :class:`Tracer`, off until enabled) times each
+    batch's phases; ``profiling`` / :meth:`set_profiling` sample the
+    h2d / compute / d2h split of every ``profile_sample_every``-th
+    dispatch; ``autotune`` / :meth:`set_autotune` let a
+    :class:`DepthTuner` move ``pipeline_depth`` within
+    ``pipeline_max_depth``. None of them changes a verdict, a counter or
+    a launch.
+
     The positional order is the reference's; ``device`` (None = the
     card) is keyword-only. Arguments whose feature is not ported yet
-    (``monitor``, ``tracer``, ``flow_ring``, ``autotune`` and
-    ``profiling``) raise NotImplementedError when given anything but
-    their default."""
+    (``monitor`` and ``flow_ring``) raise NotImplementedError when given
+    anything but None."""
 
     def __init__(
         self,
@@ -817,12 +892,8 @@ class DatapathPipeline:
         *,
         device=None,
     ) -> None:
-        for name, given in (
-            ("monitor", monitor is not None), ("tracer", tracer is not None),
-            ("flow_ring", flow_ring is not None), ("autotune", bool(autotune)),
-            ("profiling", bool(profiling)),
-        ):
-            if given:
+        for name, given in (("monitor", monitor), ("flow_ring", flow_ring)):
+            if given is not None:
                 raise NotImplementedError(f"the pipeline's {name} is not in the torch port yet")
         self.device = _kernels.resolve_device(device)
         if self.device != engine.device:
@@ -839,6 +910,12 @@ class DatapathPipeline:
         if device_ct_bits is not None and conntrack is None:
             self.conntrack = FlowConntrack(capacity_bits=max(10, device_ct_bits))
         self.lb = lb
+        # the span tracer: off by default, the verdict path then pays one
+        # ``tracer.active`` read a batch
+        self.tracer = tracer if tracer is not None else Tracer()
+        # launch shapes already dispatched while tracing (the
+        # jit_shape_buckets_total telemetry; a new one is a "miss")
+        self._seen_shapes: set = set()
         # called for every redirect verdict with a known 5-tuple:
         # fn(peer_addr_bytes, ep_idx, sport, dport, proto, ingress,
         # family) — the cilium_proxy4/6 write hook (bpf_lxc.c inserts
@@ -965,6 +1042,13 @@ class DatapathPipeline:
         self.pipeline_max_depth = max(self.pipeline_depth, int(pipeline_max_depth))
         self._inflight: deque = deque()  # FIFO of _InFlight
         self._queue_lock = threading.Lock()  # guards _inflight only
+        # the depth tuner (DispatchAutoTune): None keeps the queue at one
+        # ``self._tuner is None`` read a batch and the depth static;
+        # _static_depth is what set_autotune(False) restores
+        self._static_depth = self.pipeline_depth
+        self._tuner: Optional[DepthTuner] = None
+        if autotune:
+            self.set_autotune(True)
         _metrics.pipeline_depth_current.set(float(self.pipeline_depth))
         # pinned staging: key → free-list of pinned host tensor tuples.
         # A tuple leaves its list at enqueue and returns only after its
@@ -993,6 +1077,13 @@ class DatapathPipeline:
         self._draining = False
         if stall_ms > 0:
             self.set_stall_ms(stall_ms)
+        # the device profiler (DeviceProfiling): None keeps each dispatch
+        # at one ``self.profiler is None`` read; sample_every is boot
+        # config, set_profiling builds the profiler with it
+        self.profile_sample_every = max(1, int(profile_sample_every))
+        self.profiler = None
+        if profiling:
+            self.set_profiling(True)
         _metrics.pipeline_mode.set(0.0)
 
     def set_endpoints(self, endpoints: Sequence) -> None:
@@ -1045,6 +1136,7 @@ class DatapathPipeline:
             self._mat = {}
             self._mat_sig = ()
             self._swap_gen += 1  # sweep variant moved: abandon shadows
+        self._seen_shapes.clear()  # attributed launches are other shapes
 
     def _attrib_origins(self, compiled):
         """({ingress_bool: AttribTables | None}, n_rules) for this
@@ -1463,6 +1555,7 @@ class DatapathPipeline:
         self._placed_tab.clear()
         self._placed = None
         self._swap_gen += 1  # placement basis moved: abandon shadows
+        self._seen_shapes.clear()
 
     def _refresh_mesh_locked(self) -> None:
         """Resolve the placement plan to match the sharding / 2D
@@ -2282,14 +2375,15 @@ class DatapathPipeline:
         v = np.where(pf_drop, np.int8(DROP_PREFILTER), v).astype(np.int8)
         return v, (red & (v == FORWARD))
 
-    def _host_enqueue(self, st, fl: _Batch, sel, *, ingress: bool) -> _Enqueued:
+    def _host_enqueue(self, st, fl: _Batch, sel, *, ingress: bool, bt=_NOOP_BATCH) -> _Enqueued:
         """``_dispatch_enqueue`` at ladder level 2: the verdicts of the
         flows ``sel`` (None = all) computed on the host now, carried
         finished in ``done`` so the completion half runs unchanged and
         touches no device. With attribution the host rung decides no
         rule: every flow's rule is -1 and nothing is counted as a hit."""
-        part = fl if sel is None else fl.take(sel)
-        v, red = self._host_verdicts(part, ingress=ingress)
+        with bt.phase("dispatch"):
+            part = fl if sel is None else fl.take(sel)
+            v, red = self._host_verdicts(part, ingress=ingress)
         b = v.shape[0]
         if st[3] is None:
             done = (v, red, None, None, None, None)
@@ -2297,7 +2391,8 @@ class DatapathPipeline:
             done = (v, red, None, np.full(b, -1, np.int32), np.zeros(b, bool), None)
         return _Enqueued((), [], [], [], [], done=done)
 
-    def _dispatch_enqueue(self, st, fl: _Batch, sel, row_override, *, ingress: bool) -> _Enqueued:
+    def _dispatch_enqueue(self, st, fl: _Batch, sel, row_override, *, ingress: bool,
+                          bt=_NOOP_BATCH) -> _Enqueued:
         """The enqueue half of the device work for the flows ``sel``
         (None = all), at their exact shape: stage the int32 inputs in a
         pinned tuple, copy them to the card and launch the LPM walks and
@@ -2314,11 +2409,17 @@ class DatapathPipeline:
         rule hits are summed on the pipeline's device, and one event is
         recorded per device.
 
+        ``bt`` is the batch's trace: the work above is its ``dispatch``
+        phase, and while tracing is on the launch shapes and the bytes
+        copied in are counted. A dispatch the profiler samples stamps
+        its split (``_Split``) around each shard's copies in and
+        launches, and makes the final events timing ones.
+
         At ladder level 2 the host rung verdicts the flows instead
         (``_host_enqueue``). The SITE_DISPATCH and SITE_H2D checks come
         before any staging tuple is taken, so a retry leaks none."""
         if self._ladder_level >= 2:
-            return self._host_enqueue(st, fl, sel, ingress=ingress)
+            return self._host_enqueue(st, fl, sel, ingress=ingress, bt=bt)
         if _faults.hub.active:
             _faults.hub.check(_faults.SITE_DISPATCH)
             _faults.hub.check(_faults.SITE_H2D)
@@ -2329,6 +2430,7 @@ class DatapathPipeline:
 
         attrib = rule_tab is not None
         cuda = self.device.type == "cuda"
+        direction = TRAFFIC_INGRESS if ingress else TRAFFIC_EGRESS
         if fl.family == 4:
             peer = part(fl.peer_u32).astype(np.uint32, copy=False).view(np.int32)
         else:
@@ -2336,99 +2438,152 @@ class DatapathPipeline:
         flows = (peer, part(fl.ep_idx), part(fl.dports), part(fl.protos),
                  None if row_override is None else part(row_override))
         b = peer.shape[0]
-        # capacity rounded up to a power of two: few keys, reused often
-        cap = 1 if b <= 1 else 1 << (b - 1).bit_length()
-        width = peer.shape[1:]
-        key = ("in", fl.family, cap)
-        bufs = self._staging_acquire(key, lambda: tuple(
-            self._host_buffer((cap, *width) if i == 0 else (cap,), torch.int32)
-            for i in range(len(flows))))
-        staging = [(key, bufs)]
-        views = []
-        for buf, a in zip(bufs, flows):
-            if a is None:
-                views.append(None)
-                continue
-            view = buf[:b]
-            view.numpy()[...] = a
-            views.append(view)
         if placed is None:
             shards = [(0, b, self.device, t, rule_tab)]
             ident2d = False
+            ndev = 1
         else:
             ident2d = placed.ident2d
+            ndev = len(placed.rows)
             shards = []
-            for (lo, hi), (dev, tabs, rts) in zip(
-                    self._shard_spans(b, len(placed.rows)), placed.rows):
+            for (lo, hi), (dev, tabs, rts) in zip(self._shard_spans(b, ndev), placed.rows):
                 if hi > lo or not shards:
-                    direction = TRAFFIC_INGRESS if ingress else TRAFFIC_EGRESS
                     shards.append((lo, hi, dev, tabs[(direction, fl.family)],
                                    None if rts is None else rts[direction]))
         # the XDP prefilter guards traffic entering the node only, and
         # an empty deny set skips the walk
-        kw = dict(ep_count=ep_count, prefilter=ingress and not pf_empty, attrib=attrib,
-                  n_rules=n_rules, ident_gather=ident2d)
-        outs, keep = [], [st]
-        for lo, hi, dev, t_s, rt_s in shards:
-            peer_t, ep_t, dp_t, pr_t, ro_t = (
-                None if v is None else v[lo:hi].to(dev, non_blocking=True) for v in views)
-            keep += [peer_t, ep_t, dp_t, pr_t, ro_t]
-            if fl.family == 4:
-                outs.append(process_flows_wide(t_s, peer_t, ep_t, dp_t, pr_t, row_override=ro_t,
-                                               rule_tab=rt_s, **kw))
-            else:
-                outs.append(process_flows(t_s, peer_t, ep_t, dp_t, pr_t, levels=16,
-                                          fused=v6_fused, row_override=ro_t, rule_tab=rt_s, **kw))
-        n_hits = outs[0][5].shape[0] if attrib else 0
-        key = ("out", cap, ep_count, n_hits)
-
-        def make():
-            shapes = [(cap, torch.int8), (cap, torch.bool), (ep_count * 3, torch.int32)]
-            if attrib:
-                shapes += [(cap, torch.int32), (cap, torch.bool), (n_hits, torch.int32)]
-            return tuple(self._host_buffer(n, dtype) for n, dtype in shapes)
-
-        bufs = self._staging_acquire(key, make)
-        staging.append((key, bufs))
-        host = []
-        for i, buf in enumerate(bufs):
-            if i in (2, 5):  # counters, rule hits: one sum per batch
-                parts = [o[i] for o in outs]
-                x = parts[0] if len(parts) == 1 else torch.stack(
-                    [p.to(self.device, non_blocking=True) for p in parts]).sum(dim=0).to(torch.int32)
-                keep.append(x)
-                view = buf[:x.numel()].view(x.shape)
-                view.copy_(x, non_blocking=cuda)
-            else:
+        pf_stage = ingress and not pf_empty
+        has_ro = row_override is not None
+        if self.tracer.active:
+            # a launch shape not seen on this pipeline is a "miss" (the
+            # reference's jit cache key: shape and static arguments)
+            for lo, hi, *_ in shards:
+                key = (direction, fl.family, hi - lo, pf_stage, ep_count, has_ro, v6_fused,
+                       ndev > 1, attrib, ident2d)
+                hit = key in self._seen_shapes
+                self._seen_shapes.add(key)
+                _metrics.jit_shape_buckets_total.inc(
+                    {"site": "dispatch", "result": "hit" if hit else "miss"})
+            n_in = 4 + has_ro
+            _metrics.device_transfers_total.inc({"direction": "h2d"}, float(n_in * len(shards)))
+            # the int32 staging the copies read (a v6 peer: 16 words)
+            _metrics.device_transfer_bytes_total.inc(
+                {"direction": "h2d"}, float(4 * sum(a.size for a in flows if a is not None)))
+            bt.mark(padded=b, chunks=len(shards))
+        prof = self.profiler
+        sample = prof.begin_dispatch("dispatch", b) if prof is not None else None
+        split = None if sample is None else _Split(sample, cuda)
+        with bt.phase("dispatch"):
+            # capacity rounded up to a power of two: few keys, reused often
+            cap = 1 if b <= 1 else 1 << (b - 1).bit_length()
+            width = peer.shape[1:]
+            key = ("in", fl.family, cap)
+            bufs = self._staging_acquire(key, lambda: tuple(
+                self._host_buffer((cap, *width) if i == 0 else (cap,), torch.int32)
+                for i in range(len(flows))))
+            staging = [(key, bufs)]
+            views = []
+            for buf, a in zip(bufs, flows):
+                if a is None:
+                    views.append(None)
+                    continue
                 view = buf[:b]
-                for (lo, hi, *_), o in zip(shards, outs):
-                    view[lo:hi].copy_(o[i], non_blocking=cuda)
-            host.append(view)
-        events = []
-        if cuda:
+                view.numpy()[...] = a
+                views.append(view)
+            kw = dict(ep_count=ep_count, prefilter=pf_stage, attrib=attrib, n_rules=n_rules,
+                      ident_gather=ident2d)
+            outs, keep = [], [st]
+            for lo, hi, dev, t_s, rt_s in shards:
+                e0 = None if split is None else split.stamp(dev)
+                ins = [None if v is None else v[lo:hi].to(dev, non_blocking=True) for v in views]
+                e1 = None if split is None else split.stamp(dev)
+                peer_t, ep_t, dp_t, pr_t, ro_t = ins
+                keep += ins
+                if fl.family == 4:
+                    out = process_flows_wide(t_s, peer_t, ep_t, dp_t, pr_t, row_override=ro_t,
+                                             rule_tab=rt_s, **kw)
+                else:
+                    out = process_flows(t_s, peer_t, ep_t, dp_t, pr_t, levels=16,
+                                        fused=v6_fused, row_override=ro_t, rule_tab=rt_s, **kw)
+                outs.append(out)
+                if split is not None:
+                    split.shards.append((dev, e0, e1, split.stamp(dev)))
+                    prof.note_jit_cost(
+                        "dispatch", (fl.family, hi - lo, pf_stage, ep_count, has_ro, v6_fused,
+                                     attrib, ident2d), (t_s, rt_s, ins), out)
+            n_hits = outs[0][5].shape[0] if attrib else 0
+            key = ("out", cap, ep_count, n_hits)
+
+            def make():
+                shapes = [(cap, torch.int8), (cap, torch.bool), (ep_count * 3, torch.int32)]
+                if attrib:
+                    shapes += [(cap, torch.int32), (cap, torch.bool), (n_hits, torch.int32)]
+                return tuple(self._host_buffer(n, dtype) for n, dtype in shapes)
+
+            bufs = self._staging_acquire(key, make)
+            staging.append((key, bufs))
+            host = []
+            for i, buf in enumerate(bufs):
+                if i in (2, 5):  # counters, rule hits: one sum per batch
+                    parts = [o[i] for o in outs]
+                    x = parts[0] if len(parts) == 1 else torch.stack(
+                        [p.to(self.device, non_blocking=True) for p in parts]).sum(dim=0).to(torch.int32)
+                    keep.append(x)
+                    view = buf[:x.numel()].view(x.shape)
+                    view.copy_(x, non_blocking=cuda)
+                else:
+                    view = buf[:b]
+                    for (lo, hi, *_), o in zip(shards, outs):
+                        view[lo:hi].copy_(o[i], non_blocking=cuda)
+                host.append(view)
+            events = []
             for dev in dict.fromkeys([self.device, *(sh[2] for sh in shards)]):
-                event = torch.cuda.Event()
-                event.record(torch.cuda.current_stream(dev))
-                events.append(event)
-        return _Enqueued(outs, host, events, staging, keep,
-                         ndev=1 if placed is None else len(placed.rows))
+                if cuda:
+                    event = torch.cuda.Event(enable_timing=split is not None)
+                    event.record(torch.cuda.current_stream(dev))
+                    events.append(event)
+                if split is not None:
+                    split.ends[dev] = events[-1] if cuda else time.perf_counter()
+            if sample is not None:
+                sample.mark(rungs=[hi - lo for lo, hi, *_ in shards], lanes=b, pad_lanes=0,
+                            chunks=len(shards), ndev=ndev, depth=self.pipeline_depth,
+                            family=fl.family, bucketed=sel is not None)
+        return _Enqueued(outs, host, events, staging, keep, ndev=ndev, bt=bt, split=split)
 
     def _dispatch_complete(self, enq: _Enqueued):
         """The completion half: wait on the batch's events, copy the
         outputs out of the staging and release it → (verdict, redirect,
         counters, rule, l4_covered, hits) numpy; the last three are None
         without attribution. Launches no device work, so any thread may
-        run it. The result stays on ``enq``: a retried finish gets it
-        again. A host-rung batch carries its result from the enqueue
-        and never reaches the SITE_COMPLETE check, which fires before
-        the wait, ahead of anything a retry could see changed."""
+        run it. The wait and the copies are the batch's ``host_sync``
+        phase; a sampled dispatch's split is read after the wait (its
+        events have completed by then) and retired once. The result
+        stays on ``enq``: a retried finish gets it again. A host-rung
+        batch carries its result from the enqueue and never reaches the
+        SITE_COMPLETE check, which fires before the wait, ahead of
+        anything a retry could see changed."""
         if enq.done is not None:
             return enq.done
         if _faults.hub.active:
             _faults.hub.check(_faults.SITE_COMPLETE)
-        for event in enq.events:
-            event.synchronize()
-        out = [np.array(h.numpy()) for h in enq.host]
+        if self.tracer.active:
+            # per-flow outputs one copy a flow shard, the sums one each
+            n_sum = 2 if len(enq.host) == 6 else 1
+            _metrics.device_transfers_total.inc(
+                {"direction": "d2h"}, float((len(enq.host) - n_sum) * len(enq.outs) + n_sum))
+            _metrics.device_transfer_bytes_total.inc(
+                {"direction": "d2h"}, float(sum(h.nbytes for h in enq.host)))
+        with enq.bt.phase("host_sync"):
+            for event in enq.events:
+                event.synchronize()
+            out = [np.array(h.numpy()) for h in enq.host]
+        split = enq.split
+        if split is not None:
+            enq.split = None  # retired once, whatever a retry does
+            split.close()
+            prof = self.profiler
+            if prof is not None:
+                prof.complete(split.sample)
         self._staging_release(enq.staging)
         enq.host = enq.keep = enq.outs = None
         enq.done = (*out, None, None, None) if len(out) == 3 else tuple(out)
@@ -2483,42 +2638,50 @@ class DatapathPipeline:
         ingress: bool,
         want_rev_nat: bool = False,
         tunnel_identities: Optional[np.ndarray] = None,
+        bt=_NOOP_BATCH,
     ) -> _InFlight:
         """The enqueue half of one batch of either family: rebuild,
         overlay rows, the LB stage, then either the whole batch on the
         device (no CT) or the CT pre-pass with only its misses on the
         device. Returns the batch with its ``finish`` closure, the
         completion half: counters, CT creation, the redirect hook, the
-        attribution metrics and the batch metrics."""
-        self.rebuild()
+        attribution metrics and the batch metrics. Each stage is a phase
+        of ``bt``, where the reference opens it (``emit_events`` too,
+        which has no flow events to emit until the flow ring is
+        ported)."""
+        with bt.phase("rebuild"):
+            self.rebuild()
         direction = TRAFFIC_INGRESS if ingress else TRAFFIC_EGRESS
         family = fl.family
-        with self._lock:
-            st = (
-                self._tables[(direction, family)],
-                self._pf_empty[0 if family == 4 else 1],
-                self._v6_fused,
-                self._rule_tabs[direction] if self._rule_tabs is not None else None,
-                self._attrib_n_rules,
-                max(1, len(self._endpoints)),
-                self._lb_tables.get(family) if self.lb is not None else None,
-                # the plan's dispatch view, published with the tables
-                self._placed,
-            )
-        b = fl.ep_idx.shape[0]
+        with bt.phase("prepare"):
+            with self._lock:
+                st = (
+                    self._tables[(direction, family)],
+                    self._pf_empty[0 if family == 4 else 1],
+                    self._v6_fused,
+                    self._rule_tabs[direction] if self._rule_tabs is not None else None,
+                    self._attrib_n_rules,
+                    max(1, len(self._endpoints)),
+                    self._lb_tables.get(family) if self.lb is not None else None,
+                    # the plan's dispatch view, published with the tables
+                    self._placed,
+                )
+            b = fl.ep_idx.shape[0]
 
-        # Overlay path (bpf_overlay.c): decapped flows carry the peer's
-        # security identity in the tunnel key — trust it over the
-        # ipcache LPM when it resolves to a known device row; unknown
-        # or zero identities fall back to the LPM walk.
-        row_override = None
-        if tunnel_identities is not None:
-            row_override = self.engine.rows_or_negative(np.asarray(tunnel_identities, np.int64))
+            # Overlay path (bpf_overlay.c): decapped flows carry the peer's
+            # security identity in the tunnel key — trust it over the
+            # ipcache LPM when it resolves to a known device row; unknown
+            # or zero identities fall back to the LPM walk.
+            row_override = None
+            if tunnel_identities is not None:
+                row_override = self.engine.rows_or_negative(np.asarray(tunnel_identities, np.int64))
 
         svc_drop = revnat_vals = None
         lbt = st[6]
-        if not ingress and lbt is not None:
-            svc_drop, revnat_vals = self._lb_stage(lbt, fl, sports)
+        if not ingress and self.lb is not None:
+            with bt.phase("lb_translate"):
+                if lbt is not None:
+                    svc_drop, revnat_vals = self._lb_stage(lbt, fl, sports)
 
         # device-resident conntrack: the table is updated in place batch
         # to batch, so this path stays synchronous. An LB family falls
@@ -2536,39 +2699,43 @@ class DatapathPipeline:
         ):
             pending = PendingBatch(self)
             pending._value = self._process_device_ct(fl, sports, ingress=ingress,
-                                                     want_rev_nat=want_rev_nat)
+                                                     want_rev_nat=want_rev_nat, bt=bt)
             pending._event.set()
             return _InFlight(pending, None)
 
         ct = self.conntrack
         if ct is None or sports is None:
             # no CT: the whole batch takes the device path
-            enq = self._dispatch_enqueue(st, fl, None, row_override, ingress=ingress)
+            enq = self._dispatch_enqueue(st, fl, None, row_override, ingress=ingress, bt=bt)
 
             def finish():
                 v, red, counters, rule, l4x, hits = self._dispatch_complete(enq)
-                if svc_drop is not None and svc_drop.any():
-                    v = np.where(svc_drop, np.int8(DROP_NO_SERVICE), v)
-                    red = red & ~svc_drop
-                    # the device counters classified these flows before
-                    # the override: count this batch on the host instead
-                    counters = None
+                with bt.phase("counters"):
+                    if svc_drop is not None and svc_drop.any():
+                        v = np.where(svc_drop, np.int8(DROP_NO_SERVICE), v)
+                        red = red & ~svc_drop
+                        # the device counters classified these flows
+                        # before the override: count this batch on the
+                        # host instead
+                        counters = None
+                        if rule is not None:
+                            # no-backend flows never reached a rule: drop
+                            # their attribution, re-derive the hit sums
+                            rule = np.where(svc_drop, np.int32(-1), rule)
+                            hits = None
+                    if counters is None:
+                        self._add_host_counters(v, fl.ep_idx)
+                    else:
+                        with self._lock:
+                            if self.counters.shape == counters.shape:
+                                self.counters += counters
+                    # per flow shard under a plan, so a hot shard shows
+                    self._account_batch(
+                        v, shard_of=self._shard_map(b, enq.ndev) if enq.ndev > 1 else None)
                     if rule is not None:
-                        # no-backend flows never reached a rule: drop
-                        # their attribution, re-derive the hit sums
-                        rule = np.where(svc_drop, np.int32(-1), rule)
-                        hits = None
-                if counters is None:
-                    self._add_host_counters(v, fl.ep_idx)
-                else:
-                    with self._lock:
-                        if self.counters.shape == counters.shape:
-                            self.counters += counters
-                # per flow shard under a plan, so a hot shard shows
-                self._account_batch(
-                    v, shard_of=self._shard_map(b, enq.ndev) if enq.ndev > 1 else None)
-                if rule is not None:
-                    self._account_attribution(v, rule, l4x, hits, ingress=ingress)
+                        self._account_attribution(v, rule, l4x, hits, ingress=ingress)
+                with bt.phase("emit_events"):
+                    pass
                 if want_rev_nat:
                     # no CT → replies can't be recognized → no restore
                     return v, red, np.zeros(b, np.uint16)
@@ -2577,25 +2744,26 @@ class DatapathPipeline:
             return _InFlight(PendingBatch(self), finish, b=b, rev=want_rev_nat)
 
         # --- conntrack pre-pass (vectorized host) ----------------------
-        sports = np.asarray(sports, np.int64)
-        peer_hi, peer_lo = fl.ct_words()
-        ka, kb, kc = pack_keys(
-            peer_hi, peer_lo, fl.ep_idx.astype(np.uint64), sports,
-            fl.dports.astype(np.uint64), fl.protos.astype(np.uint64),
-            np.full(b, 0 if ingress else 1, np.uint64),
-        )
-        if want_rev_nat:
-            # revNAT ids read under the SAME lock hold as the find
-            state, _slot, ct_rev = ct.lookup_batch(ka, kb, kc, want_revnat=True)
-            ct_rev[state != CT_REPLY] = 0
-        else:
-            state, _slot = ct.lookup_batch(ka, kb, kc)
-        miss = state == CT_NEW
+        with bt.phase("ct_prepass"):
+            sports = np.asarray(sports, np.int64)
+            peer_hi, peer_lo = fl.ct_words()
+            ka, kb, kc = pack_keys(
+                peer_hi, peer_lo, fl.ep_idx.astype(np.uint64), sports,
+                fl.dports.astype(np.uint64), fl.protos.astype(np.uint64),
+                np.full(b, 0 if ingress else 1, np.uint64),
+            )
+            if want_rev_nat:
+                # revNAT ids read under the SAME lock hold as the find
+                state, _slot, ct_rev = ct.lookup_batch(ka, kb, kc, want_revnat=True)
+                ct_rev[state != CT_REPLY] = 0
+            else:
+                state, _slot = ct.lookup_batch(ka, kb, kc)
+            miss = state == CT_NEW
         enq = midx = None
         if miss.any():
             # the miss tail, at its exact shape
             midx = np.nonzero(miss)[0]
-            enq = self._dispatch_enqueue(st, fl, midx, row_override, ingress=ingress)
+            enq = self._dispatch_enqueue(st, fl, midx, row_override, ingress=ingress, bt=bt)
         # no CT entry is created under a basis that moved after this point
         ct_epoch = self._ct_epoch
 
@@ -2625,15 +2793,19 @@ class DatapathPipeline:
                 # route them around the proxy.
                 ok = (v == FORWARD) & ~red
                 if ok.any() and self.conntrack is ct and self._ct_epoch == ct_epoch:
-                    oidx = midx[ok]
-                    ct.create_batch(
-                        ka[oidx], kb[oidx], kc[oidx],
-                        revnat=None if revnat_vals is None else revnat_vals[oidx],
-                    )
+                    with bt.phase("ct_create"):
+                        oidx = midx[ok]
+                        ct.create_batch(
+                            ka[oidx], kb[oidx], kc[oidx],
+                            revnat=None if revnat_vals is None else revnat_vals[oidx],
+                        )
             self._redirect_hook(fl, sports, redirect, ingress=ingress)
             # host counter accumulation (CT hits included)
-            self._add_host_counters(verdict, fl.ep_idx)
-            self._account_batch(verdict)
+            with bt.phase("counters"):
+                self._add_host_counters(verdict, fl.ep_idx)
+                self._account_batch(verdict)
+            with bt.phase("emit_events"):
+                pass
             if want_rev_nat:
                 # revNAT restore (bpf/lib/lb.h lb4_rev_nat via the CT
                 # entry's rev_nat_index): REPLY hits carry the id of the
@@ -2643,27 +2815,30 @@ class DatapathPipeline:
 
         return _InFlight(PendingBatch(self), finish, b=b, rev=want_rev_nat)
 
-    def _process_device_ct(self, fl: _Batch, sports, *, ingress: bool, want_rev_nat: bool):
+    def _process_device_ct(self, fl: _Batch, sports, *, ingress: bool, want_rev_nat: bool,
+                           bt=_NOOP_BATCH):
         """One batch through :func:`process_flows_ct` at its exact shape
         (there is no compile cache to pad for): the tables and the CT
         state are read under one lock hold, so a flush between them
         cannot pair old-basis verdicts with a fresh table. Adds the
         device counters, accounts the batch and calls ``on_redirect``;
         attributes nothing, and returns zero revNAT ids (no LB table is
-        active here)."""
+        active here). The copies in and the launches are the batch's
+        ``dispatch`` phase, the two pulls ``host_sync`` phases. The
+        profiler samples this path too (the reference's fused program
+        has no sample): its copies out are synchronous pulls, so the
+        last stamp follows them and is waited on at once."""
         direction = TRAFFIC_INGRESS if ingress else TRAFFIC_EGRESS
         family = fl.family
         b = fl.ep_idx.shape[0]
         if b and not (0 <= fl.ep_idx.min() and fl.ep_idx.max() < 1 << 23):
             raise ValueError("device CT: ep_idx outside the 23 bits of the kc word")
         sports = np.asarray(sports, np.int32)
-        if family == 4:
-            peer = self._up(fl.peer_u32.astype(np.uint32, copy=False).view(np.int32), np.int32)
-        else:
-            peer = self._up(fl.peer_bytes, np.int32)
-        flows = [self._up(a, np.int32) for a in (fl.ep_idx, fl.dports, fl.protos, sports)]
-        valid = torch.ones(b, dtype=torch.bool, device=self.device)
         now = int(time.monotonic())
+        prof = self.profiler
+        sample = prof.begin_dispatch("dispatch", b) if prof is not None else None
+        split = None if sample is None else _Split(sample, self.device.type == "cuda")
+        dev = self.device
         with self._lock:
             t = self._tables[(direction, family)]
             if self._device_ct is None:
@@ -2674,19 +2849,44 @@ class DatapathPipeline:
                     self._device_ct_seed = False
                     self._device_ct = self._seed_device_ct()
                 else:
-                    self._device_ct = make_state(self._device_ct_bits, device=self.device)
-            v, red, counters = process_flows_ct(
-                t, self._device_ct, peer, *flows, 0 if ingress else 1, now, valid,
-                ep_count=max(1, len(self._endpoints)),
-                prefilter=ingress and not self._pf_empty[0 if family == 4 else 1],
-                levels=16, family=family, fused=self._v6_fused if family == 6 else False,
-            )
-            counters = counters.cpu().numpy()
+                    self._device_ct = make_state(self._device_ct_bits, device=dev)
+            prefilter = ingress and not self._pf_empty[0 if family == 4 else 1]
+            fused = self._v6_fused if family == 6 else False
+            ep_count = max(1, len(self._endpoints))
+            with bt.phase("dispatch"):
+                e0 = None if split is None else split.stamp(dev)
+                if family == 4:
+                    peer = self._up(fl.peer_u32.astype(np.uint32, copy=False).view(np.int32), np.int32)
+                else:
+                    peer = self._up(fl.peer_bytes, np.int32)
+                ins = [peer] + [self._up(a, np.int32) for a in (fl.ep_idx, fl.dports, fl.protos, sports)]
+                valid = torch.ones(b, dtype=torch.bool, device=dev)
+                e1 = None if split is None else split.stamp(dev)
+                v, red, counters = process_flows_ct(
+                    t, self._device_ct, *ins, 0 if ingress else 1, now, valid,
+                    ep_count=ep_count, prefilter=prefilter, levels=16, family=family, fused=fused,
+                )
+                if split is not None:
+                    split.shards.append((dev, e0, e1, split.stamp(dev)))
+                    prof.note_jit_cost("dispatch", ("ct", family, b, prefilter, ep_count, fused),
+                                       (t, self._device_ct, ins, valid), (v, red, counters))
+            with bt.phase("host_sync"):
+                counters = counters.cpu().numpy()
             if self.counters.shape == counters.shape:
                 self.counters += counters
-        verdict = v.cpu().numpy()
-        redirect = red.cpu().numpy()
-        self._account_batch(verdict)
+        with bt.phase("host_sync"):
+            verdict = v.cpu().numpy()
+            redirect = red.cpu().numpy()
+        if split is not None:
+            end = split.ends[dev] = split.stamp(dev)
+            if split.cuda:
+                end.synchronize()  # recorded after the pulls' own waits
+            split.close()
+            sample.mark(rungs=[b], lanes=b, pad_lanes=0, chunks=1, ndev=1,
+                        depth=self.pipeline_depth, family=family, bucketed=False, device_ct=True)
+            prof.complete(sample)
+        with bt.phase("counters"):
+            self._account_batch(verdict)
         self._redirect_hook(fl, sports, redirect, ingress=ingress)
         if want_rev_nat:
             return verdict, redirect, np.zeros(b, np.uint16)
@@ -2704,6 +2904,10 @@ class DatapathPipeline:
                 return False
             inf = self._inflight.popleft()
             _metrics.pipeline_inflight_depth.set(float(len(self._inflight)))
+        # the completion half's clock (the tuner's latency signal), only
+        # for batches admitted while the tuner was on
+        tuner = self._tuner
+        t0 = time.perf_counter_ns() if tuner is not None and inf.enq_ns else 0
         adm = self._admission
         wd = self._watchdog
         try:
@@ -2731,8 +2935,20 @@ class DatapathPipeline:
                 self._completing = None
             if not inf.abandoned and not inf.pending._event.is_set():
                 inf.pending._event.set()  # an interrupt on the way: never park a waiter
+            if inf.bt is not _NOOP_BATCH:
+                inf.bt.end()
         if adm is not None and inf.t0:
             adm.observe_completion(time.monotonic() - inf.t0)
+        if t0:
+            new_depth = tuner.observe(self.pipeline_depth, inf.b, inf.enq_ns,
+                                      time.perf_counter_ns() - t0, inf.occ)
+            # the armistice with the admission gate: while it shed
+            # recently, the tuner never probes the queue deeper (two
+            # controllers pushing one knob apart would oscillate)
+            if new_depth is not None and not (
+                new_depth > self.pipeline_depth and adm is not None and adm.shedding()
+            ):
+                self._apply_depth(new_depth)
         return True
 
     def _complete_until(self, pending: PendingBatch) -> None:
@@ -2775,6 +2991,8 @@ class DatapathPipeline:
                 _metrics.pipeline_inflight_depth.set(float(len(self._inflight)))
             inf.pending._value = self._degraded_result(inf)
             inf.pending._event.set()
+            if inf.bt is not _NOOP_BATCH:
+                inf.bt.end()
             abandoned += 1
         return {"completed": completed, "abandoned": abandoned}
 
@@ -2811,12 +3029,17 @@ class DatapathPipeline:
         tunnel_identities: Optional[np.ndarray] = None,
         gate: bool = True,
     ) -> PendingBatch:
-        """Queue admission around :meth:`_submit_inner`: the admission
-        gate (one attribute read while it is off), the draining shell,
-        the enqueue half, then the bounded queue — admission beyond
-        ``pipeline_depth`` completes the oldest batch first.
-        ``gate=False`` is the gate's own re-entry for the kept part of
-        a partially shed batch, which must not be gated twice."""
+        """Trace shell and queue admission around :meth:`_submit_inner`:
+        the admission gate (one attribute read while it is off), the
+        draining shell, the enqueue half, then the bounded queue —
+        admission beyond ``pipeline_depth`` completes the oldest batch
+        first. While tracing is on the batch's trace opens here (kind
+        ``v{family}-{ingress|egress}``), leaves this thread's span stack
+        once the enqueue half returns and ends when the batch completes;
+        off, the cost is one ``tracer.active`` read. While the tuner is
+        on the enqueue half is timed here for it. ``gate=False`` is the
+        gate's own re-entry for the kept part of a partially shed batch,
+        which must not be gated twice."""
         if gate and self._admission is not None:
             gated = self._admission_gate(fl, sports, ingress=ingress, want_rev_nat=want_rev_nat,
                                          tunnel_identities=tunnel_identities)
@@ -2828,6 +3051,15 @@ class DatapathPipeline:
             pending._value = self._degraded_result(_InFlight(pending, None, b=b, rev=want_rev_nat))
             pending._event.set()
             return pending
+        tr = self.tracer
+        # the enqueue half for the tuner: everything up to the queue
+        # (prepare, CT pre-pass, h2d, launches)
+        tuner = self._tuner
+        t0 = time.perf_counter_ns() if tuner is not None else 0
+        if tr.active:
+            bt = tr.begin(f"v{fl.family}-{'ingress' if ingress else 'egress'}", b)
+        else:
+            bt = _NOOP_BATCH
         # the classified enqueue: a fault in the enqueue half (rebuild,
         # h2d, dispatch) retries bounded when transient, then resolves
         # the batch degraded; an error is raised. Each attempt takes a
@@ -2839,11 +3071,13 @@ class DatapathPipeline:
             try:
                 inf = self._submit_inner(
                     dataclasses.replace(fl), sports, ingress=ingress, want_rev_nat=want_rev_nat,
-                    tunnel_identities=tunnel_identities)
+                    tunnel_identities=tunnel_identities, bt=bt)
                 break
             except BaseException as e:
                 kind = _classify(e)
                 if kind == _faults.KIND_ERROR:
+                    if bt is not _NOOP_BATCH:
+                        bt.end()
                     raise
                 self._note_fault(e, kind)
                 if kind == _faults.KIND_TRANSIENT and attempt < self.retry_limit:
@@ -2852,16 +3086,27 @@ class DatapathPipeline:
                         bo = Backoff(min_s=self.retry_min_s, max_s=self.retry_max_s, jitter=False)
                     time.sleep(bo.duration())
                     continue
+                if bt is not _NOOP_BATCH:
+                    bt.end()
                 pending = PendingBatch(self)
                 pending._value = self._quarantine(_InFlight(pending, None, b=b, rev=want_rev_nat))
                 pending._event.set()
                 return pending
+        if bt is not _NOOP_BATCH:
+            tr.detach(bt)
         if self._admission is not None or self._watchdog is not None:
             inf.t0 = time.monotonic()
         if inf.finish is None:
-            return inf.pending  # ran synchronously (device CT)
+            # ran synchronously (device CT)
+            if bt is not _NOOP_BATCH:
+                bt.end()
+            return inf.pending
+        inf.bt = bt
         with self._queue_lock:
             self._inflight.append(inf)
+            if tuner is not None:
+                inf.enq_ns = time.perf_counter_ns() - t0
+                inf.occ = len(self._inflight)
             _metrics.pipeline_inflight_depth.set(float(len(self._inflight)))
             over = len(self._inflight) > self.pipeline_depth
         while over:
@@ -2928,6 +3173,77 @@ class DatapathPipeline:
             out["shed_ratio"] = 0.0
         out["watchdog"] = wd.snapshot() if wd is not None else None
         return out
+
+    # -- the depth tuner (DispatchAutoTune) -----------------------------
+    def set_autotune(self, on: bool, *, max_depth: Optional[int] = None,
+                     epoch: Optional[int] = None) -> None:
+        """Toggle the dispatch depth tuner. On installs a fresh
+        DepthTuner stepping ``pipeline_depth`` in [1,
+        pipeline_max_depth] from each batch's enqueue and completion
+        times; off restores the configured static depth and drops the
+        tuner. ``epoch`` shrinks the decision interval (tests, short
+        runs)."""
+        if max_depth is not None:
+            self.pipeline_max_depth = max(1, int(max_depth))
+        if not on:
+            if self._tuner is not None:
+                self._tuner = None
+                self._apply_depth(self._static_depth)
+            return
+        kw = {} if epoch is None else {"epoch": int(epoch)}
+        self._tuner = DepthTuner(1, self.pipeline_max_depth, **kw)
+        _metrics.pipeline_depth_current.set(float(self.pipeline_depth))
+
+    def _apply_depth(self, depth: int) -> None:
+        """Move the effective depth (a tuner decision, or the static
+        depth restored). The admission path reads ``pipeline_depth``
+        unlocked, so a step takes effect on the next submit; a shallower
+        queue drains through the over-depth completion loop."""
+        depth = max(1, min(int(depth), max(self.pipeline_max_depth, self._static_depth)))
+        cur = self.pipeline_depth
+        if depth == cur:
+            return
+        self.pipeline_depth = depth
+        _metrics.pipeline_depth_current.set(float(depth))
+        _metrics.autotune_adjustments_total.inc({"direction": "up" if depth > cur else "down"})
+
+    def autotune_state(self) -> Optional[Dict]:
+        """The tuner's snapshot with the current and static depth; None
+        while autotune is off."""
+        t = self._tuner
+        if t is None:
+            return None
+        snap = t.snapshot()
+        snap["depth"] = self.pipeline_depth
+        snap["static_depth"] = self._static_depth
+        return snap
+
+    # -- the device profiler (DeviceProfiling) --------------------------
+    def set_profiling(self, on: bool, *, sample_every: Optional[int] = None) -> None:
+        """Toggle the device profiler. Off (the default) keeps each
+        dispatch at one ``self.profiler is None`` read; on installs a
+        DeviceProfiler whose every ``sample_every``-th dispatch records
+        its h2d / compute / d2h split. Turning it on again with another
+        rate retunes the live profiler and keeps its samples."""
+        if sample_every is not None:
+            self.profile_sample_every = max(1, int(sample_every))
+        if not on:
+            self.profiler = None
+            return
+        if self.profiler is None:
+            from ..observe.profiler import DeviceProfiler
+
+            self.profiler = DeviceProfiler(sample_every=self.profile_sample_every)
+        elif self.profiler.sample_every != self.profile_sample_every:
+            self.profiler.sample_every = self.profile_sample_every
+
+    def profile_state(self) -> Dict:
+        """The profiler's snapshot (samples, per-site sums, the launch
+        cost ledger), or the off state with the configured rate."""
+        prof = self.profiler
+        if prof is None:
+            return {"enabled": False, "sample_every": self.profile_sample_every}
+        return prof.snapshot()
 
     def _shed_walk(self, peer, dports, protos, *, family: int) -> Optional[np.ndarray]:
         """[B] bool deny-for-sure mask from the published shed table

@@ -1,10 +1,10 @@
-"""Verdict-path observability: the span tracer.
+"""Verdict-path observability: the span tracer and the device profiler.
 
-Import-light by design (stdlib only). The flow ring and the device
-profiler of the JAX package's ``observe`` wait for a later slice of
-the port.
+Import-light by design (stdlib only). The flow ring of the JAX
+package's ``observe`` waits for a later slice of the port.
 """
 
+from .profiler import DeviceProfiler
 from .tracer import BatchTrace, NOOP_BATCH, Tracer
 
-__all__ = ["BatchTrace", "NOOP_BATCH", "Tracer"]
+__all__ = ["BatchTrace", "DeviceProfiler", "NOOP_BATCH", "Tracer"]

@@ -30,7 +30,7 @@ import cilium_tpu_torch.ops.dfa as tdfa
 import cilium_tpu_torch.policy.api as tapi
 import cilium_tpu_torch.proxy as tproxy
 from cilium_tpu_torch.l7 import kafka_wire as twire
-from cilium_tpu_torch.observe import Tracer
+from cilium_tpu_torch.observe import DeviceProfiler, Tracer
 
 JAX = dict(rt=jl7rt, l7=jl7, dfa=jdfa, api=japi, proxy=jproxy, metrics=jmetrics, kw={})
 TORCH = dict(rt=tl7rt, l7=tl7, dfa=tdfa, api=tapi, proxy=tproxy, metrics=tmetrics,
@@ -323,8 +323,9 @@ def test_gate_follows_the_device_and_drains_on_off():
     assert pipe is not None and pipe.device.type == "cpu" and tl7rt.device_batch_enabled()
     tl7rt.set_device_batch(True, device=torch.device("cpu"))
     assert tl7rt.shared_pipeline() is pipe
-    tl7rt.set_profiler("p")
-    assert pipe.profiler == "p"
+    prof = DeviceProfiler()
+    tl7rt.set_profiler(prof)
+    assert pipe.profiler is prof
     table = _tables([["/a"]])[1]
     pending = pipe.submit(table, [([b"/a"], 16)])
     tl7rt.set_device_batch(False)

@@ -470,9 +470,10 @@ def test_positional_constructor_matches_reference(clock):
     with pytest.raises(NotImplementedError):
         tpipe.DatapathPipeline(eng, w.ipcache, None, None, None, object(), device="cpu")
     # the eighth positional argument is the reference's ``tracer``, not
-    # the device: "cpu" there is a tracer the port refuses
-    with pytest.raises(NotImplementedError):
-        tpipe.DatapathPipeline(eng, w.ipcache, None, None, None, None, None, "cpu")
+    # the device: a Tracer there is taken as the pipeline's tracer
+    t = tpipe.Tracer()
+    assert tpipe.DatapathPipeline(eng, w.ipcache, None, None, None, None, None, t,
+                                  device="cpu").tracer is t
     # ``device`` stays keyword-only: past the reference's 23 positional
     # parameters nothing more is taken
     reference_defaults = (None, None, None, None, None, None, 2, False, None, 4, False,

@@ -295,10 +295,14 @@ def test_constructor_depth_bounds_and_alias():
         assert pipe.pipeline_depth == want
         assert pipe.pipeline_max_depth == max(want, 4)
     assert tpipe.process_ipv4 is tpipe.process_flows
-    for kw in ({"tracer": object()}, {"flow_ring": object()}, {"autotune": True},
-               {"profiling": True}):
+    for kw in ({"flow_ring": object()},):
         with pytest.raises(NotImplementedError):
             tpipe.DatapathPipeline(eng, w.ipcache, device="cpu", **kw)
+    # the tracer, the tuner and the profiler are ported: taken as given
+    tracer = tpipe.Tracer()
+    pipe = tpipe.DatapathPipeline(eng, w.ipcache, device="cpu", tracer=tracer, autotune=True,
+                                  profiling=True)
+    assert pipe.tracer is tracer and pipe._tuner is not None and pipe.profiler is not None
     # placement is ported: the three arguments are taken as given
     pipe = tpipe.DatapathPipeline(eng, w.ipcache, device="cpu", sharding=True, mesh_2d=True,
                                   placement=tpipe.PlacementConfig(ident_axis=4))
