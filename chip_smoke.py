@@ -208,6 +208,22 @@
    turns off, on, on, off: the depth after each submit, the tuner's
    state, results, counters and launches equal. Last, with everything
    off, one batch builds no trace, span, profiler, sample or tuner.
+4m. The events main path, launch counts from zero (events_main_path):
+   flow events and the flow ring with a MonitorHub, one subscriber and
+   FlowAttribution on, the tracer and the profiler at every batch. The
+   1 048 576-flow v4 and v6 batches with drop notifications on (the v4
+   one also streamed through a MonitorServer on a unix socket to a
+   monitor_stream client, which must receive every event the hub
+   published), then the same two with no subscriber (nothing
+   published), a 65 536-flow v4 batch with verdict notifications (one
+   PolicyVerdictNotify a flow), a device-CT batch (4f's v4 pass 1) and a
+   1 048 576-flow batch forced through the admission gate. Each batch's
+   DropNotify count equals its lanes with verdict >= DROP_POLICY, each
+   reason agrees with the verdict and the attribution arrays, the ring
+   records at most SAMPLE_CAP flows a batch, drops first, and a
+   subscriber moves neither the results, the launches nor the d2h
+   transfers. Prints per batch the events published, the emit_events
+   phase's wall, the events a second and the flows recorded.
 5. Holds every kernel against its plain version on the card, at the
    main paths' shapes, with exact equality (all outputs are integers),
    and times kernel, plain version and, where one exists, a library
@@ -6334,6 +6350,352 @@ def observe_main_path(engine, cache, endpoints, flows4, flows6, svc, dct, l7res,
     return dict(traces=traces, samples=samples, stateful=stateful, l7=l7_samples, runs=runs)
 
 
+EVENTS_VERDICT_BATCH = 1 << 16  # the batch with a PolicyVerdictNotify a flow
+# a subscription deep enough for every event of one 1M-flow batch (the
+# hub's default 8192 keeps only the last 8192 of them)
+EVENTS_SUB_CAPACITY = 1 << 21
+EVENTS_PHASE_LIMIT_S = 120.0
+
+
+def events_main_path(engine, cache, endpoints, labels_of, flows4, flows6, svc, dct, card: str):
+    """Phase 3m: flow events and the flow ring (A6) on the bench world at
+    full width. Three pipelines publish to one MonitorHub: the bench
+    world's prefilter pipeline with attribution on (v4 and v6 process(),
+    with and without a subscriber, then a verdict-notification batch), a
+    device-CT pipeline on the services world and an admission-gated one.
+    Every pipeline is made before the launch counts are reset. Returns
+    the phase's wall."""
+    import os
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch import _kernels, faults
+    from cilium_tpu_torch import metrics as tmetrics
+    from cilium_tpu_torch.datapath.pipeline import (
+        DROP_DEGRADED, DROP_NO_SERVICE, DROP_POLICY, DROP_PREFILTER, FORWARD, DatapathPipeline,
+    )
+    from cilium_tpu_torch.ipcache.prefilter import PreFilter
+    from cilium_tpu_torch.monitor import (
+        DropNotify, MonitorHub, MonitorServer, PolicyVerdictNotify, TraceSummary, monitor_stream,
+    )
+    from cilium_tpu_torch.monitor.events import (
+        REASON_NO_SERVICE, REASON_PIPELINE_DEGRADED, REASON_POLICY, REASON_POLICY_DENY,
+        REASON_POLICY_NO_L3, REASON_POLICY_NO_L4, REASON_PREFILTER, REASON_PROXY_REDIRECT,
+    )
+    from cilium_tpu_torch.observe import SAMPLE_CAP
+
+    class DeepHub(MonitorHub):
+        """A hub whose subscriptions, the server's too, hold a whole batch."""
+
+        def subscribe(self, capacity: int = EVENTS_SUB_CAPACITY):
+            return super().subscribe(capacity)
+
+    t_phase = time.perf_counter()
+    pf = PreFilter()
+    pf.insert(pf.revision, PREFILTER_CIDRS + V6_DENY)
+    hub = DeepHub()
+    pipe = DatapathPipeline(engine, cache, pf, monitor=hub)
+    pipe.set_endpoints(endpoints)
+    pipe.set_attribution(True)
+    pipe.identity_labels = lambda ident: tuple(labels_of.get(ident, ()))
+    pipe.rebuild()
+    gpipe = DatapathPipeline(engine, cache, pf, monitor=hub, admission=True, prefilter_shed=True)
+    gpipe.set_endpoints(endpoints)
+    gpipe.rebuild()
+    ep_ids = [(10_000 + j, e) for j, e in enumerate(svc["endpoints"])]
+    dpipe = DatapathPipeline(svc["pipe"].engine, svc["cache"], PreFilter(), monitor=hub,
+                             device_ct_bits=CT_BITS)
+    dpipe.set_endpoints(ep_ids)
+    dpipe.rebuild()
+    # the host time of every _emit_flow_events call (the device-CT path
+    # emits outside the emit_events phase, as the reference does), and
+    # the attribution arrays the completion half pulled
+    emit_s, pulled = [], {}
+    for p in (pipe, gpipe, dpipe):
+        real_emit = p._emit_flow_events
+
+        def timed_emit(*a, _real=real_emit, **k):
+            t = time.perf_counter()
+            _real(*a, **k)
+            emit_s.append(time.perf_counter() - t)
+
+        p._emit_flow_events = timed_emit
+        p.tracer.enable()
+        p.set_profiling(True, sample_every=1)
+    real_complete = pipe._dispatch_complete
+
+    def keep_complete(enq):
+        out = real_complete(enq)
+        pulled["out"] = out
+        return out
+
+    pipe._dispatch_complete = keep_complete
+    shed = []
+    real_gate = gpipe._resolve_at_gate
+
+    def counted_gate(fl, idx, *, verdict_code, ingress):
+        shed.append((verdict_code, int(idx.size)))
+        return real_gate(fl, idx, verdict_code=verdict_code, ingress=ingress)
+
+    gpipe._resolve_at_gate = counted_gate
+    torch.cuda.synchronize()
+    print(f"events: three pipelines (attributed bench world with the prefilter, admission gate, "
+          f"device CT on the services world) on one MonitorHub built in "
+          f"{time.perf_counter() - t_phase:.2f}s [{card}]", flush=True)
+
+    def d2h():
+        return (tmetrics.device_transfers_total.get({"direction": "d2h"}),
+                tmetrics.device_transfer_bytes_total.get({"direction": "d2h"}))
+
+    def run(p, call, flows, sub, **kw):
+        """One batch → its result, drained events and counts."""
+        pub0, rec0, n_emit, tr0 = hub.published, p.flow_ring.recorded, len(emit_s), len(
+            p.tracer.traces())
+        d0, k0 = d2h(), _kernels.launches()
+        t = time.perf_counter()
+        out = getattr(p, call)(*flows, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        k1, d1 = _kernels.launches(), d2h()
+        traces = p.tracer.traces()[tr0:]
+        return dict(
+            out=out, wall=wall, events=sub.drain() if sub is not None else [],
+            published=hub.published - pub0, recorded=p.flow_ring.recorded - rec0,
+            emit_ms=1e3 * sum(emit_s[n_emit:]),
+            phase_ms=sum(d for tr in traces for n, _r, d in tr["phases"] if n == "emit_events") / 1e6,
+            d2h=(d1[0] - d0[0], d1[1] - d0[1]),
+            launches={k: k1[k] - k0[k] for k in k1 if k1[k] != k0[k]},
+            d2h_ms=[s["d2h_ms"] for s in p.profiler.samples()[-len(traces):]] if traces else [])
+
+    def of(evs, cls):
+        return [e for e in evs if type(e) is cls]
+
+    generic = {DROP_POLICY: REASON_POLICY, DROP_PREFILTER: REASON_PREFILTER,
+               DROP_NO_SERVICE: REASON_NO_SERVICE, DROP_DEGRADED: REASON_PIPELINE_DEGRADED}
+
+    def want_reasons(v, lanes, rule=None, l4x=None):
+        """The reason each drop lane's event must carry."""
+        codes = v[lanes].astype(np.int64)
+        out = np.array([generic.get(int(c), 0) for c in range(6)])[codes]
+        if rule is not None:
+            pol = codes == DROP_POLICY
+            out = np.where(pol & (rule[lanes] >= 0), REASON_POLICY_DENY, np.where(
+                pol & l4x[lanes], REASON_POLICY_NO_L4, np.where(pol, REASON_POLICY_NO_L3, out)))
+        return out
+
+    def check_drops(name, r, v, flows, ep_of, rule=None, l4x=None):
+        """The batch's DropNotify events: one a lane with verdict >=
+        DROP_POLICY, in lane order, each with its lane's endpoint, dport
+        and proto and the reason its verdict and attribution give."""
+        drops = of(r["events"], DropNotify)
+        lanes = np.nonzero(v >= DROP_POLICY)[0]
+        if len(drops) != lanes.size:
+            fail(f"events {name}: {len(drops)} DropNotify for {lanes.size} dropped lanes")
+        n = lanes.size
+        got = {f: np.fromiter((getattr(e, f) for e in drops), np.int64, n)
+               for f in ("reason", "endpoint", "dport", "proto")}
+        want = {"reason": want_reasons(v, lanes, rule, l4x), "endpoint": ep_of[flows[1][lanes]],
+                "dport": flows[2][lanes], "proto": flows[3][lanes]}
+        for f in got:
+            if not np.array_equal(got[f], want[f]):
+                bad = int(np.argmax(got[f] != want[f]))
+                fail(f"events {name}: DropNotify {bad} (lane {lanes[bad]}) has {f} {got[f][bad]}, "
+                     f"its lane says {want[f][bad]}")
+        return collections_counter(got["reason"])
+
+    def check_ring(name, r, v):
+        """At most SAMPLE_CAP records, drops first."""
+        n = r["recorded"]
+        if n > SAMPLE_CAP or n != min(SAMPLE_CAP, int(((v >= DROP_POLICY) | (v == FORWARD)).sum())):
+            fail(f"events {name}: {n} flows recorded")
+        recs = pipe.flow_ring.query(limit=n)
+        n_drop = min(SAMPLE_CAP, int((v >= DROP_POLICY).sum()))
+        if any(rec["verdict"] == FORWARD for rec in recs[:n_drop]) or any(
+                rec["verdict"] != FORWARD for rec in recs[n_drop:]):
+            fail(f"events {name}: the ring's records are not drops first")
+        return recs
+
+    def line(name, r):
+        evs = r["published"]
+        rate = evs / (r["emit_ms"] / 1e3) if r["emit_ms"] else 0.0
+        return (f"events [{name}]: published {evs}, emit_events phase {r['phase_ms']!r} ms "
+                f"(_emit_flow_events {r['emit_ms']!r} ms, {rate!r} events/s), flows recorded "
+                f"{r['recorded']}, d2h transfers {r['d2h'][0]} ({r['d2h'][1]} bytes), sampled d2h "
+                f"{r['d2h_ms']} ms, batch wall {r['wall']!r}s [{card}]")
+
+    ep_of = np.asarray(endpoints, np.int64)
+    calls = (("v4", "process", flows4), ("v6", "process_v6", flows6))
+    _kernels.reset_launches()
+
+    # -- the 1M-flow v4 and v6 batches with a subscriber; v4 also streamed
+    sock_dir = tempfile.mkdtemp(prefix="ev")
+    here = os.getcwd()
+    sock = os.path.join(sock_dir, "m.sock")
+    if len(sock) > 100:  # past the unix socket path limit: bind relative
+        os.chdir(sock_dir)
+        sock = "m.sock"
+    srv = MonitorServer(hub, sock)
+    srv.start()
+    streamed = {"n": 0, "drops": 0}
+
+    def client():
+        for ev in monitor_stream(sock, timeout=60.0):
+            streamed["n"] += 1
+            streamed["drops"] += type(ev) is DropNotify
+
+    reader = threading.Thread(target=client, daemon=True)
+    sub = None
+    try:
+        reader.start()
+        deadline = time.monotonic() + 30
+        while srv.clients < 1 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        if srv.clients < 1:
+            fail("events: the monitor_stream client never attached to the server")
+        sub = hub.subscribe()
+        on = {}
+        for fam, call, flows in calls:
+            t_s = time.perf_counter()
+            on[fam] = r = run(pipe, call, flows, sub)
+            if fam == "v4":
+                deadline = time.monotonic() + 90
+                while streamed["n"] < r["published"] and time.monotonic() < deadline:
+                    time.sleep(0.05)
+                t_stream = time.perf_counter() - t_s
+                srv.stop()
+                reader.join(timeout=30)
+                if streamed["n"] != r["published"]:
+                    fail(f"events v4: the monitor_stream client received {streamed['n']} events, "
+                         f"the hub published {r['published']}")
+            v, red = r["out"]
+            _v, _r, _ctr, rule, l4x, _hits = pulled["out"]
+            if not np.array_equal(_v, v):
+                fail(f"events {fam}: the pulled attribution arrays are another batch's")
+            reasons = check_drops(fam, r, v, flows, ep_of, rule, l4x)
+            if len(of(r["events"], TraceSummary)) != 1 or r["published"] != len(r["events"]):
+                fail(f"events {fam}: {r['published']} published, {len(r['events'])} drained")
+            recs = check_ring(fam, r, v)
+            print(line(f"{fam} subscribed", r) + f"; DropNotify reasons {reasons}; ring reasons "
+                  f"{collections_counter([x['reason'] for x in recs])}", flush=True)
+            r["events"] = None
+        print(f"events [v4 streamed]: a MonitorServer on a unix socket sent all {streamed['n']} "
+              f"events ({streamed['drops']} DropNotify) to a monitor_stream client, done "
+              f"{t_stream!r}s after the batch started [{card}]", flush=True)
+    finally:
+        srv.stop()
+        os.chdir(here)
+        if sub is not None:
+            sub.close()
+        try:
+            os.rmdir(sock_dir)
+        except OSError:
+            pass
+
+    # -- the same two with no subscriber ------------------------------------
+    deadline = time.monotonic() + 10  # the server's client thread closes its subscription
+    while hub.active and time.monotonic() < deadline:
+        time.sleep(0.01)
+    if hub.active:
+        fail("events: the hub still has a listener")
+    for fam, call, flows in calls:
+        r = run(pipe, call, flows, None)
+        v, red = r["out"]
+        if not (np.array_equal(v, on[fam]["out"][0]) and np.array_equal(red, on[fam]["out"][1])):
+            fail(f"events {fam}: the results differ with and without a subscriber")
+        if r["published"]:
+            fail(f"events {fam}: {r['published']} events published with no subscriber")
+        if r["d2h"] != on[fam]["d2h"]:
+            fail(f"events {fam}: d2h transfers {r['d2h']} without a subscriber, "
+                 f"{on[fam]['d2h']} with one")
+        if r["launches"] != on[fam]["launches"]:
+            fail(f"events {fam}: launches {r['launches']} without a subscriber, "
+                 f"{on[fam]['launches']} with one")
+        check_ring(f"{fam} unsubscribed", r, v)
+        print(line(f"{fam} no subscriber", r) + f"; with a subscriber: emit_events phase "
+              f"{on[fam]['phase_ms']!r} ms, d2h transfers {on[fam]['d2h'][0]} "
+              f"({on[fam]['d2h'][1]} bytes), equal; launches {r['launches']} both", flush=True)
+
+    # -- a 65 536-flow v4 batch with a PolicyVerdictNotify a flow ------------
+    sub = hub.subscribe()
+    pipe.verdict_notifications = True
+    part = tuple(a[:EVENTS_VERDICT_BATCH] for a in flows4)
+    r = run(pipe, "process", part, sub)
+    pipe.verdict_notifications = False
+    v, red = r["out"]
+    _v, _r, _ctr, rule, l4x, _hits = pulled["out"]
+    check_drops("verdicts", r, v, part, ep_of, rule, l4x)
+    pv = of(r["events"], PolicyVerdictNotify)
+    if len(pv) != EVENTS_VERDICT_BATCH:
+        fail(f"events verdicts: {len(pv)} PolicyVerdictNotify for {EVENTS_VERDICT_BATCH} flows")
+    act = np.fromiter((e.action for e in pv), np.int64, len(pv))
+    rsn = np.fromiter((e.reason for e in pv), np.int64, len(pv))
+    ri = np.fromiter((e.rule_index for e in pv), np.int64, len(pv))
+    fwd = v == FORWARD
+    lanes = np.arange(v.size)
+    want_rsn = np.where(fwd, np.where(red, REASON_PROXY_REDIRECT, 0),
+                        want_reasons(v, lanes, rule, l4x))
+    if not (np.array_equal(act, np.where(fwd, np.where(red, 2, 1), 0))
+            and np.array_equal(rsn, want_rsn) and np.array_equal(ri, rule)):
+        fail("events verdicts: a PolicyVerdictNotify disagrees with its lane's verdict or rule")
+    check_ring("verdicts", r, v)
+    print(line("v4 verdict notifications", r) + f"; {len(pv)} PolicyVerdictNotify, actions "
+          f"{collections_counter(act)}", flush=True)
+    r["events"] = None
+
+    # -- a device-CT batch (not attributed: the generic reasons) -------------
+    peer, eps, dports, protos, sports = dct["seqs"][4]["batch"]
+    d_flows = (peer, eps, dports, protos)
+    r = run(dpipe, "process", d_flows, sub, ingress=False, sports=sports)
+    v, red = r["out"]
+    if not (np.array_equal(v, dct["res"][4][0][0]) and np.array_equal(red, dct["res"][4][0][1])):
+        fail("events device CT: the batch differs from the device-CT phase's pass 1")
+    d_ep = np.asarray([e for e, _i in ep_ids], np.int64)
+    reasons = check_drops("device CT", r, v, d_flows, d_ep)
+    if r["recorded"]:
+        fail("events device CT: the unattributed device-CT path recorded flows")
+    print(line("device CT v4 egress", r) + f"; DropNotify reasons {reasons}", flush=True)
+    r["events"] = None
+
+    # -- a 1M-flow batch forced through the admission gate ------------------
+    faults.hub.fail(faults.SITE_QUEUE_FULL, faults.KIND_TRANSIENT, times=1)
+    try:
+        r = run(gpipe, "process", flows4, sub)
+    finally:
+        faults.hub.reset()
+    sub.close()
+    v, red = r["out"]
+    n_shed = sum(n for code, n in shed if code == DROP_PREFILTER)
+    drops = of(r["events"], DropNotify)
+    n_adm = sum(e.producer == "admission" for e in drops)
+    if not n_shed or n_adm != n_shed or len(drops) != int((v >= DROP_POLICY).sum()):
+        fail(f"events gate: {len(drops)} DropNotify ({n_adm} from the gate) for "
+             f"{int((v >= DROP_POLICY).sum())} dropped lanes, {n_shed} shed")
+    got_r = collections_counter([e.reason for e in drops])
+    want_r = collections_counter(want_reasons(v, np.nonzero(v >= DROP_POLICY)[0]))
+    if got_r != want_r:
+        fail(f"events gate: DropNotify reasons {got_r}, the verdicts give {want_r}")
+    print(line("v4 admission gate", r) + f"; {n_shed} flows shed at the gate, {n_adm} DropNotify "
+          f"with producer admission; reasons {got_r}", flush=True)
+    r["events"] = None
+    wall = time.perf_counter() - t_phase
+    over = "" if wall <= EVENTS_PHASE_LIMIT_S else " OVER ITS LIMIT"
+    print(f"events: phase in {wall:.2f}s (limit {EVENTS_PHASE_LIMIT_S:.0f}s){over} [{card}]",
+          flush=True)
+    return wall
+
+
+def collections_counter(xs) -> dict:
+    """{value: count} of ``xs``, sorted by value."""
+    import numpy as np
+
+    vals, counts = np.unique(np.asarray(list(xs) if not hasattr(xs, "shape") else xs),
+                             return_counts=True)
+    return {int(k): int(n) for k, n in zip(vals, counts)}
+
+
 def metric_series():
     """Snapshot of the attribution metrics (rule_hits_total and
     drop_reasons_total), keyed by (metric, labels)."""
@@ -6863,6 +7225,15 @@ def main() -> None:
                            "lb_translate", "ct_probe_claim", "ct_commit", "dfa_walk_fused"])
 
     phase("3l observe main path")
+
+    # -- 3m. flow events and the flow ring, counts from zero -------------
+    events_main_path(engine, cache, endpoints, labels_of, (ips, eps, dports, protos),
+                     (addr6, eps6, dports6, protos6), svc, dct, card)
+    check_path("events", ["lpm_wide", "lpm_stride8", "policymap_verdict",
+                          "policymap_verdict_attrib", "shed_walk_wide", "ct_probe_claim",
+                          "ct_commit"])
+
+    phase("3m events main path")
 
     # -- 5. each kernel against its plain version on the card ------------
     compiled, device = engine.snapshot()

@@ -123,15 +123,25 @@ on the CPU by ``time.perf_counter``; and the depth tuner
 enqueue and completion halves' clocks. Off, each costs one attribute
 read a batch.
 
-Not ported yet: the flow ring and flow events.
+Every path's completion, the device-CT path's and the admission gate's
+included, reports its flows as events (monitor/events.py) to the
+``monitor`` hub while it has a listener: a DropNotify a dropped flow,
+and, when asked for, a TraceNotify a forwarded one and a
+PolicyVerdictNotify a flow, in flow order; with attribution on, the
+flow ring (observe/flows.py) records a sample of at most ``SAMPLE_CAP``
+flows a batch. Both read only the host arrays the batch already holds:
+no transfer is added, and with no listener and attribution off a batch
+builds no event and no peer address bytes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import ipaddress
 import threading
 import time
 from collections import deque
+from itertools import repeat
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -159,6 +169,14 @@ from ..identity.model import ID_WORLD
 from ..ipcache.ipcache import IPCache
 from ..ipcache.prefilter import PreFilter
 from ..lb.device import flow_hash32, lb_translate
+from ..monitor.events import (
+    REASON_NO_SERVICE, REASON_PIPELINE_DEGRADED, REASON_POLICY, REASON_POLICY_DENY,
+    REASON_POLICY_NO_L3, REASON_POLICY_NO_L4, REASON_PREFILTER, REASON_PROXY_REDIRECT,
+    REASON_UNKNOWN, TRACE_TO_ENDPOINT, TRACE_TO_PROXY, DropNotify, PolicyVerdictNotify,
+    TraceNotify, reason_name,
+)
+from ..observe import flows as _flows
+from ..observe.flows import SAMPLE_CAP as _FLOW_SAMPLE_CAP, FlowRecord, FlowRing
 from ..observe.tracer import NOOP_BATCH as _NOOP_BATCH, Tracer
 from ..ops.lookup import (
     PolicymapTables, Replicated, policymap_verdict, policymap_verdict_gathered, replicate,
@@ -586,6 +604,13 @@ class _Batch:
             self.peer_bytes = ipv4_to_bytes(self.peer_u32)
         return self.peer_bytes
 
+    def bytes_at(self, idx: np.ndarray) -> np.ndarray:
+        """The address bytes of the flows ``idx`` only (an IPv4 batch
+        whose bytes are not built converts just those words)."""
+        if self.peer_bytes is None:
+            return ipv4_to_bytes(self.peer_u32[idx])
+        return self.peer_bytes[idx]
+
     def set_peer(self, peer_bytes: np.ndarray) -> None:
         self.peer_bytes = peer_bytes
         self.peer_u32 = _pack_v4_u32(peer_bytes) if self.family == 4 else None
@@ -859,10 +884,20 @@ class DatapathPipeline:
     ``pipeline_max_depth``. None of them changes a verdict, a counter or
     a launch.
 
+    ``monitor`` (a ``MonitorHub``), while it has a listener, receives a
+    DropNotify for every dropped flow, with ``trace_enabled`` a
+    TraceNotify for every forwarded one, with ``verdict_notifications``
+    a PolicyVerdictNotify for every flow, and a TraceSummary for every
+    traced batch; ``drop_notifications`` turns the drops off and
+    ``endpoint_options`` (``fn(endpoint_id, option_name, default)``)
+    overrides each switch per endpoint. With attribution on,
+    ``flow_ring`` (a :class:`FlowRing`, made when not given) records at
+    most ``SAMPLE_CAP`` flows a batch, drops first; ``identity_labels``
+    (``fn(identity_id)``) labels them. Both read only host arrays the
+    completion half already holds.
+
     The positional order is the reference's; ``device`` (None = the
-    card) is keyword-only. Arguments whose feature is not ported yet
-    (``monitor`` and ``flow_ring``) raise NotImplementedError when given
-    anything but None."""
+    card) is keyword-only."""
 
     def __init__(
         self,
@@ -871,12 +906,12 @@ class DatapathPipeline:
         prefilter: Optional[PreFilter] = None,
         conntrack: Optional[FlowConntrack] = None,
         lb=None,  # Optional[lb.service.ServiceManager]
-        monitor=None,
+        monitor=None,  # Optional[monitor.hub.MonitorHub]
         device_ct_bits: Optional[int] = None,
         tracer=None,
         pipeline_depth: int = 2,
         sharding: bool = False,
-        flow_ring=None,
+        flow_ring: Optional[FlowRing] = None,
         pipeline_max_depth: int = 4,
         autotune: bool = False,
         epoch_swap: bool = False,
@@ -892,9 +927,6 @@ class DatapathPipeline:
         *,
         device=None,
     ) -> None:
-        for name, given in (("monitor", monitor), ("flow_ring", flow_ring)):
-            if given is not None:
-                raise NotImplementedError(f"the pipeline's {name} is not in the torch port yet")
         self.device = _kernels.resolve_device(device)
         if self.device != engine.device:
             raise ValueError(f"pipeline on {self.device}, engine on {engine.device}")
@@ -910,9 +942,19 @@ class DatapathPipeline:
         if device_ct_bits is not None and conntrack is None:
             self.conntrack = FlowConntrack(capacity_bits=max(10, device_ct_bits))
         self.lb = lb
+        # the monitor hub (monitor/hub.py): flow events are built only
+        # while it has a listener, one ``hub.active`` read a batch
+        self.monitor = monitor
         # the span tracer: off by default, the verdict path then pays one
         # ``tracer.active`` read a batch
         self.tracer = tracer if tracer is not None else Tracer()
+        # the sampled flow ring (observe/flows.py): FlowRecords from the
+        # completion half while FlowAttribution is on, one ``ring.active``
+        # read a batch
+        self.flow_ring = flow_ring if flow_ring is not None else FlowRing()
+        # optional identity → labels resolver for flow records:
+        # fn(identity_id) -> tuple of label strings
+        self.identity_labels = None
         # launch shapes already dispatched while tracing (the
         # jit_shape_buckets_total telemetry; a new one is a "miss")
         self._seen_shapes: set = set()
@@ -921,6 +963,24 @@ class DatapathPipeline:
         # family) — the cilium_proxy4/6 write hook (bpf_lxc.c inserts
         # a proxymap entry when the verdict is a proxy port)
         self.on_redirect = None
+        # TraceNotify for forwarded flows is opt-in (the TraceNotification
+        # endpoint option); DropNotify is on while a listener is attached,
+        # gated by the DropNotification runtime option
+        self.trace_enabled = False
+        self.drop_notifications = True
+        # PolicyVerdictNotify for EVERY flow (allowed included) is opt-in
+        # (PolicyVerdictNotification): it walks the whole batch
+        self.verdict_notifications = False
+        # optional per-endpoint option resolver:
+        # fn(endpoint_id, option_name, default) -> bool, so an
+        # endpoint's own options gate its events
+        self.endpoint_options = None
+        # (ipcache version, {family: [(plen, {network: identity})]}): the
+        # host ipcache as per-length tables, made when flow events first
+        # resolve a peer at that version
+        self._peer_index: Optional[Tuple[int, Dict]] = None
+        # (repository, revision, rule_origins()) the flow records name
+        self._origins: Optional[Tuple[object, int, List[dict]]] = None
         self._lb_tables: Dict[int, object] = {}
         self._lb_version = -1
         self._lock = threading.Lock()
@@ -1136,6 +1196,7 @@ class DatapathPipeline:
             self._mat = {}
             self._mat_sig = ()
             self._swap_gen += 1  # sweep variant moved: abandon shadows
+        self.flow_ring.active = bool(on)
         self._seen_shapes.clear()  # attributed launches are other shapes
 
     def _attrib_origins(self, compiled):
@@ -2230,6 +2291,249 @@ class DatapathPipeline:
                 if n:
                     _metrics.verdicts_total.inc({"outcome": outcome, **labels}, float(n))
 
+    # -- flow events and the flow ring ----------------------------------
+    def _peer_identities(self, u8: np.ndarray, family: int) -> np.ndarray:
+        """[N] identity of each peer ([N, 4 | 16] uint8 address rows) as
+        the host ipcache's ``lookup_by_ip`` gives it: the entry of the
+        longest prefix holding the address, 0 for none. ``lookup_by_ip``
+        formats up to 129 prefixes an address; here the ipcache is read
+        once per version as one {network: identity} table a prefix
+        length, and each distinct address is resolved once."""
+        cache = self.ipcache
+        version = cache.version
+        index = self._peer_index
+        if index is None or index[0] != version:
+            tabs: Dict[int, Dict[int, Dict[int, int]]] = {4: {}, 6: {}}
+            for key, entry in cache.items():
+                net = ipaddress.ip_network(key)
+                tabs[net.version].setdefault(net.prefixlen, {})[
+                    int(net.network_address)] = entry.identity
+            index = (version, {f: sorted(t.items(), reverse=True) for f, t in tabs.items()})
+            if cache.version == version:
+                self._peer_index = index
+        levels = index[1][family]
+        width = 32 if family == 4 else 128
+        keys = u8.view(np.dtype((np.void, u8.shape[1]))).ravel()
+        uniq, inv = np.unique(keys, return_inverse=True)
+        out = np.zeros(len(uniq), np.int64)
+        for k, key in enumerate(uniq):
+            a = int.from_bytes(key.tobytes(), "big")
+            for plen, tab in levels:
+                ident = tab.get(a >> (width - plen) << (width - plen))
+                if ident is not None:
+                    out[k] = ident
+                    break
+        return out[inv.reshape(-1)]
+
+    def _drop_reasons(self, verdict: np.ndarray, rule, l4_covered) -> np.ndarray:
+        """[B] monitor reason of each flow's verdict (0 for FORWARD); with
+        attribution arrays a policy drop carries its attributed reason
+        (deny rule, no L4 allow, no L3 allow) instead of REASON_POLICY."""
+        codes = verdict.astype(np.int64)
+        pol = codes == DROP_POLICY
+        reasons = np.select(
+            [pol, codes == DROP_PREFILTER, codes == DROP_NO_SERVICE, codes == DROP_DEGRADED],
+            [REASON_POLICY, REASON_PREFILTER, REASON_NO_SERVICE, REASON_PIPELINE_DEGRADED], 0)
+        if rule is not None:
+            l4 = np.zeros(codes.shape[0], bool) if l4_covered is None else l4_covered
+            reasons = np.where(pol & (rule >= 0), REASON_POLICY_DENY, np.where(
+                pol & l4, REASON_POLICY_NO_L4, np.where(pol, REASON_POLICY_NO_L3, reasons)))
+        return reasons
+
+    def _emit_flow_events(
+        self,
+        fl: _Batch,
+        verdict: np.ndarray,
+        *,
+        ingress: bool,
+        redirect: Optional[np.ndarray] = None,
+        rule: Optional[np.ndarray] = None,
+        l4_covered: Optional[np.ndarray] = None,
+        producer: str = "prefilter",
+    ) -> None:
+        """Publish a DropNotify per dropped flow of ``fl``, with
+        ``trace_enabled`` a TraceNotify per forwarded flow (to-proxy when
+        redirected) and with ``verdict_notifications`` a
+        PolicyVerdictNotify per flow, in that order and each in flow
+        order, as one ``publish_many``. Runs only while the monitor has a
+        listener; with no ``endpoint_options`` resolver each switch holds
+        for the whole batch, else the resolver is asked per flow (a
+        programmer error in it raises, any other fault gives the
+        default). The peer identity is the host ipcache's. ``producer``
+        names reason 144's emitter on its DropNotify ("prefilter": the
+        device path, "admission": the host gate). With attribution arrays
+        (``rule`` / ``l4_covered``) a policy drop carries its attributed
+        reason. Everything read is host memory the batch already holds."""
+        hub = self.monitor
+        if hub is None or not hub.active:
+            return
+        family = fl.family
+        b = verdict.shape[0]
+        resolver = self.endpoint_options
+        ep_idx = fl.ep_idx.astype(np.int64)
+        ids = np.asarray(self._endpoint_ids, np.int64)
+        # the endpoint id of each flow, its index where it has none
+        ok = (ep_idx >= 0) & (ep_idx < ids.shape[0])
+        ep_ids = ep_idx.copy()
+        ep_ids[ok] = ids[ep_idx[ok]]
+
+        def gated(lanes: np.ndarray, name: str, default: bool) -> np.ndarray:
+            if resolver is None:
+                return lanes if default else lanes[:0]
+            keep = []
+            for i in lanes.tolist():
+                try:
+                    on = bool(resolver(int(ep_ids[i]), name, default))
+                except Exception as e:
+                    # a transient or poisoned resolver fault degrades to
+                    # the default; a programmer error in it surfaces
+                    if _faults.classify(e) == _faults.KIND_ERROR:
+                        raise
+                    on = default
+                if on:
+                    keep.append(i)
+            return np.asarray(keep, np.int64)
+
+        drops = gated(np.nonzero(verdict >= DROP_POLICY)[0], "DropNotification",
+                      self.drop_notifications)
+        # forwarded flows are the bulk of a batch: walked only when traces
+        # or verdict events can be on
+        traces = verdict_lanes = drops[:0]
+        if self.trace_enabled or resolver is not None:
+            traces = gated(np.nonzero(verdict == FORWARD)[0], "TraceNotification",
+                           self.trace_enabled)
+        if self.verdict_notifications or resolver is not None:
+            verdict_lanes = gated(np.arange(b), "PolicyVerdictNotification",
+                                  self.verdict_notifications)
+        if not (drops.size or traces.size or verdict_lanes.size):
+            return
+        need = np.unique(np.concatenate([drops, traces, verdict_lanes]))
+        raw = np.ascontiguousarray(fl.bytes_at(need) & 0xFF, dtype=np.uint8)
+        src = self._peer_identities(raw, family)
+        width = raw.shape[1]
+        blob = raw.tobytes()
+        addrs = [blob[k:k + width] for k in range(0, len(blob), width)]
+        reasons = self._drop_reasons(verdict, rule, l4_covered)
+
+        def cols(lanes):
+            """(endpoint, src_identity, family, peer_addr, dport, proto,
+            ingress) columns of ``lanes``, as the events' positional
+            fields after their first ones."""
+            rows = np.searchsorted(need, lanes)  # each flow's row of ``raw``
+            n = lanes.size
+            return (ep_ids[lanes].tolist(), src[rows].tolist(), repeat(family, n),
+                    [addrs[k] for k in rows.tolist()], fl.dports[lanes].tolist(),
+                    fl.protos[lanes].tolist(), repeat(ingress, n))
+
+        # one map a kind over column lists: a 1M-flow batch's events are
+        # built without a Python loop body of their own
+        r = reasons[drops].tolist()
+        events = list(map(DropNotify, r, *cols(drops),
+                          [producer if x == REASON_PREFILTER else "" for x in r]))
+        if traces.size:
+            proxy = np.zeros(traces.size, bool) if redirect is None else redirect[traces]
+            obs = np.where(proxy, TRACE_TO_PROXY, TRACE_TO_ENDPOINT).tolist()
+            events.extend(map(TraceNotify, obs, *cols(traces)))
+        if verdict_lanes.size:
+            lanes = verdict_lanes
+            fwd = verdict[lanes] == FORWARD
+            red = np.zeros(lanes.size, bool) if redirect is None else redirect[lanes].astype(bool)
+            action = np.where(fwd, np.where(red, 2, 1), 0).tolist()
+            reason = np.where(fwd, np.where(red, REASON_PROXY_REDIRECT, REASON_UNKNOWN),
+                              reasons[lanes]).tolist()
+            ri = (np.full(lanes.size, -1) if rule is None else rule[lanes]).tolist()
+            events.extend(map(PolicyVerdictNotify, action, reason, *cols(lanes), ri))
+        hub.publish_many(events)
+
+    def _rule_origins(self) -> List[dict]:
+        """``repo.rule_origins()``, made once per repository revision
+        (the index → origin table the records name; a 10k-rule table
+        takes tens of ms to build, longer than the rest of a sample)."""
+        repo = self.engine.repo
+        rev = repo.revision
+        cached = self._origins
+        if cached is None or cached[0] is not repo or cached[1] != rev:
+            cached = self._origins = (repo, rev, repo.rule_origins())
+        return cached[2]
+
+    def _record_flows(
+        self,
+        fl: _Batch,
+        verdict: np.ndarray,
+        rule: np.ndarray,
+        l4x: np.ndarray,
+        redirect: Optional[np.ndarray],
+        *,
+        ingress: bool,
+    ) -> None:
+        """The flow ring's sample of one attributed batch: at most
+        SAMPLE_CAP FlowRecords, the drops first (the rare, interesting
+        tail), then forwarded flows for the rest, so the host cost is
+        bounded whatever the batch size. Runs only while the ring is
+        active; the record time is ``observe.flows.now()``."""
+        ring = self.flow_ring
+        if not ring.active:
+            return
+        take = np.nonzero(verdict >= DROP_POLICY)[0][:_FLOW_SAMPLE_CAP]
+        if take.size < _FLOW_SAMPLE_CAP:
+            take = np.concatenate([
+                take, np.nonzero(verdict == FORWARD)[0][:_FLOW_SAMPLE_CAP - take.size]])
+        if not take.size:
+            return
+        origins = self._rule_origins()
+        outcome = dict(_OUTCOME_NAMES)
+        labels_of = self.identity_labels
+        ts = _flows.now()
+        raw = np.ascontiguousarray(fl.bytes_at(take) & 0xFF, dtype=np.uint8)
+        peer_ids = self._peer_identities(raw, fl.family).tolist()
+        reasons = self._drop_reasons(verdict[take], rule[take], l4x[take])
+        endpoints = self._endpoints
+
+        def labels(ident: int) -> Tuple[str, ...]:
+            if labels_of is None:
+                return ()
+            try:
+                return tuple(labels_of(ident))
+            except Exception as e:
+                # unlabeled records on environmental faults only: a
+                # buggy resolver surfaces
+                if _faults.classify(e) == _faults.KIND_ERROR:
+                    raise
+                return ()
+
+        recs = []
+        for k, i in enumerate(take.tolist()):
+            code = int(verdict[i])
+            ri = int(rule[i])
+            reason = int(reasons[k])
+            if code == FORWARD and redirect is not None and bool(redirect[i]):
+                reason = REASON_PROXY_REDIRECT
+            peer_ip = str(ipaddress.ip_address(raw[k].tobytes()))
+            idx = int(fl.ep_idx[i])
+            ep_ident = endpoints[idx] if 0 <= idx < len(endpoints) else 0
+            # ingress = peer → endpoint, egress = endpoint → peer (only
+            # the peer side carries an address)
+            src_id, dst_id = ((peer_ids[k], ep_ident) if ingress else (ep_ident, peer_ids[k]))
+            recs.append(FlowRecord(
+                ts=ts,
+                direction="ingress" if ingress else "egress",
+                src_identity=src_id,
+                dst_identity=dst_id,
+                src_labels=labels(src_id),
+                dst_labels=labels(dst_id),
+                src_ip=peer_ip if ingress else "",
+                dst_ip="" if ingress else peer_ip,
+                dport=int(fl.dports[i]),
+                proto=int(fl.protos[i]),
+                verdict=code,
+                verdict_name=outcome.get(code, str(code)),
+                reason=reason,
+                reason_name="allowed" if reason == 0 else reason_name(reason),
+                rule_index=ri,
+                rule_origin=origins[ri] if 0 <= ri < len(origins) else None,
+            ))
+        ring.push_many(recs)
+
     def _up(self, a, dtype) -> torch.Tensor:
         return torch.from_numpy(
             np.ascontiguousarray(np.asarray(a).astype(dtype, copy=False))
@@ -2645,10 +2949,9 @@ class DatapathPipeline:
         device (no CT) or the CT pre-pass with only its misses on the
         device. Returns the batch with its ``finish`` closure, the
         completion half: counters, CT creation, the redirect hook, the
-        attribution metrics and the batch metrics. Each stage is a phase
-        of ``bt``, where the reference opens it (``emit_events`` too,
-        which has no flow events to emit until the flow ring is
-        ported)."""
+        attribution metrics, the batch metrics, then the flow events and
+        the flow ring's sample (the ``emit_events`` phase). Each stage is
+        a phase of ``bt``, where the reference opens it."""
         with bt.phase("rebuild"):
             self.rebuild()
         direction = TRAFFIC_INGRESS if ingress else TRAFFIC_EGRESS
@@ -2735,7 +3038,10 @@ class DatapathPipeline:
                     if rule is not None:
                         self._account_attribution(v, rule, l4x, hits, ingress=ingress)
                 with bt.phase("emit_events"):
-                    pass
+                    self._emit_flow_events(fl, v, ingress=ingress, redirect=red, rule=rule,
+                                           l4_covered=l4x)
+                    if rule is not None:
+                        self._record_flows(fl, v, rule, l4x, red, ingress=ingress)
                 if want_rev_nat:
                     # no CT → replies can't be recognized → no restore
                     return v, red, np.zeros(b, np.uint16)
@@ -2770,6 +3076,7 @@ class DatapathPipeline:
         def finish():
             verdict = np.full(b, FORWARD, np.int8)
             redirect = np.zeros(b, bool)
+            rule_full = l4x_full = None
             if enq is not None:
                 v, red, _counters, at_rule, at_l4x, at_hits = self._dispatch_complete(enq)
                 if svc_drop is not None:
@@ -2784,7 +3091,12 @@ class DatapathPipeline:
                 redirect[midx] = red
                 if at_rule is not None:
                     # CT-bypassed flows took no policy decision this
-                    # batch (rule -1): only the tail's decisions count
+                    # batch (rule -1, reason "allowed"): only the tail's
+                    # decisions count
+                    rule_full = np.full(b, -1, np.int32)
+                    l4x_full = np.zeros(b, bool)
+                    rule_full[midx] = at_rule
+                    l4x_full[midx] = at_l4x
                     self._account_attribution(v, at_rule, at_l4x, at_hits, ingress=ingress)
                 # CT entries for newly allowed flows (ct_create4,
                 # bpf_lxc.c:~560: only successful verdicts create
@@ -2805,7 +3117,10 @@ class DatapathPipeline:
                 self._add_host_counters(verdict, fl.ep_idx)
                 self._account_batch(verdict)
             with bt.phase("emit_events"):
-                pass
+                self._emit_flow_events(fl, verdict, ingress=ingress, redirect=redirect,
+                                       rule=rule_full, l4_covered=l4x_full)
+                if rule_full is not None:
+                    self._record_flows(fl, verdict, rule_full, l4x_full, redirect, ingress=ingress)
             if want_rev_nat:
                 # revNAT restore (bpf/lib/lb.h lb4_rev_nat via the CT
                 # entry's rev_nat_index): REPLY hits carry the id of the
@@ -2888,6 +3203,8 @@ class DatapathPipeline:
         with bt.phase("counters"):
             self._account_batch(verdict)
         self._redirect_hook(fl, sports, redirect, ingress=ingress)
+        # not attributed: drops keep the generic policy reason
+        self._emit_flow_events(fl, verdict, ingress=ingress, redirect=redirect)
         if want_rev_nat:
             return verdict, redirect, np.zeros(b, np.uint16)
         return verdict, redirect
@@ -2936,7 +3253,7 @@ class DatapathPipeline:
             if not inf.abandoned and not inf.pending._event.is_set():
                 inf.pending._event.set()  # an interrupt on the way: never park a waiter
             if inf.bt is not _NOOP_BATCH:
-                inf.bt.end()
+                inf.bt.end(self.monitor)
         if adm is not None and inf.t0:
             adm.observe_completion(time.monotonic() - inf.t0)
         if t0:
@@ -2992,7 +3309,7 @@ class DatapathPipeline:
             inf.pending._value = self._degraded_result(inf)
             inf.pending._event.set()
             if inf.bt is not _NOOP_BATCH:
-                inf.bt.end()
+                inf.bt.end(self.monitor)
             abandoned += 1
         return {"completed": completed, "abandoned": abandoned}
 
@@ -3077,7 +3394,7 @@ class DatapathPipeline:
                 kind = _classify(e)
                 if kind == _faults.KIND_ERROR:
                     if bt is not _NOOP_BATCH:
-                        bt.end()
+                        bt.end(self.monitor)
                     raise
                 self._note_fault(e, kind)
                 if kind == _faults.KIND_TRANSIENT and attempt < self.retry_limit:
@@ -3087,7 +3404,7 @@ class DatapathPipeline:
                     time.sleep(bo.duration())
                     continue
                 if bt is not _NOOP_BATCH:
-                    bt.end()
+                    bt.end(self.monitor)
                 pending = PendingBatch(self)
                 pending._value = self._quarantine(_InFlight(pending, None, b=b, rev=want_rev_nat))
                 pending._event.set()
@@ -3099,7 +3416,7 @@ class DatapathPipeline:
         if inf.finish is None:
             # ran synchronously (device CT)
             if bt is not _NOOP_BATCH:
-                bt.end()
+                bt.end(self.monitor)
             return inf.pending
         inf.bt = bt
         with self._queue_lock:
@@ -3279,12 +3596,13 @@ class DatapathPipeline:
         # decision
         return mask.cpu().numpy()
 
-    def _resolve_at_gate(self, fl: _Batch, idx: np.ndarray, *, verdict_code: int) -> None:
-        """Account flows resolved AT the admission gate (shed or
-        deadline-degraded): the per-endpoint counters, verdicts_total
-        and the drop-reason series the device path would have moved, so
-        a shed flow is counted everywhere a dropped one is. (Flow events
-        wait for the flow ring.)"""
+    def _resolve_at_gate(self, fl: _Batch, idx: np.ndarray, *, verdict_code: int,
+                         ingress: bool) -> None:
+        """Account and emit for flows resolved AT the admission gate
+        (shed or deadline-degraded): the per-endpoint counters,
+        verdicts_total, the drop-reason series and the DropNotify events
+        (producer "admission") the device path would have made, so a
+        shed flow is observable everywhere a dropped one is."""
         if idx.size == 0:
             return
         v = np.full(idx.size, verdict_code, np.int8)
@@ -3307,6 +3625,9 @@ class DatapathPipeline:
         elif verdict_code == DROP_DEGRADED:
             _metrics.drop_reasons_total.inc({"reason": "pipeline-degraded"}, float(idx.size))
         self._account_batch(v)
+        hub = self.monitor
+        if hub is not None and hub.active:
+            self._emit_flow_events(fl.take(idx), v, ingress=ingress, producer="admission")
 
     def _admission_gate(
         self,
@@ -3366,7 +3687,7 @@ class DatapathPipeline:
         if shed_mask is not None and shed_mask.any():
             shed_idx = np.nonzero(shed_mask)[0]
             keep_idx = np.nonzero(~shed_mask)[0]
-            self._resolve_at_gate(fl, shed_idx, verdict_code=DROP_PREFILTER)
+            self._resolve_at_gate(fl, shed_idx, verdict_code=DROP_PREFILTER, ingress=ingress)
             adm.note_shed(REASON_SHED_PREFILTER, int(shed_idx.size))
         else:
             shed_idx = np.empty(0, np.int64)
@@ -3387,7 +3708,7 @@ class DatapathPipeline:
             if keep_idx.size:
                 # 3) deadline spent: failsafe resolution for the rest
                 code = FORWARD if self._fail_open else DROP_DEGRADED
-                self._resolve_at_gate(fl, keep_idx, verdict_code=code)
+                self._resolve_at_gate(fl, keep_idx, verdict_code=code, ingress=ingress)
                 adm.note_shed(REASON_SHED_DEADLINE, int(keep_idx.size))
                 v[keep_idx] = code
             # resolved handle, nothing ever queued

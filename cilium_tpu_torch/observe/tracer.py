@@ -206,9 +206,12 @@ class Tracer:
             )
         _metrics.batch_total_seconds.observe(bt.total_ns / 1e9)
         if hub is not None and hub.active:
-            # the monitor hub and its TraceSummary event wait for the
-            # port's daemon slice
-            raise NotImplementedError("monitor hub events are not ported yet")
+            from ..monitor.events import TraceSummary
+
+            hub.publish(TraceSummary(
+                kind=bt.kind, batch=bt.batch, total_ns=bt.total_ns,
+                phases=tuple(bt.phases), timestamp=bt.ts,
+            ))
 
     # -- cold-path API --------------------------------------------------
     def traces(self, limit: Optional[int] = None) -> List[Dict]:

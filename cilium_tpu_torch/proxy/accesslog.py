@@ -6,7 +6,8 @@ pkg/envoy/accesslog_server.go (the unix-socket server receiving entries
 from the C++ filter). Here records are produced in-process by the
 enforcement hooks and fanned out to subscribers (monitor, logfile).
 The unix-socket receiver for out-of-process proxies
-(``AccessLogSocketServer``) waits for the daemon slice of the port.
+(``AccessLogSocketServer``) comes with the port's orchestrator slice
+(A9b), beside the standalone proxy it serves.
 """
 
 from __future__ import annotations

@@ -121,16 +121,18 @@ def test_process_flows_wide_row_override_matches_jax(prefilter):
 
 
 def test_process_refuses_unported_arguments():
-    """The monitor is the one argument of the reference's positional
-    order that the port does not take: it raises rather than being
-    ignored. ``device_ct_bits`` is ported and, as in the reference,
+    """The monitor, the sixth argument of the reference's positional
+    order, is taken as given: the pipeline publishes its events to that
+    hub. ``device_ct_bits`` is ported and, as in the reference,
     brings a host conntrack of max(10, bits) slots for the batches the
     device CT cannot serve. ``sports``, ``return_rev_nat`` and
     ``tunnel_identities`` are ported and agree with the JAX package
     (without a conntrack, replies carry no revNAT id)."""
     wj, pj, pt = _pipelines(0, False)
-    with pytest.raises(NotImplementedError):
-        tpipe.DatapathPipeline(pt.engine, pt.ipcache, monitor=object(), device="cpu")
+    from cilium_tpu_torch.monitor import MonitorHub
+
+    hub = MonitorHub()
+    assert tpipe.DatapathPipeline(pt.engine, pt.ipcache, monitor=hub, device="cpu").monitor is hub
     for bits in (4, 12):
         dct = tpipe.DatapathPipeline(pt.engine, pt.ipcache, device="cpu", device_ct_bits=bits)
         ref = jpipe.DatapathPipeline(pj.engine, pj.ipcache, device_ct_bits=bits)

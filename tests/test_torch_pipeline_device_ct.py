@@ -467,8 +467,13 @@ def test_positional_constructor_matches_reference(clock):
         assert dct._device_ct_bits == 11 and dct.conntrack.capacity == 1 << 11
     for g, w_ in zip(out[PKGS[1]], out[PKGS[0]]):
         np.testing.assert_array_equal(g, w_)
-    with pytest.raises(NotImplementedError):
-        tpipe.DatapathPipeline(eng, w.ipcache, None, None, None, object(), device="cpu")
+    # the sixth positional argument is the reference's ``monitor``: a hub
+    # there is taken as the pipeline's
+    from cilium_tpu_torch.monitor import MonitorHub
+
+    hub = MonitorHub()
+    assert tpipe.DatapathPipeline(eng, w.ipcache, None, None, None, hub,
+                                  device="cpu").monitor is hub
     # the eighth positional argument is the reference's ``tracer``, not
     # the device: a Tracer there is taken as the pipeline's tracer
     t = tpipe.Tracer()

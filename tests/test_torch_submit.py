@@ -295,9 +295,11 @@ def test_constructor_depth_bounds_and_alias():
         assert pipe.pipeline_depth == want
         assert pipe.pipeline_max_depth == max(want, 4)
     assert tpipe.process_ipv4 is tpipe.process_flows
-    for kw in ({"flow_ring": object()},):
-        with pytest.raises(NotImplementedError):
-            tpipe.DatapathPipeline(eng, w.ipcache, device="cpu", **kw)
+    # the flow ring is ported: a ring passed in is the pipeline's, and
+    # one is made when none is given
+    ring = tpipe.FlowRing()
+    assert tpipe.DatapathPipeline(eng, w.ipcache, device="cpu", flow_ring=ring).flow_ring is ring
+    assert isinstance(tpipe.DatapathPipeline(eng, w.ipcache, device="cpu").flow_ring, tpipe.FlowRing)
     # the tracer, the tuner and the profiler are ported: taken as given
     tracer = tpipe.Tracer()
     pipe = tpipe.DatapathPipeline(eng, w.ipcache, device="cpu", tracer=tracer, autotune=True,
