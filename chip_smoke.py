@@ -224,6 +224,24 @@
    subscriber moves neither the results, the launches nor the d2h
    transfers. Prints per batch the events published, the emit_events
    phase's wall, the events a second and the flows recorded.
+4n. The restore main path, launch counts from zero (restore_main_path):
+   the bench engine's snapshot saved with both directions' policymaps;
+   a fresh engine's trusted restore (no K1) and a fresh pipeline's v4
+   and v6 1M-flow batches, equal to the original's (results, counters,
+   the DevicePolicy words), with the load, upload, rebuild and
+   restore-to-first-batch (on_first_batch) walls beside a full refresh
+   + rebuild of the same world; an untrusted restore on a copy of the
+   world, one rule added, the background refresh kicked: the batches
+   served on the restored tables meanwhile equal the original's and,
+   on 65 536 flows, the CPU plain path over the restored tables; the
+   install runs on the refresh thread after the event recorded on its
+   side stream completed, and after rebuild() the results equal a
+   fresh engine's. The CT snapshot of the services world's 2^22-slot
+   table after pass 1: saved, loaded, restored into a fresh pipeline's
+   table with the hold, the held rebuild keeps every entry and pass 2's
+   miss tail holds none of them; with a rule added first, the rebuild
+   flushes them. A device-CT pipeline's table is kept by a held rebuild
+   and reset by an unheld one.
 5. Holds every kernel against its plain version on the card, at the
    main paths' shapes, with exact equality (all outputs are integers),
    and times kernel, plain version and, where one exists, a library
@@ -6687,6 +6705,411 @@ def events_main_path(engine, cache, endpoints, labels_of, flows4, flows6, svc, d
     return wall
 
 
+RESTORE_SLICE = 1 << 16  # flows of each served batch held against the CPU plain path
+RESTORE_MAX_SERVED = 400  # batches served while the background refresh runs, at most
+RESTORE_PHASE_LIMIT_S = 60.0
+
+
+def tables_on_cpu(t):
+    """A copy of a dataclass of tensors (nested ones too) on the CPU,
+    where every kernel wrapper runs its plain version."""
+    import torch
+
+    kw = {}
+    for f in dataclasses.fields(t):
+        v = getattr(t, f.name)
+        if isinstance(v, torch.Tensor):
+            kw[f.name] = v.cpu()
+        elif dataclasses.is_dataclass(v):
+            kw[f.name] = tables_on_cpu(v)
+    return dataclasses.replace(t, **kw)
+
+
+def plain_slice(tables, fused: bool, ep_count: int, fam: int, flows):
+    """The CPU plain path over a pipeline's ingress ``tables`` of family
+    ``fam`` (no prefilter stage: the pipeline has none) on the first
+    RESTORE_SLICE flows → (verdict, redirect)."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch.datapath.pipeline import process_flows, process_flows_wide
+
+    t = tables_on_cpu(tables)
+    part = [a[:RESTORE_SLICE] for a in flows]
+    fargs = [torch.from_numpy(np.ascontiguousarray(a, np.int32)) for a in part[1:]]
+    kw = dict(ep_count=ep_count, prefilter=False)
+    if fam == 4:
+        out = process_flows_wide(t, torch.from_numpy(np.ascontiguousarray(part[0]).view(np.int32)),
+                                 *fargs, **kw)
+    else:
+        out = process_flows(t, torch.from_numpy(np.ascontiguousarray(part[0], np.int32)), *fargs,
+                            levels=16, fused=fused, **kw)
+    return out[0].numpy(), out[1].numpy()
+
+
+class Stopwatch:
+    """Host seconds spent in the wrapped module functions while entered
+    (``targets``: (module, function) pairs), each call ended by a
+    torch.cuda.synchronize, so the device work it queued counts."""
+
+    def __init__(self, *targets):
+        self.targets = targets
+        self.secs = {name: 0.0 for _, name in targets}
+
+    def __enter__(self):
+        import torch
+
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.targets]
+        for mod, name, real in self.saved:
+            def timed_call(*a, _real=real, _name=name, **k):
+                t0 = time.perf_counter()
+                try:
+                    return _real(*a, **k)
+                finally:
+                    torch.cuda.synchronize()
+                    self.secs[_name] += time.perf_counter() - t0
+            setattr(mod, name, timed_call)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self.saved:
+            setattr(mod, name, real)
+
+
+def restore_main_path(engine, cache, endpoints, flows4, flows6, svc, seed: int, card: str):
+    """Phase 3n: compiled-state snapshots, the restore, the background
+    refresh and the CT snapshot (A7a) on the bench world at full width
+    (10 000 rules, 2 048 identities, 64 endpoints, 1 048 576-flow
+    batches) and on the services world's 2^22-slot conntrack. The
+    caller set the launch counts to 0; the comparison runs (the original
+    pipeline's batches, the full refresh beside the restore, the fresh
+    engine after the background refresh) are uncounted."""
+    import os
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch import _kernels
+    from cilium_tpu_torch import engine as engmod
+    from cilium_tpu_torch.compiler import snapshot as snapmod
+    from cilium_tpu_torch.datapath.conntrack import FlowConntrack
+    from cilium_tpu_torch.datapath.ct_snapshot import load_ct_state, save_ct_state
+    from cilium_tpu_torch.datapath.pipeline import FORWARD, TRAFFIC_EGRESS, TRAFFIC_INGRESS, DatapathPipeline
+    from cilium_tpu_torch.engine import PolicyEngine
+    from cilium_tpu_torch.ipcache.prefilter import PreFilter
+    from cilium_tpu_torch.ops import materialize as matmod
+    from cilium_tpu_torch.policy.api import EndpointSelector, IngressRule, rule
+
+    t_phase = time.perf_counter()
+    k1 = lambda: _kernels.launches()["selector_match"]  # noqa: E731
+    batches = ((4, "process", flows4), (6, "process_v6", flows6))
+
+    def run(pipe, call, flows):
+        out = getattr(pipe, call)(*flows)
+        torch.cuda.synchronize()
+        return [np.asarray(x) for x in out]
+
+    def same(a, b):
+        return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+    def words_equal(a, b):
+        """Two DevicePolicy objects' words and matrices, bit for bit."""
+        if not (torch.equal(a.id_bits, b.id_bits) and torch.equal(a.sel_match, b.sel_match)):
+            return False
+        return all(torch.equal(getattr(getattr(a, d), f.name), getattr(getattr(b, d), f.name))
+                   for d in ("ingress", "egress") for f in dataclasses.fields(a.ingress))
+
+    def pipeline(eng, c):
+        p = DatapathPipeline(eng, c)
+        p.set_endpoints(endpoints)
+        return p
+
+    with tempfile.TemporaryDirectory(prefix="policyd-restore-") as tmp:
+        path = os.path.join(tmp, "compiled.npz")
+        # -- the original: the bench engine, a pipeline over it, its results
+        with uncounted():
+            pipe0 = pipeline(engine, cache)
+            pipe0.rebuild()
+            want = {fam: run(pipe0, call, flows) for fam, call, flows in batches}
+            want_counters = pipe0.counters.copy()
+
+        # -- 1. save -----------------------------------------------------
+        with Stopwatch((snapmod, "save_compiled_state")) as sw:
+            t0 = time.perf_counter()
+            engine.save_snapshot(path, dict(pipe0._mat))
+            t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        print(f"restore: save_snapshot (both directions' policymaps) {size} bytes in {t_save!r}s, "
+              f"{sw.secs['save_compiled_state']!r}s of it the serialize and fsync outside the lock "
+              f"[{card}]", flush=True)
+
+        # -- the full refresh + rebuild of the same world, beside it -----
+        with uncounted():
+            stamp = []
+            t0 = time.perf_counter()
+            full = PolicyEngine(engine.repo, engine.registry)
+            full.refresh()
+            torch.cuda.synchronize()
+            t_full_refresh = time.perf_counter() - t0
+            pfull = pipeline(full, cache)
+            pfull.on_first_batch = lambda: stamp.append(time.perf_counter())
+            pfull.rebuild()
+            torch.cuda.synchronize()
+            t_full_rebuild = time.perf_counter() - t0 - t_full_refresh
+            run(pfull, "process", flows4)
+            t_full_first = stamp[0] - t0
+            del full, pfull
+
+        # -- 2. trusted restore ------------------------------------------
+        stamp = []
+        k1_0 = k1()
+        with Stopwatch((snapmod, "load_compiled_state"), (engmod, "device_policy_from_numpy"),
+                       (matmod, "state_from_snapshot")) as sw:
+            t0 = time.perf_counter()
+            e2 = PolicyEngine(engine.repo, engine.registry)
+            mats = e2.restore_snapshot(path, trust_counters=True)
+            torch.cuda.synchronize()
+            t_restore = time.perf_counter() - t0
+        if k1() != k1_0:
+            fail("restore_snapshot launched K1: the selector match must be loaded, not recomputed")
+        if mats is None or set(mats) != {TRAFFIC_INGRESS, TRAFFIC_EGRESS}:
+            fail(f"restore_snapshot gave {None if mats is None else sorted(mats)}")
+        p2 = pipeline(e2, cache)
+        p2.on_first_batch = lambda: stamp.append(time.perf_counter())
+        t1 = time.perf_counter()
+        p2.rebuild()
+        torch.cuda.synchronize()
+        t_rebuild = time.perf_counter() - t1
+        got = {fam: run(p2, call, flows) for fam, call, flows in batches}
+        if len(stamp) != 1:
+            fail(f"on_first_batch fired {len(stamp)} times")
+        t_first = stamp[0] - t0
+        for fam in (4, 6):
+            if not same(got[fam], want[fam]):
+                fail(f"restore: the trusted restore's v{fam} batch differs from the original's")
+        if not np.array_equal(p2.counters, want_counters):
+            fail("restore: the trusted restore's counters differ from the original's")
+        _c, dev0 = engine.snapshot()
+        if not words_equal(e2._device, dev0):
+            fail("restore: the restored DevicePolicy's words differ from the original's")
+        for d, m in mats.items():
+            if not (torch.equal(m.tables.id_bits, pipe0._mat[d].tables.id_bits)
+                    and np.array_equal(m.allow_nc, pipe0._mat[d].allow_nc)):
+                fail(f"restore: the restored policymap of direction {d} differs from the original's")
+        if e2.refresh() is not e2._compiled or e2._bg_refresh is not None:
+            fail("restore: a trusted restore over the same objects refreshed")
+        print(f"restore: trusted restore (load {sw.secs['load_compiled_state']!r}s, upload "
+              f"{sw.secs['device_policy_from_numpy']!r}s, policymaps {sw.secs['state_from_snapshot']!r}s; "
+              f"{t_restore!r}s in all, no K1), rebuild {t_rebuild!r}s, restore to the first "
+              f"completed batch (on_first_batch) {t_first!r}s; beside it the full refresh "
+              f"{t_full_refresh!r}s + rebuild {t_full_rebuild!r}s, to its first batch "
+              f"{t_full_first!r}s; v4 and v6 1M-flow batches, counters and the DevicePolicy "
+              f"words equal to the original's [{card}]", flush=True)
+        del e2, p2
+
+        # -- 3. untrusted restore, one rule, the background refresh -----
+        repo2, reg2, cache2, _idents2, _labels2 = build_world(seed)
+        e3 = PolicyEngine(repo2, reg2)
+        if e3.restore_snapshot(path) is None or e3._compiled.revision != -1:
+            fail("restore: the untrusted restore did not re-stamp the counters")
+        repo2.add_list([rule(["k8s:app=a7"], ingress=[IngressRule(
+            from_endpoints=(EndpointSelector.make(["k8s:app=a9"]),))], labels=["k8s:policy=restored"])])
+        # the install, seen: the thread it runs on and whether the event
+        # recorded after the side stream's upload and K1 had completed.
+        # The computed result waits (off the lock) for the first batch on
+        # the restored tables, so the install cannot race it
+        installs = []
+        first_rebuilt = threading.Event()
+        real_install, real_compute = e3._install_compiled, e3._compute_full
+
+        def watched_install(*a):
+            ev = e3._bg_ready
+            installs.append((threading.current_thread().name, ev is not None and ev.query()))
+            return real_install(*a)
+
+        def compute_after_first_rebuild(*a):
+            out = real_compute(*a)
+            first_rebuilt.wait(60)
+            return out
+
+        e3._install_compiled = watched_install
+        e3._compute_full = compute_after_first_rebuild
+        p3 = pipeline(e3, cache2)
+        k1_0 = k1()
+        t0 = time.perf_counter()
+        if e3.refresh().revision != -1:  # kicks the background refresh
+            fail("restore: refresh() on the untrusted restore did not return the restored compile")
+        p3.rebuild()  # on the restored tables
+        t_rebuild3 = time.perf_counter() - t0
+        if p3._mat_basis[0] != -1:
+            fail("restore: the first rebuild after the untrusted restore did not serve its tables")
+        restored_tabs = {fam: p3._tables[(TRAFFIC_INGRESS, fam)] for fam in (4, 6)}
+        fused3 = p3._v6_fused
+        served, walls = [], []
+        while (not served or e3._bg_refresh.is_alive()) and len(served) < RESTORE_MAX_SERVED:
+            fam, call, flows = batches[len(served) % 2]
+            t1 = time.perf_counter()
+            out = run(p3, call, flows)
+            walls.append(time.perf_counter() - t1)
+            served.append((fam, out, p3._mat_basis[0]))
+            first_rebuilt.set()
+        if not e3.wait_refreshed(120):
+            fail("restore: the background refresh did not land in 120 s")
+        t_bg = time.perf_counter() - t0
+        plain = {fam: plain_slice(restored_tabs[fam], fused3, len(endpoints), fam, flows)
+                 for fam, _c, flows in batches}
+        for fam in (4, 6):
+            if not same([x[:RESTORE_SLICE] for x in want[fam]], plain[fam]):
+                fail(f"restore: the restored tables' plain v{fam} path differs from the original's")
+        during = [(fam, out) for fam, out, rev in served if rev == -1]
+        for fam, out in during:
+            if not same(out, want[fam]) or not same([x[:RESTORE_SLICE] for x in out], plain[fam]):
+                fail(f"restore: a v{fam} batch served during the background refresh differs from "
+                     "the restored tables' plain path")
+        if not during:
+            fail("restore: no batch was served on the restored tables during the background refresh")
+        if len(installs) != 1 or installs[0][0] != "policyd-bg-refresh" or not installs[0][1]:
+            fail(f"restore: the background install {installs}: expected one, on its thread, after "
+                 "its recorded event completed")
+        if k1() <= k1_0:
+            fail("restore: the background refresh launched no K1")
+        if e3.refresh().revision != repo2.revision:
+            fail("restore: the background refresh did not land the new rule")
+        p3.rebuild()
+        got3 = {fam: run(p3, call, flows) for fam, call, flows in batches}
+        with uncounted():
+            fresh = PolicyEngine(repo2, reg2)
+            pf3 = pipeline(fresh, cache2)
+            pf3.rebuild()
+            want3 = {fam: run(pf3, call, flows) for fam, call, flows in batches}
+            del fresh, pf3
+        for fam in (4, 6):
+            if not same(got3[fam], want3[fam]):
+                fail(f"restore: after the background refresh, v{fam} differs from a fresh engine's")
+        print(f"restore: untrusted restore + one rule: the first rebuild (beside the background "
+              f"compile) {t_rebuild3!r}s after the kick, the first batch done "
+              f"{t_rebuild3 + walls[0]!r}s after it; {len(served)} batches served while the "
+              f"background refresh ran ({len(during)} on the restored tables, each equal to the "
+              f"original's and, on {RESTORE_SLICE} flows, to the CPU plain path over the restored "
+              f"tables), walls {[round(w, 6) for w in walls]} s; kick to landed {t_bg!r}s, K1 "
+              f"launches {k1() - k1_0}, the install on {installs[0][0]} after its recorded event "
+              f"completed; after rebuild() v4 and v6 equal to a fresh engine's on the new rules "
+              f"[{card}]", flush=True)
+        del e3, p3, repo2, reg2, cache2
+
+        # -- 4. the CT snapshot on the services world --------------------
+        sengine, scache, manager = svc["pipe"].engine, svc["cache"], svc["manager"]
+        ep_ids = [(10_000 + j, e) for j, e in enumerate(svc["endpoints"])]
+        peer, s_eps, s_dports, s_protos, s_sports = svc["seqs"][4]["batch"]
+
+        def spipe(eng, **kw):
+            p = DatapathPipeline(eng, scache, PreFilter(), **kw)
+            p.set_endpoints(ep_ids)
+            return p
+
+        def egress(p):
+            tails = []
+            real = p._dispatch_enqueue
+            p._dispatch_enqueue = lambda s, fl, sel, *a, **k: tails.append(len(sel)) or real(
+                s, fl, sel, *a, **k)
+            try:
+                v, r = p.process(peer, s_eps, s_dports, s_protos, ingress=False, sports=s_sports)
+            finally:
+                del p._dispatch_enqueue
+            return v, r, tails
+
+        pS = spipe(sengine, conntrack=FlowConntrack(capacity_bits=CT_BITS), lb=manager)
+        v1, r1, _t = egress(pS)  # pass 1
+        admitted = (v1 == FORWARD) & ~r1
+        n_live = len(pS.conntrack)
+        cpath, ctpath = os.path.join(tmp, "svc.npz"), os.path.join(tmp, "ct.npz")
+        sengine.save_snapshot(cpath)
+        t0 = time.perf_counter()
+        ct_bytes = save_ct_state(ctpath, pS.conntrack, basis=pS._mat_basis, ct_epoch=pS._ct_epoch)
+        t_ct_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        snap = load_ct_state(ctpath)
+        t_ct_load = time.perf_counter() - t0
+        disk_basis = snapmod.read_snapshot_basis(cpath)
+        if snap is None or snap["entries"] != n_live or disk_basis != snap["basis"]:
+            fail(f"restore: the CT snapshot ({None if snap is None else snap['entries']} entries, "
+                 f"basis {None if snap is None else snap['basis']}) does not match the table "
+                 f"({n_live}) or the compiled snapshot's basis {disk_basis}")
+        counts = {}
+        for case in ("held", "void"):
+            eR = PolicyEngine(sengine.repo, sengine.registry)
+            eR.restore_snapshot(cpath, trust_counters=True)
+            pR = spipe(eR, conntrack=FlowConntrack(capacity_bits=CT_BITS), lb=manager)
+            t0 = time.perf_counter()
+            kept, expired = pR.conntrack.restore_arrays(
+                snap["ka"], snap["kb"], snap["kc"], snap["ttl"], packets=snap["packets"],
+                revnat=snap["revnat"])
+            t_ct_restore = time.perf_counter() - t0
+            pR._ct_restore_hold = eR._compiled.revision
+            void = None
+            if case == "void":
+                void = rule(["k8s:app=restore-void"], ingress=[IngressRule(
+                    from_endpoints=(EndpointSelector.make(["k8s:app=a1"]),))],
+                    labels=["k8s:policy=restore-void"])
+                sengine.repo.add_list([void])
+            t0 = time.perf_counter()
+            pR.rebuild()
+            torch.cuda.synchronize()
+            t_rb = time.perf_counter() - t0
+            n_after = len(pR.conntrack)
+            v2, r2, tails = egress(pR)  # pass 2
+            if void is not None:
+                from cilium_tpu_torch.labels import parse_label_array
+
+                sengine.repo.delete_by_labels(parse_label_array(["k8s:policy=restore-void"]))
+            counts[case] = dict(kept=kept, expired=expired, flushed=kept - n_after,
+                                restore_s=t_ct_restore, rebuild_s=t_rb, tail=tails)
+            if case == "held":
+                if expired or kept != n_live or n_after != kept or pR._ct_restore_hold is not None:
+                    fail(f"restore: the held rebuild kept {n_after} of {kept} restored entries "
+                         f"({expired} expired, {n_live} saved)")
+                if tails != [int((~admitted).sum())] or not (v2[admitted] == FORWARD).all():
+                    fail(f"restore: pass 2 after the held rebuild sent {tails} flows to the device, "
+                         f"expected the {int((~admitted).sum())} pass 1 did not admit")
+            elif n_after != 0 or tails != [BATCH]:
+                fail(f"restore: a rule added before the first rebuild left {n_after} restored "
+                     f"entries; pass 2 sent {tails} flows to the device")
+            del eR, pR
+        print(f"restore: CT snapshot of the services world's {1 << CT_BITS}-slot table after "
+              f"pass 1: {n_live} entries, {ct_bytes} bytes, save {t_ct_save!r}s, load "
+              f"{t_ct_load!r}s (warm file), restore into a fresh table {counts['held']['restore_s']!r}s "
+              f"/ {counts['void']['restore_s']!r}s; held rebuild {counts['held']['rebuild_s']!r}s "
+              f"kept {counts['held']['kept']} expired {counts['held']['expired']} flushed "
+              f"{counts['held']['flushed']}, pass 2's miss tail {counts['held']['tail']} (none "
+              f"restored); with a rule added first: rebuild {counts['void']['rebuild_s']!r}s "
+              f"flushed {counts['void']['flushed']}, miss tail {counts['void']['tail']} [{card}]",
+              flush=True)
+
+        # -- 5. the device CT under the hold -----------------------------
+        pD = spipe(sengine, device_ct_bits=CT_BITS)
+        pD.process(peer, s_eps, s_dports, s_protos, ingress=False, sports=s_sports)
+        table = pD._device_ct
+        if table is None:
+            fail("restore: the device-CT batch left no device table")
+        pD._ct_restore_hold = sengine._compiled.revision
+        scache.upsert("203.0.113.250/32", svc["endpoints"][0], source="k8s")
+        pD.rebuild()
+        kept_dev = pD._device_ct is table
+        scache.delete("203.0.113.250/32", source="k8s")
+        pD.rebuild()
+        if not kept_dev or pD._device_ct is not None:
+            fail(f"restore: device CT kept by the held rebuild {kept_dev}, reset by the unheld "
+                 f"one {pD._device_ct is None}")
+        del pD
+    wall = time.perf_counter() - t_phase
+    over = "" if wall <= RESTORE_PHASE_LIMIT_S else " OVER ITS LIMIT"
+    print(f"restore: a held rebuild (an ipcache move) kept the {1 << CT_BITS}-slot device CT, the "
+          f"unheld one reset it; phase in {wall:.2f}s (limit {RESTORE_PHASE_LIMIT_S:.0f}s){over} "
+          f"[{card}]", flush=True)
+
+
 def collections_counter(xs) -> dict:
     """{value: count} of ``xs``, sorted by value."""
     import numpy as np
@@ -7234,6 +7657,16 @@ def main() -> None:
                           "ct_commit"])
 
     phase("3m events main path")
+
+    # -- 3n. snapshots, the restore and the CT snapshot, counts from zero
+    _kernels.reset_launches()
+    restore_main_path(engine, cache, endpoints, (ips, eps, dports, protos),
+                      (addr6, eps6, dports6, protos6), svc, args.seed, card)
+    check_path("restore", ["selector_match", "bool_mm", "lpm_wide", "lpm_stride8",
+                           "policymap_verdict", "lb_index_build", "lb_translate", "ct_probe_claim",
+                           "ct_commit"])
+
+    phase("3n restore main path")
 
     # -- 5. each kernel against its plain version on the card ------------
     compiled, device = engine.snapshot()

@@ -132,6 +132,16 @@ flow ring (observe/flows.py) records a sample of at most ``SAMPLE_CAP``
 flows a batch. Both read only the host arrays the batch already holds:
 no transfer is added, and with no listener and attribution off a batch
 builds no event and no peer address bytes.
+
+Across a restart (the reference's policyd-survive): a caller that
+restored a CT snapshot (datapath/ct_snapshot.py) into the host table,
+and verified its basis against the restored compiled snapshot, sets
+``_ct_restore_hold`` to the engine's revision. The next rebuild's CT
+flush triggers, the basis move and the LB move, both keep the table
+(and the device CT) if that rebuild materializes the same revision,
+and the hold is spent after both have seen it. ``on_first_batch`` is a
+one-shot hook the first completed batch fires (the restart-downtime
+stamp); its exception never fails the batch.
 """
 
 from __future__ import annotations
@@ -1018,6 +1028,16 @@ class DatapathPipeline:
         # generation, committed after the flush; a move is the
         # ``rebuild`` journal event
         self._mat_basis: Optional[Tuple[int, int, int]] = None
+        # One-shot CT restore hold: the engine revision current when a
+        # CT snapshot whose basis matched the restored compiled snapshot
+        # was restored. The next rebuild's flush triggers keep the table
+        # only if it materializes that same revision (its first
+        # materialization then builds from exactly the restored tables);
+        # a policy mutation before it bumps the revision and flushes.
+        self._ct_restore_hold: Optional[int] = None
+        # one-shot completion hook (the restart-downtime stamp): fired
+        # once after the first completed batch, then cleared
+        self.on_first_batch = None
         # -- epoch-swapped full rebuilds (EpochSwap) --------------------
         # A full re-materialization the delta log demands builds on a
         # shadow thread while batches keep the current generation; the
@@ -1292,7 +1312,8 @@ class DatapathPipeline:
                 self._publish_shed_locked(False)
                 self._place_shed_locked()
                 self._table_gauges_locked(device)
-                self._refresh_lb_locked()
+                self._refresh_lb_locked(self._ct_restore_hold == compiled.revision)
+                self._ct_restore_hold = None
                 return self._tables
             # a 2D plan: the sweeps and patches read an ident-sharded
             # sel_match (generation-cached; the engine's copy untouched)
@@ -1359,7 +1380,13 @@ class DatapathPipeline:
             # rules, remapped peers and new deny prefixes apply to
             # established flows on their next packet). A column patch is
             # still a rule change; a swap install sets the flag itself.
-            if mat_fresh or saw_row_event or saw_rule_delta or basis_moved:
+            # The restore hold (one-shot): on the first rebuild after a
+            # verified CT restore the fresh materialization builds from
+            # the restored tables, so the basis that admitted the
+            # restored entries still holds and both triggers keep them.
+            # Revision-pinned: a mutation before this rebuild voids it.
+            held = self._ct_restore_hold == compiled.revision
+            if (mat_fresh or saw_row_event or saw_rule_delta or basis_moved) and not held:
                 self._ct_flush_pending = True
             if self._ct_flush_pending:
                 if _faults.hub.active:
@@ -1368,7 +1395,9 @@ class DatapathPipeline:
                     _faults.hub.check(_faults.SITE_CT_EPOCH)
                 self._flush_ct_locked()
                 self._ct_flush_pending = False
-            self._refresh_lb_locked()
+            self._refresh_lb_locked(held)
+            # spent once both flush triggers have seen it
+            self._ct_restore_hold = None
             # the served basis, after the flushes: a pending shadow swap
             # keeps serving the old generation until its install publishes
             if not swap_pending:
@@ -2222,16 +2251,20 @@ class DatapathPipeline:
             self._shed_cache = (mat_in, shed_table_from_numpy(tab, self.device))
         self._shed_tab = self._shed_cache[1]
 
-    def _refresh_lb_locked(self) -> None:
+    def _refresh_lb_locked(self, held: bool = False) -> None:
         # LB tables: deterministic backend selection means backend
         # churn changes the translated CT key (a natural miss), but
         # entries created while a flow was NOT translated would bypass
-        # the new service table — so any LB move flushes too.
+        # the new service table — so any LB move flushes too. Unless
+        # ``held`` (the restore hold): restored services come from the
+        # same saved state as the restored CT entries, which were
+        # translated under exactly these tables.
         if self.lb is not None and self.lb.version != self._lb_version:
             lb_ver = self.lb.version
             self._lb_tables = self.lb.build_device(device=self.device)
             self._lb_version = lb_ver
-            self._flush_ct_locked()
+            if not held:
+                self._flush_ct_locked()
 
     def _account_attribution(
         self,
@@ -3266,6 +3299,15 @@ class DatapathPipeline:
                 new_depth > self.pipeline_depth and adm is not None and adm.shedding()
             ):
                 self._apply_depth(new_depth)
+        # the one-shot first-completion hook; one attribute read unset
+        cb = self.on_first_batch
+        if cb is not None:
+            self.on_first_batch = None
+            # a measurement hook never fails the batch it measures
+            try:
+                cb()
+            except Exception:
+                pass
         return True
 
     def _complete_until(self, pending: PendingBatch) -> None:

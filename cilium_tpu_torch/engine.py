@@ -19,7 +19,16 @@ or never attributed, or a truncated repository log. Every refresh
 logs a delta (``deltas_since``) that the pipeline replays onto its
 materialized policymaps. Verdict attribution (``attribution``,
 ``verdicts(attrib=True)``, ``explain_one``) reads the rule-origin
-tables of the kept compile state. Snapshots are not ported yet.
+tables of the kept compile state.
+
+Compiled-state snapshots (the pinned-map persistence analog):
+``save_snapshot`` writes the compiler's arrays, the ``sel_match``
+mirror and optionally the materialized policymaps in the JAX package's
+format (``compiler/snapshot.py``); ``restore_snapshot`` loads them and
+uploads the tables without a compile or a K1 launch. A restore that
+does not trust the file's counters serves the loaded tables while the
+first ``refresh()`` recompiles on a background thread (on the card, on
+a side CUDA stream); ``wait_refreshed`` joins it.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import numpy as np
 import torch
 
 from . import _kernels
+from . import faults as _faults
 from . import metrics as _metrics
 from . import u8proto
 from .compiler import CompiledPolicy, compile_policy_state, host_selector_matches, try_append_rules
@@ -118,6 +128,10 @@ class PolicyEngine:
         self.delta_seq = 0
         self._delta_log: List[Tuple[int, str, tuple]] = []
         self.install_gen = 0  # bumps on every full refresh
+        self._bg_refresh: Optional[threading.Thread] = None
+        # the CUDA event recorded after the latest background refresh's
+        # device work (None on the CPU, or before one ran)
+        self._bg_ready: Optional[torch.cuda.Event] = None
 
     # ------------------------------------------------------------------
     def _log_delta(self, kind: str, payload: tuple) -> None:
@@ -149,12 +163,22 @@ class PolicyEngine:
 
     def refresh(self, force: bool = False) -> CompiledPolicy:
         """Recompile, or patch incrementally, if the repository or the
-        identities moved. The reference package refreshes a
-        snapshot-restored engine (revision < 0) in the background; the
-        port has no snapshot restore, so every refresh is synchronous."""
+        identities moved (the revision gate of pkg/endpoint/policy.go:506).
+
+        A snapshot-restored engine with untrusted counters (revision < 0)
+        refreshes in the background instead: the restored tables keep
+        serving verdicts while the full compile runs (the continuity the
+        reference gets from maps that outlive the agent,
+        daemon/state.go:53,135), and this call returns the restored
+        compile. A restored engine carries no CompileState, so a rule
+        delta on it takes the full path. Every other refresh is
+        synchronous."""
         with self._lock:
             if not force and not self._stale():
                 return self._compiled  # type: ignore[return-value]
+            if not force and self._compiled is not None and self._compiled.revision < 0:
+                self._kick_background_refresh()
+                return self._compiled
             if force or self._compiled is None:
                 return self._full_refresh()
 
@@ -165,6 +189,10 @@ class PolicyEngine:
                 rule_ops = self.repo.changes_since(c.revision)
                 if rule_ops is None or any(op not in ("add", "delete") for _, op, _ in rule_ops):
                     return self._full_refresh()
+            if rule_ops and self._state is None:
+                # a snapshot-restored engine has no CompileState for the
+                # packers to append to or retract from
+                return self._full_refresh()
             if not self._apply_identity_delta():
                 return self._full_refresh()
             # Each applied op advances c.revision to ITS revision (never a
@@ -185,7 +213,9 @@ class PolicyEngine:
     def _compute_full(
         repo, registry, device
     ) -> Tuple[CompiledPolicy, CompileState, DevicePolicy]:
-        """Host compile, upload, and the selector match on the device."""
+        """Host compile, upload, and the selector match on the device;
+        lock-free, so the background refresh runs it while restored
+        tables serve."""
         compiled, state = compile_policy_state(repo, registry)
         return compiled, state, device_policy_from_numpy(compiled, device=device)
 
@@ -443,6 +473,180 @@ class PolicyEngine:
         # selectors; the selectors stay interned
         self._log_delta("rules", ("del", subject_sids(rules, state.table)))
         return True
+
+    def _kick_background_refresh(self) -> None:
+        """Start (at most one) background full refresh (lock held). Its
+        result installs only if no other full refresh installed while it
+        ran: installing then would roll enforcement back to an older
+        rule set.
+
+        On the card the upload and K1 run on a side stream that first
+        waits for the serving stream; an event recorded after them is
+        waited on by the serving stream before the install publishes, so
+        no batch reads a table whose upload is still in flight, and the
+        install's ``sel_match`` pull reads after it too. A failure
+        leaves the restored tables serving (the next refresh retries),
+        except a programmer error or a kernel that cannot build or
+        launch (``KernelError``), which re-raises on the thread
+        (``threading.excepthook``)."""
+        t = self._bg_refresh
+        if t is not None and t.is_alive():
+            return
+        gen = self.install_gen  # what the result would replace
+        streams = None
+        if self.device.type == "cuda":
+            main = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(main)
+            streams = (main, side)
+
+        def run():
+            try:
+                if streams is None:
+                    result = self._compute_full(self.repo, self.registry, self.device)
+                    ready = None
+                else:
+                    main, side = streams
+                    with torch.cuda.stream(side):
+                        result = self._compute_full(self.repo, self.registry, self.device)
+                        ready = torch.cuda.Event()
+                        ready.record(side)
+                    # made on the side stream, read on the serving one:
+                    # the allocator must not reuse their blocks before
+                    # the serving stream's work on them ends
+                    dp = result[2]
+                    tables = [getattr(t, f.name) for t in (dp.ingress, dp.egress)
+                              for f in dataclasses.fields(t)]
+                    for x in (dp.id_bits, dp.sel_match, *tables):
+                        x.record_stream(main)
+                    # off the lock: the install then never waits on the card
+                    ready.synchronize()
+                with self._lock:
+                    if self.install_gen != gen:
+                        return
+                    if streams is None:
+                        self._install_compiled(*result)
+                    else:
+                        self._bg_ready = ready
+                        main.wait_event(ready)
+                        with torch.cuda.stream(main):
+                            self._install_compiled(*result)
+            except Exception as e:
+                if isinstance(e, _kernels.KernelError) or _faults.classify(e) == _faults.KIND_ERROR:
+                    raise
+                from .utils.logging import get_logger
+
+                get_logger("engine").warning(
+                    "background refresh failed",
+                    fields={"err": f"{type(e).__name__}: {e}"},
+                )
+
+        t = threading.Thread(target=run, name="policyd-bg-refresh", daemon=True)
+        self._bg_refresh = t
+        t.start()
+
+    def wait_refreshed(self, timeout: Optional[float] = None) -> bool:
+        """Block until a pending background refresh (if any) lands; tests
+        and shutdown paths use it, serving paths never do."""
+        t = self._bg_refresh
+        if t is None:
+            return True
+        t.join(timeout)
+        return not t.is_alive()
+
+    # -- compiled-state snapshots (pinned-map persistence analog) -------
+    def save_snapshot(self, path: str, mats=None) -> None:
+        """Persist the compiled arrays (and optionally the materialized
+        policymaps, {direction: MaterializedState}) so a restart can load
+        instead of re-deriving (the daemon/state.go:53,135 role). The
+        arrays are copied under the engine lock (the incremental paths
+        mutate them in place); the serialize and fsync run outside it."""
+        import copy as _copy
+
+        from .compiler.snapshot import save_compiled_state
+
+        with self._lock:
+            if self._compiled is None or self._sel_match_host is None:
+                raise RuntimeError("nothing compiled to snapshot")
+            c = self._compiled
+
+            def copy_arrays(obj):
+                return dataclasses.replace(obj, **{
+                    f.name: getattr(obj, f.name).copy()
+                    for f in dataclasses.fields(obj)
+                    if isinstance(getattr(obj, f.name), np.ndarray)
+                })
+
+            compiled = copy_arrays(c)
+            compiled.id_to_row = dict(c.id_to_row)
+            compiled.ingress = copy_arrays(c.ingress)
+            compiled.egress = copy_arrays(c.egress)
+            sel_match = self._sel_match_host.copy()
+            mats_copy = None
+            if mats:
+                # the device tables are never written in place: sharing
+                # them is a snapshot already
+                mats_copy = {
+                    d: dataclasses.replace(
+                        st,
+                        allow_nc=st.allow_nc.copy(),
+                        red_nc=st.red_nc.copy(),
+                        ep_rows=st.ep_rows.copy(),
+                        ep_slots=_copy.deepcopy(st.ep_slots),
+                        endpoint_identity_ids=list(st.endpoint_identity_ids),
+                    )
+                    for d, st in mats.items()
+                }
+        save_compiled_state(path, compiled, sel_match, mats_copy)
+
+    def restore_snapshot(self, path: str, *, trust_counters: bool = False):
+        """Load a snapshot and bring the device tables up on it: →
+        {direction: MaterializedState} (empty if none were saved), or
+        None when the file is absent or unreadable. The loaded state
+        serves at once; ``refresh()`` re-derives when the inputs move.
+        ``id_bits`` and ``sel_match`` upload as int32 bit views (no
+        selector match runs), the engine keeps no CompileState, and a
+        "full" delta is logged.
+
+        ``trust_counters`` may only be True when the live repository and
+        registry are the very objects the snapshot was taken from: then
+        equal revision counters mean equal content and ``refresh()``
+        stays a no-op. Across a restart the counters come from a dead
+        process (a fresh repository restarts its numbering), so the
+        default re-stamps them to -1, and the first ``refresh()``
+        recompiles in the background while the restored tables serve."""
+        from .compiler.snapshot import load_compiled_state
+        from .ops.materialize import state_from_snapshot
+
+        loaded = load_compiled_state(path)
+        if loaded is None:
+            return None
+        compiled, sel_match_host, mat_fields = loaded
+        if not trust_counters:
+            compiled.revision = -1
+            compiled.identity_version = -1
+        device = device_policy_from_numpy(compiled, device=self.device, sel_match=sel_match_host)
+        with self._lock:
+            self._device = device
+            self._sel_match_host = sel_match_host
+            low = np.full(MAX_USER_IDENTITY + 1, -1, np.int32)
+            high: dict = {}
+            for ident, row in compiled.id_to_row.items():
+                if ident < low.size:
+                    low[ident] = row
+                else:
+                    high[ident] = row
+            self._low_rows = low
+            self._high_rows = high
+            self._compiled = compiled
+            self._state = None  # no incremental state: rule ops rebuild
+            self._conj_unpacked = None
+            self._pending_idents.clear()
+            self._log_delta("full", ())
+        return {
+            d: state_from_snapshot(compiled.row_ids, f, device=self.device)
+            for d, f in mat_fields.items()
+        }
 
     def wait_device(self) -> None:
         """Block until every queued device update (row scatters,

@@ -26,6 +26,8 @@ pipeline's copies placed on a plan's grid) each patch scatters the same
 words into the placed copies too, one op per stored tensor that owns a
 patched row. :func:`patch_selector_rows` / :func:`patch_selector_cols`
 replay the engine's selector deltas onto a placed ``sel_match``.
+:func:`state_from_snapshot` rebuilds a state from a compiled snapshot's
+arrays (``compiler/snapshot.py``) without a sweep.
 
 Under a 2D plan the pipeline hands the sweeps a ``DevicePolicy`` whose
 ``sel_match`` is ident-sharded (``lookup.IdentSharded``): every row read
@@ -41,6 +43,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import _kernels
 from ..compiler.program import CompiledPolicy, PROTO_TCP_N
 from .bitmap import pack_bool_bits, unpack_bits_u32
 from .lookup import PolicymapTables, patch_bitmap_cols, patch_placed_cols, patch_placed_rows, map_placed
@@ -507,6 +510,66 @@ def materialize_endpoints(
         compiled, device, endpoint_identity_ids, ingress=ingress, block=block
     )
     return st.tables, st.snapshots
+
+
+def state_from_snapshot(row_ids: np.ndarray, fields: dict, *, device=None) -> MaterializedState:
+    """Rebuild a MaterializedState from compiler/snapshot.py fields on
+    ``device`` (None = the card): the restore half of the pinned-map
+    persistence analog. The column bitmaps are authoritative; the
+    per-endpoint snapshots (the policymap dump surface) are re-derived
+    from them, and the device tables packed and uploaded. No sweep runs:
+    this is a load, not a derive, so ``rule_nc`` / ``rule_tab`` stay
+    None until a rebuild sweeps with attribution."""
+    dev = _kernels.resolve_device(device)
+    allow_nc = np.asarray(fields["allow_nc"], bool)
+    red_nc = np.asarray(fields["red_nc"], bool)
+    col_ep = np.asarray(fields["col_ep"], np.int32)
+    col_port = np.asarray(fields["col_port"], np.int32)
+    col_proto = np.asarray(fields["col_proto"], np.int32)
+    col_is_l3 = np.asarray(fields["col_is_l3"], bool)
+    ep_slots = fields["ep_slots"]
+    ingress = bool(fields["ingress"])
+    direction = TRAFFIC_INGRESS if ingress else TRAFFIC_EGRESS
+
+    snapshots: List[EndpointPolicySnapshot] = []
+    col = 0
+    for slots in ep_slots:
+        l3_allow = allow_nc[:, col]
+        col += 1
+        entries: Dict[PolicyKey, int] = {}
+        for r_idx in np.nonzero(l3_allow)[0]:
+            entries[PolicyKey(int(row_ids[r_idx]), 0, 0, direction)] = 0
+        for port, proto_n in slots:
+            allow = allow_nc[:, col]
+            redirect = red_nc[:, col]
+            col += 1
+            for r_idx in np.nonzero(allow & (~l3_allow | redirect))[0]:
+                key = PolicyKey(int(row_ids[r_idx]), port, proto_n, direction)
+                entries[key] = int(redirect[r_idx])
+        snapshots.append(EndpointPolicySnapshot(entries=entries, slots=slots))
+
+    def up(a: np.ndarray) -> torch.Tensor:
+        # a copy even on the CPU: the loaded arrays stay the host mirror
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, copy=True)
+
+    tables = PolicymapTables(
+        col_ep=up(col_ep),
+        col_port=up(col_port),
+        col_proto=up(col_proto),
+        col_is_l3=up(col_is_l3),
+        id_bits=pack_bool_bits(up(np.concatenate([allow_nc, red_nc], axis=1))),
+    )
+    return MaterializedState(
+        tables=tables,
+        snapshots=snapshots,
+        ingress=ingress,
+        endpoint_identity_ids=list(fields["endpoint_identity_ids"]),
+        ep_rows=np.asarray(fields["ep_rows"], np.int32),
+        ep_slots=ep_slots,
+        allow_nc=allow_nc,
+        red_nc=red_nc,
+        n_cols=int(fields["n_cols"]),
+    )
 
 
 def _seg_bucket(n_seg: int) -> int:
