@@ -65,10 +65,12 @@
      topics;
    - the redirect path: the bench world again with every port-80 rule
      carrying HTTP rules of the bench's L7 corpus, refreshed and rebuilt;
-     process() of the v4 batch, redirects built from resolve_l4_policy
-     for every endpoint, and one HTTP request per redirected flow of an
-     HTTP batch (131 072 port-80 flows to the redirecting peers) through
-     Proxy.check_http.
+     process() of the v4 batch, the redirects from
+     EndpointManager.regenerate_all(pipe, proxy=proxy) over one Endpoint
+     per bench endpoint (equal to build_redirects' from
+     resolve_l4_policy, every HTTPPolicy / KafkaACL on the card), and one
+     HTTP request per redirected flow of an HTTP batch (131 072 port-80
+     flows to the redirecting peers) through Proxy.check_http.
    Each is held against the port's CPU path (a slice) and re.fullmatch
    of the rules (400 requests), on and off. K8's launches are printed
    by table and shape with their route, Q and class table width C;
@@ -242,6 +244,27 @@
    miss tail holds none of them; with a rule added first, the rebuild
    flushes them. A device-CT pipeline's table is kept by a held rebuild
    and reset by an unheld one.
+4o. The endpoints and native main path, launch counts from zero
+   (endpoints_main_path): a fresh bench world, engine and prefilter
+   pipeline; one Endpoint per bench endpoint (its identity, v4 and v6
+   address) in an EndpointManager, regenerate_all: 64 regenerated, each
+   READY at the compiled revision with its PolicyMap equal to the
+   pipeline's snapshot, at the launches of one full refresh + rebuild (K1
+   once, K2 for the two directions' sweeps, equal to a second fresh
+   engine's refresh + rebuild timed beside it), per-endpoint
+   RegenerationStats p50 / max; one rule added and regenerate_all again
+   (the sync_policy_map totals equal the snapshot diff); LXCMap.
+   sync_endpoints. Then the native C++ enforcer, built with g++
+   (native.build.load(), never skipped): NativeFastpath.from_pipeline(
+   pipe, ct_bits=22) equal to the card pipeline on every lane of the v4
+   and v6 1 048 576-flow batches in both directions, and in its
+   per-endpoint counters; its verdicts/s on 1 and 4 host threads beside
+   the card pipeline's process() wall; from the services world with no
+   CT (one egress 1M-flow batch a family, K9 on the card) its LB stage
+   equal to the card's; load_l7_http from the bench L7 corpus policy (16
+   path patterns) and check_http_batch of 131 072 requests equal to
+   HTTPPolicy.check_batch on the card (K7), the Kafka ACL of 4d the same
+   way, and the pattern-cap policy refused (NativeL7Unsupported).
 5. Holds every kernel against its plain version on the card, at the
    main paths' shapes, with exact equality (all outputs are integers),
    and times kernel, plain version and, where one exists, a library
@@ -941,8 +964,9 @@ def build_redirects(repo, reg, proxy, ep_id: int, ep_labels, device) -> None:
     """One redirect per redirecting L4 filter of the endpoint, each with
     an HTTPPolicy / KafkaACL on ``device`` whose rules are scoped to the
     identities its peer selector matches: the logic of the JAX
-    package's endpoint/endpoint.py:199-247 ``_update_redirects``, whose
-    endpoint module the port does not have yet."""
+    package's endpoint/endpoint.py:199-247 ``_update_redirects``, written
+    out here as the oracle that the redirects of the port's
+    ``EndpointManager.regenerate_all`` are held against (phase 3d)."""
     from cilium_tpu_torch.l7 import HTTPPolicy, KafkaACL
     from cilium_tpu_torch.policy.api import HTTPRule, KafkaRule
 
@@ -969,6 +993,21 @@ def build_redirects(repo, reg, proxy, ep_id: int, ep_labels, device) -> None:
                 http_policy=HTTPPolicy(http_rules, device=device) if f.l7_parser == "http" else None,
                 kafka_acl=KafkaACL(kafka_rules, device=device) if f.l7_parser == "kafka" else None,
             )
+
+
+def redirect_set(proxy):
+    """{key: (endpoint, port, ingress, parser, [(rule, sorted scope)])}
+    of a Proxy's redirects: what two ways of building them must agree on."""
+    out = {}
+    for key, r in proxy.redirects().items():
+        rules = []
+        if r.http_policy is not None:
+            rules = [(cr.rule, None if cr.allowed_identities is None
+                      else sorted(cr.allowed_identities)) for cr in r.http_policy._rules]
+        if r.kafka_acl is not None:
+            rules = [(kr, None if ids is None else sorted(ids)) for kr, ids in r.kafka_acl._rules]
+        out[key] = (r.endpoint_id, r.dst_port, r.ingress, r.parser, rules)
+    return out
 
 
 def cap_policy_rules():
@@ -1226,6 +1265,7 @@ def l7_main_path(seed: int, card: str, v4_flows, endpoints):
     from cilium_tpu_torch import _kernels
     from cilium_tpu_torch.datapath import l7_pipeline as l7rt
     from cilium_tpu_torch.datapath.pipeline import DatapathPipeline
+    from cilium_tpu_torch.endpoint import Endpoint, EndpointManager
     from cilium_tpu_torch.engine import PolicyEngine
     from cilium_tpu_torch.l7 import HTTPPolicy, HTTPRequest, KafkaACL
     from cilium_tpu_torch.labels import parse_label_array
@@ -1242,10 +1282,37 @@ def l7_main_path(seed: int, card: str, v4_flows, endpoints):
     torch.cuda.synchronize()
     _, red = pipe.process(*v4_flows)
     n_bench = int(red.sum())
+    # the redirects come from the endpoints' regeneration on the card
+    # pipeline (its tables are built: every rebuild returns early), and
+    # must equal the ones build_redirects writes out
     proxy = Proxy()
+    ident_of = {ident.id: ident for ident in idents}
+    mgr = EndpointManager()
     for ep in endpoints:
-        build_redirects(repo, reg, proxy, ep, parse_label_array(labels_of[ep]), None)
+        e = Endpoint(ep, parse_label_array(labels_of[ep]))
+        e.set_identity(ident_of[ep])
+        mgr.insert(e)
+    t0r = time.perf_counter()
+    n_regen = mgr.regenerate_all(pipe, reason="l7 main path", proxy=proxy)
+    t_regen = time.perf_counter() - t0r
+    mgr.shutdown()
+    oracle = Proxy()
+    t0r = time.perf_counter()
+    for ep in endpoints:
+        build_redirects(repo, reg, oracle, ep, parse_label_array(labels_of[ep]), None)
+    t_oracle = time.perf_counter() - t0r
+    if n_regen != len(endpoints):
+        fail(f"l7: {n_regen} of {len(endpoints)} endpoints regenerated")
+    if redirect_set(proxy) != redirect_set(oracle):
+        fail("l7: the endpoints' redirects differ from build_redirects'")
+    off_card = [k for k, r in proxy.redirects().items()
+                if (r.http_policy or r.kafka_acl).device.type != "cuda"]
+    if off_card:
+        fail(f"l7: the policies of redirects {off_card[:4]} are not on the card")
     n_redirects = len(proxy.redirects())
+    print(f"main path l7 [redirect world]: regenerate_all of {len(endpoints)} endpoints with the "
+          f"proxy {t_regen!r}s, {n_redirects} redirects == build_redirects' ({t_oracle!r}s), "
+          f"every HTTPPolicy / KafkaACL on the card [{card}]", flush=True)
     # the HTTP batch: port-80 flows to endpoints with a port-80 redirect,
     # 7/8 of them from the peers its HTTP rules name (a peer that an
     # L3-only rule also allows is not redirected), 1/8 from any identity
@@ -7110,6 +7177,345 @@ def restore_main_path(engine, cache, endpoints, flows4, flows6, svc, seed: int, 
           f"[{card}]", flush=True)
 
 
+ENDPOINTS_PHASE_LIMIT_S = 60.0
+NATIVE_CT_BITS = 22
+NATIVE_THREADS = (1, 4)
+NATIVE_REPS = 3  # batches each host thread evaluates for the rate
+
+
+def stat_ms(xs):
+    """p50 and max of seconds, in ms."""
+    xs = sorted(xs)
+    return f"p50 {xs[len(xs) // 2] * 1e3:.3f} / max {xs[-1] * 1e3:.3f} ms"
+
+
+def launch_delta(before):
+    from cilium_tpu_torch import _kernels
+
+    return {k: v - before.get(k, 0) for k, v in _kernels.launches().items() if v != before.get(k, 0)}
+
+
+def native_rate(nf, call: str, flows, threads: int) -> float:
+    """Verdicts/s of ``threads`` host threads, each evaluating the whole
+    batch NATIVE_REPS times on one NativeFastpath (ctypes drops the GIL
+    for the call)."""
+    import threading
+
+    barrier = threading.Barrier(threads + 1)
+
+    def work():
+        barrier.wait()
+        for _ in range(NATIVE_REPS):
+            getattr(nf, call)(*flows, ingress=True)
+
+    ts = [threading.Thread(target=work) for _ in range(threads)]
+    for t in ts:
+        t.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for t in ts:
+        t.join()
+    return threads * NATIVE_REPS * flows[0].shape[0] / (time.perf_counter() - t0)
+
+
+def native_agrees(what: str, card_out, native_out) -> None:
+    import numpy as np
+
+    (pv, pr), (nv, nr) = card_out, native_out
+    bad = np.nonzero((pv != nv) | (pr != nr))[0]
+    if bad.size:
+        i = int(bad[0])
+        fail(f"native: {what}: {bad.size} lanes differ from the card pipeline, first {i} "
+             f"(card {int(pv[i])}/{bool(pr[i])}, native {int(nv[i])}/{bool(nr[i])})")
+
+
+def endpoints_main_path(seed: int, card: str, flows4, flows6, svc, l7res):
+    """Phase 3o: the realized per-endpoint policymaps and their
+    regeneration on the card, and the native C++ enforcer fed from the
+    port's tables (A7b), at the bench world's full width (10 000 rules,
+    2 048 identities, 64 endpoints, 1 048 576-flow batches). The caller
+    set the launch counts to 0; the refresh + rebuild runs timed beside
+    the regeneration are uncounted."""
+    import concurrent.futures
+    import os
+
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch import _kernels
+    from cilium_tpu_torch.datapath.pipeline import (
+        DROP_NO_SERVICE, DROP_POLICY, DROP_PREFILTER, FORWARD, DatapathPipeline,
+    )
+    from cilium_tpu_torch.endpoint import Endpoint, EndpointManager, EndpointState
+    from cilium_tpu_torch.engine import PolicyEngine
+    from cilium_tpu_torch.ipcache.prefilter import PreFilter
+    from cilium_tpu_torch.l7 import HTTPPolicy, HTTPRequest, KafkaACL
+    from cilium_tpu_torch.l7.http_policy import NativeL7Unsupported
+    from cilium_tpu_torch.labels import parse_label_array
+    from cilium_tpu_torch.maps.lxcmap import LXCMap
+    from cilium_tpu_torch.native import NativeFastpath
+    from cilium_tpu_torch.native import build as native_build
+    from cilium_tpu_torch.ops import materialize as matmod
+    from cilium_tpu_torch.policy.api import (
+        EndpointSelector, HTTPRule, IngressRule, PortProtocol, PortRule, rule,
+    )
+
+    t_phase = time.perf_counter()
+    # -- 1. endpoints ---------------------------------------------------
+    repo, reg, cache, idents, labels_of = build_world(seed)
+    endpoints = [idents[j].id for j in range(N_ENDPOINTS)]
+
+    def fresh_pipe():
+        pf = PreFilter()
+        pf.insert(pf.revision, PREFILTER_CIDRS + V6_DENY)
+        p = DatapathPipeline(PolicyEngine(repo, reg), cache, pf)
+        p.set_endpoints(endpoints)
+        return p
+
+    def refresh_rebuild():
+        """A second fresh engine's refresh + rebuild of the same world:
+        its wall, launches and sweeps (a comparison run: uncounted)."""
+        with uncounted():
+            ref = fresh_pipe()
+            matmod.SWEEPS.clear()
+            before = _kernels.launches()
+            t0 = time.perf_counter()
+            ref.engine.refresh()
+            ref.rebuild()
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, launch_delta(before), dict(matmod.SWEEPS)
+
+    # the world's first refresh + rebuild, then regenerate_all, then the
+    # refresh + rebuild again: the last one is what the regeneration holds
+    t_cold, _, _ = refresh_rebuild()
+    pipe = fresh_pipe()
+    mgr = EndpointManager()
+    eps, syncs = [], {}
+    for j, ident in enumerate(idents[:N_ENDPOINTS]):
+        ep = Endpoint(ident.id, parse_label_array(labels_of[ident.id]),
+                      ipv4=f"10.{(j >> 8) & 255}.{j & 255}.1",
+                      ipv6=f"fd00::{(j >> 8) & 255:x}:{j & 255:x}")
+        ep.set_identity(ident)
+        real_sync = ep.sync_policy_map
+
+        def sync(desired, _real=real_sync, _id=ep.id):
+            syncs[_id] = _real(desired)
+            return syncs[_id]
+
+        ep.sync_policy_map = sync
+        mgr.insert(ep)
+        eps.append(ep)
+    matmod.SWEEPS.clear()
+    before = _kernels.launches()
+    t0 = time.perf_counter()
+    n_ok = mgr.regenerate_all(pipe, reason="phase 3o")
+    torch.cuda.synchronize()
+    t_regen = time.perf_counter() - t0
+    regen_launches = launch_delta(before)
+    regen_sweeps = dict(matmod.SWEEPS)
+    stats = [ep.stats for ep in eps]
+    t_ref, ref_launches, ref_sweeps = refresh_rebuild()
+    # and on a thread of its own, as a builder runs it
+    with concurrent.futures.ThreadPoolExecutor(1) as ex:
+        t_ref_thread = ex.submit(refresh_rebuild).result()[0]
+
+    def stats_line(stats):
+        return (f"per endpoint total {stat_ms([s.total.total() for s in stats])}, policy "
+                f"calculation {stat_ms([s.policy_calculation.total() for s in stats])}, map sync "
+                f"{stat_ms([s.map_sync.total() for s in stats])}")
+
+    print(f"endpoints: regenerate_all of {N_ENDPOINTS} endpoints on a fresh engine {t_regen!r}s "
+          f"({os.cpu_count()} builder threads), launches {regen_launches}, sweeps {regen_sweeps}; "
+          f"a fresh engine's refresh + rebuild of the same world before it {t_cold!r}s and after "
+          f"it {t_ref!r}s (on a worker thread {t_ref_thread!r}s), launches {ref_launches}, sweeps "
+          f"{ref_sweeps}; {stats_line(stats)} [{card}]", flush=True)
+    if n_ok != N_ENDPOINTS:
+        fail(f"endpoints: regenerate_all returned {n_ok}, not {N_ENDPOINTS}")
+    if (regen_launches != ref_launches or regen_launches.get("selector_match") != 1
+            or set(regen_launches) != {"selector_match", "bool_mm"}
+            or regen_sweeps != ref_sweeps or sum(regen_sweeps.values()) != 2):
+        fail(f"endpoints: regenerate_all launched {regen_launches} with sweeps {regen_sweeps}, "
+             f"one refresh + rebuild {ref_launches} with {ref_sweeps}")
+
+    def check_maps(what):
+        snaps = pipe.snapshots()
+        rev = pipe.engine._compiled.revision
+        for ep in eps:
+            got = {k: e.proxy_port for k, e in ep.policy_map.dump()}
+            if (ep.state != EndpointState.READY or ep.policy_revision != rev
+                    or got != snaps[pipe.endpoint_index(ep.id)].entries):
+                fail(f"endpoints ({what}): endpoint {ep.id} is {ep.state.value} at revision "
+                     f"{ep.policy_revision} (compiled {rev}), or its policy map differs from "
+                     "the pipeline's snapshot")
+        return snaps
+
+    snaps = check_maps("first regeneration")
+    n_entries = sum(len(s.entries) for s in snaps)
+    realized = {ep.id: {k: e.proxy_port for k, e in ep.policy_map.dump()} for ep in eps}
+    app0, app1 = labels_of[endpoints[0]][0], labels_of[endpoints[1]][0]
+    repo.add_list([rule([app0], ingress=[IngressRule(
+        from_endpoints=(EndpointSelector.make([app1]),),
+        to_ports=(PortRule(ports=(PortProtocol(9443, "TCP"),)),))])])
+    syncs.clear()
+    before = _kernels.launches()
+    t0 = time.perf_counter()
+    n_ok = mgr.regenerate_all(pipe, reason="rule added")
+    torch.cuda.synchronize()
+    t_delta = time.perf_counter() - t0
+    delta_launches = launch_delta(before)
+    snaps = check_maps("after the rule")
+    want_add = want_del = 0
+    for ep in eps:
+        new, old = snaps[pipe.endpoint_index(ep.id)].entries, realized[ep.id]
+        want_add += sum(1 for k, v in new.items() if old.get(k) != v)
+        want_del += sum(1 for k in old if k not in new)
+    got_add = sum(a for a, _ in syncs.values())
+    got_del = sum(d for _, d in syncs.values())
+    print(f"endpoints: {n_entries} ingress policymap entries over {N_ENDPOINTS} endpoints; one "
+          f"rule added ({app0} from {app1} on 9443/TCP), regenerate_all {t_delta!r}s, launches "
+          f"{delta_launches}, sync_policy_map added {got_add} deleted {got_del} (the snapshot "
+          f"diff: {want_add} / {want_del}); {stats_line([ep.stats for ep in eps])} [{card}]",
+          flush=True)
+    if n_ok != N_ENDPOINTS or (got_add, got_del) != (want_add, want_del) or got_add <= 0:
+        fail(f"endpoints: after the rule {n_ok} regenerated, syncs added / deleted {got_add} / "
+             f"{got_del}, the snapshot diff {want_add} / {want_del}")
+    if delta_launches.get("selector_match"):
+        fail("endpoints: a rule append launched K1 (the engine recompiled in full)")
+    lxc = LXCMap()
+    n_lxc = lxc.sync_endpoints(mgr.endpoints())
+    if n_lxc != 2 * N_ENDPOINTS or lxc.lookup(eps[5].ipv6).endpoint_id != eps[5].id:
+        fail(f"endpoints: LXCMap.sync_endpoints gave {n_lxc} entries")
+    mgr.shutdown()
+
+    # -- 2. native, L3/L4 ------------------------------------------------
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True).stdout
+    t0 = time.perf_counter()
+    native_build.load()  # a build failure raises: this step is never skipped
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nf = NativeFastpath.from_pipeline(pipe, ct_bits=NATIVE_CT_BITS)
+    t_load = time.perf_counter() - t0
+    n_loaded = sum(len({**a.entries, **b.entries})
+                   for a, b in zip(pipe.snapshots(True), pipe.snapshots(False)))
+    print(f"native: fastpath.cpp built and loaded in {t_build!r}s ({gxx.splitlines()[0]}, "
+          f"cached by source hash in {native_build._CACHE_DIR}); from_pipeline(ct_bits={NATIVE_CT_BITS}) {t_load!r}s, "
+          f"{n_loaded} policy entries of both directions [host CPU]", flush=True)
+    before_counters = pipe.counters.copy()
+    for fam, call, flows in ((4, "process", flows4), (6, "process_v6", flows6)):
+        for ingress in (True, False):
+            t0 = time.perf_counter()
+            card_out = getattr(pipe, call)(*flows, ingress=ingress)
+            t_card = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            nat_out = getattr(nf, call)(*flows, ingress=ingress)
+            t_nat = time.perf_counter() - t0
+            what = f"v{fam} {'ingress' if ingress else 'egress'}"
+            native_agrees(what, card_out, nat_out)
+            print(f"native [{what}]: {BATCH} flows equal to the card pipeline on every lane "
+                  f"(verdicts {collections_counter(card_out[0])}, redirects "
+                  f"{int(card_out[1].sum())}); card process {t_card!r}s, native one thread "
+                  f"{t_nat!r}s [{card}]", flush=True)
+    counted = pipe.counters - before_counters
+    if not np.array_equal(nf.counters, counted):
+        fail("native: per-endpoint counters differ from the card pipeline's")
+    rates = {(call, k): native_rate(nf, call, flows, k)
+             for call, flows in (("process", flows4), ("process_v6", flows6))
+             for k in NATIVE_THREADS}
+    card_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        pipe.process(*flows4)
+        card_ms.append(time.perf_counter() - t0)
+    t_card = sorted(card_ms)[1]
+    print(f"native rates (host CPU of the card's machine, {os.cpu_count()} cores): v4 "
+          + ", ".join(f"{k} thread(s) {rates[('process', k)]!r}" for k in NATIVE_THREADS)
+          + " verdicts/s; v6 "
+          + ", ".join(f"{k} thread(s) {rates[('process_v6', k)]!r}" for k in NATIVE_THREADS)
+          + f" verdicts/s; the card pipeline's process() of the same v4 batch {card_ms}s (median "
+          f"{t_card!r}s = {BATCH / t_card!r} verdicts/s); counters equal over the four batches "
+          f"[{card}]", flush=True)
+
+    # -- 3. native LB --------------------------------------------------
+    lb_pipe = DatapathPipeline(svc["pipe"].engine, svc["cache"], PreFilter(), lb=svc["manager"])
+    lb_pipe.set_endpoints([(10_000 + j, e) for j, e in enumerate(svc["endpoints"])])
+    t0 = time.perf_counter()
+    nf_lb = NativeFastpath.from_pipeline(lb_pipe, ct_bits=NATIVE_CT_BITS)
+    t_lb_load = time.perf_counter() - t0
+    before = _kernels.launches()
+    for fam, call in ((4, "process"), (6, "process_v6")):
+        peer, s_eps, s_dports, s_protos = svc["seqs"][fam]["batch"][:4]
+        t0 = time.perf_counter()
+        card_out = getattr(lb_pipe, call)(peer, s_eps, s_dports, s_protos, ingress=False)
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nat_out = getattr(nf_lb, call)(peer, s_eps, s_dports, s_protos, ingress=False)
+        t_nat = time.perf_counter() - t0
+        native_agrees(f"LB v{fam} egress", card_out, nat_out)
+        kinds = collections_counter(card_out[0])
+        print(f"native LB [v{fam} egress, no CT]: {BATCH} flows equal to the card pipeline on "
+              f"every lane (verdicts {kinds}); card process {t_card!r}s, native {t_nat!r}s; "
+              f"from_pipeline of the services world {t_lb_load!r}s [{card}]", flush=True)
+        if not {FORWARD, DROP_POLICY, DROP_NO_SERVICE} <= set(kinds):
+            fail(f"native LB v{fam}: the batch missed a verdict class: {kinds}")
+    lb_launches = launch_delta(before)
+    if lb_launches.get("lb_translate") != 2 or lb_launches.get("lb_index_build") != 2:
+        fail(f"native LB: the card pipeline's two egress batches launched K9 {lb_launches}")
+    del lb_pipe, nf_lb
+
+    # -- 4. native L7 --------------------------------------------------
+    rs = np.random.default_rng(seed + 33)
+    scope = {i.id for i in idents[:64]}
+    pol = HTTPPolicy([(HTTPRule(method=["GET", "POST", ""][i % 3], path=p),
+                       scope if i % 4 == 0 else None) for i, p in enumerate(L7_PATHS)])
+    if pol._paths.host_pids or pol.device.type != "cuda":
+        fail("native L7: the corpus policy demoted a pattern or is not on the card")
+    paths = ([f"/api/v{a}/obj{a * 7}" for a in range(10)] + [f"/svc{a}/x/y" for a in range(10)]
+             + ["/api/v1/", "/svc3", "/nope", "/api/v2/" + "a" * 300])
+    ids = np.array([i.id for i in idents])
+    reqs = [HTTPRequest(method=m, path=paths[k], src_identity=int(sid))
+            for m, k, sid in zip(rs.choice(["GET", "POST", "PUT"], L7_BATCH).tolist(),
+                                 rs.integers(0, len(paths), L7_BATCH).tolist(),
+                                 rs.choice(ids[:128], L7_BATCH).tolist())]
+    nf_l7 = NativeFastpath(ep_count=1, ct_bits=0)
+    t0 = time.perf_counter()
+    nf_l7.load_l7_http(7, 80, pol)
+    t_l7_load = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = pol.check_batch(reqs)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = nf_l7.check_http_batch(7, 80, reqs)
+    t_nat = time.perf_counter() - t0
+    if not np.array_equal(got, want) or not (want.any() and not want.all()):
+        fail(f"native L7: check_http_batch differs from the card's check_batch on "
+             f"{int((got != want).sum())} requests ({int(want.sum())} allowed)")
+    acl = KafkaACL(l7res["k_rules"])
+    nf_l7.load_l7_kafka(7, 9092, acl)
+    t0 = time.perf_counter()
+    kwant = np.asarray(acl.check_batch(l7res["k_reqs"]))
+    t_kcard = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kgot = nf_l7.check_kafka_batch(7, 9092, l7res["k_reqs"])
+    t_knat = time.perf_counter() - t0
+    if not np.array_equal(kgot, kwant) or not (kwant.any() and not kwant.all()):
+        fail(f"native L7: check_kafka_batch differs from the card's on "
+             f"{int((kgot != kwant).sum())} requests")
+    try:
+        nf_l7.load_l7_http(7, 81, l7res["pol_b"])
+        fail("native L7: the pattern-cap policy (one pattern demoted to host re) was loaded")
+    except NativeL7Unsupported:
+        pass
+    print(f"native L7: the corpus policy ({len(L7_PATHS)} path patterns) loaded in {t_l7_load!r}s; "
+          f"{L7_BATCH} requests, card check_batch {t_card!r}s, native {t_nat!r}s, equal "
+          f"({int(want.sum())} allowed); Kafka ACL {len(l7res['k_reqs'])} requests, card "
+          f"{t_kcard!r}s, native {t_knat!r}s, equal ({int(kwant.sum())} allowed); the pattern-cap "
+          f"policy refused (NativeL7Unsupported) [{card}]", flush=True)
+    wall = time.perf_counter() - t_phase
+    over = "" if wall <= ENDPOINTS_PHASE_LIMIT_S else " OVER ITS LIMIT"
+    print(f"endpoints and native: phase in {wall:.2f}s (limit {ENDPOINTS_PHASE_LIMIT_S:.0f}s)"
+          f"{over} [{card}]", flush=True)
+
+
 def collections_counter(xs) -> dict:
     """{value: count} of ``xs``, sorted by value."""
     import numpy as np
@@ -7667,6 +8073,15 @@ def main() -> None:
                            "ct_commit"])
 
     phase("3n restore main path")
+
+    # -- 3o. endpoints and the native enforcer, counts from zero ---------
+    _kernels.reset_launches()
+    endpoints_main_path(args.seed, card, (ips, eps, dports, protos),
+                        (addr6, eps6, dports6, protos6), svc, l7res)
+    check_path("endpoints", ["selector_match", "bool_mm", "lpm_wide", "lpm_stride8",
+                             "policymap_verdict", "lb_index_build", "lb_translate", "dfa_walk"])
+
+    phase("3o endpoints and native")
 
     # -- 5. each kernel against its plain version on the card ------------
     compiled, device = engine.snapshot()

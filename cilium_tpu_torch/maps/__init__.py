@@ -1,8 +1,6 @@
-"""Realized datapath state maps (reference: pkg/maps/*).
+"""Realized datapath state maps (reference: pkg/maps/*)."""
 
-The port has the conntrack map only; the policy map comes with the
-daemon slice."""
-
+from .policymap import PolicyMap
 from .ctmap import ConntrackEntry, ConntrackMap
 
-__all__ = ["ConntrackEntry", "ConntrackMap"]
+__all__ = ["PolicyMap", "ConntrackEntry", "ConntrackMap"]

@@ -38,8 +38,9 @@ def build_redirects(pkg, repo, registry, proxy, ep_id, ep_labels, **kw):
     """One redirect per redirecting L4 filter of the endpoint, each with
     an HTTPPolicy / KafkaACL whose rules are scoped to the identities
     its peer selector matches: the logic of the JAX package's
-    endpoint/endpoint.py:199-247 ``_update_redirects``, whose endpoint
-    module the port does not have yet."""
+    endpoint/endpoint.py:199-247 ``_update_redirects``, written out here
+    so the test holds both packages to it independently of their
+    endpoint modules (``tests/test_torch_endpoint.py`` drives those)."""
     l7, api = _mod(pkg, "l7"), _mod(pkg, "policy.api")
     l4 = repo.resolve_l4_policy(ep_labels)
     identities = list(registry)
