@@ -265,6 +265,47 @@
    path patterns) and check_http_batch of 131 072 requests equal to
    HTTPPolicy.check_batch on the card (K7), the Kafka ACL of 4d the same
    way, and the pattern-cap policy refused (NativeL7Unsupported).
+4p. The distributed-state main path, launch counts from zero
+   (distributed_main_path): a KVStoreServer on loopback; agent A on an
+   InMemoryBackend of the server's own store, agent B a NetBackend over
+   TCP; each with its own bench repository, an IdentityRegistry behind a
+   DistributedIdentityAllocator, an IPCache behind an IPIdentitySync and
+   a PolicyEngine. The 2 048 bench label sets are allocated in order, A
+   owning one in eight (its 512 addresses: one ipcache delta window), B
+   the rest, 1 in 16 by both; an agent allocates once its watch has
+   delivered every earlier allocation, so both registries give each
+   identity the same row. Each owner upserts and announces its v4 /32 and
+   v6 /128; both pump until every entry came from the store. Checks:
+   equal registries (ids, labels, rows) and ipcaches; after each agent's
+   refresh and rebuild on the card (B with sparse_deltas) one K1 launch
+   and two sweeps an agent, both directions' policymap id_bits equal on
+   the card; the v4 and v6 1 048 576-flow batches, ingress and egress,
+   equal on A, B and a single-node bench pipeline (endpoints matched by
+   labels; uncounted), every lane and counter. A's lease revoked: B's
+   rebuild patches its tries (each of A's prefixes, mirrors kept), a
+   second B pipeline without sparse deltas rebuilds them in full
+   (uncounted), both == a fresh pipeline (uncounted); run_gc over TCP reaps exactly the identities only A
+   held, B's refresh takes the release as a "rows" delta (no K1), both
+   pipelines == a fresh engine's full compile. A FederationMember on each
+   agent (A on a new session), the epoch swap on, one rule pushed at
+   both: each shadow build swaps in (policy_epoch 1) and
+   wait_cluster_epoch(1) converges within 30 s. Cluster east exports the
+   services world's v4 frontends with half their backends, B keeps the
+   other half and merges east's through ClusterMesh: B's 1 048 576-flow
+   v4 egress batch through its LB stage (K9 once) == a pipeline given the
+   merged set directly (uncounted), every lane of the outputs and of the
+   LB stage's translation. Two subprocesses with a scrubbed environment call
+   mesh_bootstrap (gloo, loopback) and resolve_plan(placement_config(),
+   sharding=True): each summary 2 processes, its own rank, 1 local and 2
+   global cards, the same plan generation and axes, its card tagged with
+   its rank; each runs a 65 536-flow small-world v4 batch on its card,
+   equal to the other's and to this process's (uncounted). On one card
+   each child sees only its own, so the plan check shows the rank tag
+   and the agreement, not the process_index filter against its fallback
+   (tests/test_torch_mesh_bootstrap.py shows that). Prints the CAS allocation
+   wall per identity in memory and over TCP, the pump, the rebuild walls
+   after the lease death and the GC, the push-to-convergence wall and
+   the bootstrap walls.
 5. Holds every kernel against its plain version on the card, at the
    main paths' shapes, with exact equality (all outputs are integers),
    and times kernel, plain version and, where one exists, a library
@@ -347,6 +388,7 @@ import dataclasses
 import ipaddress
 import json
 import random
+import socket
 import subprocess
 import sys
 import time
@@ -7516,6 +7558,576 @@ def endpoints_main_path(seed: int, card: str, flows4, flows6, svc, l7res):
           f"{over} [{card}]", flush=True)
 
 
+# -- 3p. distributed state ------------------------------------------------------
+
+DIST_PHASE_LIMIT_S = 60.0
+# agent A owns label set i when i % DIST_OWNER_A == 0: its 256 label
+# sets' 512 addresses are one ipcache delta window (IPCache.DELTA_LOG_CAP),
+# so B's rebuild after A's lease death can take them as one trie patch
+DIST_OWNER_A = 8
+DIST_SYNC_S = 30.0  # the most a watch may take to deliver what the store holds
+DIST_EPOCH_TIMEOUT_S = 30.0  # wait_cluster_epoch's bound
+DIST_CHILD_TIMEOUT_S = 180.0
+DIST_CHILD_FLOWS = 1 << 16
+DIST_CHILD_EPS = 8
+
+DIST_CHILD = r'''
+import hashlib, json, sys, time
+sys.path.insert(0, {root!r})
+import numpy as np
+
+from cilium_tpu_torch.datapath import placement
+from cilium_tpu_torch.federation import mesh_bootstrap, placement_config
+import chip_smoke
+
+t0 = time.perf_counter()
+summary = mesh_bootstrap({coord!r}, 2, {rank})
+wall = time.perf_counter() - t0
+cfg = placement_config()
+plan = placement.resolve_plan(cfg, sharding=True)
+recs = [r for r in placement.visible_devices() if r.id in plan.device_ids]
+v, red, launches = chip_smoke.dist_small_batch({seed}, recs[0].device)
+print(json.dumps({{
+    "summary": summary, "bootstrap_s": wall, "generation": plan.generation,
+    "axes": plan.axes, "device_ids": list(plan.device_ids),
+    "owners": [r.process_index for r in recs], "device": str(recs[0].device),
+    "digest": hashlib.sha256(v.tobytes() + red.tobytes()).hexdigest(),
+    "verdicts": np.bincount(v, minlength=4).tolist(), "launches": launches,
+}}))
+'''
+
+
+def dist_small_batch(seed: int, dev):
+    """Phase 3p's bootstrapped processes' batch: the small world on
+    ``dev``, DIST_CHILD_FLOWS v4 flows over its 48 identity addresses and
+    one world address → (verdicts, redirects, the launches it made)."""
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch import _kernels
+    from cilium_tpu_torch.datapath.pipeline import DatapathPipeline
+    from cilium_tpu_torch.engine import PolicyEngine
+
+    repo, reg, cache, idents = build_small_world(seed)
+    before = _kernels.launches()
+    pipe = DatapathPipeline(PolicyEngine(repo, reg, device=dev), cache, device=dev)
+    pipe.set_endpoints([i.id for i in idents[:DIST_CHILD_EPS]])
+    pipe.rebuild()
+    rs = np.random.default_rng(seed + 3)
+    peers = np.array([(172 << 24) | (16 << 16) | (i + 1) for i in range(len(idents))]
+                     + [int(ipaddress.IPv4Address("8.8.8.8"))], np.uint32)
+    ips = peers[rs.integers(0, len(peers), DIST_CHILD_FLOWS)]
+    eps = rs.integers(0, DIST_CHILD_EPS, DIST_CHILD_FLOWS).astype(np.int32)
+    dports = rs.choice(np.array([80, 443, 8080, 53, 22], np.int32), DIST_CHILD_FLOWS)
+    protos = np.where(dports == 53, 17, 6).astype(np.int32)
+    v, red = pipe.process(ips, eps, dports.astype(np.int32), protos)
+    torch.cuda.synchronize()
+    return v, red, launch_delta(before)
+
+
+class DistAgent:
+    """One node of phase 3p: its kvstore client, its own copy of the
+    bench repository, an IdentityRegistry behind a
+    DistributedIdentityAllocator, an IPCache behind an IPIdentitySync, a
+    PolicyEngine and, once built, a DatapathPipeline on the card.
+    ``registry`` and ``pipeline`` are what a FederationMember reads of
+    its daemon."""
+
+    def __init__(self, name: str, backend, repo, host_ip: str, sparse: bool):
+        from cilium_tpu_torch.engine import PolicyEngine
+        from cilium_tpu_torch.identity import IdentityRegistry
+        from cilium_tpu_torch.identity.distributed import DistributedIdentityAllocator
+        from cilium_tpu_torch.ipcache.ipcache import IPCache
+        from cilium_tpu_torch.ipcache.kvstore_sync import IPIdentitySync
+
+        self.name, self.backend, self.repo = name, backend, repo
+        self.host_ip, self.sparse = host_ip, sparse
+        self.registry = IdentityRegistry()
+        self.ident = DistributedIdentityAllocator(backend, self.registry, name)
+        self.ipcache = IPCache()
+        self.ipsync = IPIdentitySync(backend, self.ipcache)
+        self.engine = PolicyEngine(repo, self.registry)
+        self.pipeline = None
+        self.alloc_s = []
+        self.announce_s = 0.0
+        self.held = set()  # the identity ids this agent allocated
+
+    def pump(self) -> int:
+        return self.ident.pump() + self.ipsync.pump()
+
+    def make_pipeline(self, ep_labels, *, engine=None, sparse=None, **kw):
+        """A pipeline on the card over this agent's ipcache and no
+        prefilter (the sparse path patches a family with no deny set),
+        its endpoints the identities of ``ep_labels`` here."""
+        from cilium_tpu_torch.datapath.pipeline import DatapathPipeline
+        from cilium_tpu_torch.ipcache.prefilter import PreFilter
+
+        pipe = DatapathPipeline(engine or self.engine, self.ipcache, PreFilter(),
+                                sparse_deltas=self.sparse if sparse is None else sparse, **kw)
+        pipe.set_endpoints([self.registry.lookup_by_labels(lbls).id for lbls in ep_labels])
+        pipe.rebuild()
+        return pipe
+
+    def close(self) -> None:
+        for stop in (self.ident.close, self.ipsync.close):
+            try:
+                stop()
+            except (OSError, RuntimeError):
+                pass  # the backend died with its lease or its server
+
+
+def dist_wait(what: str, done, pump) -> float:
+    """Pump until ``done()``; the wall it took. Fails after DIST_SYNC_S."""
+    t0 = time.perf_counter()
+    while not done():
+        if time.perf_counter() - t0 > DIST_SYNC_S:
+            fail(f"distributed: {what} did not arrive within {DIST_SYNC_S:.0f}s")
+        if not pump():
+            time.sleep(0.0005)
+    return time.perf_counter() - t0
+
+
+def dist_results(pipe, flows4, flows6):
+    """(verdicts, redirects, per-endpoint counters) of the v4 and v6
+    batches, ingress then egress, each with the counters zeroed first."""
+    out = []
+    for call, flows in (("process", flows4), ("process_v6", flows6)):
+        for ingress in (True, False):
+            pipe.counters[:] = 0
+            v, red = getattr(pipe, call)(*flows, ingress=ingress)
+            out.append((v, red, pipe.counters.copy()))
+    return out
+
+
+def dist_same(what: str, got, want) -> None:
+    import numpy as np
+
+    for (gv, gr, gc), (wv, wr, wc), batch in zip(got, want, ("v4 ingress", "v4 egress",
+                                                              "v6 ingress", "v6 egress")):
+        bad = np.nonzero((gv != wv) | (gr != wr))[0]
+        if bad.size:
+            i = int(bad[0])
+            fail(f"distributed: {what}: {batch}: {bad.size} lanes differ, first {i} "
+                 f"({int(gv[i])}/{bool(gr[i])} against {int(wv[i])}/{bool(wr[i])})")
+        if not np.array_equal(gc, wc):
+            fail(f"distributed: {what}: {batch}: per-endpoint counters differ")
+
+
+def distributed_main_path(seed: int, card: str, flows4, flows6, svc):
+    """Phase 3p: distributed state on the card (A9a) at the bench world's
+    full width (10 000 rules, 2 048 identities, 64 endpoints, 1 048 576-flow
+    batches): two agents over one kvstore, A in memory on the server's
+    store and B over TCP, converging to equal registries, ipcaches and
+    policymap tables; A's lease death and the GC after it on B; the
+    federation epoch across both; clustermesh services merged into B;
+    and two processes bootstrapped into one torch.distributed mesh. The
+    caller set the launch counts to 0. What the agents are held against
+    is uncounted: the single-node and fresh pipelines, B's second
+    pipeline without sparse deltas, the pipeline given the merged
+    services directly, and this process's own small-world batch. On a
+    one-card machine each bootstrapped child sees only its own card, so
+    the plan check shows the rank tag on the records and the agreement of
+    generation and axes, not the process_index filter against the
+    fallback: tests/test_torch_mesh_bootstrap.py shows that on two
+    cards a process."""
+    import hashlib
+    import os
+
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch import _kernels, metrics
+    from cilium_tpu_torch.datapath.conntrack import FlowConntrack
+    from cilium_tpu_torch.datapath.pipeline import (
+        TRAFFIC_EGRESS, TRAFFIC_INGRESS, DatapathPipeline,
+    )
+    from cilium_tpu_torch.engine import PolicyEngine
+    from cilium_tpu_torch.federation import FederationMember
+    from cilium_tpu_torch.ipcache.ipcache import SOURCE_KVSTORE
+    from cilium_tpu_torch.ipcache.prefilter import PreFilter
+    from cilium_tpu_torch.kvstore import (
+        ClusterMesh, InMemoryBackend, InMemoryStore, KVStoreServer, NetBackend,
+    )
+    from cilium_tpu_torch.labels import parse_label_array
+    from cilium_tpu_torch.lb import ServiceManager
+    from cilium_tpu_torch.ops import materialize as matmod
+    from cilium_tpu_torch.policy.api import (
+        EndpointSelector, IngressRule, PortProtocol, PortRule, rule,
+    )
+
+    t_phase = time.perf_counter()
+    opened = []  # closed on every way out, last first
+    procs = []
+    try:
+        # -- 1. two agents over one kvstore ---------------------------------
+        server = KVStoreServer().start()
+        opened.append(server.stop)
+        _, _, _, idents, labels_of = build_world(seed)
+        labels = [parse_label_array(labels_of[i.id]) for i in idents]
+        a = DistAgent("node-a", InMemoryBackend(server.store, "node-a"), build_world(seed)[0],
+                      "192.168.0.1", sparse=False)
+        opened.append(a.close)
+        b = DistAgent("node-b", NetBackend(server.url, "node-b"), build_world(seed)[0],
+                      "192.168.0.2", sparse=True)
+        opened += [b.backend.close, b.close]
+        matmod.SWEEPS.clear()
+
+        def owns_a(i):
+            return i % DIST_OWNER_A == 0
+
+        def both(i):  # overlap: the other agent allocates it as well
+            return i % (2 * DIST_OWNER_A) == 0 or i % DIST_OWNER_A == 1
+
+        newest = 0  # the highest identity allocated yet
+        for i, lbls in enumerate(labels):
+            owner, other = (a, b) if owns_a(i) else (b, a)
+            for ag in (owner, other) if both(i) else (owner,):
+                # an agent allocates only once its watch has delivered
+                # every earlier allocation (a watch delivers in order),
+                # so both registries insert in one order and give each
+                # identity the same row
+                dist_wait(f"{ag.name}'s mirror of identity {newest}",
+                          lambda ag=ag: not newest or ag.registry.get(newest) is not None,
+                          ag.ident.pump)
+                t0 = time.perf_counter()
+                num = ag.ident.allocate(lbls).id
+                ag.alloc_s.append(time.perf_counter() - t0)
+                ag.held.add(num)
+                newest = max(newest, num)
+        for i, lbls in enumerate(labels):
+            owner = a if owns_a(i) else b
+            num = owner.registry.lookup_by_labels(lbls).id
+            t0 = time.perf_counter()
+            for cidr in (f"10.{(i >> 8) & 255}.{i & 255}.1/32",
+                         f"fd00::{(i >> 8) & 255:x}:{i & 255:x}/128"):
+                owner.ipcache.upsert(cidr, num, source="k8s")
+                owner.ipsync.announce(cidr, num, host_ip=owner.host_ip)
+            owner.announce_s += time.perf_counter() - t0
+        n_entries = 2 * len(labels)
+        # converged: every entry of both ipcaches learned from the store
+        t_pump = dist_wait("the announcements",
+                           lambda: all(len(x.ipcache) == n_entries and all(
+                               e.source == SOURCE_KVSTORE for _, e in x.ipcache.items())
+                               for x in (a, b)),
+                           lambda: a.pump() + b.pump())
+        ids = {x.name: {i.id: i.labels for i in x.registry} for x in (a, b)}
+        rows = {x.name: {n: x.registry.row(n) for n in ids[x.name]} for x in (a, b)}
+        if ids["node-a"] != ids["node-b"] or rows["node-a"] != rows["node-b"]:
+            fail(f"distributed: the registries differ ({len(ids['node-a'])} / "
+                 f"{len(ids['node-b'])} identities, rows equal: {rows['node-a'] == rows['node-b']})")
+        if dict(a.ipcache.items()) != dict(b.ipcache.items()):
+            fail("distributed: the two ipcaches hold different entries")
+        n_a, n_b = len(a.alloc_s), len(b.alloc_s)
+        print(f"distributed: {len(labels)} label sets allocated interleaved, {n_a} on A "
+              f"(InMemoryBackend on the server's store) and {n_b} on B (NetBackend over TCP "
+              f"loopback), {len(a.held & b.held)} by both; {len(a.held | b.held)} identities. CAS "
+              f"allocation wall per identity: in memory {stat_ms(a.alloc_s)}, mean "
+              f"{sum(a.alloc_s) / n_a * 1e3:.3f} ms; over TCP {stat_ms(b.alloc_s)}, mean "
+              f"{sum(b.alloc_s) / n_b * 1e3:.3f} ms. Announcements: A {len(a.ipsync._announced)} "
+              f"in {a.announce_s!r}s, B {len(b.ipsync._announced)} in {b.announce_s!r}s; pump to "
+              f"convergence {t_pump!r}s; registries (ids, labels, rows) and ipcaches ({n_entries} "
+              f"entries) equal [{card}]", flush=True)
+
+        # the endpoints: label sets B holds itself, so they outlive A
+        ep_idx = [i for i, lbls in enumerate(labels)
+                  if b.registry.lookup_by_labels(lbls).id in b.held][:N_ENDPOINTS]
+        ep_labels = [labels[i] for i in ep_idx]
+        walls = {}
+        for ag in (a, b):
+            t0 = time.perf_counter()
+            ag.engine.refresh()
+            ag.pipeline = ag.make_pipeline(ep_labels)
+            torch.cuda.synchronize()
+            walls[ag.name] = time.perf_counter() - t0
+        built = _kernels.launches()
+        sweeps = dict(matmod.SWEEPS)
+        print(f"distributed: refresh + rebuild A {walls['node-a']!r}s, B (sparse deltas) "
+              f"{walls['node-b']!r}s; launches from zero {built}, sweeps {sweeps} [{card}]",
+              flush=True)
+        if built["selector_match"] != 2 or sum(sweeps.values()) != 4:
+            fail(f"distributed: the two agents' refresh + rebuild launched K1 "
+                 f"{built['selector_match']} times and swept {sweeps}: one K1 and two sweeps "
+                 "an agent expected")
+        for d, dn in ((TRAFFIC_INGRESS, "ingress"), (TRAFFIC_EGRESS, "egress")):
+            ta, tb = a.pipeline._mat[d].tables.id_bits, b.pipeline._mat[d].tables.id_bits
+            if ta.device.type != "cuda" or tb.device.type != "cuda":
+                fail(f"distributed: the agents' {dn} policymap id_bits are not on the card")
+            if not torch.equal(ta, tb):
+                fail(f"distributed: the agents' {dn} policymap id_bits differ")
+        res_a = dist_results(a.pipeline, flows4[:4], flows6[:4])
+        res_b = dist_results(b.pipeline, flows4[:4], flows6[:4])
+        dist_same("B against A", res_b, res_a)
+        with uncounted():
+            # the single-node bench pipeline: the same world through one
+            # registry; identity numbers may differ, verdicts may not
+            repo1, reg1, cache1, idents1, _ = build_world(seed)
+            single = DatapathPipeline(PolicyEngine(repo1, reg1), cache1, PreFilter())
+            single.set_endpoints([idents1[i].id for i in ep_idx])
+            single.rebuild()
+            res_1 = dist_results(single, flows4[:4], flows6[:4])
+            # B's state through a second pipeline without sparse deltas
+            b_full = b.make_pipeline(ep_labels, sparse=False)
+        dist_same("A against the single-node pipeline", res_a, res_1)
+        hist = np.bincount(res_b[0][0], minlength=4)[1:].tolist()
+        print(f"distributed: policymap id_bits of both directions equal on the card "
+              f"({tuple(a.pipeline._mat[TRAFFIC_INGRESS].tables.id_bits.shape)} words); the "
+              f"1 048 576-flow v4 and v6 batches, ingress and egress: verdicts, redirects and "
+              f"counters of A == B == the single-node pipeline on every lane (v4 ingress "
+              f"verdicts {hist}) [{card}]", flush=True)
+
+        # -- 2. A's lease dies; GC --------------------------------------------
+        gone = set(a.ipsync._announced)
+        mirrors = dict(b.pipeline._trie_patch)
+        p0 = {f: metrics.lpm_trie_patches_total.get({"family": str(f)}) for f in (4, 6)}
+        server.store.revoke_lease(a.backend.lease_id)
+        t_gone = dist_wait("A's withdrawn announcements",
+                           lambda: not any(b.ipcache.lookup_exact(c) for c in gone), b.pump)
+        before = _kernels.launches()
+        t0 = time.perf_counter()
+        b.pipeline.rebuild()
+        torch.cuda.synchronize()
+        t_patch = time.perf_counter() - t0
+        patch_launches = launch_delta(before)
+        patched = {f: metrics.lpm_trie_patches_total.get({"family": str(f)}) - p0[f]
+                   for f in (4, 6)}
+        with uncounted():
+            t0 = time.perf_counter()
+            b_full.rebuild()
+            torch.cuda.synchronize()
+            t_full = time.perf_counter() - t0
+        kept = all(b.pipeline._trie_patch[f] is mirrors[f] for f in (4, 6))
+        if not kept or patched != {4: len(gone) // 2, 6: len(gone) // 2}:
+            fail(f"distributed: B's rebuild after A's lease death did not patch its tries "
+                 f"(mirrors kept: {kept}, prefixes patched {patched} of {len(gone)})")
+        with uncounted():
+            fresh = b.make_pipeline(ep_labels, sparse=False)
+            res_fresh = dist_results(fresh, flows4[:4], flows6[:4])
+            res_full = dist_results(b_full, flows4[:4], flows6[:4])
+        dist_same("B after A's lease death against a fresh pipeline", dist_results(
+            b.pipeline, flows4[:4], flows6[:4]), res_fresh)
+        dist_same("B's sparse-off pipeline after A's lease death", res_full, res_fresh)
+        print(f"distributed: A's lease revoked; its {len(gone)} announcements left B's ipcache "
+              f"in {t_gone!r}s; B's rebuild on the patched tries {t_patch!r}s (prefixes patched "
+              f"{patched}, launches {patch_launches}), a full trie rebuild of the same "
+              f"state (sparse deltas off) {t_full!r}s; both == a fresh pipeline on every lane "
+              f"[{card}]", flush=True)
+
+        expect = a.held - b.held
+        t0 = time.perf_counter()
+        reaped = b.ident.run_gc()
+        t_gc = time.perf_counter() - t0
+        if set(reaped) != expect or not reaped:
+            fail(f"distributed: GC reaped {len(reaped)} identities, {len(expect)} held only by A")
+        t_rel = dist_wait("the master-key deletes",
+                          lambda: all(b.registry.get(n) is None for n in reaped), b.pump)
+        r0 = {k: metrics.engine_refreshes_total.get({"kind": k}) for k in ("full", "incremental")}
+        before = _kernels.launches()
+        t0 = time.perf_counter()
+        b.engine.refresh()
+        b.engine.wait_device()
+        kinds = [k for _, k, _ in b.engine.deltas_since(b.pipeline._last_delta_seq)]
+        b.pipeline.rebuild()
+        torch.cuda.synchronize()
+        t_delta = time.perf_counter() - t0
+        gc_launches = launch_delta(before)
+        r1 = {k: metrics.engine_refreshes_total.get({"kind": k}) - r0[k] for k in r0}
+        if r1 != {"full": 0, "incremental": 1} or kinds != ["rows"] or "selector_match" in gc_launches:
+            fail(f"distributed: the GC release was not an identity delta (refreshes {r1}, "
+                 f"deltas {kinds}, launches {gc_launches})")
+        with uncounted():
+            t0 = time.perf_counter()
+            b_full.rebuild()
+            torch.cuda.synchronize()
+            t_full_gc = time.perf_counter() - t0
+            fresh = b.make_pipeline(ep_labels, engine=PolicyEngine(b.repo, b.registry),
+                                    sparse=False)
+            res_fresh = dist_results(fresh, flows4[:4], flows6[:4])
+            res_full = dist_results(b_full, flows4[:4], flows6[:4])
+        dist_same("B after the GC against a fresh engine and pipeline", dist_results(
+            b.pipeline, flows4[:4], flows6[:4]), res_fresh)
+        dist_same("B's sparse-off pipeline after the GC", res_full, res_fresh)
+        del fresh, single
+        print(f"distributed: GC over TCP reaped {len(reaped)} identities held only by A in "
+              f"{t_gc!r}s, B's registry released them in {t_rel!r}s; B's refresh took them as "
+              f"an identity delta ({kinds}) and refresh + rebuild ran in {t_delta!r}s (launches "
+              f"{gc_launches}), the sparse-off pipeline's rebuild {t_full_gc!r}s; both == a "
+              f"fresh engine's full compile and pipeline on every lane [{card}]", flush=True)
+
+        # -- 3. federation ----------------------------------------------------
+        a_backend = InMemoryBackend(server.store, "node-a")  # A restarts: a new session
+        members = []
+        for ag, be in ((a, a_backend), (b, b.backend)):
+            mem = FederationMember(ag, be, ag.name, heartbeat_interval=3600.0)
+            opened.append(mem.close)
+            members.append(mem)
+            ag.pipeline.set_epoch_swap(True)
+        app0, app1 = (labels_of[idents[i].id][0] for i in ep_idx[:2])
+        push = rule([app0], ingress=[IngressRule(
+            from_endpoints=(EndpointSelector.make([app1]),),
+            to_ports=(PortRule(ports=(PortProtocol(9443, "TCP"),)),))])
+        t0 = time.perf_counter()
+        for ag in (a, b):
+            ag.repo.add_list([push])
+            ag.engine.refresh()
+            ag.pipeline.rebuild()  # kicks the shadow build
+        for ag in (a, b):
+            if not ag.pipeline.wait_epoch_swap(timeout=60.0):
+                fail(f"distributed: {ag.name}'s shadow build did not finish")
+            ag.pipeline.rebuild()  # publishes the swapped generation
+        t_swap = time.perf_counter() - t0
+        epochs = [ag.pipeline.policy_epoch for ag in (a, b)]
+        if epochs != [1, 1]:
+            fail(f"distributed: the rule push left policy epochs {epochs}, not [1, 1]")
+        converged = members[0].wait_cluster_epoch(
+            1, timeout=DIST_EPOCH_TIMEOUT_S, min_nodes=2,
+            pump=lambda: [mem.pump() for mem in members])
+        t_conv = time.perf_counter() - t0
+        st = members[0].status()
+        if not converged or st["cluster_epoch"] != 1 or st["epoch_lag"] != 0 or st["node_count"] != 2:
+            fail(f"distributed: the cluster epoch did not converge within "
+                 f"{DIST_EPOCH_TIMEOUT_S:.0f}s ({st['cluster_epoch']}, lag {st['epoch_lag']}, "
+                 f"{st['node_count']} nodes)")
+        print(f"distributed: one rule pushed at both agents ({app0} from {app1} on 9443/TCP), "
+              f"each pipeline's shadow build swapped in (policy_epoch {epochs}) "
+              f"{t_swap!r}s after the push; wait_cluster_epoch(1) converged {t_conv!r}s after "
+              f"it (bound {DIST_EPOCH_TIMEOUT_S:.0f}s) [{card}]", flush=True)
+
+        # -- 4. clustermesh services ----------------------------------------
+        remote_store = InMemoryStore()
+        remote = ServiceManager()
+        local = ServiceManager()
+        fes = [s for s in svc["manager"].list() if s.frontend.family == 4]
+        n_local = n_remote = 0
+        for s in fes:
+            half = (len(s.backends) + 1) // 2
+            local.upsert(s.frontend, s.backends[:half])
+            remote.upsert(s.frontend, s.backends[half:])
+            n_local += half
+            n_remote += len(s.backends) - half
+        remote.export_to_store(InMemoryBackend(remote_store, "east-agent"), "east")
+        mesh = ClusterMesh(b.registry, b.ipcache, services=local)
+        opened.append(mesh.close)
+        mesh.add_cluster("east", InMemoryBackend(remote_store, "node-b-mesh"))
+        mesh.pump()
+        direct = ServiceManager()
+        for s in local.list():
+            direct.upsert(s.frontend, local.effective_backends(s.frontend))
+        merged = sum(len(local.effective_backends(s.frontend)) for s in fes)
+        if merged != n_local + n_remote or [s.id for s in direct.list()] != [s.id for s in local.list()]:
+            fail(f"distributed: clustermesh merged {merged} backends, {n_local} local + "
+                 f"{n_remote} remote expected")
+        peer, s_eps, s_dports, s_protos, s_sports = svc["seqs"][4]["batch"]
+        outs = {}
+
+        def lb_batch(name, manager):
+            pipe = b.make_pipeline(ep_labels, sparse=False, lb=manager,
+                                   conntrack=FlowConntrack(capacity_bits=CT_BITS))
+            seen = []
+            real = pipe._lb_stage
+
+            def lb_stage(lbt, fl, sports):
+                got = real(lbt, fl, sports)
+                seen.append((fl.bytes_().copy(), np.array(fl.dports, copy=True), got))
+                return got
+
+            pipe._lb_stage = lb_stage
+            t0 = time.perf_counter()
+            out = pipe.process(peer, s_eps, s_dports, s_protos, ingress=False, sports=s_sports,
+                               return_rev_nat=True)
+            outs[name] = (out, seen, time.perf_counter() - t0, pipe.counters.copy())
+            del pipe._lb_stage
+
+        before = _kernels.launches()
+        lb_batch("mesh", local)
+        k9 = {k: v for k, v in launch_delta(before).items() if k.startswith("lb_")}
+        with uncounted():
+            lb_batch("direct", direct)
+        (om, sm, tm, cm), (od, sd, td, cd) = outs["mesh"], outs["direct"]
+        for k, (x, y) in enumerate(zip(om, od)):
+            if not np.array_equal(x, y):
+                fail(f"distributed: clustermesh: output {k} of the merged services' batch differs "
+                     f"from the direct one on {int((x != y).sum())} lanes")
+        if not np.array_equal(cm, cd) or len(sm) != 1 or len(sd) != 1:
+            fail("distributed: clustermesh: counters or LB stage calls differ")
+        (pm, dm, (drop_m, rv_m)), (pd, dd, (drop_d, rv_d)) = sm[0], sd[0]
+        if not (np.array_equal(pm, pd) and np.array_equal(dm, dd) and np.array_equal(drop_m, drop_d)
+                and np.array_equal(rv_m, rv_d)):
+            fail("distributed: clustermesh: the LB stage's translation differs from the direct one")
+        if k9 != {"lb_index_build": 1, "lb_translate": 1}:
+            fail(f"distributed: clustermesh: the merged services' pipeline launched K9 {k9}, "
+                 "once expected")
+        print(f"distributed: clustermesh: {len(fes)} v4 frontends with {n_local} local and "
+              f"{n_remote} remote backends (exported by cluster east) merged into B's "
+              f"ServiceManager; B's {BATCH}-flow v4 egress batch through its LB stage (K9 "
+              f"{k9}) {tm!r}s == a pipeline given the merged set directly {td!r}s on every "
+              f"lane: {int((rv_m != 0).sum())} translated, revNAT ids, verdicts "
+              f"{np.bincount(om[0], minlength=5)[1:].tolist()} (the bench world has no egress "
+              f"rule: every egress flow drops) [{card}]", flush=True)
+
+        # -- 5. mesh bootstrap ------------------------------------------------
+        root = str(Path(__file__).resolve().parent)
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            coord = f"127.0.0.1:{s.getsockname()[1]}"
+        env = {k: os.environ[k] for k in ("PATH", "HOME", "TMPDIR", "LD_LIBRARY_PATH",
+                                          "CUDA_HOME", "CUDA_VISIBLE_DEVICES") if k in os.environ}
+        env["GLOO_SOCKET_IFNAME"] = "lo"
+        t0 = time.perf_counter()
+        for rank in (0, 1):
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", DIST_CHILD.format(root=root, coord=coord, rank=rank,
+                                                         seed=seed)],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, env=env, cwd=root))
+        kids = []
+        for rank, p in enumerate(procs):
+            try:
+                out, err = p.communicate(timeout=DIST_CHILD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                fail(f"distributed: bootstrapped process {rank} ran past "
+                     f"{DIST_CHILD_TIMEOUT_S:.0f}s")
+            if p.returncode != 0:
+                fail(f"distributed: bootstrapped process {rank} exited {p.returncode}: "
+                     f"{err.decode()[-2000:]}")
+            kids.append(json.loads(out.decode().strip().splitlines()[-1]))
+        t_kids = time.perf_counter() - t0
+        with uncounted():
+            v, red, _ = dist_small_batch(seed, torch.device("cuda"))
+        digest = hashlib.sha256(v.tobytes() + red.tobytes()).hexdigest()
+        for rank, k in enumerate(kids):
+            s = k["summary"]
+            if (s["process_count"] != 2 or s["process_index"] != rank or s["local_devices"] != 1
+                    or s["global_devices"] != 2 or k["owners"] != [rank]
+                    or not k["device"].startswith("cuda")):
+                fail(f"distributed: bootstrapped process {rank}: summary {s}, plan records owned "
+                     f"by {k['owners']} on {k['device']}")
+        if (kids[0]["generation"], kids[0]["axes"]) != (kids[1]["generation"], kids[1]["axes"]):
+            fail(f"distributed: the bootstrapped processes' plans differ: {kids}")
+        if not kids[0]["digest"] == kids[1]["digest"] == digest:
+            fail("distributed: the bootstrapped processes' verdicts differ from each other or "
+                 "from this process's on the same batch")
+        print(f"distributed: mesh_bootstrap of 2 processes over gloo at {coord}: bootstrap "
+              f"walls {[round(k['bootstrap_s'], 6) for k in kids]}s, both processes {t_kids!r}s "
+              f"start to exit; summaries {[k['summary'] for k in kids]}; plans generation "
+              f"{kids[0]['generation']}, axes {kids[0]['axes']}, each its card with its own rank "
+              f"as process_index; the {DIST_CHILD_FLOWS}-flow small-world v4 batch on each "
+              f"card (launches {kids[0]['launches']}): verdicts {kids[0]['verdicts'][1:]} equal "
+              f"to each other and to this process's [{card}]", flush=True)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for stop in reversed(opened):
+            try:
+                stop()
+            except (OSError, RuntimeError):
+                pass  # a backend that died with its lease or its server
+    wall = time.perf_counter() - t_phase
+    over = "" if wall <= DIST_PHASE_LIMIT_S else " OVER ITS LIMIT"
+    print(f"distributed: phase in {wall:.2f}s (limit {DIST_PHASE_LIMIT_S:.0f}s){over} [{card}]",
+          flush=True)
+
+
 def collections_counter(xs) -> dict:
     """{value: count} of ``xs``, sorted by value."""
     import numpy as np
@@ -8082,6 +8694,15 @@ def main() -> None:
                              "policymap_verdict", "lb_index_build", "lb_translate", "dfa_walk"])
 
     phase("3o endpoints and native")
+
+    # -- 3p. distributed state, counts from zero -------------------------
+    _kernels.reset_launches()
+    distributed_main_path(args.seed, card, (ips, eps, dports, protos),
+                          (addr6, eps6, dports6, protos6), svc)
+    check_path("distributed", ["selector_match", "bool_mm", "lpm_wide", "lpm_stride8",
+                               "policymap_verdict", "lb_index_build", "lb_translate"])
+
+    phase("3p distributed state")
 
     # -- 5. each kernel against its plain version on the card ------------
     compiled, device = engine.snapshot()

@@ -40,6 +40,7 @@ import dataclasses
 from typing import Dict, FrozenSet, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,9 +55,12 @@ class DeviceRecord:
 
 
 def visible_devices() -> List[DeviceRecord]:
-    """One record per visible CUDA card, in device order."""
+    """One record per visible CUDA card, in device order, owned by this
+    process: its torch.distributed rank once a process group is up (a
+    mesh bootstrap), else 0. Ids are this process's card indices."""
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    return [DeviceRecord(i, 0, torch.device("cuda", i)) for i in range(n)]
+    proc = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+    return [DeviceRecord(i, proc, torch.device("cuda", i)) for i in range(n)]
 
 
 Grid = Tuple[Tuple[DeviceRecord, ...], ...]

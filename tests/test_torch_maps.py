@@ -5,10 +5,10 @@
 runs against both packages. The reference's ``test_policymap.py`` tests
 (the materialized policymap and the lookup against the engine) run
 against the port, and its policymap snapshots must equal the JAX
-package's on random worlds. The ``NodeRegistry`` halves of the tunnel
-and route tests need ``kvstore/`` and ``nodes/``, which the port does
-not have yet; here ``observe_node_cidrs`` is fed by a registry stand-in
-with the same ``local`` / ``observe`` surface.
+package's on random worlds. ``observe_node_cidrs`` is fed both by a
+registry stand-in with the same ``local`` / ``observe`` surface and by
+each package's own ``nodes.NodeRegistry`` over an in-memory kvstore (the
+``NodeRegistry`` halves of the reference's tunnel and route tests).
 """
 
 from __future__ import annotations
@@ -321,3 +321,79 @@ def test_node_observers_program_tunnel_and_routes(pkg):
     assert tm.lookup("fd02::1") is None and rt.lookup("10.2.0.9") is None
     reg.drop("r1")
     assert len(tm) == 0 and len(rt) == 0
+
+
+# -- the NodeRegistry halves of test_maps_infra.py and test_small_infra.py ------
+
+def _node_registry(pkg, store, client: str, **node):
+    kv, nodes = _mod(pkg, "kvstore"), _mod(pkg, "nodes.registry")
+    return nodes.NodeRegistry(kv.InMemoryBackend(store, client), nodes.Node(**node))
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_tunnel_observes_node_registry(pkg):
+    store = _mod(pkg, "kvstore").InMemoryStore()
+    local = _node_registry(pkg, store, "l", name="local", ipv4="192.168.0.1",
+                           ipv4_alloc_cidr="10.1.0.0/24")
+    t = _mod(pkg, "maps.tunnel").TunnelMap()
+    t.observe_nodes(local)
+    remote = _node_registry(pkg, store, "r", name="remote", ipv4="192.168.0.2",
+                            ipv4_alloc_cidr="10.2.0.0/24")
+    local.pump()
+    assert t.lookup("10.2.0.9") == "192.168.0.2"
+    remote.unregister()
+    local.pump()
+    assert t.lookup("10.2.0.9") is None
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_tunnel_churn_local_node_skipped_and_cidr_change_cleans_stale(pkg):
+    store = _mod(pkg, "kvstore").InMemoryStore()
+    local = _node_registry(pkg, store, "l", name="local", ipv4="192.168.0.1",
+                           ipv4_alloc_cidr="10.1.0.0/24")
+    t = _mod(pkg, "maps.tunnel").TunnelMap()
+    t.observe_nodes(local)
+    # the local node's own CIDR must never be tunnel-mapped
+    assert t.lookup("10.1.0.5") is None
+    _node_registry(pkg, store, "r", name="remote", ipv4="192.168.0.2",
+                   ipv4_alloc_cidr="10.2.0.0/24")
+    local.pump()
+    assert t.lookup("10.2.0.9") == "192.168.0.2"
+    # remote re-registers with a DIFFERENT alloc CIDR: the stale prefix
+    # must disappear
+    _node_registry(pkg, store, "r2", name="remote", ipv4="192.168.0.2",
+                   ipv4_alloc_cidr="10.3.0.0/24")
+    local.pump()
+    assert t.lookup("10.3.0.9") == "192.168.0.2"
+    assert t.lookup("10.2.0.9") is None
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_routes_observe_node_registry(pkg):
+    rm = _mod(pkg, "maps.routes")
+    store = _mod(pkg, "kvstore").InMemoryStore()
+    local = _node_registry(pkg, store, "l", name="local", ipv4="192.168.0.1",
+                           ipv4_alloc_cidr="10.1.0.0/24")
+    rt = rm.RouteTable()
+    rt.observe_nodes(local, route_mtu=1450)
+    assert rt.lookup("10.1.0.5") is None  # local CIDR not routed
+    _node_registry(pkg, store, "r", name="remote", ipv4="192.168.0.2",
+                   ipv4_alloc_cidr="10.2.0.0/24")
+    local.pump()
+    route = rt.lookup("10.2.0.9")
+    assert route.nexthop == "192.168.0.2" and route.mtu == 1450
+
+
+@pytest.mark.parametrize("pkg", PKGS)
+def test_routes_partial_registration_programs_nothing(pkg):
+    """A node with alloc CIDRs but no address yet must not install
+    routes or tunnel entries claiming reachability."""
+    store = _mod(pkg, "kvstore").InMemoryStore()
+    local = _node_registry(pkg, store, "l", name="local", ipv4="1.1.1.1")
+    rt, tm = _mod(pkg, "maps.routes").RouteTable(), _mod(pkg, "maps.tunnel").TunnelMap()
+    rt.observe_nodes(local)
+    tm.observe_nodes(local)
+    _node_registry(pkg, store, "r", name="half", ipv4_alloc_cidr="10.7.0.0/24")  # no addr
+    local.pump()
+    assert rt.lookup("10.7.0.5") is None
+    assert tm.lookup("10.7.0.5") is None
