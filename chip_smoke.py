@@ -306,6 +306,36 @@
    wall per identity in memory and over TCP, the pump, the rebuild walls
    after the lease death and the GC, the push-to-convergence wall and
    the bootstrap walls.
+4q. The fleet-observability main path, launch counts from zero
+   (fleet_main_path): two agents, A and B, over the bench repository,
+   registry and ipcache of section 2, each with its own PolicyEngine (a
+   full compile: K1 and the sweeps), a pipeline on the card with the
+   tracer, the admission gate and the prefilter CIDRs, and a
+   FederationMember on a NetBackend to one KVStoreServer (TCP loopback);
+   an EventJournal on the pipeline's, its admission controller's and
+   the member's on_journal slots, a JournalPublisher and a FleetSampler
+   on the member's backend. A is primed, serves four v4 and four v6
+   1 048 576-flow batches and is sampled; then B with two of each: vps x
+   dt equals the verdicts the pulled arrays hold, drop_ratio their drop
+   share, transfer_bps x dt the bytes device_transfer_bytes_total moved,
+   and p50 / p99 the quantiles of the process's batch histogram after
+   exactly these batches' traces (it also holds every earlier phase's
+   traced batches). A's journal, in the order of the operations: the
+   first rebuild, an identity delta's one rebuild (its basis the
+   pipeline's _mat_basis), an epoch swap on both agents (epoch_swap with
+   policy_epoch 1, then the publishing rebuild; the cluster epoch 1 on
+   both), a deny-heavy batch through submit with the gate forced (K11;
+   shed_start), shed_end after SHED_HOLD_S with the controller's
+   per-reason move, and two poisoned completions on A (in watch.allowed)
+   moving the ladder to single-device and three clean cut batches back;
+   every kind and severity the reference's. B's merged timeline holds
+   both nodes' events, HLC-consistent; aggregate of fresh telemetry
+   frames: 2 nodes, epoch skew 0, fleet_vps the frames' sum. Prints the
+   walls of sample_once, publish_once, a telemetry publish + pump,
+   merged_timeline, a v4 batch with the planes armed and unarmed, and
+   each objective's burn ratio per window (no state asserted). The
+   phase's identity and rule are taken out again at its end; the phase
+   fails past 30 s.
 5. Holds every kernel against its plain version on the card, at the
    main paths' shapes, with exact equality (all outputs are integers),
    and times kernel, plain version and, where one exists, a library
@@ -714,12 +744,30 @@ def max_abs_err(a, b) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
+# Repository.allows_ingress answers by (repository, its revision, peer
+# labels, subject labels, dport, proto): phase 4 holds both pipelines'
+# verdicts of the same flows, and one answer a key serves both (each call
+# walks the 10 000 rules in Python, ~0.1 s)
+_ALLOWS = {}
+
+
+def oracle_allows(repo, peer, subj, dport: int, proto: int) -> bool:
+    from cilium_tpu_torch.policy.search import Decision, PortContext, SearchContext
+
+    key = (repo, repo.revision, peer, subj, dport, proto)
+    ok = _ALLOWS.get(key)
+    if ok is None:
+        pc = PortContext(dport, "UDP" if proto == 17 else "TCP")
+        ok = _ALLOWS[key] = repo.allows_ingress(
+            SearchContext(src=peer, dst=subj, dports=(pc,))) == Decision.ALLOWED
+    return ok
+
+
 def oracle_check(repo, labels_of, idents, pipe_name, ips, eps, dports, protos,
                  i_sel, verdicts, denied_net, endpoints, n: int = N_ORACLE):
     """Hold the first ``n`` flows against Repository.allows_ingress (and
     the prefilter membership for the deny stage)."""
     from cilium_tpu_torch.labels import parse_label_array
-    from cilium_tpu_torch.policy.search import Decision, PortContext, SearchContext
 
     for i in range(n):
         ip = ipaddress.IPv4Address(int(ips[i]))
@@ -728,9 +776,8 @@ def oracle_check(repo, labels_of, idents, pipe_name, ips, eps, dports, protos,
         else:
             subj = parse_label_array(labels_of[endpoints[int(eps[i])]])
             peer = parse_label_array(labels_of[idents[int(i_sel[i])].id])
-            pc = PortContext(int(dports[i]), "UDP" if int(protos[i]) == 17 else "TCP")
-            ok = repo.allows_ingress(SearchContext(src=peer, dst=subj, dports=(pc,)))
-            want = 1 if ok == Decision.ALLOWED else 2
+            ok = oracle_allows(repo, peer, subj, int(dports[i]), int(protos[i]))
+            want = 1 if ok else 2
         if int(verdicts[i]) != want:
             fail(f"{pipe_name}: flow {i} verdict {int(verdicts[i])}, oracle {want}")
 
@@ -741,7 +788,6 @@ def oracle_check6(repo, reg, labels_of, idents, pipe_name, addr, eps, dports, pr
     peers carry the reserved:world labels) and the v6 deny prefixes."""
     from cilium_tpu_torch.identity.model import ID_WORLD
     from cilium_tpu_torch.labels import parse_label_array
-    from cilium_tpu_torch.policy.search import Decision, PortContext, SearchContext
 
     world_labels = reg.get(ID_WORLD).labels
     for i in range(N_ORACLE):
@@ -752,9 +798,8 @@ def oracle_check6(repo, reg, labels_of, idents, pipe_name, addr, eps, dports, pr
             subj = parse_label_array(labels_of[endpoints[int(eps[i])]])
             j = int(i_sel[i])
             peer = world_labels if j < 0 else parse_label_array(labels_of[idents[j].id])
-            pc = PortContext(int(dports[i]), "UDP" if int(protos[i]) == 17 else "TCP")
-            ok = repo.allows_ingress(SearchContext(src=peer, dst=subj, dports=(pc,)))
-            want = 1 if ok == Decision.ALLOWED else 2
+            ok = oracle_allows(repo, peer, subj, int(dports[i]), int(protos[i]))
+            want = 1 if ok else 2
         if int(verdicts[i]) != want:
             fail(f"{pipe_name} v6: flow {i} ({ip}) verdict {int(verdicts[i])}, oracle {want}")
 
@@ -8128,6 +8173,403 @@ def distributed_main_path(seed: int, card: str, flows4, flows6, svc):
           flush=True)
 
 
+# -- 3q. fleet observability -------------------------------------------------------
+
+FLEET_PHASE_LIMIT_S = 30.0
+FLEET_A_BATCHES = 4  # v4 and v6 1M-flow batches each that agent A serves between its ticks
+FLEET_B_BATCHES = 2
+FLEET_REPS = 5  # armed / unarmed pairs of the overhead check
+FLEET_SWAP_LABEL = "k8s:policy=fleet-swap"
+# the reference's severity of each kind the phase's sequence emits
+FLEET_SEVERITY = {"rebuild": "info", "epoch_swap": "info", "shed_start": "warning",
+                  "shed_end": "info", "quarantine": "error"}
+
+
+def hist_counts(h):
+    """(per-bucket counts, +Inf last) of a histogram's unlabeled series."""
+    with h._lock:
+        return list(h._series[()].counts)
+
+
+def hist_bucket(buckets, v: float) -> int:
+    """The bucket a value lands in (len(buckets): +Inf), as observe() places it."""
+    for i, b in enumerate(buckets):
+        if v <= b:
+            return i
+    return len(buckets)
+
+
+def hist_quantile(buckets, counts, q: float):
+    """The q-quantile of bucket counts, the reference's estimate
+    (linear within the landing bucket, clamped to the last bound)."""
+    n = sum(counts)
+    if not n:
+        return None
+    rank, cum = q * n, 0
+    for i, b in enumerate(buckets):
+        prev, cum = cum, cum + counts[i]
+        if cum >= rank:
+            lo = buckets[i - 1] if i else 0.0
+            return b if counts[i] == 0 else lo + (b - lo) * (rank - prev) / counts[i]
+    return buckets[-1]
+
+
+def fleet_main_path(repo, reg, cache, endpoints, labels_of, flows4, flows6, seed: int, card: str,
+                    watch) -> int:
+    """Phase 3q: fleet observability on the card (A9c) at the bench
+    world's full width (10 000 rules, 2 048 identities, 64 endpoints,
+    1 048 576-flow batches): two agents, A and B, each its own
+    PolicyEngine (one full compile: K1 and the sweeps) over the bench
+    repository, registry and ipcache phase 2 built, a DatapathPipeline on
+    the card with the tracer on, the admission gate and the prefilter
+    CIDRs, and a FederationMember on a NetBackend to one KVStoreServer;
+    an EventJournal armed on the pipeline, its admission controller and
+    the member, a JournalPublisher and a FleetSampler (epoch source: the
+    pipeline's policy_epoch), both exchanges on the member's backend, as
+    the reference's daemon wires them (daemon.py:1285-1305, 1363-1396).
+    The registry is process-wide, so A is primed, serves its batches and
+    is sampled before B is primed. A's pipeline is in ``watch.allowed``
+    (its injected faults). The caller set the launch counts to 0. The
+    identity and the rule the phase adds go again at its end. → the
+    injected faults, for ``watch.check``."""
+    import types
+
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch import _kernels, faults, metrics
+    from cilium_tpu_torch.contracts import JOURNAL_KINDS, JOURNAL_SEVERITIES
+    from cilium_tpu_torch.datapath.pipeline import (
+        DROP_DEGRADED, DROP_PREFILTER, FORWARD, DatapathPipeline,
+    )
+    from cilium_tpu_torch.engine import PolicyEngine
+    from cilium_tpu_torch.federation import FederationMember
+    from cilium_tpu_torch.ipcache.prefilter import PreFilter
+    from cilium_tpu_torch.kvstore import KVStoreServer, NetBackend
+    from cilium_tpu_torch.labels import parse_label_array
+    from cilium_tpu_torch.observe.fleet import FleetSampler, TelemetryExchange, aggregate
+    from cilium_tpu_torch.observe.journal import (
+        EventJournal, JournalExchange, JournalPublisher, timeline_consistent,
+    )
+    from cilium_tpu_torch.policy.api import (
+        EndpointSelector, IngressRule, PortProtocol, PortRule, rule,
+    )
+
+    t_phase = time.perf_counter()
+    hub = faults.hub
+    hub.reset()
+    fl4, fl6 = tuple(flows4[:4]), tuple(flows6[:4])
+    hist = metrics.batch_total_seconds
+    opened = []  # closed on every way out, last first
+    added = []  # the phase's identity and rule, taken out on every way out
+    injected = 0
+    try:
+        server = KVStoreServer().start()
+        opened.append(server.stop)
+        agents = {}
+        for name in ("node-a", "node-b"):
+            t0 = time.perf_counter()
+            backend = NetBackend(server.url, name)
+            opened.append(backend.close)
+            pf = PreFilter()
+            pf.insert(pf.revision, PREFILTER_CIDRS + V6_DENY)
+            pipe = DatapathPipeline(PolicyEngine(repo, reg), cache, pf, admission=True,
+                                    prefilter_shed=True, pipeline_max_depth=8)
+            if name == "node-a":
+                watch.allowed.add(pipe)
+            pipe.tracer.enable()
+            ag = types.SimpleNamespace(name=name, registry=reg, pipeline=pipe, backend=backend)
+            ag.member = FederationMember(ag, backend, name, heartbeat_interval=3600.0)
+            opened.append(ag.member.close)
+            ag.journal = EventJournal(node=name, capacity=512)
+            pipe.on_journal = pipe._admission.on_journal = ag.member.on_journal = ag.journal.emit
+            ag.pub = JournalPublisher(ag.journal, tail_n=64)
+            ag.pub.attach_exchange(JournalExchange(backend, name))
+            opened.append(ag.pub.stop)
+            ag.sampler = FleetSampler(epoch_source=lambda p=pipe: p.policy_epoch)
+            ag.sampler.attach_exchange(TelemetryExchange(backend, name))
+            opened.append(ag.sampler.stop)
+            pipe.set_endpoints(endpoints)
+            pipe.rebuild()
+            torch.cuda.synchronize()
+            ag.build_s = time.perf_counter() - t0
+            agents[name] = ag
+        a, b = agents["node-a"], agents["node-b"]
+        built = _kernels.launches()
+        if built["selector_match"] != 2 or a.pipeline._shed_tab is None:
+            fail(f"fleet: the agents' builds launched K1 {built['selector_match']} times, or A "
+                 "published no shed table")
+        print(f"fleet: agents A and B, each a full compile and rebuild on the card (A "
+              f"{a.build_s!r}s, B {b.build_s!r}s; launches from zero {built}), a FederationMember "
+              f"and both exchanges on a NetBackend to one KVStoreServer over TCP loopback [{card}]",
+              flush=True)
+
+        # -- 1. the sampler -------------------------------------------------
+        def xfer():
+            return sum(metrics.device_transfer_bytes_total.series().values())
+
+        for ag, n_batches in ((a, FLEET_A_BATCHES), (b, FLEET_B_BATCHES)):
+            pipe = ag.pipeline
+            now0 = time.monotonic()
+            t0 = time.perf_counter()
+            ag.sampler.sample_once(now=now0)
+            t_prime = time.perf_counter() - t0
+            counts0 = hist_counts(hist)
+            x0, tr0 = xfer(), len(pipe.tracer.traces())
+            n_v = n_drop = 0
+            walls = []
+            for _ in range(n_batches):
+                for call, flows in (("process", fl4), ("process_v6", fl6)):
+                    t0 = time.perf_counter()
+                    v, _red = getattr(pipe, call)(*flows)
+                    walls.append(time.perf_counter() - t0)
+                    n_v += v.size
+                    n_drop += int(np.count_nonzero(v != FORWARD))
+            x1 = xfer()
+            totals = [t["total_ns"] / 1e9 for t in pipe.tracer.traces()[tr0:]]
+            now1 = time.monotonic()
+            t0 = time.perf_counter()
+            s = ag.sampler.sample_once(now=now1)
+            t_sample = time.perf_counter() - t0
+            dt = now1 - now0
+            if len(totals) != len(walls) or any(t > w for t, w in zip(totals, walls)):
+                fail(f"fleet: {ag.name}'s {len(walls)} batches left {len(totals)} traces, or a "
+                     "trace outlasted its call")
+            if abs(s["vps"] * dt - n_v) >= 0.5:
+                fail(f"fleet: {ag.name}'s vps x dt {s['vps'] * dt!r} != the {n_v} verdicts its "
+                     "pulled arrays hold")
+            if abs(s["drop_ratio"] - n_drop / n_v) > 1e-12:
+                fail(f"fleet: {ag.name}'s drop_ratio {s['drop_ratio']!r} != the arrays' drop "
+                     f"share {n_drop / n_v!r}")
+            if abs(s["transfer_bps"] * dt - (x1 - x0)) >= 0.5 or x1 == x0:
+                fail(f"fleet: {ag.name}'s transfer_bps x dt {s['transfer_bps'] * dt!r} != the "
+                     f"{x1 - x0} bytes device_transfer_bytes_total moved")
+            # the histogram is the process's: what it held before this
+            # agent's batches, plus exactly these batches' trace totals
+            placed = list(counts0)
+            for t in totals:
+                placed[hist_bucket(hist.buckets, t)] += 1
+            if hist_counts(hist) != placed:
+                fail(f"fleet: batch_total_seconds moved by other than {ag.name}'s traces")
+            quant = {}
+            for q, key in ((0.5, "verdict_p50_ms"), (0.99, "verdict_p99_ms")):
+                want = hist_quantile(hist.buckets, placed, q)
+                got = s[key]
+                if got is None or abs(got - want * 1e3) > 1e-9 * max(1.0, got):
+                    fail(f"fleet: {ag.name}'s {key} {got!r} != {want * 1e3!r} ms, the "
+                         "quantile of the histogram its traces fed")
+                quant[key] = (got, hist_bucket(hist.buckets, got / 1e3))
+            wall_buckets = sorted({hist_bucket(hist.buckets, w) for w in walls})
+            edges = [0.0, *hist.buckets, float("inf")]
+            print(f"fleet sampler [{ag.name}]: {n_batches} v4 and {n_batches} v6 "
+                  f"{BATCH}-flow batches between two ticks {dt!r}s apart: vps {s['vps']!r} "
+                  f"(x dt = {n_v} verdicts, the pulled arrays'), drop_ratio {s['drop_ratio']!r} "
+                  f"(= {n_drop} / {n_v}), shed_ratio {s['shed_ratio']!r}, transfer_bps "
+                  f"{s['transfer_bps']!r} (x dt = {x1 - x0} bytes, "
+                  f"device_transfer_bytes_total's move); p50 {quant['verdict_p50_ms'][0]!r} ms, "
+                  f"p99 {quant['verdict_p99_ms'][0]!r} ms (buckets "
+                  f"{[edges[k + 1] for _, k in quant.values()]} s of the process's histogram, "
+                  f"{sum(placed)} traced batches, {len(totals)} of them these; these batches' "
+                  f"walls {stat_ms(walls)} in the buckets up to {[edges[k + 1] for k in wall_buckets]}"
+                  f" s); sample_once {t_sample!r}s (its frame published and pumped over TCP), "
+                  f"the priming tick {t_prime!r}s [{card}]", flush=True)
+
+        # -- 2. the journal on A ----------------------------------------------
+        pipe = a.pipeline
+        seen = [0]
+
+        def new_events(kinds, what):
+            evs = a.journal.events(512)[seen[0]:]
+            if [e["kind"] for e in evs] != kinds:
+                fail(f"fleet journal: {what} gave {[e['kind'] for e in evs]}, not {kinds}")
+            seen[0] += len(evs)
+            return evs
+
+        (ev,) = new_events(["rebuild"], "A's first rebuild")
+        if ev["attrs"]["prev_basis"] is not None or ev["attrs"]["policy_epoch"] != 0:
+            fail(f"fleet journal: the first rebuild's attrs {ev['attrs']}")
+        # an identity delta: a label set of the bench's vocabulary that no
+        # identity holds yet
+        held = {tuple(sorted(lbls)) for lbls in labels_of.values()}
+        probe = next([f"k8s:app=a{i}", f"k8s:zone=z{z}"] for i in range(N_APPS) for z in range(8)
+                     if tuple(sorted([f"k8s:app=a{i}", f"k8s:zone=z{z}"])) not in held)
+        ident = reg.allocate(parse_label_array(probe))
+        added.append(lambda: reg.release(ident))
+        t0 = time.perf_counter()
+        pipe.engine.refresh()
+        pipe.rebuild()
+        torch.cuda.synchronize()
+        t_ident = time.perf_counter() - t0
+        (ev,) = new_events(["rebuild"], "the identity delta")
+        if ev["attrs"]["basis"] != list(pipe._mat_basis) or ev["attrs"]["prev_basis"] == ev["attrs"]["basis"]:
+            fail(f"fleet journal: the identity delta's rebuild {ev['attrs']} against _mat_basis "
+                 f"{pipe._mat_basis}")
+        # an epoch swap on both agents: one rule growing endpoint 0's slots
+        app0, app1 = (labels_of[e][0] for e in endpoints[:2])
+        push = rule([app0], ingress=[IngressRule(
+            from_endpoints=(EndpointSelector.make([app1]),),
+            to_ports=(PortRule(ports=(PortProtocol(9443, "TCP"),)),))],
+            labels=[FLEET_SWAP_LABEL])
+        repo.add_list([push])
+        added.append(lambda: repo.delete_by_labels(parse_label_array([FLEET_SWAP_LABEL])))
+        t0 = time.perf_counter()
+        for ag in (a, b):
+            ag.pipeline.set_epoch_swap(True)
+            ag.pipeline.engine.refresh()
+            ag.pipeline.rebuild()  # kicks the shadow build
+        for ag in (a, b):
+            if not ag.pipeline.wait_epoch_swap(timeout=60.0):
+                fail(f"fleet: {ag.name}'s shadow build did not finish")
+            ag.pipeline.rebuild()  # publishes
+        t_swap = time.perf_counter() - t0
+        swap, _ = new_events(["epoch_swap", "rebuild"], "the epoch swap")
+        if swap["attrs"]["policy_epoch"] != pipe.policy_epoch or pipe.policy_epoch != 1:
+            fail(f"fleet journal: epoch_swap {swap['attrs']} with policy_epoch {pipe.policy_epoch}")
+        if b.pipeline.policy_epoch != 1 or not a.member.wait_cluster_epoch(
+                1, timeout=30.0, min_nodes=2, pump=lambda: [ag.member.pump() for ag in (a, b)]):
+            fail("fleet: the cluster epoch did not reach 1 on both agents")
+        # a deny-heavy batch through submit, the gate forced: K11 walks it
+        adm = pipe._admission
+        batch = deny_heavy(4, seed, fl4)
+        k11 = shed_inputs(pipe, 4, batch, pipe.device)
+        n_shed = int(k11["plain"](*k11["args"]).sum().item())
+        shed0 = dict(adm.shed)
+        k0 = _kernels.launches()["shed_walk_wide"]
+        hub.fail(faults.SITE_QUEUE_FULL, faults.KIND_TRANSIENT, times=1)
+        v, _red = pipe.submit(*batch).result()
+        hub.reset()
+        if _kernels.launches()["shed_walk_wide"] != k0 + 1 or int((v == DROP_PREFILTER).sum()) < n_shed:
+            fail("fleet: the gated deny-heavy batch did not shed through K11")
+        (ev,) = new_events(["shed_start"], "the gated batch")
+        if ev["attrs"] != {"reason": "prefilter"}:
+            fail(f"fleet journal: shed_start {ev['attrs']}")
+        adm.episode_poll()
+        new_events([], "a poll inside the hold")
+        t0 = time.perf_counter()
+        time.sleep(adm.SHED_HOLD_S)
+        while adm.shedding():
+            time.sleep(0.005)
+        t_hold = time.perf_counter() - t0
+        adm.episode_poll()
+        (ev,) = new_events(["shed_end"], "the poll after the hold")
+        moved = {r: n - shed0.get(r, 0) for r, n in adm.shed.items() if n != shed0.get(r, 0)}
+        if ev["attrs"]["shed"] != moved or moved != {"prefilter": n_shed}:
+            fail(f"fleet journal: shed_end {ev['attrs']} against the controller's move {moved} "
+                 f"and the plain mask's {n_shed}")
+        # two poisoned completions move the ladder down, clean batches back
+        cut = tuple(x[:FAILSAFE_CUT] for x in fl4)
+        knobs = (pipe.breaker_threshold, pipe.recover_after_clean)
+        pipe.breaker_threshold, pipe.recover_after_clean = 2, 3
+        t0 = time.perf_counter()
+        for _ in range(2):
+            hub.fail(faults.SITE_COMPLETE, faults.KIND_POISONED, times=1)
+            v, _red = pipe.process(*cut)
+            injected += 1
+            if not (v == DROP_DEGRADED).all():
+                fail("fleet: a poisoned completion did not give DROP_DEGRADED")
+        hub.reset()
+        level1 = pipe.pipeline_mode
+        for _ in range(3):
+            pipe.process(*cut)
+        t_ladder = time.perf_counter() - t0
+        pipe.breaker_threshold, pipe.recover_after_clean = knobs
+        evs = new_events(["quarantine", "ladder_move", "quarantine", "ladder_move"], "the ladder")
+        moves = [e for e in evs if e["kind"] == "ladder_move"]
+        if (level1, pipe.pipeline_mode) != ("single-device", "sharded") or [
+                (e["severity"], e["attrs"]) for e in moves] != [
+                ("warning", {"from": "sharded", "to": "single-device", "level": 1}),
+                ("info", {"from": "single-device", "to": "sharded", "level": 0})]:
+            fail(f"fleet journal: the ladder went {level1} → {pipe.pipeline_mode}: {moves}")
+        journal = a.journal.events(512)
+        for e in journal:
+            want = FLEET_SEVERITY.get(e["kind"], e["severity"])
+            if (e["kind"] not in JOURNAL_KINDS or e["severity"] not in JOURNAL_SEVERITIES
+                    or e["severity"] != want):
+                fail(f"fleet journal: {e['kind']} / {e['severity']} is not the reference's")
+        print(f"fleet journal [node-a]: {[e['kind'] for e in journal]} in the order of the "
+              f"operations (kinds and severities the reference's); identity delta refresh + "
+              f"rebuild {t_ident!r}s; the swap on both agents, kick to publish {t_swap!r}s, the "
+              f"cluster epoch 1 on both; shed_start with the gated batch ({n_shed} shed through "
+              f"K11), shed_end {t_hold!r}s later with the controller's per-reason move {moved}; "
+              f"the ladder sharded → single-device → sharded over 5 {FAILSAFE_CUT}-flow batches "
+              f"{t_ladder!r}s [{card}]", flush=True)
+
+        # -- 3. the fleet -------------------------------------------------------
+        walls = {}
+        t0 = time.perf_counter()
+        if not a.pub.publish_once():
+            fail("fleet: A published no journal frame")
+        walls["publish_once"] = time.perf_counter() - t0
+        b.pub.publish_once()
+        dist_wait("A's journal frame at B", lambda: len(
+            b.pub.exchange.frames().get("node-a", {}).get("events", ())) == min(
+            len(journal), a.pub.tail_n), b.pub.exchange.pump)
+        t0 = time.perf_counter()
+        merged = b.pub.merged_timeline(limit=512)
+        walls["merged_timeline"] = time.perf_counter() - t0
+        nodes = {e["node"] for e in merged}
+        n_a = sum(e["node"] == "node-a" for e in merged)
+        if nodes != {"node-a", "node-b"} or n_a != min(len(journal), a.pub.tail_n) \
+                or not timeline_consistent(merged):
+            fail(f"fleet: B's merged timeline holds {nodes}, {n_a} of A's events, consistent "
+                 f"{timeline_consistent(merged)}")
+        t_pub = time.time()  # the frames' stamps are wall clock
+        for ag in (a, b):
+            t0 = time.perf_counter()
+            ag.sampler.exchange.publish(ag.sampler.frame_body())
+            ag.sampler.exchange.pump()
+            walls[f"telemetry publish + pump {ag.name}"] = time.perf_counter() - t0
+        dist_wait("both fresh telemetry frames at B", lambda: {
+            n for n, f in b.sampler.exchange.frames().items() if f["ts"] >= t_pub} == {
+            "node-a", "node-b"}, b.sampler.exchange.pump)
+        frames = b.sampler.exchange.frames()
+        agg = aggregate(frames)
+        if (agg["nodes_reporting"], agg["epoch_skew"]) != (2, 0) or agg["fleet_vps"] != round(
+                sum(f["vps"] for f in frames.values()), 3) or agg["fleet_vps"] <= 0:
+            fail(f"fleet: aggregate {agg}")
+        print(f"fleet [B's view]: merged timeline {len(merged)} events of both nodes, "
+              f"HLC-consistent; aggregate nodes_reporting {agg['nodes_reporting']}, epoch_skew "
+              f"{agg['epoch_skew']}, fleet_vps {agg['fleet_vps']!r} (the frames' sum), "
+              f"epoch_lag_max {agg['epoch_lag_max']!r}; walls "
+              f"{ {k: round(v, 6) for k, v in walls.items()} } s [{card}]", flush=True)
+        for ag in (a, b):
+            objs = ag.sampler.last_slo["objectives"]
+            print(f"fleet SLO [{ag.name}]: " + "; ".join(
+                f"{n} {o['state']} {o['windows']}" for n, o in objs.items())
+                + f"; worst {ag.sampler.last_slo['worst']} [{card}]", flush=True)
+        print(f"fleet SLO [fleet]: worst_burn {agg['worst_burn']} (the batch histogram is the "
+              f"process's: every earlier phase's traced batches are in its p99) [{card}]",
+              flush=True)
+
+        # -- 4. the planes' cost on the batch path ------------------------------
+        times = {"armed": [], "unarmed": []}
+        pipe.process(*fl4)  # after the ladder's cut batches: the full batch's staging again
+        for k in range(2 * FLEET_REPS):
+            armed = k % 4 in (0, 3)  # armed, unarmed, unarmed, armed, ...
+            pipe.on_journal = adm.on_journal = a.journal.emit if armed else None
+            t0 = time.perf_counter()
+            pipe.process(*fl4)
+            times["armed" if armed else "unarmed"].append(time.perf_counter() - t0)
+        pipe.on_journal = adm.on_journal = a.journal.emit
+        print(f"fleet cost [node-a]: a v4 {BATCH}-flow batch (tracer on) with the journal, "
+              f"sampler and publisher armed {stat_ms(times['armed'])}, the journal's slots unarmed "
+              f"{stat_ms(times['unarmed'])} [{card}]", flush=True)
+    finally:
+        hub.reset()
+        for undo in reversed(added):
+            undo()
+        for stop in reversed(opened):
+            try:
+                stop()
+            except (OSError, RuntimeError):
+                pass  # a backend that died with its server
+    wall = time.perf_counter() - t_phase
+    if wall > FLEET_PHASE_LIMIT_S:
+        fail(f"fleet: phase in {wall:.2f}s, over its {FLEET_PHASE_LIMIT_S:.0f}s limit")
+    print(f"fleet: phase in {wall:.2f}s (limit {FLEET_PHASE_LIMIT_S:.0f}s) [{card}]", flush=True)
+    return injected
+
+
 def collections_counter(xs) -> dict:
     """{value: count} of ``xs``, sorted by value."""
     import numpy as np
@@ -8703,6 +9145,17 @@ def main() -> None:
                                "policymap_verdict", "lb_index_build", "lb_translate"])
 
     phase("3p distributed state")
+
+    # -- 3q. fleet observability, counts from zero -----------------------
+    _kernels.reset_launches()
+    faults_expected += fleet_main_path(repo, reg, cache, endpoints, labels_of,
+                                       (ips, eps, dports, protos),
+                                       (addr6, eps6, dports6, protos6), args.seed, card, watch)
+    check_path("fleet", ["selector_match", "bool_mm", "lpm_wide", "lpm_stride8",
+                         "policymap_verdict", "shed_walk_wide"])
+    watch.check("after the fleet phase", faults_expected)
+
+    phase("3q fleet observability")
 
     # -- 5. each kernel against its plain version on the card ------------
     compiled, device = engine.snapshot()
