@@ -336,6 +336,35 @@
    each objective's burn ratio per window (no state asserted). The
    phase's identity and rule are taken out again at its end; the phase
    fails past 30 s.
+4r. The Kubernetes and DNS policy sources, launch counts from zero
+   (k8s_main_path): a cluster drawn from the seed (k8s_cluster: 2 048
+   dual-stack Pods in 32 labelled Namespaces, 192 ClusterIP Services of
+   the SVC_PORTS mix with 1-4 backends, 32 of them selector-less with
+   external Endpoints, 16 behind an Ingress on the node's address, 8
+   Nodes, 512 NetworkPolicies and multi-spec CNPs: podSelector /
+   namespaceSelector peers, ipBlocks with an except, ports, 64 toServices
+   and 64 toFQDNs specs) through cilium_tpu_torch.k8s.K8sWatcher into
+   K8sAgent (the five methods a Daemon offers the watcher; a
+   PolicyEngine and a DatapathPipeline on the card with its
+   ServiceManager as the LB) and a DNSPoller with a seeded resolver.
+   Six steps, each ended by a checkpoint (the CIDR identities of the
+   rules' prefixes, refresh + rebuild) and a 1 048 576-flow v4 egress
+   batch with services: the initial resync in the Informer's kind order
+   and a poll (a v6 batch too), a MODIFIED CNP swapping its peer
+   namespace and then a status-only MODIFIED (no revision, no ask, no
+   launch), a pod deleted and re-added with other labels, a toServices
+   target's Endpoints moved (a v6 batch too; its frontend's lanes go to
+   the new backends), a toFQDNs answer moved by poll_once past the TTL,
+   and a resync lacking one NetworkPolicy and one pod (both reaped).
+   Each step: 8 192 lanes == the plain path over the same tables
+   (verdicts, redirects, the LB stage's translation and revNAT ids), the
+   oracle on 400 lanes and on lanes inside and outside each ipBlock's
+   except, every lane that moved one the step touched and every touched
+   lane == the oracle, some lane flipped, the LB frontends == the
+   objects'. Prints each step's walls (event, CIDR identities,
+   checkpoint, event to first verdict) and asks, the resync's time in
+   policy_replace and in policy_translate + the LB sync, and the
+   launches; fails past 45 s.
 5. Holds every kernel against its plain version on the card, at the
    main paths' shapes, with exact equality (all outputs are integers),
    and times kernel, plain version and, where one exists, a library
@@ -414,6 +443,7 @@ line. Without CUDA it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import ipaddress
 import json
@@ -8570,6 +8600,1169 @@ def fleet_main_path(repo, reg, cache, endpoints, labels_of, flows4, flows6, seed
     return injected
 
 
+# -- 3r. the Kubernetes and DNS policy sources -----------------------------------
+
+K8S_PHASE_LIMIT_S = 45.0
+K8S_NAMESPACES = 32
+K8S_SERVICES = 192  # the sync is quadratic in them: tools/k8s_sync_size.py
+K8S_EXTERNAL = 32  # selector-less services with Endpoints outside the cluster: the toServices targets
+K8S_INGRESSES = 16
+K8S_NODES = 8
+# NetworkPolicies and CiliumNetworkPolicies, half each (a CNP holds 1-4
+# specs): the initial sync is quadratic in rules x service events
+K8S_POLICIES = 512
+K8S_TO_SERVICES = 64  # CNP specs with toServices
+K8S_TO_FQDNS = 64  # CNP specs with toFQDNs
+K8S_FQDN_NAMES = 32
+K8S_FQDN_TTL = 300.0
+K8S_IPBLOCKS = 8  # 172.{16+b}.0.0/16 except 172.{16+b}.{x_b}.0/24, egress on NetworkPolicies
+K8S_HOST_IP = "192.168.40.1"
+K8S_NODE = "node-0"
+K8S_ORACLE = 400  # sampled lanes of each batch held against the host oracle
+K8S_BLOCK_LANES = 4  # lanes inside and outside each ipBlock's except held against it too
+K8S_PLAIN_SLICE = 1 << 13  # holds every focus lane (k8s_focus) and ~3 000 others
+K8S_NS_KEY = "k8s:io.kubernetes.pod.namespace"
+
+
+def k8s_v4(i: int) -> str:
+    """Pod i's IPv4 address: the bench world's identity /32s."""
+    return f"10.{(i >> 8) & 255}.{i & 255}.1"
+
+
+def k8s_v6(i: int) -> str:
+    return f"fd00::{(i >> 8) & 255:x}:{i & 255:x}"
+
+
+def k8s_pod(i: int, labels) -> dict:
+    return {"kind": "Pod",
+            "metadata": {"name": f"p{i}", "namespace": f"ns{i % K8S_NAMESPACES}",
+                         "labels": dict(labels)},
+            "spec": {"nodeName": f"node-{(i >> 8) % K8S_NODES}"},
+            "status": {"podIP": k8s_v4(i), "podIPs": [{"ip": k8s_v4(i)}, {"ip": k8s_v6(i)}]}}
+
+
+def k8s_pod_labels(rng) -> dict:
+    """A pod's labels, drawn as build_world draws an identity's."""
+    labels = {"app": f"a{rng.randrange(N_APPS)}", "zone": f"z{rng.randrange(8)}"}
+    if rng.random() < 0.5:
+        labels["env"] = "prod" if rng.random() < 0.5 else "dev"
+    return labels
+
+
+def k8s_cluster(seed: int, n_policies: int = None, n_services: int = None):
+    """Phase 3r's cluster as the objects an apiserver would list, drawn
+    from ``random.Random(seed)``: N_IDENTITIES dual-stack Pods in
+    K8S_NAMESPACES labelled Namespaces; N_FE4 ClusterIP Services (ports of
+    SVC_PORTS; K8S_INGRESSES of them on 8000 + k behind an Ingress),
+    K8S_EXTERNAL of them selector-less with Endpoints in 198.18.0.0/16,
+    the rest selecting an app of their namespace with 1-4 pod backends;
+    K8S_NODES Nodes; ``n_policies`` policy objects, half NetworkPolicies
+    (egress podSelector / namespaceSelector peers with ports, every fourth
+    an ipBlock with an except; some ingress) and half multi-spec CNPs
+    (cross-namespace toEndpoints, K8S_TO_SERVICES specs with toServices on
+    the external services, K8S_TO_FQDNS with toFQDNs). → a dict of the
+    objects by (kind, namespace, name) in the Informer's kind order, and
+    what the phase needs to know of them."""
+    rng = random.Random(seed + 800)
+    n_policies = K8S_POLICIES if n_policies is None else n_policies
+    objs = {}
+
+    def put(obj):
+        meta = obj["metadata"]
+        ns = "" if obj["kind"] in ("Namespace", "Node") else meta.get("namespace", "default")
+        objs[(obj["kind"], ns, meta["name"])] = obj
+
+    n_ns = K8S_NAMESPACES
+    pod_labels = [k8s_pod_labels(rng) for _ in range(N_IDENTITIES)]
+    ns_pods = [[i for i in range(N_IDENTITIES) if i % n_ns == k] for k in range(n_ns)]
+    ns_apps = [sorted({pod_labels[i]["app"] for i in ns_pods[k]}) for k in range(n_ns)]
+
+    # services: the toServices targets, the Ingress targets, the rest
+    n_svc = K8S_SERVICES if n_services is None else n_services
+    order = rng.sample(range(n_svc), K8S_EXTERNAL + K8S_INGRESSES)
+    external, ingress_of = order[:K8S_EXTERNAL], order[K8S_EXTERNAL:]
+    ext_backends = {}
+    svc_names = []
+    for s in range(n_svc):
+        ns = f"ns{s % n_ns}"
+        name = f"svc{s}"
+        svc_names.append((ns, name))
+        if s in ingress_of:
+            port, proto = 8000 + ingress_of.index(s), "TCP"
+            tport = 80
+        else:
+            port, proto = rng.choice(SVC_PORTS)
+            tport = 53 if proto == "UDP" else rng.choice([80, 443, 8080, 5432])
+        spec = {"type": "ClusterIP", "clusterIP": f"10.96.{(s + 1) >> 8}.{(s + 1) & 255}",
+                "ports": [{"name": "p", "port": port, "protocol": proto, "targetPort": tport}]}
+        if s in external:
+            k = external.index(s)
+            ips = [f"198.18.{k}.{j + 1}" for j in range(rng.randint(1, 4))]
+            ext_backends[(ns, name)] = ips
+        else:
+            spec["selector"] = {"app": rng.choice(ns_apps[s % n_ns])}
+            ips = [k8s_v4(i) for i in rng.sample(ns_pods[s % n_ns], rng.randint(1, 4))]
+        put({"kind": "Service", "metadata": {"name": name, "namespace": ns,
+                                             "labels": {"tier": f"t{s % 4}"}}, "spec": spec})
+        put({"kind": "Endpoints", "metadata": {"name": name, "namespace": ns},
+             "subsets": [{"addresses": [{"ip": ip} for ip in ips],
+                          "ports": [{"name": "p", "port": tport, "protocol": proto}]}]})
+    for k, s in enumerate(ingress_of):
+        ns, name = svc_names[s]
+        put({"kind": "Ingress", "metadata": {"name": f"ing{k}", "namespace": ns},
+             "spec": {"backend": {"serviceName": name, "servicePort": 8000 + k}}})
+
+    # policies
+    blocks = [(f"172.{16 + b}.0.0/16", f"172.{16 + b}.{(37 * b + 11) & 255}.0/24")
+              for b in range(K8S_IPBLOCKS)]
+    names = [f"api{k}.example.com" for k in range(K8S_FQDN_NAMES)]
+    ext_ids = [svc_names[s] for s in external]
+    n_np = n_policies // 2
+    n_cnp = n_policies - n_np
+    counts = [rng.randint(1, 4) for _ in range(n_cnp)]
+    while sum(counts) < K8S_TO_SERVICES + K8S_TO_FQDNS + n_cnp:
+        counts[rng.randrange(n_cnp)] += 1
+    kinds = (["svc"] * K8S_TO_SERVICES + ["fqdn"] * K8S_TO_FQDNS
+             + ["ep"] * (sum(counts) - K8S_TO_SERVICES - K8S_TO_FQDNS))
+    rng.shuffle(kinds)
+
+    def port_list(cnp: bool):
+        port, proto = rng.choice(SVC_PORTS)
+        return [{"port": str(port) if cnp else port, "protocol": proto}]
+
+    for j in range(n_np):
+        k = rng.randrange(n_ns)
+        ns = f"ns{k}"
+        sel = ({"app": rng.choice(ns_apps[k])} if rng.random() < 0.6
+               else {"zone": f"z{rng.randrange(8)}"})
+        r = rng.random()
+        if r < 0.4:
+            peer = {"podSelector": {"matchLabels": {"app": rng.choice(ns_apps[k])}}}
+        elif r < 0.7:
+            peer = {"namespaceSelector": {"matchLabels": {"team": f"t{rng.randrange(8)}"}}}
+        else:
+            peer = {"namespaceSelector": {"matchLabels": {"team": f"t{rng.randrange(8)}"}},
+                    "podSelector": {"matchLabels": {"zone": f"z{rng.randrange(8)}"}}}
+        egress = [{"to": [peer]}]
+        if rng.random() < 0.5:
+            egress[0]["ports"] = port_list(False)
+        if j % 4 == 0:
+            cidr, exc = blocks[(j // 4) % K8S_IPBLOCKS]
+            blk = {"to": [{"ipBlock": {"cidr": cidr, "except": [exc]}}]}
+            if rng.random() < 0.5:
+                blk["ports"] = [{"port": 443, "protocol": "TCP"}]
+            egress.append(blk)
+        spec = {"podSelector": {"matchLabels": sel}, "policyTypes": ["Egress"], "egress": egress}
+        if rng.random() < 0.3:
+            spec["policyTypes"] = ["Ingress", "Egress"]
+            spec["ingress"] = [{"from": [{"podSelector": {"matchLabels": {
+                "app": rng.choice(ns_apps[k])}}}], "ports": port_list(False)}]
+        put({"kind": "NetworkPolicy", "apiVersion": "networking.k8s.io/v1",
+             "metadata": {"name": f"np{j}", "namespace": ns}, "spec": spec})
+    it = iter(kinds)
+    for j in range(n_cnp):
+        k = rng.randrange(n_ns)
+        specs = []
+        for _ in range(counts[j]):
+            kind = next(it)
+            sel = ({"app": rng.choice(ns_apps[k])} if kind == "ep" and rng.random() < 0.6
+                   else {"zone": f"z{rng.randrange(8)}"})
+            if kind == "svc":
+                sns, sname = rng.choice(ext_ids)
+                eg = {"toServices": [{"k8sService": {"serviceName": sname, "namespace": sns}}]}
+            elif kind == "fqdn":
+                eg = {"toFQDNs": [{"matchName": rng.choice(names)}]}
+                if rng.random() < 0.5:
+                    eg["toPorts"] = [{"ports": [{"port": "443", "protocol": "TCP"}]}]
+            else:
+                r = rng.random()
+                if r < 0.5:
+                    peer = {"k8s:io.kubernetes.pod.namespace": f"ns{rng.randrange(n_ns)}"}
+                elif r < 0.8:
+                    peer = {"k8s:io.kubernetes.pod.namespace": f"ns{rng.randrange(n_ns)}",
+                            "zone": f"z{rng.randrange(8)}"}
+                else:
+                    peer = {"app": rng.choice(ns_apps[k])}
+                eg = {"toEndpoints": [{"matchLabels": peer}]}
+                if rng.random() < 0.5:
+                    eg["toPorts"] = [{"ports": port_list(True)}]
+            spec = {"endpointSelector": {"matchLabels": sel}, "egress": [eg]}
+            if kind == "ep" and rng.random() < 0.3:
+                spec["ingress"] = [{"fromEndpoints": [{"matchLabels": {
+                    "app": rng.choice(ns_apps[k])}}]}]
+            specs.append(spec)
+        put({"kind": "CiliumNetworkPolicy", "apiVersion": "cilium.io/v2",
+             "metadata": {"name": f"cnp{j}", "namespace": f"ns{k}"}, "specs": specs})
+
+    for i, labels in enumerate(pod_labels):
+        put(k8s_pod(i, labels))
+    for k in range(n_ns):
+        put({"kind": "Namespace", "metadata": {"name": f"ns{k}", "labels": {
+            "team": f"t{k % 8}", "stage": "prod" if k % 2 else "dev"}}})
+    for k in range(K8S_NODES):
+        put({"kind": "Node", "metadata": {"name": f"node-{k}", "labels": {"rack": f"r{k % 2}"}},
+             "spec": {"podCIDR": f"10.{k}.0.0/16"},
+             "status": {"addresses": [{"type": "InternalIP", "address": f"192.168.40.{k + 1}"}]}})
+    answers = {n: ([f"100.64.{k}.{j + 1}" for j in range(1 + k % 2)], K8S_FQDN_TTL)
+               for k, n in enumerate(names)}
+    return {"objects": objs, "blocks": blocks, "names": names, "answers": answers,
+            "external": ext_ids, "ext_backends": ext_backends, "pod_labels": pod_labels}
+
+
+def k8s_snapshot(objs, drop=()):
+    """The objects as one LIST across kinds returns them: the Informer's
+    kind order, each kind's objects in their order; ``drop`` keys left out."""
+    from cilium_tpu_torch.k8s.client import RESOURCES
+
+    by_kind = {k: [] for k in RESOURCES}
+    for key, obj in objs.items():
+        if key not in drop:
+            by_kind[key[0]].append(obj)
+    return [o for k in RESOURCES for o in by_kind[k]]
+
+
+class K8sAgent:
+    """Phase 3r's stand-in for the agent the k8s watcher and the DNS
+    poller drive (the port's Daemon comes with A7c): a Repository, an
+    IdentityRegistry, an IPCache, a PolicyEngine on ``device``, a plain
+    endpoint id -> endpoint map, a ServiceManager on the node's address as
+    ``services``, ``ipam.net`` (the node's pod CIDR, read for the node
+    annotation) and, once built, a DatapathPipeline with ``lb=`` that
+    manager and no conntrack. Its five methods are the ones
+    K8sWatcher and PodOrchestrator call, each doing what the reference
+    Daemon's does (cilium_tpu/daemon.py policy_replace, policy_delete,
+    policy_translate, endpoint_add, endpoint_delete). Each regeneration
+    the daemon would run is counted in ``asks`` instead and run by
+    ``regenerate()`` at a checkpoint."""
+
+    def __init__(self, host_ip: str, pod_cidr: str, device=None):
+        import types
+
+        from cilium_tpu_torch.engine import PolicyEngine
+        from cilium_tpu_torch.identity import IdentityRegistry
+        from cilium_tpu_torch.ipcache.ipcache import IPCache
+        from cilium_tpu_torch.lb import ServiceManager
+        from cilium_tpu_torch.policy.repository import Repository
+
+        self.repo = Repository()
+        self.registry = IdentityRegistry()
+        self.ipcache = IPCache()
+        self.engine = PolicyEngine(self.repo, self.registry, device=device)
+        self.endpoints = {}
+        self.services = ServiceManager(host_ip=host_ip)
+        self.ipam = types.SimpleNamespace(net=ipaddress.ip_network(pod_cidr))
+        self.pipeline = None
+        self.asks = []
+
+    # -- what the watcher calls ------------------------------------------------
+    def policy_replace(self, labels, rules_json: str) -> dict:
+        from cilium_tpu_torch.labels import parse_label_array
+        from cilium_tpu_torch.policy.api.serialization import rules_from_json
+
+        rules = rules_from_json(rules_json)
+        rev, n_deleted = self.repo.replace_by_labels(parse_label_array(labels), rules)
+        self.asks.append("policy replace")
+        return {"revision": rev, "count": len(rules), "deleted": n_deleted}
+
+    def policy_delete(self, labels) -> dict:
+        from cilium_tpu_torch.labels import parse_label_array
+
+        rev, deleted = self.repo.take_by_labels(parse_label_array(labels))
+        if deleted:
+            self.asks.append("policy delete")
+        return {"revision": rev, "deleted": len(deleted)}
+
+    def policy_translate(self, translator) -> dict:
+        rev, n = self.repo.translate_rules(translator)
+        if n:
+            self.asks.append("policy translate")
+        return {"revision": rev, "changed": n}
+
+    def endpoint_add(self, endpoint_id: int, labels, *, ipv4=None, ipv6=None,
+                     pod_name: str = "") -> dict:
+        import types
+
+        from cilium_tpu_torch.ipcache.ipcache import SOURCE_AGENT
+        from cilium_tpu_torch.labels import parse_label_array
+
+        if endpoint_id in self.endpoints:
+            raise ValueError(f"endpoint {endpoint_id} exists")
+        lbls = parse_label_array(labels)
+        ident = self.registry.allocate(lbls)
+        self.endpoints[endpoint_id] = types.SimpleNamespace(
+            id=endpoint_id, labels=lbls, identity=ident, ipv4=ipv4, ipv6=ipv6, pod_name=pod_name)
+        if ipv4:
+            self.ipcache.upsert(f"{ipv4}/32", ident.id, source=SOURCE_AGENT)
+        if ipv6:
+            self.ipcache.upsert(f"{ipv6}/128", ident.id, source=SOURCE_AGENT)
+        self.asks.append("endpoint created")
+        return {"id": endpoint_id, "identity": ident.id, "ipv4": ipv4, "ipv6": ipv6}
+
+    def endpoint_delete(self, endpoint_id: int) -> bool:
+        from cilium_tpu_torch.ipcache.ipcache import SOURCE_AGENT
+
+        ep = self.endpoints.pop(endpoint_id, None)
+        if ep is None:
+            return False
+        if ep.ipv4:
+            self.ipcache.delete(f"{ep.ipv4}/32", SOURCE_AGENT)
+        if ep.ipv6:
+            self.ipcache.delete(f"{ep.ipv6}/128", SOURCE_AGENT)
+        self.registry.release(ep.identity)
+        self.asks.append("endpoint deleted")
+        return True
+
+    # -- the checkpoint --------------------------------------------------------
+    def regenerate(self) -> list:
+        """The regeneration the asks since the last checkpoint stand for:
+        the pipeline's endpoints (by endpoint id) when they moved, the
+        engine's refresh and the pipeline's rebuild. → the asks covered."""
+        eps = [(e.id, e.identity.id) for _, e in sorted(self.endpoints.items())]
+        if eps != list(zip(self.pipeline._endpoint_ids, self.pipeline._endpoints)):
+            self.pipeline.set_endpoints(eps)
+        self.engine.refresh()
+        self.pipeline.rebuild()
+        asks, self.asks = self.asks, []
+        return asks
+
+
+def k8s_expected_frontends(objs, host_ip: str) -> dict:
+    """The LB frontends the Service, Endpoints and Ingress objects define,
+    read from the objects themselves: {(ip, port, protocol): [(backend
+    ip, port), ...]} for every ClusterIP service port (backends from the
+    Endpoints port of the same name), and one frontend on ``host_ip`` per
+    Ingress at its servicePort (the service's one Endpoints port)."""
+    svcs = {(ns, name): o for (kind, ns, name), o in objs.items() if kind == "Service"}
+    eps = {}
+    for (kind, ns, name), o in objs.items():
+        if kind == "Endpoints":
+            subsets = o.get("subsets") or ()
+            ips = list(dict.fromkeys(a["ip"] for s in subsets for a in s.get("addresses") or ()))
+            ports = {(p.get("name") or str(p["port"])): p["port"]
+                     for s in subsets for p in s.get("ports") or ()}
+            eps[(ns, name)] = (ips, ports)
+    want = {}
+    for key, o in svcs.items():
+        cip = o["spec"].get("clusterIP")
+        if not cip or cip == "None":
+            continue
+        for p in o["spec"]["ports"]:
+            ips, ports = eps.get(key, ([], {}))
+            tport = ports.get(p.get("name") or str(p["port"])) or ports.get(str(p["port"]))
+            want[(cip, p["port"], p.get("protocol", "TCP").upper())] = (
+                [(ip, tport) for ip in ips] if tport else [])
+    for (kind, ns, name), o in objs.items():
+        if kind == "Ingress":
+            be = o["spec"]["backend"]
+            ips, ports = eps.get((ns, be["serviceName"]), ([], {}))
+            tport = ports.get(str(be["servicePort"])) or (
+                next(iter(ports.values())) if len(ports) == 1 else None)
+            want[(host_ip, be["servicePort"], "TCP")] = [(ip, tport) for ip in ips] if tport else []
+    return want
+
+
+def k8s_flows(seed: int, cl, subjects, n: int = None):
+    """Phase 3r's v4 egress lanes: a subject pod each (from ``subjects``)
+    and, by ``kind``, a peer among the pods (0, half the lanes), the
+    ClusterIP frontends on their port and protocol (1), the Ingress
+    frontends on the node's address (2), inside (3) and outside (4) an
+    ipBlock's except (``block`` names it), the external services'
+    backends as listed and as step 4 moves them (5), the DNS answers as
+    listed and as step 5 moves them (6), and the world (7).
+    → dict of numpy arrays; ``subj`` is a pod number."""
+    import numpy as np
+
+    nrng = np.random.default_rng(seed + 901)
+    n = BATCH if n is None else n
+
+    def u32(ip):
+        return int(ipaddress.IPv4Address(ip))
+
+    subj = np.asarray(subjects, np.int64)[nrng.integers(0, len(subjects), n)]
+    kind = nrng.choice(8, n, p=[0.50, 0.15, 0.02, 0.05, 0.05, 0.05, 0.08, 0.10])
+    pods = nrng.integers(0, N_IDENTITIES, n).astype(np.uint32)
+    peer = ((np.uint32(10) << 24) | ((pods >> 8) & 255) << 16 | (pods & 255) << 8 | 1).astype(np.uint32)
+    dports = nrng.choice(np.array([80, 443, 8080, 53, 5432, 22], np.int32), n)
+    protos = np.where(dports == 53, 17, 6).astype(np.int32)
+    block = np.full(n, -1, np.int32)
+
+    fes = [(u32(o["spec"]["clusterIP"]), p["port"], 17 if p.get("protocol") == "UDP" else 6)
+           for (k, _ns, _n), o in cl["objects"].items() if k == "Service" for p in o["spec"]["ports"]]
+    fes = np.array(fes, np.int64)
+    m = kind == 1
+    pick = fes[nrng.integers(0, len(fes), int(m.sum()))]
+    peer[m], dports[m], protos[m] = pick[:, 0].astype(np.uint32), pick[:, 1], pick[:, 2]
+    m = kind == 2
+    peer[m] = u32(K8S_HOST_IP)
+    dports[m] = 8000 + nrng.integers(0, K8S_INGRESSES, int(m.sum()))
+    protos[m] = 6
+    for kd in (3, 4):
+        m = np.nonzero(kind == kd)[0]
+        b = nrng.integers(0, K8S_IPBLOCKS, m.size)
+        exc = np.array([int(cl["blocks"][j][1].split(".")[2]) for j in range(K8S_IPBLOCKS)])[b]
+        third = exc if kd == 3 else (exc + nrng.integers(1, 256, m.size)) & 255
+        peer[m] = ((172 << 24) | ((16 + b) << 16) | (third << 8)
+                   | nrng.integers(1, 255, m.size)).astype(np.uint32)
+        block[m] = b
+        dports[m] = nrng.choice(np.array([443, 80], np.int32), m.size)
+        protos[m] = 6
+    m = np.nonzero(kind == 5)[0]
+    peer[m] = ((198 << 24) | ((18 + nrng.integers(0, 2, m.size)) << 16)
+               | (nrng.integers(0, K8S_EXTERNAL, m.size) << 8)
+               | nrng.integers(1, 5, m.size)).astype(np.uint32)
+    dports[m] = nrng.choice(np.array([5432, 80, 443], np.int32), m.size)
+    protos[m] = 6
+    m = np.nonzero(kind == 6)[0]
+    peer[m] = ((100 << 24) | ((64 + nrng.integers(0, 2, m.size)) << 16)
+               | (nrng.integers(0, K8S_FQDN_NAMES, m.size) << 8)
+               | nrng.integers(1, 3, m.size)).astype(np.uint32)
+    dports[m] = nrng.choice(np.array([443, 80], np.int32), m.size)
+    protos[m] = 6
+    m = np.nonzero(kind == 7)[0]
+    peer[m] = ((8 << 24) | nrng.integers(0, 1 << 24, m.size)).astype(np.uint32)
+    sports = nrng.integers(1024, 60001, n)
+    return {"peer": peer, "subj": subj, "dports": dports.astype(np.int32),
+            "protos": protos.astype(np.int32), "sports": sports, "kind": kind, "block": block}
+
+
+def k8s_flows6(seed: int, subjects, n: int = None):
+    """Phase 3r's v6 egress lanes: a subject pod each, peers the pods'
+    fd00::{hi}:{lo} addresses, 1/16 of them in 2001:db8::/32 (the world)."""
+    import numpy as np
+
+    nrng = np.random.default_rng(seed + 906)
+    n = BATCH if n is None else n
+    subj = np.asarray(subjects, np.int64)[nrng.integers(0, len(subjects), n)]
+    pods = nrng.integers(0, N_IDENTITIES, n)
+    world = nrng.random(n) < 1 / 16
+    addr = np.zeros((n, 16), np.int32)
+    addr[:, 0] = 0xFD
+    addr[:, 13] = (pods >> 8) & 255
+    addr[:, 15] = pods & 255
+    addr[world] = nrng.integers(0, 256, (int(world.sum()), 16))
+    addr[world, :4] = (0x20, 0x01, 0x0D, 0xB8)
+    dports = nrng.choice(np.array([80, 443, 8080, 53, 5432, 22], np.int32), n)
+    protos = np.where(dports == 53, 17, 6).astype(np.int32)
+    return {"addr": addr, "subj": subj, "dports": dports.astype(np.int32), "protos": protos,
+            "sports": nrng.integers(1024, 60001, n)}
+
+
+class K8sOracle:
+    """Repository.allows_egress per lane, over the host ipcache's LPM
+    (the world identity where nothing covers the address) and the
+    subject endpoint's identity labels; one answer a (subject, peer
+    identity, dport, proto) key. The rules asked are those that select
+    the subject, in the repository's order: the only ones allows_egress
+    reads for it, so the answer is the whole repository's (a rule whose
+    selector pins another namespace is not asked to match). ``reset()``
+    after every change of the repository, the registry or the ipcache."""
+
+    def __init__(self, agent):
+        from cilium_tpu_torch.identity.model import ID_WORLD
+
+        self.agent = agent
+        self.world = agent.registry.get(ID_WORLD).labels
+        # (subject labels, the candidate rules' ids) -> the subject's rules
+        # as a Repository and its answers: kept while those rules live
+        self.repos = {}
+        self.reset()
+
+    def reset(self):
+        self.peers, self.answers = {}, {}
+        self.by_ns = {}
+        for k, r in enumerate(self.agent.repo.rules):
+            self.by_ns.setdefault(r.endpoint_selector.get_match(K8S_NS_KEY), []).append(k)
+
+    def peer(self, ip: str):
+        """(a key of the peer's identity labels, those labels)."""
+        got = self.peers.get(ip)
+        if got is None:
+            e = self.agent.ipcache.lookup_by_ip(ip)
+            labels = self.agent.registry.get(e.identity).labels if e is not None else self.world
+            got = self.peers[ip] = (tuple(str(x) for x in labels), labels)
+        return got
+
+    def subject(self, ep_id: int):
+        """(the subject's rules as a Repository, its answers by (peer
+        labels, dport, proto)), reused across steps while the rules that
+        could select it are the same objects."""
+        from cilium_tpu_torch.policy.repository import Repository
+
+        got = self.answers.get(ep_id)
+        if got is None:
+            subj = self.agent.endpoints[ep_id].labels
+            ns = next((lb.value for lb in subj if lb.source == "k8s"
+                       and lb.key == K8S_NS_KEY[4:]), None)
+            rules = self.agent.repo.rules
+            cand = [rules[k] for k in sorted(self.by_ns.get(None, []) + (
+                self.by_ns.get(ns, []) if ns is not None else []))]
+            key = (tuple(str(x) for x in subj), tuple(id(r) for r in cand))
+            got = self.repos.get(key)
+            if got is None:
+                sub = Repository()
+                sub.add_list([r for r in cand if r.endpoint_selector.matches(subj)])
+                got = self.repos[key] = (sub, {}, cand)
+            self.answers[ep_id] = got
+        return got
+
+    def allows(self, ep_id: int, ip: str, dport: int, proto: int) -> bool:
+        from cilium_tpu_torch.policy.search import Decision, PortContext, SearchContext
+
+        sub, answers, _held = self.subject(ep_id)
+        pkey, plabels = self.peer(ip)
+        key = (pkey, dport, proto)
+        ok = answers.get(key)
+        if ok is None:
+            pc = PortContext(dport, "UDP" if proto == 17 else "TCP")
+            ok = answers[key] = sub.allows_egress(SearchContext(
+                src=self.agent.endpoints[ep_id].labels, dst=plabels,
+                dports=(pc,))) == Decision.ALLOWED
+        return ok
+
+
+def k8s_selected(cl, ns: str, match: dict):
+    """The pods of namespace ``ns`` whose labels hold ``match``."""
+    k = int(ns[2:])
+    return [i for i, lab in enumerate(cl["pod_labels"])
+            if i % K8S_NAMESPACES == k and all(lab.get(a) == v for a, v in match.items())]
+
+
+def k8s_plan(cl):
+    """What steps 2-6 change, chosen from the cluster: a CNP spec with a
+    zone subject and a namespace peer (step 2), a pod to relabel (3), an
+    external service some toServices spec names (4), a toFQDNs name
+    (5), a NetworkPolicy with an ipBlock and a pod for the resync to
+    lack (6); with the pods each step's rules select."""
+    objs = cl["objects"]
+    cnps = [o for (k, _ns, _n), o in objs.items() if k == "CiliumNetworkPolicy"]
+    ns_key = "k8s:io.kubernetes.pod.namespace"
+    cnp, s_idx = next((o, s) for o in cnps for s, sp in enumerate(o["specs"])
+                      if "zone" in sp["endpointSelector"]["matchLabels"]
+                      and ns_key in (sp["egress"][0].get("toEndpoints") or [{"matchLabels": {}}])[0][
+                          "matchLabels"] and k8s_selected(cl, o["metadata"]["namespace"],
+                                                          sp["endpointSelector"]["matchLabels"]))
+
+    def subjects(pred):
+        return sorted({i for o in cnps for sp in o["specs"] if pred(sp["egress"][0])
+                       for i in k8s_selected(cl, o["metadata"]["namespace"],
+                                             sp["endpointSelector"]["matchLabels"])})
+
+    svc = next(s for s in cl["external"] if subjects(lambda eg: any(
+        (t["k8sService"]["namespace"], t["k8sService"]["serviceName"]) == s
+        for t in eg.get("toServices", ()))))
+    name = next(n for n in cl["names"] if subjects(lambda eg: any(
+        f["matchName"] == n for f in eg.get("toFQDNs", ()))))
+    nps = [k for k in sorted(objs) if k[0] == "NetworkPolicy" and k8s_selected(
+        cl, k[1], objs[k]["spec"]["podSelector"]["matchLabels"])]
+    with_block = [k for k in nps if any(p.get("ipBlock") for eg in objs[k]["spec"]["egress"]
+                                        for p in eg["to"])]
+    np_key = with_block[len(with_block) // 2]
+    np_block = next(p["ipBlock"] for eg in objs[np_key]["spec"]["egress"] for p in eg["to"]
+                    if p.get("ipBlock"))
+    sp = cnp["specs"][s_idx]
+    block_pods = []
+    for cidr, _exc in cl["blocks"]:
+        block_pods.append(sorted({i for k in nps for eg in objs[k]["spec"]["egress"]
+                                  for peer in eg["to"] if peer.get("ipBlock", {}).get("cidr") == cidr
+                                  for i in k8s_selected(cl, k[1], objs[k]["spec"]["podSelector"][
+                                      "matchLabels"])}))
+    tp = sp["egress"][0].get("toPorts")
+    cnp_port = tp[0]["ports"][0] if tp else None
+    cnp_pods = k8s_selected(cl, cnp["metadata"]["namespace"], sp["endpointSelector"]["matchLabels"])
+    k_ns = int(cnp["metadata"]["namespace"][2:])
+    relabel = next(i for i in range(N_IDENTITIES) if i % K8S_NAMESPACES == k_ns
+                   and i not in cnp_pods)
+    return {
+        "cnp": cnp, "spec": s_idx, "cnp_port": cnp_port,
+        "relabel": relabel, "relabel_zone": sp["endpointSelector"]["matchLabels"]["zone"],
+        "cnp_pods": cnp_pods,
+        "peer_ns": sp["egress"][0]["toEndpoints"][0]["matchLabels"][ns_key],
+        "victim": N_IDENTITIES - 1,
+        "svc": svc, "svc_pods": subjects(lambda eg: any(
+            (t["k8sService"]["namespace"], t["k8sService"]["serviceName"]) == svc
+            for t in eg.get("toServices", ()))),
+        "name": name, "name_pods": subjects(lambda eg: any(
+            f["matchName"] == name for f in eg.get("toFQDNs", ()))),
+        "blocks": block_pods,
+        "np": np_key, "np_block": (np_block["cidr"], np_block["except"][0]),
+        "np_pods": k8s_selected(cl, np_key[1], objs[np_key]["spec"]["podSelector"][
+            "matchLabels"]),
+    }
+
+
+K8S_FOCUS = 512  # lanes a step's focus group holds
+
+
+def k8s_focus(seed: int, cl, plan, f4) -> None:
+    """Rewrite lanes K8S_ORACLE onwards: first, for each ipBlock,
+    K8S_BLOCK_LANES lanes inside and as many outside its except, their
+    subjects pods of NetworkPolicies with that block (``f4["block_lanes"]``
+    lists them); then groups aimed at what each step changes (its rules'
+    subjects against its peers, the relabelled and the reaped pod as
+    subject or peer), so that every step moves lanes."""
+    import numpy as np
+
+    rs = np.random.default_rng(seed + 907)
+    groups = []
+
+    def u32(ips):
+        return np.array([int(ipaddress.IPv4Address(ip)) for ip in ips], np.uint32)
+
+    ns_pods = lambda ns: [i for i in range(N_IDENTITIES) if i % K8S_NAMESPACES == int(ns[2:])]
+    k_peer = int(plan["peer_ns"][2:])
+    both = ns_pods(plan["peer_ns"]) + ns_pods(f"ns{(k_peer + 1) % K8S_NAMESPACES}")
+    groups.append((plan["cnp_pods"], u32([k8s_v4(i) for i in both]), plan["cnp_port"]))
+    groups.append(([plan["relabel"]], u32([k8s_v4(i) for i in both]), plan["cnp_port"]))
+    groups.append(([plan["relabel"]], u32([k8s_v4(i) for i in range(N_IDENTITIES)]), None))
+    groups.append((list(range(N_IDENTITIES - 1)), u32([k8s_v4(plan["relabel"])]), None))
+    k = cl["external"].index(plan["svc"])
+    old = cl["ext_backends"][plan["svc"]]
+    svc = cl["objects"][("Service",) + plan["svc"]]["spec"]
+    ips = old + [f"198.19.{k}.{j + 1}" for j in range(len(old))]
+    groups.append((plan["svc_pods"], u32(ips), None))
+    groups.append((plan["svc_pods"], u32([svc["clusterIP"]]), svc["ports"][0]))
+    kn = cl["names"].index(plan["name"])
+    ans = cl["answers"][plan["name"]][0]
+    groups.append((plan["name_pods"], u32(ans + [f"100.65.{kn}.{j + 1}" for j in range(len(ans))]),
+                   None))
+    cidr, exc = plan["np_block"]
+    outside = [str(a) for a in list(ipaddress.ip_network(cidr).hosts())[::97]
+               if a not in ipaddress.ip_network(exc)]
+    groups.append((plan["np_pods"], u32(outside), {"port": 443, "protocol": "TCP"}))
+    groups.append((list(range(N_IDENTITIES - 1)), u32([k8s_v4(plan["victim"])]), None))
+    lo = K8S_ORACLE
+    f4["block_lanes"] = []
+    for b, (cidr, exc) in enumerate(cl["blocks"]):
+        subj = [i for i in plan["blocks"][b] if i != plan["victim"]] or [0]
+        base, third = int(ipaddress.IPv4Address(cidr.split("/")[0])), int(exc.split(".")[2])
+        for kd in (3, 4):
+            sl = slice(lo, lo + K8S_BLOCK_LANES)
+            t = third if kd == 3 else (third + rs.integers(1, 256, K8S_BLOCK_LANES)) & 255
+            f4["subj"][sl] = np.asarray(subj, np.int64)[rs.integers(0, len(subj), K8S_BLOCK_LANES)]
+            f4["peer"][sl] = (base | (t << 8) | rs.integers(1, 255, K8S_BLOCK_LANES)).astype(np.uint32)
+            f4["dports"][sl], f4["protos"][sl] = 443, 6
+            f4["kind"][sl], f4["block"][sl] = kd, b
+            f4["block_lanes"] += list(range(lo, lo + K8S_BLOCK_LANES))
+            lo += K8S_BLOCK_LANES
+    for subj, peers, port in groups:
+        subj = [i for i in subj if i != plan["victim"]]
+        sl = slice(lo, lo + K8S_FOCUS)
+        f4["subj"][sl] = np.asarray(subj, np.int64)[rs.integers(0, len(subj), K8S_FOCUS)]
+        f4["peer"][sl] = peers[rs.integers(0, len(peers), K8S_FOCUS)]
+        if port is None:
+            f4["dports"][sl] = rs.choice(np.array([443, 80, 5432, 8080], np.int32), K8S_FOCUS)
+            f4["protos"][sl] = 6
+        else:
+            f4["dports"][sl] = int(port["port"])
+            f4["protos"][sl] = 17 if port.get("protocol") == "UDP" else 6
+        f4["kind"][sl] = 8
+        f4["block"][sl] = -1
+        lo += K8S_FOCUS
+
+
+def k8s_main_path(seed: int, card: str, dev=None):
+    """Phase 3r: the Kubernetes and DNS policy sources (A9b1 + A9b2) on the
+    card. k8s_cluster's objects go through K8sWatcher into K8sAgent (the
+    five daemon methods; a PolicyEngine, a DatapathPipeline with the
+    ServiceManager as its LB and no conntrack), and a DNSPoller with a
+    seeded resolver answers the toFQDNs names. Six steps, each ended by a
+    checkpoint (the CIDR identities of the rules' prefixes, then the
+    agent's refresh + rebuild) and a 1 048 576-flow v4 egress batch with
+    services (K3, K4, K9); steps 1 and 4 also a v6 batch (K5, K4):
+    1. a resync of every object in the Informer's kind order, and a poll;
+    2. a MODIFIED CNP whose spec swaps its peer namespace, then the same
+       object with only its status changed (no revision, no ask, no launch);
+    3. a pod deleted and added again with other labels;
+    4. a toServices target's Endpoints moved to other addresses;
+    5. a toFQDNs name's answer moved, poll_once after the old TTL;
+    6. a resync whose snapshot lacks one NetworkPolicy and one pod.
+    Checks at each step: the batch's verdicts, redirects, the LB stage's
+    translation and revNAT ids on the first K8S_PLAIN_SLICE lanes equal
+    the plain versions over the same tables on the CPU; K8S_ORACLE lanes
+    and lanes inside and outside each ipBlock's except equal the host
+    oracle (v6: K8S_ORACLE lanes); from step 2 on, every lane whose
+    verdict, translation or revNAT id moved is one the step touched (its
+    subject selected by a rule that changed or its endpoint moved, its
+    peer under a changed ipcache prefix before or after translation, its
+    frontend's backends changed), every touched lane equals the oracle,
+    and some lane flipped; the LB frontends equal what the objects
+    define. The caller set the launch counts to 0; the phase fails past
+    K8S_PHASE_LIMIT_S."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch import _kernels
+    from cilium_tpu_torch.datapath.pipeline import (
+        DROP_NO_SERVICE, TRAFFIC_EGRESS, DatapathPipeline, process_flows_wide,
+    )
+    from cilium_tpu_torch.fqdn import DNSPoller
+    from cilium_tpu_torch.ipcache.ipcache import SOURCE_GENERATED
+    from cilium_tpu_torch.k8s import K8sWatcher
+    from cilium_tpu_torch.labels import LabelArray
+    from cilium_tpu_torch.labels.cidr import cidr_labels
+    from cilium_tpu_torch.lb.device import flow_hash32, lb_translate
+    from cilium_tpu_torch.ops.lpm import ipv4_to_bytes
+    from cilium_tpu_torch.policy.api.serialization import rule_to_dict
+    from cilium_tpu_torch.policy.cidr import compute_resultant_cidr_set
+
+    t_phase = time.perf_counter()
+    cl = k8s_cluster(seed)
+    t_cluster = time.perf_counter() - t_phase
+    objs = dict(cl["objects"])
+    plan = k8s_plan(cl)
+    victim, relabelled = plan["victim"], plan["relabel"]
+    subjects = [i for i in range(N_IDENTITIES) if i != victim]
+    f4 = k8s_flows(seed, cl, subjects)
+    k8s_focus(seed, cl, plan, f4)
+    f6 = k8s_flows6(seed, subjects)
+    agent = K8sAgent(K8S_HOST_IP, "10.0.0.0/16", device=dev)
+    agent.pipeline = pipe = DatapathPipeline(agent.engine, agent.ipcache, lb=agent.services,
+                                             device=dev)
+    watcher = K8sWatcher(agent)
+    watcher.node_name = K8S_NODE
+    answers = dict(cl["answers"])
+    poller = DNSPoller(agent.repo, resolver=lambda name: answers.get(name, ([], 0.0)),
+                       on_change=lambda rev: agent.asks.append("fqdn translate"))
+    now0 = 1000.0
+    oracle = K8sOracle(agent)
+    cidr_ids = {}
+    steps = []
+    print(f"k8s setup: the cluster's objects {t_cluster!r}s, plan, flows and the agent "
+          f"{time.perf_counter() - t_phase - t_cluster!r}s [{card}]", flush=True)
+
+    def pod_of(ep_id: int) -> int:
+        return int(agent.endpoints[ep_id].pod_name.split("/p")[1])
+
+    def ep_index(subj):
+        pos = {pid: k for k, pid in enumerate(pipe._endpoint_ids)}
+        of_pod = np.full(N_IDENTITIES, -1, np.int64)
+        for ep_id in agent.endpoints:
+            of_pod[pod_of(ep_id)] = pos[ep_id]
+        idx = of_pod[subj]
+        if (idx < 0).any():
+            fail("k8s: a lane's subject pod has no endpoint in the pipeline")
+        return idx.astype(np.int32)
+
+    def sync_cidrs() -> None:
+        """A local identity with the prefix's cidr: labels, in the ipcache
+        at source generated, for every prefix the rules allow: the CIDR
+        identities an agent's ipcache holds for CIDR policy (the Daemon
+        leaves them to its caller)."""
+        want = set()
+        for r in agent.repo.rules:
+            for eg in r.egress:
+                want.update(str(ipaddress.ip_network(c, strict=False)) for c in eg.to_cidr)
+                want.update(compute_resultant_cidr_set(eg.to_cidr_set))
+            for ing in r.ingress:
+                want.update(str(ipaddress.ip_network(c, strict=False)) for c in ing.from_cidr)
+                want.update(compute_resultant_cidr_set(ing.from_cidr_set))
+        for p in sorted(set(cidr_ids) - want):
+            agent.ipcache.delete(p, SOURCE_GENERATED)
+            agent.registry.release(cidr_ids.pop(p))
+        for p in sorted(want - set(cidr_ids)):
+            ident = agent.registry.allocate(LabelArray(cidr_labels(p)), local=True)
+            if not agent.ipcache.upsert(p, ident.id, source=SOURCE_GENERATED):
+                fail(f"k8s: the CIDR identity of {p} lost to a higher ipcache source")
+            cidr_ids[p] = ident
+
+    def run4():
+        eps = ep_index(f4["subj"])
+        seen = []
+        real = pipe._lb_stage
+
+        def lb_stage(lbt, fl, sports):
+            got = real(lbt, fl, sports)
+            seen.append((pack_u32(fl.bytes_()), np.array(fl.dports, copy=True), got))
+            return got
+
+        pipe._lb_stage = lb_stage
+        try:
+            v, red = pipe.process(f4["peer"], eps, f4["dports"], f4["protos"], ingress=False,
+                                  sports=f4["sports"])
+        finally:
+            del pipe._lb_stage
+        if len(seen) != 1 or seen[0][2][0] is None:
+            fail("k8s: the v4 egress batch did not go through one LB stage that translated")
+        peer_t, dport_t, (drop, revnat) = seen[0]
+        return {"v": v, "red": red, "peer": peer_t, "dport": dport_t, "drop": drop,
+                "revnat": revnat, "eps": eps}
+
+    def run6():
+        eps = ep_index(f6["subj"])
+        v, red = pipe.process_v6(f6["addr"], eps, f6["dports"], f6["protos"], ingress=False,
+                                 sports=f6["sports"])
+        return {"v": v, "red": red, "eps": eps}
+
+    def plain4(r) -> None:
+        """The pipeline's no-CT egress path over its own tables on the
+        CPU, where each wrapper runs its plain version, on the slice."""
+        n = K8S_PLAIN_SLICE
+
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a).astype(np.int32))
+
+        with uncounted():
+            pb = ipv4_to_bytes(f4["peer"][:n])
+            ep_ids = np.asarray(pipe._endpoint_ids, np.int64)[r["eps"][:n]]
+            fh = flow_hash32(pb, f4["sports"][:n], f4["dports"][:n], f4["protos"][:n], ep_ids)
+            nb, npo, rv, _ok, nobk = lb_translate(tables_on_cpu(pipe._lb_tables[4]), t(pb),
+                                                  t(f4["dports"][:n]), t(f4["protos"][:n]), t(fh))
+            peer_t = pack_u32(nb.numpy())
+            v, red, _c = process_flows_wide(
+                tables_on_cpu(pipe._tables[(TRAFFIC_EGRESS, 4)]), t(peer_t.view(np.int32)),
+                t(r["eps"][:n]), npo.to(torch.int32), t(f4["protos"][:n]),
+                ep_count=max(1, len(pipe._endpoints)), prefilter=False)[:3]
+        nobk = nobk.numpy().astype(bool)
+        v = np.where(nobk, np.int8(DROP_NO_SERVICE), v.numpy())
+        red = red.numpy() & ~nobk
+        for what, got, want in (("verdicts", r["v"][:n], v), ("redirects", r["red"][:n], red),
+                                ("translated peers", r["peer"][:n], peer_t),
+                                ("translated ports", r["dport"][:n], npo.numpy()),
+                                ("no-backend drops", r["drop"][:n], nobk),
+                                ("revNAT ids", r["revnat"][:n], rv.numpy())):
+            bad = np.nonzero(np.asarray(got).astype(np.int64) != np.asarray(want).astype(np.int64))[0]
+            if bad.size:
+                fail(f"k8s: v4 {what} differ from the plain path on {bad.size} of {n} lanes "
+                     f"(first {int(bad[0])})")
+
+    def plain6(r) -> None:
+        with uncounted():
+            got = plain_slice(pipe._tables[(TRAFFIC_EGRESS, 6)], pipe._v6_fused,
+                              max(1, len(pipe._endpoints)), 6,
+                              [a[:K8S_PLAIN_SLICE] for a in (f6["addr"], r["eps"], f6["dports"],
+                                                              f6["protos"])])
+        n = len(got[0])
+        if not (np.array_equal(r["v"][:n], got[0]) and np.array_equal(r["red"][:n], got[1])):
+            fail("k8s: the v6 verdicts or redirects differ from the plain path")
+
+    def want4(r, lanes):
+        """The oracle's verdict of each v4 lane: DROP_NO_SERVICE for a
+        frontend without backends, else 1 (allowed) or 2; one answer a
+        distinct (endpoint, peer, dport, proto)."""
+        lanes = np.asarray(lanes, np.int64)
+        keys = np.stack([r["eps"][lanes].astype(np.int64), r["peer"][lanes].astype(np.int64),
+                         r["dport"][lanes].astype(np.int64), f4["protos"][lanes].astype(np.int64)], 1)
+        uniq, inv = np.unique(keys, axis=0, return_inverse=True)
+        ids = pipe._endpoint_ids
+        ans = np.array([1 if oracle.allows(ids[int(e)], str(ipaddress.IPv4Address(int(p))),
+                                           int(d), int(q)) else 2 for e, p, d, q in uniq], np.int8)
+        out = ans[inv.reshape(-1)]
+        out[np.asarray(r["drop"][lanes], bool)] = DROP_NO_SERVICE
+        return out
+
+    def sampled(r4, r6, label):
+        blk = f4["block_lanes"]
+        lanes = list(range(K8S_ORACLE)) + blk
+        want = want4(r4, lanes)
+        got = r4["v"][lanes]
+        if not np.array_equal(got, want):
+            i = int(np.nonzero(got != want)[0][0])
+            fail(f"k8s: step {label}: v4 lane {lanes[i]} (kind {int(f4['kind'][lanes[i]])}) "
+                 f"verdict {int(got[i])}, oracle {int(want[i])}")
+        inside = [i for i in blk if f4["kind"][i] == 3]
+        outside = [i for i in blk if f4["kind"][i] == 4]
+        if r6 is not None:
+            ids = pipe._endpoint_ids
+            for i in range(K8S_ORACLE):
+                ip = str(ipaddress.IPv6Address(bytes(int(x) for x in f6["addr"][i])))
+                ok = oracle.allows(ids[int(r6["eps"][i])], ip, int(f6["dports"][i]),
+                                   int(f6["protos"][i]))
+                if int(r6["v"][i]) != (1 if ok else 2):
+                    fail(f"k8s: step {label}: v6 lane {i} ({ip}) verdict {int(r6['v'][i])}, "
+                         f"oracle {1 if ok else 2}")
+        return len(lanes), (np.bincount(r4["v"][inside], minlength=3)[1:3].tolist(),
+                            np.bincount(r4["v"][outside], minlength=3)[1:3].tolist())
+
+    def frontends_check(label) -> int:
+        got = {(s.frontend.ip, s.frontend.port, s.frontend.protocol):
+               [(b.ip, b.port) for b in s.backends] for s in agent.services.list()}
+        want = k8s_expected_frontends(objs, K8S_HOST_IP)
+        if got != want:
+            diff = sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))[:3]
+            fail(f"k8s: step {label}: the LB frontends differ from the objects' ({len(got)} "
+                 f"against {len(want)}; first {diff})")
+        return len(got)
+
+    def state():
+        return {"rules": [json.dumps(rule_to_dict(r), sort_keys=True) for r in agent.repo.rules],
+                "rule_objs": list(agent.repo.rules),
+                "ipcache": dict(agent.ipcache.items()),
+                "lb": {s.frontend: s.backends for s in agent.services.list()},
+                "eps": {pod_of(e.id): (e.id, e.identity.id, e.labels)
+                        for e in agent.endpoints.values()}}
+
+    def touched(before, after, r_old, r_new):
+        """Lanes a step may move: the subject selected by a rule that
+        changed or its endpoint moved, the peer (before or after
+        translation) under an ipcache prefix that changed, the
+        destination a frontend whose backends changed."""
+        cand = np.zeros(BATCH, bool)
+        old, new = set(before["rules"]), set(after["rules"])
+        changed = [r for r, j in zip(before["rule_objs"], before["rules"]) if j not in new]
+        changed += [r for r, j in zip(after["rule_objs"], after["rules"]) if j not in old]
+        pods = {p for p in set(before["eps"]) | set(after["eps"])
+                if before["eps"].get(p) != after["eps"].get(p)}
+        for st in (before, after):
+            for p, (_e, _i, labels) in st["eps"].items():
+                if any(r.endpoint_selector.matches(labels) for r in changed):
+                    pods.add(p)
+        if pods:
+            cand |= np.isin(f4["subj"], np.fromiter(pods, np.int64))
+        moved = [p for p in set(before["ipcache"]) | set(after["ipcache"])
+                 if before["ipcache"].get(p) != after["ipcache"].get(p)]
+        for p in moved:
+            net = ipaddress.ip_network(p)
+            if net.version == 4:
+                mask = np.uint32((0xFFFFFFFF << (32 - net.prefixlen)) & 0xFFFFFFFF)
+                base = np.uint32(int(net.network_address))
+                for peer in (r_old["peer"], r_new["peer"], f4["peer"]):
+                    cand |= (peer & mask) == base
+        n_fe = 0
+        for fe in set(before["lb"]) | set(after["lb"]):
+            if before["lb"].get(fe) != after["lb"].get(fe) and fe.family == 4:
+                n_fe += 1
+                hit = ((f4["peer"] == np.uint32(int(ipaddress.IPv4Address(fe.ip))))
+                       & (f4["dports"] == fe.port))
+                if fe.proto_num:
+                    hit &= f4["protos"] == fe.proto_num
+                cand |= hit
+        return cand, {"rules": len(changed), "pods": len(pods), "prefixes": len(moved),
+                      "frontends": n_fe}
+
+    def flips(label, before, after, r_old, r_new):
+        cand, why = touched(before, after, r_old, r_new)
+        moved = r_new["v"] != r_old["v"]
+        out = (moved | (r_old["peer"] != r_new["peer"]) | (r_old["dport"] != r_new["dport"])
+               | (r_old["revnat"] != r_new["revnat"]) | (r_old["red"] != r_new["red"])) & ~cand
+        if out.any():
+            i = int(np.nonzero(out)[0][0])
+            fail(f"k8s: step {label}: {int(out.sum())} lanes the step did not touch moved (first "
+                 f"{i}: kind {int(f4['kind'][i])}, verdict {int(r_old['v'][i])} -> "
+                 f"{int(r_new['v'][i])})")
+        lanes = np.nonzero(cand)[0]
+        want = want4(r_new, lanes)
+        bad = np.nonzero(r_new["v"][lanes] != want)[0]
+        if bad.size:
+            i = int(lanes[bad[0]])
+            fail(f"k8s: step {label}: {bad.size} touched lanes differ from the oracle (first {i}: "
+                 f"kind {int(f4['kind'][i])}, verdict {int(r_new['v'][i])}, oracle "
+                 f"{int(want[bad[0]])})")
+        if not moved.any():
+            fail(f"k8s: step {label} flipped no lane")
+        return {"touched": int(cand.sum()), "flipped": int(moved.sum()),
+                "to_drop": int((moved & (r_old["v"] == 1)).sum()),
+                "to_allow": int((moved & (r_new["v"] == 1)).sum()), "changed": why}
+
+    def step(label, event, *, v6: bool = False, prev=None):
+        """``event``, then the checkpoint, the batches and the checks."""
+        before = state() if prev is not None else None
+        l0 = _kernels.launches()
+        t0 = time.perf_counter()
+        info = event()
+        t_event = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        sync_cidrs()
+        t_cidr = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        asks = agent.regenerate()
+        if dev is None:
+            torch.cuda.synchronize()
+        t_regen = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        r4 = run4()
+        t_batch = time.perf_counter() - t1
+        t_first = time.perf_counter() - t0
+        r6 = run6() if v6 else None
+        launches = launch_delta(l0)
+        oracle.reset()
+        t1 = time.perf_counter()
+        plain4(r4)
+        if r6 is not None:
+            plain6(r6)
+        t_plain = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        n_or, blk = sampled(r4, r6, label)
+        n_fe = frontends_check(label)
+        t_oracle = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        fl = flips(label, before, state(), prev, r4) if prev is not None else None
+        t_flips = time.perf_counter() - t1
+        by_ask = {a: asks.count(a) for a in dict.fromkeys(asks)}
+        print(f"k8s step {label}: {info}; event {t_event!r}s, CIDR identities {t_cidr!r}s, "
+              f"checkpoint (refresh + rebuild) {t_regen!r}s covering {len(asks)} asks {by_ask}, "
+              f"v4 batch {t_batch!r}s: event to first verdict {t_first!r}s; launches {launches}; "
+              f"v4 verdicts {np.bincount(r4['v'], minlength=5)[1:].tolist()} (allow, drop, "
+              f"prefilter, no service), {int((r4['revnat'] != 0).sum())} translated; ipBlock lanes "
+              f"inside / outside the except (allow, drop) {blk}; {len(cidr_ids)} CIDR identities; "
+              f"{n_fe} LB frontends == the objects'; {K8S_PLAIN_SLICE} lanes == the plain path"
+              f"{' (v4 and v6)' if v6 else ''}; {n_or} v4 lanes"
+              f"{f' and {K8S_ORACLE} v6' if v6 else ''} == the oracle"
+              + (f"; {fl}" if fl else "") + f"; checks: plain path {t_plain!r}s, sampled "
+              f"oracle and frontends {t_oracle!r}s, touched lanes {t_flips!r}s [{card}]", flush=True)
+        steps.append({"step": label, "first_s": t_first, "asks": len(asks), "launches": launches})
+        return r4, asks
+
+    # -- 1. the initial sync --------------------------------------------------------
+    clock = {"policy_replace": 0.0, "policy_translate": 0.0, "sync_from_registry": 0.0}
+
+    def timed_on(obj, name):
+        real = getattr(obj, name)
+
+        def call(*a, **k):
+            t = time.perf_counter()
+            try:
+                return real(*a, **k)
+            finally:
+                clock[name] += time.perf_counter() - t
+        setattr(obj, name, call)
+        return lambda: delattr(obj, name)
+
+    def initial_sync():
+        undo = [timed_on(agent, "policy_replace"), timed_on(agent, "policy_translate"),
+                timed_on(agent.services, "sync_from_registry")]
+        t0 = time.perf_counter()
+        try:
+            watcher.resync(k8s_snapshot(objs))
+        finally:
+            for u in undo:
+                u()
+        t_sync = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        changed = poller.poll_once(now=now0)
+        t_poll = time.perf_counter() - t0
+        n_kind = collections.Counter(key[0] for key in objs)
+        print(f"k8s sync: objects {dict(n_kind)} ({sum(len(o['specs']) for (k, _a, _b), o in objs.items() if k == 'CiliumNetworkPolicy')} "
+              f"CNP specs, {K8S_TO_SERVICES} with toServices, {K8S_TO_FQDNS} with toFQDNs) -> "
+              f"{len(agent.repo.rules)} rules, {len(agent.endpoints)} endpoints, "
+              f"{len(watcher.nodes)} nodes; resync {t_sync!r}s: in policy_replace "
+              f"{clock['policy_replace']!r}s, in policy_translate + the LB sync "
+              f"{clock['policy_translate'] + clock['sync_from_registry']!r}s (translate "
+              f"{clock['policy_translate']!r}s, sync_from_registry "
+              f"{clock['sync_from_registry']!r}s), the rest "
+              f"{t_sync - sum(clock.values())!r}s; the first poll {t_poll!r}s re-translated "
+              f"{changed} rules [{card}]", flush=True)
+        if len(agent.endpoints) != N_IDENTITIES or len(watcher.nodes) != K8S_NODES:
+            fail(f"k8s: the sync left {len(agent.endpoints)} endpoints, {len(watcher.nodes)} nodes")
+        return {"resync_s": t_sync, "poll_s": t_poll}
+
+    r1, _ = step(1, initial_sync, v6=True)
+
+    # -- 2. a MODIFIED CNP that swaps its peer, then a status-only change ---------
+    cnp = plan["cnp"]
+    key_cnp = ("CiliumNetworkPolicy", cnp["metadata"]["namespace"], cnp["metadata"]["name"])
+    mod = copy.deepcopy(cnp)
+    new_ns = f"ns{(int(plan['peer_ns'][2:]) + 1) % K8S_NAMESPACES}"
+    mod["specs"][plan["spec"]]["egress"][0]["toEndpoints"][0]["matchLabels"][
+        "k8s:io.kubernetes.pod.namespace"] = new_ns
+
+    def modify():
+        objs[key_cnp] = mod
+        watcher.apply(mod)
+        return {"cnp": key_cnp[1:], "peer": f"{plan['peer_ns']} -> {new_ns}"}
+
+    r2, asks = step(2, modify, prev=r1)
+    if asks != ["policy replace"]:
+        fail(f"k8s: the MODIFIED CNP asked {asks}, one policy replace expected")
+    status = dict(mod, status={"nodes": {K8S_NODE: {"ok": True, "enforcing": True}}})
+    rev, l0 = agent.repo.revision, _kernels.launches()
+    t0 = time.perf_counter()
+    watcher.apply(status)
+    t_status = time.perf_counter() - t0
+    objs[key_cnp] = status
+    if agent.repo.revision != rev or agent.asks or _kernels.launches() != l0:
+        fail(f"k8s: the status-only MODIFIED moved the revision {rev} -> {agent.repo.revision}, "
+             f"asked {agent.asks} or launched {launch_delta(l0)}")
+    print(f"k8s step 2b: the same CNP with only its status changed: {t_status!r}s, revision "
+          f"{rev} kept, no regeneration asked, no launch [{card}]", flush=True)
+
+    # -- 3. a pod deleted and added again with other labels ------------------------
+    key_pod = ("Pod", f"ns{relabelled % K8S_NAMESPACES}", f"p{relabelled}")
+    old_pod = objs[key_pod]
+    lab = old_pod["metadata"]["labels"]
+    new_pod = k8s_pod(relabelled, dict(lab, app=f"a{(int(lab['app'][1:]) + 1) % N_APPS}",
+                                       zone=plan["relabel_zone"]))
+
+    def relabel():
+        before = agent.ipcache.lookup_exact(f"{k8s_v4(relabelled)}/32").identity
+        watcher.delete(old_pod)
+        watcher.apply(new_pod)
+        objs[key_pod] = new_pod
+        after = agent.ipcache.lookup_exact(f"{k8s_v4(relabelled)}/32").identity
+        if after == before:
+            fail("k8s: the relabelled pod kept its identity")
+        return {"pod": key_pod[1:], "identity": f"{before} -> {after}"}
+
+    r3, asks = step(3, relabel, prev=r2)
+    if sorted(asks) != ["endpoint created", "endpoint deleted"]:
+        fail(f"k8s: the pod's delete and add asked {asks}")
+
+    # -- 4. a toServices target's Endpoints move ----------------------------------
+    key_ep = ("Endpoints",) + plan["svc"]
+    k_ext = cl["external"].index(plan["svc"])
+    old_ips = cl["ext_backends"][plan["svc"]]
+    new_ips = [f"198.19.{k_ext}.{j + 1}" for j in range(len(old_ips))]
+    new_ep = copy.deepcopy(objs[key_ep])
+    new_ep["subsets"][0]["addresses"] = [{"ip": ip} for ip in new_ips]
+
+    def move_backends():
+        objs[key_ep] = new_ep
+        watcher.apply(new_ep)
+        return {"service": plan["svc"], "backends": f"{old_ips} -> {new_ips}"}
+
+    r4, asks = step(4, move_backends, v6=True, prev=r3)
+    if asks != ["policy translate"]:
+        fail(f"k8s: the Endpoints move asked {asks}, one policy translate expected")
+    vip = f4["peer"] == np.uint32(int(ipaddress.IPv4Address(
+        objs[("Service",) + plan["svc"]]["spec"]["clusterIP"])))
+    new_u32 = np.array([int(ipaddress.IPv4Address(ip)) for ip in new_ips], np.int64)
+    if not vip.any() or not np.isin(r4["peer"][vip], new_u32).all():
+        fail("k8s: K9 did not send the moved service's frontend lanes to its new backends")
+
+    # -- 5. a toFQDNs name's answer moves -----------------------------------------
+    name = plan["name"]
+    k_name = cl["names"].index(name)
+    old_ans = answers[name][0]
+    new_ans = [f"100.65.{k_name}.{j + 1}" for j in range(len(old_ans))]
+
+    def move_answer():
+        answers[name] = (new_ans, K8S_FQDN_TTL)
+        changed = poller.poll_once(now=now0 + 2 * K8S_FQDN_TTL)
+        return {"name": name, "answer": f"{old_ans} -> {new_ans}", "rules": changed}
+
+    r5, asks = step(5, move_answer, prev=r4)
+    if asks != ["fqdn translate"]:
+        fail(f"k8s: the DNS move asked {asks}, one fqdn translate expected")
+
+    # -- 6. a resync that lacks one policy and one pod ------------------------------
+    key_victim = ("Pod", f"ns{victim % K8S_NAMESPACES}", f"p{victim}")
+
+    def reap():
+        t0 = time.perf_counter()
+        watcher.resync(k8s_snapshot(objs, drop=(plan["np"], key_victim)))
+        t = time.perf_counter() - t0
+        objs.pop(plan["np"])
+        objs.pop(key_victim)
+        if key_victim[1:] in watcher.pods.known_pods() or any(
+                n == plan["np"][2] and ns == plan["np"][1]
+                for n, ns in watcher._known_policy_labels()):
+            fail("k8s: the resync did not reap the policy and the pod it lacked")
+        return {"reaped": [plan["np"][1:], key_victim[1:]], "resync_s": t}
+
+    _r6, asks = step(6, reap, prev=r5)
+    if sorted(asks) != ["endpoint deleted", "policy delete"]:
+        fail(f"k8s: the reaping resync asked {asks}")
+
+    wall = time.perf_counter() - t_phase
+    print(f"k8s: event to first verdict by step {[round(s['first_s'], 6) for s in steps]} s, "
+          f"asks by checkpoint {[s['asks'] for s in steps]}; phase in {wall:.2f}s (limit "
+          f"{K8S_PHASE_LIMIT_S:.0f}s) [{card}]", flush=True)
+    if wall > K8S_PHASE_LIMIT_S:
+        fail(f"k8s: phase in {wall:.2f}s, over its {K8S_PHASE_LIMIT_S:.0f}s limit")
+    return steps
+
+
 def collections_counter(xs) -> dict:
     """{value: count} of ``xs``, sorted by value."""
     import numpy as np
@@ -9156,6 +10349,15 @@ def main() -> None:
     watch.check("after the fleet phase", faults_expected)
 
     phase("3q fleet observability")
+
+    # -- 3r. the Kubernetes and DNS policy sources, counts from zero -----
+    _kernels.reset_launches()
+    k8s_main_path(args.seed, card)
+    check_path("k8s", ["selector_match", "bool_mm", "lpm_wide", "lpm_stride8",
+                       "policymap_verdict", "lb_index_build", "lb_translate"])
+    watch.check("after the k8s phase", faults_expected)
+
+    phase("3r k8s and DNS policy sources")
 
     # -- 5. each kernel against its plain version on the card ------------
     compiled, device = engine.snapshot()
