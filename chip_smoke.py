@@ -365,6 +365,35 @@
    checkpoint, event to first verdict) and asks, the resync's time in
    policy_replace and in policy_translate + the LB sync, and the
    launches; fails past 45 s.
+4s. The external proxy and its xDS channel, launch counts from zero
+   (external_proxy_main_path): phase 3d's redirect world. The path
+   under test is the child's request path, on the host of another
+   process: it launches no kernel here, and the phase fails if a count
+   moved. Into an xds.ResourceCache go the NPDS resources
+   (endpoint_policy_resource) of the endpoints regenerated on the card
+   and of the world's Kafka redirect, as many as keep their listeners
+   under half the child's RLIMIT_NOFILE, and NPHDS rows mapping
+   127.0.1.1-64 to the 64 most frequent source identities of the
+   requests; 127.0.2.1 stays unmapped (the world). An XDSServer serves
+   them on a unix socket, an AccessLogSocketServer collects the log. An
+   unmodified ProxyLauncher child with no --device (the card) is
+   spawned after the publication: spawn to the ACKs. The requests: 280
+   of each of the 4 largest (endpoint, port) groups of phase 3d's set
+   (1 120; paths past 256 bytes among them), each over a keep-alive
+   HTTP/1.1 connection per (source alias, proxy port), an identity past
+   the 64 and every 16th request from the unmapped alias; 8 Kafka
+   produce frames of 32-33 topics to the Kafka redirect from a mapped
+   and the unmapped alias. The card's check_batch of the same requests
+   a group (and of each frame's topics), L7DeviceBatch off then on
+   (equal; uncounted, the oracle's launches printed apart), decides:
+   every 200 / 403 and Kafka ack / reject of the child equals it, and
+   the streamed records equal the requests in number and verdict. Then
+   one endpoint's resource without the rule that alone allows most of
+   its group's requests (push to ACK): the requests the card flips flip
+   in the child, the rest do not. Then a SIGKILL: one restart, kill to
+   the first request it serves 200 (a request no rule allows the
+   world), every listener bound, and the same answers again. Fails past
+   45 s.
 5. Holds every kernel against its plain version on the card, at the
    main paths' shapes, with exact equality (all outputs are integers),
    and times kernel, plain version and, where one exists, a library
@@ -9763,6 +9792,463 @@ def k8s_main_path(seed: int, card: str, dev=None):
     return steps
 
 
+# -- 3s. the external proxy and its xDS channel -------------------------------------
+
+# two child starts, each mostly a fresh interpreter's import torch
+# (tools/proxy_child_start.py, PERF.md §7), and three rounds
+EXTERNAL_PHASE_LIMIT_S = 45.0
+EXTERNAL_GROUPS = 4  # the largest (endpoint, port) request groups of phase 3d's set
+EXTERNAL_GROUP_REQS = 280  # requests taken from each
+EXTERNAL_ALIASES = 64  # loopback aliases that NPHDS maps, one source identity each
+EXTERNAL_UNMAPPED = "127.0.2.1"  # the alias NPHDS leaves out: the child resolves it to the world
+EXTERNAL_THREADS = 16  # client connections open at once
+EXTERNAL_WAIT_S = 20.0  # the most a READY, an ACK or the access log may take
+
+
+def external_alias(k: int) -> str:
+    return f"127.0.1.{k + 1}"
+
+
+def http_session(alias: str, port: int, reqs):
+    """One keep-alive HTTP/1.1 connection from ``alias`` to the child's
+    listener on ``port``: each (method, path) request in turn, no
+    header (what the child parses is the card's HTTPRequest); → (status
+    codes, seconds from connect to the last response)."""
+    c = socket.socket()
+    c.bind((alias, 0))
+    c.settimeout(EXTERNAL_WAIT_S)
+    t0 = time.perf_counter()
+    c.connect(("127.0.0.1", port))
+    codes, buf = [], b""
+    try:
+        for method, path in reqs:
+            c.sendall(f"{method} {path} HTTP/1.1\r\n\r\n".encode())
+            while b"\r\n\r\n" not in buf:
+                chunk = c.recv(65536)
+                if not chunk:
+                    fail(f"external proxy: the child closed {alias} -> :{port} mid-session")
+                buf += chunk
+            head, _, buf = buf.partition(b"\r\n\r\n")
+            lines = head.decode("latin1").split("\r\n")
+            clen = next(int(ln.split(":", 1)[1]) for ln in lines[1:]
+                        if ln.lower().startswith("content-length"))
+            while len(buf) < clen:
+                chunk = c.recv(65536)
+                if not chunk:
+                    fail(f"external proxy: the child closed {alias} -> :{port} mid-body")
+                buf += chunk
+            buf = buf[clen:]
+            codes.append(int(lines[0].split(" ", 2)[1]))
+        return codes, time.perf_counter() - t0
+    finally:
+        c.close()
+
+
+def kafka_session(alias: str, port: int, frames):
+    """One connection to the child's Kafka listener; each frame in turn;
+    → per frame True where the child acked it (terminating mode: an
+    empty frame holding the correlation id), False where it answered a
+    reject frame with error 29 in every partition."""
+    import struct
+
+    c = socket.socket()
+    c.bind((alias, 0))
+    c.settimeout(EXTERNAL_WAIT_S)
+    c.connect(("127.0.0.1", port))
+    out = []
+    try:
+        for cid, frame in frames:
+            c.sendall(frame)
+            body = b""
+            while len(body) < 4:
+                chunk = c.recv(4 - len(body))
+                if not chunk:
+                    fail(f"external proxy: the child closed the Kafka session from {alias}")
+                body += chunk
+            (size,) = struct.unpack(">i", body)
+            body = b""
+            while len(body) < size:
+                chunk = c.recv(size - len(body))
+                if not chunk:
+                    fail(f"external proxy: the child closed the Kafka session from {alias}")
+                body += chunk
+            if struct.unpack(">i", body[:4])[0] != cid:
+                fail(f"external proxy: a Kafka answer carries another correlation id than {cid}")
+            if size == 4:
+                out.append(True)
+            elif struct.pack(">h", 29) in body:
+                out.append(False)
+            else:
+                fail(f"external proxy: a Kafka answer of {size} bytes is neither ack nor reject")
+        return out
+    finally:
+        c.close()
+
+
+def external_proxy_main_path(r, card: str):
+    """Phase 3s: the external proxy and its xDS channel (A9b3 + A9b4) on
+    phase 3d's redirect world. The agent side publishes the NPDS
+    resources of the endpoints regenerated on the card (and the world's
+    Kafka redirect) and NPHDS rows mapping loopback aliases to the
+    requests' source identities, serves them with an XDSServer and
+    collects the access log through an AccessLogSocketServer; a
+    ProxyLauncher child (no --device: the card) enforces them on real
+    sockets. Every answer of the child is held to the card's check_batch
+    of the same requests (L7DeviceBatch off and on), before and after a
+    policy swap and after a SIGKILL and the launcher's restart. The
+    child checks each request on its own, on the host (a lone request
+    walks the host DFA; it never turns L7DeviceBatch on), so the path
+    under test launches no kernel in this process; the card's
+    check_batch is the oracle, run uncounted, its launch delta printed
+    apart."""
+    import collections
+    import os
+    import resource
+    import shutil
+    import signal
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch import _kernels
+    from cilium_tpu_torch.datapath import l7_pipeline as l7rt
+    from cilium_tpu_torch.identity.model import ID_WORLD
+    from cilium_tpu_torch.l7 import HTTPPolicy, HTTPRequest, KafkaRequest
+    from cilium_tpu_torch.proxy.accesslog import AccessLogServer, AccessLogSocketServer
+    from cilium_tpu_torch.proxy.launcher import ProxyLauncher
+    from cilium_tpu_torch.utils.completion import WaitGroup
+    from cilium_tpu_torch.xds import (
+        NETWORK_POLICY_HOSTS_TYPE, NETWORK_POLICY_TYPE, ResourceCache, XDSServer,
+        endpoint_policy_resource,
+    )
+
+    t_phase = time.perf_counter()
+    proxy, groups, reqs_d = r["proxy"], r["groups"], r["reqs_d"]
+    node = "external-proxy"
+
+    # -- the NPDS resources: every regenerated endpoint whose listeners fit
+    kafka_rds = [rd for rd in proxy.redirects().values() if rd.parser == "kafka"]
+    if len(kafka_rds) != 1:
+        fail(f"external proxy: phase 3d's proxy holds {len(kafka_rds)} Kafka redirects, not one")
+    kafka_rd = kafka_rds[0]
+    soft = resource.getrlimit(resource.RLIMIT_NOFILE)[0]
+    room = soft // 2 if soft != resource.RLIM_INFINITY else 1 << 20
+    resources = {kafka_rd.endpoint_id: endpoint_policy_resource(kafka_rd.endpoint_id, proxy)}
+    n_listeners = len(resources[kafka_rd.endpoint_id]["l7_ports"])
+    eps_all = sorted({rd.endpoint_id for rd in proxy.redirects().values()} - set(resources))
+    for ep in eps_all:
+        res = endpoint_policy_resource(ep, proxy)
+        if n_listeners + len(res["l7_ports"]) > room:
+            break
+        resources[ep] = res
+        n_listeners += len(res["l7_ports"])
+    res_bytes = sum(len(json.dumps(x)) for x in resources.values())
+    print(f"external proxy: {len(resources)} NPDS resources ({len(resources) - 1} of "
+          f"{len(eps_all)} regenerated endpoints, the world's Kafka redirect), {n_listeners} "
+          f"listeners under RLIMIT_NOFILE {soft} with half to spare, {res_bytes} bytes of JSON "
+          f"[{card}]", flush=True)
+
+    # -- the requests: the largest HTTP groups of phase 3d's set, published
+    ok = [k for k, sel in groups.items() if k[0] in resources and len(sel) >= 32
+          and proxy.lookup(*k, ingress=True).parser == "http"]
+    chosen = sorted(ok, key=lambda k: (-len(groups[k]), k))[:EXTERNAL_GROUPS]
+    picks = {k: groups[k][:EXTERNAL_GROUP_REQS] for k in chosen}
+    n_http = sum(len(v) for v in picks.values())
+    if n_http < 1024:
+        fail(f"external proxy: only {n_http} requests in {len(chosen)} published groups")
+    counts = collections.Counter(reqs_d[i].src_identity for v in picks.values() for i in v)
+    mapped = sorted(counts, key=lambda s: (-counts[s], s))[:EXTERNAL_ALIASES]
+    alias_of = {s: external_alias(k) for k, s in enumerate(mapped)}
+    port_of = {k: proxy.lookup(*k, ingress=True).proxy_port for k in chosen}
+    # each request as the child sees it: its source alias and the identity
+    # NPHDS gives that alias; an identity past the mapped ones, and every
+    # 16th request, comes from the unmapped alias
+    plan = []  # (group, alias, HTTPRequest)
+    for k in chosen:
+        for n, i in enumerate(picks[k]):
+            q = reqs_d[i]
+            alias = EXTERNAL_UNMAPPED if n % 16 == 15 else alias_of.get(q.src_identity,
+                                                                         EXTERNAL_UNMAPPED)
+            ident = q.src_identity if alias != EXTERNAL_UNMAPPED else ID_WORLD
+            plan.append((k, alias, HTTPRequest(method=q.method, path=q.path, src_identity=ident)))
+    n_unmapped = sum(a == EXTERNAL_UNMAPPED for _, a, _ in plan)
+    n_long = sum(len(q.path) > 256 for _, _, q in plan)
+    if not n_unmapped or not n_long:
+        fail(f"external proxy: {n_unmapped} requests from the unmapped alias, {n_long} paths "
+             "past 256 bytes")
+    # Kafka produce frames of 32 and 33 topics to the world's Kafka redirect
+    topic_sets = [[f"t{i}" for i in range(32)], [f"t{i}" for i in range(33)],
+                  [f"t{i}" for i in range(16, 48)], [f"t{i}" for i in range(31, -1, -1)]]
+    kplan = []  # (alias, identity, cid, topics)
+    for a, (alias, ident) in enumerate(((external_alias(0), mapped[0]),
+                                        (EXTERNAL_UNMAPPED, ID_WORLD))):
+        for j, topics in enumerate(topic_sets):
+            kplan.append((alias, ident, 100 + 10 * a + j, topics))
+
+    # -- what the card decides: check_batch per group, L7DeviceBatch off, then on
+    def card_verdicts(policy_of):
+        """→ (HTTP verdicts in plan order, Kafka verdicts) with
+        L7DeviceBatch off, held equal to on, and {on: (seconds, launch
+        delta)}. The oracle's launches: uncounted."""
+        out, deltas = {}, {}
+        for on in (False, True):
+            with uncounted():
+                l7rt.set_device_batch(on)
+                before = _kernels.launches()
+                t0 = time.perf_counter()
+                v = np.zeros(len(plan), bool)
+                for k in chosen:
+                    idx = [j for j, (g, _, _) in enumerate(plan) if g == k]
+                    v[idx] = policy_of(k).check_batch([plan[j][2] for j in idx])
+                kv = [bool(np.asarray(kafka_rd.kafka_acl.check_batch(
+                    [KafkaRequest(api_key=0, api_version=0, client_id="c", topic=t,
+                                  src_identity=ident) for t in topics])).all())
+                    for _, ident, _, topics in kplan]
+                torch.cuda.synchronize()
+                deltas[on] = (time.perf_counter() - t0, launch_delta(before))
+                out[on] = (v, kv)
+        l7rt.set_device_batch(False)
+        if not (np.array_equal(out[False][0], out[True][0]) and out[False][1] == out[True][1]):
+            fail("external proxy: the card's check_batch differs with L7DeviceBatch off and on")
+        return out[False], deltas
+
+    def print_card(what, deltas):
+        for on, (s, d) in deltas.items():
+            print(f"external proxy [{what}]: the card's check_batch of {len(plan)} HTTP requests "
+                  f"in {len(chosen)} groups and {len(kplan)} Kafka frames' topics, L7DeviceBatch "
+                  f"{'on' if on else 'off'}: {s * 1e3!r} ms, the oracle's launches {d} "
+                  f"(uncounted) [{card}]", flush=True)
+
+    want, deltas = card_verdicts(lambda k: proxy.lookup(*k, ingress=True).http_policy)
+    print_card("before the swap", deltas)
+    if want[0].all() or not want[0].any():
+        fail("external proxy: the card allows all or none of the requests")
+    if all(want[1]) or not any(want[1]):
+        fail("external proxy: the card acks all or none of the Kafka frames")
+
+    tmp = tempfile.mkdtemp(prefix="cilium-xds-")
+    xds_path, al_path = os.path.join(tmp, "xds.sock"), os.path.join(tmp, "accesslog.sock")
+    if len(al_path) > 100:
+        fail(f"external proxy: the socket path {al_path} is too long for a unix socket")
+    cache = ResourceCache()
+    srv = XDSServer(cache, xds_path)
+    srv.start()
+    sink = AccessLogServer(capacity=1 << 16)
+    records = []
+    sink.subscribe(records.append)
+    rx = AccessLogSocketServer(sink, al_path).start()
+    launcher = None
+    try:
+        def waited(what, done, timeout=EXTERNAL_WAIT_S):
+            t0 = time.perf_counter()
+            while not done():
+                if time.perf_counter() - t0 > timeout:
+                    fail(f"external proxy: {what} did not come within {timeout:.0f}s")
+                time.sleep(0.002)
+            return time.perf_counter() - t0
+
+        def ack_wait(type_url, version):
+            """A WaitGroup that the ACK of ``version`` completes."""
+            wg = WaitGroup()
+            srv.wait_for_ack(type_url, version, node, wg.add())
+            return wg
+
+        def acked(what, wg):
+            if not wg.wait(timeout=EXTERNAL_WAIT_S):
+                fail(f"external proxy: no ACK of {what}")
+
+        # -- the child, on the card: published first, then spawn to the ACKs
+        for ep, res in resources.items():
+            v_npds = cache.upsert(NETWORK_POLICY_TYPE, str(ep), res)
+        for s in mapped:
+            v_nphds = cache.upsert(NETWORK_POLICY_HOSTS_TYPE, str(s), {
+                "policy": int(s), "host_addresses": [f"{alias_of[s]}/32"]})
+        wg_npds = ack_wait(NETWORK_POLICY_TYPE, v_npds)
+        wg_nphds = ack_wait(NETWORK_POLICY_HOSTS_TYPE, v_nphds)
+        t0 = time.perf_counter()
+        launcher = ProxyLauncher(xds_path, al_path, restart_backoff_s=0.1).start()
+        acked(f"NPDS version {v_npds}", wg_npds)
+        t_npds = time.perf_counter() - t0
+        acked(f"NPHDS version {v_nphds}", wg_nphds)
+        t_both = time.perf_counter() - t0
+        print(f"external proxy: the child (ProxyLauncher, no --device: the card) spawn to the "
+              f"ACK of {len(resources)} NPDS resources published before it (version {v_npds}) "
+              f"{t_npds!r}s, to that of {len(mapped)} NPHDS rows (version {v_nphds}) {t_both!r}s "
+              f"[{card}]", flush=True)
+
+        def run_round(what, want):
+            """Every request and frame through the child; its answers ==
+            the card's ``want``; one record each."""
+            start = len(records)
+            sessions = collections.defaultdict(list)
+            for j, (k, alias, q) in enumerate(plan):
+                sessions[(alias, port_of[k])].append(j)
+            t0 = time.perf_counter()
+            with ThreadPoolExecutor(EXTERNAL_THREADS) as pool:
+                futs = {key: pool.submit(http_session, key[0], key[1],
+                                         [(plan[j][2].method, plan[j][2].path) for j in idx])
+                        for key, idx in sessions.items()}
+                kfuts = {alias: pool.submit(kafka_session, alias, kafka_rd.proxy_port,
+                                            [(cid, produce_frame("c", topics, cid))
+                                             for a, _, cid, topics in kplan if a == alias])
+                         for alias in {a for a, _, _, _ in kplan}}
+                got = np.zeros(len(plan), bool)
+                rates = []
+                for key, fut in futs.items():
+                    codes, secs = fut.result()
+                    if set(codes) - {200, 403}:
+                        fail(f"external proxy [{what}]: statuses {sorted(set(codes))}")
+                    got[sessions[key]] = np.array(codes) == 200
+                    rates.append(len(codes) / secs)
+                kres = {}
+                for alias, fut in kfuts.items():
+                    kres.update(zip([cid for a, _, cid, _ in kplan if a == alias], fut.result()))
+                kgot = [kres[cid] for _, _, cid, _ in kplan]
+            wall = time.perf_counter() - t0
+            bad = np.nonzero(got != want[0])[0]
+            if bad.size:
+                k, alias, q = plan[int(bad[0])]
+                fail(f"external proxy [{what}]: {bad.size} of {len(plan)} answers differ from the "
+                     f"card's, first {q.method} {q.path[:64]} from {alias} (identity "
+                     f"{q.src_identity}) to {k}: child {bool(got[bad[0]])}, card "
+                     f"{bool(want[0][bad[0]])}")
+            if kgot != want[1]:
+                fail(f"external proxy [{what}]: Kafka answers {kgot} != the card's {want[1]}")
+            n_want = len(plan) + len(kplan)
+            waited(f"{n_want} access-log records [{what}]", lambda: len(records) - start >= n_want)
+            recs = records[start:]
+            if len(recs) != n_want:
+                fail(f"external proxy [{what}]: {len(recs)} records for {n_want} requests")
+            have = collections.Counter(
+                (x.src_identity, x.dst_port, x.http["method"], x.http["path"], x.verdict)
+                if x.proto == "http" else (x.src_identity, x.dst_port, x.kafka["topic"], x.verdict)
+                for x in recs)
+            need = collections.Counter(
+                (q.src_identity, k[1], q.method, q.path, "Forwarded" if w else "Denied")
+                for (k, _, q), w in zip(plan, want[0]))
+            need.update((ident, kafka_rd.dst_port, topics[0], "Forwarded" if w else "Denied")
+                        for (_, ident, _, topics), w in zip(kplan, want[1]))
+            if have != need:
+                fail(f"external proxy [{what}]: the records differ from the requests and verdicts "
+                     f"({sum((have - need).values())} unmatched)")
+            rates.sort()
+            print(f"external proxy [{what}]: {len(plan)} HTTP/1.1 requests ({n_unmapped} from the "
+                  f"unmapped alias, {n_long} paths past 256 bytes) over {len(sessions)} keep-alive "
+                  f"connections and {len(kplan)} Kafka produce frames of 32-33 topics in "
+                  f"{wall!r}s ({EXTERNAL_THREADS} at once): {int(got.sum())} 200 / "
+                  f"{int((~got).sum())} 403, Kafka acks {kgot}, == the card's check_batch; "
+                  f"requests/s per connection p50 {rates[len(rates) // 2]!r} min {rates[0]!r} "
+                  f"max {rates[-1]!r}; {len(recs)} records, one per request, verdicts == [{card}]",
+                  flush=True)
+
+        run_round("first push", want)
+
+        # -- a policy swap: one endpoint's resource with one rule removed
+        # (of a redirect that keeps one: an empty rule list allows all),
+        # the rule that alone allows most of its group's requests
+        def matching(pol, j):
+            """The indices of the rules of ``pol`` that allow request j."""
+            q = plan[j][2]
+            return tuple(m for m, cr in enumerate(pol._rules)
+                         if cr.rule.matches(q.method, q.path, q.host)
+                         and (cr.allowed_identities is None
+                              or q.src_identity in cr.allowed_identities))
+
+        swaps = []
+        for k in chosen:
+            pol = proxy.lookup(*k, ingress=True).http_policy
+            alone = collections.Counter(matching(pol, j) for j, (g, _, _) in enumerate(plan)
+                                        if g == k)
+            if len(pol._rules) >= 2:
+                swaps += [(alone[(m,)], k, m) for m in range(len(pol._rules))]
+        if not swaps or max(swaps)[0] <= 0:
+            fail("external proxy: no rule of a chosen redirect alone allows one of its requests")
+        _, k_swap, drop = max(swaps, key=lambda t: (t[0], -chosen.index(t[1]), -t[2]))
+        idx = [j for j, (g, _, _) in enumerate(plan) if g == k_swap]
+        res = json.loads(json.dumps(resources[k_swap[0]]))
+        entry = next(p for p in res["l7_ports"] if p["port"] == k_swap[1] and p["ingress"])
+        removed = entry["http_rules"].pop(drop)
+        with uncounted():  # the oracle's policy
+            swapped = HTTPPolicy.from_model(entry["http_rules"])
+        want2, deltas2 = card_verdicts(lambda k: swapped if k == k_swap
+                                       else proxy.lookup(*k, ingress=True).http_policy)
+        print_card("after the swap", deltas2)
+        flips = want[0] & ~want2[0]
+        if not flips.any() or (~want[0] & want2[0]).any() or flips[
+                [j for j in range(len(plan)) if j not in set(idx)]].any():
+            fail(f"external proxy: removing rule {removed} flips {int(flips.sum())} requests")
+        t0 = time.perf_counter()
+        v_swap = cache.upsert(NETWORK_POLICY_TYPE, str(k_swap[0]), res)
+        acked(f"NPDS version {v_swap}", ack_wait(NETWORK_POLICY_TYPE, v_swap))
+        t_swap = time.perf_counter() - t0
+        print(f"external proxy: swap of endpoint {k_swap[0]}'s resource without rule {removed} "
+              f"(version {v_swap}): push to ACK {t_swap * 1e3!r} ms; {int(flips.sum())} of its "
+              f"{len(idx)} requests flip to 403 on the card [{card}]", flush=True)
+        run_round("after the swap", want2)
+
+        # -- a kill: the launcher restarts the child, which resubscribes
+        pid = launcher.pid()
+        # the probe: a request that the card allows for its mapped identity
+        # and no rule allows for the world's
+        j0 = next((j for j in idx if want2[0][j] and plan[j][1] != EXTERNAL_UNMAPPED
+                   and all(cr.allowed_identities is not None
+                           and ID_WORLD not in cr.allowed_identities
+                           for m, cr in enumerate(swapped._rules) if m in matching(swapped, j))),
+                  None)
+        if j0 is None:
+            fail("external proxy: no request of the swapped group tells a mapped source from "
+                 "the world")
+        k0, alias0, q0 = plan[j0]
+        t_kill = time.perf_counter()
+        os.kill(pid, signal.SIGKILL)
+        waited("the restarted child", lambda: launcher.pid() not in (None, pid))
+        served = []
+
+        def probe():
+            # the first request this child answers 200 (it needs both its
+            # NPDS listener and its NPHDS identity); each answer is logged
+            try:
+                served.append(http_session(alias0, port_of[k0], [(q0.method, q0.path)])[0][0])
+            except OSError:
+                return False
+            return served[-1] == 200
+
+        def listening():
+            # every listener of the round bound (an empty connection
+            # is served nothing and logged nothing)
+            for port in {*port_of.values(), kafka_rd.proxy_port}:
+                try:
+                    socket.create_connection(("127.0.0.1", port), timeout=1.0).close()
+                except OSError:
+                    return False
+            return True
+
+        n_before = len(records)
+        waited("the restarted child's first served request", probe)
+        t_served = time.perf_counter() - t_kill
+        waited("the restarted child's listeners", listening)
+        waited("the probes' records", lambda: len(records) - n_before >= len(served))
+        if launcher.restarts != 1:
+            fail(f"external proxy: {launcher.restarts} restarts after one kill")
+        print(f"external proxy: SIGKILL of the child: restarts {launcher.restarts}, kill to the "
+              f"first served request {t_served!r}s ({len(served)} probes) [{card}]", flush=True)
+        run_round("after the restart", want2)
+    finally:
+        if launcher is not None:
+            launcher.stop()
+        rx.stop()
+        srv.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    wall = time.perf_counter() - t_phase
+    print(f"external proxy: phase in {wall:.2f}s (limit {EXTERNAL_PHASE_LIMIT_S:.0f}s) [{card}]",
+          flush=True)
+    if wall > EXTERNAL_PHASE_LIMIT_S:
+        fail(f"external proxy: phase in {wall:.2f}s, over its {EXTERNAL_PHASE_LIMIT_S:.0f}s limit")
+
+
 def collections_counter(xs) -> dict:
     """{value: count} of ``xs``, sorted by value."""
     import numpy as np
@@ -10358,6 +10844,17 @@ def main() -> None:
     watch.check("after the k8s phase", faults_expected)
 
     phase("3r k8s and DNS policy sources")
+
+    # -- 3s. the external proxy and its xDS channel, counts from zero ----
+    _kernels.reset_launches()
+    external_proxy_main_path(l7res, card)
+    # the path under test is the child's, in another process: nothing
+    # of it launches here, and the card's check_batch ran uncounted
+    check_path("external proxy", [])
+    if any(launches["external proxy"].values()):
+        fail(f"external proxy: launches {launch_delta({})} counted in this process")
+
+    phase("3s external proxy")
 
     # -- 5. each kernel against its plain version on the card ------------
     compiled, device = engine.snapshot()

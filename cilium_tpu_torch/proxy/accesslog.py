@@ -5,9 +5,6 @@ request/response type, verdict, endpoint info, HTTP/Kafka detail) and
 pkg/envoy/accesslog_server.go (the unix-socket server receiving entries
 from the C++ filter). Here records are produced in-process by the
 enforcement hooks and fanned out to subscribers (monitor, logfile).
-The unix-socket receiver for out-of-process proxies
-(``AccessLogSocketServer``) comes with the port's orchestrator slice
-(A9b), beside the standalone proxy it serves.
 """
 
 from __future__ import annotations
@@ -69,3 +66,81 @@ class AccessLogServer:
     def recent(self, n: int = 100) -> List[LogRecord]:
         with self._lock:
             return list(self._ring)[-n:]
+
+
+class AccessLogSocketServer:
+    """Unix-socket receiver for records streamed by out-of-process
+    proxies (pkg/envoy/accesslog_server.go:50: the agent-side server
+    the C++ accesslog sink connects to). Each frame is a JSON LogRecord
+    dict; valid records land in the in-process AccessLogServer ring so
+    monitor/REST consumers see external-proxy traffic identically to
+    in-process enforcement."""
+
+    def __init__(self, sink: AccessLogServer, socket_path: str) -> None:
+        import os
+        import socket as _socket
+
+        self.sink = sink
+        self.socket_path = socket_path
+        self._stop = threading.Event()
+        if os.path.exists(socket_path):
+            os.unlink(socket_path)
+        self._sock = _socket.socket(_socket.AF_UNIX, _socket.SOCK_STREAM)
+        self._sock.bind(socket_path)
+        self._sock.listen(16)
+        self._sock.settimeout(0.2)
+        self._thread = threading.Thread(target=self._accept_loop, daemon=True)
+
+    def start(self) -> "AccessLogSocketServer":
+        self._thread.start()
+        return self
+
+    def _accept_loop(self) -> None:
+        import socket as _socket
+
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._sock.accept()
+            except _socket.timeout:
+                continue
+            except OSError:
+                return
+            threading.Thread(
+                target=self._serve, args=(conn,), daemon=True
+            ).start()
+
+    def _serve(self, conn) -> None:
+        import socket as _socket
+
+        from ..xds.server import _recv_msg
+
+        conn.settimeout(0.2)
+        try:
+            while not self._stop.is_set():
+                try:
+                    msg = _recv_msg(conn, self._stop)
+                except _socket.timeout:
+                    continue
+                except (ValueError, OSError):
+                    return
+                if msg is None:
+                    return
+                try:
+                    known = {f.name for f in dataclasses.fields(LogRecord)}
+                    self.sink.log(
+                        LogRecord(**{k: v for k, v in msg.items() if k in known})
+                    )
+                except (TypeError, ValueError):
+                    continue  # malformed record: drop, keep the stream
+        finally:
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def stop(self) -> None:
+        self._stop.set()
+        try:
+            self._sock.close()
+        except OSError:
+            pass
