@@ -394,6 +394,30 @@
    the first request it serves 200 (a request no rule allows the
    world), every listener bound, and the same answers again. Fails past
    45 s.
+4t. Workload runtimes and health, launch counts from zero
+   (workloads_main_path): a node at kubelet's defaults (110 containers,
+   --max-pods; a /24 pod CIDR, --node-cidr-mask-size) over the bench
+   world's rules (selectors in the any: source, so that they select the
+   container: labels the workload watcher gives) and identities, behind
+   two stand-ins for the Daemon (WorkloadAgent: a real IPAM, an
+   EndpointManager of real Endpoints, a pipeline with a prefilter, a host
+   FlowConntrack and a ServiceManager), one on the card and one on the
+   plain versions, both with a 6 s regeneration debounce. Boot in one
+   debounce window: the policy import's regeneration, the policy
+   compiled, a DockerPlugin's libnetwork sequence up to Join, where netns
+   is allowed three containers behind real veths, and one PLEG sweep of
+   an in-process runtime (4 of its containers ignored), all folded into
+   one regeneration (K1, K2). Then a batch of frames to the Docker
+   endpoint, real UDP from the veth containers sniffed off their host
+   veths, and 65 536 seeded Ethernet frames (802.1Q, fragments,
+   truncated and non-IPv4 among them) through parse_ipv4_frame and
+   WireEnforcer twice (the host CT pre-pass answers the replay; the miss
+   tails on K3 and K4); then 10 containers exit, the Docker container
+   leaves and the veth containers go, in the next window, and the frames
+   once more. Every batch's flows enforced, per-endpoint counts and lanes
+   equal the plain stand-in's; the health child (python -m
+   cilium_tpu_torch.health) against a stub agent: READY, /probe,
+   /status, a SIGKILL and its launcher's restart. Fails past 20 s.
 5. Holds every kernel against its plain version on the card, at the
    main paths' shapes, with exact equality (all outputs are integers),
    and times kernel, plain version and, where one exists, a library
@@ -521,16 +545,18 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def build_world(seed: int, l7: bool = False):
+def build_world(seed: int, l7: bool = False, source: str = "k8s"):
     """bench.py build_world (10k rules / 2 048 identities) with the
     port's modules; rule and identity draws from ``random.Random(seed)``.
     With ``l7`` every port-80 rule also carries one to three HTTP rules
     over the bench's L7 corpus (bench.py:2416-2422: the eight
     /api/v{i}/[a-z0-9]* and eight /svc{i}/.* paths), half of them with
     a method (GET or POST), drawn from a second generator so that the
-    rules, identities and endpoints are the same as without it."""
+    rules, identities and endpoints are the same as without it. The
+    rules' selectors name ``source`` (the identities' labels stay k8s:);
+    "any" also selects the container: labels the workload watcher gives
+    a container (phase 3t), the same draws otherwise."""
     from cilium_tpu_torch.identity import IdentityRegistry
-    from cilium_tpu_torch.ipcache.ipcache import IPCache
     from cilium_tpu_torch.labels import parse_label_array
     from cilium_tpu_torch.policy.api import (
         EndpointSelector, HTTPRule, IngressRule, L7Rules, PortProtocol, PortRule, rule,
@@ -550,7 +576,7 @@ def build_world(seed: int, l7: bool = False):
     rules = []
     for _ in range(N_RULES):
         app = rng.randrange(N_APPS)
-        peer = EndpointSelector.make([f"k8s:app=a{rng.randrange(N_APPS)}"])
+        peer = EndpointSelector.make([f"{source}:app=a{rng.randrange(N_APPS)}"])
         if rng.random() < 0.3:
             port = rng.choice([80, 443, 8080, 53, 5432])
             proto = "UDP" if port == 53 else "TCP"
@@ -560,7 +586,7 @@ def build_world(seed: int, l7: bool = False):
             )
         else:
             ing = IngressRule(from_endpoints=(peer,))
-        rules.append(rule([f"k8s:app=a{app}"], ingress=[ing]))
+        rules.append(rule([f"{source}:app=a{app}"], ingress=[ing]))
     repo.add_list(rules)
     reg = IdentityRegistry()
     idents, labels_of = [], {}
@@ -571,11 +597,19 @@ def build_world(seed: int, l7: bool = False):
         ident = reg.allocate(parse_label_array(labels))
         idents.append(ident)
         labels_of[ident.id] = labels
+    return repo, reg, bench_ipcache(idents), idents, labels_of
+
+
+def bench_ipcache(idents):
+    """An IPCache with one /32 and one fd00::{hi}:{lo}/128 entry an
+    identity (bench.py:588-593)."""
+    from cilium_tpu_torch.ipcache.ipcache import IPCache
+
     cache = IPCache()
     for i, ident in enumerate(idents):
         cache.upsert(f"10.{(i >> 8) & 255}.{i & 255}.1/32", ident.id, source="k8s")
         cache.upsert(f"fd00::{(i >> 8) & 255:x}:{i & 255:x}/128", ident.id, source="k8s")
-    return repo, reg, cache, idents, labels_of
+    return cache
 
 
 def make_flows(seed: int, n_idents: int):
@@ -8862,9 +8896,10 @@ class K8sAgent:
     Daemon's does (cilium_tpu/daemon.py policy_replace, policy_delete,
     policy_translate, endpoint_add, endpoint_delete). Each regeneration
     the daemon would run is counted in ``asks`` instead and run by
-    ``regenerate()`` at a checkpoint."""
+    ``regenerate()`` at a checkpoint. ``world`` (a repository, a registry
+    and an ipcache) stands in for fresh ones."""
 
-    def __init__(self, host_ip: str, pod_cidr: str, device=None):
+    def __init__(self, host_ip: str, pod_cidr: str, device=None, world=None):
         import types
 
         from cilium_tpu_torch.engine import PolicyEngine
@@ -8873,9 +8908,8 @@ class K8sAgent:
         from cilium_tpu_torch.lb import ServiceManager
         from cilium_tpu_torch.policy.repository import Repository
 
-        self.repo = Repository()
-        self.registry = IdentityRegistry()
-        self.ipcache = IPCache()
+        self.repo, self.registry, self.ipcache = world or (
+            Repository(), IdentityRegistry(), IPCache())
         self.engine = PolicyEngine(self.repo, self.registry, device=device)
         self.endpoints = {}
         self.services = ServiceManager(host_ip=host_ip)
@@ -10249,6 +10283,786 @@ def external_proxy_main_path(r, card: str):
         fail(f"external proxy: phase in {wall:.2f}s, over its {EXTERNAL_PHASE_LIMIT_S:.0f}s limit")
 
 
+WORKLOADS_PHASE_LIMIT_S = 20.0
+WL_PODS = 110  # containers the node's runtime lists: kubelet's default --max-pods
+WL_IGNORED = 4  # of them carry workloads.IGNORE_LABEL (no endpoint)
+WL_POD_CIDR = "10.244.3.0/24"  # a node CIDR: kube-controller-manager's --node-cidr-mask-size, 24
+WL_DEBOUNCE_S = 6.0  # both stand-ins' regen_debounce (daemon.py:236-250)
+WL_FRAMES = 1 << 16
+WL_CHURN = 10  # containers that exit before the churn sweep
+WL_DOCKER_FRAMES = 4096
+WL_VETH_SENDS = 5  # datagrams each veth client sends (test_cni_wire.py)
+WL_WAIT_S = 15.0  # the most a READY, a restart or a sniffed flow may take
+
+
+class WorkloadAgent(K8sAgent):
+    """Phase 3t's stand-in for the Daemon (A7c) that CNI, the Docker
+    plugin and the workload watcher drive: K8sAgent's repository,
+    registry, ipcache and engine (``world`` lends the first three), and
+    what daemon.py builds for these modules and they call: ``ipam``, a
+    real IPAM over the pod CIDR; ``endpoint_manager``, real Endpoints;
+    a DatapathPipeline with a PreFilter, ``conntrack=`` a FlowConntrack
+    and ``lb=`` the ServiceManager (daemon.py:114-124). endpoint_add /
+    endpoint_delete / endpoint_list do what daemon.py:506-585 does; a
+    regeneration is EndpointManager.regenerate_all (daemon.py:786),
+    folded on a utils.trigger.Trigger when ``regen_debounce`` > 0
+    (daemon.py:236-250). ``regenerations`` keeps the reason of each one
+    run; settle() waits until they cover every ask and re-raises an
+    error one met (the Trigger's loop swallows it)."""
+
+    def __init__(self, pod_cidr: str, device=None, regen_debounce: float = 0.0, world=None):
+        import threading
+
+        from cilium_tpu_torch.datapath.conntrack import FlowConntrack
+        from cilium_tpu_torch.datapath.pipeline import DatapathPipeline
+        from cilium_tpu_torch.endpoint import EndpointManager
+        from cilium_tpu_torch.ipam import IPAM
+        from cilium_tpu_torch.ipcache.prefilter import PreFilter
+        from cilium_tpu_torch.utils.trigger import Trigger
+
+        super().__init__("", pod_cidr, device=device, world=world)
+        self.ipam = IPAM(pod_cidr)
+        self.endpoint_manager = EndpointManager()
+        self.prefilter = PreFilter()
+        self.conntrack = FlowConntrack()
+        self.pipeline = DatapathPipeline(self.engine, self.ipcache, self.prefilter,
+                                         conntrack=self.conntrack, lb=self.services,
+                                         device=device)
+        self._lock = threading.RLock()
+        self.regenerations, self.regen_errors, self._covered = [], [], 0
+        self._regen_trigger = None
+        if regen_debounce > 0:
+            self._regen_trigger = Trigger(
+                lambda reasons: self._regenerate_now("; ".join(reasons) or "debounced",
+                                                     len(reasons)),
+                min_interval=regen_debounce, name="fleet-regeneration")
+
+    def _regenerate(self, reason: str) -> None:
+        self.asks.append(reason)
+        if self._regen_trigger is not None:
+            self._regen_trigger.trigger(reason)
+            return
+        self._regenerate_now(reason, 1)
+
+    def _regenerate_now(self, reason: str, n_asks: int) -> None:
+        try:
+            self.endpoint_manager.regenerate_all(self.pipeline, reason)
+        except BaseException as e:
+            self.regen_errors.append(e)
+            raise
+        finally:
+            self.regenerations.append(reason)
+            self._covered += n_asks
+
+    def settle(self, what: str) -> None:
+        deadline = time.monotonic() + 4 * WORKLOADS_PHASE_LIMIT_S
+        while self._covered < len(self.asks):
+            if time.monotonic() > deadline:
+                fail(f"workloads: {what}: the regenerations did not settle")
+            time.sleep(0.005)
+        if self.regen_errors:
+            raise self.regen_errors[0]
+
+    def _sync_pipeline_endpoints(self) -> None:
+        eps = self.endpoint_manager.endpoints()
+        self.pipeline.set_endpoints([(ep.id, ep.identity.id) for ep in eps if ep.identity])
+
+    def endpoint_add(self, endpoint_id: int, labels, *, ipv4=None, ipv6=None,
+                     pod_name: str = "") -> dict:
+        from cilium_tpu_torch.endpoint import Endpoint, EndpointState
+        from cilium_tpu_torch.ipcache.ipcache import SOURCE_AGENT
+        from cilium_tpu_torch.labels import parse_label_array
+
+        with self._lock:
+            if self.endpoint_manager.lookup(endpoint_id) is not None:
+                raise ValueError(f"endpoint {endpoint_id} exists")
+            lbls = parse_label_array(labels)
+            ep = Endpoint(endpoint_id, lbls, ipv4=ipv4, ipv6=ipv6, pod_name=pod_name)
+            ep.set_state(EndpointState.WAITING_FOR_IDENTITY)
+            ep.identity = self.registry.allocate(lbls)
+            ep.set_state(EndpointState.READY)
+            self.endpoint_manager.insert(ep)
+            if ipv4:
+                self.ipcache.upsert(f"{ipv4}/32", ep.identity.id, source=SOURCE_AGENT)
+            if ipv6:
+                self.ipcache.upsert(f"{ipv6}/128", ep.identity.id, source=SOURCE_AGENT)
+            self._sync_pipeline_endpoints()
+            self._regenerate("endpoint created")
+        return self._endpoint_model(ep)
+
+    def endpoint_delete(self, endpoint_id: int) -> bool:
+        from cilium_tpu_torch.ipcache.ipcache import SOURCE_AGENT
+
+        with self._lock:
+            ep = self.endpoint_manager.lookup(endpoint_id)
+            if ep is None:
+                return False
+            self.endpoint_manager.remove(ep)
+            if ep.ipv4:
+                self.ipcache.delete(f"{ep.ipv4}/32", SOURCE_AGENT)
+                self.ipam.release(ep.ipv4)
+            if ep.ipv6:
+                self.ipcache.delete(f"{ep.ipv6}/128", SOURCE_AGENT)
+            if ep.identity is not None:
+                self.registry.release(ep.identity)
+            self._sync_pipeline_endpoints()
+            self._regenerate("endpoint deleted")
+        return True
+
+    def endpoint_list(self) -> list:
+        return [self._endpoint_model(ep) for ep in self.endpoint_manager.endpoints()]
+
+    @staticmethod
+    def _endpoint_model(ep) -> dict:
+        return {"id": ep.id, "labels": list(ep.labels.to_strings()),
+                "identity": ep.identity.id if ep.identity else None, "ipv4": ep.ipv4,
+                "ipv6": ep.ipv6, "state": str(ep.state.value),
+                "policy_revision": ep.policy_revision}
+
+    def shutdown(self) -> None:
+        if self._regen_trigger is not None:
+            self._regen_trigger.shutdown()
+        self.endpoint_manager.shutdown()
+
+
+class WireLanes:
+    """Keeps each pipeline call's lanes (endpoint index, verdict,
+    redirect) and each conntrack pre-pass's established hits."""
+
+    def __init__(self, agent):
+        from cilium_tpu_torch.datapath.conntrack import CT_ESTABLISHED
+
+        self.calls, self.established = [], []
+        process, lookup = agent.pipeline.process, agent.conntrack.lookup_batch
+
+        def recorded_process(*a, **k):
+            v, red = process(*a, **k)
+            self.calls.append((a[1].copy(), v.copy(), red.copy()))
+            return v, red
+
+        def recorded_lookup(*a, **k):
+            out = lookup(*a, **k)
+            self.established.append(int((out[0] == CT_ESTABLISHED).sum()))
+            return out
+
+        agent.pipeline.process = recorded_process
+        agent.conntrack.lookup_batch = recorded_lookup
+
+
+def wl_world_peers(idents, labels_of):
+    """A fresh registry and ipcache holding build_world's identities and
+    their addresses, allocated in the same order, so their ids are the
+    world's."""
+    from cilium_tpu_torch.identity import IdentityRegistry
+    from cilium_tpu_torch.labels import parse_label_array
+
+    reg = IdentityRegistry()
+    for ident in idents:
+        if reg.allocate(parse_label_array(labels_of[ident.id])).id != ident.id:
+            fail("workloads: a world identity took another id")
+    return reg, bench_ipcache(idents)
+
+
+def wl_frame(src: int, dst: int, proto: int, sport: int, dport: int, vlan=None, frag: int = 0,
+             ethertype: int = 0x0800) -> bytes:
+    """An Ethernet frame (802.1Q-tagged with ``vlan``) carrying an IPv4
+    packet with its L4 ports and 8 payload bytes."""
+    import struct
+
+    l2 = b"\x02\x00\x00\x00\x00\x01\x02\x00\x00\x00\x00\x02" + (
+        struct.pack(">HHH", 0x8100, vlan, ethertype) if vlan is not None
+        else struct.pack(">H", ethertype))
+    body = struct.pack(">HHI", sport, dport, 0x00100000) + b"payload!"
+    return l2 + struct.pack(">BBHHHBBHII", 0x45, 0, 20 + len(body), 7, frag, 64, proto, 0,
+                            src, dst) + body
+
+
+def wl_frames(seed: int, srcs, dsts, n: int):
+    """``n`` frames from the seed: sources and destinations drawn from
+    ``srcs`` / ``dsts``, ports from the world's L4 ports (53 UDP, the
+    rest mostly TCP), 1/8 802.1Q-tagged, 1/32 non-first fragments (ports
+    0), 1/64 truncated inside the IP header and 1/64 not IPv4 (both
+    parse to None)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 28)
+    src = np.asarray(srcs, np.uint32)[rng.integers(0, len(srcs), n)]
+    dst = np.asarray(dsts, np.uint32)[rng.integers(0, len(dsts), n)]
+    dport = rng.choice(np.array([80, 443, 8080, 53, 5432, 22, 9053]), n)
+    proto = np.where((dport == 53) | (rng.random(n) < 0.1), 17, 6)
+    sport = rng.integers(1024, 65536, n)
+    kind = rng.random(n)
+    vlan = np.where(rng.random(n) < 1 / 8, rng.integers(1, 4095, n), -1)
+    out = []
+    for i in range(n):
+        k = kind[i]
+        f = wl_frame(int(src[i]), int(dst[i]), int(proto[i]), int(sport[i]), int(dport[i]),
+                     vlan=None if vlan[i] < 0 else int(vlan[i]),
+                     frag=int(1 + (i % 0x1FFF)) if k < 1 / 32 else 0,
+                     ethertype=0x86DD if 1 / 32 <= k < 1 / 32 + 1 / 64 else 0x0800)
+        if 1 / 32 + 1 / 64 <= k < 1 / 32 + 1 / 32:
+            f = f[:14 + (4 if vlan[i] >= 0 else 0) + int(k * 1e6) % 20]
+        out.append(f)
+    return out
+
+
+def wl_docker_call(sock_path: str, method: str, body=None) -> dict:
+    """One libnetwork plugin call: POST /<Driver>.<Method> over the unix socket."""
+    import http.client
+
+    class Conn(http.client.HTTPConnection):
+        def connect(self):
+            self.sock = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+            self.sock.connect(sock_path)
+
+    c = Conn("localhost", timeout=30)
+    try:
+        c.request("POST", f"/{method}", body=json.dumps(body or {}),
+                  headers={"Content-Type": "application/json"})
+        return json.loads(c.getresponse().read().decode())
+    finally:
+        c.close()
+
+
+def wl_wait(what: str, done, timeout: float = WL_WAIT_S) -> float:
+    """Polls ``done`` (OSError counts as not yet) → the seconds it took."""
+    t0 = time.perf_counter()
+    while True:
+        try:
+            if done():
+                return time.perf_counter() - t0
+        except OSError:
+            pass
+        if time.perf_counter() - t0 > timeout:
+            fail(f"workloads: {what} did not come within {timeout:.0f}s")
+        time.sleep(0.01)
+
+
+def wl_docker_join(sock: str, seed: int) -> dict:
+    """The libnetwork sequence of one container up to Join (Activate,
+    RequestPool, RequestAddress, CreateNetwork, CreateEndpoint, Join) →
+    its replies, address, endpoint id and libnetwork ids."""
+    import hashlib
+
+    out = {"activate": wl_docker_call(sock, "Plugin.Activate"),
+           "pool": wl_docker_call(sock, "IpamDriver.RequestPool", {"AddressSpace": "CiliumLocal"})}
+    out["addr"] = wl_docker_call(sock, "IpamDriver.RequestAddress",
+                                 {"PoolID": out["pool"]["PoolID"]})
+    out["ip"] = out["addr"]["Address"].split("/")[0]
+    out["eid"] = hashlib.sha256(f"docker-{seed}".encode()).hexdigest()
+    for m, b in (("NetworkDriver.CreateNetwork", {"NetworkID": "net1"}),
+                 ("NetworkDriver.CreateEndpoint",
+                  {"NetworkID": "net1", "EndpointID": out["eid"],
+                   "Interface": {"Address": out["addr"]["Address"]}}),
+                 ("NetworkDriver.Join", {"NetworkID": "net1", "EndpointID": out["eid"],
+                                         "SandboxKey": "/proc/1/ns/net"})):
+        out[m] = wl_docker_call(sock, m, b)
+        if "Err" in out[m]:
+            fail(f"workloads: docker {m}: {out[m]['Err']}")
+    out["ep_id"] = wl_docker_call(sock, "NetworkDriver.EndpointOperInfo",
+                                  {"EndpointID": out["eid"]})["Value"]["ep_id"]
+    return out
+
+
+def wl_docker_leave(sock: str, dk: dict) -> list:
+    """Leave, DeleteEndpoint and ReleaseAddress → their replies."""
+    out = []
+    for m, b in (("NetworkDriver.Leave", {"NetworkID": "net1", "EndpointID": dk["eid"]}),
+                 ("NetworkDriver.DeleteEndpoint", {"EndpointID": dk["eid"]}),
+                 ("IpamDriver.ReleaseAddress", {"PoolID": dk["pool"]["PoolID"],
+                                                "Address": dk["addr"]["Address"]})):
+        out.append(wl_docker_call(sock, m, b))
+        if "Err" in out[-1]:
+            fail(f"workloads: docker {m}: {out[-1]['Err']}")
+    return out
+
+
+def wl_veth_apps(repo):
+    """(web, client, other): world apps such that an L3 rule (no port)
+    lets client reach web and no rule lets other reach it."""
+    l3_peers, any_peers = {}, {}
+    for r in repo.rules:
+        subj = r.endpoint_selector.match_labels[0][1]
+        for ing in r.ingress:
+            for sel in ing.from_endpoints:
+                any_peers.setdefault(subj, set()).add(sel.match_labels[0][1])
+                if not ing.to_ports:
+                    l3_peers.setdefault(subj, set()).add(sel.match_labels[0][1])
+    web = min(a for a in l3_peers if a not in l3_peers[a])
+    other = next(f"a{k}" for k in range(N_APPS) if f"a{k}" not in any_peers[web] | {web})
+    return web, min(l3_peers[web]), other
+
+
+def workloads_main_path(seed: int, card: str, dev=None):
+    """Phase 3t: workload runtimes and health (A9b5 + A9b6) on the card.
+    A node at kubelet's defaults: the bench world's 10 000 rules (their
+    selectors in the any: source, which also selects the container: labels
+    the workload watcher gives a container), its 2 048 identities as peers
+    in the ipcache, a /24 pod CIDR and WL_PODS containers, behind two
+    WorkloadAgents (the Daemon's stand-in), one on the card and one with
+    the plain versions (device="cpu"), each with regen_debounce
+    WL_DEBOUNCE_S: a regeneration runs at once when none ran in the last
+    WL_DEBOUNCE_S, else when that window ends, covering every ask since.
+    1. Boot, inside one window per stand-in: the policy import's
+       regeneration (no endpoint yet), the policy compiled (refresh +
+       rebuild), a DockerPlugin on a unix socket up to Join, where netns
+       is allowed three veth containers (web / client / other: in network
+       namespaces behind real veths on the card stand-in, the same
+       containers plumbed virtually on the plain one), and one
+       runtimes.PLEGPoller.poll_once sweep of an in-process runtime
+       listing WL_PODS containers (apps drawn from the world's,
+       WL_IGNORED with IGNORE_LABEL): all of it folds into one
+       regeneration. The health leg (wl_health_leg) runs in the window.
+       (The CRI gRPC adapter is held in the CPU tests only.)
+    2. Wire: WL_DOCKER_FRAMES frames to the Docker endpoint; where netns
+       is allowed, WL_VETH_SENDS real UDP datagrams from client and from
+       other to web, sniffed off their host veths (VethSniffer,
+       WireEnforcer.run_from on the card) and replayed on the plain
+       stand-in; WL_FRAMES frames from the seed (world and unmapped
+       sources, endpoint and non-local destinations, 802.1Q, fragments,
+       truncated and non-IPv4 frames) through parse_ipv4_frame and
+       WireEnforcer.process_flows, then again (the host CT pre-pass
+       answers the forwarded flows).
+    3. Churn, inside the next window: WL_CHURN containers exit (one
+       sweep), the Docker container leaves (Leave, DeleteEndpoint,
+       ReleaseAddress), the veth containers go; the same flows again.
+    Checks: equal endpoints, addresses, identities and IPAM occupancy on
+    both stand-ins, each window's asks folded; every wire batch's flows
+    enforced, per-endpoint verdict counts and lanes equal to the plain
+    stand-in's; FORWARD and DROP_POLICY both occur; the replay's
+    established hits are pass 1's forwarded lanes; the Docker endpoint's
+    flows all drop (no rule selects its label: the host oracle allows no
+    peer); the veth client forwarded and the other dropped; after the
+    churn the exited containers' addresses are free, only surviving
+    endpoints' flows are enforced and every lane's index is its
+    endpoint's. The caller set the launch counts to 0; the phase fails
+    past WORKLOADS_PHASE_LIMIT_S."""
+    import dataclasses as dc
+    import hashlib
+    import os
+    import shutil
+    import tempfile
+    import uuid
+
+    import numpy as np
+
+    from cilium_tpu_torch.datapath.pipeline import DROP_POLICY, FORWARD
+    from cilium_tpu_torch.datapath.wire import WireEnforcer, parse_ipv4_frame
+    from cilium_tpu_torch.plugins import netns as nsmod
+    from cilium_tpu_torch.plugins.cni import cni_add, cni_del, endpoint_id_for, host_ifname
+    from cilium_tpu_torch.plugins.docker import DockerPlugin
+    from cilium_tpu_torch.runtimes import PLEGPoller
+    from cilium_tpu_torch.workloads import IGNORE_LABEL, ContainerInfo, WorkloadWatcher
+
+    t_phase = time.perf_counter()
+    repo, _reg, _cache, idents, labels_of = build_world(seed, source="any")
+    agents = {name: WorkloadAgent(WL_POD_CIDR, device=d, regen_debounce=WL_DEBOUNCE_S,
+                                  world=(repo, *wl_world_peers(idents, labels_of)))
+              for name, d in (("card", dev), ("plain", "cpu"))}
+    card_agent = agents["card"]
+    want_dev = "cuda" if dev is None else str(dev)
+    if (card_agent.pipeline.device.type, card_agent.engine.device.type) != (want_dev, want_dev):
+        fail(f"workloads: the card stand-in's pipeline is on {card_agent.pipeline.device}")
+    print(f"workloads: world ({len(repo.rules)} rules, {len(idents)} identities) and two "
+          f"stand-ins in {time.perf_counter() - t_phase:.2f}s [{card}]", flush=True)
+    rng = random.Random(seed + 28)
+    ignored = set(rng.sample(range(WL_PODS), WL_IGNORED))
+    live = []
+    for k in range(WL_PODS):
+        labels = ({IGNORE_LABEL: "true"} if k in ignored else
+                  {"app": f"a{rng.randrange(N_APPS)}", "io.kubernetes.pod.name": f"pod-{k}",
+                   "io.kubernetes.pod.namespace": "default"})
+        live.append(ContainerInfo(id=hashlib.sha256(f"pod-{seed}-{k}".encode()).hexdigest(),
+                                  name=f"pod-{k}", labels=labels))
+
+    class Runtime:
+        def containers(self):
+            return list(live)
+
+    runtime = Runtime()
+    watchers = {name: WorkloadWatcher(agent, runtime) for name, agent in agents.items()}
+    lanes = {name: WireLanes(agent) for name, agent in agents.items()}
+
+    def enforce(what: str, flows, dst_map, want_n=None):
+        """One batch of ``flows`` through a WireEnforcer on each stand-in;
+        the card's flows enforced, counts and lanes must equal the plain
+        stand-in's → (n, counts, the card's pipeline calls)."""
+        res = {}
+        for name, agent in agents.items():
+            enf = WireEnforcer(agent.pipeline, dst_map)
+            n_calls = len(lanes[name].calls)
+            t0 = time.perf_counter()
+            n = enf.process_flows(flows)
+            res[name] = (n, enf.verdicts, lanes[name].calls[n_calls:], time.perf_counter() - t0)
+        (n, counts, calls, wall), (pn, pcounts, pcalls, pwall) = res["card"], res["plain"]
+        if n != pn or counts != pcounts:
+            fail(f"workloads: {what}: the card enforced {n} flows, the plain stand-in {pn}, "
+                 f"or their per-endpoint counts differ")
+        if len(calls) != len(pcalls) or any(
+                not all(np.array_equal(x, y) for x, y in zip(a, b)) for a, b in zip(calls, pcalls)):
+            fail(f"workloads: {what}: the pipeline call's lanes differ from the plain stand-in's")
+        if want_n is not None and n != want_n:
+            fail(f"workloads: {what}: {n} flows enforced, {want_n} expected")
+        total = collections_counter(np.concatenate([c[1] for c in calls]) if calls else [])
+        print(f"workloads: {what}: {n} of {len(flows)} flows enforced on {len(counts)} endpoints "
+              f"in {wall!r}s (plain {pwall!r}s), verdicts {total}, == the plain stand-in's "
+              f"(counts and lanes) [{card}]", flush=True)
+        return n, counts, calls
+
+    tmp = tempfile.mkdtemp(prefix="ctpu-wl-")
+    plugins, veth = {}, {}
+    try:
+        # -- 1. boot, inside one debounce window a stand-in -----------------
+        before = launch_delta({})
+        t_boot = time.perf_counter()
+        for agent in agents.values():
+            agent._regenerate("policy import")
+        compile_s = {}
+        for name, agent in agents.items():
+            t0 = time.perf_counter()
+            agent.engine.refresh()
+            agent.pipeline.rebuild()
+            compile_s[name] = time.perf_counter() - t0
+        docker = {}
+        for name, agent in agents.items():
+            plugins[name] = DockerPlugin(agent, os.path.join(tmp, f"docker-{name}.sock")).start()
+            docker[name] = wl_docker_join(plugins[name].socket_path, seed)
+        if docker["card"] != docker["plain"]:
+            fail("workloads: the Docker plugin's replies differ between the stand-ins")
+        dk = docker["card"]
+        if nsmod.have_netns():
+            web, client, other = wl_veth_apps(repo)
+            tag = uuid.uuid4().hex[:8]
+            for role, app in (("client", client), ("other", other), ("web", web)):
+                cid = f"{role}-{tag}"
+                ns = f"ctpu-{role[:2]}-{tag}"
+                nsmod.create_netns(ns)
+                veth[role] = {"cid": cid, "ns": ns, "app": app}
+                for name, agent in agents.items():
+                    veth[role][name] = cni_add(
+                        agent, cid, labels=[f"container:app={app}", f"container:id={cid[:12]}"],
+                        netns=ns if name == "card" else None)
+        sweeps = {}
+        for name in agents:
+            t0 = time.perf_counter()
+            changes = PLEGPoller(watchers[name], runtime, interval=3600).poll_once()
+            sweeps[name] = (changes, time.perf_counter() - t0)
+        asked_s = time.perf_counter() - t_boot
+        extras = 1 + len(veth)
+        # the frames, and the health leg, while the window runs
+        booted = {name: [(ep.id, ep.ipv4, ep.identity.id) for ep in
+                         agent.endpoint_manager.endpoints()] for name, agent in agents.items()}
+        if booted["card"] != booted["plain"]:
+            fail("workloads: the stand-ins' endpoints, addresses or identities differ")
+        pod_ids = {watchers["card"].endpoint_of(c.id) for c in live} - {None}
+        ep_ip = {ep_id: ip for ep_id, ip, _ in booted["card"] if ep_id in pod_ids}
+        dst_map = {ip: ep_id for ep_id, ip in ep_ip.items()}
+        world_srcs = [(10 << 24) | (((i >> 8) & 255) << 16) | ((i & 255) << 8) | 1
+                      for i in range(len(idents))]
+        world_set = set(world_srcs)
+        unmapped = [int(ipaddress.IPv4Address("198.18.0.0")) + k for k in range(1, 129)]
+        local = [int(ipaddress.IPv4Address(ip)) for ip in ep_ip.values()]
+        remote = [int(ipaddress.IPv4Address("10.244.4.0")) + k for k in range(2, 30)]
+        t0 = time.perf_counter()
+        frames = wl_frames(seed, world_srcs * 8 + unmapped + local, local * 7 + remote, WL_FRAMES)
+        build_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        flows = [t for t in map(parse_ipv4_frame, frames) if t is not None]
+        parse_s = time.perf_counter() - t0
+        dflows = [t for t in map(parse_ipv4_frame, wl_frames(
+            seed + 1, world_srcs + unmapped, [int(ipaddress.IPv4Address(dk["ip"]))],
+            WL_DOCKER_FRAMES)) if t is not None]
+        wl_health_leg(tmp, card)
+        for name, agent in agents.items():
+            changes, sweep_s = sweeps[name]
+            agent.settle(f"the {name} boot")
+            n_eps = len(booted[name])
+            print(f"workloads [{name}]: policy compiled in {compile_s[name]!r}s; boot sweep of "
+                  f"{WL_PODS} containers ({WL_IGNORED} ignored): {changes} endpoints in "
+                  f"{sweep_s!r}s, with the Docker and {len(veth)} veth containers {n_eps}; every "
+                  f"ask within {asked_s!r}s of the policy import, settled "
+                  f"{time.perf_counter() - t_boot!r}s after it in {len(agent.regenerations)} "
+                  f"regenerations for {len(agent.asks)} asks (regen_debounce {WL_DEBOUNCE_S}s); "
+                  f"IPAM {len(agent.ipam)} of {agent.ipam.capacity} [{card}]", flush=True)
+            if changes != WL_PODS - WL_IGNORED or n_eps != changes + extras or \
+                    len(agent.ipam) != n_eps:
+                fail(f"workloads [{name}]: the sweep made {changes} endpoints, {n_eps} held, "
+                     f"IPAM {len(agent.ipam)}")
+            if any(watchers[name].endpoint_of(live[k].id) is not None for k in ignored):
+                fail(f"workloads [{name}]: an ignored container has an endpoint")
+            if not len(agent.regenerations) < len(agent.asks):
+                fail(f"workloads [{name}]: {len(agent.regenerations)} regenerations for "
+                     f"{len(agent.asks)} asks: nothing folded")
+            if [e[0] for e in booted[name]] != agent.pipeline._endpoint_ids:
+                fail(f"workloads [{name}]: the pipeline's endpoints are not the manager's")
+        got = launch_delta(before)
+        print(f"workloads: the boot's launches (the card stand-in's compile and regeneration): "
+              f"K1 {got.get('selector_match', 0)}, K2 {got.get('bool_mm', 0)} [{card}]",
+              flush=True)
+        if not got.get("selector_match") or not got.get("bool_mm"):
+            fail("workloads: the boot launched no K1 / K2")
+
+        # -- 2. wire ----------------------------------------------------------
+        ep = card_agent.endpoint_manager.lookup(dk["ep_id"])
+        if ep is None or ep.ipv4 != dk["ip"] or card_agent.ipam.owner_of(dk["ip"]) != "docker":
+            fail("workloads: docker Join registered no endpoint at its address")
+        n, counts, _calls = enforce("docker endpoint (between Join and Leave)", dflows,
+                                    {dk["ip"]: dk["ep_id"]}, want_n=len(dflows))
+        _matched, selected = card_agent.repo.get_rules_matching(ep.labels)
+        f0 = next(f for f in dflows if f[0] in world_set)
+        peer = card_agent.ipcache.lookup_by_ip(str(ipaddress.IPv4Address(f0[0])))
+        if selected or counts != {dk["ep_id"]: {int(DROP_POLICY): n}} or oracle_allows(
+                card_agent.repo, card_agent.registry.get(peer.identity).labels, ep.labels,
+                f0[4], f0[2]):
+            fail(f"workloads: docker endpoint: verdicts {counts} (no rule selects it: every "
+                 f"flow drops)")
+        if veth:
+            wl_veth_traffic(veth, agents, lanes, card)
+        else:
+            print(f"workloads [veth]: not run: plugins.netns.have_netns() is false on this "
+                  f"host (no CAP_NET_ADMIN, or no iproute2 `ip netns`) [{card}]", flush=True)
+        n_tagged = sum(1 for f in frames if len(f) >= 14 and f[12:14] == b"\x81\x00")
+        local_set = set(local)
+        to_local = sum(1 for f in flows if f[1] in local_set)
+        print(f"workloads: {WL_FRAMES} frames built in {build_s!r}s, parsed in {parse_s!r}s: "
+              f"{len(flows)} IPv4 tuples, {WL_FRAMES - len(flows)} not (truncated or not IPv4), "
+              f"{n_tagged} 802.1Q, {sum(1 for f in flows if f[2] in (6, 17) and not f[4])} with "
+              f"ports 0, {to_local} to endpoints [{card}]", flush=True)
+        _n1, _c1, calls1 = enforce("pass 1", flows, dst_map, want_n=to_local)
+        codes = {int(x) for c in calls1 for x in np.unique(c[1])}
+        if not {int(FORWARD), int(DROP_POLICY)} <= codes:
+            fail(f"workloads: pass 1's verdicts {sorted(codes)} lack FORWARD or DROP_POLICY")
+        forwarded = sum(int(((c[1] == FORWARD) & ~c[2]).sum()) for c in calls1)
+        enforce("replay", flows, dst_map, want_n=to_local)
+        est = {name: lanes[name].established[-1] for name in agents}
+        print(f"workloads: replay: established hits {est['card']} (plain {est['plain']}), pass 1 "
+              f"forwarded {forwarded} [{card}]", flush=True)
+        if est["card"] != forwarded or est["plain"] != forwarded:
+            fail(f"workloads: the replay's established hits {est} are not pass 1's {forwarded} "
+                 f"forwarded flows")
+
+        # -- 3. churn, inside the next window ------------------------------------
+        gone = [k for k in range(WL_PODS) if k not in ignored][:WL_CHURN]
+        gone_ids = {watchers["card"].endpoint_of(live[k].id) for k in gone}
+        for k in gone:
+            live[k] = dc.replace(live[k], running=False)
+        n_regen = {name: len(agent.regenerations) for name, agent in agents.items()}
+        last_run = {name: agent._regen_trigger._last_run for name, agent in agents.items()}
+        t_churn = time.perf_counter()
+        for name in agents:
+            sweeps[name] = PLEGPoller(watchers[name], runtime, interval=3600).poll_once()
+        left = {name: wl_docker_leave(plugins[name].socket_path, docker[name]) for name in agents}
+        if left["card"] != left["plain"]:
+            fail("workloads: the Docker plugin's Leave replies differ between the stand-ins")
+        for role, v in veth.items():
+            for name, agent in agents.items():
+                cni_del(agent, v["cid"])
+        for name, agent in agents.items():
+            agent.settle(f"the {name} churn")
+            in_window = t_churn < last_run[name] + WL_DEBOUNCE_S
+            n_eps = len(agent.endpoint_manager)
+            print(f"workloads [{name}]: churn: {sweeps[name]} endpoints withdrawn by the sweep, "
+                  f"the Docker and {len(veth)} veth containers gone, settled "
+                  f"{time.perf_counter() - t_churn!r}s after the sweep in "
+                  f"{len(agent.regenerations) - n_regen[name]} regenerations (the sweep "
+                  f"{'inside' if in_window else 'after'} the boot regeneration's window); "
+                  f"{n_eps} endpoints, IPAM {len(agent.ipam)} [{card}]", flush=True)
+            if sweeps[name] != WL_CHURN or n_eps != WL_PODS - WL_IGNORED - WL_CHURN or \
+                    len(agent.ipam) != n_eps or any(
+                        agent.ipam.owner_of(ip) is not None for ip in
+                        [ep_ip[i] for i in gone_ids] + [dk["ip"]]):
+                fail(f"workloads [{name}]: the churn left {n_eps} endpoints, IPAM "
+                     f"{len(agent.ipam)}, or kept a withdrawn container's address")
+        survivors = {int(ipaddress.IPv4Address(ip)) for e, ip in ep_ip.items() if e not in gone_ids}
+        _n3, c3, calls3 = enforce("after the churn", flows, dst_map,
+                                  want_n=sum(1 for f in flows if f[1] in survivors))
+        if gone_ids & set(c3):
+            fail("workloads: a withdrawn endpoint's flow was enforced")
+        ids_now = card_agent.pipeline._endpoint_ids
+        want_idx = np.asarray([ids_now.index(dst_map[str(ipaddress.IPv4Address(f[1]))])
+                               for f in flows if f[1] in survivors], np.int32)
+        if not calls3 or not np.array_equal(np.concatenate([c[0] for c in calls3]), want_idx):
+            fail("workloads: after the churn a lane's endpoint index is not its endpoint's")
+    finally:
+        for plugin in plugins.values():
+            plugin.stop()
+        for v in veth.values():  # cni_del removed them unless the phase failed first
+            nsmod.delete_link(host_ifname(endpoint_id_for(v["cid"])))
+            nsmod.delete_netns(v["ns"])
+        shutil.rmtree(tmp, ignore_errors=True)
+        for agent in agents.values():
+            agent.shutdown()
+
+    wall = time.perf_counter() - t_phase
+    print(f"workloads: phase in {wall:.2f}s (limit {WORKLOADS_PHASE_LIMIT_S:.0f}s) [{card}]",
+          flush=True)
+    if wall > WORKLOADS_PHASE_LIMIT_S:
+        fail(f"workloads: phase in {wall:.2f}s, over its {WORKLOADS_PHASE_LIMIT_S:.0f}s limit")
+
+
+def wl_veth_traffic(veth: dict, agents: dict, lanes: dict, card: str) -> None:
+    """Phase 3t's real-packet leg, test_cni_wire.py::
+    test_wire_verdicts_match_policy's shape: client and other each send
+    WL_VETH_SENDS UDP datagrams to web's address from their network
+    namespaces; VethSniffer on their host veths and WireEnforcer.run_from
+    verdict them on the card stand-in until client has WL_VETH_SENDS
+    FORWARD and other as many DROP_POLICY; the same flows through the
+    plain stand-in (its containers plumbed virtually): equal counts and
+    lanes."""
+    import numpy as np
+
+    from cilium_tpu_torch.datapath.pipeline import DROP_POLICY, FORWARD
+    from cilium_tpu_torch.datapath.wire import VethSniffer, WireEnforcer
+    from cilium_tpu_torch.plugins import netns as nsmod
+
+    t0 = time.perf_counter()
+    web = veth["web"]["card"]
+    dmap = {web.ipv4: web.endpoint_id}
+    sniffers = [VethSniffer(veth[r]["card"].interface).start() for r in ("client", "other")]
+    try:
+        enf = WireEnforcer(agents["card"].pipeline, dmap)
+        seen, real = [], enf.process_flows
+        n_calls = len(lanes["card"].calls)
+
+        def recorded(batch):
+            seen.extend(batch)
+            return real(batch)
+
+        enf.process_flows = recorded
+        send = ("import socket;s = socket.socket(socket.AF_INET, socket.SOCK_DGRAM);"
+                f"[s.sendto(b'x', ('{web.ipv4}', 9053)) for _ in range({WL_VETH_SENDS})]")
+        for role in ("client", "other"):
+            r = nsmod.netns_run(veth[role]["ns"], ["python3", "-c", send])
+            if r.returncode != 0:
+                fail(f"workloads [veth]: the {role} container could not send: {r.stderr}")
+        n = [0]
+
+        def enough():
+            n[0] += enf.run_from(sniffers, duration=0.1, poll_s=0.02)
+            c = enf.verdicts.get(web.endpoint_id, {})
+            return (c.get(int(FORWARD), 0) >= WL_VETH_SENDS
+                    and c.get(int(DROP_POLICY), 0) >= WL_VETH_SENDS)
+
+        wl_wait("the sniffed veth flows", enough)
+    finally:
+        for s in sniffers:
+            s.stop()
+    pl = WireEnforcer(agents["plain"].pipeline, dmap)
+    p_calls = len(lanes["plain"].calls)
+    if pl.process_flows(seen) != n[0] or pl.verdicts != enf.verdicts:
+        fail(f"workloads [veth]: the plain stand-in's verdicts {pl.verdicts} differ from the "
+             f"card's {enf.verdicts}")
+    card_v, plain_v = (np.concatenate([c[1] for c in calls]) for calls in
+                       (lanes["card"].calls[n_calls:], lanes["plain"].calls[p_calls:]))
+    if not np.array_equal(card_v, plain_v):
+        fail("workloads [veth]: the card's lanes differ from the plain stand-in's")
+    print(f"workloads [veth]: web {veth['web']['app']}, client {veth['client']['app']}, other "
+          f"{veth['other']['app']}: {n[0]} real flows enforced, verdicts "
+          f"{enf.verdicts[web.endpoint_id]} (client FORWARD and other DROP_POLICY >= "
+          f"{WL_VETH_SENDS} each), == the plain stand-in's, in {time.perf_counter() - t0!r}s "
+          f"[{card}]", flush=True)
+
+
+def wl_health_leg(tmp: str, card: str) -> None:
+    """Phase 3t step 6: the health child against a stub agent. The stub
+    is the port's api/unixhttp.UnixHTTPServer answering
+    APIClient.node_list with node "up" (its health port a live
+    HealthResponder) and node "down" (a port nothing listens on). The
+    child alone prints READY <port>; one /probe, then /status reports one
+    node reachable and one not. Then HealthLauncher spawns it (its stdout
+    goes nowhere: the API socket answering is its READY), a SIGKILL, and
+    the launcher starts it again."""
+    import os
+    import signal
+    import threading
+
+    from cilium_tpu_torch.api.client import APIClient
+    from cilium_tpu_torch.api.unixhttp import UnixHandler, UnixHTTPServer
+    from cilium_tpu_torch.health.standalone import HealthAPIClient, HealthResponder
+    from cilium_tpu_torch.proxy.launcher import HealthLauncher
+
+    responder = HealthResponder("127.0.0.1", 0).start()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        closed = s.getsockname()[1]
+    nodes = [{"name": "up", "cluster": "default", "ipv4": "127.0.0.1",
+              "health_ip": "127.0.0.1", "health_port": responder.port},
+             {"name": "down", "cluster": "default", "ipv4": "127.0.0.1",
+              "health_ip": "127.0.0.1", "health_port": closed}]
+
+    class Handler(UnixHandler):
+        def do_GET(self):
+            if self.path == "/node":
+                self._json(200, nodes)
+            else:
+                self._json(404, {"error": "not found"})
+
+    agent_sock = os.path.join(tmp, "agent.sock")
+    srv = UnixHTTPServer(agent_sock, Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+
+    def check_status(c, what: str) -> dict:
+        if c.probe() != {"probed": 2}:
+            fail(f"workloads [health]: {what}: /probe did not probe both nodes")
+        st = c.status()
+        by = {n["name"]: n for n in st["nodes"]}
+        if (st["total"], st["reachable"]) != (2, 1) or not by["up"]["reachable"] or \
+                by["down"]["reachable"]:
+            fail(f"workloads [health]: {what}: /status {st}")
+        return st
+
+    hl = None
+    try:
+        api = os.path.join(tmp, "health-alone.sock")
+        t0 = time.perf_counter()
+        p = subprocess.Popen(
+            [sys.executable, "-m", "cilium_tpu_torch.health", "--agent", agent_sock, "--api", api,
+             "--listen-ip", "127.0.0.1", "--port", "0", "--interval", "3600"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        guard = threading.Timer(WL_WAIT_S, p.kill)
+        guard.start()
+        try:
+            line = p.stdout.readline().split()
+            ready_s = time.perf_counter() - t0
+            if not line or line[0] != "READY":
+                fail(f"workloads [health]: the child printed {line} before READY")
+            st = check_status(HealthAPIClient(api), "the child alone")
+            if st["port"] != int(line[1]):
+                fail("workloads [health]: /status names another port than READY")
+        finally:
+            guard.cancel()
+            p.terminate()
+            p.wait(timeout=10)
+        api = os.path.join(tmp, "health.sock")
+        healthz = APIClient(api, timeout=2)
+        t0 = time.perf_counter()
+        hl = HealthLauncher(agent_sock, api, restart_backoff_s=0.1).start()
+        first_s = wl_wait("the launched health child",
+                          lambda: healthz._request("GET", "/healthz") == {"ok": True})
+        pid = hl.pid()
+        check_status(HealthAPIClient(api), "the launched child")
+        t0 = time.perf_counter()
+        os.kill(pid, signal.SIGKILL)
+        wl_wait("the health child's restart", lambda: hl.restarts == 1 and hl.pid() not in
+                (None, pid))
+        wl_wait("the restarted health child",
+                lambda: healthz._request("GET", "/healthz") == {"ok": True})
+        restart_s = time.perf_counter() - t0
+        check_status(HealthAPIClient(api), "the restarted child")
+        if hl.restarts != 1:
+            fail(f"workloads [health]: {hl.restarts} restarts after one kill")
+        print(f"workloads [health]: spawn to READY {ready_s!r}s; under HealthLauncher spawn to "
+              f"/healthz {first_s!r}s, SIGKILL to the restarted child's /healthz {restart_s!r}s "
+              f"(restarts {hl.restarts}); /status after /probe: 1 of 2 nodes reachable, probes "
+              f"answered by the live responder {responder.accepted} [{card}]", flush=True)
+    finally:
+        if hl is not None:
+            hl.stop()
+        srv.shutdown()
+        srv.server_close()
+        responder.stop()
+
+
 def collections_counter(xs) -> dict:
     """{value: count} of ``xs``, sorted by value."""
     import numpy as np
@@ -10855,6 +11669,14 @@ def main() -> None:
         fail(f"external proxy: launches {launch_delta({})} counted in this process")
 
     phase("3s external proxy")
+
+    # -- 3t. workload runtimes and health, counts from zero --------------
+    _kernels.reset_launches()
+    workloads_main_path(args.seed, card)
+    check_path("workloads", ["selector_match", "bool_mm", "lpm_wide", "policymap_verdict"])
+    watch.check("after the workloads phase", faults_expected)
+
+    phase("3t workloads and health")
 
     # -- 5. each kernel against its plain version on the card ------------
     compiled, device = engine.snapshot()
