@@ -418,6 +418,29 @@
    equal the plain stand-in's; the health child (python -m
    cilium_tpu_torch.health) against a stub agent: READY, /probe,
    /status, a SIGKILL and its launcher's restart. Fails past 20 s.
+4u. The daemon and its REST API, launch counts from zero
+   (daemon_main_path): one port Daemon on the card with its state in a
+   temp directory and an APIServer on a unix socket, driven over REST
+   by api/client.APIClient, beside a plain twin (Daemon(device="cpu"),
+   its own APIServer) in a process of its own that takes the same calls
+   at the same time. The world: the bench world's rules with their L7
+   (10 000), its 2 048 identities as peers in each agent's registry and
+   ipcache, 64 endpoints. Boot (/healthz; features() names the card,
+   the in-place add of probes.py works, nothing but what is missing is
+   degraded; the probe op's card time); the 64 endpoint adds, then
+   PUT /policy and its regeneration of every endpoint (K1, K2):
+   policymaps equal to the twin's; a 1 048 576-flow batch with ports
+   (host CT, K3 + K4) and its first 65 536 lanes equal to the twin's;
+   32 traces with device parity; eight PATCH /config option groups on
+   and off, each followed by a batch equal to the twin's (attributed
+   rule hits, K6 and K4's attribution entry, against a CPU pipeline
+   over four endpoints; the L7DeviceBatch check_batch on a redirect);
+   /debuginfo and a bugtool archive, every artifact's schema header;
+   then drain, save and shutdown under the LifecycleJournal, and a
+   second card agent on the same state directory whose first batch of
+   the established flows equals the first agent's last, its journal
+   and the first's holding boot, drain, snapshot, CT restore and
+   restore-done in HLC order. Fails past DAEMON_PHASE_LIMIT_S.
 5. Holds every kernel against its plain version on the card, at the
    main paths' shapes, with exact equality (all outputs are integers),
    and times kernel, plain version and, where one exists, a library
@@ -11063,6 +11086,528 @@ def wl_health_leg(tmp: str, card: str) -> None:
         responder.stop()
 
 
+DAEMON_PHASE_LIMIT_S = 90.0  # the copied daemon's host work at this world (PERF.md §6, §7)
+DAEMON_WAIT_S = 120.0  # the most the plain twin may take to start or to answer
+DAEMON_SLICE = 1 << 16  # lanes held against the plain twin, and each option flip's batch
+DAEMON_TRACES = 32  # (subject, peer, port) triples resolved over REST
+DAEMON_L7_REQS = 4096  # HTTP requests checked on one endpoint's port-80 redirect
+DAEMON_POLICYMAPS = 4  # endpoints whose policymap dumps are held against the twin
+DAEMON_RESTORE_DEBOUNCE_S = 3600.0  # the restarted agent's regen_debounce: one fold after restore
+DAEMON_OPTIONS = (("FlowAttribution",), ("AdmissionControl", "Prefilter"), ("SparseDeltas",),
+                  ("DeviceProfiling",), ("PhaseTracing",), ("L7DeviceBatch",),
+                  ("LifecycleJournal",), ("FleetTelemetry",))
+DAEMON_JOURNAL_KINDS = ("boot", "drain_begin", "drain_end", "snapshot_save", "ct_restore",
+                        "restore_done")
+
+
+def daemon_peers(d, idents, labels_of) -> None:
+    """build_world's identities, allocated in the agent's registry in the
+    world's order (so their ids are the world's), and their /32s in its
+    ipcache: the peers the cluster's other nodes would bring in."""
+    from cilium_tpu_torch.labels import parse_label_array
+
+    for ident in idents:
+        if d.registry.allocate(parse_label_array(labels_of[ident.id])).id != ident.id:
+            fail("daemon: a world identity took another id in the agent's registry")
+    for i, ident in enumerate(idents):
+        d.ipcache.upsert(f"10.{(i >> 8) & 255}.{i & 255}.1/32", ident.id, source="k8s")
+
+
+def daemon_batch(pipe, flows, sports=None) -> dict:
+    """One v4 ingress batch through ``pipe``: its verdicts, redirects,
+    the per-endpoint counters it added and the rule-hit and drop-reason
+    counter series it moved."""
+    import numpy as np
+
+    from cilium_tpu_torch import metrics
+
+    def series():
+        return {name: dict(m.series()) for name, m in
+                (("rule_hits", metrics.rule_hits_total), ("drops", metrics.drop_reasons_total))}
+
+    before, c0 = series(), pipe.counters.copy()
+    v, red = pipe.process(*flows, ingress=True, sports=sports)
+    after = series()
+    c1 = pipe.counters
+    moved = {name: {str(k): after[name][k] - before[name].get(k, 0.0)
+                    for k in after[name] if after[name][k] != before[name].get(k, 0.0)}
+             for name in after}
+    return {"verdict": np.asarray(v), "redirect": np.asarray(red),
+            "counters": c1 - c0 if c1.shape == c0.shape else c1.copy(), **moved}
+
+
+def daemon_attrib_batch(d, flows, n_eps: int) -> dict:
+    """daemon_batch on a CPU pipeline beside the agent's, over its engine,
+    ipcache and prefilter and its first ``n_eps`` endpoints, attribution
+    on: the plain twin's FlowAttribution check (the attributed sweep of
+    all the agent's endpoints on the CPU is what the phase cannot pay)."""
+    from cilium_tpu_torch.datapath.pipeline import DatapathPipeline
+
+    side = DatapathPipeline(d.engine, d.ipcache, d.prefilter, device="cpu")
+    side.set_endpoints([(ep.id, ep.identity.id) for ep in d.endpoint_manager.endpoints()[:n_eps]])
+    side.set_attribution(True)
+    return daemon_batch(side, flows)
+
+
+def daemon_l7_requests(seed: int, idents, n: int):
+    """HTTP requests over the bench's L7 corpus (methods GET / POST /
+    none, paths of L7_PATHS' shapes and others), from world identities."""
+    from cilium_tpu_torch.l7 import HTTPRequest
+
+    rng = random.Random(seed + 29)
+    paths = ([f"/api/v{a}/obj{a}" for a in range(10)] + [f"/svc{a}/x/y" for a in range(10)]
+             + ["/", "/other/thing", "/api/v1/UPPER"])
+    return [HTTPRequest(method=rng.choice(["GET", "POST", "PUT", ""]), path=rng.choice(paths),
+                        src_identity=rng.choice(idents).id) for _ in range(n)]
+
+
+def daemon_l7_check(d, ep_id: int, seed: int, idents, n: int):
+    rd = d.proxy.lookup(ep_id, 80, ingress=True)
+    if rd is None or rd.http_policy is None:
+        return None
+    return [bool(x) for x in rd.http_policy.check_batch(daemon_l7_requests(seed, idents, n))]
+
+
+def daemon_twin(conn, seed: int, sock: str, sizes: dict) -> None:
+    """Phase 3u's plain twin, in a process of its own so that its host
+    work runs beside the card agent's: a Daemon(device="cpu") with the
+    world's peers and an APIServer on ``sock``, driven over REST like
+    the card's, plus the calls REST has no route for, asked over
+    ``conn``: ("batch", flows) → daemon_batch, ("attrib", flows, n_eps) →
+    daemon_attrib_batch, ("l7", ep_id, n) → daemon_l7_check, ("stop",). ``sizes``: the parent's world sizes
+    (N_RULES, N_IDENTITIES, N_APPS)."""
+    from cilium_tpu_torch.api.server import APIServer
+    from cilium_tpu_torch.daemon import Daemon
+
+    globals().update(sizes)
+
+    _repo, _reg, _cache, idents, labels_of = build_world(seed, l7=True)
+    d = Daemon(device="cpu")
+    srv = None
+    try:
+        daemon_peers(d, idents, labels_of)
+        srv = APIServer(d, sock)
+        srv.start()
+        conn.send(("ready", None))
+        while True:
+            op, *args = conn.recv()
+            if op == "stop":
+                break
+            try:
+                if op == "batch":
+                    out = daemon_batch(d.pipeline, *args)
+                elif op == "attrib":
+                    out = daemon_attrib_batch(d, *args)
+                elif op == "l7":
+                    out = daemon_l7_check(d, args[0], seed, idents, args[1])
+                else:
+                    raise ValueError(f"unknown twin call {op!r}")
+                conn.send(("ok", out))
+            except Exception as e:  # the parent fails the phase with it
+                conn.send(("error", f"{type(e).__name__}: {e}"))
+    finally:
+        if srv is not None:
+            srv.stop()
+        d.shutdown()
+        conn.send(("stopped", None))
+
+
+def daemon_same(what: str, got: dict, want: dict) -> None:
+    import numpy as np
+
+    for key in want:
+        a, b = got[key], want[key]
+        same = np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b
+        if not same:
+            fail(f"daemon: {what}: the card agent's {key} differs from the plain twin's")
+
+
+def probe_op_ms(dev) -> float:
+    """probes.py's device probe op, x.add_(1) into an int32[8] tensor, on
+    the card: CUDA events around 20 launches, the median of 5 such runs'
+    per-launch means, after 50 ms of warm-up launches."""
+    import torch
+
+    x = torch.zeros(8, dtype=torch.int32, device=dev)
+    t_end = time.perf_counter() + 0.05
+    while time.perf_counter() < t_end:
+        x.add_(1)
+    torch.cuda.synchronize(dev)
+    runs = []
+    for _ in range(5):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(20):
+            x.add_(1)
+        b.record()
+        b.synchronize()
+        runs.append(a.elapsed_time(b) / 20)
+    return sorted(runs)[2]
+
+
+def daemon_main_path(seed: int, card: str, dev=None):
+    """Phase 3u: the daemon and its REST API (A7c1) on the card. One
+    agent, a port Daemon(state_dir=<tmp>, device=None) with the port's
+    APIServer on a unix socket, driven over REST by api/client.APIClient
+    as `cilium` drives `cilium-agent`; a plain twin, Daemon(device="cpu")
+    in a process of its own (daemon_twin), takes the same REST calls at
+    the same time. The world: the bench world's repository with its L7
+    (build_world(seed, l7=True): 10 000 ingress rules over 512 apps, the
+    port-80 ones with HTTP rules), its 2 048 identities as peers in each
+    agent's registry and ipcache, N_ENDPOINTS endpoints with the first
+    identities' labels at pod addresses.
+    1. Boot: GET /healthz; Daemon.features() (blocking) names the card,
+       buffer donation (the in-place add) works and /status's
+       features_degraded lacks "accelerator"; the probe op's card time.
+    2. Endpoints, then policy: the endpoint adds over REST (each
+       regenerates the fleet at once, as the agent has no debounce, so
+       they come before the rules), then PUT /policy with the 10 000
+       rules as JSON: its regeneration of every endpoint (L4 resolve,
+       redirects, the engine's refresh, K1, and the pipeline's rebuild,
+       K2). GET /endpoint/{id}/policymap of DAEMON_POLICYMAPS endpoints
+       equals the twin's.
+    3. Verdicts: a 1 048 576-flow v4 batch with source ports (the host
+       CT pre-pass, the miss tail on K3 + K4), timed; its first
+       DAEMON_SLICE lanes alone through both agents (no ports) equal:
+       verdicts, redirects, counters.
+    4. POST /policy/resolve of DAEMON_TRACES seeded (subject, peer, port)
+       triples: parity (the host oracle against the card engine) on
+       every one, each answer equal to the twin's.
+    5. PATCH /config of each DAEMON_OPTIONS group, on and then off; after
+       each flip a DAEMON_SLICE batch through both agents is equal
+       (verdicts, redirects, counters, rule-hit and drop-reason counter
+       moves: with FlowAttribution the deciding rules); with L7DeviceBatch
+       on, check_batch of DAEMON_L7_REQS requests on an endpoint's
+       port-80 redirect equals the twin's.
+    6. GET /debuginfo, and a bugtool archive written and read back: every
+       artifact carries bugtool.ARTIFACT_SCHEMAS' header.
+    7. LifecycleJournal on: the established flows of step 3 (its first
+       DAEMON_SLICE forwarded lanes, with their ports) once more, then
+       drain(), save_state(), shutdown(); a second card Daemon on the
+       same state_dir (the journal on at boot, regen_debounce
+       DAEMON_RESTORE_DEBOUNCE_S) restores, and its first batch, the same
+       flows, equals the first agent's last batch on them; the journals
+       hold DAEMON_JOURNAL_KINDS in HLC order; restore-to-first-batch
+       against step 2's regeneration.
+    The caller set the launch counts to 0; the phase fails past
+    DAEMON_PHASE_LIMIT_S."""
+    import concurrent.futures
+    import multiprocessing
+    import os
+    import shutil
+    import tarfile
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch import metrics
+    from cilium_tpu_torch.api.client import APIClient
+    from cilium_tpu_torch.api.server import APIServer
+    from cilium_tpu_torch.bugtool import ARTIFACT_SCHEMAS, write_archive
+    from cilium_tpu_torch.daemon import Daemon
+    from cilium_tpu_torch.datapath.pipeline import FORWARD
+    from cilium_tpu_torch.option import DaemonConfig, get_config, set_config
+    from cilium_tpu_torch.policy.api.serialization import rule_to_dict
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ctpu-daemon-")
+    state_dir = os.path.join(tmp, "state")
+    ctx = multiprocessing.get_context("spawn")
+    conn, child_conn = ctx.Pipe()
+    twin_sock = os.path.join(tmp, "twin.sock")
+    sizes = {"N_RULES": N_RULES, "N_IDENTITIES": N_IDENTITIES, "N_APPS": N_APPS}
+    twin = ctx.Process(target=daemon_twin, args=(child_conn, seed, twin_sock, sizes), daemon=True)
+    twin.start()
+    pool = concurrent.futures.ThreadPoolExecutor(1)
+    saved_cfg = get_config()
+    agents, srv = [], None
+
+    def ask(*msg):
+        conn.send(msg)
+
+    def answer(what: str):
+        if not conn.poll(DAEMON_WAIT_S):
+            fail(f"daemon: the plain twin gave no answer to {what}")
+        status, out = conn.recv()
+        if status != "ok":
+            fail(f"daemon: the plain twin's {what}: {out}")
+        return out
+
+    def on_both(call):
+        """call(client) on the card agent's client here and on the twin's
+        at the same time → (card's, twin's)."""
+        fut = pool.submit(call, tclient)
+        return call(client), fut.result()
+
+    try:
+        repo, _reg, _cache, idents, labels_of = build_world(seed, l7=True)
+        rules = [rule_to_dict(r) for r in repo.rules]
+        d = Daemon(state_dir=state_dir, device=dev)
+        agents.append(d)
+        want_dev = "cuda" if dev is None else str(torch.device(dev))
+        if (d.device.type, d.engine.device.type, d.pipeline.device.type) != (want_dev,) * 3:
+            fail(f"daemon: the agent runs on {d.device}, its pipeline on {d.pipeline.device}")
+        daemon_peers(d, idents, labels_of)
+        sock = os.path.join(tmp, "api.sock")
+        srv = APIServer(d, sock)
+        srv.start()
+        client = APIClient(sock)
+        t_boot = time.perf_counter() - t_phase
+
+        # -- 1. boot -----------------------------------------------------------
+        health = client._request("GET", "/healthz")
+        t0 = time.perf_counter()
+        feats = d.features()
+        t_feats = time.perf_counter() - t0
+        status = client.status()
+        dev_feat = feats["device"]
+        want_kind = torch.cuda.get_device_name(0) if want_dev == "cuda" else "cpu"
+        want_plat = "gpu" if want_dev == "cuda" else "cpu"
+        if (dev_feat.get("platform"), dev_feat.get("device_kind")) != (want_plat, want_kind) or \
+                not feats["device_donation"]:
+            fail(f"daemon: the probes report {dev_feat}, donation {feats['device_donation']}")
+        if want_dev == "cuda" and "accelerator" in status["features_degraded"]:
+            fail(f"daemon: /status names the accelerator degraded: {status['features_degraded']}")
+        probe_ms = probe_op_ms(dev if dev is not None else torch.device("cuda")) \
+            if want_dev == "cuda" else float("nan")
+        if not conn.poll(DAEMON_WAIT_S) or conn.recv()[0] != "ready":
+            fail("daemon: the plain twin did not start")
+        tclient = APIClient(twin_sock)
+        print(f"daemon: agent up in {t_boot!r}s (world {len(repo.rules)} rules, "
+              f"{len(idents)} peer identities), /healthz {health.get('endpoints')} endpoints "
+              f"{health.get('pipeline_mode')}, features() in {t_feats!r}s: "
+              f"{dev_feat['platform']} {dev_feat['device_kind']!r} x{dev_feat['device_count']}, "
+              f"donation {feats['device_donation']}, degraded {status['features_degraded']}; "
+              f"the probe op (add_ into int32[8]) {probe_ms!r} ms on the card (bound "
+              f"{64 / HBM_BYTES_PER_S * 1e3!r} ms: 64 bytes) [{card}]", flush=True)
+
+        # -- 2. endpoints, then the policy ------------------------------------------
+        endpoints = [idents[j].id for j in range(N_ENDPOINTS)]
+        before = launch_delta({})
+        t0 = time.perf_counter()
+        for k, ep in enumerate(endpoints):
+            ip = f"10.200.{k >> 8}.{(k & 255) + 2}"
+            a, b = on_both(lambda c: c.endpoint_put(k + 1, labels_of[ep], ipv4=ip))
+            if a != b or a["identity"] != ep:
+                fail(f"daemon: endpoint {k + 1}: {a} (twin {b}), identity {ep} expected")
+        t_eps = time.perf_counter() - t0
+        eps_launches = launch_delta(before)
+        before = launch_delta({})
+        t0 = time.perf_counter()
+        put = pool.submit(tclient.policy_put, rules)
+        out = client.policy_put(rules)
+        if want_dev == "cuda":
+            torch.cuda.synchronize()
+        t_regen = time.perf_counter() - t0
+        regen_launches = launch_delta(before)
+        if out != put.result() or out["count"] != len(rules):
+            fail(f"daemon: PUT /policy answered {out}")
+        t_twin_regen = time.perf_counter() - t0
+        eps = client.endpoint_list()
+        if len(eps) != N_ENDPOINTS or any(e["state"] != "ready" or e["policy_revision"] !=
+                                          out["revision"] for e in eps):
+            fail("daemon: after PUT /policy an endpoint is not ready at the policy's revision")
+        n_rd = len(d.proxy.redirects())
+        for k in range(1, DAEMON_POLICYMAPS + 1):
+            for egress in (False, True):
+                a, b = on_both(lambda c: c.policymap_get(k, egress=egress))
+                if a != b:
+                    fail(f"daemon: endpoint {k}'s {'egress' if egress else 'ingress'} "
+                         f"policymap differs from the twin's")
+        print(f"daemon: {N_ENDPOINTS} endpoint adds over REST in {t_eps!r}s (launches "
+              f"{eps_launches}); PUT /policy of {len(rules)} rules and its regeneration of "
+              f"{N_ENDPOINTS} endpoints ({n_rd} redirects) {t_regen!r}s, launches "
+              f"{regen_launches} (twin done {t_twin_regen!r}s after the PUT); policymaps of "
+              f"{DAEMON_POLICYMAPS} endpoints, both directions, == the twin's [{card}]", flush=True)
+        if not regen_launches.get("selector_match") or not regen_launches.get("bool_mm"):
+            fail("daemon: the policy's regeneration launched no K1 / K2")
+
+        # -- 3. verdicts -----------------------------------------------------------------
+        ips, epi, dports, protos, _i_sel = make_flows(seed, len(idents))
+        sports = np.random.default_rng(seed + 290).integers(1024, 65536, ips.size).astype(np.int32)
+        before = launch_delta({})
+        t0 = time.perf_counter()
+        v_all, red_all = d.pipeline.process(ips, epi, dports, protos, ingress=True, sports=sports)
+        t_batch = time.perf_counter() - t0
+        batch_launches = launch_delta(before)
+        part = tuple(x[:DAEMON_SLICE] for x in (ips, epi, dports, protos))
+        ask("batch", part)
+        got = daemon_batch(d.pipeline, part)
+        want = answer("the slice")
+        daemon_same("the first slice", got, want)
+        if not np.array_equal(got["verdict"], np.asarray(v_all)[:DAEMON_SLICE]):
+            fail("daemon: the slice alone differs from its lanes in the 1M batch")
+        codes = collections_counter(np.asarray(v_all))
+        print(f"daemon: {ips.size}-flow v4 batch with ports (host CT) in {t_batch!r}s "
+              f"({ips.size / t_batch!r} flows/s), launches {batch_launches}, verdicts {codes}, "
+              f"{int(np.asarray(red_all).sum())} redirected; its first {DAEMON_SLICE} lanes alone "
+              f"== the twin's (verdicts, redirects, counters) [{card}]", flush=True)
+        if not batch_launches.get("lpm_wide") or not batch_launches.get("policymap_verdict"):
+            fail("daemon: the batch launched no K3 / K4")
+
+        # -- 4. traces ----------------------------------------------------------------------
+        # half the triples the batch's forwarded lanes, half drawn at random
+        rng = random.Random(seed + 291)
+        fwd_lanes = np.nonzero(np.asarray(v_all) == FORWARD)[0]
+        triples = [(labels_of[endpoints[int(epi[i])]], labels_of[idents[int(_i_sel[i])].id],
+                    f"{int(dports[i])}/{'udp' if int(protos[i]) == 17 else 'tcp'}")
+                   for i in rng.sample(fwd_lanes.tolist(), min(DAEMON_TRACES // 2, fwd_lanes.size))]
+        triples += [(labels_of[rng.choice(endpoints)], labels_of[rng.choice(idents).id],
+                     rng.choice(["80/tcp", "443/tcp", "8080/tcp", "53/udp", "5432/tcp", "22/tcp"]))
+                    for _ in range(DAEMON_TRACES - len(triples))]
+        t0 = time.perf_counter()
+        allowed = 0
+        for subj, peer, port in triples:
+            a, b = on_both(lambda c: c.policy_resolve(peer, subj, [port]))
+            if not a["parity"] or a != b:
+                fail(f"daemon: resolve {peer} -> {subj} {port}: {a} (twin {b})")
+            allowed += bool(a["allowed"])
+        t_trace = time.perf_counter() - t0
+        print(f"daemon: {DAEMON_TRACES} POST /policy/resolve in {t_trace!r}s, {allowed} allowed, "
+              f"parity (host oracle == card engine) on every one, == the twin's [{card}]",
+              flush=True)
+
+        # -- 5. options ---------------------------------------------------------------------
+        l7_ep = next((k + 1 for k in range(N_ENDPOINTS)
+                      if d.proxy.lookup(k + 1, 80, ingress=True) is not None), None)
+        if l7_ep is None:
+            fail("daemon: no endpoint has a port-80 redirect")
+        flips = []
+        for group in DAEMON_OPTIONS:
+            for on in (True, False):
+                t0 = time.perf_counter()
+                a, b = on_both(lambda c: c.config_patch({name: on for name in group}))
+                if a != b or any(a["options"][name] != on for name in group):
+                    fail(f"daemon: PATCH /config {group} {on}: {a} (twin {b})")
+                what = f"{'+'.join(group)} {'on' if on else 'off'}"
+                note = ""
+                if group == ("FlowAttribution",) and on:
+                    # the twin's side pipeline over the first N_ATTR_EPS
+                    # endpoints: the lanes of those endpoints alone
+                    sub = tuple(x[part[1] < N_ATTR_EPS] for x in part)
+                    ask("attrib", sub, N_ATTR_EPS)
+                    got = daemon_batch(d.pipeline, sub)
+                    if got["counters"][N_ATTR_EPS:].any():
+                        fail("daemon: the attributed lanes counted on another endpoint")
+                    got["counters"] = got["counters"][:N_ATTR_EPS]
+                    daemon_same(what, got, answer("the attributed batch"))
+                    if not got["rule_hits"]:
+                        fail("daemon: FlowAttribution on moved no rule-hit counter")
+                    note = (f", {sub[0].size} lanes of {N_ATTR_EPS} endpoints, "
+                            f"{len(got['rule_hits'])} rules hit")
+                else:
+                    ask("batch", part)
+                    daemon_same(what, daemon_batch(d.pipeline, part), answer("a flip"))
+                if group == ("L7DeviceBatch",) and on:
+                    ask("l7", l7_ep, DAEMON_L7_REQS)
+                    mine = daemon_l7_check(d, l7_ep, seed, idents, DAEMON_L7_REQS)
+                    if mine != answer("the L7 check"):
+                        fail("daemon: the L7DeviceBatch check_batch differs from the twin's")
+                    note = f", L7 {sum(mine)} of {len(mine)} requests allowed == the twin's"
+                if group == ("FleetTelemetry",) and on:
+                    # the agent's sampler reads the process's batch
+                    # histogram (every pipeline's traced batches), not its own
+                    smp = d._fleet_sampler.sample_once()
+                    p50 = metrics.batch_total_seconds.quantile(0.5)
+                    if smp["verdict_p50_ms"] != (None if p50 is None else p50 * 1e3):
+                        fail("daemon: the agent's sampler p50 is not the process histogram's")
+                    note = (f", the agent's sampler p50 / p99 {smp['verdict_p50_ms']!r} / "
+                            f"{smp['verdict_p99_ms']!r} ms == the process's batch histogram "
+                            f"({metrics.batch_total_seconds.get_count()} batches)")
+                flips.append(f"{'+'.join(group)} {'on' if on else 'off'} "
+                             f"{time.perf_counter() - t0:.3f}s{note}")
+        print(f"daemon: PATCH /config flips, each with a {DAEMON_SLICE}-flow batch == the twin's: "
+              f"{'; '.join(flips)} [{card}]", flush=True)
+
+        # -- 6. debuginfo and bugtool ---------------------------------------------------
+        t0 = time.perf_counter()
+        info = client.debuginfo()
+        path = write_archive(d, os.path.join(tmp, "bugtool.tar.gz"))
+        with tarfile.open(path) as tar:
+            arts = {key: json.load(tar.extractfile(f"cilium-tpu-bugtool/{key}.json"))
+                    for key in ARTIFACT_SCHEMAS}
+        for key, schema in ARTIFACT_SCHEMAS.items():
+            for where, art in (("GET /debuginfo", info[key]), ("the archive", arts[key])):
+                if art.get("schema") != schema or "generated_at" not in art:
+                    fail(f"daemon: {where}'s {key} artifact lacks its {schema} header")
+        if info["status"]["endpoints"] != N_ENDPOINTS:
+            fail(f"daemon: /debuginfo counts {info['status']['endpoints']} endpoints")
+        print(f"daemon: GET /debuginfo and a bugtool archive ({os.path.getsize(path)} bytes) in "
+              f"{time.perf_counter() - t0!r}s, {len(ARTIFACT_SCHEMAS)} artifacts each with its "
+              f"schema header [{card}]", flush=True)
+
+        # -- 7. drain, save, restart ----------------------------------------------------
+        client.config_patch({"LifecycleJournal": True})
+        fwd = np.nonzero((np.asarray(v_all) == FORWARD) & ~np.asarray(red_all))[0][:DAEMON_SLICE]
+        est = tuple(x[fwd] for x in (ips, epi, dports, protos, sports))
+        last = daemon_batch(d.pipeline, est[:4], est[4])
+        d.drain()
+        d.save_state()
+        first_events = d.events(limit=1024)["events"]
+        srv.stop()
+        srv = None
+        d.shutdown()
+        agents.remove(d)
+        set_config(DaemonConfig(lifecycle_journal=True))
+        t0 = time.perf_counter()
+        d2 = Daemon(state_dir=state_dir, device=dev, regen_debounce=DAEMON_RESTORE_DEBOUNCE_S)
+        agents.append(d2)
+        t_restore = time.perf_counter() - t0
+        first = daemon_batch(d2.pipeline, est[:4], est[4])
+        t_first = time.perf_counter() - t0
+        daemon_same("the restarted agent's first batch", first, last)
+        info2 = d2.ct_restore_info() or {}
+        evs = sorted(first_events + d2.events(limit=1024)["events"],
+                     key=lambda e: tuple(e["hlc"]))
+        kinds = [e["kind"] for e in evs]
+        missing = [k for k in DAEMON_JOURNAL_KINDS if k not in kinds]
+        # the first agent's drain, then the second's boot, CT restore and
+        # first batch (the first agent's boot predates its journal)
+        order = [] if missing else (
+            [kinds.index(k) for k in ("drain_begin", "drain_end")]
+            + [len(kinds) - 1 - kinds[::-1].index(k) for k in ("boot", "ct_restore", "restore_done")])
+        if missing or order != sorted(order):
+            fail(f"daemon: the journals lack {missing} or are out of HLC order: {kinds}")
+        print(f"daemon: restart on the same state_dir: restore {t_restore!r}s, restore to its "
+              f"first batch {t_first!r}s (step 2's regeneration {t_regen!r}s); CT restore "
+              f"{ {k: info2.get(k) for k in ('kept', 'expired', 'flushed', 'basis_match')} }; "
+              f"{est[0].size} established flows == the first agent's last batch on them "
+              f"({collections_counter(first['verdict'])}); journal kinds in HLC order "
+              f"{[k for k in kinds if k in DAEMON_JOURNAL_KINDS]} [{card}]", flush=True)
+        if not info2.get("basis_match") or not info2.get("kept"):
+            fail(f"daemon: the restart kept no CT entry: {info2}")
+        trig = d2._regen_trigger
+        trig._fn = lambda reasons: None  # the fold after restore: not waited for
+        d2.shutdown()
+        trig.shutdown()
+        agents.remove(d2)
+    finally:
+        set_config(saved_cfg)
+        if srv is not None:
+            srv.stop()
+        for a in agents:
+            a.shutdown()
+        if twin.is_alive():
+            try:
+                conn.send(("stop",))
+                conn.poll(30)
+            except (OSError, EOFError):
+                pass
+        twin.join(30)
+        if twin.is_alive():
+            twin.kill()
+            twin.join(5)
+        pool.shutdown(wait=False)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    wall = time.perf_counter() - t_phase
+    print(f"daemon: phase in {wall:.2f}s (limit {DAEMON_PHASE_LIMIT_S:.0f}s) [{card}]",
+          flush=True)
+    if wall > DAEMON_PHASE_LIMIT_S:
+        fail(f"daemon: phase in {wall:.2f}s, over its {DAEMON_PHASE_LIMIT_S:.0f}s limit")
+
+
 def collections_counter(xs) -> dict:
     """{value: count} of ``xs``, sorted by value."""
     import numpy as np
@@ -11677,6 +12222,15 @@ def main() -> None:
     watch.check("after the workloads phase", faults_expected)
 
     phase("3t workloads and health")
+
+    # -- 3u. the daemon and its REST API, counts from zero ---------------
+    _kernels.reset_launches()
+    daemon_main_path(args.seed, card)
+    check_path("daemon", ["selector_match", "bool_mm", "first_rule", "lpm_wide",
+                          "policymap_verdict", "policymap_verdict_attrib"])
+    watch.check("after the daemon phase", faults_expected)
+
+    phase("3u daemon and REST API")
 
     # -- 5. each kernel against its plain version on the card ------------
     compiled, device = engine.snapshot()

@@ -186,7 +186,7 @@ def test_port_imports_neither_jax_nor_reference(path):
         assert top not in ("jax", "jaxlib", "cilium_tpu", "chex", "flax"), (path, name)
 
 
-def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
+def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     from cilium_tpu_torch.datapath.pipeline import DatapathPipeline
     from cilium_tpu_torch.engine import PolicyEngine
     from cilium_tpu_torch.identity import IdentityRegistry
@@ -244,4 +244,28 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch):
         l7_pipeline.set_device_batch(True, device="cpu")
         assert l7_pipeline.shared_pipeline().device.type == "cpu"
     finally:
+        l7_pipeline._reset_for_tests()
+
+    # the agent: Daemon() is the card's and raises without it, so an
+    # APIServer over a default Daemon never starts; over a CPU daemon it
+    # serves, the engine and the pipeline on the CPU
+    from cilium_tpu_torch.api import APIClient, APIServer
+    from cilium_tpu_torch.daemon import Daemon
+
+    sock = str(tmp_path / "api.sock")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Daemon()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        APIServer(Daemon(), sock)
+    d = Daemon(state_dir=str(tmp_path / "state"), device="cpu")
+    try:
+        assert {d.device.type, d.engine.device.type, d.pipeline.device.type} == {"cpu"}
+        srv = APIServer(d, sock)
+        srv.start()
+        try:
+            assert APIClient(sock).status()["endpoints"] == 0
+        finally:
+            srv.stop()
+    finally:
+        d.shutdown()
         l7_pipeline._reset_for_tests()

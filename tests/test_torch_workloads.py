@@ -278,11 +278,10 @@ def test_copies_match_the_reference(path):
 
 
 def test_api_server_waits_for_the_daemon():
-    """``api.APIServer`` comes with ``api/server.py`` (A7c): until then the
-    lazy export raises ImportError, while the client's names resolve."""
+    """``api.APIServer`` came with ``api/server.py`` and the daemon: the
+    lazy export resolves to the server, as the client's names do."""
     api = _mod("cilium_tpu_torch", "api")
-    with pytest.raises(ImportError):
-        api.APIServer  # noqa: B018
+    assert api.APIServer is _mod("cilium_tpu_torch", "api.server").APIServer
     assert api.APIClient is _mod("cilium_tpu_torch", "api.client").APIClient
     assert api.APIError is _mod("cilium_tpu_torch", "api.client").APIError
     assert api.__all__ == _mod("cilium_tpu", "api").__all__
