@@ -441,6 +441,27 @@
    the established flows equals the first agent's last, its journal
    and the first's holding boot, drain, snapshot, CT restore and
    restore-done in HLC order. Fails past DAEMON_PHASE_LIMIT_S.
+4v. The CLI, the entry and the cluster, launch counts from zero
+   (cluster_main_path): `cilium version` names the card; entry()'s
+   verdict step on the card equals it on the plain versions (K2);
+   dryrun_multichip(4) on four virtual records of the card (2 flows x 2
+   ident), every phase equal to the unsharded run (K1, K2, K3, K4, K7,
+   K12). Then a cluster of processes: `kvstore serve` and two agents
+   `python -m cilium_tpu_torch ... daemon --join tcp://...` on the card,
+   started together, driven through the CLI over their sockets: 8
+   `endpoint add` a node (4 label sets on both nodes), `policy import` of the
+   bench world's 10 000 rules without their L7 parts into both; one
+   identity number per label set across the nodes, each node's ipcache
+   holding the other's endpoints, 32 cross-node `policy trace` with the
+   same verdict on both and device / oracle parity, `bpf policy get` of
+   two endpoints a node equal to a plain twin's (two CPU Daemons joined
+   by ClusterNode in memory) by labels. Two card Daemons joined in this
+   process take a 1 048 576-flow batch from node b's endpoints and the
+   world into node a's (K3, K4), its first 65 536 lanes equal to the
+   twin's. SIGTERM to agent a: exit 0 after its drain and save; the
+   same command again restores it: endpoint list, policymaps and
+   traces as before, node b's ipcache holding a's endpoints again.
+   Fails past CLUSTER_PHASE_LIMIT_S.
 5. Holds every kernel against its plain version on the card, at the
    main paths' shapes, with exact equality (all outputs are integers),
    and times kernel, plain version and, where one exists, a library
@@ -11608,6 +11629,652 @@ def daemon_main_path(seed: int, card: str, dev=None):
         fail(f"daemon: phase in {wall:.2f}s, over its {DAEMON_PHASE_LIMIT_S:.0f}s limit")
 
 
+CLUSTER_PHASE_LIMIT_S = 90.0  # the phase's wall budget (PERF.md §6)
+CLUSTER_WAIT_S = 60.0  # the most an agent may take to boot, converge or answer
+CLUSTER_TERM_S = 30.0  # SIGTERM to exit: the agent's drain and save
+# endpoints a node: a restored agent re-adds its endpoints one by one,
+# each add regenerating every endpoint so far (the copied daemon's
+# restore_state) and rewriting state.json, so the restart grows with
+# the square of this count (PERF.md §7)
+CLUSTER_EPS = 8
+CLUSTER_SHARED = 4  # label sets node b's endpoints share with node a's
+CLUSTER_TRACES = 32  # seeded cross-node (source, destination, port) triples
+CLUSTER_POLICYMAPS = 2  # endpoints a node whose bpf policy get is held against the twin
+CLUSTER_SLICE = 1 << 16  # lanes of the full-width batch held against the twin
+CLUSTER_CIDRS = {"a": "10.201.0.0/16", "b": "10.202.0.0/16"}  # the nodes' pod CIDRs
+CLUSTER_PORTS = ["80/tcp", "443/tcp", "8080/tcp", "53/udp", "5432/tcp"]
+# an agent process: `python -m cilium_tpu_torch <argv>` as runpy runs it
+# for -m, which writes the process's kernel launch counts as JSON to the
+# path given first when the process exits (after a SIGTERM's drain too)
+AGENT_SHIM = """import atexit, json, runpy, sys
+out = sys.argv.pop(1)
+def dump():
+    from cilium_tpu_torch import _kernels
+    with open(out, "w") as f:
+        json.dump(_kernels.launches(), f)
+atexit.register(dump)
+runpy.run_module("cilium_tpu_torch", run_name="__main__", alter_sys=True)
+"""
+
+
+class ThreadStdout:
+    """sys.stdout for a phase whose threads run the CLI in-process: what
+    a thread prints inside ``capture(fn)`` goes to a buffer of its own,
+    everything else to the real stream."""
+
+    def __init__(self, real) -> None:
+        import threading
+
+        self.real = real
+        self.local = threading.local()
+
+    def write(self, s: str) -> int:
+        buf = getattr(self.local, "buf", None)
+        return (buf if buf is not None else self.real).write(s)
+
+    def flush(self) -> None:
+        if getattr(self.local, "buf", None) is None:
+            self.real.flush()
+
+    def capture(self, fn):
+        """→ (fn(), what it printed)."""
+        import io
+
+        self.local.buf = io.StringIO()
+        try:
+            return fn(), self.local.buf.getvalue()
+        finally:
+            self.local.buf = None
+
+
+def rule_pairs(rules) -> dict:
+    """{(subject app, peer app): set of "port/proto" or None for any
+    port} of the bench world's ingress rules (their JSON)."""
+    out = {}
+    for r in rules:
+        subj = r["endpointSelector"]["matchLabels"]["k8s:app"]
+        for ing in r.get("ingress", ()):
+            for peer in ing["fromEndpoints"]:
+                ports = out.setdefault((subj, peer["matchLabels"]["k8s:app"]), set())
+                if "toPorts" not in ing:
+                    ports.add(None)
+                for tp in ing.get("toPorts", ()):
+                    ports.update(f"{p['port']}/{p['protocol'].lower()}" for p in tp["ports"])
+    return out
+
+
+def label_app(labels) -> str:
+    return next(x.split("=", 1)[1] for x in labels if x.startswith("k8s:app="))
+
+
+def cluster_endpoints(idents, labels_of, pairs):
+    """{node: [(endpoint id, labels, ipv4)]}: node a's CLUSTER_EPS
+    endpoints carry the first identities' labels; node b's first
+    CLUSTER_SHARED the labels of a's last ones, the rest those of the
+    first identities (past a's) whose app some rule lets into one of
+    a's endpoints: cross-node traffic that the policy allows."""
+    a = [labels_of[i.id] for i in idents[:CLUSTER_EPS]]
+    a_apps = {label_app(x) for x in a}
+    peers = {p for (s, p) in pairs if s in a_apps}
+    own = [labels_of[i.id] for i in idents[CLUSTER_EPS:] if label_app(labels_of[i.id]) in peers]
+    b = a[CLUSTER_EPS - CLUSTER_SHARED:] + own[:CLUSTER_EPS - CLUSTER_SHARED]
+    if len(b) != CLUSTER_EPS:
+        fail("cluster: the world has too few identities the policy lets into node a")
+    out = {}
+    for name, labels in (("a", a), ("b", b)):
+        net = CLUSTER_CIDRS[name].split(".")
+        out[name] = [(k + 1, lb, f"{net[0]}.{net[1]}.0.{k + 2}") for k, lb in enumerate(labels)]
+    return out
+
+
+def cluster_triples(seed: int, pairs, eps):
+    """CLUSTER_TRACES cross-node triples (source: a node b endpoint's
+    labels, destination: a node a endpoint's, "port/proto"): half from
+    the pairs some rule allows (on its port), the rest seeded draws."""
+    rng = random.Random(seed + 300)
+    allowed = []
+    for _i, src, _ip in eps["b"]:
+        for _j, dst, _ip2 in eps["a"]:
+            ports = pairs.get((label_app(dst), label_app(src)))
+            if ports:
+                allowed.append((src, dst, sorted(p or rng.choice(CLUSTER_PORTS) for p in ports)[0]))
+    rng.shuffle(allowed)
+    out = allowed[:CLUSTER_TRACES // 2]
+    while len(out) < CLUSTER_TRACES:
+        out.append((rng.choice(eps["b"])[1], rng.choice(eps["a"])[1], rng.choice(CLUSTER_PORTS)))
+    return out
+
+
+def cluster_build(dev, rules_json: str, eps, store):
+    """Two Daemons on ``dev`` joined by ClusterNode over ``store`` (an
+    InMemoryStore), fed the agents' sequence: node a's endpoints, node
+    b's, then the policy on both, the subscriptions pumped between."""
+    from cilium_tpu_torch.cluster import ClusterNode
+    from cilium_tpu_torch.daemon import Daemon
+    from cilium_tpu_torch.kvstore import InMemoryBackend
+    from cilium_tpu_torch.nodes.registry import Node
+
+    nodes = {}
+    for name in ("a", "b"):
+        d = Daemon(pod_cidr=CLUSTER_CIDRS[name], health_probe=lambda a, p: 0.001, device=dev)
+        nodes[name] = (d, ClusterNode(d, InMemoryBackend(store, name),
+                                      Node(name=name, ipv4="127.0.0.1",
+                                           ipv4_alloc_cidr=CLUSTER_CIDRS[name]),
+                                      probe_interval=3600))
+
+    def pump():
+        for _ in range(4):
+            for _d, cn in nodes.values():
+                cn.pump()
+
+    for name in ("a", "b"):
+        d = nodes[name][0]
+        for ep_id, labels, ip in eps[name]:
+            d.endpoint_add(ep_id, labels, ipv4=ip)
+        pump()
+    for d, _cn in nodes.values():
+        d.policy_add(rules_json)
+    pump()
+    return nodes
+
+
+def cluster_close(nodes) -> None:
+    for d, cn in nodes.values():
+        cn.close()
+        d.shutdown()
+
+
+def policymap_by_labels(entries, labels_of_id) -> list:
+    """A `bpf policy get` dump with each identity number replaced by its
+    labels (sorted): the form two clusters that numbered their
+    identities apart can compare."""
+    return sorted((tuple(sorted(labels_of_id(e["identity"]))), e["dport"], e["proto"],
+                   e["direction"], e["redirect"]) for e in entries)
+
+
+def cluster_flows(seed: int, pipe, eps, n: int):
+    """A v4 ingress batch on node a's pipeline: destinations its
+    endpoints, sources 3/4 node b's endpoint addresses and 1/4 world
+    addresses in 100.64.0.0/10. → (peers, ep_idx, dports, protos)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 310)
+    b_ips = np.array([int(ipaddress.IPv4Address(ip)) for _i, _l, ip in eps["b"]], np.uint32)
+    world = (np.uint32(100 << 24 | 64 << 16)
+             + rng.integers(0, 1 << 22, n).astype(np.uint32)).astype(np.uint32)
+    peers = np.where(rng.random(n) < 0.75, b_ips[rng.integers(0, b_ips.size, n)], world)
+    idx = np.array([pipe.endpoint_index(ep_id) for ep_id, _l, _ip in eps["a"]], np.int32)
+    ep_idx = idx[rng.integers(0, idx.size, n)]
+    dports = rng.choice(np.array([80, 443, 8080, 53, 5432], np.int32), n)
+    protos = np.where(dports == 53, 17, 6).astype(np.int32)
+    return peers.astype(np.uint32), ep_idx.astype(np.int32), dports.astype(np.int32), protos
+
+
+def cluster_main_path(seed: int, card: str, dev=None):
+    """Phase 3v: the CLI, the entry and the cluster (A7c2). ``dev`` None
+    is the card (the agents take no --device); a CPU rehearsal passes
+    "cpu", which the agents get as --device.
+    1. The entry: `cilium version` in-process (torch, the card, one
+       device); entry()'s verdict step on the card equals the same step
+       on the plain versions (entry(device="cpu")), element for element
+       (K2).
+    2. The dry run: dryrun_multichip(4) on four virtual records of the
+       card, a 2 flows x 2 ident grid, each phase equal to the unsharded
+       run (K1, K2, K3, K4, K7, K12).
+    3. A cluster of processes: `python -m cilium_tpu_torch.cli kvstore
+       serve` on a loopback port, and two agents `python -m
+       cilium_tpu_torch --socket <s> --state <d> daemon --join tcp://...
+       --node-name a|b --node-ip 127.0.0.1 --pod-cidr <its own>` (run
+       through AGENT_SHIM) on the card, started together; their probes name no degraded
+       accelerator. Through the CLI (in-process, over each agent's
+       socket): CLUSTER_EPS `endpoint add` a node, then `policy import`
+       of the bench world's 10 000 rules without their L7 parts into
+       both at once. The shared labels get one identity number on both
+       nodes; each node's ipcache (`bpf ipcache list`) holds the other's
+       endpoint addresses with the other's identities; `policy trace` of
+       CLUSTER_TRACES cross-node triples gives the same verdict on both
+       nodes with device / oracle parity on each (exit code 2 is a
+       mismatch); `bpf policy get` of CLUSTER_POLICYMAPS endpoints a node
+       equals the plain twin's, identities compared by labels. The twin:
+       two Daemon(device="cpu") joined by ClusterNode over an in-memory
+       store, fed the same sequence.
+    4. A full-width batch across the cluster: two card Daemons in this
+       process joined the same way at step 3's world; a 1 048 576-flow
+       v4 batch into node a's endpoints from node b's endpoint addresses
+       and world addresses (K3, K4); its first CLUSTER_SLICE lanes alone
+       through both this cluster and the twin: verdicts, redirects and
+       per-endpoint counters equal, and equal to those lanes of the full
+       batch.
+    5. SIGTERM to agent a: exit 0 within CLUSTER_TERM_S (drain, save).
+       The same command again, on the same state directory: its endpoint
+       list, the two policymaps and the traces equal those from before,
+       and node b's ipcache holds a's endpoints again; the restart to
+       its first answered trace is printed.
+    Last, SIGTERM to both agents, each exiting 0; the launches each
+    agent process made (AGENT_SHIM writes them at its exit) are printed:
+    on the card every agent run launched K2, and a first run K1 too.
+    The caller set the launch counts to 0; every process started here is
+    stopped in a finally; the phase fails past CLUSTER_PHASE_LIMIT_S."""
+    import concurrent.futures
+    import os
+    import shutil
+    import signal
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from cilium_tpu_torch import cli, entry
+    from cilium_tpu_torch.datapath import placement
+    from cilium_tpu_torch.kvstore import InMemoryStore
+    from cilium_tpu_torch.policy.api.serialization import rule_to_dict
+
+    t_phase = time.perf_counter()
+    card_dev = torch.device("cuda") if dev is None else torch.device(dev)
+    cuda = card_dev.type == "cuda"
+    repo_dir = str(Path(__file__).resolve().parent)
+    tmp = tempfile.mkdtemp(prefix="ctpu-cluster-")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [repo_dir] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    dev_args = [] if dev is None else ["--device", str(dev)]
+    procs = {}
+    logs = []
+    built = []
+    out_real = sys.stdout
+    tout = ThreadStdout(out_real)
+    pool = concurrent.futures.ThreadPoolExecutor(3)
+
+    def spawn(key, argv, stdout=subprocess.DEVNULL):
+        log = open(os.path.join(tmp, f"{key}.log"), "w")
+        logs.append(log)
+        procs[key] = subprocess.Popen([sys.executable, *argv], stdout=stdout, stderr=log,
+                                      text=True, cwd=repo_dir, env=env)
+        return procs[key]
+
+    def tail(key) -> str:
+        try:
+            with open(os.path.join(tmp, f"{key}.log")) as f:
+                return f.read()[-2000:]
+        except OSError:
+            return ""
+
+    def wait(what, done, timeout=CLUSTER_WAIT_S, procs_alive=()):
+        t0 = time.perf_counter()
+        while not done():
+            for key in procs_alive:
+                if procs[key].poll() is not None:
+                    fail(f"cluster: {key} exited ({procs[key].returncode}) before {what}: "
+                         f"{tail(key)}")
+            if time.perf_counter() - t0 > timeout:
+                fail(f"cluster: no {what} in {timeout:.0f}s")
+            time.sleep(0.05)
+        return time.perf_counter() - t0
+
+    socks = {name: os.path.join(tmp, f"{name}.sock") for name in ("a", "b")}
+
+    def spawn_agent(name, url, run):
+        """Agent ``name``'s ``run``-th process; its launches go to
+        launch_file(name, run) at its exit."""
+        return spawn(name, ["-c", AGENT_SHIM, launch_file(name, run), *dev_args, "--socket",
+                            socks[name], "--state", os.path.join(tmp, name), "daemon",
+                            "--join", url, "--node-name", name, "--node-ip", "127.0.0.1",
+                            "--pod-cidr", CLUSTER_CIDRS[name], "--sync-interval", "0.2"])
+
+    def launch_file(name, run):
+        return os.path.join(tmp, f"{name}{run}.launches.json")
+
+    def reap(name):
+        """Agent ``name``'s exit code, within CLUSTER_TERM_S of its SIGTERM."""
+        try:
+            return procs[name].wait(CLUSTER_TERM_S)
+        except subprocess.TimeoutExpired:
+            fail(f"cluster: agent {name} still up {CLUSTER_TERM_S:.0f}s after SIGTERM")
+
+    def run_cli(name, *argv):
+        """`cilium --socket <name's socket> argv` in-process → (exit
+        code, what it printed); the agent's socket must exist (else the
+        CLI would build a Daemon of its own)."""
+        if not os.path.exists(socks[name]):
+            fail(f"cluster: agent {name}'s socket is gone before `{' '.join(argv)}`")
+        return tout.capture(lambda: cli.main(["--socket", socks[name], *argv]))
+
+    def cli_json(name, *argv):
+        rc, out = run_cli(name, *argv)
+        if rc != 0:
+            fail(f"cluster: `{' '.join(argv)}` on {name} exited {rc}: {out[-500:]}")
+        return json.loads(out)
+
+    def trace(name, src, dst, port):
+        rc, out = run_cli(name, "policy", "trace", *[x for lb in src for x in ("-s", lb)],
+                          *[x for lb in dst for x in ("-d", lb)], "--dport", port)
+        if rc not in (0, 1):
+            fail(f"cluster: policy trace {src} -> {dst} {port} on {name} exited {rc} "
+                 f"(2: the card engine and the host oracle disagree)")
+        verdict = [ln for ln in out.splitlines() if ln.startswith("Final verdict: ")]
+        return rc, verdict[-1] if verdict else None
+
+    def launches_now():
+        return launch_delta({})
+
+    sys.stdout = tout
+    try:
+        # the processes first: they boot while this process works
+        t_spawn = time.perf_counter()
+        kv = spawn("kvstore", ["-m", "cilium_tpu_torch.cli", "kvstore", "serve", "--listen",
+                               "127.0.0.1:0", "--lease-ttl", "5"], stdout=subprocess.PIPE)
+        line = kv.stdout.readline().strip()
+        if not line.startswith("kvstore serving on tcp://"):
+            fail(f"cluster: kvstore serve printed {line!r}: {tail('kvstore')}")
+        url = line.split()[-1]
+        for name in ("a", "b"):
+            spawn_agent(name, url, 1)
+
+        # -- 1. the entry ------------------------------------------------------
+        t0 = time.perf_counter()
+        before = launches_now()
+        rc, vout = tout.capture(lambda: cli.main(["version"]))
+        want_line = (f"torch {torch.__version__} (gpu: {torch.cuda.get_device_name(0)}, 1 device(s))"
+                     if cuda else f"torch {torch.__version__} (cpu, 1 device(s))")
+        lines = vout.splitlines()
+        if rc != 0 or len(lines) != 2 or not lines[0].startswith("cilium-tpu ") or \
+                lines[1] != want_line or (cuda and torch.cuda.device_count() != 1):
+            fail(f"cluster: `cilium version` printed {lines}, expected {want_line!r}")
+        fn, args = entry.entry(device=dev)
+        got = fn(*args)
+        if cuda:
+            torch.cuda.synchronize()
+        fn_c, args_c = entry.entry(device="cpu")
+        want = fn_c(*args_c)
+        for x, y in zip(args[1:], args_c[1:]):
+            if not torch.equal(x.cpu(), y):
+                fail("cluster: entry()'s example flows differ between the card and the CPU")
+        if got.device.type != card_dev.type or not torch.equal(got.cpu(), want):
+            fail("cluster: entry()'s step on the card differs from the plain versions'")
+        l1 = launch_delta(before)
+        print(f"cluster [1. entry]: `cilium version` {lines[1]!r}; entry() step on "
+              f"{got.numel()} flows == the plain versions' (decisions "
+              f"{collections_counter(got.cpu().numpy())}) in {time.perf_counter() - t0!r}s, "
+              f"launches {l1} [{card}]", flush=True)
+        if cuda and not l1.get("bool_mm"):
+            fail("cluster: entry()'s verdict step launched no K2")
+
+        # -- 2. the dry run ------------------------------------------------------
+        t0 = time.perf_counter()
+        before = launches_now()
+        seam = placement.visible_devices
+        _rc, dout = tout.capture(lambda: entry.dryrun_multichip(4, device=dev))
+        if placement.visible_devices is not seam:
+            fail("cluster: dryrun_multichip left the placement seam replaced")
+        ok = [ln for ln in dout.splitlines() if ln.startswith("dryrun_multichip ok: ")]
+        if not ok or not ok[-1].startswith(
+                'dryrun_multichip ok: 4 devices, mesh {"flows": 2, "ident": 2}, batch 1024;'):
+            fail(f"cluster: dryrun_multichip(4) printed {dout!r}")
+        l2 = launch_delta(before)
+        print(f"cluster [2. dry run]: {ok[-1]} (wall {time.perf_counter() - t0!r}s, "
+              f"launches {l2}) [{card}]", flush=True)
+        for k in ("selector_match", "bool_mm", "lpm_wide", "policymap_verdict", "dfa_walk",
+                  "ident_gather"):
+            if cuda and not l2.get(k):
+                fail(f"cluster: the dry run launched no {k}")
+
+        # -- the world, the plain twin and the in-process card cluster --------
+        t0 = time.perf_counter()
+        repo, _reg, _cache, idents, labels_of = build_world(seed)
+        rules = [rule_to_dict(r) for r in repo.rules]
+        rules_json = json.dumps(rules)
+        rules_path = os.path.join(tmp, "rules.json")
+        with open(rules_path, "w") as f:
+            f.write(rules_json)
+        pairs = rule_pairs(rules)
+        eps = cluster_endpoints(idents, labels_of, pairs)
+        triples = cluster_triples(seed, pairs, eps)
+
+        def build_both():
+            """The plain twin, then the in-process card cluster: host work
+            on a thread of its own while the agents take the CLI's calls."""
+            t0 = time.perf_counter()
+            with uncounted():
+                built.append(cluster_build("cpu", rules_json, eps, InMemoryStore()))
+            t1 = time.perf_counter()
+            built.append(cluster_build(dev, rules_json, eps, InMemoryStore()))
+            if cuda:
+                torch.cuda.synchronize()
+            return t1 - t0, time.perf_counter() - t1
+
+        before = launches_now()
+        both = pool.submit(build_both)
+
+        # -- 3. the cluster of processes -----------------------------------------
+        wait("agent sockets", lambda: all(os.path.exists(s) for s in socks.values()),
+             procs_alive=("kvstore", "a", "b"))
+        t_up = time.perf_counter() - t_spawn
+
+        def probed(name):
+            st = cli_json(name, "status")
+            return st if st["features_degraded"] != ["probing"] else None
+
+        for name in ("a", "b"):
+            wait(f"agent {name}'s probes", lambda: probed(name) is not None)
+            degraded = probed(name)["features_degraded"]
+            if cuda and "accelerator" in degraded:
+                fail(f"cluster: agent {name} reports the accelerator degraded: {degraded}")
+        t0 = time.perf_counter()
+        for name in ("a", "b"):
+            for ep_id, labels, ip in eps[name]:
+                cli_json(name, "endpoint", "add", str(ep_id), *[x for lb in labels
+                                                                 for x in ("-l", lb)],
+                         "--ipv4", ip)
+        t_eps = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        imports = [pool.submit(lambda n=name: tout.capture(
+            lambda: cli.main(["--socket", socks[n], "policy", "import", rules_path])))
+            for name in ("a", "b")]
+        for name, fut in zip(("a", "b"), imports):
+            rc, out = fut.result()
+            if rc != 0 or json.loads(out).get("count") != len(rules):
+                fail(f"cluster: policy import on {name} exited {rc}: {out[-300:]}")
+        t_import = time.perf_counter() - t0
+
+        def ids_by_labels(name):
+            return {tuple(sorted(e["labels"])): e["identity"]
+                    for e in cli_json(name, "endpoint", "list")}
+
+        def ipcache_of(name):
+            return {e["cidr"]: e for e in cli_json(name, "bpf", "ipcache", "list")}
+
+        def sees(name, other):
+            ids = ids_by_labels(other)
+            cache = ipcache_of(name)
+            return all((e := cache.get(f"{ip}/32")) is not None and e["source"] == "kvstore"
+                       and e["identity"] == ids[tuple(sorted(lb))] for _i, lb, ip in eps[other])
+
+        t_conv = wait("cross-node ipcache convergence", lambda: sees("a", "b") and sees("b", "a"),
+                      procs_alive=("kvstore", "a", "b"))
+        ids = {name: ids_by_labels(name) for name in ("a", "b")}
+        shared = [tuple(sorted(lb)) for _i, lb, _ip in eps["a"][CLUSTER_EPS - CLUSTER_SHARED:]]
+        if any(ids["a"][lb] != ids["b"][lb] for lb in shared):
+            fail(f"cluster: shared labels numbered apart: "
+                 f"{[(ids['a'][lb], ids['b'][lb]) for lb in shared]}")
+        t0 = time.perf_counter()
+        # both nodes at once, each its triples in order
+        futs = {name: pool.submit(lambda n=name: [trace(n, *t) for t in triples])
+                for name in ("a", "b")}
+        traced = {name: fut.result() for name, fut in futs.items()}
+        if traced["a"] != traced["b"]:
+            bad = next(k for k, (x, y) in enumerate(zip(traced["a"], traced["b"])) if x != y)
+            fail(f"cluster: trace {triples[bad]} gives {traced['a'][bad]} on a and "
+                 f"{traced['b'][bad]} on b")
+        t_trace = time.perf_counter() - t0
+        n_allowed = sum(rc == 0 for rc, _v in traced["a"])
+
+        def labels_on(name):
+            table = {e["id"]: e["labels"] for e in cli_json(name, "identity", "list")}
+            return lambda num: table[num]
+
+        def twin_labels(d):
+            return lambda num: d.identity_get(num)["labels"]
+
+        t_twin, t_local = both.result()
+        twin, local = built
+        maps = {}
+        for name in ("a", "b"):
+            lab = labels_on(name)
+            d_twin = twin[name][0]
+            for ep_id, _lb, _ip in eps[name][:CLUSTER_POLICYMAPS]:
+                for egress in (False, True):
+                    extra = ["--egress"] if egress else []
+                    got = cli_json(name, "bpf", "policy", "get", str(ep_id), *extra)
+                    maps[(name, ep_id, egress)] = got
+                    mine = policymap_by_labels(got, lab)
+                    want = policymap_by_labels(
+                        d_twin.policymap_dump(ep_id, ingress=not egress), twin_labels(d_twin))
+                    if mine != want:
+                        fail(f"cluster: bpf policy get {ep_id}{' --egress' if egress else ''} "
+                             f"on {name} differs from the plain twin's")
+        l3 = launch_delta(before)
+        print(f"cluster [3. processes]: kvstore + 2 agents up in {t_up!r}s; "
+              f"{2 * CLUSTER_EPS} `endpoint add` in {t_eps!r}s; `policy import` of "
+              f"{len(rules)} rules into both in {t_import!r}s; ipcaches converged in "
+              f"{t_conv!r}s, {CLUSTER_SHARED} shared label sets one number on both nodes; "
+              f"{CLUSTER_TRACES} `policy trace` a node in {t_trace!r}s, {n_allowed} allowed, the "
+              f"same on both, parity on every one; `bpf policy get` of {CLUSTER_POLICYMAPS} "
+              f"endpoints a node, both directions, == the twin's by labels; meanwhile on a "
+              f"thread here the twin built in {t_twin!r}s and the in-process card cluster in "
+              f"{t_local!r}s, launches in this process {l3} (the agents' own: the phase's "
+              f"last step); step wall {time.perf_counter() - t_spawn!r}s [{card}]", flush=True)
+
+        # -- 5. SIGTERM and rejoin -----------------------------------------------
+        t0 = time.perf_counter()
+        before_list = cli_json("a", "endpoint", "list")
+        procs["a"].send_signal(signal.SIGTERM)
+        rc = reap("a")
+        t_term = time.perf_counter() - t0
+        if rc != 0 or not os.path.exists(os.path.join(tmp, "a", "state.json")):
+            fail(f"cluster: agent a exited {rc} after SIGTERM: {tail('a')}")
+        wait("node b's ipcache to drop node a's endpoints",
+             lambda: not any(f"{ip}/32" in ipcache_of("b") for _i, _l, ip in eps["a"]))
+        t_restart = time.perf_counter()
+        spawn_agent("a", url, 2)
+
+        # -- 4. a full-width batch across the cluster ----------------------------
+        t0 = time.perf_counter()
+        da = local["a"][0]
+        if any(da.ipcache.lookup_by_ip(ip) is None or
+               da.ipcache.lookup_by_ip(ip).source != "kvstore" for _i, _l, ip in eps["b"]):
+            fail("cluster: the in-process node a lacks node b's endpoint addresses")
+        flows = cluster_flows(seed, da.pipeline, eps, BATCH)
+        before = launches_now()
+        tb = time.perf_counter()
+        v_all, red_all = da.pipeline.process(*flows, ingress=True)
+        t_batch = time.perf_counter() - tb
+        l4 = launch_delta(before)
+        part = tuple(x[:CLUSTER_SLICE] for x in flows)
+        got = daemon_batch(da.pipeline, part)
+        twin_a = twin["a"][0].pipeline
+        # the twin's endpoint indexes by endpoint id
+        remap = np.array([twin_a.endpoint_index(da.pipeline.endpoint_id_at(int(i)))
+                          for i in range(len(eps["a"]))], np.int32)
+        with uncounted():
+            want = daemon_batch(twin_a, (part[0], remap[part[1]], part[2], part[3]))
+        want["counters"] = want["counters"][remap]
+        daemon_same("the cluster batch's first slice", got, want)
+        if not np.array_equal(got["verdict"], np.asarray(v_all)[:CLUSTER_SLICE]):
+            fail("cluster: the slice alone differs from its lanes in the full batch")
+        codes = collections_counter(np.asarray(v_all))
+        print(f"cluster [4. batch]: {BATCH}-flow v4 batch into node a's {CLUSTER_EPS} endpoints "
+              f"from node b's endpoint addresses and the world in {t_batch!r}s, launches {l4}, "
+              f"verdicts {codes}; its first {CLUSTER_SLICE} lanes == the plain twin's "
+              f"(verdicts, redirects, counters) (step wall {time.perf_counter() - t0!r}s) "
+              f"[{card}]", flush=True)
+        if cuda and (not l4.get("lpm_wide") or not l4.get("policymap_verdict")):
+            fail("cluster: the batch launched no K3 / K4")
+        if len(codes) < 2:
+            fail(f"cluster: the batch gave one verdict kind {codes}")
+
+        # -- 5 (continued): agent a restored ------------------------------------
+        wait("agent a's socket after the restart", lambda: os.path.exists(socks["a"]),
+             procs_alive=("a",))
+        t0 = t_restart
+        src, dst, port = triples[0]
+        t_first = None
+        while t_first is None:
+            rc, out = run_cli("a", "policy", "trace", *[x for lb in src for x in ("-s", lb)],
+                              *[x for lb in dst for x in ("-d", lb)], "--dport", port)
+            if rc in (0, 1):
+                t_first = time.perf_counter() - t0
+            elif time.perf_counter() - t0 > CLUSTER_WAIT_S:
+                fail(f"cluster: the restarted agent a answers no trace: {out[-300:]}")
+        after_list = cli_json("a", "endpoint", "list")
+        if after_list != before_list:
+            fail("cluster: the restarted agent a's endpoint list differs from before")
+        for (name, ep_id, egress), before_map in maps.items():
+            if name == "a":
+                extra = ["--egress"] if egress else []
+                if cli_json("a", "bpf", "policy", "get", str(ep_id), *extra) != before_map:
+                    fail(f"cluster: endpoint {ep_id}'s policymap differs after the restart")
+        again = [trace("a", *t) for t in triples]
+        if again != traced["a"]:
+            fail("cluster: the restarted agent a's traces differ from before")
+        t_back = wait("node b's ipcache to hold node a's endpoints again",
+                      lambda: sees("b", "a"), procs_alive=("a", "b", "kvstore"))
+        print(f"cluster [5. SIGTERM and rejoin]: agent a exited 0 {t_term!r}s after SIGTERM "
+              f"(drained and saved); restarted on the same state: first trace answered "
+              f"{t_first!r}s after the spawn, endpoint list, {CLUSTER_POLICYMAPS} policymaps "
+              f"and {CLUSTER_TRACES} traces == before, node b's ipcache holds a's endpoints "
+              f"again {t_back!r}s later [{card}]", flush=True)
+
+        # -- the agents' own launches, each written at its exit -------------------
+        t0 = time.perf_counter()
+        for name in ("a", "b"):
+            procs[name].send_signal(signal.SIGTERM)
+        for name in ("a", "b"):
+            rc = reap(name)
+            if rc != 0:
+                fail(f"cluster: agent {name} exited {rc} after SIGTERM: {tail(name)}")
+        agent_launches = {}
+        for name, run in (("a", 1), ("a", 2), ("b", 1)):
+            try:
+                with open(launch_file(name, run)) as f:
+                    counts = json.load(f)
+            except (OSError, ValueError) as e:
+                fail(f"cluster: agent {name}'s run {run} left no launch counts: {e}")
+            agent_launches[f"{name}{run}"] = {k: counts[k] for k in (
+                "selector_match", "bool_mm", "lpm_wide", "policymap_verdict")}
+        print(f"cluster [agents]: both agents exited 0 {time.perf_counter() - t0!r}s after "
+              f"SIGTERM; launches in the agent processes (a1: a's first run, a2: a restarted, "
+              f"b1: b) {agent_launches} [{card}]", flush=True)
+        for run, counts in agent_launches.items():
+            if cuda and not counts["bool_mm"]:
+                fail(f"cluster: agent run {run} launched no K2")
+            if cuda and run.endswith("1") and not counts["selector_match"]:
+                fail(f"cluster: agent run {run} launched no K1")
+    finally:
+        sys.stdout = out_real
+        for key, p in procs.items():
+            if p.poll() is None:
+                p.terminate()
+        for key, p in procs.items():
+            try:
+                p.wait(10)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait(5)
+            if p.stdout is not None:
+                p.stdout.close()
+        for log in logs:
+            log.close()
+        for nodes in built:
+            cluster_close(nodes)
+        pool.shutdown(wait=False)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    wall = time.perf_counter() - t_phase
+    print(f"cluster: phase in {wall:.2f}s (limit {CLUSTER_PHASE_LIMIT_S:.0f}s) [{card}]",
+          flush=True)
+    if wall > CLUSTER_PHASE_LIMIT_S:
+        fail(f"cluster: phase in {wall:.2f}s, over its {CLUSTER_PHASE_LIMIT_S:.0f}s limit")
+
+
 def collections_counter(xs) -> dict:
     """{value: count} of ``xs``, sorted by value."""
     import numpy as np
@@ -12231,6 +12898,15 @@ def main() -> None:
     watch.check("after the daemon phase", faults_expected)
 
     phase("3u daemon and REST API")
+
+    # -- 3v. the CLI, the entry and the cluster, counts from zero --------
+    _kernels.reset_launches()
+    cluster_main_path(args.seed, card)
+    check_path("cluster", ["selector_match", "bool_mm", "lpm_wide", "policymap_verdict",
+                           "dfa_walk", "ident_gather"])
+    watch.check("after the cluster phase", faults_expected)
+
+    phase("3v CLI, entry and cluster")
 
     # -- 5. each kernel against its plain version on the card ------------
     compiled, device = engine.snapshot()

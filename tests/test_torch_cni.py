@@ -4,10 +4,10 @@ packets through the wire front-end (``datapath/wire.py``).
 
 ``test_cni_exec.py``'s 3 tests: ``python -m cilium_tpu_torch.plugins.
 cni_exec`` invoked as kubelet invokes it (CNI_* env, config on stdin,
-JSON on stdout) against the JAX CLI agent (``python -m cilium_tpu.cli
-... daemon``, the one agent with a REST server until A7c), and the JAX
-executable against a twin agent: equal stdout JSON and exit codes at
-every step. ``test_cni_wire.py``'s 4 tests build a ``Daemon``; here they
+JSON on stdout) against the port's own CLI agent (``python -m
+cilium_tpu_torch.cli --device cpu ... daemon``), and the JAX executable
+against the JAX CLI agent: equal stdout JSON and exit codes at every
+step. ``test_cni_wire.py``'s 4 tests build a ``Daemon``; here they
 run through ``test_torch_workloads.WorkloadAgent`` (the ``Daemon``-built
 runs stay in A7c's bar): each package's stand-in plumbs real veths into
 real network namespaces, and the real UDP flows sniffed off the port's
@@ -55,14 +55,15 @@ def _invoke(pkg: str, command: str, sock: str, container_id: str, netns_path: st
 
 @pytest.fixture
 def agents(tmp_path):
-    """Two twin JAX CLI agents on the same pod CIDR: one for each
-    package's executable → {package: socket}."""
+    """Each package's CLI agent on the same pod CIDR (the port's on the
+    CPU), for that package's executable → {package: socket}."""
     socks, procs = {}, []
     env = dict(os.environ, JAX_PLATFORMS="cpu")
     for k, pkg in enumerate(PKGS):
         sock = str(tmp_path / f"agent{k}.sock")
+        device = ["--device", "cpu"] if pkg == PKGS[1] else []
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "cilium_tpu.cli", "--socket", sock, "--state",
+            [sys.executable, "-m", f"{pkg}.cli", *device, "--socket", sock, "--state",
              str(tmp_path / f"state{k}"), "daemon", "--pod-cidr", "10.79.0.0/24"],
             stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL, env=env, cwd=REPO))
         socks[pkg] = sock

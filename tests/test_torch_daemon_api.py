@@ -13,8 +13,8 @@ the JAX package's ``Daemon``, each test's reads of either equal:
 ``TestParityCommands``; ``test_config_maps_cli.py``'s runtime config, map
 dumps, state migration and the REST half of ``TestRESTAndCLI``;
 ``test_health_bugtool.py``'s debuginfo and bugtool (``test_rest_and_cli``
-without its CLI leg, from ``daemon_bar_cuts.py``) and the registry
-prober.
+with its ``cilium bugtool`` leg through the port's CLI) and the
+registry prober.
 """
 
 from __future__ import annotations
@@ -45,9 +45,8 @@ PROBES_DOC = {3}
 CLI_API = cases("test_cli_api.py", ["TestDaemon", "TestRESTAPI", "TestParityCommands"])
 CONFIG = cases("test_config_maps_cli.py", ["TestRuntimeConfig", "TestMapDumps", "TestStateMigration"],
                tests=["TestRESTAndCLI::test_config_and_maps_over_rest"])
-BUGTOOL = (cases("test_health_bugtool.py", ["TestDebuginfoAndBugtool"],
-                 tests=["TestProber::test_attach_registry_starts_prober"])
-           + cases("daemon_bar_cuts.py", ["TestDebuginfoAndBugtool"], cli=True))
+BUGTOOL = cases("test_health_bugtool.py", ["TestDebuginfoAndBugtool"],
+                tests=["TestProber::test_attach_registry_starts_prober"])
 
 
 def _mod(pkg: str, name: str):

@@ -269,3 +269,58 @@ def test_entry_points_need_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
     finally:
         d.shutdown()
         l7_pipeline._reset_for_tests()
+
+    # the command line: standalone mode and the daemon subcommand build a
+    # card Daemon unless --device cpu is given; a CPU agent's proxy child
+    # is told --device cpu
+    import signal
+    import threading
+
+    from cilium_tpu_torch import cli
+    from cilium_tpu_torch.proxy import launcher
+    from cilium_tpu_torch.utils import logging as port_logging
+
+    base = ["--socket", str(tmp_path / "cli.sock"), "--state", str(tmp_path / "cli-state")]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main([*base, "status"])
+    assert cli.main(["--device", "cpu", *base, "status"]) == 0
+    argvs = []
+    monkeypatch.setattr(launcher.ProxyLauncher, "start", lambda self: argvs.append(self.argv) or self)
+    serve = APIServer.serve_forever
+
+    def serve_then_interrupt(self):
+        # the server runs (its stop() waits for the loop), the agent
+        # takes its ^C teardown at once
+        threading.Thread(target=serve, args=(self,), daemon=True).start()
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(APIServer, "serve_forever", serve_then_interrupt)
+    monkeypatch.setattr(port_logging, "setup", lambda *a, **kw: None)
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        daemon = [*base, "daemon", "--launch-proxy"]
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.main(daemon)
+        assert argvs == []
+        assert cli.main(["--device", "cpu", *daemon]) == 0
+    finally:
+        for sig, h in handlers.items():
+            signal.signal(sig, h)
+        l7_pipeline._reset_for_tests()
+    (argv,) = argvs
+    assert argv[argv.index("-m") + 1] == "cilium_tpu_torch.proxy"
+    assert argv[-2:] == ["--device", "cpu"]
+
+    # the entry and the dry run
+    from cilium_tpu_torch import entry
+    from cilium_tpu_torch.datapath import placement
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.entry()
+    fn, args = entry.entry(device="cpu")
+    assert fn(*args).device.type == "cpu"
+    seam = placement.visible_devices
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.dryrun_multichip(4)
+    entry.dryrun_multichip(4, device="cpu")
+    assert placement.visible_devices is seam

@@ -4,12 +4,14 @@ A reference test module is rebuilt for each package from its own source
 (``load``). For the port, every ``cilium_tpu`` name, in imports and in
 module-path strings, names ``cilium_tpu_torch``, and every call of a
 port constructor that takes ``device=`` (``Daemon``, ``PolicyEngine``,
-``DatapathPipeline``) gets ``device="cpu"`` unless it names a device.
-Top-level imports of modules the port does not have yet (``cli``,
-``cluster``) are left out, a name the port keeps elsewhere stays
-unbound, and so are the test classes that no case
-names. The JAX package's copy is rebuilt the same way, without the
-renames, so both run the same code.
+``DatapathPipeline``) gets ``device="cpu"`` unless it names a device,
+in the test's code and in the Python source it hands a child process
+as a string. The port's CLI runs on the CPU too: ``--device cpu`` goes
+before the argv of every in-process ``cli.main`` call and after
+``-m cilium_tpu_torch[.cli]`` in every subprocess argv. A name the port
+keeps elsewhere stays unbound, and the test classes that no case names
+are left out. The JAX package's copy is rebuilt the same way, without
+the renames, so both run the same code.
 
 ``run_case("test_cli_api.py::TestDaemon::test_policy_crud")`` runs one
 test in each package, one after the other. Before each run the
@@ -24,7 +26,8 @@ CPU devices in the tests. During a run, what the test
 reads back from the package is recorded: the result of every public
 ``Daemon`` method, every ``APIClient`` call and every pipeline batch
 (``process`` / ``process_v6``) that the test's own thread makes, each
-outside any other recorded call. A result is normalised before it is
+outside any other recorded call, and what the CLI printed, at each
+``capsys.readouterr()`` (its standard output; JSON parsed). A result is normalised before it is
 recorded: floats (times, rates), in strings too, become ``"<float>"``, the package's
 temp directory ``"<tmp>"``, arrays and tensors lists, and the keys of
 ``VOLATILE`` (wall clocks, paths, thread-timed counters) are dropped.
@@ -40,6 +43,8 @@ import dataclasses
 import enum
 import importlib
 import inspect
+import io
+import json
 import random
 import re
 import sys
@@ -47,7 +52,7 @@ import threading
 import types
 import uuid
 from pathlib import Path
-from typing import Dict, Iterable, List, Tuple
+from typing import Dict, Iterable, List, NamedTuple, Tuple
 
 import numpy as np
 import pytest
@@ -58,10 +63,12 @@ from test_torch_harness import PKGS
 TESTS = Path(__file__).resolve().parent
 PORT = PKGS[1]
 
-# top-level imports that wait for the next slice (cli, cluster)
-MISSING = ("cilium_tpu_torch.cli", "cilium_tpu_torch.cluster")
 # constructors of the port that take device= (None = the card)
 DEVICE_CALLS = {"Daemon", "PolicyEngine", "DatapathPipeline"}
+# the same calls in Python source held in a string, without a device
+_DEVICE_SRC = re.compile(r"\b(%s)\((?!\s*device=)" % "|".join(sorted(DEVICE_CALLS)))
+# the port's CLI modules a child process runs with -m
+_CLI_MODULES = (PORT, f"{PORT}.cli")
 # keys whose values are wall clocks, host paths, thread timing or the
 # machine's own names: left out of the record
 VOLATILE = {
@@ -84,22 +91,68 @@ UNRECORDED = {"shutdown", "metrics_text", "debuginfo", "traces", "profile",
 # -- loading ------------------------------------------------------------------------
 
 
+def _cli_mains(body) -> Dict[str, bool]:
+    """Names the statements ``body`` bind by import (not inside nested
+    functions): True for the port CLI's ``main``, False for any other."""
+    out: Dict[str, bool] = {}
+    stack = list(body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef, ast.Lambda)):
+            continue
+        if isinstance(node, ast.ImportFrom):
+            for a in node.names:
+                out[a.asname or a.name] = node.module == f"{PORT}.cli" and a.name == "main"
+        elif isinstance(node, ast.Import):
+            for a in node.names:
+                out[a.asname or a.name.split(".")[0]] = False
+        stack.extend(ast.iter_child_nodes(node))
+    return out
+
+
 class _DeviceCPU(ast.NodeTransformer):
+    """The port's device and CLI on the CPU (see the module docstring)."""
+
+    def __init__(self, module_names: Dict[str, bool]) -> None:
+        self.scopes = [module_names]
+
+    def _is_cli_main(self, name: str) -> bool:
+        for scope in reversed(self.scopes):
+            if name in scope:
+                return scope[name]
+        return False
+
+    def visit_FunctionDef(self, node):
+        self.scopes.append(_cli_mains(node.body))
+        self.generic_visit(node)
+        self.scopes.pop()
+        return node
+
     def visit_Call(self, node):
         self.generic_visit(node)
         f = node.func
         name = f.id if isinstance(f, ast.Name) else f.attr if isinstance(f, ast.Attribute) else None
         if name in DEVICE_CALLS and not any(k.arg in ("device", None) for k in node.keywords):
             node.keywords.append(ast.keyword(arg="device", value=ast.Constant("cpu")))
+        if isinstance(f, ast.Name) and self._is_cli_main(f.id) and node.args:
+            node.args[0] = ast.List(elts=[ast.Constant("--device"), ast.Constant("cpu"),
+                                          ast.Starred(node.args[0], ast.Load())], ctx=ast.Load())
         return node
 
+    def visit_List(self, node):
+        self.generic_visit(node)
+        for k in range(len(node.elts) - 1):
+            a, b = node.elts[k], node.elts[k + 1]
+            if (isinstance(a, ast.Constant) and a.value == "-m"
+                    and isinstance(b, ast.Constant) and b.value in _CLI_MODULES):
+                node.elts[k + 2:k + 2] = [ast.Constant("--device"), ast.Constant("cpu")]
+                break
+        return node
 
-def _imported(node) -> Tuple[str, ...]:
-    if isinstance(node, ast.ImportFrom):
-        return (node.module or "",)
-    if isinstance(node, ast.Import):
-        return tuple(a.name for a in node.names)
-    return ()
+    def visit_Constant(self, node):
+        if isinstance(node.value, str) and _DEVICE_SRC.search(node.value):
+            return ast.Constant(_DEVICE_SRC.sub(r"\1(device='cpu', ", node.value))
+        return node
 
 
 _cache: Dict[Tuple[str, str, Tuple[str, ...]], types.ModuleType] = {}
@@ -118,8 +171,6 @@ def load(ref: str, pkg: str, classes: Iterable[str]) -> types.ModuleType:
     tree = ast.parse(src)
     body = []
     for node in tree.body:
-        if any(m.startswith(MISSING) for m in _imported(node)):
-            continue
         if (isinstance(node, ast.ClassDef) and node.name.startswith("Test")
                 and node.name not in classes):
             continue
@@ -134,7 +185,7 @@ def load(ref: str, pkg: str, classes: Iterable[str]) -> types.ModuleType:
         body.append(node)
     tree.body = body
     if pkg == PORT:
-        tree = _DeviceCPU().visit(tree)
+        tree = _DeviceCPU(_cli_mains(tree.body)).visit(tree)
     ast.fix_missing_locations(tree)
     name = f"_bar_{pkg}_{ref[:-3]}"
     mod = types.ModuleType(name)
@@ -240,12 +291,41 @@ def _record(mp: pytest.MonkeyPatch, pkg: str, rec: _Recorder) -> None:
 # -- fixtures -----------------------------------------------------------------------
 
 
+class _Capsys:
+    """pytest's ``capsys`` for one run: standard output and error are
+    captured from the fixture's first use to the run's end, and every
+    ``readouterr()`` records what was printed since the last one."""
+
+    class Result(NamedTuple):
+        out: str
+        err: str
+
+    def __init__(self, rec: "_Recorder", stack: contextlib.ExitStack) -> None:
+        self.rec = rec
+        self.out, self.err = io.StringIO(), io.StringIO()
+        stack.enter_context(contextlib.redirect_stdout(self.out))
+        stack.enter_context(contextlib.redirect_stderr(self.err))
+
+    def readouterr(self) -> "_Capsys.Result":
+        res = self.Result(self.out.getvalue(), self.err.getvalue())
+        for buf in (self.out, self.err):
+            buf.seek(0)
+            buf.truncate()
+        try:
+            printed = json.loads(res.out)
+        except ValueError:
+            printed = res.out
+        self.rec.log.append(("capsys.readouterr", self.rec.norm(printed)))
+        return res
+
+
 class _Fixtures:
     """Resolves a test's arguments the way pytest would, for one run."""
 
-    def __init__(self, mod, cls, inst, tmp_path: Path, stack: contextlib.ExitStack):
+    def __init__(self, mod, cls, inst, tmp_path: Path, stack: contextlib.ExitStack,
+                 rec: "_Recorder"):
         self.mod, self.cls, self.inst = mod, cls, inst
-        self.tmp_path, self.stack = tmp_path, stack
+        self.tmp_path, self.stack, self.rec = tmp_path, stack, rec
         self.values: Dict[str, object] = {}
 
     def _definition(self, name: str):
@@ -270,6 +350,8 @@ class _Fixtures:
             mp = pytest.MonkeyPatch()
             self.stack.callback(mp.undo)
             val = mp
+        elif name == "capsys":
+            val = _Capsys(self.rec, self.stack)
         else:
             f = self._definition(name)
             if f is None:
@@ -324,7 +406,7 @@ def _run_one(pkg: str, case: str, tmp_path: Path):
             with contextlib.ExitStack() as inner:
                 sub = tmp / str(k) if len(sets) > 1 else tmp
                 sub.mkdir(exist_ok=True)
-                fx = _Fixtures(mod, cls, inst, sub, inner)
+                fx = _Fixtures(mod, cls, inst, sub, inner, rec)
                 fx.values.update(params)
                 fx.autouse()
                 fn(*[fx.get(p) for p in inspect.signature(fn).parameters])
@@ -349,25 +431,16 @@ def _parameter_sets(fn) -> List[Dict]:
     return sets
 
 
-def cases(ref: str, classes: Iterable[str] = (), tests: Iterable[str] = (),
-          cli: bool = False) -> List[str]:
+def cases(ref: str, classes: Iterable[str] = (), tests: Iterable[str] = ()) -> List[str]:
     """Case ids: every ``test_*`` of the named classes of reference
-    module ``ref`` but those that run the CLI (unless ``cli``), then the
-    named ``Class::test`` / ``test`` ids."""
+    module ``ref``, then the named ``Class::test`` / ``test`` ids."""
     tree = ast.parse((TESTS / ref).read_text())
     out = []
     for node in tree.body:
         if isinstance(node, ast.ClassDef) and node.name in set(classes):
             out += [f"{ref}::{node.name}::{f.name}" for f in node.body
-                    if isinstance(f, ast.FunctionDef) and f.name.startswith("test_")
-                    and (cli or not _runs_cli(f))]
+                    if isinstance(f, ast.FunctionDef) and f.name.startswith("test_")]
     return out + [f"{ref}::{t}" for t in tests]
-
-
-def _runs_cli(fn: ast.FunctionDef) -> bool:
-    return any(isinstance(n, ast.ImportFrom) and (n.module or "").endswith((".cli", ".cluster"))
-               or isinstance(n, ast.Name) and n.id == "cli_main"
-               for n in ast.walk(fn))
 
 
 def _polled(log: List, names) -> List:
